@@ -1,0 +1,154 @@
+"""Package boundary of the PyTorch port: no JAX, no build on the CPU,
+launch counters untouched by CPU forwards, and refusals for what is not
+ported yet."""
+
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+TINY = dict(num_classes=11, img_size=32, embed_dim=32, num_heads=2, depth=4,
+            patch_size=8)
+
+_CHILD = textwrap.dedent("""
+    import sys
+
+    import torch
+
+    import tokenreduction_tpu_torch as T
+    from tokenreduction_tpu_torch.ops.flash_attention import (
+        fused_block_attention)
+    from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
+    from tokenreduction_tpu_torch.ops.fused_mlp import (
+        fused_mlp_gather_residual)
+
+    model, _ = T.create_model(
+        "topk_small_patch16_224", num_classes=11, img_size=32, embed_dim=32,
+        num_heads=2, depth=4, patch_size=8, reduction_loc=(1, 2),
+        keep_rate=(0.7,))
+    with torch.no_grad():
+        out = model.eval()(torch.zeros(2, 3, 32, 32))
+    assert out.shape == (2, 11), out.shape
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+    assert not bad, bad
+    assert "tokenreduction_tpu" not in sys.modules
+    assert "tokenreduction_tpu_torch.ops._build" not in sys.modules
+    counts = (fused_full_block.launches, fused_block_attention.launches,
+              fused_mlp_gather_residual.launches)
+    assert counts == (0, 0, 0), counts
+    print("ok")
+""")
+
+
+def test_port_imports_and_runs_without_jax():
+    """A fresh interpreter imports the port and runs a tiny topk forward
+    on the CPU with no JAX or Flax module loaded, no kernel build and no
+    kernel launch."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_config_is_a_verbatim_copy():
+    """core/config.py is copied, not imported (importing the JAX package
+    loads Flax): below the module docstring the two files are equal."""
+    def body(path):
+        text = path.read_text()
+        return text[text.index('"""', 3) + 3:]
+
+    assert body(REPO / "tokenreduction_tpu_torch/core/config.py") == \
+        body(REPO / "tokenreduction_tpu/core/config.py")
+
+
+def test_cpu_forward_leaves_launch_counters_at_zero():
+    from tokenreduction_tpu_torch import create_model
+    from tokenreduction_tpu_torch.ops.flash_attention import (
+        fused_block_attention,
+    )
+    from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
+    from tokenreduction_tpu_torch.ops.fused_mlp import (
+        fused_mlp_gather_residual,
+    )
+
+    wrappers = (fused_full_block, fused_block_attention,
+                fused_mlp_gather_residual)
+    before = [w.launches for w in wrappers]
+    for name, kw in (("deit_small_patch16_224_local", {}),
+                     ("topk_small_patch16_224",
+                      dict(reduction_loc=(1, 2), keep_rate=(0.25,)))):
+        model, _ = create_model(name, **TINY, **kw)
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, 3, 32, 32))
+    assert [w.launches for w in wrappers] == before == [0, 0, 0]
+
+
+@pytest.mark.parametrize("name", ["tome_small_patch16_224",
+                                  "evit_tiny_patch16_224",
+                                  "dyvit_base_patch16_224_teacher",
+                                  "regnety_160"])
+def test_registry_refuses_unported_methods(name):
+    from tokenreduction_tpu_torch import create_model
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        create_model(name)
+
+
+def test_registry_names_and_unknown_name():
+    from tokenreduction_tpu_torch import create_model, list_models
+
+    assert list_models() == sorted(
+        f"{p}_{s}_patch16_224{x}"
+        for s in ("tiny", "small", "base")
+        for p, x in (("deit", "_local"), ("deit", "_local_viz"),
+                     ("topk", "")))
+    with pytest.raises(KeyError):
+        create_model("resnet50")
+
+
+def test_model_for_config_rebuilds_ported_methods_only():
+    from tokenreduction_tpu_torch.core.config import ViTConfig
+    from tokenreduction_tpu_torch.models.registry import model_for_config
+    from tokenreduction_tpu_torch.reduction.topk import TopKVisionTransformer
+
+    cfg = ViTConfig(**TINY, method="topk", reduction_loc=(1,),
+                    keep_rate=(0.5,))
+    assert isinstance(model_for_config(cfg), TopKVisionTransformer)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        model_for_config(cfg.replace(method="tome"))
+
+
+def test_unported_scores_and_ffn_raise():
+    from tokenreduction_tpu_torch.core.layers import Block
+
+    blk = Block(32, 2).eval()
+    x = torch.zeros(1, 5, 32)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        blk.attend(x, score="colsum")
+    # the plain ffn runs on the CPU
+    assert blk.ffn(x).shape == x.shape
+
+
+def test_init_is_seeded_by_the_generator():
+    from tokenreduction_tpu_torch import create_model
+
+    def weights(seed):
+        model, _ = create_model("deit_tiny_patch16_224_local", **TINY,
+                                generator=torch.Generator().manual_seed(seed))
+        return model.state_dict()
+
+    a, b, c = weights(0), weights(0), weights(1)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["blocks.0.attn.qkv.weight"],
+                           c["blocks.0.attn.qkv.weight"])
+    assert a["blocks.0.attn.qkv.weight"].abs().max() <= 0.04

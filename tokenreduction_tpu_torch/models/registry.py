@@ -1,0 +1,68 @@
+"""Model registry: reference-compatible names -> (module, config).
+
+Counterpart of ``tokenreduction_tpu/models/registry.py``, with the names
+ported so far: ``deit_{tiny,small,base}_patch16_224_local(_viz)`` and
+``topk_{tiny,small,base}_patch16_224``. Every other name of the JAX
+registry raises ``NotImplementedError`` until its method is ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tokenreduction_tpu_torch.core.config import SIZE_PRESETS, ViTConfig
+from tokenreduction_tpu_torch.models.deit import VisionTransformer
+from tokenreduction_tpu_torch.reduction.topk import TopKVisionTransformer
+
+_CLASSES = {"": VisionTransformer, "topk": TopKVisionTransformer}
+
+# methods of the JAX registry that wait for their slice of the port
+_NOT_PORTED = ("evit", "tome", "sit", "patchmerger", "sinkhorn", "dpcknn",
+               "kmedoids", "dyvit", "ats", "heuristic")
+
+_REGISTRY = {}  # name -> (method key, size, module kwargs)
+_REFERENCE_ONLY = {"regnety_160"}
+for _size in SIZE_PRESETS:
+    _REGISTRY[f"deit_{_size}_patch16_224_local"] = ("", _size, {})
+    _REGISTRY[f"deit_{_size}_patch16_224_local_viz"] = (
+        "", _size, {"capture_features": True})
+    _REGISTRY[f"topk_{_size}_patch16_224"] = ("topk", _size, {})
+    _REFERENCE_ONLY.add(f"dyvit_{_size}_patch16_224_teacher")
+    _REFERENCE_ONLY.update(f"{m}_{_size}_patch16_224" for m in _NOT_PORTED)
+
+
+def list_models():
+    return sorted(_REGISTRY)
+
+
+def create_model(name: str, *, num_classes: int = 1000, img_size: int = 224,
+                 device=None, generator: torch.Generator | None = None,
+                 **kwargs) -> tuple[nn.Module, ViTConfig]:
+    """Build (module, cfg) with weights from ``generator`` on ``device``.
+    kwargs are ViTConfig fields: reduction_loc, keep_rate, viz_mode,
+    drop_rate, drop_path_rate, distilled, and the width overrides."""
+    if name in _REFERENCE_ONLY:
+        raise NotImplementedError(
+            f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1 item 6)")
+    if name not in _REGISTRY:
+        raise KeyError(f"Unknown model {name!r}; available: {list_models()}")
+    method, size, mod_kw = _REGISTRY[name]
+    for key in ("reduction_loc", "keep_rate"):
+        if kwargs.get(key) is not None:
+            kwargs[key] = tuple(kwargs[key])
+    cfg = ViTConfig(**{**SIZE_PRESETS[size], "img_size": img_size,
+                       "num_classes": num_classes, "method": method,
+                       **kwargs})
+    module = _CLASSES[method](cfg, device=device, generator=generator,
+                              **mod_kw)
+    return module, cfg
+
+
+def model_for_config(cfg: ViTConfig, **mod_kw) -> nn.Module:
+    """Rebuild the module class for a (checkpoint-stored) config."""
+    if cfg.method not in _CLASSES:
+        raise NotImplementedError(
+            f"method {cfg.method!r} is not ported to PyTorch yet (ROADMAP "
+            "Queue 1 item 6)")
+    return _CLASSES[cfg.method](cfg, **mod_kw)
