@@ -20,6 +20,17 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    to three bf16 ulps of the max, where two fp32 sums round apart); the
    attention's fp32 row0 and colsum and the proj and fc2 GEMMs with fp32
    output within 1e-4.
+   Training kernels (attend_branch_train, mlp_branch): forward outputs
+   and every gradient, with a non-zero row0 cotangent, against the plain
+   forward and the plain hand-written backward at the training widths,
+   fp32 at B=32 (1e-4) and bf16 at B=256 (2e-2), each tensor of its own
+   max|plain|; each new bf16 launch alone (gemm with W untransposed, with
+   the GELU' factor and column sums, gemm_wgrad, short_attention_bwd,
+   layer_norm_bwd, the training attention forward) as above.
+   Beside each counterpart's time: its bound (bytes or operations at the
+   H100's peak rates) and the eager bf16 composition of library calls
+   (F.layer_norm, F.linear, scaled_dot_product_attention, autograd for
+   the backward) computing the same function.
 3. models: DeiT-S dense, topk@0.7 and topk@0.25 (loc 3 6 9) at full width
    with seeded weights on the card (kernels) against the same model on the
    CPU (plain versions), with the launch counts of one forward. fp32 at
@@ -30,8 +41,24 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    scores lie closer than a bf16 ulp and a few kept ids differ; the topk
    models' bf16 logits, which then see other tokens, are reported only.
    Kept_Tokens flips (same id at the same rank) are reported.
+   Training, drop_path 0: the loss and every gradient of dense and
+   topk@0.7 on the card against the CPU, fp32 at B=8 (1e-4 of each
+   leaf's max|CPU|, the same kept ids) and bf16 amp at B=32 (bounds set
+   from measured runs), and the launches of one train step: 12 forwards
+   and 12 backwards of each training counterpart.
 4. serve: 5 batches of 256 bf16 images through each model; outputs must
    be finite; img/s over batches 2-5.
+5. train: bench.py's train step for dense and topk@0.7 -- b256, amp,
+   drop_path 0.1 from a seeded CUDA generator, grouped AdamW lr 1e-3 with
+   backbone_lr_scale 0.01, clip 1.0, EMA 0.99996, label smoothing 0.1 --
+   8 steps on seeded random images and labels; the losses must be finite
+   and the params must move; ms/step and img/s over steps 3-8. Then the
+   same steps with the eager bf16 library composition in place of the two
+   training counterparts, and a torch.profiler window of two topk@0.7
+   steps for the device's busy share.
+
+Phases 4 and 5 are the main path's runs: each counterpart's launch count
+is set to 0 just before and read just after.
 
 No failure is caught: any phase that fails ends the script with a
 traceback and a non-zero exit code, before the result lines. The last two
@@ -48,17 +75,26 @@ import subprocess
 import time
 
 import torch
+import torch.nn.functional as F
 
 import tokenreduction_tpu_torch
 from tokenreduction_tpu_torch import create_model
-import torch.nn.functional as F
-
+from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.ops.flash_attention import (
     attention_ref,
     fused_block_attention,
     fused_block_attention_ref,
+    layer_norm_bwd_ref,
     layer_norm_f32,
+    layer_norm_stats,
     linear_f32,
+)
+from tokenreduction_tpu_torch.ops.fused_block_train import (
+    attend_branch_train,
+    attend_branch_train_bwd_ref,
+    attend_branch_train_ref,
+    attention_bwd_ref,
+    attention_train_ref,
 )
 from tokenreduction_tpu_torch.ops.fused_full_block import (
     fused_full_block,
@@ -67,6 +103,21 @@ from tokenreduction_tpu_torch.ops.fused_full_block import (
 from tokenreduction_tpu_torch.ops.fused_mlp import (
     fused_mlp_gather_residual,
     fused_mlp_gather_residual_ref,
+)
+from tokenreduction_tpu_torch.ops.fused_mlp_train import (
+    gelu_grad,
+    mlp_branch,
+    mlp_branch_bwd_ref,
+    mlp_branch_ref,
+)
+from tokenreduction_tpu_torch.ops.gather import take_tokens
+from tokenreduction_tpu_torch.train import losses
+from tokenreduction_tpu_torch.train.optim import OptimConfig, create_optimizer
+from tokenreduction_tpu_torch.train.step import (
+    StepConfig,
+    init_train_state,
+    loss_and_grads,
+    make_train_step,
 )
 
 DEVICE = "cuda"
@@ -82,37 +133,65 @@ MODEL_BOUND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 MODEL_BATCH = {torch.float32: 8, torch.bfloat16: 32}
 MODEL_TOP1 = {torch.float32: 1.0, torch.bfloat16: 0.9}
 KEPT_SET = {torch.float32: 1.0, torch.bfloat16: 0.9}  # share of kept ids
+# one train step on the card against the CPU, of each tensor's max|CPU|:
+# fp32 the loss and every gradient leaf, with the same kept ids. bf16 amp
+# (bounds set from measured runs: loss 4.5e-3, dense gradients 1.6e-2):
+# the loss, dense's gradient leaves, and topk's share of kept ids in the
+# CPU's kept set; topk's bf16 gradients, taken over other tokens where a
+# near-tied score flips, are reported only
+TRAIN_BOUND = {torch.float32: dict(loss=1e-4, grads=1e-4, kept_set=1.0),
+               torch.bfloat16: dict(loss=2e-2, grads=5e-2, kept_set=0.9)}
 EPS = 1e-6
-WRAPPERS = {
+# H100 SXM peak rates (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+EVAL_WRAPPERS = {
     "fused_full_block": fused_full_block,
     "fused_block_attention": fused_block_attention,
     "fused_mlp_gather_residual": fused_mlp_gather_residual,
 }
+TRAIN_WRAPPERS = {
+    "attend_branch_train": attend_branch_train,
+    "mlp_branch": mlp_branch,
+}
+WRAPPERS = {**EVAL_WRAPPERS, **TRAIN_WRAPPERS}
 REPLACES = {
     "fused_full_block": "tokenreduction_tpu/ops/fused_full_block.py:118",
     "fused_block_attention": "tokenreduction_tpu/ops/flash_attention.py:660",
     "fused_mlp_gather_residual": "tokenreduction_tpu/ops/fused_mlp.py:192",
+    "attend_branch_train": "tokenreduction_tpu/ops/fused_block_train.py:344",
+    "mlp_branch": "tokenreduction_tpu/ops/fused_mlp_train.py:257",
 }
 # the kernel wrapper of each counterpart, and the CUDA sources it launches
 # (the first is the record's "source")
 WRAPPER_SOURCES = {
-    "fused_full_block": "tokenreduction_tpu_torch/ops/fused_full_block.py",
-    "fused_block_attention":
-        "tokenreduction_tpu_torch/ops/flash_attention.py",
-    "fused_mlp_gather_residual": "tokenreduction_tpu_torch/ops/fused_mlp.py",
-}
+    name: f"tokenreduction_tpu_torch/ops/{module}.py"
+    for name, module in (("fused_full_block", "fused_full_block"),
+                         ("fused_block_attention", "flash_attention"),
+                         ("fused_mlp_gather_residual", "fused_mlp"),
+                         ("attend_branch_train", "fused_block_train"),
+                         ("mlp_branch", "fused_mlp_train"))}
+LN_GEMM = "tokenreduction_tpu_torch/csrc/ln_gemm.cu"
+ATTENTION = "tokenreduction_tpu_torch/csrc/short_attention.cu"
 CUDA_SOURCES = {
-    "fused_full_block": ["tokenreduction_tpu_torch/csrc/ln_gemm.cu",
-                         "tokenreduction_tpu_torch/csrc/short_attention.cu"],
-    "fused_block_attention": [
-        "tokenreduction_tpu_torch/csrc/short_attention.cu",
-        "tokenreduction_tpu_torch/csrc/ln_gemm.cu"],
-    "fused_mlp_gather_residual": ["tokenreduction_tpu_torch/csrc/ln_gemm.cu"],
+    "fused_full_block": [LN_GEMM, ATTENTION],
+    "fused_block_attention": [ATTENTION, LN_GEMM],
+    "fused_mlp_gather_residual": [LN_GEMM],
+    "attend_branch_train": [ATTENTION, LN_GEMM],
+    "mlp_branch": [LN_GEMM],
 }
 FULL_BLOCK_N = (197, 138, 97, 68, 50, 13, 4)
 BLOCK_ATTN_N = (197, 138, 97, 50, 13)
 MLP_GATHER_NK = ((197, 138), (138, 97), (97, 68), (197, 50), (50, 13),
                  (13, 4))
+# the widths of topk@0.7's training halves (and dense's 197)
+TRAIN_N = (197, 138, 97, 68)
+GRAD_NAMES = {
+    "attend_branch_train": ("branch", "row0", "dx", "d ln1 scale",
+                            "d ln1 bias", "d wqkv", "d bqkv", "d wproj",
+                            "d bproj"),
+    "mlp_branch": ("branch", "dx", "d ln2 scale", "d ln2 bias", "d w1",
+                   "d b1", "d w2", "d b2"),
+}
 MODELS = {
     "dense": ("deit_small_patch16_224_local", {}),
     "topk@0.7": ("topk_small_patch16_224",
@@ -120,16 +199,24 @@ MODELS = {
     "topk@0.25": ("topk_small_patch16_224",
                   dict(reduction_loc=(3, 6, 9), keep_rate=(0.25,))),
 }
+TRAIN_MODELS = ("dense", "topk@0.7")
+NO_TRAIN = dict.fromkeys(TRAIN_WRAPPERS, 0)
 # launches of one forward: 12 score-less blocks (dense); 9 score-less
 # blocks and 3 reduction blocks (topk at loc 3 6 9)
 PER_FORWARD = {
     "dense": dict(fused_full_block=12, fused_block_attention=0,
-                  fused_mlp_gather_residual=0),
+                  fused_mlp_gather_residual=0, **NO_TRAIN),
     "topk@0.7": dict(fused_full_block=9, fused_block_attention=3,
-                     fused_mlp_gather_residual=3),
+                     fused_mlp_gather_residual=3, **NO_TRAIN),
 }
 PER_FORWARD["topk@0.25"] = PER_FORWARD["topk@0.7"]
+# launches of one train step: every block's attention and MLP half, a
+# forward and a backward each
+PER_TRAIN_STEP = {**dict.fromkeys(EVAL_WRAPPERS, 0),
+                  **dict.fromkeys(TRAIN_WRAPPERS, 24)}
+PER_TRAIN_STEP_BWD = dict.fromkeys(TRAIN_WRAPPERS, 12)
 SERVE_BATCHES, SERVE_B = 5, 256
+TRAIN_STEPS, TRAIN_B = 8, 256
 
 
 def require(cond: bool, msg: str):
@@ -140,10 +227,16 @@ def require(cond: bool, msg: str):
 def reset_counts():
     for w in WRAPPERS.values():
         w.launches = 0
+    for w in TRAIN_WRAPPERS.values():
+        w.backward_launches = 0
 
 
 def counts() -> dict:
     return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def backward_counts() -> dict:
+    return {name: w.backward_launches for name, w in TRAIN_WRAPPERS.items()}
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -162,6 +255,63 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(name: str, B: int, N: int, K: int | None = None):
+    """(least ms, "bytes" or "operations") of a bf16 counterpart at these
+    shapes: each input read once and each output written once over the
+    H100's memory rate, against the products' operations (forward, and
+    for the training counterparts also backward, with no recompute) over
+    its bf16 tensor-core rate."""
+    E, M = 2, B * N
+    attn_w = 4 * D * D + 6 * D  # wqkv, bqkv, wproj, bproj, LN scale, bias
+    mlp_w = 8 * D * D + H4 + 3 * D
+    by_products = 4 * B * HEADS * N  # one fp32 [B, H, N]
+    if name == "fused_full_block":
+        flops = 24 * M * D * D + 4 * B * N * N * D
+        nbytes = E * (2 * M * D + attn_w + mlp_w)
+    elif name == "fused_block_attention":
+        flops = 8 * M * D * D + 4 * B * N * N * D
+        nbytes = E * (2 * M * D + attn_w) + 2 * by_products
+    elif name == "fused_mlp_gather_residual":  # the K gathered rows
+        flops = 16 * B * K * D * D
+        nbytes = E * (2 * B * K * D + mlp_w) + 8 * B * K
+    elif name == "attend_branch_train":  # x, dy, drow0 in; out, row0, dx,
+        flops = 24 * M * D * D + 12 * B * N * N * D  # and the grads out
+        nbytes = E * (4 * M * D + 2 * attn_w) + 2 * by_products
+    else:  # mlp_branch
+        flops = 48 * M * D * D
+        nbytes = E * (4 * M * D + 2 * mlp_w)
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+# ---- the eager bf16 compositions of library calls (timing yardsticks;
+# the port never calls them)
+def library_attention(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads=HEADS,
+                      scale=SCALE, eps=EPS):
+    """(proj(attn(qkv(LN x))), the fp32 CLS row of the probabilities);
+    also a drop-in for attend_branch_train in Block (phase 5)."""
+    B, N, Dx = x.shape
+    ln = F.layer_norm(x, (Dx,), ls, lb, eps)
+    q, k, v = F.linear(ln, wqkv, bqkv).view(B, N, 3, num_heads, -1) \
+        .permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    row0 = torch.softmax((q[:, :, :1] @ k.transpose(-1, -2)).float() * scale,
+                         -1)[:, :, 0]
+    return F.linear(o.transpose(1, 2).reshape(B, N, Dx), wproj, bproj), row0
+
+
+def library_mlp(x, ls, lb, w1, b1, w2, b2, eps=EPS):
+    ln = F.layer_norm(x, (x.shape[-1],), ls, lb, eps)
+    return F.linear(F.gelu(F.linear(ln, w1, b1)), w2, b2)
+
+
+def library_full_block(x, ls1, lb1, wqkv, bqkv, wproj, bproj, ls2, lb2, w1,
+                       b1, w2, b2):
+    y = x + library_attention(x, ls1, lb1, wqkv, bqkv, wproj, bproj)[0]
+    return y + library_mlp(y, ls2, lb2, w1, b1, w2, b2)
+
+
 def block_params(dtype, gen):
     """Seeded block weights in nn.Linear layout, on the card."""
     def r(*shape, scale=0.05, shift=0.0):
@@ -175,13 +325,17 @@ def block_params(dtype, gen):
         w1=r(H4, D), b1=r(H4), w2=r(D, H4), b2=r(D))
 
 
+ATTN = ("ls1", "lb1", "wqkv", "bqkv", "wproj", "bproj")
+MLP = ("ls2", "lb2", "w1", "b1", "w2", "b2")
+
+
 def kernel_cases(dtype, gen):
-    """(kernel name, shape label, kernel call, plain call) at the main
-    path's widths."""
+    """(kernel name, shape label, kernel call, plain call, library call)
+    at the main path's widths."""
     B = BATCH[dtype]
     p = block_params(dtype, gen)
-    attn = [p[k] for k in ("ls1", "lb1", "wqkv", "bqkv", "wproj", "bproj")]
-    mlp = [p[k] for k in ("ls2", "lb2", "w1", "b1", "w2", "b2")]
+    attn = [p[k] for k in ATTN]
+    mlp = [p[k] for k in MLP]
 
     def x_of(N):
         return torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
@@ -190,26 +344,75 @@ def kernel_cases(dtype, gen):
         x = x_of(N)
         yield ("fused_full_block", f"B={B} N={N}",
                lambda x=x: fused_full_block(x, *attn, *mlp, HEADS, SCALE),
-               lambda x=x: fused_full_block_ref(x, *attn, *mlp, HEADS, SCALE))
+               lambda x=x: fused_full_block_ref(x, *attn, *mlp, HEADS, SCALE),
+               lambda x=x: library_full_block(x, *attn, *mlp))
     for N in BLOCK_ATTN_N:
         x = x_of(N)
         yield ("fused_block_attention", f"B={B} N={N}",
                lambda x=x: fused_block_attention(x, *attn, HEADS, SCALE),
-               lambda x=x: fused_block_attention_ref(x, *attn, HEADS, SCALE))
+               lambda x=x: fused_block_attention_ref(x, *attn, HEADS, SCALE),
+               lambda x=x: x + library_attention(x, *attn)[0])
     for N, K in MLP_GATHER_NK:
         x = x_of(N)
         idx = torch.stack([
             torch.cat([torch.zeros(1, dtype=torch.long),
                        1 + torch.randperm(N - 1, generator=gen)[:K - 1]])
             for _ in range(B)]).to(DEVICE)
+
+        def library(x=x, idx=idx):
+            g = take_tokens(x, idx)
+            return g + library_mlp(g, *mlp)
+
         yield ("fused_mlp_gather_residual", f"B={B} N={N} K={K}",
                lambda x=x, idx=idx: fused_mlp_gather_residual(x, idx, *mlp),
                lambda x=x, idx=idx: fused_mlp_gather_residual_ref(x, idx,
-                                                                  *mlp))
+                                                                  *mlp),
+               library)
 
 
-def as_tuple(out):
-    return out if isinstance(out, tuple) else (out,)
+def train_cases(dtype, gen):
+    """(kernel name, shape label, kernel call, plain call, library call)
+    of the training counterparts at the training widths. Each call returns
+    the forward outputs and every gradient for a fixed random cotangent
+    (and a non-zero row0 cotangent): the kernel through the autograd
+    wrapper, the plain version through the plain forward and the plain
+    hand-written backward, the library composition through autograd."""
+    B = BATCH[dtype]
+    p = block_params(dtype, gen)
+
+    def case(name, x, dy, drow0):
+        attn = name == "attend_branch_train"
+        ps = [p[k] for k in (ATTN if attn else MLP)]
+        leaves = [t.detach().requires_grad_() for t in (x, *ps)]
+        cots = (dy, drow0) if attn else (dy,)
+
+        def grads_of(fn):
+            outs = as_list(fn(*leaves))
+            return [*outs, *torch.autograd.grad(outs, leaves, cots)]
+
+        if attn:
+            return (lambda: grads_of(
+                        lambda *a: attend_branch_train(*a, HEADS, SCALE, EPS)),
+                    lambda: [*attend_branch_train_ref(x, *ps, HEADS, SCALE,
+                                                      EPS),
+                             *attend_branch_train_bwd_ref(
+                                 x, *ps[:5], dy, drow0, HEADS, SCALE, EPS)],
+                    lambda: grads_of(library_attention))
+        return (lambda: grads_of(lambda *a: mlp_branch(*a, EPS)),
+                lambda: [mlp_branch_ref(x, *ps, EPS),
+                         *mlp_branch_bwd_ref(x, *ps[:5], dy, EPS)],
+                lambda: grads_of(library_mlp))
+
+    for N in TRAIN_N:
+        x = torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
+        dy = torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
+        drow0 = torch.randn(B, HEADS, N, generator=gen).to(DEVICE)
+        for name in TRAIN_WRAPPERS:
+            yield (name, f"B={B} N={N}", *case(name, x, dy, drow0))
+
+
+def as_list(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -225,7 +428,6 @@ def launcher_cases(gen):
     launch of the main path alone, at B=256 and the main path's widths.
     Each launch reads the plain version's inputs."""
     from tokenreduction_tpu_torch.ops import _build
-    from tokenreduction_tpu_torch.ops.gather import take_tokens
 
     bf16, B = torch.bfloat16, BATCH[torch.bfloat16]
     p = block_params(bf16, gen)
@@ -239,15 +441,18 @@ def launcher_cases(gen):
         return got
 
     def gemm_case(x, w, b, y_dtype, **kw):
-        got = torch.empty(x.shape[0], w.shape[0], device=DEVICE,
-                          dtype=y_dtype)
+        n_out = w.shape[1] if kw.get("w_kn") else w.shape[0]
+        got = torch.empty(x.shape[0], n_out, device=DEVICE, dtype=y_dtype)
         _build.gemm(x, w, b, got, **kw)
         return got
 
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen).to(DEVICE, dtype)
+
     for N in FULL_BLOCK_N:
         M, shape = B * N, f"B={B} N={N}"
-        x = torch.randn(M, D, generator=gen).to(DEVICE, bf16)
-        x32 = torch.randn(M, D, generator=gen).to(DEVICE)
+        x = randn(M, D)
+        x32 = randn(M, D, dtype=torch.float32)
         for label, rows in (("bf16 rows", x), ("fp32 rows", x32)):
             yield f"layer_norm, {label}", shape, [
                 ("ln", ln_case(rows, M), ln_ref(rows))]
@@ -280,8 +485,66 @@ def launcher_cases(gen):
             ("out", gemm_case(h, p["w2"], p["b2"], torch.float32),
              linear_f32(h, p["w2"], p["b2"]))]
 
+        if N not in TRAIN_N:
+            continue
+        # the training launches
+        merged = torch.empty(B, N, D, device=DEVICE, dtype=bf16)
+        _build.short_attention(qkv, merged, HEADS, SCALE, row0=row0,
+                               norm_p=True)
+        yield "short_attention, normalised P", shape, list(zip(
+            ("merged heads", "row0"), (merged, row0),
+            attention_train_ref(qkv, HEADS, SCALE)))
+
+        dout, drow0 = randn(B, N, D), randn(B, HEADS, N, dtype=torch.float32)
+        dqkv = torch.empty_like(qkv)
+        _build.short_attention_bwd(qkv, dout, drow0, dqkv, HEADS, SCALE)
+        want = attention_bwd_ref(qkv, dout, drow0, HEADS, SCALE)
+        yield "short_attention_bwd", shape, [
+            (label, dqkv[..., i * D:(i + 1) * D], want[..., i * D:(i + 1) * D])
+            for i, label in enumerate(("dq", "dk", "dv"))]
+
+        dy = randn(M, D)
+        yield "gemm dY.W (W untransposed)", shape, [
+            ("dattn", gemm_case(dy, p["wproj"], None, bf16, w_kn=True),
+             (dy.float() @ p["wproj"].float()).to(bf16))]
+        dq = dqkv.view(M, 3 * D)
+        yield "gemm dY.W, fp32 out", shape, [
+            ("dln", gemm_case(dq, p["wqkv"], None, torch.float32, w_kn=True),
+             dq.float() @ p["wqkv"].float())]
+
+        a = torch.empty(M, H4, device=DEVICE, dtype=bf16)
+        gp = torch.empty(M, H4, device=DEVICE)
+        _build.gemm(ln, p["w1"], p["b1"], a, gelu=True, gelu_grad=gp)
+        pre = linear_f32(ln, p["w1"], p["b1"])
+        yield "gemm fc1+GELU, GELU' out", shape, [
+            ("hidden", a, F.gelu(pre).to(bf16)), ("GELU'", gp, gelu_grad(pre))]
+
+        parts = torch.empty(-(-M // _build.GEMM_TILE), H4, device=DEVICE)
+        dh = gemm_case(dy, p["w2"], None, bf16, w_kn=True, mul=gp,
+                       col_sums=parts)
+        dh32 = (dy.float() @ p["w2"].float()) * gp
+        yield "gemm dY.W x GELU', column sums", shape, [
+            ("dh", dh, dh32.to(bf16)), ("db1", parts.sum(0), dh32.sum(0))]
+
+        dw = torch.empty(3 * D, D, device=DEVICE, dtype=bf16)
+        db = torch.empty(3 * D, device=DEVICE, dtype=bf16)
+        _build.gemm_wgrad(dq, ln, dw, db)
+        yield "gemm_wgrad", shape, [
+            ("dW", dw, (dq.float().T @ ln.float()).to(bf16)),
+            ("db", db, dq.float().sum(0).to(bf16))]
+
+        dln = randn(M, D, dtype=torch.float32)
+        dx = torch.empty_like(x)
+        dwb = torch.empty(2, D, device=DEVICE, dtype=bf16)
+        _build.layer_norm_bwd(x, p["ls1"], dln, dx, dwb, eps=EPS)
+        x_hat, rstd = layer_norm_stats(x.float(), EPS)
+        want = layer_norm_bwd_ref(dln, x_hat, rstd, p["ls1"])
+        yield "layer_norm_bwd", shape, [
+            (label, got, w.to(bf16)) for label, got, w in
+            zip(("dx", "d scale", "d bias"), (dx, dwb[0], dwb[1]), want)]
+
     for N, K in MLP_GATHER_NK:
-        x = torch.randn(B, N, D, generator=gen).to(DEVICE, bf16)
+        x = randn(B, N, D)
         idx = torch.stack([torch.randperm(N, generator=gen)[:K]
                            for _ in range(B)]).to(DEVICE, torch.int32)
         got = ln_case(x.view(B * N, D), B * K, idx=idx, rows_out=K,
@@ -300,11 +563,11 @@ def phase_launchers():
         errs = []
         for label, got, want in outputs:
             abs_err, rel = rel_err(got, want)
-            bound = LAUNCH_BOUND[got.dtype]
-            require(rel <= bound, f"{launch} bf16 {shape} {label}: error "
-                    f"{rel:.3e} of its max|plain| > bound {bound:.0e}")
+            bound_ = LAUNCH_BOUND[got.dtype]
+            require(rel <= bound_, f"{launch} bf16 {shape} {label}: error "
+                    f"{rel:.3e} of its max|plain| > bound {bound_:.0e}")
             errs.append(f"{label} {abs_err:.3e} ({rel:.2e} of max, bound "
-                        f"{bound:.0e})")
+                        f"{bound_:.0e})")
             key = f"{launch}: {label}"
             worst[key] = max(worst.get(key, 0.0), rel)
         print(f"phase 2 launch {launch} bf16 {shape}: {', '.join(errs)}",
@@ -314,6 +577,19 @@ def phase_launchers():
               flush=True)
 
 
+def check_case(name, tag, shape, dtype, got, want, labels, rec):
+    errs = []
+    for label, g, w in zip(labels, got, want):
+        abs_err, rel = rel_err(g, w)
+        require(rel <= BOUND[dtype], f"{name} {tag} {shape} {label}: error "
+                f"{rel:.3e} of max|plain| > bound {BOUND[dtype]:.0e}")
+        errs.append(f"{label} {abs_err:.3e} ({rel:.2e} rel)")
+        rec[f"max_rel_err_{tag}"] = max(rec[f"max_rel_err_{tag}"], rel)
+        if label in ("out", "branch") and dtype == torch.bfloat16:
+            rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    return errs
+
+
 def phase_kernels() -> dict:
     """Phase 2. Returns per-kernel records for the JSON line."""
     gen = torch.Generator().manual_seed(0)
@@ -321,32 +597,29 @@ def phase_kernels() -> dict:
                       max_rel_err_bf16=0.0) for name in WRAPPERS}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for name, shape, kernel, plain in kernel_cases(dtype, gen):
-            got, want = as_tuple(kernel()), as_tuple(plain())
+        cases = [(n, s, k, p, lib, ("out", "row0", "colsum"))
+                 for n, s, k, p, lib in kernel_cases(dtype, gen)]
+        cases += [(n, s, k, p, lib, GRAD_NAMES[n])
+                  for n, s, k, p, lib in train_cases(dtype, gen)]
+        for name, shape, kernel, plain, library, labels in cases:
+            got, want = as_list(kernel()), as_list(plain())
             torch.cuda.synchronize()
-            errs = []
-            for label, g, w in zip(("out", "row0", "colsum"), got, want):
-                require(g.shape == w.shape and g.dtype == w.dtype,
-                        f"{name} {shape} {label}: {g.shape}/{g.dtype} vs "
-                        f"{w.shape}/{w.dtype}")
-                abs_err = (g.float() - w.float()).abs().max().item()
-                rel = abs_err / max(w.float().abs().max().item(), 1e-30)
-                require(rel <= BOUND[dtype],
-                        f"{name} {tag} {shape} {label}: error {rel:.3e} of "
-                        f"max|plain| > bound {BOUND[dtype]:.0e}")
-                errs.append(f"{label} {abs_err:.3e} ({rel:.2e} rel)")
-                r = rec[name]
-                r[f"max_rel_err_{tag}"] = max(r[f"max_rel_err_{tag}"], rel)
-                if label == "out" and dtype == torch.bfloat16:
-                    r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+            errs = check_case(name, tag, shape, dtype, got, want, labels,
+                              rec[name])
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            lib_ms = cuda_ms(library) if dtype == torch.bfloat16 else None
+            lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
             print(f"phase 2 kernel {name} {tag} {shape}: max abs err "
                   f"{', '.join(errs)}; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms", flush=True)
+                  f"{plain_ms:.4f} ms{lib}", flush=True)
             if dtype == torch.bfloat16 and "shape" not in rec[name]:
                 # the widest main-path shape stands for the kernel
+                dims = dict(part.split("=") for part in shape.split())
+                bound_ms, bound_by = bound(name, *map(int, dims.values()))
                 rec[name].update(shape=f"bf16 {shape}", ms=ms,
-                                 plain_ms=plain_ms)
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by,
+                                 library_composition_ms=lib_ms)
     return rec
 
 
@@ -357,7 +630,7 @@ def images(B, gen, dtype=torch.float32):
 def phase_models(dtype):
     """Phase 3: the full-width models on the card against the CPU."""
     tag = "fp32" if dtype == torch.float32 else "bf16"
-    B, bound = MODEL_BATCH[dtype], MODEL_BOUND[dtype]
+    B, bound_ = MODEL_BATCH[dtype], MODEL_BOUND[dtype]
     for label, (name, kw) in MODELS.items():
         viz = bool(kw)
         model, cfg = create_model(name, device=DEVICE, viz_mode=viz,
@@ -401,15 +674,116 @@ def phase_models(dtype):
         if viz and dtype == torch.bfloat16:
             limit = "reported only"
         else:
-            limit = f"bound {bound:.0e}"
-            require(rel <= bound, f"{label} {tag}: logits error {rel:.3e} "
-                    f"of max|CPU| > {bound:.0e}")
+            limit = f"bound {bound_:.0e}"
+            require(rel <= bound_, f"{label} {tag}: logits error {rel:.3e} "
+                    f"of max|CPU| > {bound_:.0e}")
         require(top1 >= MODEL_TOP1[dtype], f"{label} {tag}: top-1 agreement "
                 f"{top1:.3f} < {MODEL_TOP1[dtype]}")
         print(f"phase 3 model {label} ({name}) {tag} B={B}: logits max abs "
               f"err {err:.3e} ({rel:.2e} of max|CPU|, {limit}); "
               f"top-1 agreement {top1:.3f} (bound {MODEL_TOP1[dtype]}); "
               f"launches {got_counts}{flips}", flush=True)
+
+
+def label_smoothing_loss(out, targets, images_, params):
+    return losses.label_smoothing_ce(out, targets, 0.1)
+
+
+def record_kept(model) -> dict:
+    """Record the top-k ids each reduction block gathers in training."""
+    kept = {}
+    for i in model.cfg.reduction_loc:
+        blk = model.blocks[i]
+
+        def gather(x, idx, generator=None, i=i, inner=blk.ffn_gather):
+            kept[i] = idx.detach().cpu()
+            return inner(x, idx, generator)
+
+        blk.ffn_gather = gather
+    return kept
+
+
+def phase_train_models(dtype):
+    """Phase 3, training: the loss and every gradient of one train step of
+    the full-width models on the card against the CPU (drop_path 0), and
+    the launches of one whole train step."""
+    tag = "fp32" if dtype == torch.float32 else "bf16 amp"
+    B, bound_ = MODEL_BATCH[dtype], TRAIN_BOUND[dtype]
+    cfg = StepConfig(amp=dtype == torch.bfloat16)
+    for label in TRAIN_MODELS:
+        name, kw = MODELS[label]
+        model, _ = create_model(name, device=DEVICE,
+                                generator=torch.Generator().manual_seed(1),
+                                **kw)
+        cpu_model = copy.deepcopy(model).cpu()
+        kept, cpu_kept = record_kept(model), record_kept(cpu_model)
+        gen = torch.Generator().manual_seed(2)
+        x = images(B, gen)
+        y = torch.randint(0, 1000, (B,), generator=gen).to(DEVICE)
+        opt, _ = create_optimizer(dict(model.named_parameters()),
+                                  OptimConfig(lr=1e-3, clip_grad=1.0,
+                                              backbone_lr_scale=0.01),
+                                  lambda s: 1e-3, [])
+        state = init_train_state(model, opt, device=DEVICE)
+        cpu_state = init_train_state(cpu_model, opt, device="cpu")
+        model.train()
+        cpu_model.train()
+        reset_counts()
+        loss, grads = loss_and_grads(model, label_smoothing_loss, state.params,
+                                     x, y, cfg)
+        torch.cuda.synchronize()
+        fwd_bwd = counts()
+        require(fwd_bwd == PER_TRAIN_STEP and
+                backward_counts() == PER_TRAIN_STEP_BWD,
+                f"{label} {tag}: launches {fwd_bwd}, backward "
+                f"{backward_counts()}")
+        cpu_loss, cpu_grads = loss_and_grads(cpu_model, label_smoothing_loss,
+                                             cpu_state.params, x.cpu(),
+                                             y.cpu(), cfg)
+        require(counts() == fwd_bwd, "a CPU train step launched a kernel")
+        _, loss_rel = rel_err(loss.cpu().reshape(1), cpu_loss.reshape(1))
+        worst_name, worst = "", 0.0
+        for n, g in grads.items():
+            _, rel = rel_err(g.cpu(), cpu_grads[n])
+            if rel >= worst:
+                worst_name, worst = n, rel
+        n_all = sum(k.numel() for k in cpu_kept.values())
+        in_place = sum(int((kept[i] == cpu_kept[i]).sum()) for i in cpu_kept)
+        same_set = sum(int(torch.isin(a, b).sum()) for i in cpu_kept
+                       for a, b in zip(kept[i], cpu_kept[i]))
+        require(loss_rel <= bound_["loss"], f"{label} {tag}: loss "
+                f"{loss_rel:.3e} of max|CPU| > {bound_['loss']:.0e}")
+        require(same_set >= bound_["kept_set"] * n_all,
+                f"{label} {tag}: only {same_set}/{n_all} kept ids in the "
+                "CPU's kept set")
+        if dtype == torch.float32:
+            require(in_place == n_all,
+                    f"{label} {tag}: kept ids differ from the CPU's")
+        # gradients are held where the selection is exact or absent
+        grads_held = dtype == torch.float32 or not cpu_kept
+        if grads_held:
+            require(worst <= bound_["grads"], f"{label} {tag}: gradient "
+                    f"{worst_name} {worst:.3e} of max|CPU| > "
+                    f"{bound_['grads']:.0e}")
+        # one whole train step: the launches of both counterparts
+        step = make_train_step(model, label_smoothing_loss, opt, cfg)
+        reset_counts()
+        state, metrics = step(state, {"image": x, "label": y})
+        torch.cuda.synchronize()
+        require(counts() == PER_TRAIN_STEP and
+                backward_counts() == PER_TRAIN_STEP_BWD,
+                f"{label} {tag}: train step launches {counts()}")
+        require(bool(torch.isfinite(metrics["loss"])), f"{label}: bad loss")
+        limit = (f"bound {bound_['grads']:.0e}" if grads_held
+                 else "reported only")
+        print(f"phase 3 train {label} {tag} B={B}: loss {loss.item():.6f} vs "
+              f"CPU {cpu_loss.item():.6f} ({loss_rel:.2e} rel, bound "
+              f"{bound_['loss']:.0e}); worst gradient leaf {worst_name} "
+              f"{worst:.2e} of its max|CPU| ({limit}); kept ids in place "
+              f"{in_place}/{n_all}, in the CPU's kept set {same_set}/{n_all} "
+              f"(bound {bound_['kept_set']}); launches of one train step "
+              f"{counts()}, backward {backward_counts()}", flush=True)
+        del model, cpu_model, state, cpu_state, grads, cpu_grads
 
 
 def phase_serve(card: str) -> dict:
@@ -444,7 +818,130 @@ def phase_serve(card: str) -> dict:
         del model, xs
     got = counts()
     require(got == expected, f"serve launches {got} != {expected}")
-    require(all(got.values()), f"a kernel of the path never ran: {got}")
+    require(all(got[k] for k in EVAL_WRAPPERS),
+            f"a kernel of the path never ran: {got}")
+    return got
+
+
+def train_run(label: str, steps: int, profile: bool = False):
+    """bench.py's train recipe for `steps` steps of TRAIN_B; returns
+    (seconds per step, losses, profile) where profile, after two more
+    steps under torch.profiler, is (the device's busy share of their
+    wall time, {kernel: device microseconds}), else None."""
+    name, kw = MODELS[label]
+    model, _ = create_model(name, device=DEVICE, drop_path_rate=0.1,
+                            generator=torch.Generator().manual_seed(1), **kw)
+    opt, _ = create_optimizer(dict(model.named_parameters()),
+                              OptimConfig(lr=1e-3, clip_grad=1.0,
+                                          backbone_lr_scale=0.01),
+                              lambda s: 1e-3, [])
+    state = init_train_state(model, opt, ema=True, device=DEVICE)
+    step = make_train_step(model, label_smoothing_loss, opt,
+                           StepConfig(ema_decay=0.99996, amp=True),
+                           torch.Generator(device=DEVICE).manual_seed(5))
+    data = torch.Generator(device=DEVICE).manual_seed(3)
+    xs = torch.randn(steps, TRAIN_B, 3, 224, 224, generator=data,
+                     device=DEVICE)
+    ys = torch.randint(0, 1000, (steps, TRAIN_B), generator=data,
+                       device=DEVICE)
+    first = {n: p.detach().clone() for n, p in state.params.items()}
+    seconds, step_losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"image": xs[i], "label": ys[i]})
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        step_losses.append(metrics["loss"])
+    prof_out = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(2):
+                state, _ = step(state, {"image": xs[i], "label": ys[i]})
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = kernel_family(e.name)
+                by_kernel[name] = by_kernel.get(name, 0.0) + \
+                    e.time_range.elapsed_us()
+        device_us = sum(by_kernel.values())
+        if device_us > 0:
+            prof_out = device_us / window_us, by_kernel
+    step_losses = torch.stack(step_losses).cpu()
+    require(bool(torch.isfinite(step_losses).all()),
+            f"{label}: non-finite train losses {step_losses.tolist()}")
+    moved = max((state.params[n] - p).abs().max().item()
+                for n, p in first.items())
+    ema_moved = max((state.ema_params[n] - p).abs().max().item()
+                    for n, p in first.items())
+    require(moved > 0 and ema_moved > 0,
+            f"{label}: params moved {moved}, EMA {ema_moved}")
+    return seconds, step_losses, prof_out
+
+
+def kernel_family(name: str) -> str:
+    """A profiler kernel name without its arguments; the port's kernels
+    keep their template arguments (dtype and layout)."""
+    name = name.replace("void ", "").replace("trk::(anonymous namespace)::",
+                                             "")
+    name = name.split("(")[0]
+    own = ("gemm_kernel", "short_attention", "layer_norm", "sum_partials")
+    return name if name.startswith(own) else name.split("<")[0]
+
+
+def phase_train(card: str) -> dict:
+    """Phase 5: the train steps; the launch counts of this run go into the
+    JSON record. Then the eager library composition's steps and the
+    profiled window, whose launches are not counted."""
+    reset_counts()
+    for label in TRAIN_MODELS:
+        seconds, step_losses, _ = train_run(label, TRAIN_STEPS)
+        timed = seconds[2:]
+        print(f"phase 5 train {label} bf16 amp b{TRAIN_B}: "
+              f"{1e3 * sum(timed) / len(timed):.2f} ms/step, "
+              f"{TRAIN_B * len(timed) / sum(timed):.1f} img/s over steps "
+              f"3-{TRAIN_STEPS} (first step {seconds[0] * 1e3:.1f} ms); "
+              f"losses {[round(v, 4) for v in step_losses.tolist()]} on "
+              f"{card}", flush=True)
+    got = counts()
+    expected = {**dict.fromkeys(EVAL_WRAPPERS, 0), **{
+        k: PER_TRAIN_STEP[k] * TRAIN_STEPS * len(TRAIN_MODELS)
+        for k in TRAIN_WRAPPERS}}
+    require(got == expected, f"train launches {got} != {expected}")
+    require(all(got[k] for k in TRAIN_WRAPPERS),
+            f"a kernel of the path never ran: {got}")
+
+    _, _, prof = train_run("topk@0.7", 4, profile=True)
+    if prof is None:
+        print("phase 5 profile topk@0.7: device time not measured (the "
+              "profiler saw no device events)", flush=True)
+    else:
+        busy, by_kernel = prof
+        total = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+        print(f"phase 5 profile topk@0.7 bf16 amp b{TRAIN_B}: device busy "
+              f"{100 * busy:.1f}% of two steps (torch.profiler); device time "
+              f"by kernel: " + "; ".join(
+                  f"{name} {100 * us / total:.1f}%" for name, us in top),
+              flush=True)
+    attend, mlp = layers.attend_branch_train, layers.mlp_branch
+    layers.attend_branch_train = library_attention
+    layers.mlp_branch = library_mlp
+    try:
+        for label in TRAIN_MODELS:
+            seconds, _, _ = train_run(label, TRAIN_STEPS)
+            timed = seconds[2:]
+            print(f"phase 5 train {label} bf16 amp b{TRAIN_B}, eager library "
+                  f"composition: {1e3 * sum(timed) / len(timed):.2f} ms/step, "
+                  f"{TRAIN_B * len(timed) / sum(timed):.1f} img/s over steps "
+                  f"3-{TRAIN_STEPS}", flush=True)
+    finally:
+        layers.attend_branch_train, layers.mlp_branch = attend, mlp
     return got
 
 
@@ -481,13 +978,17 @@ def main():
     phase_launchers()
     for dtype in (torch.float32, torch.bfloat16):
         phase_models(dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        phase_train_models(dtype)
     launches = phase_serve(card)
+    launches.update({k: v for k, v in phase_train(card).items()
+                     if k in TRAIN_WRAPPERS})
 
     kernels = [dict(name=name, route="cuda", source=CUDA_SOURCES[name][0],
                     cuda_sources=CUDA_SOURCES[name],
                     wrapper=WRAPPER_SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
-                    **rec[name]) for name in WRAPPERS]
+                    library_ms=None, **rec[name]) for name in WRAPPERS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,7 +55,7 @@ def images(seed=7, b=2):
 
 
 def port_model(name, state, **kw):
-    model, _ = create_model(name, **DIMS, **kw)
+    model, _ = create_model(name, device="cpu", **DIMS, **kw)
     model.load_state_dict(state, strict=True)
     return model.eval()
 
@@ -141,8 +141,9 @@ def test_distilled_dense_matches_oracle():
 
 
 def test_train_mode_runs_plain_composition_with_grads():
-    """In training the blocks run the plain module composition under
-    autograd (CPU); it agrees with the eval path at zero drop rates."""
+    """In training the blocks run the training branches under autograd
+    (on the CPU their plain forward and hand-written backward); they agree
+    with the eval path at zero drop rates."""
     state = O.make_vit_state(DEPTH, DIM, HEADS, PATCH, NCLS, seed=4,
                              n_tokens=NTOK)
     model = port_model("topk_small_patch16_224", state, reduction_loc=LOC,

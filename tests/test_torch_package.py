@@ -1,6 +1,6 @@
 """Package boundary of the PyTorch port: no JAX, no build on the CPU,
-launch counters untouched by CPU forwards, and refusals for what is not
-ported yet."""
+launch counters untouched by CPU forwards and train steps, and refusals
+for what is not ported yet."""
 
 import os
 import pathlib
@@ -25,32 +25,53 @@ _CHILD = textwrap.dedent("""
     from tokenreduction_tpu_torch.ops.flash_attention import (
         fused_block_attention)
     from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
+    from tokenreduction_tpu_torch.ops.fused_block_train import (
+        attend_branch_train)
     from tokenreduction_tpu_torch.ops.fused_mlp import (
         fused_mlp_gather_residual)
+    from tokenreduction_tpu_torch.ops.fused_mlp_train import mlp_branch
+    from tokenreduction_tpu_torch.train import losses
+    from tokenreduction_tpu_torch.train.optim import (
+        OptimConfig, create_optimizer)
+    from tokenreduction_tpu_torch.train.step import (
+        StepConfig, init_train_state, make_train_step)
 
     model, _ = T.create_model(
-        "topk_small_patch16_224", num_classes=11, img_size=32, embed_dim=32,
-        num_heads=2, depth=4, patch_size=8, reduction_loc=(1, 2),
-        keep_rate=(0.7,))
+        "topk_small_patch16_224", device="cpu", num_classes=11, img_size=32,
+        embed_dim=32, num_heads=2, depth=4, patch_size=8,
+        reduction_loc=(1, 2), keep_rate=(0.7,), drop_path_rate=0.1)
     with torch.no_grad():
         out = model.eval()(torch.zeros(2, 3, 32, 32))
     assert out.shape == (2, 11), out.shape
+    opt, _ = create_optimizer(
+        dict(model.named_parameters()),
+        OptimConfig(lr=1e-3, clip_grad=1.0, backbone_lr_scale=0.01),
+        lambda s: 1e-3, [])
+    state = init_train_state(model, opt, ema=True, device="cpu")
+    step = make_train_step(
+        model, lambda o, t, i, p: losses.label_smoothing_ce(o, t, 0.1), opt,
+        StepConfig(ema_decay=0.99996, amp=True),
+        torch.Generator().manual_seed(0))
+    state, metrics = step(state, {"image": torch.zeros(2, 3, 32, 32),
+                                  "label": torch.tensor([1, 2])})
+    assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
     bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
     assert not bad, bad
     assert "tokenreduction_tpu" not in sys.modules
     assert "tokenreduction_tpu_torch.ops._build" not in sys.modules
     counts = (fused_full_block.launches, fused_block_attention.launches,
-              fused_mlp_gather_residual.launches)
-    assert counts == (0, 0, 0), counts
+              fused_mlp_gather_residual.launches, attend_branch_train.launches,
+              mlp_branch.launches)
+    assert counts == (0, 0, 0, 0, 0), counts
     print("ok")
 """)
 
 
 def test_port_imports_and_runs_without_jax():
     """A fresh interpreter imports the port and runs a tiny topk forward
-    on the CPU with no JAX or Flax module loaded, no kernel build and no
-    kernel launch."""
+    and one amp train step (drop_path 0.1) on the CPU with no JAX, Flax
+    or optax module loaded, no kernel build and no kernel launch."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
@@ -87,7 +108,7 @@ def test_cpu_forward_leaves_launch_counters_at_zero():
     for name, kw in (("deit_small_patch16_224_local", {}),
                      ("topk_small_patch16_224",
                       dict(reduction_loc=(1, 2), keep_rate=(0.25,)))):
-        model, _ = create_model(name, **TINY, **kw)
+        model, _ = create_model(name, device="cpu", **TINY, **kw)
         with torch.no_grad():
             model.eval()(torch.zeros(1, 3, 32, 32))
     assert [w.launches for w in wrappers] == before == [0, 0, 0]
@@ -101,7 +122,7 @@ def test_registry_refuses_unported_methods(name):
     from tokenreduction_tpu_torch import create_model
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        create_model(name)
+        create_model(name, device="cpu")
 
 
 def test_registry_names_and_unknown_name():
@@ -113,7 +134,7 @@ def test_registry_names_and_unknown_name():
         for p, x in (("deit", "_local"), ("deit", "_local_viz"),
                      ("topk", "")))
     with pytest.raises(KeyError):
-        create_model("resnet50")
+        create_model("resnet50", device="cpu")
 
 
 def test_model_for_config_rebuilds_ported_methods_only():
@@ -123,9 +144,10 @@ def test_model_for_config_rebuilds_ported_methods_only():
 
     cfg = ViTConfig(**TINY, method="topk", reduction_loc=(1,),
                     keep_rate=(0.5,))
-    assert isinstance(model_for_config(cfg), TopKVisionTransformer)
+    assert isinstance(model_for_config(cfg, device="cpu"),
+                      TopKVisionTransformer)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        model_for_config(cfg.replace(method="tome"))
+        model_for_config(cfg.replace(method="tome"), device="cpu")
 
 
 def test_unported_scores_and_ffn_raise():
@@ -143,8 +165,9 @@ def test_init_is_seeded_by_the_generator():
     from tokenreduction_tpu_torch import create_model
 
     def weights(seed):
-        model, _ = create_model("deit_tiny_patch16_224_local", **TINY,
-                                generator=torch.Generator().manual_seed(seed))
+        model, _ = create_model(
+            "deit_tiny_patch16_224_local", device="cpu", **TINY,
+            generator=torch.Generator().manual_seed(seed))
         return model.state_dict()
 
     a, b, c = weights(0), weights(0), weights(1)

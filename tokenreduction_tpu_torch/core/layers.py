@@ -10,10 +10,19 @@ Flax tree uses, so a DeiT ``.pth`` state dict loads with plain
 (``not self.training``) every path goes through a kernel wrapper:
 ``forward`` with no score -> ``fused_full_block``, ``attend`` ->
 ``fused_block_attention``, ``ffn_gather`` -> ``fused_mlp_gather_residual``.
-The wrapper runs its plain PyTorch version on a CPU tensor and its
-hand-written kernels on a CUDA tensor. In training the plain module
-composition runs under autograd; on a CUDA tensor that raises until the
-training kernels are ported (ROADMAP Queue 2 items 6-7).
+In training every attention half goes through ``attend_branch_train`` and
+every MLP half through ``mlp_branch`` (each with a hand-written
+backward), then ``x + drop_path(branch)`` in x's dtype; where the JAX
+gate sends a half to its XLA composition, the plain module composition
+runs instead: the attention half when attention dropout or dropout is
+above 0, the MLP half only when dropout is above 0. A wrapper
+runs its plain PyTorch version on a CPU tensor and its hand-written
+kernels on a CUDA tensor.
+
+Stochastic depth draws its masks from an explicit ``torch.Generator``
+that the model's forward hands down (``generator=``), on the device of
+the activations; training with a drop-path rate above 0 and no generator
+raises.
 """
 
 from __future__ import annotations
@@ -28,8 +37,12 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     SHORT_ATTENTION_MAX_N,
     fused_block_attention,
 )
+from tokenreduction_tpu_torch.ops.fused_block_train import (
+    attend_branch_train,
+)
 from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
 from tokenreduction_tpu_torch.ops.fused_mlp import fused_mlp_gather_residual
+from tokenreduction_tpu_torch.ops.fused_mlp_train import mlp_branch
 from tokenreduction_tpu_torch.ops.gather import take_tokens
 
 # The kernels' documented width limit (the attention kernel holds one
@@ -46,26 +59,25 @@ def _check_score(score):
             "(ROADMAP Queue 1 item 6)")
 
 
-def _check_train_device(module: nn.Module, x: torch.Tensor):
-    if module.training and x.is_cuda:
-        raise NotImplementedError(
-            "training on the GPU needs the training kernels, not ported yet "
-            "(ROADMAP Queue 2 items 6-7); call .eval() for inference")
-
-
 class DropPath(nn.Module):
-    """Stochastic depth per sample (timm drop_path semantics)."""
+    """Stochastic depth per sample (timm drop_path semantics): in training
+    each sample's branch is kept with probability 1 - rate and then
+    divided by it, else zeroed. The masks come from ``generator``."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.rate == 0.0 or not self.training:
             return x
+        if generator is None:
+            raise ValueError(
+                "DropPath in training draws its masks from an explicit "
+                "torch.Generator: pass generator= to the model's forward")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, dtype=x.dtype, device=x.device) < keep
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -138,6 +150,11 @@ class Block(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.eps = layer_norm_eps
+        # the JAX gates of the training kernels: the attention half needs
+        # no attention dropout and no dropout (core/layers.py:404-416), the
+        # MLP half only no dropout (core/layers.py:512-520)
+        self.attn_kernels = attn_drop == 0.0 and drop == 0.0
+        self.mlp_kernels = drop == 0.0
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
                               attn_drop=attn_drop, proj_drop=drop)
@@ -158,50 +175,61 @@ class Block(nn.Module):
         return (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
 
-    def attend(self, x, *, score: Optional[str] = None):
+    def attend(self, x, *, score: Optional[str] = None,
+               generator: Optional[torch.Generator] = None):
         """norm1 -> attention -> droppath -> residual, returning
-        (x, (aux, None)); in eval one ``fused_block_attention`` call."""
+        (x, (aux, None)); in eval one ``fused_block_attention`` call, in
+        training one ``attend_branch_train`` call."""
         _check_score(score)
-        _check_train_device(self, x)
         if not self.training:
             out, row0, _ = fused_block_attention(
                 x, *self._attn_params(), self.num_heads, self.attn.scale,
                 eps=self.eps)
             aux = row0[:, :, 1:].mean(1) if score == "cls" else None
             return out, (aux, None)
+        if self.attn_kernels:
+            branch, row0 = attend_branch_train(
+                x, *self._attn_params(), self.num_heads, self.attn.scale,
+                self.eps)
+            aux = row0[:, :, 1:].mean(1) if score == "cls" else None
+            return x + self.drop_path1(branch, generator), (aux, None)
         y, aux = self.attn(self.norm1(x), score=score)
-        return x + self.drop_path1(y), aux
+        return x + self.drop_path1(y, generator), aux
 
-    def ffn(self, x):
-        """norm2 -> mlp -> droppath -> residual, the plain composition.
+    def ffn(self, x, generator: Optional[torch.Generator] = None):
+        """norm2 -> mlp -> droppath -> residual; in training one
+        ``mlp_branch`` call.
 
-        Off the main path (topk reaches it only when a stage keeps every
-        token); its kernel, ``fused_mlp_residual``, is not ported yet."""
-        if x.is_cuda:
+        In eval the plain composition, off the main path (topk reaches it
+        only when a stage keeps every token); its kernel,
+        ``fused_mlp_residual``, is not ported yet, so a CUDA tensor
+        raises."""
+        if self.training and self.mlp_kernels:
+            branch = mlp_branch(x, *self._mlp_params(), self.eps)
+            return x + self.drop_path2(branch, generator)
+        if x.is_cuda and not self.training:
             raise NotImplementedError(
-                "Block.ffn on the GPU needs fused_mlp_residual in eval "
-                "(ROADMAP Queue 2 item 4) and the training kernels in "
-                "training (items 6-7); neither is ported yet")
-        return x + self.drop_path2(self.mlp(self.norm2(x)))
+                "Block.ffn in eval on the GPU needs fused_mlp_residual "
+                "(ROADMAP Queue 2 item 4), not ported yet")
+        return x + self.drop_path2(self.mlp(self.norm2(x)), generator)
 
-    def ffn_gather(self, x, idx):
+    def ffn_gather(self, x, idx, generator: Optional[torch.Generator] = None):
         """take_tokens(x, idx) -> ffn; in eval one
         ``fused_mlp_gather_residual`` call. idx: [B, K] absolute token ids
         including CLS."""
-        _check_train_device(self, x)
         if not self.training:
             return fused_mlp_gather_residual(x, idx, *self._mlp_params(),
                                              eps=self.eps)
-        return self.ffn(take_tokens(x, idx))
+        return self.ffn(take_tokens(x, idx), generator)
 
-    def forward(self, x, *, score: Optional[str] = None):
+    def forward(self, x, *, score: Optional[str] = None,
+                generator: Optional[torch.Generator] = None):
         """Returns (x, (aux, None)); a score-less eval block is one
         ``fused_full_block`` call."""
-        _check_train_device(self, x)
         if score is None and not self.training:
             out = fused_full_block(
                 x, *self._attn_params(), *self._mlp_params(), self.num_heads,
                 self.attn.scale, eps=self.eps)
             return out, (None, None)
-        x, aux = self.attend(x, score=score)
-        return self.ffn(x), aux
+        x, aux = self.attend(x, score=score, generator=generator)
+        return self.ffn(x, generator), aux

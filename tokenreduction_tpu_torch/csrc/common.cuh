@@ -1,6 +1,9 @@
 // Shared helpers of the hand-written kernels: the dtype code the Python
-// wrappers pass (0 = float32, 1 = bfloat16) and warp reductions.
+// wrappers pass (0 = float32, 1 = bfloat16), warp reductions, and the
+// mma.sync building blocks (ldmatrix, the bf16 m16n8k16 product, cp.async).
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -19,6 +22,44 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l addresses row l % 8 of
+// matrix l / 8. With `trans` each matrix arrives transposed: a tile stored
+// K-major (rows of k) then yields the fragments of a row-major operand.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p, bool trans) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if (trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// d[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_16x8x16(float* d, const uint32_t* a, uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(pred ? 16 : 0)
+               : "memory");
 }
 
 }  // namespace trk

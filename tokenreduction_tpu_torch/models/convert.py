@@ -5,7 +5,9 @@ convert_torch_state_dict``: Dense kernels [in, out] -> nn.Linear weights
 [out, in], the patch conv HWIO -> OIHW, LayerNorm ``scale`` -> ``weight``;
 ``cls_token``, ``dist_token`` and ``pos_embed`` pass through. It works on
 any nested mapping of array-likes (numpy arrays in the tests) and imports
-no JAX.
+no JAX. ``torch_names_from_flax`` maps any tree shaped like the params
+(gradients, optimizer labels, EMA params) to the port's parameter names
+leaf by leaf, leaves untouched.
 """
 
 from __future__ import annotations
@@ -49,15 +51,27 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (key,), value
 
 
+def _mapped_leaves(tree: Mapping):
+    """((timm name, transform), leaf) for each leaf of a Flax tree; raises
+    KeyError on a leaf with no timm counterpart."""
+    for path, value in _leaves(tree):
+        mapped = flax_path_to_torch_name(path)
+        if mapped is None:
+            raise KeyError(f"no torch name for flax param {'/'.join(path)}")
+        yield mapped, value
+
+
+def torch_names_from_flax(tree: Mapping) -> dict:
+    """A tree shaped like the Flax params -> {timm name: leaf}, leaves
+    as they are (no transpose)."""
+    return {name: value for (name, _), value in _mapped_leaves(tree)}
+
+
 def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """Nested Flax params {name: array} -> {timm name: torch.Tensor}.
     Raises KeyError on a leaf with no timm counterpart."""
     out = {}
-    for path, value in _leaves(params):
-        mapped = flax_path_to_torch_name(path)
-        if mapped is None:
-            raise KeyError(f"no torch name for flax param {'/'.join(path)}")
-        name, kind = mapped
+    for (name, kind), value in _mapped_leaves(params):
         arr = np.asarray(value)
         if kind == "linear":
             arr = arr.T

@@ -1,11 +1,16 @@
 """Dense DeiT backbone (timm VisionTransformer equivalent) and its viz
 variant. Counterpart of ``tokenreduction_tpu/models/deit.py:26-133``.
 
-Images enter as NCHW. Weights are made from an explicit
-``torch.Generator`` (seed 0 when none is given) with the Flax package's
-initialisers: truncated normal (std 0.02, cut at 2 std) for every Linear
-weight and for the CLS, dist and position embeddings, LeCun truncated
-normal for the patch conv, zero biases, unit LayerNorm scales.
+Images enter as NCHW. Weights are made on the CPU from an explicit
+``torch.Generator`` (seed 0 when none is given), so a seed gives the same
+weights on every device, with the Flax package's initialisers: truncated
+normal (std 0.02, cut at 2 std) for every Linear weight and for the CLS,
+dist and position embeddings, LeCun truncated normal for the patch conv,
+zero biases, unit LayerNorm scales. The model then moves to ``device``:
+the card unless the caller passes ``device="cpu"``.
+
+In training the forward takes ``generator=``, the generator of the
+stochastic-depth masks, on the device of the model.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch
 from torch import nn
 
 from tokenreduction_tpu_torch.core.config import ViTConfig, drop_path_rates
+from tokenreduction_tpu_torch.core.device import resolve_device
 from tokenreduction_tpu_torch.core.layers import Block, PatchEmbed
 
 # scale that gives a normal truncated at 2 std the requested std (Flax's
@@ -55,8 +61,7 @@ class ViTBase(nn.Module):
                 self.head_dist = nn.Linear(D, c.num_classes)
         self.init_weights(generator if generator is not None
                           else torch.Generator().manual_seed(0))
-        if device is not None:
-            self.to(device)
+        self.to(resolve_device(device))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -111,13 +116,13 @@ class VisionTransformer(ViTBase):
         super().__init__(cfg, **kwargs)
         self.capture_features = capture_features
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         c = self.cfg
         capture = c.viz_mode and self.capture_features
         x = self.embed(x)
         features = {}
         for i, blk in enumerate(self.blocks):
-            x, _ = blk(x)
+            x, _ = blk(x, generator=generator)
             if capture:
                 features[i] = x
         out = self.classify(x)

@@ -39,9 +39,11 @@ def list_models():
 def create_model(name: str, *, num_classes: int = 1000, img_size: int = 224,
                  device=None, generator: torch.Generator | None = None,
                  **kwargs) -> tuple[nn.Module, ViTConfig]:
-    """Build (module, cfg) with weights from ``generator`` on ``device``.
-    kwargs are ViTConfig fields: reduction_loc, keep_rate, viz_mode,
-    drop_rate, drop_path_rate, distilled, and the width overrides."""
+    """Build (module, cfg) with weights from ``generator`` on ``device``:
+    the card unless the caller passes ``device="cpu"``; without a CUDA
+    device and with no device given it raises. kwargs are ViTConfig
+    fields: reduction_loc, keep_rate, viz_mode, drop_rate,
+    drop_path_rate, distilled, and the width overrides."""
     if name in _REFERENCE_ONLY:
         raise NotImplementedError(
             f"{name!r} is not ported to PyTorch yet (ROADMAP Queue 1 item 6)")
@@ -59,10 +61,11 @@ def create_model(name: str, *, num_classes: int = 1000, img_size: int = 224,
     return module, cfg
 
 
-def model_for_config(cfg: ViTConfig, **mod_kw) -> nn.Module:
-    """Rebuild the module class for a (checkpoint-stored) config."""
+def model_for_config(cfg: ViTConfig, *, device=None, **mod_kw) -> nn.Module:
+    """Rebuild the module class for a (checkpoint-stored) config, on
+    ``device`` as ``create_model`` places it."""
     if cfg.method not in _CLASSES:
         raise NotImplementedError(
             f"method {cfg.method!r} is not ported to PyTorch yet (ROADMAP "
             "Queue 1 item 6)")
-    return _CLASSES[cfg.method](cfg, **mod_kw)
+    return _CLASSES[cfg.method](cfg, device=device, **mod_kw)

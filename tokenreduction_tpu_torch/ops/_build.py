@@ -1,6 +1,7 @@
 """Builds the hand-written CUDA kernels and binds them with ctypes.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` into an object, all
+sources at once in parallel processes, and links them into one shared
 library with a plain C interface, under ``build/tokenreduction_tpu_torch/``
 at the root of the checkout, in a directory named by a hash of the
 sources and flags, so an edited source builds anew and an unchanged one
@@ -9,7 +10,8 @@ kernel wrappers import this module only on their CUDA branch.
 
 Each launcher takes tensors the wrapper has already checked, passes their
 pointers and PyTorch's current stream, and raises if the C call returns a
-non-zero ``cudaError_t``.
+non-zero ``cudaError_t``. Launchers that reduce over rows allocate their
+fp32 partials with ``torch.empty`` and sum them in a fixed order.
 """
 
 from __future__ import annotations
@@ -29,18 +31,28 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2] / "build"
               / "tokenreduction_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas=-v", "-c")
+LINK_FLAGS = (*ARCH, "-shared")
 LIB_NAME = "libtokenreduction_kernels.so"
+GEMM_TILE = 128  # rows and columns of a gemm block's output tile
+# blocks a row-reducing launch aims for: two per SM of the H100's 132
+REDUCE_BLOCKS = 264
+WGRAD_SLICE_ROWS = 32  # a weight-gradient slice is whole K steps of 32 rows
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "tr_layer_norm": (_I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P, _P),
-    "tr_gemm": (_I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P,
-                _P),
-    "tr_short_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "tr_layer_norm_bwd": (_I, _P, _P, _I, _I, _P, _F, _P, _P, _I, _P),
+    "tr_gemm": (_I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I,
+                _I, _I, _P, _P, _P),
+    "tr_gemm_wgrad": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "tr_sum_partials": (_P, _I, _I, _I, _P, _P),
+    "tr_short_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "tr_short_attention_bwd": (_I, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -71,26 +83,49 @@ def sources() -> list[pathlib.Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _build(out: pathlib.Path) -> tuple[float, str]:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    t0 = time.perf_counter()
+def _run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    return log
+
+
+def _build(out: pathlib.Path) -> tuple[float, str]:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    units = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out.with_name(f"{p.stem}.{tag}.o") for p in units]
+    t0 = time.perf_counter()
+    # one nvcc per source, all started together
+    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for p, o in zip(units, objs)]
+    logs, failed = [], []
+    for p, proc in zip(units, procs):
+        text, _ = proc.communicate()
+        logs.append(f"== {p.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(p.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = out.with_name(f"{out.name}.{tag}")
+    logs.append(_run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]))
+    seconds = time.perf_counter() - t0
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    log = "\n".join(logs)
     (out.parent / "build.log").write_text(log)
     return seconds, log
 
@@ -162,6 +197,14 @@ def _check(name: str, err: int):
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def layer_norm(x, w, b, y, *, eps, idx=None, rows_out=1, rows_in=1):
     """y[M, K] = LN(x rows), in w's dtype; see csrc/ln_gemm.cu. Row m
     reads x row m, or, with idx int32 [M], row (m // rows_out) * rows_in
@@ -170,35 +213,104 @@ def layer_norm(x, w, b, y, *, eps, idx=None, rows_out=1, rows_in=1):
     M, K = y.shape
     err = kernels().lib.tr_layer_norm(
         _DTYPE_CODE[w.dtype], _DTYPE_CODE[x.dtype], _ptr(x), _ptr(idx), M, K,
-        rows_out, rows_in, _ptr(w), _ptr(b), eps, _ptr(y),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        rows_out, rows_in, _ptr(w), _ptr(b), eps, _ptr(y), _stream(x))
     _check("tr_layer_norm", err)
 
 
-def gemm(x, w, bias, y, *, gelu=False, res=None, idx=None, rows_out=1,
-         rows_in=1):
-    """y[M, n_out] = epi(x @ w.T + bias): optional GELU, then an optional
-    residual, whose row m is gathered like ``layer_norm``'s rows when idx
-    is given; see csrc/ln_gemm.cu. x, w and bias share one dtype; res and
-    y have it too or, with bf16 operands, float32. Contiguous CUDA
-    tensors, checked by the caller."""
+def layer_norm_bwd(x, w, dln, dx, dwb, *, eps):
+    """dx [M, K] (x's dtype) and dwb [2, K] = (d gamma, d beta) in dwb's
+    dtype, from x [M, K], gamma w [K] and the fp32 dln [M, K]; see
+    csrc/ln_gemm.cu. Per-block partials of the parameter gradients are
+    summed in a fixed order. Contiguous CUDA tensors, checked by the
+    caller."""
+    M, K = x.shape
+    blocks = max(1, min(_cdiv(M, 8), REDUCE_BLOCKS))
+    part = torch.empty(blocks, 2 * K, dtype=torch.float32, device=x.device)
+    err = kernels().lib.tr_layer_norm_bwd(
+        _DTYPE_CODE[x.dtype], _ptr(x), _ptr(dln), M, K, _ptr(w), eps,
+        _ptr(dx), _ptr(part), blocks, _stream(x))
+    _check("tr_layer_norm_bwd", err)
+    sum_partials(part, dwb.view(2 * K))
+
+
+def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
+         res=None, idx=None, rows_out=1, rows_in=1, col_sums=None):
+    """y[M, n_out] = epi(x @ w.T + bias), or epi(x @ w) with ``w_kn`` (w
+    [K, n_out], read untransposed). epi: optional GELU (with its fp32
+    derivative at the pre-activation written to ``gelu_grad``), then an
+    optional fp32 factor ``mul`` [M, n_out], then an optional residual,
+    whose row m is gathered like ``layer_norm``'s rows when idx is given;
+    ``col_sums`` [ceil(M / 128), n_out] fp32 receives the column sums of
+    each 128-row tile of the result before its rounding. See
+    csrc/ln_gemm.cu. x, w and bias share one dtype; res and y have it too
+    or, with bf16 operands, float32. Contiguous CUDA tensors, checked by
+    the caller."""
     M, n_out = y.shape
     res_dtype = _DTYPE_CODE[x.dtype if res is None else res.dtype]
     err = kernels().lib.tr_gemm(
-        _DTYPE_CODE[x.dtype], _ptr(x), M, x.shape[1], _ptr(w), _ptr(bias),
-        n_out, int(gelu), res_dtype, _ptr(res), _ptr(idx), rows_out, rows_in,
-        _DTYPE_CODE[y.dtype], _ptr(y),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPE_CODE[x.dtype], _ptr(x), M, x.shape[1], _ptr(w), int(w_kn),
+        _ptr(bias), n_out, int(gelu), _ptr(gelu_grad), _ptr(mul), res_dtype,
+        _ptr(res), _ptr(idx), rows_out, rows_in, _DTYPE_CODE[y.dtype],
+        _ptr(y), _ptr(col_sums), _stream(x))
     _check("tr_gemm", err)
 
 
-def short_attention(qkv, out, num_heads, scale, *, row0=None, colsum=None):
+def gemm_wgrad(dy, x, dw, db=None):
+    """dw [n_out, K] = dy^T x summed over the M rows of dy [M, n_out] and
+    x [M, K], and db [n_out] (if given) = the column sums of dy, both in
+    their own dtype. The rows are cut into slices, enough for about
+    REDUCE_BLOCKS blocks; each slice's fp32 partials are written apart
+    and summed in a fixed order, so the result is the same bits from run
+    to run. Contiguous CUDA tensors, checked by the caller."""
+    M, n_out = dy.shape
+    K = x.shape[1]
+    tiles = _cdiv(n_out, GEMM_TILE) * _cdiv(K, GEMM_TILE)
+    steps = max(1, _cdiv(M, WGRAD_SLICE_ROWS))
+    per = _cdiv(steps, max(1, min(_cdiv(REDUCE_BLOCKS, tiles), steps)))
+    rows_per_split = per * WGRAD_SLICE_ROWS
+    splits = _cdiv(steps, per)
+    ws = torch.empty(splits, n_out * K, dtype=torch.float32, device=dy.device)
+    bws = None if db is None else torch.empty(
+        splits, n_out, dtype=torch.float32, device=dy.device)
+    err = kernels().lib.tr_gemm_wgrad(
+        _DTYPE_CODE[dy.dtype], _ptr(dy), _ptr(x), M, n_out, K, splits,
+        rows_per_split, _ptr(ws), _ptr(bws), _stream(dy))
+    _check("tr_gemm_wgrad", err)
+    sum_partials(ws, dw.view(-1))
+    if db is not None:
+        sum_partials(bws, db)
+
+
+def sum_partials(part, out):
+    """out [L] = part [S, L] (fp32) summed over S in order, in out's
+    dtype."""
+    S, L = part.shape
+    err = kernels().lib.tr_sum_partials(
+        _ptr(part), S, L, _DTYPE_CODE[out.dtype], _ptr(out), _stream(part))
+    _check("tr_sum_partials", err)
+
+
+def short_attention(qkv, out, num_heads, scale, *, row0=None, colsum=None,
+                    norm_p=False):
     """out [B, N, D] = softmax(q k^T * scale) v per head, off qkv
-    [B, N, 3D]; optional fp32 row0 / colsum [B, H, N]. See
+    [B, N, 3D]; optional fp32 row0 / colsum [B, H, N]. ``norm_p`` rounds
+    the normalised probabilities before the value product (the training
+    forward), else the unnormalised ones (eval). See
     csrc/short_attention.cu."""
     B, N, _ = qkv.shape
     err = kernels().lib.tr_short_attention(
         _DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(out), _ptr(row0),
-        _ptr(colsum), B, N, num_heads, scale,
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        _ptr(colsum), B, N, num_heads, scale, int(norm_p), _stream(qkv))
     _check("tr_short_attention", err)
+
+
+def short_attention_bwd(qkv, dout, drow0, dqkv, num_heads, scale):
+    """dqkv [B, N, 3D] of the training attention (normalised
+    probabilities) from qkv [B, N, 3D], the merged heads' gradient dout
+    [B, N, D] and the fp32 row0 cotangent drow0 [B, H, N] (None for
+    zero). See csrc/short_attention.cu."""
+    B, N, _ = qkv.shape
+    err = kernels().lib.tr_short_attention_bwd(
+        _DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(dout), _ptr(drow0),
+        _ptr(dqkv), B, N, num_heads, scale, _stream(qkv))
+    _check("tr_short_attention_bwd", err)

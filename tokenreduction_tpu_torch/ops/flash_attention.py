@@ -49,12 +49,27 @@ SHORT_ATTENTION_MAX_N = 256
 HEAD_DIM = 64
 
 
-def layer_norm_f32(x32, weight, bias, eps: float):
-    """Two-pass fp32 LayerNorm over the last dim (the kernels' recipe)."""
+def layer_norm_stats(x32, eps: float):
+    """(x_hat, 1/sigma) of fp32 rows, two-pass (the kernels' recipe)."""
     mu = x32.mean(-1, keepdim=True)
     xc = x32 - mu
-    var = (xc * xc).mean(-1, keepdim=True)
-    return xc * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    return xc * rstd, rstd
+
+
+def layer_norm_f32(x32, weight, bias, eps: float):
+    """Two-pass fp32 LayerNorm over the last dim (the kernels' recipe)."""
+    return layer_norm_stats(x32, eps)[0] * weight.float() + bias.float()
+
+
+def layer_norm_bwd_ref(dln, x_hat, rstd, weight):
+    """(dx, d weight, d bias) of an fp32 LayerNorm over rows [M, K], from
+    the fp32 output gradient dln and the forward's x_hat and 1/sigma."""
+    dxhat = dln * weight.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * x_hat).mean(-1, keepdim=True)
+    return (rstd * (dxhat - m1 - x_hat * m2), (dln * x_hat).sum(0),
+            dln.sum(0))
 
 
 def linear_f32(x, weight, bias):

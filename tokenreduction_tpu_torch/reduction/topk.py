@@ -20,10 +20,11 @@ class TopKVisionTransformer(ViTBase):
         super().__init__(cfg, **kwargs)
         self.schedule = reduction_schedule(cfg)
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         """Logits; in eval with ``cfg.viz_mode`` also
         {"Kept_Tokens": {block: [B, k] patch-local ids in descending score
-        order}, "Features": {block: tokens after it}}."""
+        order}, "Features": {block: tokens after it}}. ``generator``: the
+        stochastic-depth masks' generator in training."""
         c = self.cfg
         x = self.embed(x)
         decisions = {}
@@ -31,7 +32,8 @@ class TopKVisionTransformer(ViTBase):
         for i, blk in enumerate(self.blocks):
             if i in c.reduction_loc:
                 left = self.schedule[c.reduction_loc.index(i)]
-                x, (cls_attn, _) = blk.attend(x, score="cls")
+                x, (cls_attn, _) = blk.attend(x, score="cls",
+                                              generator=generator)
                 if left < x.shape[1] - 1:
                     idx = torch.topk(cls_attn, left, dim=1, sorted=True)[1]
                     # one gather with CLS folded in: idx is over patch
@@ -40,11 +42,11 @@ class TopKVisionTransformer(ViTBase):
                                      dim=1)
                     if c.viz_mode:
                         decisions[i] = idx
-                    x = blk.ffn_gather(x, full)
+                    x = blk.ffn_gather(x, full, generator)
                 else:
-                    x = blk.ffn(x)
+                    x = blk.ffn(x, generator)
             else:
-                x, _ = blk(x)
+                x, _ = blk(x, generator=generator)
             if c.viz_mode and i in decisions:
                 features[i] = x
         if c.viz_mode and (c.depth - 1) not in features:
