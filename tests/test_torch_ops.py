@@ -21,6 +21,9 @@ import pytest
 import torch
 
 from tokenreduction_tpu.ops.flash_attention import (
+    fused_attention as jax_attention,
+)
+from tokenreduction_tpu.ops.flash_attention import (
     fused_block_attention as jax_block_attention,
 )
 from tokenreduction_tpu.ops.fused_full_block import (
@@ -29,9 +32,21 @@ from tokenreduction_tpu.ops.fused_full_block import (
 from tokenreduction_tpu.ops.fused_mlp import (
     fused_mlp_gather_residual as jax_mlp_gather,
 )
-from tokenreduction_tpu_torch.ops.flash_attention import fused_block_attention
+from tokenreduction_tpu.ops.fused_mlp import (
+    fused_mlp_residual as jax_mlp_residual,
+)
+from tokenreduction_tpu_torch.ops.flash_attention import (
+    fused_attention,
+    fused_block_attention,
+)
+from tokenreduction_tpu_torch.ops.flash_attention_train import (
+    attention_core_train,
+)
 from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
-from tokenreduction_tpu_torch.ops.fused_mlp import fused_mlp_gather_residual
+from tokenreduction_tpu_torch.ops.fused_mlp import (
+    fused_mlp_gather_residual,
+    fused_mlp_residual,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B = 2
@@ -127,13 +142,71 @@ def test_mlp_gather_refuses_out_of_range_ids(bad):
         fused_mlp_gather_residual(x, idx, *th(p, *MLP), eps=EPS)
 
 
+def log_sizes(shape, seed):
+    """A ToMe bias: the log of merged-token sizes 1..4."""
+    sizes = np.random.default_rng(seed).integers(1, 5, shape)
+    return np.log(sizes).astype(np.float32)
+
+
+@pytest.mark.parametrize("D,H", DIMS)
+@pytest.mark.parametrize("N", [17, 5, 2])
+def test_fused_block_attention_bias_and_keys_match_jax(D, H, N):
+    """ToMe's extensions: the per-key bias and the head-mean keys."""
+    p = make_params(D, seed=N + 2)
+    x = images((B, N, D), seed=400 + N)
+    bias = log_sizes((B, N), seed=N)
+    scale = (D // H) ** -0.5
+    ref = jax_block_attention(jnp.asarray(x), *jx(p, *ATTN), H, scale,
+                              eps=EPS, bias=jnp.asarray(bias),
+                              want_keys=True, interpret=True)
+    out = fused_block_attention(torch.from_numpy(x), *th(p, *ATTN), H, scale,
+                                eps=EPS, bias=torch.from_numpy(bias),
+                                want_keys=True)
+    assert len(out) == len(ref) == 4
+    for got, want in zip(out, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("D,H", DIMS)
+@pytest.mark.parametrize("N", [17, 5, 2])
+def test_fused_mlp_residual_matches_jax(D, H, N):
+    p = make_params(D, seed=N + 3)
+    x = images((B, N, D), seed=500 + N)
+    ref = jax_mlp_residual(jnp.asarray(x), *jx(p, *MLP), eps=EPS,
+                           interpret=True)
+    out = fused_mlp_residual(torch.from_numpy(x), *th(p, *MLP), eps=EPS)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("N,with_bias", [(17, True), (5, True), (17, False)])
+def test_fused_attention_matches_jax(hd, N, with_bias):
+    rng = np.random.default_rng(N + hd)
+    q, k, v = (rng.standard_normal((B, 3, N, hd)).astype(np.float32)
+               for _ in range(3))
+    bias = log_sizes((B, N), seed=hd) if with_bias else None
+    scale = hd ** -0.5
+    ref = jax_attention(*map(jnp.asarray, (q, k, v)), scale,
+                        bias=None if bias is None else jnp.asarray(bias),
+                        interpret=True)
+    out = fused_attention(*map(torch.from_numpy, (q, k, v)), scale,
+                          bias=None if bias is None
+                          else torch.from_numpy(bias))
+    for got, want in zip(out, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_wrappers_refuse_unported_extensions():
-    """The bias/mask/idx/keys extensions of fused_block_attention come
-    with their methods; until then they raise instead of ignoring."""
+    """The mask (heuristic) and idx (DyViT) extensions come with their
+    methods; until then they raise instead of ignoring."""
     p = make_params(32, seed=0)
     x = torch.from_numpy(images((B, 5, 32), seed=0))
-    for kw in (dict(bias=torch.zeros(B, 5)), dict(mask=torch.ones(B, 5)),
-               dict(idx=torch.zeros(B, 3, dtype=torch.int32)),
-               dict(want_keys=True)):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+    for kw, match in ((dict(mask=torch.ones(B, 5)), "heuristic"),
+                      (dict(idx=torch.zeros(B, 3, dtype=torch.int32)),
+                       "DyViT")):
+        with pytest.raises(NotImplementedError, match=match):
             fused_block_attention(x, *th(p, *ATTN), 2, 0.25, **kw)
+    q = torch.zeros(B, 2, 5, 16)
+    for fn in (fused_attention, attention_core_train):
+        with pytest.raises(NotImplementedError, match="heuristic"):
+            fn(q, q, q, 0.25, mask=torch.ones(B, 5))

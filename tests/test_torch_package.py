@@ -23,12 +23,14 @@ _CHILD = textwrap.dedent("""
 
     import tokenreduction_tpu_torch as T
     from tokenreduction_tpu_torch.ops.flash_attention import (
-        fused_block_attention)
+        fused_attention, fused_block_attention)
+    from tokenreduction_tpu_torch.ops.flash_attention_train import (
+        attention_core_train)
     from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
     from tokenreduction_tpu_torch.ops.fused_block_train import (
         attend_branch_train)
     from tokenreduction_tpu_torch.ops.fused_mlp import (
-        fused_mlp_gather_residual)
+        fused_mlp_gather_residual, fused_mlp_residual)
     from tokenreduction_tpu_torch.ops.fused_mlp_train import mlp_branch
     from tokenreduction_tpu_torch.train import losses
     from tokenreduction_tpu_torch.train.optim import (
@@ -36,10 +38,17 @@ _CHILD = textwrap.dedent("""
     from tokenreduction_tpu_torch.train.step import (
         StepConfig, init_train_state, make_train_step)
 
-    model, _ = T.create_model(
-        "topk_small_patch16_224", device="cpu", num_classes=11, img_size=32,
-        embed_dim=32, num_heads=2, depth=4, patch_size=8,
-        reduction_loc=(1, 2), keep_rate=(0.7,), drop_path_rate=0.1)
+    tiny = dict(device="cpu", num_classes=11, img_size=32, embed_dim=32,
+                num_heads=2, depth=4, patch_size=8, reduction_loc=(1, 2),
+                keep_rate=(0.7,))
+    tome, _ = T.create_model("tome_small_patch16_224", viz_mode=True, **tiny)
+    with torch.no_grad():
+        out, viz = tome.eval()(torch.randn(2, 3, 32, 32))
+    assert out.shape == (2, 11), out.shape
+    assert sorted(viz["Assignment_Maps"]) == [1, 2]
+    tome.train()(torch.randn(2, 3, 32, 32)).sum().backward()
+    model, _ = T.create_model("topk_small_patch16_224", drop_path_rate=0.1,
+                              **tiny)
     with torch.no_grad():
         out = model.eval()(torch.zeros(2, 3, 32, 32))
     assert out.shape == (2, 11), out.shape
@@ -61,17 +70,19 @@ _CHILD = textwrap.dedent("""
     assert "tokenreduction_tpu" not in sys.modules
     assert "tokenreduction_tpu_torch.ops._build" not in sys.modules
     counts = (fused_full_block.launches, fused_block_attention.launches,
-              fused_mlp_gather_residual.launches, attend_branch_train.launches,
-              mlp_branch.launches)
-    assert counts == (0, 0, 0, 0, 0), counts
+              fused_mlp_gather_residual.launches, fused_mlp_residual.launches,
+              fused_attention.launches, attend_branch_train.launches,
+              attention_core_train.launches, mlp_branch.launches)
+    assert counts == (0,) * 8, counts
     print("ok")
 """)
 
 
 def test_port_imports_and_runs_without_jax():
-    """A fresh interpreter imports the port and runs a tiny topk forward
-    and one amp train step (drop_path 0.1) on the CPU with no JAX, Flax
-    or optax module loaded, no kernel build and no kernel launch."""
+    """A fresh interpreter imports the port and runs a tiny ToMe forward
+    (eval and training), a tiny topk forward and one amp train step
+    (drop_path 0.1) on the CPU with no JAX, Flax or optax module loaded, no
+    kernel build and no kernel launch."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
@@ -95,26 +106,34 @@ def test_config_is_a_verbatim_copy():
 def test_cpu_forward_leaves_launch_counters_at_zero():
     from tokenreduction_tpu_torch import create_model
     from tokenreduction_tpu_torch.ops.flash_attention import (
+        fused_attention,
         fused_block_attention,
+    )
+    from tokenreduction_tpu_torch.ops.flash_attention_train import (
+        attention_core_train,
     )
     from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
     from tokenreduction_tpu_torch.ops.fused_mlp import (
         fused_mlp_gather_residual,
+        fused_mlp_residual,
     )
 
     wrappers = (fused_full_block, fused_block_attention,
-                fused_mlp_gather_residual)
+                fused_mlp_gather_residual, fused_mlp_residual,
+                fused_attention, attention_core_train)
     before = [w.launches for w in wrappers]
     for name, kw in (("deit_small_patch16_224_local", {}),
                      ("topk_small_patch16_224",
-                      dict(reduction_loc=(1, 2), keep_rate=(0.25,)))):
+                      dict(reduction_loc=(1, 2), keep_rate=(0.25,))),
+                     ("tome_small_patch16_224",
+                      dict(reduction_loc=(1, 2), keep_rate=(0.7,)))):
         model, _ = create_model(name, device="cpu", **TINY, **kw)
         with torch.no_grad():
             model.eval()(torch.zeros(1, 3, 32, 32))
-    assert [w.launches for w in wrappers] == before == [0, 0, 0]
+    assert [w.launches for w in wrappers] == before == [0] * 6
 
 
-@pytest.mark.parametrize("name", ["tome_small_patch16_224",
+@pytest.mark.parametrize("name", ["kmedoids_small_patch16_224",
                                   "evit_tiny_patch16_224",
                                   "dyvit_base_patch16_224_teacher",
                                   "regnety_160"])
@@ -132,7 +151,7 @@ def test_registry_names_and_unknown_name():
         f"{p}_{s}_patch16_224{x}"
         for s in ("tiny", "small", "base")
         for p, x in (("deit", "_local"), ("deit", "_local_viz"),
-                     ("topk", "")))
+                     ("topk", ""), ("tome", "")))
     with pytest.raises(KeyError):
         create_model("resnet50", device="cpu")
 
@@ -140,14 +159,17 @@ def test_registry_names_and_unknown_name():
 def test_model_for_config_rebuilds_ported_methods_only():
     from tokenreduction_tpu_torch.core.config import ViTConfig
     from tokenreduction_tpu_torch.models.registry import model_for_config
+    from tokenreduction_tpu_torch.reduction.tome import ToMeVisionTransformer
     from tokenreduction_tpu_torch.reduction.topk import TopKVisionTransformer
 
     cfg = ViTConfig(**TINY, method="topk", reduction_loc=(1,),
                     keep_rate=(0.5,))
     assert isinstance(model_for_config(cfg, device="cpu"),
                       TopKVisionTransformer)
+    assert isinstance(model_for_config(cfg.replace(method="tome"),
+                                       device="cpu"), ToMeVisionTransformer)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        model_for_config(cfg.replace(method="tome"), device="cpu")
+        model_for_config(cfg.replace(method="evit"), device="cpu")
 
 
 def test_unported_scores_and_ffn_raise():
@@ -157,7 +179,7 @@ def test_unported_scores_and_ffn_raise():
     x = torch.zeros(1, 5, 32)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         blk.attend(x, score="colsum")
-    # the plain ffn runs on the CPU
+    # the MLP half's plain version runs on the CPU
     assert blk.ffn(x).shape == x.shape
 
 

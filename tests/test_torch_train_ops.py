@@ -1,11 +1,13 @@
 """The port's training branches against the JAX custom-VJP Pallas kernels.
 
-``mlp_branch`` and ``attend_branch_train`` of the port run, on CPU
-tensors, their plain forward and their plain hand-written backward. The
+``mlp_branch``, ``attend_branch_train`` and ``attention_core_train`` of
+the port run, on CPU tensors, their plain forward and their plain
+hand-written backward. The
 JAX kernels run in interpret mode, as tests/test_fused_kernels.py runs
 them, forward and backward through ``jax.vjp``. Both sides get the same
-seeded numpy inputs and cotangents in fp32, including a non-zero
-cotangent of the attention's row0; weights go to the port transposed
+seeded numpy inputs and cotangents in fp32, including non-zero
+cotangents of the attention's row0 (and, for the core, of its colsum,
+with a per-key bias); weights go to the port transposed
 into nn.Linear's [out, in] layout and its weight gradients come back
 transposed.
 
@@ -25,7 +27,15 @@ import torch
 from tokenreduction_tpu.ops.fused_block_train import (
     attend_branch_train as jax_attend_branch,
 )
+from tokenreduction_tpu.ops.flash_attention_train import (
+    attention_core_train as jax_attention_core,
+)
 from tokenreduction_tpu.ops.fused_mlp_train import mlp_branch as jax_mlp_branch
+from tokenreduction_tpu_torch.ops.flash_attention import fused_attention_ref
+from tokenreduction_tpu_torch.ops.flash_attention_train import (
+    attention_core_train,
+    attention_core_train_bwd_ref,
+)
 from tokenreduction_tpu_torch.ops.fused_block_train import (
     attend_branch_train,
     attend_branch_train_bwd_ref,
@@ -151,3 +161,48 @@ def test_row0_cotangent_reaches_every_input():
     for moved in (dx, dls, dlb, dwqkv, dbqkv):
         assert moved.abs().max() > 0
     assert dwproj.abs().max() == 0 and dbproj.abs().max() == 0
+
+
+CORE_SHAPES = [(N, hd) for N in (12, 17) for hd in (16, 64)]
+
+
+def core_inputs(N, hd, seed):
+    """q, k, v [B, H, N, hd], a ToMe bias (log sizes) [B, N], and the
+    cotangents of out, row0 and colsum."""
+    rng = np.random.default_rng(seed)
+    qkv = [rand(rng, B, H, N, hd) for _ in range(3)]
+    bias = np.log(rng.integers(1, 5, (B, N))).astype(np.float32)
+    return (qkv, bias, rand(rng, B, H, N, hd), rand(rng, B, H, N),
+            rand(rng, B, H, N))
+
+
+@pytest.mark.parametrize("N,hd", CORE_SHAPES)
+def test_attention_core_train_matches_jax(N, hd):
+    qkv, bias, g, g0, gc = core_inputs(N, hd, seed=N + hd)
+    scale = hd ** -0.5
+    outs_ref, vjp = jax.vjp(
+        lambda q, k, v, b: jax_attention_core(q, k, v, scale, b, None, True),
+        *map(jnp.asarray, qkv), jnp.asarray(bias))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (*qkv, bias)]
+    outs = attention_core_train(*leaves[:3], scale, leaves[3])
+    for got, want in zip(outs, outs_ref):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **OUT_TOL)
+    grads = torch.autograd.grad(outs, leaves, tuple(
+        map(torch.from_numpy, (g, g0, gc))))
+    for got, want in zip(grads, vjp(tuple(map(jnp.asarray, (g, g0, gc))))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("N,hd", CORE_SHAPES)
+def test_attention_core_train_bwd_ref_matches_autograd(N, hd):
+    qkv, bias, g, g0, gc = core_inputs(N, hd, seed=2 * N + hd)
+    scale = hd ** -0.5
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (*qkv, bias)]
+    cots = tuple(map(torch.from_numpy, (g, g0, gc)))
+    want = torch.autograd.grad(
+        fused_attention_ref(*leaves[:3], scale, bias=leaves[3]), leaves, cots)
+    dq, dk, dv, dbias = attention_core_train_bwd_ref(
+        *leaves[:3], leaves[3], *cots, scale)
+    for a, b in zip((dq, dk, dv, dbias.sum(1)), want):
+        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), **REF_TOL)

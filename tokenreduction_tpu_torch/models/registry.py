@@ -1,8 +1,9 @@
 """Model registry: reference-compatible names -> (module, config).
 
 Counterpart of ``tokenreduction_tpu/models/registry.py``, with the names
-ported so far: ``deit_{tiny,small,base}_patch16_224_local(_viz)`` and
-``topk_{tiny,small,base}_patch16_224``. Every other name of the JAX
+ported so far: ``deit_{tiny,small,base}_patch16_224_local(_viz)``,
+``topk_{tiny,small,base}_patch16_224`` and
+``tome_{tiny,small,base}_patch16_224``. Every other name of the JAX
 registry raises ``NotImplementedError`` until its method is ported.
 """
 
@@ -13,12 +14,14 @@ from torch import nn
 
 from tokenreduction_tpu_torch.core.config import SIZE_PRESETS, ViTConfig
 from tokenreduction_tpu_torch.models.deit import VisionTransformer
+from tokenreduction_tpu_torch.reduction.tome import ToMeVisionTransformer
 from tokenreduction_tpu_torch.reduction.topk import TopKVisionTransformer
 
-_CLASSES = {"": VisionTransformer, "topk": TopKVisionTransformer}
+_CLASSES = {"": VisionTransformer, "topk": TopKVisionTransformer,
+            "tome": ToMeVisionTransformer}
 
 # methods of the JAX registry that wait for their slice of the port
-_NOT_PORTED = ("evit", "tome", "sit", "patchmerger", "sinkhorn", "dpcknn",
+_NOT_PORTED = ("evit", "sit", "patchmerger", "sinkhorn", "dpcknn",
                "kmedoids", "dyvit", "ats", "heuristic")
 
 _REGISTRY = {}  # name -> (method key, size, module kwargs)
@@ -28,6 +31,7 @@ for _size in SIZE_PRESETS:
     _REGISTRY[f"deit_{_size}_patch16_224_local_viz"] = (
         "", _size, {"capture_features": True})
     _REGISTRY[f"topk_{_size}_patch16_224"] = ("topk", _size, {})
+    _REGISTRY[f"tome_{_size}_patch16_224"] = ("tome", _size, {})
     _REFERENCE_ONLY.add(f"dyvit_{_size}_patch16_224_teacher")
     _REFERENCE_ONLY.update(f"{m}_{_size}_patch16_224" for m in _NOT_PORTED)
 

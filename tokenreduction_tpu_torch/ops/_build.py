@@ -28,6 +28,11 @@ import time
 
 import torch
 
+from tokenreduction_tpu_torch.ops.flash_attention import (
+    merged_heads,
+    packed_heads,
+)
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2] / "build"
               / "tokenreduction_tpu_torch")
@@ -44,6 +49,7 @@ WGRAD_SLICE_ROWS = 32  # a weight-gradient slice is whole K steps of 32 rows
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)  # strides, in elements
 _SIGNATURES = {
     "tr_layer_norm": (_I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P, _P),
     "tr_layer_norm_bwd": (_I, _P, _P, _I, _I, _P, _F, _P, _P, _I, _P),
@@ -51,8 +57,11 @@ _SIGNATURES = {
                 _I, _I, _P, _P, _P),
     "tr_gemm_wgrad": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "tr_sum_partials": (_P, _I, _I, _I, _P, _P),
-    "tr_short_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    "tr_short_attention_bwd": (_I, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "tr_short_attention": (_I, _P, _P, _P, _P, _S, _P, _P, _P, _I, _I, _I, _F,
+                           _I, _P),
+    "tr_short_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _S, _P, _P, _P,
+                               _P, _I, _I, _I, _F, _P),
+    "tr_head_mean_keys": (_I, _P, _P, _I, _I, _I, _P),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -170,6 +179,36 @@ def check_shapes(name: str, *pairs):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
+
+
+def heads_loadable(t: torch.Tensor) -> bool:
+    """Whether the attention kernels read the [B, H, N, hd] operand t
+    through its strides: a contiguous head dim, other strides that are
+    multiples of 8 and a 16-byte aligned start (they load rows of 8
+    elements at once)."""
+    return (t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def check_heads(name: str, *heads: torch.Tensor):
+    """Raise unless every [B, H, N, hd] operand has the first one's dtype
+    (float32 or bfloat16), shape and CUDA device and ``heads_loadable``."""
+    first = heads[0]
+    if first.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {first.dtype} is neither float32 nor "
+                        "bfloat16")
+    for t in heads:
+        if t.dim() != 4 or t.shape != first.shape:
+            raise ValueError(f"{name}: expected [B, H, N, hd] operands of "
+                             f"shape {tuple(first.shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != first.dtype or t.device != first.device:
+            raise TypeError(f"{name}: operands of {t.dtype} on {t.device} and "
+                            f"{first.dtype} on {first.device}")
+        if not heads_loadable(t):
+            raise ValueError(f"{name}: an operand's head dim must be "
+                             "contiguous, its other strides multiples of 8 "
+                             "and its start 16-byte aligned")
 
 
 def check_idx(name: str, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -290,27 +329,72 @@ def sum_partials(part, out):
     _check("tr_sum_partials", err)
 
 
-def short_attention(qkv, out, num_heads, scale, *, row0=None, colsum=None,
-                    norm_p=False):
-    """out [B, N, D] = softmax(q k^T * scale) v per head, off qkv
-    [B, N, 3D]; optional fp32 row0 / colsum [B, H, N]. ``norm_p`` rounds
-    the normalised probabilities before the value product (the training
-    forward), else the unnormalised ones (eval). See
-    csrc/short_attention.cu."""
-    B, N, _ = qkv.shape
+def _strides(*heads):
+    """The (batch, head, row) strides of [B, H, N, hd] operands, as the
+    kernels take them."""
+    vals = [s for t in heads for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def short_attention_heads(q, k, v, out, scale, *, bias=None, row0=None,
+                          colsum=None, norm_p=False):
+    """out = softmax(q k^T * scale [+ bias]) v per (image, head): q, k, v
+    and out [B, H, N, 64] with the head dim contiguous and any other
+    strides (multiples of 8 in bf16); optional fp32 bias [B, N] (per key)
+    and fp32 row0 / colsum [B, H, N]. ``norm_p`` rounds the normalised
+    probabilities before the value product (the training branch's
+    forward), else the unnormalised ones (eval, and the training core's
+    forward). See csrc/short_attention.cu."""
+    B, H, N, _ = q.shape
     err = kernels().lib.tr_short_attention(
-        _DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(out), _ptr(row0),
-        _ptr(colsum), B, N, num_heads, scale, int(norm_p), _stream(qkv))
+        _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+        _strides(q, k, v, out), _ptr(bias), _ptr(row0), _ptr(colsum), B, N,
+        H, scale, int(norm_p), _stream(q))
     _check("tr_short_attention", err)
 
 
-def short_attention_bwd(qkv, dout, drow0, dqkv, num_heads, scale):
-    """dqkv [B, N, 3D] of the training attention (normalised
-    probabilities) from qkv [B, N, 3D], the merged heads' gradient dout
-    [B, N, D] and the fp32 row0 cotangent drow0 [B, H, N] (None for
-    zero). See csrc/short_attention.cu."""
-    B, N, _ = qkv.shape
+def short_attention(qkv, out, num_heads, scale, *, bias=None, row0=None,
+                    colsum=None, norm_p=False):
+    """``short_attention_heads`` off a packed qkv [B, N, 3D], written as
+    merged heads out [B, N, D]."""
+    short_attention_heads(*packed_heads(qkv, num_heads),
+                          merged_heads(out, num_heads), scale, bias=bias,
+                          row0=row0, colsum=colsum, norm_p=norm_p)
+
+
+def short_attention_bwd_heads(q, k, v, dout, dq, dk, dv, scale, *, bias=None,
+                              drow0=None, dcs=None, dbias=None):
+    """dq, dk, dv of the attention with the normalised probabilities
+    (every operand [B, H, N, 64] as in ``short_attention_heads``) from
+    q, k, v, the output's gradient dout, the fp32 bias [B, N] and the fp32
+    cotangents of row0 (drow0) and colsum (dcs) [B, H, N]; with dbias
+    [B, H, N] fp32 also the per-head bias gradient, the unscaled dS summed
+    over the queries. None is zero (or, for dbias, not written). See
+    csrc/short_attention.cu."""
+    B, H, N, _ = q.shape
     err = kernels().lib.tr_short_attention_bwd(
-        _DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(dout), _ptr(drow0),
-        _ptr(dqkv), B, N, num_heads, scale, _stream(qkv))
+        _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq),
+        _ptr(dk), _ptr(dv), _strides(q, k, v, dout, dq, dk, dv), _ptr(bias),
+        _ptr(drow0), _ptr(dcs), _ptr(dbias), B, N, H, scale, _stream(q))
     _check("tr_short_attention_bwd", err)
+
+
+def short_attention_bwd(qkv, dout, drow0, dqkv, num_heads, scale):
+    """``short_attention_bwd_heads`` off a packed qkv [B, N, 3D] and the
+    merged heads' gradient dout [B, N, D], written as the packed dqkv
+    [B, N, 3D]."""
+    short_attention_bwd_heads(*packed_heads(qkv, num_heads),
+                              merged_heads(dout, num_heads),
+                              *packed_heads(dqkv, num_heads), scale,
+                              drow0=drow0)
+
+
+def head_mean_keys(qkv, keys, num_heads):
+    """keys [B, N, hd] = the head mean of the keys of a packed qkv
+    [B, N, 3D], summed in fp32 in head order and rounded once. See
+    csrc/short_attention.cu."""
+    B, N, D3 = qkv.shape
+    err = kernels().lib.tr_head_mean_keys(
+        _DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(keys), B * N, num_heads,
+        D3 // 3 // num_heads, _stream(qkv))
+    _check("tr_head_mean_keys", err)

@@ -56,8 +56,8 @@ def fused_full_block_ref(x, ls1, lb1, wqkv, bqkv, wproj, bproj, ls2, lb2, w1,
                          b1, w2, b2, num_heads: int, scale: float, *,
                          eps: float = 1e-6):
     """Plain PyTorch version of ``fused_full_block``."""
-    y32, _, _ = attention_residual_ref(x, ls1, lb1, wqkv, bqkv, wproj, bproj,
-                                       num_heads, scale, eps)
+    y32 = attention_residual_ref(x, ls1, lb1, wqkv, bqkv, wproj, bproj,
+                                 num_heads, scale, eps)[0]
     return mlp_residual_ref(y32, ls2, lb2, w1, b1, w2, b2, eps).to(x.dtype)
 
 
@@ -73,9 +73,9 @@ def fused_full_block(x, ls1, lb1, wqkv, bqkv, wproj, bproj, ls2, lb2, w1, b1,
     check_attention_operands("fused_full_block", x, num_heads, ls1, lb1,
                              wqkv, bqkv, wproj, bproj)
     check_mlp_operands("fused_full_block", x, ls2, lb2, w1, b1, w2, b2)
-    y32, _, _ = attention_half_cuda(x, ls1, lb1, wqkv, bqkv, wproj, bproj,
-                                    num_heads, scale, eps, with_scores=False,
-                                    out_dtype=torch.float32)
+    y32 = attention_half_cuda(x, ls1, lb1, wqkv, bqkv, wproj, bproj,
+                              num_heads, scale, eps, with_scores=False,
+                              out_dtype=torch.float32)[0]
     out = mlp_half_cuda(y32, None, ls2, lb2, w1, b1, w2, b2, eps,
                         out_dtype=x.dtype)
     fused_full_block.launches += 1

@@ -1,9 +1,12 @@
-"""The MLP half of a transformer block with the top-k row gather fused in.
+"""The MLP half of a transformer block, with or without a row gather.
 
-``fused_mlp_gather_residual`` is the counterpart of
+``fused_mlp_residual`` is the counterpart of
+``tokenreduction_tpu/ops/fused_mlp.py:137 fused_mlp_residual``, and
+``fused_mlp_gather_residual`` of
 ``tokenreduction_tpu/ops/fused_mlp.py:192 fused_mlp_gather_residual``:
 
-    g = x[b, idx[b]];  out = g + fc2(gelu(fc1(LN2 g)))
+    out = x + fc2(gelu(fc1(LN2 x)))                  (every row, in order)
+    g = x[b, idx[b]];  out = g + fc2(gelu(fc1(LN2 g)))  (the top-k rows)
 
 LayerNorm, the exact-erf GELU and accumulation are fp32; the LN output
 and the hidden activations are rounded to the input dtype, as on the TPU.
@@ -14,12 +17,12 @@ Where it splits, and why: the TPU kernel keeps both weight matrices and
 the [K, 4D] hidden tile in VMEM. On the card the counterpart is three
 launches of the hand-written kernels in ``csrc/ln_gemm.cu``:
 
-1. ``layer_norm``: gather through idx and LN2, writing the normalised
-   rows [B*K, D];
+1. ``layer_norm``: LN2 (gathering through idx, if any), writing the
+   normalised rows [B*K, D];
 2. ``gemm``: fc1 with its bias and GELU in the epilogue, the hidden
    tensor [B*K, 4D];
-3. ``gemm``: fc2, with its bias and the residual, gathered through the
-   same idx, in its epilogue.
+3. ``gemm``: fc2, with its bias and the residual (gathered through the
+   same idx, if any) in its epilogue.
 
 The normalised rows and the hidden tensor each make one round trip
 through device memory.
@@ -30,7 +33,8 @@ fill and epilogue weigh more than tensor-core operations. This is a
 simple first version on mma.sync; wgmma, TMA and keeping the hidden
 tensor on chip are later work.
 
-On a CPU tensor the wrapper runs ``fused_mlp_gather_residual_ref``; on a
+On a CPU tensor each wrapper runs its plain version
+(``fused_mlp_residual_ref``, ``fused_mlp_gather_residual_ref``); on a
 CUDA tensor it launches the kernels or raises.
 """
 
@@ -54,6 +58,13 @@ def mlp_residual_ref(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
     ln = layer_norm_f32(x32, ln_scale, ln_bias, eps).to(w1.dtype)
     h = F.gelu(linear_f32(ln, w1, b1)).to(w1.dtype)
     return x32 + linear_f32(h, w2, b2)
+
+
+def fused_mlp_residual_ref(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
+                           eps: float = 1e-6):
+    """Plain PyTorch version of ``fused_mlp_residual``."""
+    return mlp_residual_ref(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                            eps).to(x.dtype)
 
 
 def fused_mlp_gather_residual_ref(x, idx, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -122,3 +133,21 @@ def fused_mlp_gather_residual(x, idx, ln_scale, ln_bias, w1, b1, w2, b2, *,
 
 
 fused_mlp_gather_residual.launches = 0
+
+
+def fused_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
+                       eps: float = 1e-6):
+    """x [..., N, D] -> x + fc2(gelu(fc1(LN2 x))), the same shape. Weights
+    in nn.Linear's [out, in] layout: w1 [4D, D], w2 [D, 4D]."""
+    if not x.is_cuda:
+        return fused_mlp_residual_ref(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                      eps=eps)
+    rows = x.reshape(1, -1, x.shape[-1])  # the rows of every image at once
+    check_mlp_operands("fused_mlp_residual", rows, ln_scale, ln_bias, w1, b1,
+                       w2, b2)
+    out = mlp_half_cuda(rows, None, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    fused_mlp_residual.launches += 1
+    return out.view(x.shape)
+
+
+fused_mlp_residual.launches = 0

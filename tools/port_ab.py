@@ -1,4 +1,4 @@
-"""Time the PyTorch port's eval path in two checkouts, in turns, on one card.
+"""Time the PyTorch port in two checkouts, in turns, on one card.
 
     python3 tools/port_ab.py PARENT_DIR CHANGE_DIR [--pairs 3]
 
@@ -8,11 +8,12 @@ child takes its timer (``cuda_ms``, CUDA events) and its seeded DeiT-S
 block weights (``block_params``) from that checkout's ``chip_smoke.py``.
 Each run prints the times, in ms, of one full block (``fused_full_block``,
 bf16, B=256, N=197, median of 50), of the qkv GEMM alone at the same rows
-(median of 50), and of a dense DeiT-S bf16 b256 forward (median of 10);
-and, per launch, of ten back-to-back launches between one pair of events
-(median of 20), so that the host's launch cost is hidden: the qkv GEMM,
-the fc1 GEMM with GELU, the attention and the LayerNorm at the same
-shapes. The last lines give each checkout's medians over its runs. Needs
+(median of 50), and of a dense DeiT-S bf16 b256 forward (median of 10), of
+the topk@0.7 and dense train steps (``train_run``: bench.py's recipe at
+b256, the median of steps 3-6 on the host clock), and, per launch, of ten
+back-to-back launches between one pair of events (median of 20), so
+that the host's launch cost is hidden: the qkv GEMM, the fc1 GEMM with
+GELU, the attention and the LayerNorm at the same shapes. The last lines give each checkout's medians over its runs. Needs
 one CUDA card; numbers from separate calls are not compared.
 """
 
@@ -27,8 +28,8 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import json, torch
-from chip_smoke import D, H4, HEADS, SCALE, block_params, cuda_ms
+import json, statistics, torch
+from chip_smoke import D, H4, HEADS, SCALE, block_params, cuda_ms, train_run
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.ops import _build
 from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
@@ -58,8 +59,13 @@ model, _ = create_model("deit_small_patch16_224_local", device="cuda",
 model = model.to(bf16).eval()
 images = torch.randn(B, 3, 224, 224, generator=g).to("cuda", bf16)
 qkv_gemm = lambda: _build.gemm(ln, p["wqkv"], p["bqkv"], qkv.view(B * N, -1))
+def train_ms(label):
+    return 1e3 * statistics.median(train_run(label, 6)[0][2:])
+
+steps = dict(train_topk=train_ms("topk@0.7"), train_dense=train_ms("dense"))
 with torch.no_grad():
     print(json.dumps(dict(
+        **steps,
         full_block=cuda_ms(lambda: fused_full_block(x, *p.values(), HEADS,
                                                     SCALE), 50),
         gemm_qkv=cuda_ms(qkv_gemm, 50),
