@@ -23,6 +23,15 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    ToMe's eval counterparts: fused_block_attention with a per-key bias
    (log sizes) and the head-mean keys, and fused_mlp_residual, at ToMe@0.7's
    widths 197, 138, 97, 68.
+   ATS's: fused_block_attention with a validity mask at the widths of
+   ATS@0.7 and @0.25 (197 ... 4), fused_attention and fused_attention_qkv
+   with the mask at 197, 138, 97, 68, and fused_rect_attention and
+   fused_rect_block at their (kept rows M, keys N) pairs 138x197, 97x138,
+   68x97, 50x197, 13x50, 4x13; each mask has tokens off (fully masked
+   query rows), each kept-row set pads (CLS copies) and a dead slot. Their
+   bf16 launches alone: the masked attention (eval and normalised-P), the
+   rectangular attention and the out projection with the gathered
+   residual.
    Training kernels (attend_branch_train, mlp_branch, attention_core_train):
    forward outputs and every gradient, with non-zero row0 (and, for the
    core, colsum) cotangents, against the plain forward and the plain
@@ -35,9 +44,12 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    [B, H, N, hd] views) as above.
    Beside each counterpart's time: its bound (bytes or operations at the
    H100's peak rates) and the eager bf16 composition of library calls
-   (F.layer_norm, F.linear, scaled_dot_product_attention with the bias as
-   its mask, autograd for the backward) computing the same function.
-3. models: DeiT-S dense, topk@0.7, topk@0.25 and ToMe@0.7 (loc 3 6 9) at
+   (F.layer_norm, F.linear, scaled_dot_product_attention with the bias and
+   the pair mask as its float mask, the kept query rows gathered first for
+   the rectangular attention, autograd for the backward) computing the same
+   function.
+3. models: DeiT-S dense, topk@0.7, topk@0.25, ToMe@0.7 and ATS@0.7 (loc 3 6
+   9, widths 197 -> 138 -> 97 -> 68) at
    full width with seeded weights on the card (kernels) against the same
    model on the CPU (plain versions), with the launch counts of one
    forward. fp32 at B=8: logits within 1e-4 of max|CPU|, the same top-1,
@@ -49,15 +61,21 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    the top-k scores lie closer than a bf16 ulp and a few kept ids differ;
    the reducing models' bf16 logits, which then see other tokens, are
    reported only. Kept_Tokens flips (same id at the same rank) are
-   reported.
+   reported. ATS: fp32 Kept_Tokens equal to the CPU's; bf16 two forwards
+   with the same logits and Kept_Tokens, the share of Kept_Tokens equal to
+   the CPU's and the top-1 agreement reported only (inverse-transform
+   sampling flips at the smallest score drift).
    Training, drop_path 0: the loss and every gradient of dense, topk@0.7
    and ToMe@0.7 on the card against the CPU, fp32 at B=8 (1e-4 of each
    leaf's max|CPU|, the same kept ids and merges) and bf16 amp at B=32
    (bounds set from measured runs), and the launches of one train step:
    12 forwards and 12 backwards of each training branch (ToMe: the
    attention branch in blocks 0-3, the attention core in blocks 4-11).
-4. serve: 5 batches of 256 bf16 images through each model; outputs must
-   be finite; img/s over batches 2-5.
+4. serve: 5 batches of 256 bf16 images through each model (ATS@0.7
+   included); outputs must be finite; img/s over batches 2-5. Then, not
+   counted, one ATS@0.7 forward that must not wait for the card (no host
+   synchronisation that PyTorch reports), and a torch.profiler window of
+   two: the device's busy share and its time per forward by kernel.
 5. train: bench.py's train step for dense, topk@0.7 and ToMe@0.7 -- b256,
    amp, drop_path 0.1 from a seeded CUDA generator, grouped AdamW lr 1e-3
    with backbone_lr_scale 0.01, clip 1.0, EMA 0.99996, label smoothing 0.1
@@ -69,7 +87,11 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    per step by kernel.
 
 Phases 4 and 5 are the main path's runs: each counterpart's launch count
-is set to 0 just before and read just after.
+is set to 0 just before and read just after. fused_attention,
+fused_attention_qkv and fused_rect_attention run on no model's path
+(the first is the training core's forward, counted there; the last is
+fused_rect_block's attention stage): they must launch 0 times there, and
+their records say so.
 
 No failure is caught: any phase that fails ends the script with a
 traceback and a non-zero exit code, before the result lines. The last two
@@ -85,6 +107,7 @@ import pathlib
 import statistics
 import subprocess
 import time
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -95,15 +118,23 @@ from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.ops.flash_attention import (
     attention_ref,
     fused_attention,
+    fused_attention_qkv,
+    fused_attention_qkv_ref,
     fused_attention_ref,
     fused_block_attention,
     fused_block_attention_ref,
+    fused_rect_attention,
+    fused_rect_attention_ref,
+    fused_rect_block,
+    fused_rect_block_ref,
     head_mean_keys_ref,
     layer_norm_bwd_ref,
     layer_norm_f32,
     layer_norm_stats,
     linear_f32,
+    merged_heads,
     packed_heads,
+    rect_attention_ref,
 )
 from tokenreduction_tpu_torch.ops.flash_attention_train import (
     attention_core_train,
@@ -159,6 +190,10 @@ KEPT_SET = {torch.float32: 1.0, torch.bfloat16: 0.9}  # share of kept ids
 # share of ToMe's Assignment_Maps entries equal to the CPU's (bf16: bound
 # set from the measured 0.928)
 ASSIGN_SAME = {torch.float32: 1.0, torch.bfloat16: 0.9}
+# share of ATS's Kept_Tokens equal to the CPU's (bf16: bound set from the
+# measured 0.9918 with these random weights; trained weights flip more,
+# tools/tpu_parity.py:456-459, and are not checked here)
+ATS_SAME = {torch.float32: 1.0, torch.bfloat16: 0.95}
 # one train step on the card against the CPU, of each tensor's max|CPU|:
 # fp32 the loss and every gradient leaf, with the same kept ids. bf16 amp
 # (bounds set from measured runs: loss 4.5e-3, dense gradients 1.6e-2):
@@ -175,13 +210,22 @@ EVAL_WRAPPERS = {
     "fused_block_attention": fused_block_attention,
     "fused_mlp_gather_residual": fused_mlp_gather_residual,
     "fused_mlp_residual": fused_mlp_residual,
+    "fused_rect_block": fused_rect_block,
 }
 TRAIN_WRAPPERS = {
     "attend_branch_train": attend_branch_train,
     "mlp_branch": mlp_branch,
     "attention_core_train": attention_core_train,
 }
-WRAPPERS = {**EVAL_WRAPPERS, **TRAIN_WRAPPERS}
+# counterparts that no model of the main path calls: the attention core
+# alone (the training core's forward, counted there), its packed-qkv form
+# and the rectangular attention (fused_rect_block's attention stage)
+OFF_PATH_WRAPPERS = {
+    "fused_attention": fused_attention,
+    "fused_attention_qkv": fused_attention_qkv,
+    "fused_rect_attention": fused_rect_attention,
+}
+WRAPPERS = {**EVAL_WRAPPERS, **TRAIN_WRAPPERS, **OFF_PATH_WRAPPERS}
 REPLACES = {
     "fused_full_block": "tokenreduction_tpu/ops/fused_full_block.py:118",
     "fused_block_attention": "tokenreduction_tpu/ops/flash_attention.py:660",
@@ -191,6 +235,10 @@ REPLACES = {
     "mlp_branch": "tokenreduction_tpu/ops/fused_mlp_train.py:257",
     "attention_core_train":
         "tokenreduction_tpu/ops/flash_attention_train.py:172",
+    "fused_attention": "tokenreduction_tpu/ops/flash_attention.py:183",
+    "fused_attention_qkv": "tokenreduction_tpu/ops/flash_attention.py:313",
+    "fused_rect_attention": "tokenreduction_tpu/ops/flash_attention.py:817",
+    "fused_rect_block": "tokenreduction_tpu/ops/flash_attention.py:925",
 }
 # the kernel wrapper of each counterpart, and the CUDA sources it launches
 # (the first is the record's "source")
@@ -202,7 +250,11 @@ WRAPPER_SOURCES = {
                          ("fused_mlp_residual", "fused_mlp"),
                          ("attend_branch_train", "fused_block_train"),
                          ("mlp_branch", "fused_mlp_train"),
-                         ("attention_core_train", "flash_attention_train"))}
+                         ("attention_core_train", "flash_attention_train"),
+                         ("fused_attention", "flash_attention"),
+                         ("fused_attention_qkv", "flash_attention"),
+                         ("fused_rect_attention", "flash_attention"),
+                         ("fused_rect_block", "flash_attention"))}
 LN_GEMM = "tokenreduction_tpu_torch/csrc/ln_gemm.cu"
 ATTENTION = "tokenreduction_tpu_torch/csrc/short_attention.cu"
 CUDA_SOURCES = {
@@ -213,6 +265,10 @@ CUDA_SOURCES = {
     "attend_branch_train": [ATTENTION, LN_GEMM],
     "mlp_branch": [LN_GEMM],
     "attention_core_train": [ATTENTION],
+    "fused_attention": [ATTENTION],
+    "fused_attention_qkv": [ATTENTION],
+    "fused_rect_attention": [ATTENTION],
+    "fused_rect_block": [ATTENTION, LN_GEMM],
 }
 FULL_BLOCK_N = (197, 138, 97, 68, 50, 13, 4)
 BLOCK_ATTN_N = (197, 138, 97, 50, 13)
@@ -222,6 +278,10 @@ MLP_GATHER_NK = ((197, 138), (138, 97), (97, 68), (197, 50), (50, 13),
 # ToMe@0.7's stages (eval and training)
 TRAIN_N = (197, 138, 97, 68)
 TOME_N = TRAIN_N
+# ATS: the widths of the masked blocks at keep 0.7 and 0.25, and the
+# (kept rows M, keys N) of their sampling blocks
+ATS_N = (197, 138, 97, 68, 50, 13, 4)
+RECT_MN = ((138, 197), (97, 138), (68, 97), (50, 197), (13, 50), (4, 13))
 GRAD_NAMES = {
     "attend_branch_train": ("branch", "row0", "dx", "d ln1 scale",
                             "d ln1 bias", "d wqkv", "d bqkv", "d wproj",
@@ -239,32 +299,37 @@ MODELS = {
                   dict(reduction_loc=(3, 6, 9), keep_rate=(0.25,))),
     "tome@0.7": ("tome_small_patch16_224",
                  dict(reduction_loc=(3, 6, 9), keep_rate=(0.7,))),
+    "ats@0.7": ("ats_small_patch16_224",
+                dict(reduction_loc=(3, 6, 9), keep_rate=(0.7,))),
 }
 TRAIN_MODELS = ("dense", "topk@0.7", "tome@0.7")
-NO_TRAIN = dict.fromkeys(TRAIN_WRAPPERS, 0)
-NO_EVAL = dict.fromkeys(EVAL_WRAPPERS, 0)
+NONE = dict.fromkeys(WRAPPERS, 0)
 # launches of one forward: 12 score-less blocks (dense); 9 score-less
 # blocks and 3 reduction blocks (topk at loc 3 6 9); 12 attention and 12
-# MLP halves (ToMe)
+# MLP halves (ToMe); 9 masked attention halves, 3 sampling blocks and 12
+# MLP halves (ATS)
 PER_FORWARD = {
-    "dense": {**NO_EVAL, **NO_TRAIN, "fused_full_block": 12},
-    "topk@0.7": {**NO_EVAL, **NO_TRAIN, "fused_full_block": 9,
+    "dense": {**NONE, "fused_full_block": 12},
+    "topk@0.7": {**NONE, "fused_full_block": 9,
                  "fused_block_attention": 3, "fused_mlp_gather_residual": 3},
-    "tome@0.7": {**NO_EVAL, **NO_TRAIN, "fused_block_attention": 12,
+    "tome@0.7": {**NONE, "fused_block_attention": 12,
                  "fused_mlp_residual": 12},
+    "ats@0.7": {**NONE, "fused_block_attention": 9, "fused_rect_block": 3,
+                "fused_mlp_residual": 12},
 }
 PER_FORWARD["topk@0.25"] = PER_FORWARD["topk@0.7"]
 # launches of one train step, a forward and a backward each: every MLP
 # half's mlp_branch; every attention half's attend_branch_train, except
 # ToMe's after its first merge (blocks 4-11, with the size bias), which
 # take the attention core
+NO_TRAIN = dict.fromkeys(TRAIN_WRAPPERS, 0)
 PER_TRAIN_STEP_BWD = {
     "dense": {**NO_TRAIN, "attend_branch_train": 12, "mlp_branch": 12},
     "tome@0.7": {**NO_TRAIN, "attend_branch_train": 4, "mlp_branch": 12,
                  "attention_core_train": 8},
 }
 PER_TRAIN_STEP_BWD["topk@0.7"] = PER_TRAIN_STEP_BWD["dense"]
-PER_TRAIN_STEP = {label: {**NO_EVAL, **{k: 2 * n for k, n in bwd.items()}}
+PER_TRAIN_STEP = {label: {**NONE, **{k: 2 * n for k, n in bwd.items()}}
                   for label, bwd in PER_TRAIN_STEP_BWD.items()}
 SERVE_BATCHES, SERVE_B = 5, 256
 TRAIN_STEPS, TRAIN_B = 8, 256
@@ -306,12 +371,16 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(name: str, B: int, N: int, K: int | None = None):
+def bound(name: str, B: int, N: int, K: int | None = None,
+          masked: bool = False):
     """(least ms, "bytes" or "operations") of a bf16 counterpart at these
-    shapes: each input read once and each output written once over the
-    H100's memory rate, against the products' operations (forward, and
+    shapes (K: the gathered MLP's rows, or the rectangular attention's
+    kept rows): each input read once and each output written once over
+    the H100's memory rate, against the products' operations (forward, and
     for the training counterparts also backward, with no recompute) over
-    its bf16 tensor-core rate."""
+    its bf16 tensor-core rate. Of a packed qkv or an x that is read through
+    kept-row ids, only the kept rows count. ``masked``: a bool validity
+    mask [B, N] read too (the rectangular counterparts always read one)."""
     E, M = 2, B * N
     attn_w = 4 * D * D + 6 * D  # wqkv, bqkv, wproj, bproj, LN scale, bias
     mlp_w = 8 * D * D + H4 + 3 * D
@@ -331,6 +400,16 @@ def bound(name: str, B: int, N: int, K: int | None = None):
     elif name == "fused_attention":  # q, k, v, bias in; out, row0, colsum
         flops = 4 * B * N * N * D
         nbytes = E * 4 * M * D + 2 * by_products + 4 * B * N
+    elif name == "fused_attention_qkv":  # qkv in; out, row0, colsum
+        flops = 4 * B * N * N * D
+        nbytes = E * 4 * M * D + 2 * by_products
+    elif name == "fused_rect_attention":  # kept q rows, k, v, the one-hot
+        flops = 4 * B * K * N * D  # [B, K, N] and the mask in; [B, K, D] out
+        nbytes = E * (2 * M * D + 2 * B * K * D + B * K * N) + B * N
+    elif name == "fused_rect_block":  # kept q and x rows, k, v, int64 ids,
+        flops = 4 * B * K * N * D + 2 * B * K * D * D  # mask, wproj, bproj
+        nbytes = E * (2 * M * D + 3 * B * K * D + D * D + D) + 8 * B * K \
+            + B * N
     elif name == "attend_branch_train":  # x, dy, drow0 in; out, row0, dx,
         flops = 24 * M * D * D + 12 * B * N * N * D  # and the grads out
         nbytes = E * (4 * M * D + 2 * attn_w) + 2 * by_products
@@ -340,6 +419,8 @@ def bound(name: str, B: int, N: int, K: int | None = None):
     else:  # mlp_branch
         flops = 48 * M * D * D
         nbytes = E * (4 * M * D + 2 * mlp_w)
+    if masked:
+        nbytes += B * N
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
         else "bytes"
@@ -347,20 +428,37 @@ def bound(name: str, B: int, N: int, K: int | None = None):
 
 # ---- the eager bf16 compositions of library calls (timing yardsticks;
 # the port never calls them)
-def library_core(q, k, v, scale, bias=None):
-    """(softmax(q k^T * scale [+ bias]) v, the fp32 CLS row of the
-    probabilities, None) over [B, H, N, hd]: no column mass. Also a drop-in
-    for attention_core_train in Attention (phase 5)."""
-    mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
-    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+def float_mask(dtype, bias=None, q_valid=None, k_valid=None):
+    """SDPA's float mask [B, 1, M, N] in ``dtype``: the per-key bias and,
+    with the validity of queries and keys, the dtype's lowest value on
+    every pair with an invalid token (a bool mask would give NaN on a
+    fully masked row)."""
+    mask = None if bias is None else bias.to(dtype)[:, None, None, :]
+    if k_valid is not None:
+        pair = q_valid[:, None, :, None] & k_valid[:, None, None, :]
+        low = torch.zeros(pair.shape, dtype=dtype, device=pair.device) \
+            .masked_fill_(~pair, torch.finfo(dtype).min)
+        mask = low if mask is None else mask + low
+    return mask
+
+
+def library_core(q, k, v, scale, bias=None, mask=None):
+    """(softmax(q k^T * scale [+ bias] [pair mask]) v, the fp32 CLS row of
+    the probabilities, None) over [B, H, N, hd]: no column mass. Also a
+    drop-in for attention_core_train in Attention (phase 5)."""
+    o = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=float_mask(q.dtype, bias, mask, mask), scale=scale)
     logits = (q[:, :, :1] @ k.transpose(-1, -2)).float() * scale
     if bias is not None:
         logits = logits + bias.float()[:, None, None, :]
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None, :], -3e38)
     return o, torch.softmax(logits, -1)[:, :, 0], None
 
 
 def library_attention(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads=HEADS,
-                      scale=SCALE, eps=EPS, bias=None, want_keys=False):
+                      scale=SCALE, eps=EPS, bias=None, want_keys=False,
+                      mask=None):
     """(proj(attn(qkv(LN x))), the fp32 CLS row of the probabilities) and,
     with want_keys, the head-mean keys; also a drop-in for
     attend_branch_train in Block (phase 5)."""
@@ -368,9 +466,47 @@ def library_attention(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads=HEADS,
     ln = F.layer_norm(x, (Dx,), ls, lb, eps)
     q, k, v = F.linear(ln, wqkv, bqkv).view(B, N, 3, num_heads, -1) \
         .permute(2, 0, 3, 1, 4)
-    o, row0, _ = library_core(q, k, v, scale, bias)
+    o, row0, _ = library_core(q, k, v, scale, bias, mask)
     y = F.linear(o.transpose(1, 2).reshape(B, N, Dx), wproj, bproj)
     return (y, row0, k.mean(1)) if want_keys else (y, row0)
+
+
+def library_rect(qkv, idx, mask):
+    """The rectangular attention as library calls: the kept query rows
+    gathered, then SDPA with the pair mask as a float mask; merged heads
+    [B, M, D]."""
+    q, k, v = packed_heads(qkv, HEADS)
+    B, M = idx.shape
+    q = torch.gather(q, 2, idx[:, None, :, None].expand(B, HEADS, M,
+                                                          q.shape[-1]))
+    attn_mask = float_mask(qkv.dtype, None, torch.gather(mask, 1, idx), mask)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                       scale=SCALE)
+    return o.transpose(1, 2).reshape(B, M, D)
+
+
+def token_mask(B, N, gen):
+    """A validity mask on the card: CLS valid, about a fifth of the other
+    tokens off (each a fully masked query row), as after a sampling
+    block's pads."""
+    mask = torch.rand(B, N, generator=gen) > 0.2
+    mask[:, 0] = True
+    return mask.to(DEVICE)
+
+
+def kept_ids(B, N, M, mask, gen):
+    """ATS's kept rows [B, M] on the card: CLS, sorted sampled ids, pads
+    (0, the CLS row, repeated) at the tail, and slot 1 re-sampling a dead
+    token."""
+    n = min(M - 1, N - 1) - 1
+    ids = torch.zeros(B, M, dtype=torch.long)
+    for b in range(B):
+        ids[b, 1:1 + n] = (1 + torch.randperm(N - 1, generator=gen)[:n]) \
+            .sort().values
+        dead = torch.nonzero(~mask[b].cpu()).flatten()
+        if dead.numel():
+            ids[b, 1] = dead[0]
+    return ids.to(DEVICE)
 
 
 def library_mlp(x, ls, lb, w1, b1, w2, b2, eps=EPS):
@@ -472,6 +608,64 @@ def kernel_cases(dtype, gen):
                lambda x=x, idx=idx: fused_mlp_gather_residual_ref(x, idx,
                                                                   *mlp),
                library)
+    yield from ats_cases(B, dtype, gen, attn)
+
+
+def ats_cases(B, dtype, gen, attn):
+    """ATS's counterparts: the masked attention half and core, the
+    packed-qkv attention, and the rectangular attention and block at the
+    (M, N) of ATS@0.7 and @0.25, each mask with tokens off (fully masked
+    query rows) and each kept-row set with pads and a dead slot."""
+    wproj, bproj = attn[4], attn[5]
+    for N in ATS_N:
+        x = torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
+        mask = token_mask(B, N, gen)
+        yield ("fused_block_attention", f"B={B} N={N} mask",
+               lambda x=x, m=mask: fused_block_attention(
+                   x, *attn, HEADS, SCALE, mask=m),
+               lambda x=x, m=mask: fused_block_attention_ref(
+                   x, *attn, HEADS, SCALE, mask=m),
+               lambda x=x, m=mask: (x + library_attention(x, *attn,
+                                                          mask=m)[0]))
+        if N not in TRAIN_N:
+            continue
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to(DEVICE, dtype)
+        heads = packed_heads(qkv, HEADS)
+        yield ("fused_attention", f"B={B} N={N} mask",
+               lambda h=heads, m=mask: fused_attention(*h, SCALE, mask=m),
+               lambda h=heads, m=mask: fused_attention_ref(*h, SCALE, mask=m),
+               lambda h=heads, m=mask: library_core(*h, SCALE, mask=m))
+
+        def library_qkv(h=heads, m=mask):
+            o, row0, _ = library_core(*h, SCALE, mask=m)
+            return o.transpose(1, 2).reshape(B, -1, D), row0
+
+        yield ("fused_attention_qkv", f"B={B} N={N} mask",
+               lambda q=qkv, m=mask: fused_attention_qkv(q, HEADS, SCALE,
+                                                         mask=m),
+               lambda q=qkv, m=mask: fused_attention_qkv_ref(q, HEADS, SCALE,
+                                                             mask=m),
+               library_qkv)
+    for M, N in RECT_MN:
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to(DEVICE, dtype)
+        x = torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
+        mask = token_mask(B, N, gen)
+        idx = kept_ids(B, N, M, mask, gen)
+        onehot = F.one_hot(idx, N).to(dtype)
+        shape = f"B={B} N={N} M={M}"
+        yield ("fused_rect_attention", shape,
+               lambda q=qkv, o=onehot, m=mask: fused_rect_attention(
+                   q, o, m, HEADS, SCALE),
+               lambda q=qkv, o=onehot, m=mask: fused_rect_attention_ref(
+                   q, o, m, HEADS, SCALE),
+               lambda q=qkv, i=idx, m=mask: library_rect(q, i, m))
+        yield ("fused_rect_block", shape,
+               lambda q=qkv, x=x, i=idx, m=mask: fused_rect_block(
+                   q, x, i, m, wproj, bproj, HEADS, SCALE),
+               lambda q=qkv, x=x, i=idx, m=mask: fused_rect_block_ref(
+                   q, x, i, m, wproj, bproj, HEADS, SCALE),
+               lambda q=qkv, x=x, i=idx, m=mask: take_tokens(x, i) + F.linear(
+                   library_rect(q, i, m), wproj, bproj))
 
 
 def train_cases(dtype, gen):
@@ -719,6 +913,42 @@ def launcher_cases(gen):
         yield "layer_norm, gathered rows", f"B={B} N={N} K={K}", [
             ("ln", got, want)]
 
+    # ATS's launches: the masked attention (eval and normalised-P), the
+    # rectangular attention and the out projection with the residual
+    # gathered through the kept ids
+    for N in ATS_N:
+        shape = f"B={B} N={N}"
+        qkv = randn(B, N, 3 * D)
+        mask = token_mask(B, N, gen)
+        merged = torch.empty(B, N, D, device=DEVICE, dtype=bf16)
+        row0 = torch.empty(B, HEADS, N, device=DEVICE)
+        colsum = torch.empty_like(row0)
+        for norm_p in (False, True):
+            _build.short_attention(qkv, merged, HEADS, SCALE, mask=mask,
+                                   row0=row0, colsum=colsum, norm_p=norm_p)
+            yield (f"short_attention, mask{', normalised P' * norm_p}",
+                   shape, list(zip(("merged heads", "row0", "colsum"),
+                                   (merged, row0, colsum),
+                                   attention_ref(qkv, HEADS, SCALE, mask=mask,
+                                                 norm_p=norm_p))))
+    for M, N in RECT_MN:
+        shape = f"B={B} N={N} M={M}"
+        qkv, x = randn(B, N, 3 * D), randn(B, N, D)
+        mask = token_mask(B, N, gen)
+        idx = kept_ids(B, N, M, mask, gen)
+        ids = idx.to(torch.int32)
+        merged = torch.empty(B, M, D, device=DEVICE, dtype=bf16)
+        _build.short_attention(qkv, merged, HEADS, SCALE, mask=mask, ids=ids)
+        want = rect_attention_ref(qkv, idx, mask, HEADS, SCALE)
+        yield "short_attention, rectangular", shape, [
+            ("merged heads", merged, want)]
+        got = torch.empty(B * M, D, device=DEVICE, dtype=bf16)
+        _build.gemm(want.view(B * M, D), p["wproj"], p["bproj"], got,
+                    res=x.view(B * N, D), idx=ids, rows_out=M, rows_in=N)
+        yield "gemm proj + gathered residual", shape, [
+            ("out", got, (take_tokens(x, idx).float() + linear_f32(
+                want, p["wproj"], p["bproj"])).to(bf16).view(B * M, D))]
+
 
 def phase_launchers():
     """Phase 2, second part: each bf16 launch alone against its plain
@@ -763,8 +993,7 @@ def phase_kernels() -> dict:
     fused_attention's)."""
     gen = torch.Generator().manual_seed(0)
     rec = {name: dict(max_abs_err=0.0, max_rel_err_fp32=0.0,
-                      max_rel_err_bf16=0.0)
-           for name in (*WRAPPERS, "fused_attention")}
+                      max_rel_err_bf16=0.0) for name in WRAPPERS}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         cases = [(n, s, k, p, lib, ("out", "row0", "colsum", "keys"))
@@ -777,15 +1006,20 @@ def phase_kernels() -> dict:
             errs = check_case(name, tag, shape, dtype, got, want, labels,
                               rec[name])
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-            lib_ms = cuda_ms(library) if dtype == torch.bfloat16 else None
-            lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+            lib = ""
+            if dtype == torch.bfloat16:
+                lib_ms = cuda_ms(library)
+                dims = [int(part.split("=")[1]) for part in shape.split()
+                        if "=" in part]
+                bound_ms, bound_by = bound(name, *dims,
+                                           masked="mask" in shape)
+                lib = (f", library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                       f"({bound_by})")
             print(f"phase 2 kernel {name} {tag} {shape}: max abs err "
                   f"{', '.join(errs)}; kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms{lib}", flush=True)
             if dtype == torch.bfloat16 and "shape" not in rec[name]:
                 # the widest main-path shape stands for the kernel
-                dims = dict(part.split("=") for part in shape.split())
-                bound_ms, bound_by = bound(name, *map(int, dims.values()))
                 rec[name].update(shape=f"bf16 {shape}", ms=ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by,
@@ -810,7 +1044,7 @@ def phase_models(dtype):
     tag = "fp32" if dtype == torch.float32 else "bf16"
     B, bound_ = MODEL_BATCH[dtype], MODEL_BOUND[dtype]
     for label, (name, kw) in MODELS.items():
-        viz = name.split("_")[0] in ("topk", "tome")
+        viz = name.split("_")[0] in ("topk", "tome", "ats")
         model, cfg = create_model(name, device=DEVICE, viz_mode=viz,
                                   generator=torch.Generator().manual_seed(1),
                                   **kw)
@@ -844,6 +1078,10 @@ def phase_models(dtype):
             require(n_kept >= KEPT_SET[dtype] * n_all,
                     f"{label} {tag}: only {n_kept}/{n_all} kept ids in the "
                     "CPU's kept set")
+        elif viz and cfg.method == "ats":
+            (out, v), (ref, v_ref) = out, ref
+            flips = ats_check(label, tag, dtype, model, x, cfg, out, v, v_ref)
+            reset_counts()
         elif viz:  # ToMe
             (out, v), (ref, v_ref) = out, ref
             maps, ref_maps = v["Assignment_Maps"], v_ref["Assignment_Maps"]
@@ -885,6 +1123,38 @@ def phase_models(dtype):
               f"err {err:.3e} ({rel:.2e} of max|CPU|, {limit}); "
               f"top-1 agreement {top1:.3f} (bound {MODEL_TOP1[dtype]}); "
               f"launches {got_counts}{flips}", flush=True)
+
+
+# ATS@0.7's widths on DeiT-S: sample counts 138, 97, 68, each slot count
+# num_sample_steps(K) + 1
+ATS_WIDTHS = (138, 97, 68)
+
+
+def ats_check(label, tag, dtype, model, x, cfg, out, viz, viz_ref) -> str:
+    """Phase 3's ATS checks: the sampling blocks and widths; the share of
+    Kept_Tokens equal to the CPU's (fp32 all of them); bf16 two forwards
+    with the same bits (logits and Kept_Tokens). Returns the report."""
+    kept, ref_kept = viz["Kept_Tokens"], viz_ref["Kept_Tokens"]
+    require(sorted(kept) == sorted(ref_kept) == list(cfg.reduction_loc),
+            f"{label} {tag}: samples at {sorted(kept)}")
+    widths = tuple(kept[i].shape[1] + 1 for i in cfg.reduction_loc)
+    require(widths == ATS_WIDTHS, f"{label} {tag}: widths {widths}")
+    n_same = sum(int((kept[i].cpu() == k).sum()) for i, k in ref_kept.items())
+    n_all = sum(k.numel() for k in ref_kept.values())
+    pads = sum(int((k == -1).sum()) for k in kept.values())
+    report = (f"; widths 197->{'->'.join(map(str, widths))}; Kept_Tokens "
+              f"equal {n_same}/{n_all} ({n_same / n_all:.4f}, bound "
+              f"{ATS_SAME[dtype]}), pad slots {pads}")
+    require(n_same >= ATS_SAME[dtype] * n_all, f"{label} {tag}: only "
+            f"{n_same}/{n_all} Kept_Tokens equal the CPU's")
+    if dtype == torch.bfloat16:
+        with torch.no_grad():
+            again, viz_again = model(x)
+        require(torch.equal(again, out) and all(
+            torch.equal(viz_again["Kept_Tokens"][i], k)
+            for i, k in kept.items()), f"{label} {tag}: two forwards differ")
+        report += "; a second forward gave the same logits and Kept_Tokens"
+    return report
 
 
 def label_smoothing_loss(out, targets, images_, params):
@@ -1060,7 +1330,78 @@ def phase_serve(card: str) -> dict:
     require(got == expected, f"serve launches {got} != {expected}")
     require(all(got[k] for k in EVAL_WRAPPERS),
             f"a kernel of the path never ran: {got}")
+    require(not any(got[k] for k in OFF_PATH_WRAPPERS),
+            f"a counterpart off the path ran: {got}")
+    eval_profile("ats@0.7", card)
     return got
+
+
+def device_profile(run, steps: int):
+    """(the device's busy share of the wall time of ``steps`` calls of
+    run(i), {kernel family: device microseconds}) under torch.profiler, or
+    None when the profiler saw no device events."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            run(i)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_family(e.name)
+            by_kernel[name] = by_kernel.get(name, 0.0) + \
+                e.time_range.elapsed_us()
+    device_us = sum(by_kernel.values())
+    return (device_us / window_us, by_kernel) if device_us > 0 else None
+
+
+def host_syncs(run) -> list[str]:
+    """The waits for the card that PyTorch reports while run() executes
+    (a copy between host and card, a value read back): each idles the card
+    while the host queues the next kernels."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in caught]
+
+
+def eval_profile(label: str, card: str):
+    """Two bf16 b256 forwards of one model under torch.profiler (after the
+    counted serve run): the device's busy share and its time by kernel.
+    Before them, one forward must not wait for the card."""
+    settle()
+    name, kw = MODELS[label]
+    model, _ = create_model(name, device=DEVICE,
+                            generator=torch.Generator().manual_seed(1), **kw)
+    model = model.to(torch.bfloat16).eval()
+    x = images(SERVE_B, torch.Generator().manual_seed(3), torch.bfloat16)
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        syncs = host_syncs(lambda: model(x))
+        require(not syncs, f"{label}: the eval forward waits for the card "
+                f"{len(syncs)} times: {syncs[:3]}")
+        prof = device_profile(lambda i: model(x), 2)
+    if prof is None:
+        print(f"phase 4 profile {label}: device time not measured (the "
+              "profiler saw no device events)", flush=True)
+        return
+    busy, by_kernel = prof
+    total = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]
+    print(f"phase 4 profile {label} bf16 b{SERVE_B}: device busy "
+          f"{100 * busy:.1f}% of two forwards (torch.profiler); device time "
+          f"{total / 2e3:.3f} ms per forward on {card}; by kernel: " +
+          "; ".join(f"{n} {100 * us / total:.1f}%" for n, us in top),
+          flush=True)
 
 
 def train_run(label: str, steps: int, profile: bool = False):
@@ -1095,24 +1436,11 @@ def train_run(label: str, steps: int, profile: bool = False):
         step_losses.append(metrics["loss"])
     prof_out = None
     if profile:
-        from torch.profiler import ProfilerActivity, profile as torch_profile
+        def run(i):
+            nonlocal state
+            state, _ = step(state, {"image": xs[i], "label": ys[i]})
 
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(2):
-                state, _ = step(state, {"image": xs[i], "label": ys[i]})
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t0) * 1e6
-        by_kernel = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = kernel_family(e.name)
-                by_kernel[name] = by_kernel.get(name, 0.0) + \
-                    e.time_range.elapsed_us()
-        device_us = sum(by_kernel.values())
-        if device_us > 0:
-            prof_out = device_us / window_us, by_kernel
+        prof_out = device_profile(run, 2)
     step_losses = torch.stack(step_losses).cpu()
     require(bool(torch.isfinite(step_losses).all()),
             f"{label}: non-finite train losses {step_losses.tolist()}")
@@ -1228,11 +1556,6 @@ def main():
             print(f"phase 1 ptxas: {line.strip()}")
 
     rec = phase_kernels()
-    # fused_attention runs on the main path only as the training core's
-    # forward (counted there): its record stands apart from the JSON line
-    print("phase 2 record fused_attention: "
-          f"{json.dumps(rec['fused_attention'])}",
-          flush=True)
     phase_launchers()
     for dtype in (torch.float32, torch.bfloat16):
         phase_models(dtype)
@@ -1246,6 +1569,7 @@ def main():
                     cuda_sources=CUDA_SOURCES[name],
                     wrapper=WRAPPER_SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
+                    on_main_path=name not in OFF_PATH_WRAPPERS,
                     library_ms=None, **rec[name]) for name in WRAPPERS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -197,16 +197,19 @@ def test_fused_attention_matches_jax(hd, N, with_bias):
 
 
 def test_wrappers_refuse_unported_extensions():
-    """The mask (heuristic) and idx (DyViT) extensions come with their
-    methods; until then they raise instead of ignoring."""
+    """The idx prologue (DyViT) and the mask in the training core, whose
+    backward heuristic's training needs, come with their methods; until
+    then they raise instead of ignoring. The eval wrappers take the mask
+    (ATS, tests/test_torch_ats.py)."""
     p = make_params(32, seed=0)
     x = torch.from_numpy(images((B, 5, 32), seed=0))
-    for kw, match in ((dict(mask=torch.ones(B, 5)), "heuristic"),
-                      (dict(idx=torch.zeros(B, 3, dtype=torch.int32)),
-                       "DyViT")):
-        with pytest.raises(NotImplementedError, match=match):
-            fused_block_attention(x, *th(p, *ATTN), 2, 0.25, **kw)
+    with pytest.raises(NotImplementedError, match="DyViT"):
+        fused_block_attention(x, *th(p, *ATTN), 2, 0.25,
+                              idx=torch.zeros(B, 3, dtype=torch.int32))
     q = torch.zeros(B, 2, 5, 16)
-    for fn in (fused_attention, attention_core_train):
-        with pytest.raises(NotImplementedError, match="heuristic"):
-            fn(q, q, q, 0.25, mask=torch.ones(B, 5))
+    with pytest.raises(NotImplementedError, match="heuristic"):
+        attention_core_train(q, q, q, 0.25, mask=torch.ones(B, 5))
+    mask = torch.ones(B, 5, dtype=torch.bool)
+    assert fused_block_attention(x, *th(p, *ATTN), 2, 0.25,
+                                 mask=mask)[0].shape == x.shape
+    assert fused_attention(q, q, q, 0.25, mask=mask)[0].shape == q.shape

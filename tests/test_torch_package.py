@@ -23,7 +23,8 @@ _CHILD = textwrap.dedent("""
 
     import tokenreduction_tpu_torch as T
     from tokenreduction_tpu_torch.ops.flash_attention import (
-        fused_attention, fused_block_attention)
+        fused_attention, fused_attention_qkv, fused_block_attention,
+        fused_rect_attention, fused_rect_block)
     from tokenreduction_tpu_torch.ops.flash_attention_train import (
         attention_core_train)
     from tokenreduction_tpu_torch.ops.fused_full_block import fused_full_block
@@ -47,6 +48,12 @@ _CHILD = textwrap.dedent("""
     assert out.shape == (2, 11), out.shape
     assert sorted(viz["Assignment_Maps"]) == [1, 2]
     tome.train()(torch.randn(2, 3, 32, 32)).sum().backward()
+    ats, _ = T.create_model("ats_small_patch16_224", viz_mode=True, **tiny)
+    with torch.no_grad():
+        out, viz = ats.eval()(torch.randn(2, 3, 32, 32))
+    assert out.shape == (2, 11), out.shape
+    assert sorted(viz["Kept_Tokens"]) == [1, 2]
+    ats.train()(torch.randn(2, 3, 32, 32)).sum().backward()
     model, _ = T.create_model("topk_small_patch16_224", drop_path_rate=0.1,
                               **tiny)
     with torch.no_grad():
@@ -72,15 +79,17 @@ _CHILD = textwrap.dedent("""
     counts = (fused_full_block.launches, fused_block_attention.launches,
               fused_mlp_gather_residual.launches, fused_mlp_residual.launches,
               fused_attention.launches, attend_branch_train.launches,
-              attention_core_train.launches, mlp_branch.launches)
-    assert counts == (0,) * 8, counts
+              attention_core_train.launches, mlp_branch.launches,
+              fused_attention_qkv.launches, fused_rect_attention.launches,
+              fused_rect_block.launches)
+    assert counts == (0,) * 11, counts
     print("ok")
 """)
 
 
 def test_port_imports_and_runs_without_jax():
-    """A fresh interpreter imports the port and runs a tiny ToMe forward
-    (eval and training), a tiny topk forward and one amp train step
+    """A fresh interpreter imports the port and runs a tiny ToMe and ATS
+    forward (eval and training), a tiny topk forward and one amp train step
     (drop_path 0.1) on the CPU with no JAX, Flax or optax module loaded, no
     kernel build and no kernel launch."""
     env = dict(os.environ)
@@ -107,7 +116,10 @@ def test_cpu_forward_leaves_launch_counters_at_zero():
     from tokenreduction_tpu_torch import create_model
     from tokenreduction_tpu_torch.ops.flash_attention import (
         fused_attention,
+        fused_attention_qkv,
         fused_block_attention,
+        fused_rect_attention,
+        fused_rect_block,
     )
     from tokenreduction_tpu_torch.ops.flash_attention_train import (
         attention_core_train,
@@ -120,17 +132,20 @@ def test_cpu_forward_leaves_launch_counters_at_zero():
 
     wrappers = (fused_full_block, fused_block_attention,
                 fused_mlp_gather_residual, fused_mlp_residual,
-                fused_attention, attention_core_train)
+                fused_attention, attention_core_train, fused_attention_qkv,
+                fused_rect_attention, fused_rect_block)
     before = [w.launches for w in wrappers]
     for name, kw in (("deit_small_patch16_224_local", {}),
                      ("topk_small_patch16_224",
                       dict(reduction_loc=(1, 2), keep_rate=(0.25,))),
                      ("tome_small_patch16_224",
+                      dict(reduction_loc=(1, 2), keep_rate=(0.7,))),
+                     ("ats_small_patch16_224",
                       dict(reduction_loc=(1, 2), keep_rate=(0.7,)))):
         model, _ = create_model(name, device="cpu", **TINY, **kw)
         with torch.no_grad():
             model.eval()(torch.zeros(1, 3, 32, 32))
-    assert [w.launches for w in wrappers] == before == [0] * 6
+    assert [w.launches for w in wrappers] == before == [0] * 9
 
 
 @pytest.mark.parametrize("name", ["kmedoids_small_patch16_224",
@@ -151,7 +166,7 @@ def test_registry_names_and_unknown_name():
         f"{p}_{s}_patch16_224{x}"
         for s in ("tiny", "small", "base")
         for p, x in (("deit", "_local"), ("deit", "_local_viz"),
-                     ("topk", ""), ("tome", "")))
+                     ("topk", ""), ("tome", ""), ("ats", "")))
     with pytest.raises(KeyError):
         create_model("resnet50", device="cpu")
 

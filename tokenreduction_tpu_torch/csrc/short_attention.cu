@@ -9,6 +9,16 @@
 // by-products, both fp32 [B, H, N]:
 //   row0[b, h, :]   = the CLS query row of the probabilities;
 //   colsum[b, h, :] = the column mass, sum over queries of the probabilities.
+// An optional validity mask [B, N] (ATS's pad slots; the counterpart of the
+// mask of tokenreduction_tpu/ops/flash_attention.py fused_attention and
+// fused_block_attention): a logit whose query or key token is invalid is
+// replaced by -FLT_MAX after the scale and the bias, so a fully masked
+// query row is uniform over its N keys and adds to row0 and colsum like
+// any other row (padding columns past N stay -inf, below -FLT_MAX). The
+// rectangular variant (fused_rect_attention and fused_rect_block there)
+// takes M query rows ids[b, m] of q over all N keys and values, the query
+// validity being the mask at that row, and writes out [B, H, M, 64] and
+// no by-products.
 // Its backward: from q, k, v, the output's gradient dO, the fp32
 // cotangents of row0 and colsum and the bias, the gradients dq, dk, dv
 // (same layouts) and the per-head bias gradient dbias [B, H, N] fp32.
@@ -46,13 +56,15 @@
 // scale, which at head dim 64 (scale 2^-3) is the same number as JAX's
 // round(dS) K scale.
 //
-// The bias, the colsum cotangent and dbias are compiled into their own
-// variants (EXT), so the kernels without them keep their code.
+// The bias, the mask, the rectangular rows, the colsum cotangent and dbias
+// are compiled into their own variants, so the kernels without them keep
+// their code.
 //
 // A first version. At N <= 197 the forward is bound by reading q, k, v and
 // by the exponentials, not by tensor-core operations; the backward
 // recomputes QK^T four times per query tile; keeping qkv on chip between
 // the projection and the attention is later work.
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -88,19 +100,31 @@ constexpr int CHUNK = 64;    // keys per pass step: 8 mma n-tiles
 __host__ __device__ int q_rows(int n) { return (n + 15) / 16 * 16; }
 __host__ __device__ int k_rows(int n) { return (n + CHUNK - 1) / CHUNK * CHUNK; }
 
-size_t mma_smem_bytes(int n) {
-  return sizeof(bf16) * static_cast<size_t>(2 * q_rows(n) + k_rows(n)) * QLD +
-         sizeof(float) * (WARPS + 1) * MAXN;
+// q rows padded to tiles of 16 (m query rows), then k (keys to chunks of
+// 64) and v (to tiles of 16) over n keys, then the fp32 column-sum buffer
+// and the per-key bias, key caps and query caps (see Caps).
+size_t mma_smem_bytes(int m, int n) {
+  return sizeof(bf16) * static_cast<size_t>(q_rows(m) + q_rows(n) + k_rows(n)) * QLD +
+         sizeof(float) * (WARPS + 3) * MAXN;
 }
 
 // dst[n][d] = the rows of one (image, head) of src for n < N, zero for
-// N <= n < rows, in 16-byte chunks (row strides are multiples of 8).
+// N <= n < rows, in 16-byte chunks (row strides are multiples of 8). With
+// ids, dst row n is src row ids[n]; an id outside [0, n_src) traps.
 __device__ __forceinline__ void load_rows(bf16* dst, const Heads<const bf16>& src, int b, int h,
-                                          int N, int rows) {
+                                          int N, int rows, const int* ids = nullptr,
+                                          int n_src = 0) {
   for (int c = threadIdx.x; c < rows * (HD / 8); c += THREADS) {
     const int n = c / (HD / 8), d = (c % (HD / 8)) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (n < N) v = *reinterpret_cast<const uint4*>(src.row(b, h, n) + d);
+    if (n < N) {
+      int r = n;
+      if (ids != nullptr) {
+        r = ids[n];
+        if (static_cast<unsigned>(r) >= static_cast<unsigned>(n_src)) __trap();
+      }
+      v = *reinterpret_cast<const uint4*>(src.row(b, h, r) + d);
+    }
     *reinterpret_cast<uint4*>(dst + n * QLD + d) = v;
   }
 }
@@ -133,13 +157,22 @@ __device__ __forceinline__ void rows_product(const uint32_t (*af)[4], const bf16
     }
 }
 
+// The mask as caps on the logits (MASK variants): a pair's logit x becomes
+// min(x, key cap, query cap), a cap being +inf for a valid token and
+// -FLT_MAX for an invalid one: the JAX pair mask's replacement.
+struct Caps {
+  const float* keys;  // [MAXN], per key
+  float q0, q1;       // the warp's query rows g and g + 8
+};
+
 // Logits of the warp's 16 rows against columns j0..j0+63 (see
 // rows_product): the product times scale, plus the column's bias
-// sbias[j] with BIAS; columns >= n are -inf.
-template <bool BIAS>
+// sbias[j] with BIAS; with MASK a pair whose query or key is invalid is
+// -FLT_MAX (replaced, after the bias; see Caps); columns >= n are -inf.
+template <bool BIAS, bool MASK = false>
 __device__ __forceinline__ void qk_chunk(const uint32_t (*qf)[4], const bf16* sK,
                                          const float* sbias, int j0, int n, float scale, int lane,
-                                         float (*s)[4]) {
+                                         float (*s)[4], const Caps& cap = {nullptr, INFINITY, INFINITY}) {
   rows_product(qf, sK, j0, lane, s);
   const int t = lane & 3;
 #pragma unroll
@@ -149,6 +182,7 @@ __device__ __forceinline__ void qk_chunk(const uint32_t (*qf)[4], const bf16* sK
       const int j = j0 + nt * 8 + 2 * t + (i & 1);
       float x = s[nt][i] * scale;
       if constexpr (BIAS) x += sbias[j];
+      if constexpr (MASK) x = fminf(fminf(x, cap.keys[j]), i < 2 ? cap.q0 : cap.q1);
       s[nt][i] = j < n ? x : -INFINITY;
     }
 }
@@ -185,17 +219,19 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Exact row max and 1/row sum of the warp's 16 rows (rows g and g+8);
-// rows >= n get 1/sum = 0, so their probabilities are 0.
-template <bool BIAS>
+// Exact row max and 1/row sum of the warp's 16 rows (rows g and g+8) over
+// n keys; query rows >= m get 1/sum = 0, so their probabilities are 0. A
+// fully masked row has the max -FLT_MAX and is uniform over its n keys.
+template <bool BIAS, bool MASK = false>
 __device__ __forceinline__ void row_stats(const uint32_t (*qf)[4], const bf16* sK,
-                                          const float* sbias, int i0, int n, float scale,
-                                          int lane, float& m0, float& m1, float& r0, float& r1) {
+                                          const float* sbias, int i0, int n, int m, float scale,
+                                          int lane, float& m0, float& m1, float& r0, float& r1,
+                                          const Caps& cap = {nullptr, INFINITY, INFINITY}) {
   const int g = lane >> 2, nq = q_rows(n);
   float s[CHUNK / 8][4];
   m0 = -INFINITY, m1 = -INFINITY;
   for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-    qk_chunk<BIAS>(qf, sK, sbias, j0, n, scale, lane, s);
+    qk_chunk<BIAS, MASK>(qf, sK, sbias, j0, n, scale, lane, s, cap);
 #pragma unroll
     for (int nt = 0; nt < CHUNK / 8; ++nt) {
       m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
@@ -206,7 +242,7 @@ __device__ __forceinline__ void row_stats(const uint32_t (*qf)[4], const bf16* s
   m1 = quad_max(m1);
   float l0 = 0.f, l1 = 0.f;
   for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-    qk_chunk<BIAS>(qf, sK, sbias, j0, n, scale, lane, s);
+    qk_chunk<BIAS, MASK>(qf, sK, sbias, j0, n, scale, lane, s, cap);
 #pragma unroll
     for (int nt = 0; nt < CHUNK / 8; ++nt) {
       l0 += expf(s[nt][0] - m0) + expf(s[nt][1] - m0);
@@ -215,46 +251,67 @@ __device__ __forceinline__ void row_stats(const uint32_t (*qf)[4], const bf16* s
   }
   l0 = quad_sum(l0);  // every lane shuffles
   l1 = quad_sum(l1);
-  r0 = i0 + g < n ? 1.0f / l0 : 0.f;
-  r1 = i0 + g + 8 < n ? 1.0f / l1 : 0.f;
+  r0 = i0 + g < m ? 1.0f / l0 : 0.f;
+  r1 = i0 + g + 8 < m ? 1.0f / l1 : 0.f;
 }
 
-// NORM_P: round the normalised probabilities before PV (training branch).
-// BIAS: add the per-key bias.
-template <bool NORM_P, bool BIAS>
-__global__ void __launch_bounds__(THREADS)
+// NORM_P: round the normalised probabilities before PV (training branch,
+// and the packed-qkv eval attention). BIAS: add the per-key bias. MASK:
+// the validity mask [B, N] (one byte per token): the pair of query i and
+// key j is valid when both tokens are. RECT (with MASK): the M query rows
+// are q rows ids[b, m] (their validity is the mask at that row) over all N
+// keys; no by-products. Two blocks per SM (at most 128 registers): left
+// free, ptxas takes 166-198 registers, one block fits, and the unmasked
+// kernel runs 33% slower (tools/port_ab.py on the H100).
+template <bool NORM_P, bool BIAS, bool MASK, bool RECT>
+__global__ void __launch_bounds__(THREADS, 2)
     short_attention_mma_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                                Heads<bf16> out, const float* __restrict__ bias,
-                               float* __restrict__ row0, float* __restrict__ colsum, int N, int H,
-                               float scale) {
+                               const unsigned char* __restrict__ mask,
+                               const int* __restrict__ ids, float* __restrict__ row0,
+                               float* __restrict__ colsum, int N, int M, int H, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nq = q_rows(N), nk = k_rows(N);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);                // [nq][QLD]
-  bf16* sK = sQ + nq * QLD;                                // [nk][QLD]
+  const int mq = q_rows(M), nq = q_rows(N), nk = k_rows(N);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);                // [mq][QLD]
+  bf16* sK = sQ + mq * QLD;                                // [nk][QLD]
   bf16* sV = sK + nk * QLD;                                // [nq][QLD]
   float* csbuf = reinterpret_cast<float*>(sV + nq * QLD);  // [WARPS][MAXN]
   float* sbias = csbuf + WARPS * MAXN;                     // [MAXN]
+  float* skv = sbias + MAXN;                               // [MAXN] key caps (MASK)
+  float* sqv = skv + MAXN;                                 // [MAXN] query caps (MASK)
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  load_rows(sQ, q, b, h, N, nq);
+  const int* brow_ids = RECT ? ids + static_cast<size_t>(b) * M : nullptr;
+  load_rows(sQ, q, b, h, M, mq, brow_ids, N);
   load_rows(sK, k, b, h, N, nk);
   load_rows(sV, v, b, h, N, nq);
   if constexpr (BIAS) load_vec(sbias, bias + static_cast<size_t>(b) * N, N);
+  if constexpr (MASK) {
+    const unsigned char* mrow = mask + static_cast<size_t>(b) * N;
+    for (int j = threadIdx.x; j < MAXN; j += THREADS) {
+      skv[j] = j < N && mrow[j] ? INFINITY : -FLT_MAX;
+      // a query row's token (an id out of range traps in load_rows;
+      // clamped here so that this read stays inside the row)
+      const int r = RECT ? (j < M ? min(max(brow_ids[j], 0), N - 1) : 0) : j;
+      sqv[j] = j < M && mrow[r] ? INFINITY : -FLT_MAX;
+    }
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   if (colsum != nullptr)
     for (int j = lane; j < MAXN; j += 32) csbuf[warp * MAXN + j] = 0.f;
   __syncthreads();
 
-  for (int i0 = warp * 16; i0 < nq; i0 += WARPS * 16) {
+  for (int i0 = warp * 16; i0 < mq; i0 += WARPS * 16) {
     uint32_t qf[HD / 16][4];
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks)
       ldmatrix_x4(qf[ks], sQ + (i0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
+    const Caps cap{skv, MASK ? sqv[i0 + g] : INFINITY, MASK ? sqv[i0 + g + 8] : INFINITY};
 
     // passes 1 and 2: exact row max and row sum
     float m0, m1, r0, r1;
-    row_stats<BIAS>(qf, sK, sbias, i0, N, scale, lane, m0, m1, r0, r1);
+    row_stats<BIAS, MASK>(qf, sK, sbias, i0, N, M, scale, lane, m0, m1, r0, r1, cap);
     // the 1/sum scale goes on the exponentials before PV (NORM_P) or on
     // the output after it
     const float o0 = NORM_P ? 1.f : r0, o1 = NORM_P ? 1.f : r1;
@@ -262,7 +319,7 @@ __global__ void __launch_bounds__(THREADS)
     float s[CHUNK / 8][4];
     float o[HD / 8][4] = {};
     for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-      qk_chunk<BIAS>(qf, sK, sbias, j0, N, scale, lane, s);
+      qk_chunk<BIAS, MASK>(qf, sK, sbias, j0, N, scale, lane, s, cap);
 #pragma unroll
       for (int nt = 0; nt < CHUNK / 8; ++nt) {
         s[nt][0] = expf(s[nt][0] - m0);
@@ -314,10 +371,10 @@ __global__ void __launch_bounds__(THREADS)
     for (int dt = 0; dt < HD / 8; ++dt) {
       const int d = dt * 8 + 2 * t;
       const int ia = i0 + g, ib = i0 + g + 8;
-      if (ia < N)
+      if (ia < M)
         *reinterpret_cast<__nv_bfloat162*>(out.row(b, h, ia) + d) =
             __floats2bfloat162_rn(o[dt][0] * o0, o[dt][1] * o0);
-      if (ib < N)
+      if (ib < M)
         *reinterpret_cast<__nv_bfloat162*>(out.row(b, h, ib) + d) =
             __floats2bfloat162_rn(o[dt][2] * o1, o[dt][3] * o1);
     }
@@ -398,7 +455,7 @@ __global__ void __launch_bounds__(THREADS)
       ldmatrix_x4(of[ks], sO + (i0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
     }
     float m0, m1, r0, r1;
-    row_stats<EXT>(qf, sK, sB, i0, N, scale, lane, m0, m1, r0, r1);
+    row_stats<EXT>(qf, sK, sB, i0, N, N, scale, lane, m0, m1, r0, r1);
     float s[CHUNK / 8][4], dp[CHUNK / 8][4];
     // P and dP of the chunk at j0: the row0 cotangent added on query row
     // 0, then the colsum cotangent on every row
@@ -517,11 +574,15 @@ size_t fma_smem_bytes(int n) {
   return sizeof(float) * (WARPS * HD + 2 * WARPS * MAXN + static_cast<size_t>(n) * (HD + KLD));
 }
 
+// MASK and RECT as in the bf16 kernel; a warp per query row, which
+// reads q row ids[b, i] with RECT.
+template <bool MASK, bool RECT>
 __global__ void __launch_bounds__(THREADS)
     short_attention_fma_kernel(Heads<const float> q, Heads<const float> k, Heads<const float> v,
                                Heads<float> out, const float* __restrict__ bias,
-                               float* __restrict__ row0, float* __restrict__ colsum, int N,
-                               int H, float scale) {
+                               const unsigned char* __restrict__ mask,
+                               const int* __restrict__ ids, float* __restrict__ row0,
+                               float* __restrict__ colsum, int N, int M, int H, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qbuf = reinterpret_cast<float*>(smem);  // [WARPS][HD]
   float* pbuf = qbuf + WARPS * HD;               // [WARPS][MAXN]
@@ -531,6 +592,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * N;
+  const unsigned char* mrow = MASK ? mask + static_cast<size_t>(b) * N : nullptr;
   for (int e = threadIdx.x; e < N * HD; e += THREADS) {
     const int n = e / HD, d = e % HD;
     Ks[n * KLD + d] = k.row(b, h, n)[d];
@@ -545,8 +607,14 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int t = 0; t < KEYS_PER_LANE; ++t) cs[t] = 0.f;
 
-  for (int i = warp; i < N; i += WARPS) {
-    const float* qrow = q.row(b, h, i);
+  for (int i = warp; i < M; i += WARPS) {
+    int qi = i;
+    if constexpr (RECT) {
+      qi = ids[static_cast<size_t>(b) * M + i];
+      if (static_cast<unsigned>(qi) >= static_cast<unsigned>(N)) __trap();
+    }
+    const bool q_ok = !MASK || mrow[qi];
+    const float* qrow = q.row(b, h, qi);
     qv[lane] = qrow[lane];
     qv[lane + 32] = qrow[lane + 32];
     __syncwarp();
@@ -564,6 +632,8 @@ __global__ void __launch_bounds__(THREADS)
         for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kr[d], acc);
         acc *= scale;
         if (brow != nullptr) acc += brow[j];
+        if constexpr (MASK)
+          if (!(q_ok && mrow[j])) acc = -FLT_MAX;  // the JAX pair mask
       }
       s[t] = acc;
       mx = fmaxf(mx, acc);
@@ -801,45 +871,68 @@ Heads<T> heads(P ptr, const long long* strides, int i) {
 }  // namespace
 }  // namespace trk
 
-// Returns the cudaError_t of the launch (0 on success). q, k, v and out
-// are [B, H, N, 64] operands with the head dim contiguous; strides holds
-// the (batch, head, row) strides of q, k, v and out, in elements. bias
-// (fp32 [B, N]), row0 and colsum may be null; norm_p rounds the normalised
-// probabilities before PV (bf16; in fp32 the rounding is a no-op). The
-// caller checks shapes, dtypes and strides (bf16: multiples of 8, 16-byte
+// Returns the cudaError_t of the launch (0 on success). q, k, v are
+// [B, H, N, 64] operands with the head dim contiguous and out is
+// [B, H, M, 64]; strides holds the (batch, head, row) strides of q, k, v
+// and out, in elements. bias (fp32 [B, N]), mask ([B, N], one byte per
+// token, non-zero = valid), row0 and colsum may be null; norm_p rounds the
+// normalised probabilities before PV (bf16; in fp32 the rounding is a
+// no-op). ids (int32 [B, M], with a mask and no bias, norm_p or
+// by-products) selects the rectangular variant: out row m is query row
+// ids[b, m] over all N keys. Without ids, M must equal N. The caller
+// checks shapes, dtypes and strides (bf16: multiples of 8, 16-byte
 // aligned).
 extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const void* v,
                                   void* out, const long long* strides, const void* bias,
-                                  void* row0, void* colsum, int B, int N, int H, float scale,
-                                  int norm_p, void* stream) {
+                                  const void* mask, const void* ids, void* row0, void* colsum,
+                                  int B, int N, int M, int H, float scale, int norm_p,
+                                  void* stream) {
   using namespace trk;
-  if (N < 1 || N > MAXN) return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || N > MAXN || M < 1 || M > MAXN) return static_cast<int>(cudaErrorInvalidValue);
+  const bool rect = ids != nullptr, masked = mask != nullptr;
+  if (!rect && M != N) return static_cast<int>(cudaErrorInvalidValue);
+  if (rect && (!masked || norm_p || bias != nullptr || row0 != nullptr || colsum != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bp = static_cast<const float*>(bias);
+  const unsigned char* mp = static_cast<const unsigned char*>(mask);
+  const int* ip = static_cast<const int*>(ids);
   float* r0 = static_cast<float*>(row0);
   float* cs = static_cast<float*>(colsum);
   cudaError_t err;
   if (dtype == kBFloat16) {
-    if (norm_p && bias != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    auto kernel = norm_p ? short_attention_mma_kernel<true, false>
-                         : (bias != nullptr ? short_attention_mma_kernel<false, true>
-                                            : short_attention_mma_kernel<false, false>);
+    using Kernel = decltype(&short_attention_mma_kernel<false, false, false, false>);
+    // [norm_p][bias][mask]; the rectangular variant has a mask only
+    const Kernel variants[2][2][2] = {
+        {{short_attention_mma_kernel<false, false, false, false>,
+          short_attention_mma_kernel<false, false, true, false>},
+         {short_attention_mma_kernel<false, true, false, false>,
+          short_attention_mma_kernel<false, true, true, false>}},
+        {{short_attention_mma_kernel<true, false, false, false>,
+          short_attention_mma_kernel<true, false, true, false>},
+         {short_attention_mma_kernel<true, true, false, false>,
+          short_attention_mma_kernel<true, true, true, false>}}};
+    const Kernel kernel = rect ? short_attention_mma_kernel<false, false, true, true>
+                               : variants[norm_p != 0][bias != nullptr][masked];
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(mma_smem_bytes(MAXN)));
+                               static_cast<int>(mma_smem_bytes(MAXN, MAXN)));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<B * H, THREADS, mma_smem_bytes(N), s>>>(
+    kernel<<<B * H, THREADS, mma_smem_bytes(M, N), s>>>(
         heads<const bf16>(q, strides, 0), heads<const bf16>(k, strides, 1),
-        heads<const bf16>(v, strides, 2), heads<bf16>(out, strides, 3), bp, r0, cs, N, H, scale);
+        heads<const bf16>(v, strides, 2), heads<bf16>(out, strides, 3), bp, mp, ip, r0, cs, N, M,
+        H, scale);
   } else if (dtype == kFloat32) {
-    err = cudaFuncSetAttribute(short_attention_fma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const auto kernel = rect     ? short_attention_fma_kernel<true, true>
+                        : masked ? short_attention_fma_kernel<true, false>
+                                 : short_attention_fma_kernel<false, false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(fma_smem_bytes(MAXN)));
     if (err != cudaSuccess) return static_cast<int>(err);
-    short_attention_fma_kernel<<<B * H, THREADS, fma_smem_bytes(N), s>>>(
+    kernel<<<B * H, THREADS, fma_smem_bytes(N), s>>>(
         heads<const float>(q, strides, 0), heads<const float>(k, strides, 1),
-        heads<const float>(v, strides, 2), heads<float>(out, strides, 3), bp, r0, cs, N, H,
-        scale);
+        heads<const float>(v, strides, 2), heads<float>(out, strides, 3), bp, mp, ip, r0, cs, N,
+        M, H, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

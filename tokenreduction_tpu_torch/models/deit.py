@@ -49,11 +49,8 @@ class ViTBase(nn.Module):
             torch.zeros(1, c.num_patches + c.num_prefix_tokens, D))
         self.pos_drop = nn.Dropout(c.drop_rate)
         dpr = drop_path_rates(c)
-        self.blocks = nn.ModuleList(
-            Block(D, c.num_heads, mlp_ratio=c.mlp_ratio, qkv_bias=c.qkv_bias,
-                  drop=c.drop_rate, attn_drop=c.attn_drop_rate,
-                  drop_path=dpr[i], layer_norm_eps=c.layer_norm_eps)
-            for i in range(c.depth))
+        self.blocks = nn.ModuleList(self.make_block(i, dpr[i])
+                                    for i in range(c.depth))
         self.norm = nn.LayerNorm(D, eps=c.layer_norm_eps)
         if c.num_classes > 0:
             self.head = nn.Linear(D, c.num_classes)
@@ -62,6 +59,15 @@ class ViTBase(nn.Module):
         self.init_weights(generator if generator is not None
                           else torch.Generator().manual_seed(0))
         self.to(resolve_device(device))
+
+    def make_block(self, i: int, drop_path: float) -> nn.Module:
+        """Block i of the backbone (a family with its own blocks overrides
+        this)."""
+        c = self.cfg
+        return Block(c.embed_dim, c.num_heads, mlp_ratio=c.mlp_ratio,
+                     qkv_bias=c.qkv_bias, drop=c.drop_rate,
+                     attn_drop=c.attn_drop_rate, drop_path=drop_path,
+                     layer_norm_eps=c.layer_norm_eps)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):

@@ -2,8 +2,9 @@
 
 Counterpart of ``tokenreduction_tpu/models/registry.py``, with the names
 ported so far: ``deit_{tiny,small,base}_patch16_224_local(_viz)``,
-``topk_{tiny,small,base}_patch16_224`` and
-``tome_{tiny,small,base}_patch16_224``. Every other name of the JAX
+``topk_{tiny,small,base}_patch16_224``,
+``tome_{tiny,small,base}_patch16_224`` and
+``ats_{tiny,small,base}_patch16_224``. Every other name of the JAX
 registry raises ``NotImplementedError`` until its method is ported.
 """
 
@@ -14,15 +15,16 @@ from torch import nn
 
 from tokenreduction_tpu_torch.core.config import SIZE_PRESETS, ViTConfig
 from tokenreduction_tpu_torch.models.deit import VisionTransformer
+from tokenreduction_tpu_torch.reduction.ats import ATSVisionTransformer
 from tokenreduction_tpu_torch.reduction.tome import ToMeVisionTransformer
 from tokenreduction_tpu_torch.reduction.topk import TopKVisionTransformer
 
 _CLASSES = {"": VisionTransformer, "topk": TopKVisionTransformer,
-            "tome": ToMeVisionTransformer}
+            "tome": ToMeVisionTransformer, "ats": ATSVisionTransformer}
 
 # methods of the JAX registry that wait for their slice of the port
 _NOT_PORTED = ("evit", "sit", "patchmerger", "sinkhorn", "dpcknn",
-               "kmedoids", "dyvit", "ats", "heuristic")
+               "kmedoids", "dyvit", "heuristic")
 
 _REGISTRY = {}  # name -> (method key, size, module kwargs)
 _REFERENCE_ONLY = {"regnety_160"}
@@ -32,6 +34,7 @@ for _size in SIZE_PRESETS:
         "", _size, {"capture_features": True})
     _REGISTRY[f"topk_{_size}_patch16_224"] = ("topk", _size, {})
     _REGISTRY[f"tome_{_size}_patch16_224"] = ("tome", _size, {})
+    _REGISTRY[f"ats_{_size}_patch16_224"] = ("ats", _size, {})
     _REFERENCE_ONLY.add(f"dyvit_{_size}_patch16_224_teacher")
     _REFERENCE_ONLY.update(f"{m}_{_size}_patch16_224" for m in _NOT_PORTED)
 

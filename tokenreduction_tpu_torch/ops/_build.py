@@ -57,8 +57,8 @@ _SIGNATURES = {
                 _I, _I, _P, _P, _P),
     "tr_gemm_wgrad": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "tr_sum_partials": (_P, _I, _I, _I, _P, _P),
-    "tr_short_attention": (_I, _P, _P, _P, _P, _S, _P, _P, _P, _I, _I, _I, _F,
-                           _I, _P),
+    "tr_short_attention": (_I, _P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _F, _I, _P),
     "tr_short_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _S, _P, _P, _P,
                                _P, _I, _I, _I, _F, _P),
     "tr_head_mean_keys": (_I, _P, _P, _I, _I, _I, _P),
@@ -336,30 +336,35 @@ def _strides(*heads):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def short_attention_heads(q, k, v, out, scale, *, bias=None, row0=None,
-                          colsum=None, norm_p=False):
-    """out = softmax(q k^T * scale [+ bias]) v per (image, head): q, k, v
-    and out [B, H, N, 64] with the head dim contiguous and any other
-    strides (multiples of 8 in bf16); optional fp32 bias [B, N] (per key)
-    and fp32 row0 / colsum [B, H, N]. ``norm_p`` rounds the normalised
-    probabilities before the value product (the training branch's
-    forward), else the unnormalised ones (eval, and the training core's
-    forward). See csrc/short_attention.cu."""
+def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
+                          ids=None, row0=None, colsum=None, norm_p=False):
+    """out = softmax(q k^T * scale [+ bias] [pair mask]) v per (image,
+    head): q, k, v [B, H, N, 64] and out [B, H, M, 64] with the head dim
+    contiguous and any other strides (multiples of 8 in bf16); optional
+    fp32 bias [B, N] (per key), bool mask [B, N] (a pair whose query or key
+    is invalid gets -FLT_MAX) and fp32 row0 / colsum [B, H, N]. ``norm_p``
+    rounds the normalised probabilities before the value product (the
+    training branch's forward), else the unnormalised ones (eval, and the
+    training core's forward). With ids (contiguous int32 [B, M], a mask,
+    no bias, no by-products) out row m is query row ids[b, m] over all N
+    keys; without, M = N. See csrc/short_attention.cu."""
     B, H, N, _ = q.shape
+    M = out.shape[2]
     err = kernels().lib.tr_short_attention(
         _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-        _strides(q, k, v, out), _ptr(bias), _ptr(row0), _ptr(colsum), B, N,
-        H, scale, int(norm_p), _stream(q))
+        _strides(q, k, v, out), _ptr(bias), _ptr(mask), _ptr(ids),
+        _ptr(row0), _ptr(colsum), B, N, M, H, scale, int(norm_p), _stream(q))
     _check("tr_short_attention", err)
 
 
-def short_attention(qkv, out, num_heads, scale, *, bias=None, row0=None,
-                    colsum=None, norm_p=False):
+def short_attention(qkv, out, num_heads, scale, *, bias=None, mask=None,
+                    ids=None, row0=None, colsum=None, norm_p=False):
     """``short_attention_heads`` off a packed qkv [B, N, 3D], written as
-    merged heads out [B, N, D]."""
+    merged heads out [B, M, D]."""
     short_attention_heads(*packed_heads(qkv, num_heads),
                           merged_heads(out, num_heads), scale, bias=bias,
-                          row0=row0, colsum=colsum, norm_p=norm_p)
+                          mask=mask, ids=ids, row0=row0, colsum=colsum,
+                          norm_p=norm_p)
 
 
 def short_attention_bwd_heads(q, k, v, dout, dq, dk, dv, scale, *, bias=None,

@@ -22,6 +22,21 @@ same softmax attention, bias and by-products over q, k, v
 ``[B, H, N, hd]``, the eval recipe (the unnormalised exponentials rounded
 before the value product, 1/sum applied after it). It is also the forward
 of the training core (``ops/flash_attention_train.py``).
+``fused_attention_qkv`` (``:313``) is the same attention straight off a
+packed qkv ``[B, N, 3D]``, writing merged heads, with the normalised
+probabilities rounded before the value product, as its TPU kernel does.
+
+Each of them takes a validity mask ``[B, N]`` (ATS's pad slots): a logit
+whose query or key token is invalid becomes -FLT_MAX after the scale and
+the bias (the JAX pair mask, ``core/layers.py:70-73``), so a fully masked
+query row is uniform over its N keys and adds to row0 and colsum like any
+other row.
+
+``fused_rect_attention`` (``:817``) and ``fused_rect_block`` (``:925``)
+are ATS's sampling blocks: M kept query rows of a packed qkv attend over
+all N keys under the same pair mask (a kept row's validity is the mask at
+its token), and ``fused_rect_block`` adds the out projection and the
+gathered residual ``take_tokens(x, idx)``.
 
 Where it splits, and why: the TPU kernel keeps the whole block's weights
 and activations in 128 MB of VMEM. A Hopper SM has 227 KB of shared
@@ -33,10 +48,17 @@ hand-written kernels (``csrc/``):
 2. ``short_attention``: one block per (image, head) with that head's q,
    k and v in shared memory (read through strides, so the packed qkv and
    the [B, H, N, hd] layouts are one kernel), the bias added after the
-   scale, writing merged heads and the by-products;
+   scale and the mask after the bias, writing merged heads and the
+   by-products;
 3. with ``want_keys``, ``head_mean_keys`` off the packed qkv;
 4. ``gemm``: the out projection, with its bias and the residual fused
    into the epilogue.
+
+The rectangular block is steps 2 and 4 over the kept rows: the
+rectangular ``short_attention`` variant loads the M query rows through
+their ids (no one-hot product: the card gathers rows at no cost), and the
+out projection's epilogue adds the residual rows gathered through the
+same ids, as the gathered MLP half does.
 
 What bounds it: at N <= 197 and D = 384 the products are small. The
 attention is bound by reading qkv and by its exponentials, not by
@@ -46,12 +68,11 @@ round trip through device memory). This is a simple first version on
 mma.sync; wgmma, TMA, persistent tiles and keeping qkv on chip are later
 work.
 
-The validity mask (heuristic) and the idx row-select prologue (DyViT)
-raise ``NotImplementedError`` until their methods are ported.
+The idx row-select prologue (DyViT) raises ``NotImplementedError`` until
+its method is ported.
 
-On a CPU tensor each wrapper runs its plain PyTorch version
-(``fused_block_attention_ref``, ``fused_attention_ref``); on a CUDA
-tensor it launches the kernels or raises.
+On a CPU tensor each wrapper runs its plain PyTorch version (the same
+name with ``_ref``); on a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -106,27 +127,102 @@ def merged_heads(x, num_heads: int):
     return x.view(B, N, num_heads, D // num_heads).transpose(1, 2)
 
 
-def fused_attention_ref(q, k, v, scale: float, *, bias=None):
-    """Plain softmax attention over q, k, v [B, H, N, hd] with an optional
-    per-key bias [B, N]. Returns (out [B, H, N, hd] in q's dtype, row0
-    [B, H, N] fp32, colsum [B, H, N] fp32)."""
+# the JAX mask value, -finfo(float32).max
+MASK_VALUE = -torch.finfo(torch.float32).max
+
+
+def attention_probs_ref(q, k, v, scale: float, *, bias=None, q_valid=None,
+                        k_valid=None, norm_p: bool = False):
+    """Plain softmax attention of queries q [B, H, M, hd] over keys and
+    values k, v [B, H, N, hd], with an optional per-key bias [B, N] and,
+    with k_valid [B, N] and q_valid [B, M] (bool), the JAX pair mask:
+    -FLT_MAX after the scale and the bias wherever the query or the key is
+    invalid. Returns (out [B, H, M, hd] in q's dtype, the fp32
+    probabilities [B, H, M, N]). The value product takes the unnormalised
+    exponentials rounded to q's dtype and applies 1/sum after it (the eval
+    recipe), or with ``norm_p`` the normalised probabilities rounded."""
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()[:, None, None, :]
+    if k_valid is not None:
+        pair = q_valid.bool()[:, None, :, None] & \
+            k_valid.bool()[:, None, None, :]
+        logits = logits.masked_fill(~pair, MASK_VALUE)
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     rinv = 1.0 / e.sum(-1, keepdim=True)
-    out = ((e.to(q.dtype).float() @ v.float()) * rinv).to(q.dtype)
     probs = e * rinv
+    if norm_p:
+        out = probs.to(q.dtype).float() @ v.float()
+    else:
+        out = (e.to(q.dtype).float() @ v.float()) * rinv
+    return out.to(q.dtype), probs
+
+
+def fused_attention_ref(q, k, v, scale: float, *, bias=None, mask=None,
+                        norm_p: bool = False):
+    """Plain softmax attention over q, k, v [B, H, N, hd] with an optional
+    per-key bias [B, N] and validity mask [B, N]. Returns (out
+    [B, H, N, hd] in q's dtype, row0 [B, H, N] fp32, colsum [B, H, N]
+    fp32)."""
+    out, probs = attention_probs_ref(q, k, v, scale, bias=bias, q_valid=mask,
+                                     k_valid=mask, norm_p=norm_p)
     return out, probs[:, :, 0, :], probs.sum(2)
 
 
-def attention_ref(qkv, num_heads: int, scale: float, bias=None):
+def attention_ref(qkv, num_heads: int, scale: float, bias=None, mask=None,
+                  norm_p: bool = False):
     """``fused_attention_ref`` off a packed qkv [B, N, 3D]: (merged heads
     [B, N, D] in qkv's dtype, row0, colsum)."""
     B, N, D3 = qkv.shape
     out, row0, colsum = fused_attention_ref(*packed_heads(qkv, num_heads),
-                                            scale, bias=bias)
+                                            scale, bias=bias, mask=mask,
+                                            norm_p=norm_p)
     return out.transpose(1, 2).reshape(B, N, D3 // 3), row0, colsum
+
+
+def fused_attention_qkv_ref(qkv, num_heads: int, scale: float, *, bias=None,
+                            mask=None):
+    """Plain PyTorch version of ``fused_attention_qkv``: the normalised
+    probabilities rounded before the value product."""
+    return attention_ref(qkv, num_heads, scale, bias, mask, norm_p=True)
+
+
+def rect_attention_ref(qkv, idx, mask, num_heads: int, scale: float):
+    """The merged heads [B, M, D] of the query rows idx [B, M] of a packed
+    qkv [B, N, 3D] over all N keys, under the pair mask of mask [B, N]
+    (a row's validity is the mask at its token)."""
+    B, N, D3 = qkv.shape
+    M = idx.shape[1]
+    q, k, v = packed_heads(qkv, num_heads)
+    ids = idx.long()
+    q_kept = torch.gather(q, 2, ids[:, None, :, None].expand(
+        B, num_heads, M, q.shape[-1]))
+    out, _ = attention_probs_ref(q_kept, k, v, scale,
+                                 q_valid=torch.gather(mask, 1, ids),
+                                 k_valid=mask)
+    return out.transpose(1, 2).reshape(B, M, D3 // 3)
+
+
+def onehot_ids(onehot):
+    """The row ids [B, M] of one-hot selectors [B, M, N]."""
+    return onehot.argmax(-1)
+
+
+def fused_rect_attention_ref(qkv, onehot, mask, num_heads: int,
+                             scale: float):
+    """Plain PyTorch version of ``fused_rect_attention``."""
+    return rect_attention_ref(qkv, onehot_ids(onehot), mask.bool(), num_heads,
+                              scale)
+
+
+def fused_rect_block_ref(qkv, x, idx, mask, wproj, bproj, num_heads: int,
+                         scale: float):
+    """Plain PyTorch version of ``fused_rect_block``: take_tokens(x, idx) +
+    proj(the rectangular attention), summed in fp32 and rounded once."""
+    merged = rect_attention_ref(qkv, idx, mask.bool(), num_heads, scale)
+    rows = torch.gather(x, 1, idx.long()[..., None].expand(-1, -1,
+                                                          x.shape[-1]))
+    return (rows.float() + linear_f32(merged, wproj, bproj)).to(x.dtype)
 
 
 def head_mean_keys_ref(qkv, num_heads: int):
@@ -139,26 +235,31 @@ def head_mean_keys_ref(qkv, num_heads: int):
     return (acc / num_heads).to(qkv.dtype)
 
 
+def ln_qkv_ref(x, ln_scale, ln_bias, wqkv, bqkv, eps: float):
+    """qkv(LN1 x) [B, N, 3D], the LN output and qkv rounded to x's
+    dtype."""
+    ln = layer_norm_f32(x.float(), ln_scale, ln_bias, eps).to(x.dtype)
+    return linear_f32(ln, wqkv, bqkv).to(x.dtype)
+
+
 def attention_residual_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                            num_heads: int, scale: float, eps: float,
-                           bias=None):
+                           bias=None, mask=None):
     """x + proj(attn(qkv(LN1 x))) in fp32, before its final rounding,
     with row0, colsum and the rounded qkv."""
-    x32 = x.float()
-    ln = layer_norm_f32(x32, ln_scale, ln_bias, eps).to(x.dtype)
-    qkv = linear_f32(ln, wqkv, bqkv).to(x.dtype)
-    merged, row0, colsum = attention_ref(qkv, num_heads, scale, bias)
-    return x32 + linear_f32(merged, wproj, bproj), row0, colsum, qkv
+    qkv = ln_qkv_ref(x, ln_scale, ln_bias, wqkv, bqkv, eps)
+    merged, row0, colsum = attention_ref(qkv, num_heads, scale, bias, mask)
+    return x.float() + linear_f32(merged, wproj, bproj), row0, colsum, qkv
 
 
 def fused_block_attention_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                               bproj, num_heads: int, scale: float, *,
-                              eps: float = 1e-6, bias=None,
+                              eps: float = 1e-6, bias=None, mask=None,
                               want_keys: bool = False):
     """Plain PyTorch version of ``fused_block_attention``, same contract."""
     y32, row0, colsum, qkv = attention_residual_ref(
         x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale, eps,
-        bias)
+        bias, mask)
     out = (y32.to(x.dtype), row0, colsum)
     return out + (head_mean_keys_ref(qkv, num_heads),) if want_keys else out
 
@@ -186,6 +287,24 @@ def bias_operand(name: str, bias, B: int, N: int, device):
     return bias.float().contiguous()
 
 
+def mask_operand(name: str, mask, B: int, N: int, device):
+    """The validity mask [B, N] (bool, or uint8 with non-zero = valid) as
+    the kernels take it: contiguous bool, one byte per token, on the
+    operands' device (None stays None)."""
+    if mask is None:
+        return None
+    if tuple(mask.shape) != (B, N):
+        raise ValueError(f"{name}: mask must be [B={B}, N={N}], got "
+                         f"{tuple(mask.shape)}")
+    if mask.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"{name}: mask dtype {mask.dtype} is neither bool "
+                        "nor uint8")
+    if mask.device != device:
+        raise ValueError(f"{name}: mask on {mask.device}, operands on "
+                         f"{device}")
+    return mask.bool().contiguous()
+
+
 def check_attention_operands(name: str, x, num_heads: int, ln_scale, ln_bias,
                              wqkv, bqkv, wproj, bproj):
     """Raise on anything the attention half's kernels do not take."""
@@ -205,14 +324,9 @@ def check_attention_operands(name: str, x, num_heads: int, ln_scale, ln_bias,
                           bproj)
 
 
-def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                        num_heads: int, scale: float, eps: float,
-                        with_scores: bool, out_dtype=None, bias=None,
-                        want_keys: bool = False):
-    """Steps 1-4 of the module docstring on checked CUDA operands (bias:
-    None or contiguous fp32 [B, N]). Returns (out, row0, colsum, keys):
-    out in ``out_dtype`` (x's by default); the by-products are None
-    without ``with_scores``, the keys without ``want_keys``."""
+def ln_qkv_cuda(x, ln_scale, ln_bias, wqkv, bqkv, eps: float):
+    """Step 1 of the module docstring on checked CUDA operands: LN1 rows,
+    then qkv [B, N, 3D] in x's dtype."""
     from tokenreduction_tpu_torch.ops import _build
 
     B, N, D = x.shape
@@ -221,6 +335,40 @@ def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     _build.layer_norm(rows, ln_scale, ln_bias, ln, eps=eps)
     qkv = torch.empty(B, N, 3 * D, dtype=x.dtype, device=x.device)
     _build.gemm(ln, wqkv, bqkv, qkv.view(B * N, 3 * D))
+    return qkv
+
+
+def ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, *, eps: float = 1e-6):
+    """x [B, N, D] -> qkv(LN1 x) [B, N, 3D]: the prologue of ATS's
+    sampling blocks (XLA's LN and product in the JAX package,
+    ``reduction/ats.py:186-188``). On the card the layer_norm and gemm
+    launches of ``fused_block_attention``'s step 1."""
+    if not x.is_cuda:
+        return ln_qkv_ref(x, ln_scale, ln_bias, wqkv, bqkv, eps)
+    from tokenreduction_tpu_torch.ops import _build
+
+    if x.dim() != 3:
+        raise ValueError(f"ln_qkv: x must be [B, N, D], got {tuple(x.shape)}")
+    D = x.shape[2]
+    _build.check_shapes("ln_qkv", (ln_scale, (D,)), (ln_bias, (D,)),
+                        (wqkv, (3 * D, D)), (bqkv, (3 * D,)))
+    _build.check_operands("ln_qkv", x, ln_scale, ln_bias, wqkv, bqkv)
+    return ln_qkv_cuda(x, ln_scale, ln_bias, wqkv, bqkv, eps)
+
+
+def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                        num_heads: int, scale: float, eps: float,
+                        with_scores: bool, out_dtype=None, bias=None,
+                        mask=None, want_keys: bool = False):
+    """Steps 1-4 of the module docstring on checked CUDA operands (bias:
+    None or contiguous fp32 [B, N]; mask: None or contiguous bool
+    [B, N]). Returns (out, row0, colsum, keys): out in ``out_dtype`` (x's
+    by default); the by-products are None without ``with_scores``, the
+    keys without ``want_keys``."""
+    from tokenreduction_tpu_torch.ops import _build
+
+    B, N, D = x.shape
+    qkv = ln_qkv_cuda(x, ln_scale, ln_bias, wqkv, bqkv, eps)
     merged = torch.empty_like(x)
     row0 = colsum = keys = None
     if with_scores:
@@ -228,22 +376,15 @@ def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                            device=x.device)
         colsum = torch.empty_like(row0)
     _build.short_attention(qkv, merged, num_heads, scale, bias=bias,
-                           row0=row0, colsum=colsum)
+                           mask=mask, row0=row0, colsum=colsum)
     if want_keys:
         keys = torch.empty(B, N, D // num_heads, dtype=x.dtype,
                            device=x.device)
         _build.head_mean_keys(qkv, keys, num_heads)
     out = torch.empty_like(x, dtype=out_dtype)
     _build.gemm(merged.view(B * N, D), wproj, bproj, out.view(B * N, D),
-                res=rows)
+                res=x.view(B * N, D))
     return out, row0, colsum, keys
-
-
-def refuse_mask(name: str, mask):
-    if mask is not None:
-        raise NotImplementedError(
-            f"{name}: the key-validity mask comes with the heuristic method "
-            "and is not ported yet (ROADMAP Queue 2 item 5)")
 
 
 def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
@@ -252,10 +393,10 @@ def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                           want_keys: bool = False):
     """x [B, N, D] -> (x + proj(attn(LN1 x)), row0 [B, H, N],
     colsum [B, H, N]), plus the head-mean keys [B, N, hd] with
-    ``want_keys``; bias: None or the per-key additive bias [B, N]. Weights
-    in nn.Linear's [out, in] layout: wqkv [3D, D], wproj [D, D]."""
+    ``want_keys``; bias: None or the per-key additive bias [B, N]; mask:
+    None or the validity mask [B, N] (bool or uint8). Weights in
+    nn.Linear's [out, in] layout: wqkv [3D, D], wproj [D, D]."""
     name = "fused_block_attention"
-    refuse_mask(name, mask)
     if idx is not None:
         raise NotImplementedError(
             f"{name}: the idx row-select prologue comes with DyViT and is not "
@@ -263,13 +404,15 @@ def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     if not x.is_cuda:
         return fused_block_attention_ref(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale,
-            eps=eps, bias=bias, want_keys=want_keys)
+            eps=eps, bias=bias, mask=mask, want_keys=want_keys)
     check_attention_operands(name, x, num_heads, ln_scale, ln_bias, wqkv,
                              bqkv, wproj, bproj)
-    bias = bias_operand(name, bias, x.shape[0], x.shape[1], x.device)
+    B, N = x.shape[:2]
+    bias = bias_operand(name, bias, B, N, x.device)
+    mask = mask_operand(name, mask, B, N, x.device)
     out, row0, colsum, keys = attention_half_cuda(
         x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale, eps,
-        with_scores=True, bias=bias, want_keys=want_keys)
+        with_scores=True, bias=bias, mask=mask, want_keys=want_keys)
     fused_block_attention.launches += 1
     return (out, row0, colsum, keys) if want_keys else (out, row0, colsum)
 
@@ -277,7 +420,7 @@ def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 fused_block_attention.launches = 0
 
 
-def fused_attention_cuda(name: str, q, k, v, scale: float, bias):
+def fused_attention_cuda(name: str, q, k, v, scale: float, bias, mask=None):
     """``short_attention`` over checked-here CUDA q, k, v [B, H, N, hd]:
     (out, row0, colsum), out a [B, H, N, hd] view of merged heads
     [B, N, D], so that merging the heads afterwards copies nothing."""
@@ -287,25 +430,146 @@ def fused_attention_cuda(name: str, q, k, v, scale: float, bias):
     _check_width(name, N, hd)
     _build.check_heads(name, q, k, v)
     bias = bias_operand(name, bias, B, N, q.device)
+    mask = mask_operand(name, mask, B, N, q.device)
     out = torch.empty(B, N, H, hd, dtype=q.dtype, device=q.device) \
         .transpose(1, 2)
     row0 = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
     colsum = torch.empty_like(row0)
-    _build.short_attention_heads(q, k, v, out, scale, bias=bias, row0=row0,
-                                 colsum=colsum)
+    _build.short_attention_heads(q, k, v, out, scale, bias=bias, mask=mask,
+                                 row0=row0, colsum=colsum)
     return out, row0, colsum
 
 
 def fused_attention(q, k, v, scale: float, *, bias=None, mask=None):
     """q, k, v [B, H, N, hd] (head dim contiguous) -> (out [B, H, N, hd],
     row0 [B, H, N] fp32, colsum [B, H, N] fp32); bias: None or the per-key
-    additive bias [B, N]."""
-    refuse_mask("fused_attention", mask)
+    additive bias [B, N]; mask: None or the validity mask [B, N]."""
     if not q.is_cuda:
-        return fused_attention_ref(q, k, v, scale, bias=bias)
-    res = fused_attention_cuda("fused_attention", q, k, v, scale, bias)
+        return fused_attention_ref(q, k, v, scale, bias=bias, mask=mask)
+    res = fused_attention_cuda("fused_attention", q, k, v, scale, bias, mask)
     fused_attention.launches += 1
     return res
 
 
 fused_attention.launches = 0
+
+
+def check_qkv(name: str, qkv, num_heads: int):
+    """Raise unless qkv is a contiguous [B, N, 3D] operand of the
+    attention kernels (float32 or bfloat16, head dim 64, N <= 256)."""
+    from tokenreduction_tpu_torch.ops import _build
+
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
+        raise ValueError(f"{name}: qkv must be [B, N, 3D] with D a multiple "
+                         f"of {num_heads} heads, got {tuple(qkv.shape)}")
+    _check_width(name, qkv.shape[1], qkv.shape[2] // 3 // num_heads)
+    _build.check_operands(name, qkv)
+
+
+def fused_attention_qkv(qkv, num_heads: int, scale: float, *, bias=None,
+                        mask=None):
+    """qkv [B, N, 3D] (a packed projection, timm's (3, H, hd) column
+    order) -> (merged heads [B, N, D], row0 [B, H, N] fp32, colsum
+    [B, H, N] fp32); bias: None or the per-key additive bias [B, N];
+    mask: None or the validity mask [B, N]."""
+    name = "fused_attention_qkv"
+    if not qkv.is_cuda:
+        return fused_attention_qkv_ref(qkv, num_heads, scale, bias=bias,
+                                       mask=mask)
+    from tokenreduction_tpu_torch.ops import _build
+
+    check_qkv(name, qkv, num_heads)
+    B, N, D3 = qkv.shape
+    bias = bias_operand(name, bias, B, N, qkv.device)
+    mask = mask_operand(name, mask, B, N, qkv.device)
+    out = torch.empty(B, N, D3 // 3, dtype=qkv.dtype, device=qkv.device)
+    row0 = torch.empty(B, num_heads, N, dtype=torch.float32,
+                       device=qkv.device)
+    colsum = torch.empty_like(row0)
+    _build.short_attention(qkv, out, num_heads, scale, bias=bias, mask=mask,
+                           row0=row0, colsum=colsum, norm_p=True)
+    fused_attention_qkv.launches += 1
+    return out, row0, colsum
+
+
+fused_attention_qkv.launches = 0
+
+
+def rect_operands(name: str, qkv, idx, mask, num_heads: int):
+    """Checked CUDA operands of the rectangular attention: (contiguous
+    int32 ids [B, M], contiguous bool mask [B, N])."""
+    from tokenreduction_tpu_torch.ops import _build
+
+    check_qkv(name, qkv, num_heads)
+    B, N = qkv.shape[:2]
+    idx = _build.check_idx(name, idx, qkv)
+    if not 1 <= idx.shape[1] <= SHORT_ATTENTION_MAX_N:
+        raise ValueError(f"{name}: M={idx.shape[1]} kept rows is outside "
+                         f"the kernel's 1..{SHORT_ATTENTION_MAX_N}")
+    if mask is None:
+        raise ValueError(f"{name}: the rectangular attention takes a mask")
+    return idx, mask_operand(name, mask, B, N, qkv.device)
+
+
+def rect_attention_cuda(qkv, idx, mask, num_heads: int, scale: float):
+    """The rectangular ``short_attention`` on checked operands: merged
+    heads [B, M, D] in qkv's dtype."""
+    from tokenreduction_tpu_torch.ops import _build
+
+    B, _, D3 = qkv.shape
+    merged = torch.empty(B, idx.shape[1], D3 // 3, dtype=qkv.dtype,
+                         device=qkv.device)
+    _build.short_attention(qkv, merged, num_heads, scale, mask=mask, ids=idx)
+    return merged
+
+
+def fused_rect_attention(qkv, onehot, mask, num_heads: int, scale: float):
+    """qkv [B, N, 3D], onehot [B, M, N] kept-row selectors, mask [B, N]
+    key validity -> the merged heads [B, M, D] of the M kept query rows
+    over all N keys (reference models/ats.py:117-120). Each selector row
+    must be one-hot, as every caller's ``one_hot(sample_ids)`` is: the
+    wrapper turns the selectors into row ids once (their argmax) and the
+    kernel gathers those rows."""
+    if not qkv.is_cuda:
+        return fused_rect_attention_ref(qkv, onehot, mask, num_heads, scale)
+    name = "fused_rect_attention"
+    B, N = qkv.shape[:2]
+    if onehot.dim() != 3 or onehot.shape[0] != B or onehot.shape[2] != N:
+        raise ValueError(f"{name}: onehot must be [B={B}, M, N={N}], got "
+                         f"{tuple(onehot.shape)}")
+    idx, mask = rect_operands(name, qkv, onehot_ids(onehot), mask, num_heads)
+    out = rect_attention_cuda(qkv, idx, mask, num_heads, scale)
+    fused_rect_attention.launches += 1
+    return out
+
+
+fused_rect_attention.launches = 0
+
+
+def fused_rect_block(qkv, x, idx, mask, wproj, bproj, num_heads: int,
+                     scale: float):
+    """take_tokens(x, idx) + proj(the rectangular attention of the kept
+    rows): qkv [B, N, 3D], x [B, N, D], idx [B, M] absolute token ids in
+    0..N-1, mask [B, N] -> [B, M, D] in x's dtype. Weights in nn.Linear's
+    [out, in] layout: wproj [D, D]. An id out of range raises on the CPU
+    and traps the kernel on the card."""
+    if not qkv.is_cuda:
+        return fused_rect_block_ref(qkv, x, idx, mask, wproj, bproj,
+                                    num_heads, scale)
+    from tokenreduction_tpu_torch.ops import _build
+
+    name = "fused_rect_block"
+    idx, mask = rect_operands(name, qkv, idx, mask, num_heads)
+    B, N, D3 = qkv.shape
+    D, M = D3 // 3, idx.shape[1]
+    _build.check_shapes(name, (x, (B, N, D)), (wproj, (D, D)), (bproj, (D,)))
+    _build.check_operands(name, qkv, x, wproj, bproj)
+    merged = rect_attention_cuda(qkv, idx, mask, num_heads, scale)
+    out = torch.empty(B, M, D, dtype=x.dtype, device=x.device)
+    _build.gemm(merged.view(B * M, D), wproj, bproj, out.view(B * M, D),
+                res=x.view(B * N, D), idx=idx, rows_out=M, rows_in=N)
+    fused_rect_block.launches += 1
+    return out
+
+
+fused_rect_block.launches = 0

@@ -42,8 +42,9 @@ query tile, one per key tile) on mma.sync; a first version.
 
 On a CPU tensor the core runs ``fused_attention_ref`` forward and
 ``attention_core_train_bwd_ref`` backward; on a CUDA tensor it launches
-the kernels or raises. The key-validity mask (heuristic) raises
-``NotImplementedError`` until its method is ported.
+the kernels or raises. The validity mask, whose backward heuristic's
+training needs, raises ``NotImplementedError`` until that method is
+ported (the eval forward takes it: ``fused_attention(mask=)``).
 """
 
 from __future__ import annotations
@@ -54,7 +55,6 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     bias_operand,
     fused_attention_cuda,
     fused_attention_ref,
-    refuse_mask,
 )
 
 
@@ -153,7 +153,11 @@ def attention_core_train(q, k, v, scale: float, bias=None, mask=None):
     v, the per-key bias [B, N] (or None) and all three outputs.
     ``launches`` counts the CUDA forwards and backwards,
     ``backward_launches`` the backwards alone."""
-    refuse_mask("attention_core_train", mask)
+    if mask is not None:
+        raise NotImplementedError(
+            "attention_core_train: the validity mask's backward comes with "
+            "heuristic training and is not ported yet (ROADMAP Queue 2 item "
+            "5)")
     return _AttentionCore.apply(q, k, v, bias, scale)
 
 

@@ -13,8 +13,13 @@ the topk@0.7 and dense train steps (``train_run``: bench.py's recipe at
 b256, the median of steps 3-6 on the host clock), and, per launch, of ten
 back-to-back launches between one pair of events (median of 20), so
 that the host's launch cost is hidden: the qkv GEMM, the fc1 GEMM with
-GELU, the attention and the LayerNorm at the same shapes. The last lines give each checkout's medians over its runs. Needs
-one CUDA card; numbers from separate calls are not compared.
+GELU, the attention and the LayerNorm at the same shapes. Both also time
+a topk@0.7 bf16 b256 forward (median of 10); a checkout whose attention
+takes a validity mask also times, per launch as above, the masked
+attention and the rectangular attention of 138 kept rows over 197 keys,
+and an ATS@0.7 forward. The last lines give each checkout's medians over
+its runs. Needs one CUDA card; numbers from separate calls are not
+compared.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import json, statistics, torch
+import inspect, json, statistics, torch
 from chip_smoke import D, H4, HEADS, SCALE, block_params, cuda_ms, train_run
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.ops import _build
@@ -59,6 +64,29 @@ model, _ = create_model("deit_small_patch16_224_local", device="cuda",
 model = model.to(bf16).eval()
 images = torch.randn(B, 3, 224, 224, generator=g).to("cuda", bf16)
 qkv_gemm = lambda: _build.gemm(ln, p["wqkv"], p["bqkv"], qkv.view(B * N, -1))
+def forward_ms(name):
+    m, _ = create_model(name, device="cuda", reduction_loc=(3, 6, 9),
+                        keep_rate=(0.7,),
+                        generator=torch.Generator().manual_seed(1))
+    m = m.to(bf16).eval()
+    return cuda_ms(lambda: m(images), 10)
+
+def ats_times():
+    # ATS's kernels and model, in a checkout that has them
+    if "mask" not in inspect.signature(_build.short_attention).parameters:
+        return {}
+    mask = (torch.rand(B, N, generator=g) > 0.2).to("cuda")
+    M = 138
+    ids = torch.sort(torch.randperm(N - 1, generator=g)[:M] + 1).values
+    ids = ids.repeat(B, 1).to("cuda", torch.int32).contiguous()
+    rect = torch.empty(B, M, D, device="cuda", dtype=bf16)
+    return dict(
+        attention_mask_x10=ten(lambda: _build.short_attention(
+            qkv, merged, HEADS, SCALE, mask=mask)),
+        rect_attention_x10=ten(lambda: _build.short_attention(
+            qkv, rect, HEADS, SCALE, mask=mask, ids=ids)),
+        ats_forward=forward_ms("ats_small_patch16_224"))
+
 def train_ms(label):
     return 1e3 * statistics.median(train_run(label, 6)[0][2:])
 
@@ -76,7 +104,9 @@ with torch.no_grad():
         attention_x10=ten(lambda: _build.short_attention(qkv, merged, HEADS,
                                                          SCALE)),
         layer_norm_x10=ten(lambda: _build.layer_norm(
-            ln, p["ls1"], p["lb1"], ln_out, eps=1e-6)))))
+            ln, p["ls1"], p["lb1"], ln_out, eps=1e-6)),
+        topk_forward=forward_ms("topk_small_patch16_224"),
+        **ats_times())))
 """
 
 
