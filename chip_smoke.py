@@ -8,7 +8,8 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
 0. device: refuse to run without CUDA; print the card's name and power
    limit (nvidia-smi), torch and CUDA versions; turn TF32 off.
 1. build: compile tokenreduction_tpu_torch/csrc/*.cu with nvcc into
-   build/tokenreduction_tpu_torch/<source hash>/.
+   build/tokenreduction_tpu_torch/<source hash>/; print each kernel
+   variant's registers and spills (ptxas), by its demangled name.
 2. kernels: each kernel counterpart against its plain PyTorch version on
    the same CUDA tensors at the main path's widths, fp32 at B=32 (bound
    1e-4 of max|plain|) and bf16 at B=256 (bound 2e-2 of max|plain|), with
@@ -32,6 +33,13 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    bf16 launches alone: the masked attention (eval and normalised-P), the
    rectangular attention and the out projection with the gathered
    residual.
+   DyViT's: fused_block_attention with the idx prologue at DyViT@0.7's
+   (N -> K) = 197->138, 138->97, 97->68, the kept ids unsorted with CLS.
+   Heuristic's: attention_core_train with the validity mask at N=197, with
+   heuristic's block-3 and block-9 masks (184 and 12 of 196 patches valid:
+   most query rows fully masked), forward and every gradient; its bf16
+   masked backward launch alone, with and without the by-products'
+   cotangents.
    Training kernels (attend_branch_train, mlp_branch, attention_core_train):
    forward outputs and every gradient, with non-zero row0 (and, for the
    core, colsum) cotangents, against the plain forward and the plain
@@ -46,10 +54,12 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    H100's peak rates) and the eager bf16 composition of library calls
    (F.layer_norm, F.linear, scaled_dot_product_attention with the bias and
    the pair mask as its float mask, the kept query rows gathered first for
-   the rectangular attention, autograd for the backward) computing the same
-   function.
-3. models: DeiT-S dense, topk@0.7, topk@0.25, ToMe@0.7 and ATS@0.7 (loc 3 6
-   9, widths 197 -> 138 -> 97 -> 68) at
+   the rectangular attention, the kept rows gathered first for the idx
+   prologue, autograd for the backward) computing the same function.
+3. models: DeiT-S dense, topk@0.7, topk@0.25, ToMe@0.7, ATS@0.7 (loc 3 6
+   9, widths 197 -> 138 -> 97 -> 68), heuristic (loc 3 6 9: masks at
+   blocks 3-11, every block at 197) and DyViT@0.7 (197 -> 138 -> 97 -> 68)
+   at
    full width with seeded weights on the card (kernels) against the same
    model on the CPU (plain versions), with the launch counts of one
    forward. fp32 at B=8: logits within 1e-4 of max|CPU|, the same top-1,
@@ -64,27 +74,38 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    reported. ATS: fp32 Kept_Tokens equal to the CPU's; bf16 two forwards
    with the same logits and Kept_Tokens, the share of Kept_Tokens equal to
    the CPU's and the top-1 agreement reported only (inverse-transform
-   sampling flips at the smallest score drift).
-   Training, drop_path 0: the loss and every gradient of dense, topk@0.7
-   and ToMe@0.7 on the card against the CPU, fp32 at B=8 (1e-4 of each
-   leaf's max|CPU|, the same kept ids and merges) and bf16 amp at B=32
-   (bounds set from measured runs), and the launches of one train step:
-   12 forwards and 12 backwards of each training branch (ToMe: the
-   attention branch in blocks 0-3, the attention core in blocks 4-11).
-4. serve: 5 batches of 256 bf16 images through each model (ATS@0.7
-   included); outputs must be finite; img/s over batches 2-5. Then, not
-   counted, one ATS@0.7 forward that must not wait for the card (no host
-   synchronisation that PyTorch reports), and a torch.profiler window of
-   two: the device's busy share and its time per forward by kernel.
-5. train: bench.py's train step for dense, topk@0.7 and ToMe@0.7 -- b256,
+   sampling flips at the smallest score drift). Heuristic: Kept_Tokens_Abs
+   equal, and its logits held like dense's in bf16 too (no data-dependent
+   decision). DyViT: its kept tokens, as absolute patch ids, the CPU's in
+   fp32 (Kept_Tokens ids that differ in place, a swap of two near-tied
+   kept tokens, reported); in bf16 the CPU model takes the card's
+   predictor scores (random weights make them tie in bf16) and the logits
+   are held like dense's.
+   Training, drop_path 0: the loss and every gradient of dense, topk@0.7,
+   ToMe@0.7 and heuristic on the card against the CPU, fp32 at B=8 (1e-4
+   of each leaf's max|CPU|, the same kept ids and merges) and bf16 amp at
+   B=32 (bounds set from measured runs; heuristic's gradients against the
+   CPU's fp32 ones, FP32_GRAD_REF), and the launches of one train
+   step: 12 forwards and 12 backwards of each training branch (ToMe: the
+   attention branch in blocks 0-3, the attention core in blocks 4-11;
+   heuristic: the branch in blocks 0-2, the masked core in 3-11).
+4. serve: 5 batches of 256 bf16 images through each model (ATS@0.7,
+   heuristic and DyViT@0.7 included); outputs must be finite; img/s over
+   batches 2-5. Then, not counted, one forward each of ATS@0.7, heuristic
+   and DyViT@0.7 that must not wait for the card (no host synchronisation
+   that PyTorch reports), and a torch.profiler window of two ATS@0.7 and
+   two heuristic forwards: the device's busy share and its time per
+   forward by kernel.
+5. train: bench.py's train step for dense, topk@0.7, ToMe@0.7 and
+   heuristic -- b256,
    amp, drop_path 0.1 from a seeded CUDA generator, grouped AdamW lr 1e-3
    with backbone_lr_scale 0.01, clip 1.0, EMA 0.99996, label smoothing 0.1
    -- 8 steps on seeded random images and labels; the losses must be
    finite and the params must move; ms/step and img/s over steps 3-8. Then
    the same steps with the eager bf16 library composition in place of the
    three training counterparts, and last a torch.profiler window of two
-   topk@0.7 and two ToMe@0.7 steps: the device's busy share and its time
-   per step by kernel.
+   topk@0.7, two ToMe@0.7 and two heuristic steps: the device's busy share
+   and its time per step by kernel.
 
 Phases 4 and 5 are the main path's runs: each counterpart's launch count
 is set to 0 just before and read just after. fused_attention,
@@ -94,8 +115,9 @@ fused_rect_block's attention stage): they must launch 0 times there, and
 their records say so.
 
 No failure is caught: any phase that fails ends the script with a
-traceback and a non-zero exit code, before the result lines. The last two
-lines are the kernels' JSON record and the result JSON.
+traceback and a non-zero exit code, before the result lines. Each phase
+ends with its seconds since the start. The last two lines are the
+kernels' JSON record and the result JSON.
 """
 
 from __future__ import annotations
@@ -104,6 +126,7 @@ import copy
 import gc
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import time
@@ -115,6 +138,7 @@ import torch.nn.functional as F
 import tokenreduction_tpu_torch
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.core import layers
+from tokenreduction_tpu_torch.core.config import SIZE_PRESETS, ViTConfig
 from tokenreduction_tpu_torch.ops.flash_attention import (
     attention_ref,
     fused_attention,
@@ -165,6 +189,7 @@ from tokenreduction_tpu_torch.ops.fused_mlp_train import (
 )
 from tokenreduction_tpu_torch.ops.gather import take_tokens
 from tokenreduction_tpu_torch.reduction import tome as tome_model
+from tokenreduction_tpu_torch.reduction.heuristic import heuristic_masks
 from tokenreduction_tpu_torch.train import losses
 from tokenreduction_tpu_torch.train.optim import OptimConfig, create_optimizer
 from tokenreduction_tpu_torch.train.step import (
@@ -187,6 +212,7 @@ MODEL_BOUND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 MODEL_BATCH = {torch.float32: 8, torch.bfloat16: 32}
 MODEL_TOP1 = {torch.float32: 1.0, torch.bfloat16: 0.9}
 KEPT_SET = {torch.float32: 1.0, torch.bfloat16: 0.9}  # share of kept ids
+DYVIT_WIDTHS = (138, 97, 68)
 # share of ToMe's Assignment_Maps entries equal to the CPU's (bf16: bound
 # set from the measured 0.928)
 ASSIGN_SAME = {torch.float32: 1.0, torch.bfloat16: 0.9}
@@ -202,6 +228,11 @@ ATS_SAME = {torch.float32: 1.0, torch.bfloat16: 0.95}
 # near-tied score flips, are reported only
 TRAIN_BOUND = {torch.float32: dict(loss=1e-4, grads=1e-4, kept_set=1.0),
                torch.bfloat16: dict(loss=2e-2, grads=5e-2, kept_set=0.9)}
+# models whose bf16 amp gradients are held against the CPU's fp32 ones:
+# heuristic's masked blocks run nn.LayerNorm under amp, and on the CPU its
+# bf16 backward puts the LN biases' gradients far off the fp32 ones (the
+# report prints how far; the card's bf16 ones stay close to fp32)
+FP32_GRAD_REF = ("heuristic",)
 EPS = 1e-6
 # H100 SXM peak rates (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -282,6 +313,11 @@ TOME_N = TRAIN_N
 # (kept rows M, keys N) of their sampling blocks
 ATS_N = (197, 138, 97, 68, 50, 13, 4)
 RECT_MN = ((138, 197), (97, 138), (68, 97), (50, 197), (13, 50), (4, 13))
+# DyViT@0.7's reduction blocks: (N -> K) of the idx prologue
+DYVIT_NK = ((197, 138), (138, 97), (97, 68))
+# heuristic's masked blocks whose masks phase 2 drives: the first (184
+# patches valid) and the last active one (12)
+HEURISTIC_BLOCKS = (3, 9)
 GRAD_NAMES = {
     "attend_branch_train": ("branch", "row0", "dx", "d ln1 scale",
                             "d ln1 bias", "d wqkv", "d bqkv", "d wproj",
@@ -301,13 +337,19 @@ MODELS = {
                  dict(reduction_loc=(3, 6, 9), keep_rate=(0.7,))),
     "ats@0.7": ("ats_small_patch16_224",
                 dict(reduction_loc=(3, 6, 9), keep_rate=(0.7,))),
+    "heuristic": ("heuristic_small_patch16_224",
+                  dict(reduction_loc=(3, 6, 9), keep_rate=(0.7,))),
+    "dyvit@0.7": ("dyvit_small_patch16_224",
+                  dict(reduction_loc=(3, 6, 9), keep_rate=(0.7,))),
 }
-TRAIN_MODELS = ("dense", "topk@0.7", "tome@0.7")
+TRAIN_MODELS = ("dense", "topk@0.7", "tome@0.7", "heuristic")
 NONE = dict.fromkeys(WRAPPERS, 0)
 # launches of one forward: 12 score-less blocks (dense); 9 score-less
 # blocks and 3 reduction blocks (topk at loc 3 6 9); 12 attention and 12
 # MLP halves (ToMe); 9 masked attention halves, 3 sampling blocks and 12
-# MLP halves (ATS)
+# MLP halves (ATS); 3 full blocks before the first mask, then 9 masked
+# attention and 9 MLP halves (heuristic); 9 full blocks and 3 reduction
+# blocks, each an idx attention half and an MLP half (DyViT)
 PER_FORWARD = {
     "dense": {**NONE, "fused_full_block": 12},
     "topk@0.7": {**NONE, "fused_full_block": 9,
@@ -316,17 +358,23 @@ PER_FORWARD = {
                  "fused_mlp_residual": 12},
     "ats@0.7": {**NONE, "fused_block_attention": 9, "fused_rect_block": 3,
                 "fused_mlp_residual": 12},
+    "heuristic": {**NONE, "fused_full_block": 3, "fused_block_attention": 9,
+                  "fused_mlp_residual": 9},
+    "dyvit@0.7": {**NONE, "fused_full_block": 9, "fused_block_attention": 3,
+                  "fused_mlp_residual": 3},
 }
 PER_FORWARD["topk@0.25"] = PER_FORWARD["topk@0.7"]
 # launches of one train step, a forward and a backward each: every MLP
 # half's mlp_branch; every attention half's attend_branch_train, except
-# ToMe's after its first merge (blocks 4-11, with the size bias), which
-# take the attention core
+# ToMe's after its first merge (blocks 4-11, with the size bias) and
+# heuristic's masked ones (blocks 3-11), which take the attention core
 NO_TRAIN = dict.fromkeys(TRAIN_WRAPPERS, 0)
 PER_TRAIN_STEP_BWD = {
     "dense": {**NO_TRAIN, "attend_branch_train": 12, "mlp_branch": 12},
     "tome@0.7": {**NO_TRAIN, "attend_branch_train": 4, "mlp_branch": 12,
                  "attention_core_train": 8},
+    "heuristic": {**NO_TRAIN, "attend_branch_train": 3, "mlp_branch": 12,
+                  "attention_core_train": 9},
 }
 PER_TRAIN_STEP_BWD["topk@0.7"] = PER_TRAIN_STEP_BWD["dense"]
 PER_TRAIN_STEP = {label: {**NONE, **{k: 2 * n for k, n in bwd.items()}}
@@ -380,7 +428,12 @@ def bound(name: str, B: int, N: int, K: int | None = None,
     for the training counterparts also backward, with no recompute) over
     its bf16 tensor-core rate. Of a packed qkv or an x that is read through
     kept-row ids, only the kept rows count. ``masked``: a bool validity
-    mask [B, N] read too (the rectangular counterparts always read one)."""
+    mask [B, N] read too (the rectangular counterparts always read one).
+    fused_block_attention with K: the idx prologue, the block over the K
+    kept rows (of x only they are read) and their int64 ids."""
+    ids = 0
+    if name == "fused_block_attention" and K is not None:
+        N, ids = K, 8 * B * K
     E, M = 2, B * N
     attn_w = 4 * D * D + 6 * D  # wqkv, bqkv, wproj, bproj, LN scale, bias
     mlp_w = 8 * D * D + H4 + 3 * D
@@ -415,12 +468,15 @@ def bound(name: str, B: int, N: int, K: int | None = None,
         nbytes = E * (4 * M * D + 2 * attn_w) + 2 * by_products
     elif name == "attention_core_train":  # q, k, v, bias, dout, drow0, dcs
         flops = 12 * B * N * N * D  # in; out, row0, colsum, dq, dk, dv,
-        nbytes = E * 8 * M * D + 4 * by_products + 4 * 2 * B * N  # dbias
+        # dbias; the masked core (heuristic's) has no bias and no dbias
+        nbytes = E * 8 * M * D + 4 * by_products + (0 if masked
+                                                    else 8 * B * N)
     else:  # mlp_branch
         flops = 48 * M * D * D
         nbytes = E * (4 * M * D + 2 * mlp_w)
     if masked:
         nbytes += B * N
+    nbytes += ids
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
         else "bytes"
@@ -609,6 +665,37 @@ def kernel_cases(dtype, gen):
                                                                   *mlp),
                library)
     yield from ats_cases(B, dtype, gen, attn)
+    for N, K in DYVIT_NK:
+        x = x_of(N)
+        # DyViT's kept ids: CLS, then the patches in score order (unsorted)
+        idx = torch.stack([
+            torch.cat([torch.zeros(1, dtype=torch.long),
+                       1 + torch.randperm(N - 1, generator=gen)[:K - 1]])
+            for _ in range(B)]).to(DEVICE)
+
+        def library(x=x, idx=idx):
+            g = take_tokens(x, idx)
+            return g + library_attention(g, *attn)[0]
+
+        yield ("fused_block_attention", f"B={B} N={N} K={K} idx",
+               lambda x=x, i=idx: fused_block_attention(x, *attn, HEADS,
+                                                        SCALE, idx=i),
+               lambda x=x, i=idx: fused_block_attention_ref(
+                   take_tokens(x, i), *attn, HEADS, SCALE),
+               library)
+
+
+def heuristic_block_masks() -> dict:
+    """{block: validity mask [197] bool} of heuristic on DeiT-S at the
+    defaults (pattern l1, min_radius 1.0, contiguous), loc 3 6 9."""
+    cfg = ViTConfig(**SIZE_PRESETS["small"], method="heuristic",
+                    **MODELS["heuristic"][1])
+    return heuristic_masks(cfg)[1]
+
+
+def batch_mask(mask, B):
+    """A block's token mask [N] (numpy) as the batch's [B, N] on the card."""
+    return torch.from_numpy(mask).to(DEVICE)[None].expand(B, -1).contiguous()
 
 
 def ats_cases(B, dtype, gen, attn):
@@ -701,31 +788,32 @@ def train_cases(dtype, gen):
                          *mlp_branch_bwd_ref(x, *ps[:5], dy, EPS)],
                 lambda: grads_of(library_mlp))
 
-    def core_case(qkv, bias, dout, drow0, dcs):
+    def core_case(qkv, bias, dout, drow0, dcs, mask=None):
         """The attention core over views of a packed qkv, as Attention
-        calls it, with the size bias and the cotangents of all three
-        outputs (the library composition has no column mass and takes no
-        colsum cotangent)."""
+        calls it, with the size bias (ToMe) or the validity mask
+        (heuristic) and the cotangents of all three outputs (the library
+        composition has no column mass and takes no colsum cotangent)."""
         leaf = qkv.detach().requires_grad_()
-        b = bias.detach().requires_grad_()
         q, k, v = packed_heads(leaf, HEADS)
-        inputs = (q, k, v, b)
+        b = None if bias is None else bias.detach().requires_grad_()
+        inputs = (q, k, v) + (() if b is None else (b,))
         cots = (dout, drow0, dcs)
 
         def kernel():
-            outs = attention_core_train(q, k, v, SCALE, b)
+            outs = attention_core_train(q, k, v, SCALE, b, mask)
             return [*outs, *torch.autograd.grad(outs, inputs, cots)]
 
         def plain():
             dq, dk, dv, db = attention_core_train_bwd_ref(
                 q.detach(), k.detach(), v.detach(), bias, dout, drow0, dcs,
-                SCALE)
+                SCALE, mask)
             fwd = fused_attention_ref(q.detach(), k.detach(), v.detach(),
-                                      SCALE, bias=bias)
-            return [*fwd, dq, dk, dv, db.sum(1).to(bias.dtype)]
+                                      SCALE, bias=bias, mask=mask)
+            dbias = [] if bias is None else [db.sum(1).to(bias.dtype)]
+            return [*fwd, dq, dk, dv, *dbias]
 
         def library():
-            o, row0, _ = library_core(q, k, v, SCALE, b)
+            o, row0, _ = library_core(q, k, v, SCALE, b, mask)
             return [o, row0, *torch.autograd.grad((o, row0), inputs,
                                                   cots[:2])]
 
@@ -743,6 +831,20 @@ def train_cases(dtype, gen):
         dcs = torch.randn(B, HEADS, N, generator=gen).to(DEVICE)
         yield ("attention_core_train", f"B={B} N={N}",
                *core_case(qkv, log_sizes(B, N, gen, dtype), dout, drow0, dcs))
+    # heuristic's masked core at N=197: its first and last active masks
+    N = 197
+    masks = heuristic_block_masks()
+    for blk in HEURISTIC_BLOCKS:
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to(DEVICE, dtype)
+        dout = torch.randn(B, N, HEADS, D // HEADS, generator=gen) \
+            .to(DEVICE, dtype).transpose(1, 2)
+        drow0, dcs = (torch.randn(B, HEADS, N, generator=gen).to(DEVICE)
+                      for _ in range(2))
+        valid = int(masks[blk].sum()) - 1
+        yield ("attention_core_train",
+               f"B={B} N={N} mask, block {blk}: {valid} patches valid",
+               *core_case(qkv, None, dout, drow0, dcs,
+                          batch_mask(masks[blk], B)))
 
 
 def as_list(out):
@@ -949,6 +1051,29 @@ def launcher_cases(gen):
             ("out", got, (take_tokens(x, idx).float() + linear_f32(
                 want, p["wproj"], p["bproj"])).to(bf16).view(B * M, D))]
 
+    # heuristic's launch: the masked backward over [B, H, N, hd] views at
+    # N=197, without the by-products' cotangents (the train step's
+    # variant: heuristic reads neither row0 nor colsum) and with them
+    N, hd = 197, D // HEADS
+    masks = heuristic_block_masks()
+    q, k, v = packed_heads(randn(B, N, 3 * D), HEADS)
+    dout = randn(B, N, HEADS, hd).transpose(1, 2)
+    drow0, dcs = (randn(B, HEADS, N, dtype=torch.float32) for _ in range(2))
+    for blk in HEURISTIC_BLOCKS:
+        mask = batch_mask(masks[blk], B)
+        for cots in ({}, dict(drow0=drow0, dcs=dcs)):
+            grads = torch.empty(3, B, HEADS, N, hd, device=DEVICE,
+                                dtype=bf16).unbind(0)
+            _build.short_attention_bwd_heads(q, k, v, dout, *grads, SCALE,
+                                             mask=mask, **cots)
+            want = attention_core_train_bwd_ref(
+                q, k, v, None, dout, cots.get("drow0"), cots.get("dcs"),
+                SCALE, mask)
+            label = "short_attention_bwd, mask" + (
+                ", row0 and colsum cotangents" if cots else "")
+            yield label, f"B={B} N={N} block {blk}", list(zip(
+                ("dq", "dk", "dv"), grads, want))
+
 
 def phase_launchers():
     """Phase 2, second part: each bf16 launch alone against its plain
@@ -1044,12 +1169,15 @@ def phase_models(dtype):
     tag = "fp32" if dtype == torch.float32 else "bf16"
     B, bound_ = MODEL_BATCH[dtype], MODEL_BOUND[dtype]
     for label, (name, kw) in MODELS.items():
-        viz = name.split("_")[0] in ("topk", "tome", "ats")
+        viz = name.split("_")[0] in ("topk", "tome", "ats", "heuristic",
+                                     "dyvit")
         model, cfg = create_model(name, device=DEVICE, viz_mode=viz,
                                   generator=torch.Generator().manual_seed(1),
                                   **kw)
         model = model.to(dtype).eval()
         cpu_model = copy.deepcopy(model).cpu()
+        if cfg.method == "dyvit" and dtype == torch.bfloat16:
+            share_scores(model, cpu_model)
         x = images(B, torch.Generator().manual_seed(2), dtype)
         reset_counts()
         with torch.no_grad():
@@ -1062,7 +1190,10 @@ def phase_models(dtype):
             ref = cpu_model(x.cpu())
         require(counts() == got_counts, "a CPU forward launched a kernel")
         flips = ""
-        if viz and cfg.method == "topk":
+        if viz and cfg.method == "dyvit":
+            (out, v), (ref, v_ref) = out, ref
+            flips = dyvit_check(label, tag, dtype, cfg, v, v_ref)
+        elif viz and cfg.method == "topk":
             (out, v), (ref, v_ref) = out, ref
             n_flip = sum(int((v["Kept_Tokens"][i].cpu() != k).sum())
                          for i, k in v_ref["Kept_Tokens"].items())
@@ -1078,6 +1209,15 @@ def phase_models(dtype):
             require(n_kept >= KEPT_SET[dtype] * n_all,
                     f"{label} {tag}: only {n_kept}/{n_all} kept ids in the "
                     "CPU's kept set")
+        elif viz and cfg.method == "heuristic":
+            (out, v), (ref, v_ref) = out, ref
+            kept, ref_kept = v["Kept_Tokens_Abs"], v_ref["Kept_Tokens_Abs"]
+            require(sorted(kept) == sorted(ref_kept) and all(
+                torch.equal(kept[i].cpu(), k) for i, k in ref_kept.items()),
+                f"{label} {tag}: Kept_Tokens_Abs differ from the CPU's")
+            flips = (f"; Kept_Tokens_Abs equal at blocks {sorted(kept)}, "
+                     "kept patches " + "->".join(
+                         str(kept[i].shape[1]) for i in sorted(kept)))
         elif viz and cfg.method == "ats":
             (out, v), (ref, v_ref) = out, ref
             flips = ats_check(label, tag, dtype, model, x, cfg, out, v, v_ref)
@@ -1111,7 +1251,11 @@ def phase_models(dtype):
                 bool(torch.isfinite(out).all()), f"{label}: bad logits")
         err, rel = rel_err(out, ref)
         top1 = (out.argmax(1) == ref.argmax(1)).float().mean().item()
-        if viz and dtype == torch.bfloat16:
+        # heuristic makes no data-dependent decision and DyViT's CPU model
+        # takes the card's (share_scores): their bf16 logits are held like
+        # dense's
+        if viz and dtype == torch.bfloat16 and cfg.method not in (
+                "heuristic", "dyvit"):
             limit = "reported only"
         else:
             limit = f"bound {bound_:.0e}"
@@ -1123,6 +1267,55 @@ def phase_models(dtype):
               f"err {err:.3e} ({rel:.2e} of max|CPU|, {limit}); "
               f"top-1 agreement {top1:.3f} (bound {MODEL_TOP1[dtype]}); "
               f"launches {got_counts}{flips}", flush=True)
+
+
+def share_scores(model, cpu_model):
+    """DyViT in bf16: the CPU model's score predictors return the card's
+    scores, so both sides keep the same tokens and the rest of the forward
+    is compared. With random weights the predictors' keep log-probabilities
+    all lie within about 1e-3 of log(1/2), where a bf16 ulp is 2e-3: most
+    bf16 scores tie exactly, the stable sort keeps the lowest ids among the
+    tokens the roundings leave on top, and each side's own predictors keep
+    tokens nearly at random against the other's (measured: 7054/9600 kept
+    tokens in the CPU's set, where a random 70% would share 0.7, and top-1
+    agreement 0.719 at B=32)."""
+    scores = {}
+    for s, (pred, cpu_pred) in enumerate(zip(model.score_predictor,
+                                             cpu_model.score_predictor)):
+        pred.register_forward_hook(
+            lambda mod, args, out, s=s: scores.__setitem__(s, out.cpu()))
+        cpu_pred.register_forward_hook(lambda mod, args, out, s=s: scores[s])
+
+
+def dyvit_check(label, tag, dtype, cfg, viz, viz_ref) -> str:
+    """Phase 3's DyViT checks: the reduction blocks and widths, and the
+    kept tokens as absolute patch ids (each stage's ids chained through the
+    stages before it), all in the CPU's kept set at the same stage (in
+    bf16 by construction: share_scores). Returns the report, which also
+    counts the Kept_Tokens ids equal in place: two kept tokens whose scores
+    lie a few ulps apart can swap places, which renumbers the next stage's
+    ids but keeps the same tokens."""
+    kept, ref_kept = viz["Kept_Tokens"], viz_ref["Kept_Tokens"]
+    require(sorted(kept) == sorted(ref_kept) == list(cfg.reduction_loc),
+            f"{label} {tag}: reductions at {sorted(kept)}")
+    widths = tuple(kept[i].shape[1] + 1 for i in cfg.reduction_loc)
+    require(widths == DYVIT_WIDTHS, f"{label} {tag}: widths {widths}")
+    ids = ref_ids = None
+    n_kept = n_all = n_in_place = 0
+    for i in cfg.reduction_loc:
+        got, k = kept[i].cpu(), ref_kept[i]
+        n_in_place += int((got == k).sum())
+        ids = got if ids is None else torch.gather(ids, 1, got)
+        ref_ids = k if ref_ids is None else torch.gather(ref_ids, 1, k)
+        n_kept += sum(int(torch.isin(a, b).sum())
+                      for a, b in zip(ids, ref_ids))
+        n_all += k.numel()
+    require(n_kept == n_all, f"{label} {tag}: only {n_kept}/{n_all} kept "
+            "tokens in the CPU's kept set")
+    shared = " (the card's scores)" if dtype == torch.bfloat16 else ""
+    return (f"; widths 197->{'->'.join(map(str, widths))}; kept tokens "
+            f"(absolute ids) in the CPU's kept set{shared} {n_kept}/{n_all}, "
+            f"Kept_Tokens ids equal in place {n_in_place}/{n_all}")
 
 
 # ATS@0.7's widths on DeiT-S: sample counts 138, 97, 68, each slot count
@@ -1243,6 +1436,15 @@ def train_model_check(label, dtype):
                                          y.cpu(), cfg)
     require(counts() == fwd_bwd, "a CPU train step launched a kernel")
     _, loss_rel = rel_err(loss.cpu().reshape(1), cpu_loss.reshape(1))
+    ref, cpu_bf16 = "CPU", ""
+    if dtype == torch.bfloat16 and label in FP32_GRAD_REF:
+        ref, cpu_grads, bf16_grads = "CPU fp32", loss_and_grads(
+            cpu_model, label_smoothing_loss, cpu_state.params, x.cpu(),
+            y.cpu(), StepConfig())[1], cpu_grads
+        off = {n: rel_err(g, cpu_grads[n])[1] for n, g in bf16_grads.items()}
+        n_off = max(off, key=off.get)
+        cpu_bf16 = (f"; the CPU's own bf16 gradients: worst leaf {n_off} "
+                    f"{off[n_off]:.2e} of its max|CPU fp32| (reported)")
     worst_name, worst = "", 0.0
     for n, g in grads.items():
         _, rel = rel_err(g.cpu(), cpu_grads[n])
@@ -1274,7 +1476,7 @@ def train_model_check(label, dtype):
     grads_held = dtype == torch.float32 or not cpu_kept
     if grads_held:
         require(worst <= bound_["grads"], f"{label} {tag}: gradient "
-                f"{worst_name} {worst:.3e} of max|CPU| > "
+                f"{worst_name} {worst:.3e} of max|{ref}| > "
                 f"{bound_['grads']:.0e}")
     # one whole train step: the launches of both counterparts
     step = make_train_step(model, label_smoothing_loss, opt, cfg)
@@ -1290,8 +1492,9 @@ def train_model_check(label, dtype):
     print(f"phase 3 train {label} {tag} B={B}: loss {loss.item():.6f} vs "
           f"CPU {cpu_loss.item():.6f} ({loss_rel:.2e} rel, bound "
           f"{bound_['loss']:.0e}); worst gradient leaf {worst_name} "
-          f"{worst:.2e} of its max|CPU| ({limit}); {what}; launches of "
-          f"one train step {counts()}, backward {backward_counts()}",
+          f"{worst:.2e} of its max|{ref}| ({limit}){cpu_bf16}; {what}; "
+          f"launches of one train step {counts()}, backward "
+          f"{backward_counts()}",
           flush=True)
 
 
@@ -1332,7 +1535,8 @@ def phase_serve(card: str) -> dict:
             f"a kernel of the path never ran: {got}")
     require(not any(got[k] for k in OFF_PATH_WRAPPERS),
             f"a counterpart off the path ran: {got}")
-    eval_profile("ats@0.7", card)
+    for label in ("ats@0.7", "heuristic", "dyvit@0.7"):
+        eval_profile(label, card, profile=label != "dyvit@0.7")
     return got
 
 
@@ -1373,10 +1577,11 @@ def host_syncs(run) -> list[str]:
     return [str(w.message) for w in caught]
 
 
-def eval_profile(label: str, card: str):
-    """Two bf16 b256 forwards of one model under torch.profiler (after the
-    counted serve run): the device's busy share and its time by kernel.
-    Before them, one forward must not wait for the card."""
+def eval_profile(label: str, card: str, profile: bool = True):
+    """One bf16 b256 forward of one model that must not wait for the card
+    (after the counted serve run), then, with ``profile``, two forwards
+    under torch.profiler: the device's busy share and its time by
+    kernel."""
     settle()
     name, kw = MODELS[label]
     model, _ = create_model(name, device=DEVICE,
@@ -1389,6 +1594,10 @@ def eval_profile(label: str, card: str):
         syncs = host_syncs(lambda: model(x))
         require(not syncs, f"{label}: the eval forward waits for the card "
                 f"{len(syncs)} times: {syncs[:3]}")
+        print(f"phase 4 host syncs {label}: none in one bf16 b{SERVE_B} "
+              "forward", flush=True)
+        if not profile:
+            return
         prof = device_profile(lambda i: model(x), 2)
     if prof is None:
         print(f"phase 4 profile {label}: device time not measured (the "
@@ -1504,7 +1713,7 @@ def phase_train(card: str) -> dict:
         (layers.attend_branch_train, layers.mlp_branch,
          layers.attention_core_train) = kernels
 
-    for label in ("topk@0.7", "tome@0.7"):
+    for label in ("topk@0.7", "tome@0.7", "heuristic"):
         _, _, prof = train_run(label, 4, profile=True)
         if prof is None:
             print(f"phase 5 profile {label}: device time not measured (the "
@@ -1524,6 +1733,38 @@ def phase_train(card: str) -> dict:
                   f"{name} {100 * us / total:.1f}%" for name, us in top),
               flush=True)
     return got
+
+
+def ptxas_lines(log: str):
+    """(kernel, ptxas line) for each register and spill line of the build
+    log, the kernel's name demangled where the toolkit's cu++filt (or
+    c++filt) is found."""
+    pairs, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            pairs.append((name, line.replace("ptxas info    :", "").strip()))
+    names = sorted({n for n, _ in pairs})
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    plain = dict(zip(names, names))
+    if tool and names:
+        out = subprocess.run([tool], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        lines = out.splitlines()
+        if len(lines) == len(names):
+            plain = {n: line.replace("trk::<unnamed>::", "").replace(
+                "trk::(anonymous namespace)::", "")
+                for n, line in zip(names, lines)}
+    return [(plain[n], line) for n, line in pairs]
+
+
+T0 = time.perf_counter()
+
+
+def elapsed(phase: str):
+    print(f"phase {phase} done at {time.perf_counter() - T0:.1f} s",
+          flush=True)
 
 
 def main():
@@ -1551,19 +1792,23 @@ def main():
     kern = _build.kernels()
     print(f"phase 1 build: {kern.path} in {kern.build_seconds:.1f} s "
           f"(0 = already built)", flush=True)
-    for line in kern.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"phase 1 ptxas: {line.strip()}")
+    for name, line in ptxas_lines(kern.build_log):
+        print(f"phase 1 ptxas: {name}: {line}")
+    elapsed("1")
 
     rec = phase_kernels()
     phase_launchers()
+    elapsed("2")
     for dtype in (torch.float32, torch.bfloat16):
         phase_models(dtype)
     for dtype in (torch.float32, torch.bfloat16):
         phase_train_models(dtype)
+    elapsed("3")
     launches = phase_serve(card)
+    elapsed("4")
     launches.update({k: v for k, v in phase_train(card).items()
                      if k in TRAIN_WRAPPERS})
+    elapsed("5")
 
     kernels = [dict(name=name, route="cuda", source=CUDA_SOURCES[name][0],
                     cuda_sources=CUDA_SOURCES[name],

@@ -197,19 +197,22 @@ def test_fused_attention_matches_jax(hd, N, with_bias):
 
 
 def test_wrappers_refuse_unported_extensions():
-    """The idx prologue (DyViT) and the mask in the training core, whose
-    backward heuristic's training needs, come with their methods; until
-    then they raise instead of ignoring. The eval wrappers take the mask
-    (ATS, tests/test_torch_ats.py)."""
+    """Every extension of the TPU kernels is ported: the idx prologue
+    (DyViT) and the training core's mask (heuristic) run. What the JAX
+    kernels refuse the wrappers refuse too, instead of ignoring it: the
+    idx prologue with a bias or a mask raises."""
     p = make_params(32, seed=0)
     x = torch.from_numpy(images((B, 5, 32), seed=0))
-    with pytest.raises(NotImplementedError, match="DyViT"):
-        fused_block_attention(x, *th(p, *ATTN), 2, 0.25,
-                              idx=torch.zeros(B, 3, dtype=torch.int32))
-    q = torch.zeros(B, 2, 5, 16)
-    with pytest.raises(NotImplementedError, match="heuristic"):
-        attention_core_train(q, q, q, 0.25, mask=torch.ones(B, 5))
+    idx = torch.tensor([[0, 3, 1], [0, 2, 4]], dtype=torch.int32)
     mask = torch.ones(B, 5, dtype=torch.bool)
+    for kw in (dict(mask=mask), dict(bias=torch.zeros(B, 5))):
+        with pytest.raises(ValueError, match="idx"):
+            fused_block_attention(x, *th(p, *ATTN), 2, 0.25, idx=idx, **kw)
+    assert fused_block_attention(x, *th(p, *ATTN), 2, 0.25,
+                                 idx=idx)[0].shape == (B, 3, 32)
+    q = torch.zeros(B, 2, 5, 16)
+    assert attention_core_train(q, q, q, 0.25,
+                                mask=mask)[0].shape == q.shape
     assert fused_block_attention(x, *th(p, *ATTN), 2, 0.25,
                                  mask=mask)[0].shape == x.shape
     assert fused_attention(q, q, q, 0.25, mask=mask)[0].shape == q.shape

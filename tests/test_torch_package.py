@@ -54,6 +54,14 @@ _CHILD = textwrap.dedent("""
     assert out.shape == (2, 11), out.shape
     assert sorted(viz["Kept_Tokens"]) == [1, 2]
     ats.train()(torch.randn(2, 3, 32, 32)).sum().backward()
+    for name in ("heuristic_small_patch16_224", "dyvit_small_patch16_224"):
+        m, _ = T.create_model(name, viz_mode=True, **tiny)
+        with torch.no_grad():
+            out, viz = m.eval()(torch.randn(2, 3, 32, 32))
+        assert out.shape == (2, 11), out.shape
+        assert sorted(viz["Features"]) == [1, 2, 3], sorted(viz["Features"])
+    heuristic, _ = T.create_model("heuristic_small_patch16_224", **tiny)
+    heuristic.train()(torch.randn(2, 3, 32, 32)).sum().backward()
     model, _ = T.create_model("topk_small_patch16_224", drop_path_rate=0.1,
                               **tiny)
     with torch.no_grad():
@@ -88,8 +96,9 @@ _CHILD = textwrap.dedent("""
 
 
 def test_port_imports_and_runs_without_jax():
-    """A fresh interpreter imports the port and runs a tiny ToMe and ATS
-    forward (eval and training), a tiny topk forward and one amp train step
+    """A fresh interpreter imports the port and runs a tiny ToMe, ATS and
+    heuristic forward (eval and training), a tiny DyViT eval forward, a
+    tiny topk forward and one amp train step
     (drop_path 0.1) on the CPU with no JAX, Flax or optax module loaded, no
     kernel build and no kernel launch."""
     env = dict(os.environ)
@@ -141,6 +150,10 @@ def test_cpu_forward_leaves_launch_counters_at_zero():
                      ("tome_small_patch16_224",
                       dict(reduction_loc=(1, 2), keep_rate=(0.7,))),
                      ("ats_small_patch16_224",
+                      dict(reduction_loc=(1, 2), keep_rate=(0.7,))),
+                     ("heuristic_small_patch16_224",
+                      dict(reduction_loc=(1, 2), keep_rate=(0.7,))),
+                     ("dyvit_small_patch16_224",
                       dict(reduction_loc=(1, 2), keep_rate=(0.7,)))):
         model, _ = create_model(name, device="cpu", **TINY, **kw)
         with torch.no_grad():
@@ -166,7 +179,8 @@ def test_registry_names_and_unknown_name():
         f"{p}_{s}_patch16_224{x}"
         for s in ("tiny", "small", "base")
         for p, x in (("deit", "_local"), ("deit", "_local_viz"),
-                     ("topk", ""), ("tome", ""), ("ats", "")))
+                     ("topk", ""), ("tome", ""), ("ats", ""),
+                     ("heuristic", ""), ("dyvit", "")))
     with pytest.raises(KeyError):
         create_model("resnet50", device="cpu")
 

@@ -6,23 +6,27 @@ attn.qkv, attn.proj, norm2, mlp.fc1, mlp.fc2}, norm, head), the same the
 Flax tree uses, so a DeiT ``.pth`` state dict loads with plain
 ``load_state_dict``.
 
-``Block`` keeps the JAX dispatch with the TPU gates removed. In eval
-(``not self.training``) every path goes through a kernel wrapper:
-``forward`` with no score -> ``fused_full_block``, ``attend`` ->
-``fused_block_attention`` (with ToMe's per-key bias and head-mean keys),
-``ffn`` -> ``fused_mlp_residual``, ``ffn_gather`` ->
-``fused_mlp_gather_residual``. In training an attention half without a
-bias goes through ``attend_branch_train`` and every MLP half through
+``Block`` keeps the JAX dispatch with the TPU gates removed
+(``core/layers.py:384-490``, ``:564-621`` there). In eval (``not
+self.training``) every path goes through a kernel wrapper: ``forward``
+with no score and no mask -> ``fused_full_block``; ``attend`` -> one
+``fused_block_attention`` call, with ToMe's per-key bias and head-mean
+keys, heuristic's validity mask [B, N] (the JAX pair mask), or DyViT's
+kept ids ``idx`` [B, K] (the rows selected in the prologue, the block run
+at width K); ``ffn`` -> ``fused_mlp_residual``, ``ffn_gather`` ->
+``fused_mlp_gather_residual``. In training idx is first
+``take_tokens(x, idx)``; an attention half without a bias or a mask
+goes through ``attend_branch_train`` and every MLP half through
 ``mlp_branch`` (each with a hand-written backward), then
 ``x + drop_path(branch)`` in x's dtype; where the JAX gate sends a half
 to its XLA composition, ``Attention`` runs instead: for an attention half
-with a bias, or with attention dropout or dropout above 0. Its qkv and
-out projections are ``nn.Linear``, and between them, in training without
-attention dropout, the attention core ``attention_core_train`` (again a
-hand-written backward), else the plain composition. The MLP half takes
-the plain composition only when dropout is above 0. A wrapper runs its
-plain PyTorch version on a CPU tensor and its hand-written kernels on a
-CUDA tensor.
+with a bias or a mask, or with attention dropout or dropout above 0. Its
+qkv and out projections are ``nn.Linear``, and between them, in training
+without attention dropout, the attention core ``attention_core_train``
+(again a hand-written backward, the bias and the mask included), else the
+plain composition. The MLP half takes the plain composition only when
+dropout is above 0. A wrapper runs its plain PyTorch version on a CPU
+tensor and its hand-written kernels on a CUDA tensor.
 
 Stochastic depth draws its masks from an explicit ``torch.Generator``
 that the model's forward hands down (``generator=``), on the device of
@@ -40,6 +44,7 @@ from torch import nn
 
 from tokenreduction_tpu_torch.ops.flash_attention import (
     SHORT_ATTENTION_MAX_N,
+    attention_probs_ref,
     fused_block_attention,
 )
 from tokenreduction_tpu_torch.ops.flash_attention_train import (
@@ -120,7 +125,10 @@ class PatchEmbed(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention over pre-normed x, with an optional
-    per-key additive bias [B, N] on the logits (ToMe's log size).
+    per-key additive bias [B, N] on the logits (ToMe's log size) and an
+    optional validity mask [B, N] (heuristic's static masks: the JAX pair
+    mask, -FLT_MAX after the scale and the bias where the query or the key
+    is invalid).
 
     ``score="cls"`` also returns the head-mean CLS->patch attention column
     [B, N-1] (topk/evit score, reference models/topk.py:60-61),
@@ -130,8 +138,9 @@ class Attention(nn.Module):
 
     In training without attention dropout q, k and v go through
     ``attention_core_train`` (the JAX gate, core/layers.py:272-301);
-    otherwise the plain composition runs, with attention dropout on the
-    probabilities before the value product."""
+    otherwise the plain composition runs (fp32 probabilities, as the JAX
+    ``attention_core``), with attention dropout on the probabilities
+    before the value product."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0):
@@ -143,24 +152,25 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.proj_drop = nn.Dropout(proj_drop)
 
-    def forward(self, x, *, bias=None, score: Optional[str] = None):
+    def forward(self, x, *, bias=None, mask=None,
+                score: Optional[str] = None):
         """Returns (x, (aux, None)), the JAX module's aux contract."""
         _check_score(score)
         B, N, D = x.shape
         q, k, v = self.qkv(x).view(B, N, 3, self.num_heads, -1) \
             .permute(2, 0, 3, 1, 4).unbind(0)
         if self.training and self.attn_drop.p == 0.0:
-            out, row0, _ = attention_core_train(q, k, v, self.scale, bias)
+            out, row0, _ = attention_core_train(q, k, v, self.scale, bias,
+                                                mask)
             cls_row = row0[:, :, 1:]
         else:
-            logits = (q @ k.transpose(-1, -2)) * self.scale
-            if bias is not None:
-                logits = logits + bias[:, None, None, :]
+            probs = attention_probs_ref(q, k, v, self.scale, bias=bias,
+                                        q_valid=mask, k_valid=mask)[1]
             # dropout before the value product; the score reads the
             # dropped tensor, as the reference does (models/topk.py:48-49,
             # 60-61)
-            probs = self.attn_drop(logits.softmax(-1))
-            out = probs @ v
+            probs = self.attn_drop(probs)
+            out = (probs.to(v.dtype).float() @ v.float()).to(v.dtype)
             cls_row = probs[:, :, 0, 1:]
         x = self.proj_drop(self.proj(out.transpose(1, 2).reshape(B, N, D)))
         aux = None
@@ -207,26 +217,33 @@ class Block(nn.Module):
         return (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
 
-    def attend(self, x, *, bias=None, score: Optional[str] = None,
+    def attend(self, x, *, bias=None, mask=None, idx=None,
+               score: Optional[str] = None,
                generator: Optional[torch.Generator] = None):
         """norm1 -> attention -> droppath -> residual, returning
-        (x, (aux, None)); bias: None or ToMe's per-key bias [B, N]. In
-        eval one ``fused_block_attention`` call; in training one
-        ``attend_branch_train`` call where there is no bias (with the
-        keys, their plain recompute, as JAX core/layers.py:438-445), else
-        ``Attention``."""
+        (x, (aux, None)); bias: None or ToMe's per-key bias [B, N]; mask:
+        None or the validity mask [B, N]; idx: None or the absolute ids
+        [B, K] of the tokens to keep (CLS included), the same as
+        ``take_tokens(x, idx)`` first. In eval one
+        ``fused_block_attention`` call; in training one
+        ``attend_branch_train`` call where there is no bias and no mask
+        (with the keys, their plain recompute, as JAX
+        core/layers.py:438-445), else ``Attention``."""
         _check_score(score)
         if not self.training:
             res = fused_block_attention(
                 x, *self._attn_params(), self.num_heads, self.attn.scale,
-                eps=self.eps, bias=bias, want_keys=score == "keys")
+                eps=self.eps, bias=bias, mask=mask, idx=idx,
+                want_keys=score == "keys")
             aux = None
             if score == "cls":
                 aux = res[1][:, :, 1:].mean(1)
             elif score == "keys":
                 aux = res[3]
             return res[0], (aux, None)
-        if bias is None and self.attn_kernels:
+        if idx is not None:
+            x = take_tokens(x, idx)
+        if bias is None and mask is None and self.attn_kernels:
             branch, row0 = attend_branch_train(
                 x, *self._attn_params(), self.num_heads, self.attn.scale,
                 self.eps)
@@ -239,7 +256,7 @@ class Block(nn.Module):
                 aux = self.attn.qkv(self.norm1(x)) \
                     .view(B, N, 3, self.num_heads, -1)[:, :, 1].mean(2)
             return x + self.drop_path1(branch, generator), (aux, None)
-        y, aux = self.attn(self.norm1(x), bias=bias, score=score)
+        y, aux = self.attn(self.norm1(x), bias=bias, mask=mask, score=score)
         return x + self.drop_path1(y, generator), aux
 
     def ffn(self, x, generator: Optional[torch.Generator] = None):
@@ -262,14 +279,15 @@ class Block(nn.Module):
                                              eps=self.eps)
         return self.ffn(take_tokens(x, idx), generator)
 
-    def forward(self, x, *, score: Optional[str] = None,
+    def forward(self, x, *, mask=None, score: Optional[str] = None,
                 generator: Optional[torch.Generator] = None):
-        """Returns (x, (aux, None)); a score-less eval block is one
-        ``fused_full_block`` call."""
-        if score is None and not self.training:
+        """Returns (x, (aux, None)); a score-less eval block without a
+        mask is one ``fused_full_block`` call, with a mask ``attend`` and
+        ``ffn``."""
+        if score is None and mask is None and not self.training:
             out = fused_full_block(
                 x, *self._attn_params(), *self._mlp_params(), self.num_heads,
                 self.attn.scale, eps=self.eps)
             return out, (None, None)
-        x, aux = self.attend(x, score=score, generator=generator)
+        x, aux = self.attend(x, mask=mask, score=score, generator=generator)
         return self.ffn(x, generator), aux

@@ -20,8 +20,13 @@
 // validity being the mask at that row, and writes out [B, H, M, 64] and
 // no by-products.
 // Its backward: from q, k, v, the output's gradient dO, the fp32
-// cotangents of row0 and colsum and the bias, the gradients dq, dk, dv
-// (same layouts) and the per-head bias gradient dbias [B, H, N] fp32.
+// cotangents of row0 and colsum, the bias and the validity mask, the
+// gradients dq, dk, dv (same layouts) and the per-head bias gradient
+// dbias [B, H, N] fp32 (the counterpart of _bwd_kernel in
+// tokenreduction_tpu/ops/flash_attention_train.py). With the mask it
+// recomputes the forward's capped logits, so a fully masked query row is
+// uniform again, and zeroes dS at every masked pair: dq, dk and dbias take
+// nothing from such a pair, while dV = P^T dO keeps the uniform rows' P.
 // And head_mean_keys: the head mean of the keys of a packed qkv, [B, N, hd]
 // (ToMe's merge metric).
 //
@@ -390,17 +395,31 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-size_t bwd_mma_smem_bytes(int n) {
-  return sizeof(bf16) * 4 * static_cast<size_t>(k_rows(n)) * QLD + sizeof(float) * 6 * MAXN;
+// The masked variants add one [MAXN] row of caps.
+size_t bwd_mma_smem_bytes(int n, bool masked) {
+  return sizeof(bf16) * 4 * static_cast<size_t>(k_rows(n)) * QLD +
+         sizeof(float) * (masked ? 7 : 6) * MAXN;
+}
+
+// The caps of the square attention's tokens (MASK variants of the
+// backward): cap[j] = +inf for a valid token j < N, else -FLT_MAX. A
+// token is a query row and a key at once, so one row serves both sides of
+// the pair: its logit is min(x, cap[i], cap[j]), as in the forward.
+__device__ __forceinline__ void load_caps(float* cap, const unsigned char* mrow, int N) {
+  for (int j = threadIdx.x; j < MAXN; j += THREADS)
+    cap[j] = j < N && mrow[j] ? INFINITY : -FLT_MAX;
 }
 
 // EXT: the per-key bias, the colsum cotangent dcs and the bias gradient
-// dbias (each pointer may still be null: zero, or not written).
-template <bool EXT>
+// dbias (each pointer may still be null: zero, or not written). MASK: the
+// validity mask [B, N] (one byte per token): the forward's caps on the
+// recomputed logits, and dS zeroed at every masked pair.
+template <bool EXT, bool MASK>
 __global__ void __launch_bounds__(THREADS)
     short_attention_bwd_mma_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
                                    Heads<const bf16> dout, Heads<bf16> dq, Heads<bf16> dk,
                                    Heads<bf16> dv, const float* __restrict__ bias,
+                                   const unsigned char* __restrict__ mask,
                                    const float* __restrict__ drow0,
                                    const float* __restrict__ dcs, float* __restrict__ dbias,
                                    int N, int H, float scale) {
@@ -418,6 +437,7 @@ __global__ void __launch_bounds__(THREADS)
   float* sW = sD + MAXN;                                // [MAXN] row0 cotangent, 0 past N
   float* sB = sW + MAXN;                                // [MAXN] bias, 0 past N (EXT)
   float* sC = sB + MAXN;                                // [MAXN] colsum cotangent (EXT)
+  float* sCap = sC + MAXN;                              // [MAXN] caps (MASK)
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   load_rows(sQ, q, b, h, N, nk);
@@ -430,6 +450,7 @@ __global__ void __launch_bounds__(THREADS)
     load_vec(sB, bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * N, N);
     load_vec(sC, dcs == nullptr ? nullptr : dcs + static_cast<size_t>(bh) * N, N);
   }
+  if constexpr (MASK) load_caps(sCap, mask + static_cast<size_t>(b) * N, N);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -454,13 +475,15 @@ __global__ void __launch_bounds__(THREADS)
       ldmatrix_x4(qf[ks], sQ + (i0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
       ldmatrix_x4(of[ks], sO + (i0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
     }
+    // the warp's query rows' caps (MASK): the forward's logits
+    const Caps cap{sCap, MASK ? sCap[i0 + g] : INFINITY, MASK ? sCap[i0 + g + 8] : INFINITY};
     float m0, m1, r0, r1;
-    row_stats<EXT>(qf, sK, sB, i0, N, N, scale, lane, m0, m1, r0, r1);
+    row_stats<EXT, MASK>(qf, sK, sB, i0, N, N, scale, lane, m0, m1, r0, r1, cap);
     float s[CHUNK / 8][4], dp[CHUNK / 8][4];
     // P and dP of the chunk at j0: the row0 cotangent added on query row
     // 0, then the colsum cotangent on every row
     auto probs = [&](int j0) {
-      qk_chunk<EXT>(qf, sK, sB, j0, N, scale, lane, s);
+      qk_chunk<EXT, MASK>(qf, sK, sB, j0, N, scale, lane, s, cap);
       rows_product(of, sV, j0, lane, dp);
 #pragma unroll
       for (int nt = 0; nt < CHUNK / 8; ++nt) {
@@ -505,6 +528,14 @@ __global__ void __launch_bounds__(THREADS)
         s[nt][1] *= (dp[nt][1] - d0) * scale;
         s[nt][2] *= (dp[nt][2] - d1) * scale;
         s[nt][3] *= (dp[nt][3] - d1) * scale;
+        if constexpr (MASK) {
+          // dS is zero at a masked pair: a fully masked row's P is
+          // uniform and its dP - delta does not vanish by itself
+          const int j = j0 + nt * 8 + 2 * t;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (!(sCap[j + (i & 1)] > 0.f && (i < 2 ? cap.q0 : cap.q1) > 0.f)) s[nt][i] = 0.f;
+        }
       }
       chunk_times_rows(s, sK, j0, lane, acc);
     }
@@ -525,6 +556,8 @@ __global__ void __launch_bounds__(THREADS)
     // the warp's keys' bias and colsum cotangent (zero without EXT)
     const float b0 = EXT ? sB[j0 + g] : 0.f, b1 = EXT ? sB[j0 + g + 8] : 0.f;
     const float c0 = EXT ? sC[j0 + g] : 0.f, c1 = EXT ? sC[j0 + g + 8] : 0.f;
+    // the warp's keys' caps (MASK)
+    const float kc0 = MASK ? sCap[j0 + g] : INFINITY, kc1 = MASK ? sCap[j0 + g + 8] : INFINITY;
     float s[CHUNK / 8][4], dp[CHUNK / 8][4];
     float dka[HD / 8][4] = {}, dva[HD / 8][4] = {};
     float db0 = 0.f, db1 = 0.f;
@@ -541,9 +574,18 @@ __global__ void __launch_bounds__(THREADS)
           float dp0 = dp[nt][e] + (i == 0 ? w0 : 0.f);
           float dp1 = dp[nt][2 + e] + (i == 0 ? w1 : 0.f);
           if constexpr (EXT) l0 += b0, l1 += b1, dp0 += c0, dp1 += c1;
+          if constexpr (MASK) {  // the caps after the bias, as in phase 1
+            const float qc = sCap[i];
+            l0 = fminf(fminf(l0, kc0), qc);
+            l1 = fminf(fminf(l1, kc1), qc);
+          }
           const float p0 = live0 ? expf(l0 - mi) * ri : 0.f;
           const float p1 = live1 ? expf(l1 - mi) * ri : 0.f;
-          const float u0 = p0 * (dp0 - di), u1 = p1 * (dp1 - di);  // unscaled dS
+          float u0 = p0 * (dp0 - di), u1 = p1 * (dp1 - di);  // unscaled dS
+          if constexpr (MASK) {  // zero at a masked pair (P^T dO keeps P)
+            if (!(kc0 > 0.f && sCap[i] > 0.f)) u0 = 0.f;
+            if (!(kc1 > 0.f && sCap[i] > 0.f)) u1 = 0.f;
+          }
           if constexpr (EXT) db0 += u0, db1 += u1;
           s[nt][e] = p0;
           s[nt][2 + e] = p1;
@@ -688,20 +730,22 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-size_t bwd_fma_smem_bytes(int n) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(n) * KLD + 2 * WARPS * HD + 2 * WARPS * MAXN + 4 * MAXN);
+size_t bwd_fma_smem_bytes(int n, bool masked) {
+  return sizeof(float) * (2 * static_cast<size_t>(n) * KLD + 2 * WARPS * HD + 2 * WARPS * MAXN +
+                          (masked ? 5 : 4) * MAXN);
 }
 
 // fp32 backward on the CUDA cores, the same two phases as the bf16 kernel
 // with a warp per query row (phase 1) and per key (phase 2); shared memory
 // holds K and V in phase 1, then Q and dO in phase 2. bias, dcs and dbias
-// may be null.
+// may be null. MASK as in the bf16 kernel.
+template <bool MASK>
 __global__ void __launch_bounds__(THREADS)
     short_attention_bwd_fma_kernel(Heads<const float> q, Heads<const float> k,
                                    Heads<const float> v, Heads<const float> dout, Heads<float> dq,
                                    Heads<float> dk, Heads<float> dv,
                                    const float* __restrict__ bias,
+                                   const unsigned char* __restrict__ mask,
                                    const float* __restrict__ drow0,
                                    const float* __restrict__ dcs, float* __restrict__ dbias,
                                    int N, int H, float scale) {
@@ -715,6 +759,7 @@ __global__ void __launch_bounds__(THREADS)
   float* sR = sM + MAXN;                       // [MAXN] 1/row sum
   float* sD = sR + MAXN;                       // [MAXN] delta
   float* sW = sD + MAXN;                       // [MAXN] row0 cotangent
+  float* sCap = sW + MAXN;                     // [MAXN] caps (MASK)
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * N;
@@ -729,6 +774,7 @@ __global__ void __launch_bounds__(THREADS)
   fill(k, v);
   for (int j = threadIdx.x; j < MAXN; j += THREADS)
     sW[j] = drow0 != nullptr && j < N ? drow0[static_cast<size_t>(bh) * N + j] : 0.f;
+  if constexpr (MASK) load_caps(sCap, mask + static_cast<size_t>(b) * N, N);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -759,6 +805,7 @@ __global__ void __launch_bounds__(THREADS)
       if (j < N) {
         s[t] = dot(u, sA + j * KLD) * scale;
         if (brow != nullptr) s[t] += brow[j];
+        if constexpr (MASK) s[t] = fminf(fminf(s[t], sCap[j]), sCap[i]);
         dp[t] = dot(w, sB + j * KLD) + (i == 0 ? sW[j] : 0.f);
         if (crow != nullptr) dp[t] += crow[j];
       }
@@ -783,6 +830,8 @@ __global__ void __launch_bounds__(THREADS)
     for (int t = 0; t < KEYS_PER_LANE; ++t) {
       const int j = lane + 32 * t;
       if (j < N) ds[j] = s[t] * (dp[t] - dl) * scale;
+      if constexpr (MASK)  // dS is zero at a masked pair
+        if (j < N && !(sCap[i] > 0.f && sCap[j] > 0.f)) ds[j] = 0.f;
     }
     if (lane == 0) sM[i] = mx, sR[i] = rinv, sD[i] = dl;
     __syncwarp();
@@ -815,10 +864,13 @@ __global__ void __launch_bounds__(THREADS)
       if (i >= N) continue;
       float l = dot(u, sA + i * KLD) * scale;
       if (brow != nullptr) l += bj;
+      if constexpr (MASK) l = fminf(fminf(l, sCap[j]), sCap[i]);
       float dpv = dot(w, sB + i * KLD) + (i == 0 ? sW[j] : 0.f);
       if (crow != nullptr) dpv += cj;
       const float pr = expf(l - sM[i]) * sR[i];
-      const float du = pr * (dpv - sD[i]);  // unscaled dS
+      float du = pr * (dpv - sD[i]);  // unscaled dS
+      if constexpr (MASK)             // zero at a masked pair (dV keeps P)
+        if (!(sCap[i] > 0.f && sCap[j] > 0.f)) du = 0.f;
       p[i] = pr;
       ds[i] = du * scale;
       dsum += du;
@@ -942,45 +994,54 @@ extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const
 // Returns the cudaError_t of the launch (0 on success): dq, dk, dv from q,
 // k, v and dout, all [B, H, N, 64] operands in `dtype` with the head dim
 // contiguous (strides: the (batch, head, row) strides of q, k, v, dout, dq,
-// dk and dv, in elements), the fp32 bias [B, N], the fp32 cotangents drow0
-// and dcs [B, H, N], and the fp32 per-head bias gradient dbias [B, H, N];
-// each of the last four may be null (zero, or not written). The caller
-// checks shapes, dtypes and strides.
+// dk and dv, in elements), the fp32 bias [B, N], the validity mask
+// ([B, N], one byte per token, non-zero = valid), the fp32 cotangents
+// drow0 and dcs [B, H, N], and the fp32 per-head bias gradient dbias
+// [B, H, N]; each of the last five may be null (zero, none, or not
+// written). The caller checks shapes, dtypes and strides.
 extern "C" int tr_short_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                       const void* dout, void* dq, void* dk, void* dv,
                                       const long long* strides, const void* bias,
-                                      const void* drow0, const void* dcs, void* dbias, int B,
-                                      int N, int H, float scale, void* stream) {
+                                      const void* mask, const void* drow0, const void* dcs,
+                                      void* dbias, int B, int N, int H, float scale,
+                                      void* stream) {
   using namespace trk;
   if (N < 1 || N > MAXN) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bp = static_cast<const float*>(bias);
+  const unsigned char* mp = static_cast<const unsigned char*>(mask);
   const float* w = static_cast<const float*>(drow0);
   const float* c = static_cast<const float*>(dcs);
   float* db = static_cast<float*>(dbias);
+  const bool masked = mask != nullptr;
   cudaError_t err;
   if (dtype == kBFloat16) {
     const bool ext = bias != nullptr || dcs != nullptr || dbias != nullptr;
-    auto kernel = ext ? short_attention_bwd_mma_kernel<true> : short_attention_bwd_mma_kernel<false>;
+    using Kernel = decltype(&short_attention_bwd_mma_kernel<false, false>);
+    const Kernel variants[2][2] = {
+        {short_attention_bwd_mma_kernel<false, false>, short_attention_bwd_mma_kernel<false, true>},
+        {short_attention_bwd_mma_kernel<true, false>, short_attention_bwd_mma_kernel<true, true>}};
+    const Kernel kernel = variants[ext][masked];
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bwd_mma_smem_bytes(MAXN)));
+                               static_cast<int>(bwd_mma_smem_bytes(MAXN, masked)));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<B * H, THREADS, bwd_mma_smem_bytes(N), s>>>(
+    kernel<<<B * H, THREADS, bwd_mma_smem_bytes(N, masked), s>>>(
         heads<const bf16>(q, strides, 0), heads<const bf16>(k, strides, 1),
         heads<const bf16>(v, strides, 2), heads<const bf16>(dout, strides, 3),
         heads<bf16>(dq, strides, 4), heads<bf16>(dk, strides, 5), heads<bf16>(dv, strides, 6), bp,
-        w, c, db, N, H, scale);
+        mp, w, c, db, N, H, scale);
   } else if (dtype == kFloat32) {
-    err = cudaFuncSetAttribute(short_attention_bwd_fma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bwd_fma_smem_bytes(MAXN)));
+    const auto kernel =
+        masked ? short_attention_bwd_fma_kernel<true> : short_attention_bwd_fma_kernel<false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bwd_fma_smem_bytes(MAXN, masked)));
     if (err != cudaSuccess) return static_cast<int>(err);
-    short_attention_bwd_fma_kernel<<<B * H, THREADS, bwd_fma_smem_bytes(N), s>>>(
+    kernel<<<B * H, THREADS, bwd_fma_smem_bytes(N, masked), s>>>(
         heads<const float>(q, strides, 0), heads<const float>(k, strides, 1),
         heads<const float>(v, strides, 2), heads<const float>(dout, strides, 3),
         heads<float>(dq, strides, 4), heads<float>(dk, strides, 5), heads<float>(dv, strides, 6),
-        bp, w, c, db, N, H, scale);
+        bp, mp, w, c, db, N, H, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

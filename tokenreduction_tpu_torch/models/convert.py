@@ -3,7 +3,11 @@
 The inverse of ``tokenreduction_tpu/models/convert.py:63
 convert_torch_state_dict``: Dense kernels [in, out] -> nn.Linear weights
 [out, in], the patch conv HWIO -> OIHW, LayerNorm ``scale`` -> ``weight``;
-``cls_token``, ``dist_token`` and ``pos_embed`` pass through. It works on
+``cls_token``, ``dist_token`` and ``pos_embed`` pass through. DyViT's
+score predictors map from ``score_predictor_{i}/{in_ln, in_fc, out_fc1,
+out_fc2, out_fc3}`` to ``score_predictor.{i}.<name>.{weight, bias}``
+(the port's own names; no loader of the reference's ``in_conv`` /
+``out_conv`` checkpoint names exists on either side). It works on
 any nested mapping of array-likes (numpy arrays in the tests) and imports
 no JAX. ``torch_names_from_flax`` maps any tree shaped like the params
 (gradients, optimizer labels, EMA params) to the port's parameter names
@@ -36,6 +40,11 @@ def flax_path_to_torch_name(path: tuple[str, ...]):
             return (f"blocks.{i}.{path[1]}.{path[2]}.{suffix}",
                     "linear" if weight else None)
         return None
+    if top.startswith("score_predictor_") and len(path) == 3:
+        i = top[len("score_predictor_"):]
+        linear = weight and path[1] != "in_ln"
+        return (f"score_predictor.{i}.{path[1]}.{suffix}",
+                "linear" if linear else None)
     if top == "norm":
         return f"norm.{suffix}", None
     if top in ("head", "head_dist"):

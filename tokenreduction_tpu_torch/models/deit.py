@@ -56,9 +56,15 @@ class ViTBase(nn.Module):
             self.head = nn.Linear(D, c.num_classes)
             if c.distilled:
                 self.head_dist = nn.Linear(D, c.num_classes)
+        self.make_modules()
         self.init_weights(generator if generator is not None
                           else torch.Generator().manual_seed(0))
         self.to(resolve_device(device))
+
+    def make_modules(self):
+        """A family's own modules and buffers beside the backbone, made
+        before the weights are initialised and moved to the device (none
+        here)."""
 
     def make_block(self, i: int, drop_path: float) -> nn.Module:
         """Block i of the backbone (a family with its own blocks overrides

@@ -1,11 +1,11 @@
 """Model registry: reference-compatible names -> (module, config).
 
 Counterpart of ``tokenreduction_tpu/models/registry.py``, with the names
-ported so far: ``deit_{tiny,small,base}_patch16_224_local(_viz)``,
-``topk_{tiny,small,base}_patch16_224``,
-``tome_{tiny,small,base}_patch16_224`` and
-``ats_{tiny,small,base}_patch16_224``. Every other name of the JAX
-registry raises ``NotImplementedError`` until its method is ported.
+ported so far: ``deit_{tiny,small,base}_patch16_224_local(_viz)`` and
+``{topk,tome,ats,heuristic,dyvit}_{tiny,small,base}_patch16_224``
+(DyViT in eval only: its training raises). Every other name of the JAX
+registry, ``dyvit_*_teacher`` included, raises ``NotImplementedError``
+until its method is ported.
 """
 
 from __future__ import annotations
@@ -16,15 +16,21 @@ from torch import nn
 from tokenreduction_tpu_torch.core.config import SIZE_PRESETS, ViTConfig
 from tokenreduction_tpu_torch.models.deit import VisionTransformer
 from tokenreduction_tpu_torch.reduction.ats import ATSVisionTransformer
+from tokenreduction_tpu_torch.reduction.dyvit import DynamicVisionTransformer
+from tokenreduction_tpu_torch.reduction.heuristic import (
+    HeuristicVisionTransformer,
+)
 from tokenreduction_tpu_torch.reduction.tome import ToMeVisionTransformer
 from tokenreduction_tpu_torch.reduction.topk import TopKVisionTransformer
 
 _CLASSES = {"": VisionTransformer, "topk": TopKVisionTransformer,
-            "tome": ToMeVisionTransformer, "ats": ATSVisionTransformer}
+            "tome": ToMeVisionTransformer, "ats": ATSVisionTransformer,
+            "heuristic": HeuristicVisionTransformer,
+            "dyvit": DynamicVisionTransformer}
 
 # methods of the JAX registry that wait for their slice of the port
 _NOT_PORTED = ("evit", "sit", "patchmerger", "sinkhorn", "dpcknn",
-               "kmedoids", "dyvit", "heuristic")
+               "kmedoids")
 
 _REGISTRY = {}  # name -> (method key, size, module kwargs)
 _REFERENCE_ONLY = {"regnety_160"}
@@ -34,7 +40,8 @@ for _size in SIZE_PRESETS:
         "", _size, {"capture_features": True})
     _REGISTRY[f"topk_{_size}_patch16_224"] = ("topk", _size, {})
     _REGISTRY[f"tome_{_size}_patch16_224"] = ("tome", _size, {})
-    _REGISTRY[f"ats_{_size}_patch16_224"] = ("ats", _size, {})
+    for _m in ("ats", "heuristic", "dyvit"):
+        _REGISTRY[f"{_m}_{_size}_patch16_224"] = (_m, _size, {})
     _REFERENCE_ONLY.add(f"dyvit_{_size}_patch16_224_teacher")
     _REFERENCE_ONLY.update(f"{m}_{_size}_patch16_224" for m in _NOT_PORTED)
 

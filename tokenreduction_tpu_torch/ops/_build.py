@@ -60,7 +60,7 @@ _SIGNATURES = {
     "tr_short_attention": (_I, _P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _F, _I, _P),
     "tr_short_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _S, _P, _P, _P,
-                               _P, _I, _I, _I, _F, _P),
+                               _P, _P, _I, _I, _I, _F, _P),
     "tr_head_mean_keys": (_I, _P, _P, _I, _I, _I, _P),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -368,19 +368,22 @@ def short_attention(qkv, out, num_heads, scale, *, bias=None, mask=None,
 
 
 def short_attention_bwd_heads(q, k, v, dout, dq, dk, dv, scale, *, bias=None,
-                              drow0=None, dcs=None, dbias=None):
+                              mask=None, drow0=None, dcs=None, dbias=None):
     """dq, dk, dv of the attention with the normalised probabilities
     (every operand [B, H, N, 64] as in ``short_attention_heads``) from
-    q, k, v, the output's gradient dout, the fp32 bias [B, N] and the fp32
-    cotangents of row0 (drow0) and colsum (dcs) [B, H, N]; with dbias
-    [B, H, N] fp32 also the per-head bias gradient, the unscaled dS summed
-    over the queries. None is zero (or, for dbias, not written). See
+    q, k, v, the output's gradient dout, the fp32 bias [B, N], the bool
+    validity mask [B, N] (the forward's pair mask on the recomputed logits,
+    and dS zeroed at every masked pair) and the fp32 cotangents of row0
+    (drow0) and colsum (dcs) [B, H, N]; with dbias [B, H, N] fp32 also the
+    per-head bias gradient, the unscaled dS summed over the queries. None
+    is zero (no mask; for dbias, not written). See
     csrc/short_attention.cu."""
     B, H, N, _ = q.shape
     err = kernels().lib.tr_short_attention_bwd(
         _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq),
         _ptr(dk), _ptr(dv), _strides(q, k, v, dout, dq, dk, dv), _ptr(bias),
-        _ptr(drow0), _ptr(dcs), _ptr(dbias), B, N, H, scale, _stream(q))
+        _ptr(mask), _ptr(drow0), _ptr(dcs), _ptr(dbias), B, N, H, scale,
+        _stream(q))
     _check("tr_short_attention_bwd", err)
 
 

@@ -12,7 +12,11 @@ score is ``row0[:, :, 1:].mean(1)``); optionally with a per-key additive
 bias ``[B, N]`` on the logits (ToMe's log size) and, with ``want_keys``,
 the head-mean keys ``[B, N, hd]`` (ToMe's merge metric) as a fourth
 output: the fp32 sum of the rounded keys over the heads in head order,
-divided by H and rounded. LayerNorm, softmax and accumulation are fp32;
+divided by H and rounded. With ``idx [B, K]`` (absolute token ids, CLS
+included; DyViT's kept tokens) the block first selects those rows and
+runs at width K: the same as ``take_tokens(x, idx)`` then the block, with
+outputs [B, K, D], [B, H, K] and keys [B, K, hd]; idx takes no bias and no
+mask, as on the TPU. LayerNorm, softmax and accumulation are fp32;
 the LN output, qkv, the probabilities fed to the value product and the
 merged heads are rounded to the input dtype, as on the TPU.
 
@@ -54,6 +58,11 @@ hand-written kernels (``csrc/``):
 4. ``gemm``: the out projection, with its bias and the residual fused
    into the epilogue.
 
+With idx, step 1's LayerNorm reads its rows through the ids and step 4's
+epilogue adds the residual rows gathered through the same ids, so the
+gathered tokens never make a round trip through device memory; steps 2
+and 3 run at width K.
+
 The rectangular block is steps 2 and 4 over the kept rows: the
 rectangular ``short_attention`` variant loads the M query rows through
 their ids (no one-hot product: the card gathers rows at no cost), and the
@@ -68,9 +77,6 @@ round trip through device memory). This is a simple first version on
 mma.sync; wgmma, TMA, persistent tiles and keeping qkv on chip are later
 work.
 
-The idx row-select prologue (DyViT) raises ``NotImplementedError`` until
-its method is ported.
-
 On a CPU tensor each wrapper runs its plain PyTorch version (the same
 name with ``_ref``); on a CUDA tensor it launches the kernels or raises.
 """
@@ -78,6 +84,8 @@ name with ``_ref``); on a CUDA tensor it launches the kernels or raises.
 from __future__ import annotations
 
 import torch
+
+from tokenreduction_tpu_torch.ops.gather import take_tokens
 
 # The short-attention kernel holds one head's q, k and v in shared memory
 # (and its fp32 form gives each lane N / 32 keys): N <= 256 at head dim 64.
@@ -324,17 +332,19 @@ def check_attention_operands(name: str, x, num_heads: int, ln_scale, ln_bias,
                           bproj)
 
 
-def ln_qkv_cuda(x, ln_scale, ln_bias, wqkv, bqkv, eps: float):
+def ln_qkv_cuda(x, ln_scale, ln_bias, wqkv, bqkv, eps: float, idx=None):
     """Step 1 of the module docstring on checked CUDA operands: LN1 rows,
-    then qkv [B, N, 3D] in x's dtype."""
+    then qkv [B, N, 3D] in x's dtype; with idx (contiguous int32 [B, K])
+    the LayerNorm reads rows idx[b, k] of image b, and qkv is [B, K, 3D]."""
     from tokenreduction_tpu_torch.ops import _build
 
     B, N, D = x.shape
-    rows = x.view(B * N, D)
-    ln = torch.empty_like(rows)
-    _build.layer_norm(rows, ln_scale, ln_bias, ln, eps=eps)
-    qkv = torch.empty(B, N, 3 * D, dtype=x.dtype, device=x.device)
-    _build.gemm(ln, wqkv, bqkv, qkv.view(B * N, 3 * D))
+    K = N if idx is None else idx.shape[1]
+    ln = torch.empty(B * K, D, dtype=x.dtype, device=x.device)
+    _build.layer_norm(x.view(B * N, D), ln_scale, ln_bias, ln, eps=eps,
+                      idx=idx, rows_out=K, rows_in=N)
+    qkv = torch.empty(B, K, 3 * D, dtype=x.dtype, device=x.device)
+    _build.gemm(ln, wqkv, bqkv, qkv.view(B * K, 3 * D))
     return qkv
 
 
@@ -359,31 +369,34 @@ def ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, *, eps: float = 1e-6):
 def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                         num_heads: int, scale: float, eps: float,
                         with_scores: bool, out_dtype=None, bias=None,
-                        mask=None, want_keys: bool = False):
+                        mask=None, idx=None, want_keys: bool = False):
     """Steps 1-4 of the module docstring on checked CUDA operands (bias:
     None or contiguous fp32 [B, N]; mask: None or contiguous bool
-    [B, N]). Returns (out, row0, colsum, keys): out in ``out_dtype`` (x's
-    by default); the by-products are None without ``with_scores``, the
-    keys without ``want_keys``."""
+    [B, N]; idx: None or contiguous int32 [B, K], with no bias and no
+    mask). Returns (out, row0, colsum, keys) at width K (N without idx):
+    out in ``out_dtype`` (x's by default); the by-products are None
+    without ``with_scores``, the keys without ``want_keys``."""
     from tokenreduction_tpu_torch.ops import _build
 
     B, N, D = x.shape
-    qkv = ln_qkv_cuda(x, ln_scale, ln_bias, wqkv, bqkv, eps)
-    merged = torch.empty_like(x)
+    K = N if idx is None else idx.shape[1]
+    qkv = ln_qkv_cuda(x, ln_scale, ln_bias, wqkv, bqkv, eps, idx=idx)
+    merged = torch.empty(B, K, D, dtype=x.dtype, device=x.device)
     row0 = colsum = keys = None
     if with_scores:
-        row0 = torch.empty(B, num_heads, N, dtype=torch.float32,
+        row0 = torch.empty(B, num_heads, K, dtype=torch.float32,
                            device=x.device)
         colsum = torch.empty_like(row0)
     _build.short_attention(qkv, merged, num_heads, scale, bias=bias,
                            mask=mask, row0=row0, colsum=colsum)
     if want_keys:
-        keys = torch.empty(B, N, D // num_heads, dtype=x.dtype,
+        keys = torch.empty(B, K, D // num_heads, dtype=x.dtype,
                            device=x.device)
         _build.head_mean_keys(qkv, keys, num_heads)
-    out = torch.empty_like(x, dtype=out_dtype)
-    _build.gemm(merged.view(B * N, D), wproj, bproj, out.view(B * N, D),
-                res=x.view(B * N, D))
+    out = torch.empty(B, K, D, dtype=out_dtype or x.dtype, device=x.device)
+    # the residual: rows idx[b, k] of x with idx, else x
+    _build.gemm(merged.view(B * K, D), wproj, bproj, out.view(B * K, D),
+                res=x.view(B * N, D), idx=idx, rows_out=K, rows_in=N)
     return out, row0, colsum, keys
 
 
@@ -394,14 +407,19 @@ def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     """x [B, N, D] -> (x + proj(attn(LN1 x)), row0 [B, H, N],
     colsum [B, H, N]), plus the head-mean keys [B, N, hd] with
     ``want_keys``; bias: None or the per-key additive bias [B, N]; mask:
-    None or the validity mask [B, N] (bool or uint8). Weights in
-    nn.Linear's [out, in] layout: wqkv [3D, D], wproj [D, D]."""
+    None or the validity mask [B, N] (bool or uint8); idx: None or the
+    absolute token ids [B, K] (CLS included) of the rows to keep, which
+    makes every output K wide: the block of ``take_tokens(x, idx)``. idx
+    with a bias or a mask raises ``ValueError``; an id out of range raises
+    on the CPU and faults the kernel on the card. Weights in nn.Linear's
+    [out, in] layout: wqkv [3D, D], wproj [D, D]."""
     name = "fused_block_attention"
-    if idx is not None:
-        raise NotImplementedError(
-            f"{name}: the idx row-select prologue comes with DyViT and is not "
-            "ported yet (ROADMAP Queue 2 item 5)")
+    if idx is not None and (bias is not None or mask is not None):
+        raise ValueError(f"{name}: the idx prologue takes no bias and no "
+                         "mask (as the JAX kernel asserts)")
     if not x.is_cuda:
+        if idx is not None:
+            x = take_tokens(x, idx)
         return fused_block_attention_ref(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale,
             eps=eps, bias=bias, mask=mask, want_keys=want_keys)
@@ -410,9 +428,14 @@ def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     B, N = x.shape[:2]
     bias = bias_operand(name, bias, B, N, x.device)
     mask = mask_operand(name, mask, B, N, x.device)
+    if idx is not None:
+        from tokenreduction_tpu_torch.ops import _build
+
+        idx = _build.check_idx(name, idx, x)
+        _check_width(name, idx.shape[1], x.shape[2] // num_heads)
     out, row0, colsum, keys = attention_half_cuda(
         x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale, eps,
-        with_scores=True, bias=bias, mask=mask, want_keys=want_keys)
+        with_scores=True, bias=bias, mask=mask, idx=idx, want_keys=want_keys)
     fused_block_attention.launches += 1
     return (out, row0, colsum, keys) if want_keys else (out, row0, colsum)
 

@@ -4,16 +4,21 @@
 ``tokenreduction_tpu/ops/flash_attention_train.py:172
 attention_core_train``:
 
-    (out, row0, colsum) = softmax(q k^T * scale [+ bias]) v
+    (out, row0, colsum) = softmax(q k^T * scale [+ bias] [pair mask]) v
 
 over q, k, v [B, H, N, hd] with an optional per-key additive bias [B, N]
-(ToMe's log size), the CLS query row ``row0`` and the column mass
+(ToMe's log size), an optional validity mask [B, N] (heuristic's static
+masks: -FLT_MAX after the scale and the bias where the query or the key
+token is invalid, the JAX pair mask, so a fully masked query row is
+uniform over its N keys), the CLS query row ``row0`` and the column mass
 ``colsum`` of the probabilities as fp32 [B, H, N] by-products. It is a
-``torch.autograd.Function`` differentiable in q, k, v and the bias, and
-it takes the cotangents of all three outputs. The training blocks reach
-it through ``core/layers.py::Attention`` wherever the attention half has
-a bias (ToMe after its first merge); the qkv and out projections around
-it stay ``nn.Linear``, as the JAX package leaves them to XLA.
+``torch.autograd.Function`` differentiable in q, k, v and the bias (the
+mask takes no gradient), and it takes the cotangents of all three
+outputs. The training blocks reach it through ``core/layers.py::
+Attention`` wherever the attention half has a bias or a mask (ToMe after
+its first merge, heuristic from its first active block on); the qkv and
+out projections around it stay ``nn.Linear``, as the JAX package leaves
+them to XLA.
 
 Numerics (the TPU kernels' rounding points): the forward is
 ``fused_attention``'s eval recipe (the unnormalised exponentials rounded
@@ -22,7 +27,11 @@ normalised probabilities P with the exact row max and rounds P before
 dV = P^T dO; dP = dO V^T plus the row0 cotangent on query row 0 and the
 colsum cotangent on every query row; dS = P (dP - rowsum(dP P)) in fp32,
 whose column sums over the queries are the per-head bias gradient (summed
-over the heads outside the kernel, as on the TPU); dS rounded, then
+over the heads outside the kernel, as on the TPU); with the mask the
+logits are capped as in the forward and dS is zero at every masked pair
+(JAX ``flash_attention_train.py:80-84``: a fully masked row's P is uniform,
+so dP - rowsum(dP P) does not vanish by itself), while dV = P^T dO keeps
+that uniform P; dS rounded, then
 dq = round(dS) K scale and dk = round(dS)^T Q scale, rounded. The kernel
 rounds dS after the scale: at head dim 64 the scale is 2^-3, a power of
 two, so both orders give the same numbers.
@@ -33,8 +42,8 @@ is one launch of the hand-written kernels in ``csrc/short_attention.cu``
 (one block per (image, head), that head's q, k, v and dO in shared
 memory, read through their strides so the views of the packed projection
 need no copy): ``short_attention`` forward, ``short_attention_bwd``
-backward with the bias, both cotangents and dbias. The output is a view
-of merged heads, so merging them afterwards copies nothing.
+backward with the bias, the mask, both cotangents and dbias. The output
+is a view of merged heads, so merging them afterwards copies nothing.
 
 What bounds it: at N <= 197 the forward is bound by reading q, k, v and
 by its exponentials, the backward by recomputing QK^T (four passes per
@@ -42,9 +51,7 @@ query tile, one per key tile) on mma.sync; a first version.
 
 On a CPU tensor the core runs ``fused_attention_ref`` forward and
 ``attention_core_train_bwd_ref`` backward; on a CUDA tensor it launches
-the kernels or raises. The validity mask, whose backward heuristic's
-training needs, raises ``NotImplementedError`` until that method is
-ported (the eval forward takes it: ``fused_attention(mask=)``).
+the kernels or raises.
 """
 
 from __future__ import annotations
@@ -52,24 +59,29 @@ from __future__ import annotations
 import torch
 
 from tokenreduction_tpu_torch.ops.flash_attention import (
+    MASK_VALUE,
     bias_operand,
     fused_attention_cuda,
     fused_attention_ref,
+    mask_operand,
 )
 
 
 def attention_core_train_bwd_ref(q, k, v, bias, dout, drow0, dcs,
-                                 scale: float):
+                                 scale: float, mask=None):
     """Plain hand-written backward of ``attention_core_train``: the TPU
     kernel's ``_bwd_kernel`` (flash_attention_train.py:38-99) with its
     rounding points. dout [B, H, N, hd]; bias [B, N], drow0 and dcs
-    [B, H, N] or None. Returns (dq, dk, dv in q's dtype, the per-head
-    bias gradient [B, H, N] fp32)."""
+    [B, H, N], and the validity mask [B, N] (bool) or None. Returns (dq,
+    dk, dv in q's dtype, the per-head bias gradient [B, H, N] fp32)."""
     dt = q.dtype
     q32, k32, v32 = q.float(), k.float(), v.float()
     s = (q32 @ k32.transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()[:, None, None, :]
+    if mask is not None:
+        pair = mask.bool()[:, None, :, None] & mask.bool()[:, None, None, :]
+        s = s.masked_fill(~pair, MASK_VALUE)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = e * (1.0 / e.sum(-1, keepdim=True))
     do = dout.to(dt).float()
@@ -80,12 +92,14 @@ def attention_core_train_bwd_ref(q, k, v, bias, dout, drow0, dcs,
     if dcs is not None:
         dp = dp + dcs.float()[:, :, None, :]  # the colsum one on every row
     dsu = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if mask is not None:  # zero at every masked pair (a uniform row too)
+        dsu = dsu.masked_fill(~pair, 0.0)
     ds = dsu.to(dt).float()
     return (((ds @ k32) * scale).to(dt),
             ((ds.transpose(-1, -2) @ q32) * scale).to(dt), dv, dsu.sum(2))
 
 
-def _bwd_cuda(q, k, v, bias, dout, drow0, dcs, scale, want_dbias):
+def _bwd_cuda(q, k, v, bias, mask, dout, drow0, dcs, scale, want_dbias):
     """Backward launch; returns (dq, dk, dv, per-head dbias or None)."""
     from tokenreduction_tpu_torch.ops import _build
 
@@ -107,58 +121,57 @@ def _bwd_cuda(q, k, v, bias, dout, drow0, dcs, scale, want_dbias):
                         device=q.device) if want_dbias else None
     _build.short_attention_bwd_heads(
         q, k, v, dout, dq, dk, dv, scale,
-        bias=bias_operand(name, bias, B, N, q.device), drow0=row(drow0),
+        bias=bias_operand(name, bias, B, N, q.device), mask=mask,
+        drow0=row(drow0),
         dcs=row(dcs), dbias=dbias)
     return dq, dk, dv, dbias
 
 
 class _AttentionCore(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
+    def forward(ctx, q, k, v, bias, mask, scale):
         ctx.scale = scale
         ctx.set_materialize_grads(False)  # an unused output's cotangent is 0
         if q.is_cuda:
+            B, _, N, _ = q.shape
+            mask = mask_operand("attention_core_train", mask, B, N, q.device)
             res = fused_attention_cuda("attention_core_train", q, k, v, scale,
-                                       bias)
+                                       bias, mask)
             attention_core_train.launches += 1
         else:
-            res = fused_attention_ref(q, k, v, scale, bias=bias)
-        ctx.save_for_backward(q, k, v, bias)
+            res = fused_attention_ref(q, k, v, scale, bias=bias, mask=mask)
+        ctx.save_for_backward(q, k, v, bias, mask)
         return res
 
     @staticmethod
     def backward(ctx, dout, drow0, dcs):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, mask = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(q)
         dout = dout.to(q.dtype)
         want_dbias = bias is not None and ctx.needs_input_grad[3]
         if q.is_cuda:
-            dq, dk, dv, dbias = _bwd_cuda(q, k, v, bias, dout, drow0, dcs,
-                                          ctx.scale, want_dbias)
+            dq, dk, dv, dbias = _bwd_cuda(q, k, v, bias, mask, dout, drow0,
+                                          dcs, ctx.scale, want_dbias)
             attention_core_train.launches += 1
             attention_core_train.backward_launches += 1
         else:
             dq, dk, dv, dbias = attention_core_train_bwd_ref(
-                q, k, v, bias, dout, drow0, dcs, ctx.scale)
+                q, k, v, bias, dout, drow0, dcs, ctx.scale, mask)
         if want_dbias:
             # the bias is shared by the heads: sum their gradients
             dbias = dbias.sum(1).to(bias.dtype)
-        return dq, dk, dv, dbias if want_dbias else None, None
+        return dq, dk, dv, dbias if want_dbias else None, None, None
 
 
 def attention_core_train(q, k, v, scale: float, bias=None, mask=None):
     """q, k, v [B, H, N, hd] (head dim contiguous) -> (out [B, H, N, hd],
     row0 [B, H, N] fp32, colsum [B, H, N] fp32), differentiable in q, k,
-    v, the per-key bias [B, N] (or None) and all three outputs.
+    v, the per-key bias [B, N] (or None) and all three outputs; mask:
+    None or the validity mask [B, N] (bool or uint8; no gradient).
     ``launches`` counts the CUDA forwards and backwards,
     ``backward_launches`` the backwards alone."""
-    if mask is not None:
-        raise NotImplementedError(
-            "attention_core_train: the validity mask's backward comes with "
-            "heuristic training and is not ported yet (ROADMAP Queue 2 item "
-            "5)")
-    return _AttentionCore.apply(q, k, v, bias, scale)
+    return _AttentionCore.apply(q, k, v, bias, mask, scale)
 
 
 attention_core_train.launches = 0

@@ -9,16 +9,23 @@ block weights (``block_params``) from that checkout's ``chip_smoke.py``.
 Each run prints the times, in ms, of one full block (``fused_full_block``,
 bf16, B=256, N=197, median of 50), of the qkv GEMM alone at the same rows
 (median of 50), and of a dense DeiT-S bf16 b256 forward (median of 10), of
-the topk@0.7 and dense train steps (``train_run``: bench.py's recipe at
-b256, the median of steps 3-6 on the host clock), and, per launch, of ten
-back-to-back launches between one pair of events (median of 20), so
-that the host's launch cost is hidden: the qkv GEMM, the fc1 GEMM with
-GELU, the attention and the LayerNorm at the same shapes. Both also time
-a topk@0.7 bf16 b256 forward (median of 10); a checkout whose attention
-takes a validity mask also times, per launch as above, the masked
-attention and the rectangular attention of 138 kept rows over 197 keys,
-and an ATS@0.7 forward. The last lines give each checkout's medians over
-its runs. Needs one CUDA card; numbers from separate calls are not
+the topk@0.7, dense and ToMe@0.7 train steps (``train_run``: bench.py's
+recipe at b256, the median of steps 3-6 on the host clock), and, per
+launch, of ten back-to-back launches between one pair of events (median
+of 20), so that the host's launch cost is hidden: the qkv GEMM, the fc1
+GEMM with GELU, the attention and the LayerNorm at the same shapes, and
+the attention backward (the training branch's, with the row0 cotangent,
+and ToMe's, with the bias, both cotangents and dbias, over [B, H, N, hd]
+views). Both also time a topk@0.7 bf16 b256 forward (median of 10); a
+checkout whose attention takes a validity mask also times, per launch as
+above, the masked attention and the rectangular attention of 138 kept
+rows over 197 keys, and an ATS@0.7 forward; one whose backward takes the
+mask also times the masked backward (heuristic's block-3 mask, no
+by-product cotangents, as its train step runs it) per launch, and the
+heuristic and DyViT@0.7 forwards. Each run also prints the ptxas
+registers of the attention backward's variants (``bwd_registers``, from
+its checkout's build log). The last lines give each checkout's medians
+over its runs. Needs one CUDA card; numbers from separate calls are not
 compared.
 """
 
@@ -33,7 +40,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import inspect, json, statistics, torch
+import inspect, json, re, statistics, torch
 from chip_smoke import D, H4, HEADS, SCALE, block_params, cuda_ms, train_run
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.ops import _build
@@ -87,10 +94,54 @@ def ats_times():
             qkv, rect, HEADS, SCALE, mask=mask, ids=ids)),
         ats_forward=forward_ms("ats_small_patch16_224"))
 
+def bwd_times():
+    # the attention backward per launch; with the mask where the checkout
+    # has it
+    hd = D // HEADS
+    q, k, v = (t.contiguous() for t in
+               torch.randn(3, B, HEADS, N, hd, generator=g).to("cuda", bf16))
+    dout = torch.randn(B, HEADS, N, hd, generator=g).to("cuda", bf16)
+    drow0, dcs, bias = (torch.randn(B, HEADS, N, generator=g).to("cuda")
+                        for _ in range(3))
+    bias = bias[:, 0].contiguous()
+    grads = torch.empty(3, B, HEADS, N, hd, device="cuda",
+                        dtype=bf16).unbind(0)
+    dbias = torch.empty(B, HEADS, N, device="cuda")
+    out = dict(
+        attention_bwd_x10=ten(lambda: _build.short_attention_bwd_heads(
+            q, k, v, dout, *grads, SCALE, drow0=drow0)),
+        attention_bwd_bias_x10=ten(lambda: _build.short_attention_bwd_heads(
+            q, k, v, dout, *grads, SCALE, bias=bias, drow0=drow0, dcs=dcs,
+            dbias=dbias)))
+    if "mask" in inspect.signature(
+            _build.short_attention_bwd_heads).parameters:
+        from chip_smoke import batch_mask, heuristic_block_masks
+        mask = batch_mask(heuristic_block_masks()[3], B)
+        out.update(
+            attention_bwd_mask_x10=ten(
+                lambda: _build.short_attention_bwd_heads(
+                    q, k, v, dout, *grads, SCALE, mask=mask)),
+            heuristic_forward=forward_ms("heuristic_small_patch16_224"),
+            dyvit_forward=forward_ms("dyvit_small_patch16_224"))
+    return out
+
+def bwd_registers():
+    # "Used N registers" of each attention backward variant, by the
+    # kernel's mangled name, from this checkout's build log
+    log = (_build.kernels().path.parent / "build.log").read_text()
+    regs, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "short_attention_bwd" in name and "registers" in line:
+            regs[name] = int(re.search(r"Used (\d+) registers", line)[1])
+    return regs
+
 def train_ms(label):
     return 1e3 * statistics.median(train_run(label, 6)[0][2:])
 
-steps = dict(train_topk=train_ms("topk@0.7"), train_dense=train_ms("dense"))
+steps = dict(train_topk=train_ms("topk@0.7"), train_dense=train_ms("dense"),
+             train_tome=train_ms("tome@0.7"))
 with torch.no_grad():
     print(json.dumps(dict(
         **steps,
@@ -106,7 +157,8 @@ with torch.no_grad():
         layer_norm_x10=ten(lambda: _build.layer_norm(
             ln, p["ls1"], p["lb1"], ln_out, eps=1e-6)),
         topk_forward=forward_ms("topk_small_patch16_224"),
-        **ats_times())))
+        **ats_times(), **bwd_times())))
+print(json.dumps(dict(bwd_registers=bwd_registers())))
 """
 
 
@@ -116,7 +168,9 @@ def run(checkout: pathlib.Path) -> dict:
                           env=env, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{checkout}: {proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = proc.stdout.strip().splitlines()
+    print(checkout.name, lines[-1], flush=True)  # the registers
+    return json.loads(lines[-2])
 
 
 def main():
