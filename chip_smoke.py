@@ -6,10 +6,13 @@ Run from the root of a checkout on a machine with a CUDA card (Hopper:
 the kernels are built for sm_90a). Phases, each printing its own lines:
 
 0. device: refuse to run without CUDA; print the card's name and power
-   limit (nvidia-smi), torch and CUDA versions; turn TF32 off.
+   limit (nvidia-smi), torch and CUDA versions, the SM clock and the
+   highest SM clock; turn TF32 off.
 1. build: compile tokenreduction_tpu_torch/csrc/*.cu with nvcc into
    build/tokenreduction_tpu_torch/<source hash>/; print each kernel
-   variant's registers and spills (ptxas), by its demangled name.
+   variant's registers and spills (ptxas), by its demangled name, and the
+   bf16 GEMM's tile, stages and dynamic shared memory a block, as the
+   library reports them (tr_gemm_sm90_config).
 2. kernels: each kernel counterpart against its plain PyTorch version on
    the same CUDA tensors at the main path's widths, fp32 at B=32 (bound
    1e-4 of max|plain|) and bf16 at B=256 (bound 2e-2 of max|plain|), with
@@ -50,6 +53,22 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    training attention forward; the biased attention forward, head_mean_keys
    and the biased backward with its colsum cotangent and dbias over
    [B, H, N, hd] views) as above.
+   Then each launch of the bf16 GEMM (csrc/gemm_sm90.cu: TMA, mbarrier,
+   wgmma) alone at every shape of a DeiT-S block, B=256 (M = 50,432 rows)
+   and B=32 (M = 6304: a ragged last row tile, and for the weight
+   gradient rows that are no multiple of its 64-row K step): the
+   forward's qkv, proj + residual, fc1 + GELU (also with GELU' out) and
+   fc2 + residual; the backward's dY . W of each (fp32 out where LN's
+   backward reads it, fc2's with the GELU' factor and the column sums);
+   the four weight gradients (with the bias sums); and topk@0.25's last
+   stage at B=256 (M = 1024, 8 row tiles), its forward's products and fc2
+   with the residual gathered as the K=4 gathered MLP reads it. Each
+   output is held to 1e-2 of its own max (bf16) or 1e-4 (fp32), with its
+   time per launch (ten back-to-back launches between two events),
+   TFLOP/s (which must not pass the dense peak at the card's highest SM
+   clock), its bound and,
+   where one PyTorch call computes the same function (F.linear, matmul,
+   matmul(dy.t(), x)), that call's time.
    Beside each counterpart's time: its bound (bytes or operations at the
    H100's peak rates) and the eager bf16 composition of library calls
    (F.layer_norm, F.linear, scaled_dot_product_attention with the bias and
@@ -62,7 +81,8 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    at
    full width with seeded weights on the card (kernels) against the same
    model on the CPU (plain versions), with the launch counts of one
-   forward. fp32 at B=8: logits within 1e-4 of max|CPU|, the same top-1,
+   forward. Viz mode is off (it pins the plain composition): the
+   decisions are recorded through hooks (record_decisions). fp32 at B=8: logits within 1e-4 of max|CPU|, the same top-1,
    the same kept ids and equal Assignment_Maps. bf16 at B=32: top-1
    agreement at least 0.9, at least 0.9 of the kept ids in the CPU's kept
    set, ToMe's share of equal Assignment_Maps entries (bound set from a
@@ -81,6 +101,13 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    kept tokens, reported); in bf16 the CPU model takes the card's
    predictor scores (random weights make them tie in bf16) and the logits
    are held like dense's.
+   Then, fp32 B=8, each reducing model in viz mode on the card against the
+   same on the CPU: no kernel may launch (the viz pin), and the logits and
+   the artifacts' ids equal in place are reported; and dense DeiT-S on a
+   272-pixel input (N = 290, wider than the attention kernels): the
+   attention halves run the plain composition, the MLP halves their kernel
+   (12 fused_mlp_residual launches, nothing else), and the logits are held
+   like dense's.
    Training, drop_path 0: the loss and every gradient of dense, topk@0.7,
    ToMe@0.7 and heuristic on the card against the CPU, fp32 at B=8 (1e-4
    of each leaf's max|CPU|, the same kept ids and merges) and bf16 amp at
@@ -89,6 +116,9 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    step: 12 forwards and 12 backwards of each training branch (ToMe: the
    attention branch in blocks 0-3, the attention core in blocks 4-11;
    heuristic: the branch in blocks 0-2, the masked core in 3-11).
+   Last, dense with drop_rate and attn_drop_rate 0.1: a bf16 amp train
+   step from a seeded CUDA generator, twice from the same start, must give
+   the same loss and parameters bit for bit (another seed another loss).
 4. serve: 5 batches of 256 bf16 images through each model (ATS@0.7,
    heuristic and DyViT@0.7 included); outputs must be finite; img/s over
    batches 2-5. Then, not counted, one forward each of ATS@0.7, heuristic
@@ -107,8 +137,9 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    topk@0.7, two ToMe@0.7 and two heuristic steps: the device's busy share
    and its time per step by kernel.
 
-Phases 4 and 5 are the main path's runs: each counterpart's launch count
-is set to 0 just before and read just after. fused_attention,
+Phases 4 and 5 are the main path's runs: each counterpart's launch count,
+and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), is set to
+0 just before and read just after. fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
 fused_rect_block's attention stage): they must launch 0 times there, and
@@ -139,6 +170,7 @@ import tokenreduction_tpu_torch
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.core.config import SIZE_PRESETS, ViTConfig
+from tokenreduction_tpu_torch.ops import _build
 from tokenreduction_tpu_torch.ops.flash_attention import (
     attention_ref,
     fused_attention,
@@ -156,7 +188,6 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     layer_norm_f32,
     layer_norm_stats,
     linear_f32,
-    merged_heads,
     packed_heads,
     rect_attention_ref,
 )
@@ -287,6 +318,11 @@ WRAPPER_SOURCES = {
                          ("fused_rect_attention", "flash_attention"),
                          ("fused_rect_block", "flash_attention"))}
 LN_GEMM = "tokenreduction_tpu_torch/csrc/ln_gemm.cu"
+GEMM_SOURCE = "tokenreduction_tpu_torch/csrc/gemm_sm90.cu"
+# the bf16 GEMM computes the MXU products of every counterpart but the
+# attention core; its record names mlp_branch's, the most launched
+GEMM_REPLACES = {"gemm": "tokenreduction_tpu/ops/fused_mlp_train.py:162",
+                 "gemm_wgrad": "tokenreduction_tpu/ops/fused_mlp_train.py:218"}
 ATTENTION = "tokenreduction_tpu_torch/csrc/short_attention.cu"
 CUDA_SOURCES = {
     "fused_full_block": [LN_GEMM, ATTENTION],
@@ -388,11 +424,20 @@ def require(cond: bool, msg: str):
         raise AssertionError(msg)
 
 
+# the bf16 GEMM's launchers (csrc/gemm_sm90.cu), counted apart: every
+# counterpart but the attention core launches them
+GEMMS = {"gemm": _build.gemm, "gemm_wgrad": _build.gemm_wgrad}
+
+
 def reset_counts():
-    for w in WRAPPERS.values():
+    for w in (*WRAPPERS.values(), *GEMMS.values()):
         w.launches = 0
     for w in TRAIN_WRAPPERS.values():
         w.backward_launches = 0
+
+
+def gemm_counts() -> dict:
+    return {name: f.launches for name, f in GEMMS.items()}
 
 
 def counts() -> dict:
@@ -863,8 +908,6 @@ def launcher_cases(gen):
     """(launch, shape label, [(output label, got, want)]) for each bf16
     launch of the main path alone, at B=256 and the main path's widths.
     Each launch reads the plain version's inputs."""
-    from tokenreduction_tpu_torch.ops import _build
-
     bf16, B = torch.bfloat16, BATCH[torch.bfloat16]
     p = block_params(bf16, gen)
 
@@ -1098,6 +1141,193 @@ def phase_launchers():
               flush=True)
 
 
+# the bf16 GEMM's launches alone (csrc/gemm_sm90.cu), at DeiT-S's widths:
+# (tag, rows M, None or the gathered residual's (K kept rows, N rows) a
+# sample): B = 256 (M = 50,432 rows, the main path's); B = 32 (M = 6304
+# rows, no multiple of 128 row tiles nor of 64-row K steps for the weight
+# gradient); topk@0.25's last stage at B = 256 (4 tokens: M = 1024, 8 row
+# tiles, the smallest shape of the main path; forward only, and the MLP
+# gathering its 4 rows of 13)
+GEMM_SHAPES = (("B=256", 256 * 197, None), ("B=32", 32 * 197, None),
+               ("topk@0.25 last stage B=256", 256 * 4, (4, 13)))
+# dense bf16 operations a clock of one H100 SM (4 tensor cores of 1024)
+SM_FLOP_PER_CLOCK = 4096
+
+
+def per_launch_ms(fn) -> float:
+    """CUDA-event time of one of ten back-to-back launches of fn (median
+    of 20 runs), in ms: the host's launch cost stays hidden."""
+    def ten():
+        for _ in range(10):
+            fn()
+    return cuda_ms(ten) / 10
+
+
+def gemm_cases(M, gen, gather=None):
+    """(launch, label, run, [(output label, got or a call that reads it,
+    want)], flops, bytes, library call or None, plain call) for each GEMM
+    of a DeiT-S block at M token rows: the forward's four products (the
+    training fc1 also with GELU'), the backward's four dY . W products and
+    the four weight gradients, each with the epilogue its counterpart asks
+    for. With ``gather`` (K, N), the forward's products only, the training
+    fc1 left out, and fc2 also with the residual row m gathered from row
+    (m // K) * N + idx[m] of the stage's input, as the gathered MLP reads
+    it. bytes: each input read once, each output written once."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    p = block_params(bf16, gen)
+    # the activations are drawn on the card: on the host they take seconds
+    dev_gen = torch.Generator(device=DEVICE).manual_seed(M)
+
+    def rn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=dev_gen, device=DEVICE).to(dtype)
+
+    def empty(*shape, dtype=bf16):
+        return torch.empty(*shape, device=DEVICE, dtype=dtype)
+
+    ln, heads, h, dy, dq, dh = (rn(M, D), rn(M, D), rn(M, H4), rn(M, D),
+                                rn(M, 3 * D), rn(M, H4))
+    res, gp = rn(M, D), rn(M, H4, dtype=f32)
+    E = 2
+    forward = [("qkv", ln, "wqkv", "bqkv", 3 * D, {}, True),
+               ("proj + residual", heads, "wproj", "bproj", D, dict(res=res),
+                False),
+               ("fc1 + GELU", ln, "w1", "b1", H4, dict(gelu=True), False),
+               ("fc1 + GELU, GELU' out", ln, "w1", "b1", H4,
+                dict(gelu=True, gelu_grad=empty(M, H4, dtype=f32)), False),
+               ("fc2 + residual", h, "w2", "b2", D, dict(res=res), False)]
+    if gather:
+        K, N = gather
+        stage = rn(M // K * N, D)
+        idx = torch.randint(0, N, (M,), generator=dev_gen, device=DEVICE,
+                            dtype=torch.int32)
+        rows = (torch.arange(M, device=DEVICE) // K) * N + idx
+        forward[3] = ("fc2 + gathered residual", h, "w2", "b2", D,
+                      dict(res=stage, idx=idx, rows_out=K, rows_in=N), False)
+    for label, x, w, b, n_out, kw, library in forward:
+        w, b = p[w], p[b]
+        y = empty(M, n_out)
+        pre = linear_f32(x, w, b)
+        want = [F.gelu(pre) if kw.get("gelu") else pre]
+        if "idx" in kw:
+            want[0] = want[0] + kw["res"][rows].float()
+        elif "res" in kw:
+            want[0] = want[0] + res.float()
+        outs = [("y", y, want[0].to(bf16))]
+        nbytes = E * (x.numel() + w.numel() + b.numel() + y.numel()) + (
+            E * M * D if "res" in kw else 0) + (4 * M if "idx" in kw else 0)
+        if "gelu_grad" in kw:
+            outs.append(("GELU'", kw["gelu_grad"], gelu_grad(pre)))
+            nbytes += 4 * kw["gelu_grad"].numel()
+        yield ("gemm", label, lambda x=x, w=w, b=b, y=y, kw=kw: _build.gemm(
+            x, w, b, y, **kw), outs, 2 * M * x.shape[1] * n_out, nbytes,
+            (lambda x=x, w=w, b=b: F.linear(x, w, b)) if library else None,
+            lambda x=x, w=w, b=b: linear_f32(x, w, b))
+    if gather:
+        return
+    # the backward's dY . W with W read untransposed ([n_out, K] is the
+    # product's [K, n]): fp32 out where LN's backward reads it
+    parts = empty(-(-M // 128), H4, dtype=f32)
+    for label, g, w, y_dtype, kw, library in (
+            ("qkv dY.W, fp32 out", dq, "wqkv", f32, {}, False),
+            ("proj dY.W", dy, "wproj", bf16, {}, True),
+            ("fc2 dY.W x GELU', column sums", dy, "w2", bf16,
+             dict(mul=gp, col_sums=parts), False),
+            ("fc1 dY.W, fp32 out", dh, "w1", f32, {}, False)):
+        w = p[w]
+        y = empty(M, w.shape[1], dtype=y_dtype)
+        want = g.float() @ w.float()
+        if "mul" in kw:
+            want = want * gp
+        outs = [("y", y, want.to(y_dtype))]
+        nbytes = E * (g.numel() + w.numel()) + y.element_size() * y.numel()
+        if "mul" in kw:
+            # the per-row-tile sums, summed over the tiles after the launch
+            outs.append(("column sums", lambda: parts.sum(0), want.sum(0)))
+            nbytes += 4 * (gp.numel() + parts.numel())
+        yield ("gemm", label, lambda g=g, w=w, y=y, kw=kw: _build.gemm(
+            g, w, None, y, w_kn=True, **kw), outs, 2 * M * w.numel(), nbytes,
+            (lambda g=g, w=w: torch.matmul(g, w)) if library else None,
+            lambda g=g, w=w: g.float() @ w.float())
+    for label, g, x, with_db in (("qkv", dq, ln, True),
+                                 ("proj", dy, heads, True),
+                                 ("fc1", dh, ln, False),
+                                 ("fc2", dy, h, True)):
+        n_out, K = g.shape[1], x.shape[1]
+        dw = empty(n_out, K)
+        db = empty(n_out) if with_db else None
+        outs = [("dW", dw, (g.float().T @ x.float()).to(bf16))]
+        if with_db:
+            outs.append(("db", db, g.float().sum(0).to(bf16)))
+        yield ("gemm_wgrad", label + (" + db" if with_db else ""),
+               lambda g=g, x=x, dw=dw, db=db: _build.gemm_wgrad(g, x, dw, db),
+               outs, 2 * M * n_out * K,
+               E * (g.numel() + x.numel() + dw.numel()) + (
+                   E * n_out if with_db else 0),
+               lambda g=g, x=x: torch.matmul(g.t(), x),
+               lambda g=g, x=x: g.float().T @ x.float())
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def phase_gemms() -> dict:
+    """Phase 2, last part: each bf16 GEMM launch alone at every shape of
+    GEMM_SHAPES, against its fp32 plain version (bf16 outputs within 1e-2
+    of their own max, fp32 ones 1e-4), with its time per launch beside its
+    bound, its TFLOP/s and, where one PyTorch call computes the same
+    function, that call's time. A rate above the tensor cores' dense peak
+    at the card's highest SM clock means a mistimed launch or skipped
+    products, and fails. Returns the JSON records of gemm and gemm_wgrad
+    (the qkv shape at B = 256)."""
+    gen = torch.Generator().manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ceiling = sms * SM_FLOP_PER_CLOCK * max_sm_clock_hz()
+    print(f"phase 2 gemm: dense bf16 ceiling {ceiling / 1e12:.1f} TFLOP/s "
+          f"({sms} SMs at the highest SM clock)", flush=True)
+    rec = {}
+    for tag, M, gather in GEMM_SHAPES:
+        for launch, label, run, outs, flops, nbytes, library, plain in \
+                gemm_cases(M, gen, gather):
+            run()
+            torch.cuda.synchronize()
+            errs, worst = [], 0.0
+            for name, got, want in outs:
+                got = got() if callable(got) else got
+                abs_err, rel = rel_err(got, want)
+                bound_ = LAUNCH_BOUND[got.dtype]
+                require(rel <= bound_, f"{launch} {label} {tag} {name}: "
+                        f"error {rel:.3e} of its max|plain| > bound "
+                        f"{bound_:.0e}")
+                errs.append(f"{name} {abs_err:.3e} ({rel:.2e} of max, bound "
+                            f"{bound_:.0e})")
+                worst = max(worst, abs_err)
+            ms = per_launch_ms(run)
+            lib_ms = per_launch_ms(library) if library else None
+            t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            rate = flops / ms * 1e3
+            print(f"phase 2 gemm {launch} {label} {tag} M={M}: "
+                  f"{', '.join(errs)}; kernel {ms:.4f} ms per launch "
+                  f"({rate / 1e12:.1f} TFLOP/s), bound {bound_ms:.4f} "
+                  f"ms ({bound_by}), library {lib}", flush=True)
+            require(rate <= ceiling, f"{launch} {label} {tag}: "
+                    f"{rate / 1e12:.1f} TFLOP/s is above the ceiling")
+            if tag == GEMM_SHAPES[0][0] and launch not in rec:
+                rec[launch] = dict(shape=f"bf16 {label} M={M}", ms=ms,
+                                   plain_ms=per_launch_ms(plain),
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=lib_ms, max_abs_err=worst)
+    return rec
+
+
 def check_case(name, tag, shape, dtype, got, want, labels, rec):
     require(len(got) == len(want) <= len(labels),
             f"{name} {tag} {shape}: {len(got)} outputs, plain {len(want)}")
@@ -1164,109 +1394,272 @@ def images(B, gen, dtype=torch.float32):
     return torch.randn(B, 3, 224, 224, generator=gen).to(DEVICE, dtype)
 
 
+REDUCING = ("topk", "tome", "ats", "heuristic", "dyvit")
+# an input wider than the kernels take: 272 px, N = 290 tokens
+WIDE_IMG = 272
+
+
+def record_decisions(model) -> dict:
+    """Record the decisions of the model's next forwards, without viz mode
+    (so every block runs its kernels), in viz mode's keys: topk's and
+    DyViT's Kept_Tokens (patch-local ids of each reduction block, from the
+    ids its MLP gathers or its attention keeps), ATS's (its sample ids,
+    -1 for a pad), ToMe's Assignment_Maps (from each matching, with the
+    width after the merge under "widths"), heuristic's Kept_Tokens_Abs
+    (the static masks' kept patches)."""
+    c = model.cfg
+    rec = {}
+    if c.method == "topk":
+        kept = rec.setdefault("Kept_Tokens", {})
+        for i in c.reduction_loc:
+            blk = model.blocks[i]
+
+            def gather(x, idx, generator=None, i=i, inner=blk.ffn_gather):
+                kept[i] = idx[:, 1:] - 1
+                return inner(x, idx, generator)
+
+            blk.ffn_gather = gather
+    elif c.method == "dyvit":
+        kept = rec.setdefault("Kept_Tokens", {})
+        for i in c.reduction_loc:
+            blk = model.blocks[i]
+
+            def attend(x, *, idx=None, i=i, inner=blk.attend, **kw):
+                kept[i] = idx[:, 1:] - 1
+                return inner(x, idx=idx, **kw)
+
+            blk.attend = attend
+    elif c.method == "ats":
+        kept = rec.setdefault("Kept_Tokens", {})
+        for i, blk in enumerate(model.blocks):
+            def sampled(mod, args, out, i=i):
+                if out[2] is not None:
+                    kept[i] = out[2][:, 1:] - 1
+
+            blk.register_forward_hook(sampled)
+    elif c.method == "heuristic":
+        rec["Kept_Tokens_Abs"] = {i: getattr(model, f"kept_{i}")
+                                  for i in model.active_loc}
+    elif c.method == "tome":
+        # filled by recorded_assignment, by the device the matching ran on
+        rec.update(Assignment_Maps={}, widths=[])
+        ASSIGNMENTS[next(model.parameters()).device.type] = (
+            rec, list(c.reduction_loc))
+    return rec
+
+
+ASSIGNMENTS = {}  # device type -> (ToMe's record, its merge blocks)
+
+
+def recorded_assignment(metric, r, **kw):
+    """ToMe's matching, recording each merge's Assignment_Maps entry and
+    the width after it in the record of the device it ran on."""
+    info = MATCHING(metric, r, **kw)
+    rec, blocks = ASSIGNMENTS[metric.device.type]
+    merge = len(rec["widths"])
+    rec["Assignment_Maps"][blocks[merge]] = tome_model.merge_source_assignment(
+        info)
+    rec["widths"].append(info.t - info.r)
+    return info
+
+
 def phase_models(dtype):
-    """Phase 3: the full-width models on the card against the CPU."""
+    """Phase 3: the full-width models on the card against the CPU, their
+    decisions recorded through hooks with viz mode off; then, in fp32,
+    each reducing model in viz mode (its blocks pinned to the plain
+    composition: no kernel may launch), and a dense model on a 272-pixel
+    input, N = 290 (the plain attention: wider than its kernels)."""
     tag = "fp32" if dtype == torch.float32 else "bf16"
     B, bound_ = MODEL_BATCH[dtype], MODEL_BOUND[dtype]
-    for label, (name, kw) in MODELS.items():
-        viz = name.split("_")[0] in ("topk", "tome", "ats", "heuristic",
-                                     "dyvit")
-        model, cfg = create_model(name, device=DEVICE, viz_mode=viz,
-                                  generator=torch.Generator().manual_seed(1),
-                                  **kw)
-        model = model.to(dtype).eval()
-        cpu_model = copy.deepcopy(model).cpu()
-        if cfg.method == "dyvit" and dtype == torch.bfloat16:
-            share_scores(model, cpu_model)
-        x = images(B, torch.Generator().manual_seed(2), dtype)
+    tome_model.bipartite_soft_matching = recorded_assignment
+    try:
+        for label, (name, kw) in MODELS.items():
+            model_check(label, name, kw, dtype, tag, B, bound_)
+    finally:
+        tome_model.bipartite_soft_matching = MATCHING
+        ASSIGNMENTS.clear()
+    if dtype == torch.float32:
+        for label, (name, kw) in MODELS.items():
+            if name.split("_")[0] in REDUCING:
+                viz_check(label, name, kw, B)
+        wide_check(B, bound_)
+
+
+def model_check(label, name, kw, dtype, tag, B, bound_):
+    """One model's phase 3 eval check (see phase_models)."""
+    model, cfg = create_model(name, device=DEVICE,
+                              generator=torch.Generator().manual_seed(1),
+                              **kw)
+    model = model.to(dtype).eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    if cfg.method == "dyvit" and dtype == torch.bfloat16:
+        share_scores(model, cpu_model)
+    v, v_ref = record_decisions(model), record_decisions(cpu_model)
+    x = images(B, torch.Generator().manual_seed(2), dtype)
+    reset_counts()
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    got_counts = counts()
+    require(got_counts == PER_FORWARD[label],
+            f"{label}: launches {got_counts} != {PER_FORWARD[label]}")
+    with torch.no_grad():
+        ref = cpu_model(x.cpu())
+    require(counts() == got_counts, "a CPU forward launched a kernel")
+    flips = ""
+    if cfg.method == "dyvit":
+        flips = dyvit_check(label, tag, dtype, cfg, v, v_ref)
+    elif cfg.method == "topk":
+        n_flip = sum(int((v["Kept_Tokens"][i].cpu() != k).sum())
+                     for i, k in v_ref["Kept_Tokens"].items())
+        # kept ids that the CPU kept too, in any order
+        n_kept = sum(int(torch.isin(a, b).sum())
+                     for i, k in v_ref["Kept_Tokens"].items()
+                     for a, b in zip(v["Kept_Tokens"][i].cpu(), k))
+        n_all = sum(k.numel() for k in v_ref["Kept_Tokens"].values())
+        widths = [k.shape[1] + 1 for k in v_ref["Kept_Tokens"].values()]
+        flips = (f"; widths 197->{'->'.join(map(str, widths))}; "
+                 f"Kept_Tokens flips {n_flip}/{n_all}, same kept set "
+                 f"{n_kept}/{n_all} (bound {KEPT_SET[dtype]})")
+        require(n_kept >= KEPT_SET[dtype] * n_all,
+                f"{label} {tag}: only {n_kept}/{n_all} kept ids in the "
+                "CPU's kept set")
+    elif cfg.method == "heuristic":
+        kept, ref_kept = v["Kept_Tokens_Abs"], v_ref["Kept_Tokens_Abs"]
+        require(sorted(kept) == sorted(ref_kept) and all(
+            torch.equal(kept[i].cpu(), k) for i, k in ref_kept.items()),
+            f"{label} {tag}: Kept_Tokens_Abs differ from the CPU's")
+        flips = (f"; Kept_Tokens_Abs equal at blocks {sorted(kept)}, "
+                 "kept patches " + "->".join(
+                     str(kept[i].shape[-1]) for i in sorted(kept)))
+    elif cfg.method == "ats":
+        flips = ats_check(label, tag, dtype, model, x, cfg, out, v, v_ref)
         reset_counts()
-        with torch.no_grad():
-            out = model(x)
-        torch.cuda.synchronize()
-        got_counts = counts()
-        require(got_counts == PER_FORWARD[label],
-                f"{label}: launches {got_counts} != {PER_FORWARD[label]}")
-        with torch.no_grad():
-            ref = cpu_model(x.cpu())
-        require(counts() == got_counts, "a CPU forward launched a kernel")
-        flips = ""
-        if viz and cfg.method == "dyvit":
-            (out, v), (ref, v_ref) = out, ref
-            flips = dyvit_check(label, tag, dtype, cfg, v, v_ref)
-        elif viz and cfg.method == "topk":
-            (out, v), (ref, v_ref) = out, ref
-            n_flip = sum(int((v["Kept_Tokens"][i].cpu() != k).sum())
-                         for i, k in v_ref["Kept_Tokens"].items())
-            # kept ids that the CPU kept too, in any order
-            n_kept = sum(int(torch.isin(a, b).sum())
-                         for i, k in v_ref["Kept_Tokens"].items()
-                         for a, b in zip(v["Kept_Tokens"][i].cpu(), k))
-            n_all = sum(k.numel() for k in v_ref["Kept_Tokens"].values())
-            widths = [k.shape[1] + 1 for k in v_ref["Kept_Tokens"].values()]
-            flips = (f"; widths 197->{'->'.join(map(str, widths))}; "
-                     f"Kept_Tokens flips {n_flip}/{n_all}, same kept set "
-                     f"{n_kept}/{n_all} (bound {KEPT_SET[dtype]})")
-            require(n_kept >= KEPT_SET[dtype] * n_all,
-                    f"{label} {tag}: only {n_kept}/{n_all} kept ids in the "
-                    "CPU's kept set")
-        elif viz and cfg.method == "heuristic":
-            (out, v), (ref, v_ref) = out, ref
-            kept, ref_kept = v["Kept_Tokens_Abs"], v_ref["Kept_Tokens_Abs"]
-            require(sorted(kept) == sorted(ref_kept) and all(
-                torch.equal(kept[i].cpu(), k) for i, k in ref_kept.items()),
-                f"{label} {tag}: Kept_Tokens_Abs differ from the CPU's")
-            flips = (f"; Kept_Tokens_Abs equal at blocks {sorted(kept)}, "
-                     "kept patches " + "->".join(
-                         str(kept[i].shape[1]) for i in sorted(kept)))
-        elif viz and cfg.method == "ats":
-            (out, v), (ref, v_ref) = out, ref
-            flips = ats_check(label, tag, dtype, model, x, cfg, out, v, v_ref)
+    elif cfg.method == "tome":
+        maps, ref_maps = v["Assignment_Maps"], v_ref["Assignment_Maps"]
+        require(sorted(maps) == sorted(ref_maps) == list(cfg.reduction_loc),
+                f"{label} {tag}: merges at {sorted(maps)}")
+        n_same = sum(int((maps[i].cpu() == a).sum())
+                     for i, a in ref_maps.items())
+        n_all = sum(a.numel() for a in ref_maps.values())
+        flips = (f"; widths 197->{'->'.join(map(str, v['widths']))}; "
+                 f"Assignment_Maps entries equal {n_same}/{n_all} "
+                 f"({n_same / n_all:.4f}, bound {ASSIGN_SAME[dtype]})")
+        require(n_same >= ASSIGN_SAME[dtype] * n_all,
+                f"{label} {tag}: only {n_same}/{n_all} assignment "
+                "entries equal the CPU's")
+        if dtype == torch.bfloat16:
+            # the merge is deterministic: a second forward, same bits
+            record_decisions(model)  # a fresh record for its merges
+            with torch.no_grad():
+                again = model(x)
+            require(torch.equal(again, out),
+                    f"{label} {tag}: two forwards differ")
+            flips += "; a second forward gave the same logits"
             reset_counts()
-        elif viz:  # ToMe
-            (out, v), (ref, v_ref) = out, ref
-            maps, ref_maps = v["Assignment_Maps"], v_ref["Assignment_Maps"]
-            require(sorted(maps) == sorted(ref_maps)
-                    == list(cfg.reduction_loc),
-                    f"{label} {tag}: merges at {sorted(maps)}")
-            n_same = sum(int((maps[i].cpu() == a).sum())
-                         for i, a in ref_maps.items())
-            n_all = sum(a.numel() for a in ref_maps.values())
-            widths = [v["Features"][i].shape[1] for i in cfg.reduction_loc]
-            flips = (f"; widths 197->{'->'.join(map(str, widths))}; "
-                     f"Assignment_Maps entries equal {n_same}/{n_all} "
-                     f"({n_same / n_all:.4f}, bound {ASSIGN_SAME[dtype]})")
-            require(n_same >= ASSIGN_SAME[dtype] * n_all,
-                    f"{label} {tag}: only {n_same}/{n_all} assignment "
-                    "entries equal the CPU's")
-            if dtype == torch.bfloat16:
-                # the merge is deterministic: a second forward, same bits
-                with torch.no_grad():
-                    again = model(x)[0]
-                require(torch.equal(again, out),
-                        f"{label} {tag}: two forwards differ")
-                flips += "; a second forward gave the same logits"
-                reset_counts()
-        out = out.cpu()
-        require(out.shape == (B, cfg.num_classes) and
-                bool(torch.isfinite(out).all()), f"{label}: bad logits")
-        err, rel = rel_err(out, ref)
-        top1 = (out.argmax(1) == ref.argmax(1)).float().mean().item()
-        # heuristic makes no data-dependent decision and DyViT's CPU model
-        # takes the card's (share_scores): their bf16 logits are held like
-        # dense's
-        if viz and dtype == torch.bfloat16 and cfg.method not in (
-                "heuristic", "dyvit"):
-            limit = "reported only"
-        else:
-            limit = f"bound {bound_:.0e}"
-            require(rel <= bound_, f"{label} {tag}: logits error {rel:.3e} "
-                    f"of max|CPU| > {bound_:.0e}")
-        require(top1 >= MODEL_TOP1[dtype], f"{label} {tag}: top-1 agreement "
-                f"{top1:.3f} < {MODEL_TOP1[dtype]}")
-        print(f"phase 3 model {label} ({name}) {tag} B={B}: logits max abs "
-              f"err {err:.3e} ({rel:.2e} of max|CPU|, {limit}); "
-              f"top-1 agreement {top1:.3f} (bound {MODEL_TOP1[dtype]}); "
-              f"launches {got_counts}{flips}", flush=True)
+    out = out.cpu()
+    require(out.shape == (B, cfg.num_classes) and
+            bool(torch.isfinite(out).all()), f"{label}: bad logits")
+    err, rel = rel_err(out, ref)
+    top1 = (out.argmax(1) == ref.argmax(1)).float().mean().item()
+    # heuristic makes no data-dependent decision and DyViT's CPU model
+    # takes the card's (share_scores): their bf16 logits are held like
+    # dense's
+    if dtype == torch.bfloat16 and cfg.method not in (
+            "", "heuristic", "dyvit"):
+        limit = "reported only"
+    else:
+        limit = f"bound {bound_:.0e}"
+        require(rel <= bound_, f"{label} {tag}: logits error {rel:.3e} "
+                f"of max|CPU| > {bound_:.0e}")
+    require(top1 >= MODEL_TOP1[dtype], f"{label} {tag}: top-1 agreement "
+            f"{top1:.3f} < {MODEL_TOP1[dtype]}")
+    print(f"phase 3 model {label} ({name}) {tag} B={B}: logits max abs "
+          f"err {err:.3e} ({rel:.2e} of max|CPU|, {limit}); "
+          f"top-1 agreement {top1:.3f} (bound {MODEL_TOP1[dtype]}); "
+          f"launches {got_counts}{flips}", flush=True)
+
+
+# each reducing model's viz artifacts with per-token decisions, compared
+# in place with the CPU's (heuristic's are static)
+VIZ_DECISIONS = {"topk": "Kept_Tokens", "tome": "Assignment_Maps",
+                 "ats": "Kept_Tokens", "heuristic": "Kept_Tokens_Abs",
+                 "dyvit": "Kept_Tokens"}
+
+
+def viz_check(label, name, kw, B):
+    """A reducing model in viz mode, fp32, on the card against the CPU:
+    no kernel may launch (the pin); the logits and the decisions in
+    place against the CPU's viz run are reported."""
+    model, cfg = create_model(name, device=DEVICE, viz_mode=True,
+                              generator=torch.Generator().manual_seed(1),
+                              **kw)
+    model = model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    x = images(B, torch.Generator().manual_seed(2))
+    reset_counts()
+    with torch.no_grad():
+        out, viz = model(x)
+    torch.cuda.synchronize()
+    require(counts() == NONE and not any(gemm_counts().values()),
+            f"{label} viz: launches {counts()}, {gemm_counts()}: the viz pin "
+            "must run no kernel")
+    with torch.no_grad():
+        ref, viz_ref = cpu_model(x.cpu())
+    key = VIZ_DECISIONS[cfg.method]
+    got, want = viz[key], viz_ref[key]
+    require(sorted(got) == sorted(want), f"{label} viz: {key} at "
+            f"{sorted(got)}, on the CPU {sorted(want)}")
+    n_same = sum(int((got[i].cpu() == w).sum()) for i, w in want.items())
+    n_all = sum(w.numel() for w in want.values())
+    out = out.cpu()
+    require(out.shape == (B, cfg.num_classes) and
+            bool(torch.isfinite(out).all()), f"{label} viz: bad logits")
+    err, rel = rel_err(out, ref)
+    print(f"phase 3 viz {label} ({name}) fp32 B={B}: launches 0 (the viz "
+          f"pin); logits max abs err {err:.3e} ({rel:.2e} of max|CPU|, "
+          f"reported); {key} ids equal in place {n_same}/{n_all} "
+          "(reported)", flush=True)
+
+
+def wide_check(B, bound_):
+    """Dense DeiT-S on a WIDE_IMG-pixel input (N = 290), fp32: every
+    attention half wider than the kernels runs the plain composition on
+    the card, every MLP half its kernel (fused_mlp_residual, no width
+    limit), and the logits are held like the dense model's."""
+    dtype, tag = torch.float32, "fp32"
+    model, cfg = create_model("deit_small_patch16_224_local", device=DEVICE,
+                              img_size=WIDE_IMG,
+                              generator=torch.Generator().manual_seed(1))
+    model = model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    x = torch.randn(B, 3, WIDE_IMG, WIDE_IMG,
+                    generator=torch.Generator().manual_seed(2)).to(DEVICE,
+                                                                   dtype)
+    reset_counts()
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    want = {**NONE, "fused_mlp_residual": cfg.depth}
+    require(counts() == want, f"dense N=290 {tag}: launches {counts()}, "
+            f"expected {want}")
+    with torch.no_grad():
+        ref = cpu_model(x.cpu())
+    out = out.cpu()
+    require(out.shape == (B, cfg.num_classes) and
+            bool(torch.isfinite(out).all()), "dense N=290: bad logits")
+    err, rel = rel_err(out, ref)
+    top1 = (out.argmax(1) == ref.argmax(1)).float().mean().item()
+    require(rel <= bound_, f"dense N=290 {tag}: logits error {rel:.3e} of "
+            f"max|CPU| > {bound_:.0e}")
+    require(top1 >= MODEL_TOP1[dtype], f"dense N=290 {tag}: top-1 "
+            f"agreement {top1:.3f} < {MODEL_TOP1[dtype]}")
+    print(f"phase 3 wide dense {WIDE_IMG} px, N="
+          f"{cfg.num_patches + 1} {tag} B={B}: the attention plain, "
+          f"fused_mlp_residual launches {cfg.depth}; logits max abs err "
+          f"{err:.3e} ({rel:.2e} of "
+          f"max|CPU|, bound {bound_:.0e}); top-1 agreement {top1:.3f}",
+          flush=True)
 
 
 def share_scores(model, cpu_model):
@@ -1324,9 +1717,10 @@ ATS_WIDTHS = (138, 97, 68)
 
 
 def ats_check(label, tag, dtype, model, x, cfg, out, viz, viz_ref) -> str:
-    """Phase 3's ATS checks: the sampling blocks and widths; the share of
-    Kept_Tokens equal to the CPU's (fp32 all of them); bf16 two forwards
-    with the same bits (logits and Kept_Tokens). Returns the report."""
+    """Phase 3's ATS checks on the recorded decisions (record_decisions):
+    the sampling blocks and widths; the share of Kept_Tokens equal to the
+    CPU's (fp32 all of them); bf16 two forwards with the same bits (logits
+    and Kept_Tokens). Returns the report."""
     kept, ref_kept = viz["Kept_Tokens"], viz_ref["Kept_Tokens"]
     require(sorted(kept) == sorted(ref_kept) == list(cfg.reduction_loc),
             f"{label} {tag}: samples at {sorted(kept)}")
@@ -1341,11 +1735,12 @@ def ats_check(label, tag, dtype, model, x, cfg, out, viz, viz_ref) -> str:
     require(n_same >= ATS_SAME[dtype] * n_all, f"{label} {tag}: only "
             f"{n_same}/{n_all} Kept_Tokens equal the CPU's")
     if dtype == torch.bfloat16:
+        first = dict(kept)  # the record's hooks refill it
         with torch.no_grad():
-            again, viz_again = model(x)
+            again = model(x)
         require(torch.equal(again, out) and all(
-            torch.equal(viz_again["Kept_Tokens"][i], k)
-            for i, k in kept.items()), f"{label} {tag}: two forwards differ")
+            torch.equal(kept[i], k) for i, k in first.items()),
+            f"{label} {tag}: two forwards differ")
         report += "; a second forward gave the same logits and Kept_Tokens"
     return report
 
@@ -1498,6 +1893,50 @@ def train_model_check(label, dtype):
           flush=True)
 
 
+def dropout_step_check():
+    """One bf16 amp train step of dense DeiT-S with drop_rate and
+    attn_drop_rate 0.1, its masks from a seeded CUDA generator, run twice
+    from the same start (cuDNN held to its deterministic algorithms for
+    the patch embedding's backward): the loss and every parameter after
+    the step must be the same bits. A third step from another seed must
+    give another loss."""
+    B = MODEL_BATCH[torch.bfloat16]
+    gen = torch.Generator().manual_seed(2)
+    x = images(B, gen)
+    y = torch.randint(0, 1000, (B,), generator=gen).to(DEVICE)
+
+    def step_once(seed):
+        model, _ = create_model(MODELS["dense"][0], device=DEVICE,
+                                drop_rate=0.1, attn_drop_rate=0.1,
+                                generator=torch.Generator().manual_seed(1))
+        opt, _ = create_optimizer(dict(model.named_parameters()),
+                                  OptimConfig(lr=1e-3, clip_grad=1.0,
+                                              backbone_lr_scale=0.01),
+                                  lambda s: 1e-3, [])
+        state = init_train_state(model, opt, device=DEVICE)
+        masks = torch.Generator(device=DEVICE).manual_seed(seed)
+        step = make_train_step(model, label_smoothing_loss, opt,
+                               StepConfig(amp=True), masks)
+        state, metrics = step(state, {"image": x, "label": y})
+        return metrics["loss"], state.params
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (la, pa), (lb, pb), (lc, _) = step_once(7), step_once(7), step_once(8)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = torch.equal(la, lb) and all(torch.equal(pa[n], pb[n]) for n in pa)
+    require(bool(torch.isfinite(la)) and same, "dropout train step: two "
+            f"steps from one seed differ (loss {la.item()} vs {lb.item()})")
+    require(not torch.equal(la, lc), "dropout train step: another seed "
+            "gave the same loss")
+    print(f"phase 3 dropout step dense bf16 amp B={B}, drop_rate and "
+          f"attn_drop_rate 0.1: two steps from one CUDA generator seed gave "
+          f"the same loss ({la.item():.6f}) and parameters, bit for bit; "
+          f"another seed {lc.item():.6f}", flush=True)
+
+
 def phase_serve(card: str) -> dict:
     """Phase 4: serve SERVE_BATCHES batches of SERVE_B bf16 images per
     model; the launch counts of this run go into the JSON record."""
@@ -1535,6 +1974,10 @@ def phase_serve(card: str) -> dict:
             f"a kernel of the path never ran: {got}")
     require(not any(got[k] for k in OFF_PATH_WRAPPERS),
             f"a counterpart off the path ran: {got}")
+    got.update(gemm_counts())
+    require(got["gemm"] > 0 and got["gemm_wgrad"] == 0,
+            f"serve gemm launches {gemm_counts()}")
+    print(f"phase 4 launches {got}", flush=True)
     for label in ("ats@0.7", "heuristic", "dyvit@0.7"):
         eval_profile(label, card, profile=label != "dyvit@0.7")
     return got
@@ -1695,6 +2138,10 @@ def phase_train(card: str) -> dict:
     require(got == expected, f"train launches {got} != {expected}")
     require(all(got[k] for k in TRAIN_WRAPPERS),
             f"a kernel of the path never ran: {got}")
+    got.update(gemm_counts())
+    require(got["gemm"] > 0 and got["gemm_wgrad"] > 0,
+            f"train gemm launches {gemm_counts()}")
+    print(f"phase 5 launches {got}", flush=True)
 
     kernels = (layers.attend_branch_train, layers.mlp_branch,
                layers.attention_core_train)
@@ -1781,33 +2228,46 @@ def main():
         check=True).stdout.strip()
     print(smi, flush=True)
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()})"
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"phase 0 device: {card}; torch {torch.__version__} CUDA "
-          f"{torch.version.cuda}; TF32 off", flush=True)
+          f"{torch.version.cuda}; TF32 off; SM clock, highest: {clocks}",
+          flush=True)
 
     # phase 1
-    from tokenreduction_tpu_torch.ops import _build
-
     kern = _build.kernels()
     print(f"phase 1 build: {kern.path} in {kern.build_seconds:.1f} s "
           f"(0 = already built)", flush=True)
     for name, line in ptxas_lines(kern.build_log):
         print(f"phase 1 ptxas: {name}: {line}")
+    cfg = _build.gemm_config()
+    smem = cfg["SMEM_BYTES"]
+    print(f"phase 1 gemm_sm90_kernel: tile {cfg['BM']}x{cfg['BN']}x"
+          f"{cfg['BK']}, {cfg['STAGES']} stages, {smem} bytes of dynamic "
+          f"shared memory a block ({smem / 1024:.1f} of the H100's 227 KB; "
+          "ptxas counts static shared memory only)", flush=True)
     elapsed("1")
 
     rec = phase_kernels()
     phase_launchers()
+    gemm_rec = phase_gemms()
     elapsed("2")
     for dtype in (torch.float32, torch.bfloat16):
         phase_models(dtype)
     for dtype in (torch.float32, torch.bfloat16):
         phase_train_models(dtype)
+    dropout_step_check()
     elapsed("3")
     launches = phase_serve(card)
     elapsed("4")
-    launches.update({k: v for k, v in phase_train(card).items()
-                     if k in TRAIN_WRAPPERS})
+    trained = phase_train(card)
+    launches.update({k: v for k, v in trained.items() if k in TRAIN_WRAPPERS})
+    launches["gemm"] += trained["gemm"]
+    launches["gemm_wgrad"] = trained["gemm_wgrad"]
     elapsed("5")
 
     kernels = [dict(name=name, route="cuda", source=CUDA_SOURCES[name][0],
@@ -1816,6 +2276,10 @@ def main():
                     replaces=REPLACES[name], launches=launches[name],
                     on_main_path=name not in OFF_PATH_WRAPPERS,
                     library_ms=None, **rec[name]) for name in WRAPPERS]
+    kernels += [dict(name=name, route="cuda", source=GEMM_SOURCE,
+                     wrapper="tokenreduction_tpu_torch/ops/_build.py",
+                     replaces=GEMM_REPLACES[name], launches=launches[name],
+                     on_main_path=True, **gemm_rec[name]) for name in GEMMS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

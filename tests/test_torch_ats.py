@@ -38,7 +38,7 @@ from tokenreduction_tpu_torch.ops import ats
 from tokenreduction_tpu_torch.ops import flash_attention as fa
 from tokenreduction_tpu_torch.train import losses, optim, step
 
-DIMS = dict(num_classes=11, img_size=32, embed_dim=32, num_heads=2, depth=4,
+DIMS = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)
 LOC = (1, 2)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -50,7 +50,7 @@ from tokenreduction_tpu_torch.ops.flash_attention_train import (
 from tokenreduction_tpu_torch.reduction.heuristic import heuristic_masks
 from tokenreduction_tpu_torch.train import losses, optim, step
 
-DIMS = dict(num_classes=11, embed_dim=32, num_heads=2, depth=4, patch_size=8)
+DIMS = dict(num_classes=11, embed_dim=64, num_heads=1, depth=4, patch_size=8)
 LOC = (1, 2)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -21,7 +21,7 @@ from tokenreduction_tpu.models.convert import convert_torch_state_dict
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.models.convert import state_dict_from_flax
 
-DEPTH, DIM, HEADS, PATCH, NCLS = 4, 32, 2, 8, 11
+DEPTH, DIM, HEADS, PATCH, NCLS = 4, 64, 1, 8, 11
 IMG = 32  # 4x4 = 16 patches
 NTOK = 16
 LOC = (1, 2)

@@ -13,7 +13,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
-TINY = dict(num_classes=11, img_size=32, embed_dim=32, num_heads=2, depth=4,
+TINY = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)
 
 _CHILD = textwrap.dedent("""
@@ -39,8 +39,8 @@ _CHILD = textwrap.dedent("""
     from tokenreduction_tpu_torch.train.step import (
         StepConfig, init_train_state, make_train_step)
 
-    tiny = dict(device="cpu", num_classes=11, img_size=32, embed_dim=32,
-                num_heads=2, depth=4, patch_size=8, reduction_loc=(1, 2),
+    tiny = dict(device="cpu", num_classes=11, img_size=32, embed_dim=64,
+                num_heads=1, depth=4, patch_size=8, reduction_loc=(1, 2),
                 keep_rate=(0.7,))
     tome, _ = T.create_model("tome_small_patch16_224", viz_mode=True, **tiny)
     with torch.no_grad():

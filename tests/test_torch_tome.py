@@ -30,7 +30,7 @@ from tokenreduction_tpu_torch.models.convert import state_dict_from_flax
 from tokenreduction_tpu_torch.ops import tome
 from tokenreduction_tpu_torch.train import losses, optim, step
 
-DIMS = dict(num_classes=11, img_size=32, embed_dim=32, num_heads=2, depth=4,
+DIMS = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)
 LOC = (1, 2)
 TOL = dict(rtol=2e-4, atol=2e-4)

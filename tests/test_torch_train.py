@@ -34,7 +34,7 @@ from tokenreduction_tpu_torch.models.convert import (
 )
 from tokenreduction_tpu_torch.train import losses, optim, scheduler, step
 
-DIMS = dict(num_classes=11, img_size=32, embed_dim=32, num_heads=2, depth=4,
+DIMS = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)
 TOPK = dict(reduction_loc=(1, 2), keep_rate=(0.7,))
 RECIPE = dict(lr=1e-3, clip_grad=1.0, backbone_lr_scale=0.01)

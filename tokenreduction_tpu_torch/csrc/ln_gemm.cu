@@ -13,8 +13,8 @@
 //                   workspace that sum_partials reduces in a fixed order.
 //   gemm:           Y[M, n_out] = epi( X[M, K] . W^T + bias ), W in
 //                   nn.Linear's [n_out, K] layout, or Y = X . W with W
-//                   [K, n_out] (the backward's dY . W, read untransposed
-//                   by ldmatrix.trans: no transposed copy of W is made).
+//                   [K, n_out] (the backward's dY . W, read untransposed:
+//                   no transposed copy of W is made).
 //                   epi: optional exact-erf GELU (optionally also writing
 //                   GELU'(pre-activation) in fp32), then an optional fp32
 //                   factor (dH = dA * GELU'(H)), then an optional residual
@@ -22,19 +22,21 @@
 //                   layer_norm's rows; optional per-row-tile column sums
 //                   of the fp32 result (a bias gradient before rounding).
 //   gemm_wgrad:     the partial dW[n_out, K] = dY^T X over one slice of
-//                   the M rows per blockIdx.z, both operands read in
+//                   the M rows per split, both operands read in
 //                   their stored [M, *] layout, with the partial column
 //                   sums of dY (the bias gradient) from the blocks of the
 //                   first column tile.
 //   sum_partials:   out[L] = sum over S fp32 partials, in order, in the
 //                   output type.
 //
-// bf16 operands go through mma.sync.m16n8k16 (fragments by ldmatrix) with
-// fp32 accumulators; fp32 operands through FMA in true fp32 on the CUDA
-// cores. With bf16 operands the residual and Y may also be fp32: the whole
-// block keeps its residual stream y in fp32 between its halves, as the TPU
-// kernel does, so its proj GEMM writes fp32 y, LN2 reads it, and the fc2
-// GEMM adds it; the backward's dLN products write fp32.
+// fp32 operands (the parity dtype) go through FMA in true fp32 on the CUDA
+// cores, in this file; bf16 operands through the sm_90a kernel of
+// gemm_sm90.cu (TMA, mbarrier, wgmma), which the entry points below call
+// with the same arguments. With bf16 operands the residual and Y may also
+// be fp32: the whole block keeps its residual stream y in fp32 between its
+// halves, as the TPU kernel does, so its proj GEMM writes fp32 y, LN2
+// reads it, and the fc2 GEMM adds it; the backward's dLN products write
+// fp32.
 //
 // The weight gradients are sums over up to 50,432 rows. The TPU kernel
 // carries them across a sequential grid in VMEM-resident accumulators;
@@ -47,16 +49,13 @@
 // product at DeiT-S width about a third of its time; written once, the
 // normalised rows cost one round trip of [M, K] in the operand type.
 //
-// The GEMM computes a 128x128 output tile per block over 32-deep K slices,
-// copied by cp.async into a ring of three shared-memory stages, so two
-// slices are in flight while one multiplies. A first version. At the
-// widths of DeiT-S (K = 384 or 1536) the products are small: with only 12
-// K slices per tile at K = 384, each tile's pipeline fill and epilogue
-// weigh about as much as its tensor-core work. wgmma, TMA, persistent
-// tiles and keeping the MLP hidden tensor on chip are later work.
+// The fp32 GEMM computes a 128x128 output tile per block over 32-deep K
+// slices, copied by cp.async into a ring of three shared-memory stages, so
+// two slices are in flight while one multiplies.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm.cuh"
 
 namespace trk {
 namespace {
@@ -69,47 +68,6 @@ constexpr int STAGES = 3;  // K slices in the cp.async ring
 constexpr int LN_THREADS = 256;
 constexpr int LN_WARPS = LN_THREADS / 32;
 constexpr int LN_CHUNKS = 4;  // layer_norm_bwd keeps a row in registers: K <= 4 * 256
-
-// Row b * rows_in + idx[m] of a gathered tensor for output row m; an id
-// outside the image's rows faults the launch, as torch.gather's
-// device-side check does, instead of reading another image's rows.
-__device__ __forceinline__ int gathered_row(const int* idx, int m, int rows_out, int rows_in) {
-  const int i = idx[m];
-  if (static_cast<unsigned>(i) >= static_cast<unsigned>(rows_in)) __trap();
-  return (m / rows_out) * rows_in + i;
-}
-
-// Eight neighbouring elements (16-byte aligned) to and from fp32.
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
-  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float* f) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(f[4], f[5], f[6], f[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* f) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -242,44 +200,18 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int S, int L
   }
 }
 
-struct GemmArgs {
-  const void* x;      // A: [M, K], or [K, M] (wgrad: dY)
-  int M;
-  int K;
-  const void* w;      // B: [n_out, K], or [K, n_out]
-  const void* bias;   // [n_out], or null
-  int n_out;
-  int gelu;
-  float* gelu_grad;   // [M, n_out]: GELU'(pre-activation), or null
-  const float* mul;   // [M, n_out] factor after the activation, or null
-  const void* res;    // [*, n_out] residual, or null; fp32 when res_f32
-  int res_f32;
-  const int* idx;     // [M] residual row ids within an image, or null
-  int rows_out;       // rows of Y per image (gathered residual)
-  int rows_in;        // rows of res per image (gathered residual)
-  void* y;            // [M, n_out], fp32 when y_f32; [gridDim.z][M, n_out] with k_split
-  int y_f32;
-  float* col_sums;    // [gridDim.y][n_out]: column sums of the fp32 result per row tile, or null
-  int k_split;        // K rows per blockIdx.z (a multiple of BK), or 0 for all of K
-  float* a_sums;      // A stored [K, M]: [gridDim.z][M] row sums of A over the slice, or null
-};
-
-__device__ __forceinline__ size_t res_row(const GemmArgs& a, int row) {
-  return a.idx != nullptr ? gathered_row(a.idx, row, a.rows_out, a.rows_in) : row;
-}
-
 // Staged tiles: STAGES K slices of A and B in dynamic shared memory. An
 // operand stored K-contiguous ([rows][k]) is staged as [BM or BN][BK + pad],
 // one stored K-major ([k][cols]) as [BK][BM or BN + pad]; the pad of 16
-// bytes keeps ldmatrix conflict-free and every row 16-byte aligned.
-template <typename T, bool A_KM, bool B_KN> struct Tile {
-  static constexpr int PAD = 16 / sizeof(T);
+// bytes keeps every row 16-byte aligned.
+template <bool A_KM, bool B_KN> struct Tile {
+  static constexpr int PAD = 4;
   static constexpr int A_LD = A_KM ? BM + PAD : BK + PAD;
   static constexpr int B_LD = B_KN ? BN + PAD : BK + PAD;
   static constexpr int A_ELEMS = A_KM ? BK * A_LD : BM * A_LD;
   static constexpr int B_ELEMS = B_KN ? BK * B_LD : BN * B_LD;
   static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
-  static constexpr size_t SMEM_BYTES = sizeof(T) * STAGES * STAGE_ELEMS;
+  static constexpr size_t SMEM_BYTES = sizeof(float) * STAGES * STAGE_ELEMS;
 };
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -290,14 +222,15 @@ __device__ __forceinline__ void cp_async_wait_all_but_newest() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
 }
 
-// Start the copies of an [R][C] tile (C contiguous in device and shared
-// memory) whose element (0, 0) is element (r0, c0) of a row-major matrix
-// with `ld` columns; rows >= r_end and columns >= c_end are zero-filled
-// (c_end is a multiple of 8, so a 16-byte chunk is all in or all out).
-template <typename T, int R, int C, int LD>
-__device__ __forceinline__ void copy_tile(T* dst, const T* src, int ld, int r0, int r_end, int c0,
-                                          int c_end) {
-  constexpr int V = 16 / sizeof(T), CPR = C / V, CHUNKS = R * CPR / THREADS;
+// Start the copies of an [R][C] fp32 tile (C contiguous in device and
+// shared memory) whose element (0, 0) is element (r0, c0) of a row-major
+// matrix with `ld` columns; rows >= r_end and columns >= c_end are
+// zero-filled (c_end is a multiple of 4, so a 16-byte chunk is all in or
+// all out).
+template <int R, int C, int LD>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int ld, int r0, int r_end,
+                                          int c0, int c_end) {
+  constexpr int V = 4, CPR = C / V, CHUNKS = R * CPR / THREADS;
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
     const int chunk = threadIdx.x + c * THREADS;
@@ -308,36 +241,27 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* src, int ld, int r0, 
 }
 
 // Start the copies of the K slice at k0 (up to k_end) into stage `buf`.
-template <typename T, bool A_KM, bool B_KN>
-__device__ __forceinline__ void load_slice(const GemmArgs& a, T* tiles, int buf, int m0, int n0,
-                                           int k0, int k_end) {
-  using TL = Tile<T, A_KM, B_KN>;
-  T* A = tiles + buf * TL::STAGE_ELEMS;
-  T* B = A + TL::A_ELEMS;
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
+template <bool A_KM, bool B_KN>
+__device__ __forceinline__ void load_slice(const GemmArgs& a, float* tiles, int buf, int m0,
+                                           int n0, int k0, int k_end) {
+  using TL = Tile<A_KM, B_KN>;
+  float* A = tiles + buf * TL::STAGE_ELEMS;
+  float* B = A + TL::A_ELEMS;
+  const float* x = static_cast<const float*>(a.x);
+  const float* w = static_cast<const float*>(a.w);
   if constexpr (A_KM)
-    copy_tile<T, BK, BM, TL::A_LD>(A, x, a.M, k0, k_end, m0, a.M);
+    copy_tile<BK, BM, TL::A_LD>(A, x, a.M, k0, k_end, m0, a.M);
   else
-    copy_tile<T, BM, BK, TL::A_LD>(A, x, a.K, m0, a.M, k0, k_end);
+    copy_tile<BM, BK, TL::A_LD>(A, x, a.K, m0, a.M, k0, k_end);
   if constexpr (B_KN)
-    copy_tile<T, BK, BN, TL::B_LD>(B, w, a.n_out, k0, k_end, n0, a.n_out);
+    copy_tile<BK, BN, TL::B_LD>(B, w, a.n_out, k0, k_end, n0, a.n_out);
   else
-    copy_tile<T, BN, BK, TL::B_LD>(B, w, a.K, n0, a.n_out, k0, k_end);
-}
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-}
-
-// d gelu / dv = Phi(v) + v phi(v), the exact derivative of the erf form.
-__device__ __forceinline__ float gelu_grad(float v) {
-  return 0.5f * (1.0f + erff(v * 0.7071067811865476f)) +
-         v * 0.3989422804014327f * expf(-0.5f * v * v);
+    copy_tile<BN, BK, TL::B_LD>(B, w, a.K, n0, a.n_out, k0, k_end);
 }
 
 // The fp32 epilogue of one element; returns the value written (0 outside
-// Y). MUL and GRAD as for store_pair.
+// Y). MUL: the layout whose launches may carry the fp32 factor (the
+// backward's dY . W); GRAD: the variant that writes GELU'.
 template <bool MUL, bool GRAD>
 __device__ __forceinline__ float store(const GemmArgs& a, int row, int col, float acc) {
   if (row >= a.M || col >= a.n_out) return 0.f;
@@ -353,69 +277,20 @@ __device__ __forceinline__ float store(const GemmArgs& a, int row, int col, floa
   return v;
 }
 
-// The bf16 epilogue of two neighbouring columns (col even, n_out % 8 == 0);
-// the residual and Y may be fp32. Returns the fp32 values before Y's
-// rounding (0 outside Y). MUL: the layout whose launches may carry the
-// fp32 factor (the backward's dY . W); GRAD: the variant that writes
-// GELU'. Each is compiled only where it is used: the eval launches' code
-// stays as small as it was without them (a bigger epilogue made the
-// eval GEMMs 6-17% slower on the H100).
-template <bool MUL, bool GRAD>
-__device__ __forceinline__ float2 store_pair(const GemmArgs& a, int row, int col, float v0,
-                                             float v1) {
-  if (row >= a.M || col >= a.n_out) return make_float2(0.f, 0.f);
-  using P = __nv_bfloat162;
-  if (a.bias) {
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const P*>(static_cast<const __nv_bfloat16*>(a.bias) + col));
-    v0 += b.x;
-    v1 += b.y;
-  }
-  if (a.gelu) {
-    if (GRAD)
-      *reinterpret_cast<float2*>(a.gelu_grad + static_cast<size_t>(row) * a.n_out + col) =
-          make_float2(gelu_grad(v0), gelu_grad(v1));
-    v0 = gelu(v0);
-    v1 = gelu(v1);
-  }
-  if (MUL && a.mul) {
-    const float2 f =
-        *reinterpret_cast<const float2*>(a.mul + static_cast<size_t>(row) * a.n_out + col);
-    v0 *= f.x;
-    v1 *= f.y;
-  }
-  if (a.res) {
-    const size_t r = res_row(a, row) * a.n_out + col;
-    const float2 rv =
-        a.res_f32 ? *reinterpret_cast<const float2*>(static_cast<const float*>(a.res) + r)
-                  : __bfloat1622float2(
-                        *reinterpret_cast<const P*>(static_cast<const __nv_bfloat16*>(a.res) + r));
-    v0 += rv.x;
-    v1 += rv.y;
-  }
-  const size_t at = static_cast<size_t>(row) * a.n_out + col;
-  if (a.y_f32)
-    *reinterpret_cast<float2*>(static_cast<float*>(a.y) + at) = make_float2(v0, v1);
-  else
-    *reinterpret_cast<P*>(static_cast<__nv_bfloat16*>(a.y) + at) = __floats2bfloat162_rn(v0, v1);
-  return make_float2(v0, v1);
-}
-
-// A_KM: A is stored [K][M] (the weight gradient's dY), and the K rows may
-// be split over blockIdx.z; B_KN: B is stored [K][n_out] (the backward's
-// untransposed weight, or wgrad's X); GRAD: the GELU epilogue also writes
-// GELU' (the training forward's fc1). The backward's own epilogue steps
-// (the fp32 factor, the column sums) compile only into the layout with
-// B_KN and not A_KM, the split only into A_KM: the eval launches keep
-// the eval path's code.
-template <typename T, bool A_KM, bool B_KN, bool GRAD>
+// The fp32 GEMM. A_KM: A is stored [K][M] (the weight gradient's dY), and
+// the K rows may be split over blockIdx.z; B_KN: B is stored [K][n_out]
+// (the backward's untransposed weight, or wgrad's X); GRAD: the GELU
+// epilogue also writes GELU' (the training forward's fc1). The backward's
+// own epilogue steps (the fp32 factor, the column sums) compile only into
+// the layout with B_KN and not A_KM, the split only into A_KM.
+template <bool A_KM, bool B_KN, bool GRAD>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
-  using TL = Tile<T, A_KM, B_KN>;
+  using TL = Tile<A_KM, B_KN>;
   constexpr bool BWD = B_KN && !A_KM;
   extern __shared__ __align__(16) unsigned char dsmem[];
-  T* tiles = reinterpret_cast<T*>(dsmem);
+  float* tiles = reinterpret_cast<float*>(dsmem);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   int k_begin = 0, k_end = a.K;
   if constexpr (A_KM) {
     if (a.k_split) {
@@ -429,159 +304,74 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
   const bool a_sums = A_KM && a.a_sums != nullptr && blockIdx.x == 0;
   float a_sum = 0.f;
 
+  // 16x16 threads, each an 8x8 micro-tile strided over the 128x128 tile.
+  float acc[8][8] = {};
+  const int ty = tid >> 4, tx = tid & 15;
   // K loop over a ring of STAGES slices: slice i multiplies while the
-  // copies of slices i+1 .. i+STAGES-1 are in flight. One commit group
-  // per slice (empty past the end) keeps the wait count uniform.
-  auto k_loop = [&](auto&& multiply) {
+  // copies of slices i+1 .. i+STAGES-1 are in flight. One commit group per
+  // slice (empty past the end) keeps the wait count uniform.
 #pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      const int k0 = k_begin + st * BK;
-      if (k0 < k_end) load_slice<T, A_KM, B_KN>(a, tiles, st, m0, n0, k0, k_end);
-      cp_async_commit();
-    }
-    for (int i = 0, k0 = k_begin; k0 < k_end; ++i, k0 += BK) {
-      const int buf = i % STAGES;
-      cp_async_wait_all_but_newest();
-      __syncthreads();  // slice i visible; slice i-1's buffer free
-      const int kn = k0 + (STAGES - 1) * BK;
-      if (kn < k_end)
-        load_slice<T, A_KM, B_KN>(a, tiles, (i + STAGES - 1) % STAGES, m0, n0, kn, k_end);
-      cp_async_commit();
-      const T* A = tiles + buf * TL::STAGE_ELEMS;
-      if (a_sums && tid < BM) {
+  for (int st = 0; st < STAGES - 1; ++st) {
+    const int k0 = k_begin + st * BK;
+    if (k0 < k_end) load_slice<A_KM, B_KN>(a, tiles, st, m0, n0, k0, k_end);
+    cp_async_commit();
+  }
+  for (int i = 0, k0 = k_begin; k0 < k_end; ++i, k0 += BK) {
+    const int buf = i % STAGES;
+    cp_async_wait_all_but_newest();
+    __syncthreads();  // slice i visible; slice i-1's buffer free
+    const int kn = k0 + (STAGES - 1) * BK;
+    if (kn < k_end) load_slice<A_KM, B_KN>(a, tiles, (i + STAGES - 1) % STAGES, m0, n0, kn, k_end);
+    cp_async_commit();
+    const float* A = tiles + buf * TL::STAGE_ELEMS;
+    const float* B = A + TL::A_ELEMS;
+    if (a_sums && tid < BM) {
 #pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) a_sum += static_cast<float>(A[kk * TL::A_LD + tid]);
-      }
-      multiply(A, A + TL::A_ELEMS);
+      for (int kk = 0; kk < BK; ++kk) a_sum += A[kk * TL::A_LD + tid];
     }
-  };
-
-  if constexpr (sizeof(T) == 2) {
-    // 2x4 warps, each a 64x32 sub-tile of 4x4 mma tiles (16x8).
-    float acc[4][4][4] = {};
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-    const int g = lane >> 2, t = lane & 3;
-    k_loop([&](const T* A, const T* B) {
-#pragma unroll
-      for (int ks = 0; ks < BK; ks += 16) {
-        uint32_t af[4][4], bf[4][2];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          if constexpr (A_KM)
-            ldmatrix_x4(af[mt],
-                        A + (ks + (lane & 7) + ((lane >> 4) << 3)) * TL::A_LD + wm + mt * 16 +
-                            ((lane >> 3) & 1) * 8,
-                        true);
-          else
-            ldmatrix_x4(af[mt], A + (wm + mt * 16 + (lane & 15)) * TL::A_LD + ks + (lane >> 4) * 8,
-                        false);
-        }
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t r4[4];
-          if constexpr (B_KN)
-            ldmatrix_x4(r4,
-                        B + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * TL::B_LD + wn + np * 16 +
-                            (lane >> 4) * 8,
-                        true);
-          else
-            ldmatrix_x4(r4,
-                        B + (wn + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * TL::B_LD + ks +
-                            ((lane >> 3) & 1) * 8,
-                        false);
-          bf[2 * np][0] = r4[0];
-          bf[2 * np][1] = r4[1];
-          bf[2 * np + 1][0] = r4[2];
-          bf[2 * np + 1][1] = r4[3];
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_16x8x16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
-      }
-    });
-    float cs[4][2] = {};
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int row = m0 + wm + mt * 16 + g, col = n0 + wn + nt * 8 + 2 * t;
-        const float2 top = store_pair<BWD, GRAD>(a, row, col, acc[mt][nt][0], acc[mt][nt][1]);
-        const float2 bot =
-            store_pair<BWD, GRAD>(a, row + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
-        if constexpr (BWD) {
-          cs[nt][0] += top.x + bot.x;
-          cs[nt][1] += top.y + bot.y;
-        }
-      }
-    if (BWD && a.col_sums != nullptr) {
-      // the warp's 64 rows by shuffles over g, then the two warp rows in
-      // order through shared memory
-      float* red = reinterpret_cast<float*>(dsmem);  // [2][BN]
-      __syncthreads();  // the tiles are no longer read
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float c = cs[nt][e];
-          c += __shfl_xor_sync(0xffffffffu, c, 4);
-          c += __shfl_xor_sync(0xffffffffu, c, 8);
-          c += __shfl_xor_sync(0xffffffffu, c, 16);
-          if (g == 0) red[(warp >> 2) * BN + wn + nt * 8 + 2 * t + e] = c;
-        }
-      __syncthreads();
-      if (tid < BN && n0 + tid < a.n_out)
-        a.col_sums[static_cast<size_t>(blockIdx.y) * a.n_out + n0 + tid] = red[tid] + red[BN + tid];
-    }
-  } else {
-    // 16x16 threads, each an 8x8 micro-tile strided over the 128x128 tile.
-    float acc[8][8] = {};
-    const int ty = tid >> 4, tx = tid & 15;
-    k_loop([&](const T* A, const T* B) {
 #pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[8], bv[8];
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[8], bv[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          av[i] = A_KM ? A[kk * TL::A_LD + ty + 16 * i] : A[(ty + 16 * i) * TL::A_LD + kk];
+      for (int i = 0; i < 8; ++i)
+        av[i] = A_KM ? A[kk * TL::A_LD + ty + 16 * i] : A[(ty + 16 * i) * TL::A_LD + kk];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          bv[j] = B_KN ? B[kk * TL::B_LD + tx + 16 * j] : B[(tx + 16 * j) * TL::B_LD + kk];
+      for (int j = 0; j < 8; ++j)
+        bv[j] = B_KN ? B[kk * TL::B_LD + tx + 16 * j] : B[(tx + 16 * j) * TL::B_LD + kk];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    });
-    float cs[8] = {};
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  float cs[8] = {};
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float v = store<BWD, GRAD>(a, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
-        if constexpr (BWD) cs[j] += v;
-      }
-    if (BWD && a.col_sums != nullptr) {
-      float* red = reinterpret_cast<float*>(dsmem);  // [16][BN]
-      __syncthreads();
+    for (int j = 0; j < 8; ++j) {
+      const float v = store<BWD, GRAD>(a, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
+      if constexpr (BWD) cs[j] += v;
+    }
+  if (BWD && a.col_sums != nullptr) {
+    float* red = reinterpret_cast<float*>(dsmem);  // [16][BN]
+    __syncthreads();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) red[ty * BN + tx + 16 * j] = cs[j];
-      __syncthreads();
-      if (tid < BN && n0 + tid < a.n_out) {
-        float c = 0.f;
-        for (int r = 0; r < 16; ++r) c += red[r * BN + tid];
-        a.col_sums[static_cast<size_t>(blockIdx.y) * a.n_out + n0 + tid] = c;
-      }
+    for (int j = 0; j < 8; ++j) red[ty * BN + tx + 16 * j] = cs[j];
+    __syncthreads();
+    if (tid < BN && n0 + tid < a.n_out) {
+      float c = 0.f;
+      for (int r = 0; r < 16; ++r) c += red[r * BN + tid];
+      a.col_sums[static_cast<size_t>(blockIdx.y) * a.n_out + n0 + tid] = c;
     }
   }
   if (a_sums && tid < BM && m0 + tid < a.M)
     a.a_sums[static_cast<size_t>(blockIdx.z) * a.M + m0 + tid] = a_sum;
 }
 
-template <typename T, bool A_KM, bool B_KN, bool GRAD>
+template <bool A_KM, bool B_KN, bool GRAD>
 int launch_gemm(const GemmArgs& a, int splits, cudaStream_t stream) {
-  using TL = Tile<T, A_KM, B_KN>;
-  const auto kernel = gemm_kernel<T, A_KM, B_KN, GRAD>;
+  using TL = Tile<A_KM, B_KN>;
+  const auto kernel = gemm_kernel<A_KM, B_KN, GRAD>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(TL::SMEM_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -590,14 +380,13 @@ int launch_gemm(const GemmArgs& a, int splits, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The four compiled variants: eval and forward, the training fc1 (GELU'
-// out), the backward's dY . W, and the weight gradient.
-template <typename T>
-int launch_gemm_layout(const GemmArgs& a, bool a_km, bool b_kn, int splits, cudaStream_t s) {
-  if (a_km) return launch_gemm<T, true, true, false>(a, splits, s);
-  if (b_kn) return launch_gemm<T, false, true, false>(a, splits, s);
-  if (a.gelu_grad != nullptr) return launch_gemm<T, false, false, true>(a, splits, s);
-  return launch_gemm<T, false, false, false>(a, splits, s);
+// The four compiled fp32 variants: eval and forward, the training fc1
+// (GELU' out), the backward's dY . W, and the weight gradient.
+int launch_gemm_f32(const GemmArgs& a, bool a_km, bool b_kn, int splits, cudaStream_t s) {
+  if (a_km) return launch_gemm<true, true, false>(a, splits, s);
+  if (b_kn) return launch_gemm<false, true, false>(a, splits, s);
+  if (a.gelu_grad != nullptr) return launch_gemm<false, false, true>(a, splits, s);
+  return launch_gemm<false, false, false>(a, splits, s);
 }
 
 template <typename TX, typename T>
@@ -699,15 +488,16 @@ extern "C" int tr_gemm(int dtype, const void* x, int M, int K, const void* w, in
   a.rows_out = rows_out, a.rows_in = rows_in, a.y = y, a.y_f32 = y_dtype == kFloat32;
   a.col_sums = static_cast<float*>(col_sums);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_gemm_layout<float>(a, false, w_kn != 0, 1, s);
-  return launch_gemm_layout<__nv_bfloat16>(a, false, w_kn != 0, 1, s);
+  if (dtype == kFloat32) return launch_gemm_f32(a, false, w_kn != 0, 1, s);
+  return launch_gemm_sm90(a, false, w_kn != 0, 1, s);
 }
 
 // The partial weight gradients of one linear layer: ws[z] = dY^T X over
 // rows [z * rows_per_split, (z + 1) * rows_per_split) for z < splits, fp32
 // [splits][n_out][K]; bias_ws (or null) [splits][n_out] the partial column
 // sums of dY. dy [rows, n_out] and x [rows, K] share `dtype`;
-// rows_per_split is a multiple of 32. Returns the cudaError_t of the launch.
+// rows_per_split is a multiple of 32 (fp32) or of 64 (bf16: the K step of
+// gemm_sm90.cu). Returns the cudaError_t of the launch.
 extern "C" int tr_gemm_wgrad(int dtype, const void* dy, const void* x, int rows, int n_out,
                              int K, int splits, int rows_per_split, void* ws, void* bias_ws,
                              void* stream) {
@@ -721,8 +511,8 @@ extern "C" int tr_gemm_wgrad(int dtype, const void* dy, const void* x, int rows,
   a.x = dy, a.M = n_out, a.K = rows, a.w = x, a.n_out = K;
   a.y = ws, a.y_f32 = 1, a.k_split = rows_per_split, a.a_sums = static_cast<float*>(bias_ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_gemm_layout<float>(a, true, true, splits, s);
-  return launch_gemm_layout<__nv_bfloat16>(a, true, true, splits, s);
+  if (dtype == kFloat32) return launch_gemm_f32(a, true, true, splits, s);
+  return launch_gemm_sm90(a, true, true, splits, s);
 }
 
 // out[i] = sum over z < S of part[z][i] in order, for i < L, written in

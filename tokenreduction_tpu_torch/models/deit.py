@@ -10,7 +10,10 @@ zero biases, unit LayerNorm scales. The model then moves to ``device``:
 the card unless the caller passes ``device="cpu"``.
 
 In training the forward takes ``generator=``, the generator of the
-stochastic-depth masks, on the device of the model.
+stochastic-depth and dropout masks, on the device of the model. With
+``cfg.viz_mode`` every block is built with ``force_plain`` (JAX's
+``force_xla=c.viz_mode``, ``models/deit.py:76`` there): extraction runs
+the plain composition on every device and launches no kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 
 from tokenreduction_tpu_torch.core.config import ViTConfig, drop_path_rates
 from tokenreduction_tpu_torch.core.device import resolve_device
-from tokenreduction_tpu_torch.core.layers import Block, PatchEmbed
+from tokenreduction_tpu_torch.core.layers import Block, Dropout, PatchEmbed
 
 # scale that gives a normal truncated at 2 std the requested std (Flax's
 # variance_scaling "truncated_normal")
@@ -47,7 +50,7 @@ class ViTBase(nn.Module):
             self.dist_token = nn.Parameter(torch.zeros(1, 1, D))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, c.num_patches + c.num_prefix_tokens, D))
-        self.pos_drop = nn.Dropout(c.drop_rate)
+        self.pos_drop = Dropout(c.drop_rate)
         dpr = drop_path_rates(c)
         self.blocks = nn.ModuleList(self.make_block(i, dpr[i])
                                     for i in range(c.depth))
@@ -68,12 +71,13 @@ class ViTBase(nn.Module):
 
     def make_block(self, i: int, drop_path: float) -> nn.Module:
         """Block i of the backbone (a family with its own blocks overrides
-        this)."""
+        this), pinned to the plain composition in viz mode."""
         c = self.cfg
         return Block(c.embed_dim, c.num_heads, mlp_ratio=c.mlp_ratio,
                      qkv_bias=c.qkv_bias, drop=c.drop_rate,
                      attn_drop=c.attn_drop_rate, drop_path=drop_path,
-                     layer_norm_eps=c.layer_norm_eps)
+                     layer_norm_eps=c.layer_norm_eps,
+                     force_plain=c.viz_mode)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -94,14 +98,16 @@ class ViTBase(nn.Module):
             if hasattr(self, name):
                 _trunc_normal(getattr(self, name), 0.02, generator)
 
-    def embed(self, x):
-        """Patchify + prepend prefix tokens + positional embedding."""
+    def embed(self, x, generator: torch.Generator | None = None):
+        """Patchify + prepend prefix tokens + positional embedding, then
+        dropout (its masks from ``generator``)."""
         x = self.patch_embed(x)
         B = x.shape[0]
         prefix = [self.cls_token.expand(B, -1, -1)]
         if self.cfg.distilled:
             prefix.append(self.dist_token.expand(B, -1, -1))
-        return self.pos_drop(torch.cat(prefix + [x], dim=1) + self.pos_embed)
+        return self.pos_drop(torch.cat(prefix + [x], dim=1) + self.pos_embed,
+                             generator)
 
     def classify(self, x):
         """Final norm -> head (DeiT dist-token averaging at eval)."""
@@ -131,7 +137,7 @@ class VisionTransformer(ViTBase):
     def forward(self, x, generator: torch.Generator | None = None):
         c = self.cfg
         capture = c.viz_mode and self.capture_features
-        x = self.embed(x)
+        x = self.embed(x, generator)
         features = {}
         for i, blk in enumerate(self.blocks):
             x, _ = blk(x, generator=generator)

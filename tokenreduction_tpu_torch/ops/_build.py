@@ -41,10 +41,9 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas=-v", "-c")
 LINK_FLAGS = (*ARCH, "-shared")
 LIB_NAME = "libtokenreduction_kernels.so"
-GEMM_TILE = 128  # rows and columns of a gemm block's output tile
+GEMM_TILE = 128  # rows of a gemm output tile (and of each col_sums row)
 # blocks a row-reducing launch aims for: two per SM of the H100's 132
 REDUCE_BLOCKS = 264
-WGRAD_SLICE_ROWS = 32  # a weight-gradient slice is whole K steps of 32 rows
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,7 +61,10 @@ _SIGNATURES = {
     "tr_short_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _S, _P, _P, _P,
                                _P, _P, _I, _I, _I, _F, _P),
     "tr_head_mean_keys": (_I, _P, _P, _I, _I, _I, _P),
+    "tr_gemm_sm90_config": (_P,),
 }
+# what tr_gemm_sm90_config reports, in its order
+_GEMM_CONFIG = ("BM", "BN", "BK", "STAGES", "SMEM_BYTES")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -281,9 +283,10 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
     whose row m is gathered like ``layer_norm``'s rows when idx is given;
     ``col_sums`` [ceil(M / 128), n_out] fp32 receives the column sums of
     each 128-row tile of the result before its rounding. See
-    csrc/ln_gemm.cu. x, w and bias share one dtype; res and y have it too
-    or, with bf16 operands, float32. Contiguous CUDA tensors, checked by
-    the caller."""
+    csrc/ln_gemm.cu (fp32) and csrc/gemm_sm90.cu (bf16). x, w and bias
+    share one dtype; res and y have it too or, with bf16 operands, float32.
+    Contiguous CUDA tensors, checked by the caller. ``gemm.launches``
+    counts the bf16 launches (the sm_90a kernel)."""
     M, n_out = y.shape
     res_dtype = _DTYPE_CODE[x.dtype if res is None else res.dtype]
     err = kernels().lib.tr_gemm(
@@ -292,21 +295,41 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
         _ptr(res), _ptr(idx), rows_out, rows_in, _DTYPE_CODE[y.dtype],
         _ptr(y), _ptr(col_sums), _stream(x))
     _check("tr_gemm", err)
+    if x.dtype == torch.bfloat16:
+        gemm.launches += 1
+
+
+gemm.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_config() -> dict:
+    """The bf16 GEMM's tile, stages and dynamic shared memory a block, as
+    its library reports them (csrc/gemm_sm90.cu): {"BM", "BN", "BK",
+    "STAGES", "SMEM_BYTES"}."""
+    out = (ctypes.c_int * len(_GEMM_CONFIG))()
+    _check("tr_gemm_sm90_config",
+           kernels().lib.tr_gemm_sm90_config(ctypes.addressof(out)))
+    return dict(zip(_GEMM_CONFIG, out))
 
 
 def gemm_wgrad(dy, x, dw, db=None):
     """dw [n_out, K] = dy^T x summed over the M rows of dy [M, n_out] and
     x [M, K], and db [n_out] (if given) = the column sums of dy, both in
-    their own dtype. The rows are cut into slices, enough for about
-    REDUCE_BLOCKS blocks; each slice's fp32 partials are written apart
-    and summed in a fixed order, so the result is the same bits from run
-    to run. Contiguous CUDA tensors, checked by the caller."""
+    their own dtype. The rows are cut into slices of whole K steps of the
+    bf16 GEMM (BK rows; the fp32 one steps by 32, which divides it), as
+    many as leave each SM one output tile of one slice (the bf16 GEMM's
+    BM x BN tiles); each slice's fp32 partials are written
+    apart and summed in a fixed order, so the result is the same bits from
+    run to run. Contiguous CUDA tensors, checked by the caller.
+    ``gemm_wgrad.launches`` counts the bf16 launches (the sm_90a kernel)."""
     M, n_out = dy.shape
     K = x.shape[1]
-    tiles = _cdiv(n_out, GEMM_TILE) * _cdiv(K, GEMM_TILE)
-    steps = max(1, _cdiv(M, WGRAD_SLICE_ROWS))
-    per = _cdiv(steps, max(1, min(_cdiv(REDUCE_BLOCKS, tiles), steps)))
-    rows_per_split = per * WGRAD_SLICE_ROWS
+    cfg = gemm_config()
+    tiles = _cdiv(n_out, cfg["BM"]) * _cdiv(K, cfg["BN"])
+    steps = max(1, _cdiv(M, cfg["BK"]))
+    per = _cdiv(steps, max(1, min(steps, _sms(dy.device) // tiles)))
+    rows_per_split = per * cfg["BK"]
     splits = _cdiv(steps, per)
     ws = torch.empty(splits, n_out * K, dtype=torch.float32, device=dy.device)
     bws = None if db is None else torch.empty(
@@ -315,9 +338,19 @@ def gemm_wgrad(dy, x, dw, db=None):
         _DTYPE_CODE[dy.dtype], _ptr(dy), _ptr(x), M, n_out, K, splits,
         rows_per_split, _ptr(ws), _ptr(bws), _stream(dy))
     _check("tr_gemm_wgrad", err)
+    if dy.dtype == torch.bfloat16:
+        gemm_wgrad.launches += 1
     sum_partials(ws, dw.view(-1))
     if db is not None:
         sum_partials(bws, db)
+
+
+gemm_wgrad.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sum_partials(part, out):

@@ -7,8 +7,10 @@ CLS first, the sampled tokens sorted, and pad slots (CLS copies) masked
 off. At keep 0.7 on DeiT-S the sample counts are 138, 97, 68 at blocks 3,
 6, 9 and the widths 197 -> 138 -> 97 -> 68.
 
-In eval every block goes through the kernel wrappers, the JAX dispatch
-with its TPU gate removed (``reduction/ats.py:151-225``):
+In eval every attention half that the kernels take (``kernels_take``: at
+most ``FULL_BLOCK_MAX_N`` tokens at head dim 64, and no viz pin), and every
+MLP half but under the viz pin, goes through the kernel wrappers, the JAX
+dispatch with its TPU gate removed (``reduction/ats.py:151-225``):
 
 - a block that does not sample runs ``fused_block_attention`` with the
   mask (all ones before the first sampling block);
@@ -21,7 +23,10 @@ with its TPU gate removed (``reduction/ats.py:151-225``):
 ATS training has no kernel in the JAX package (its blocks take the XLA
 composition whenever ``deterministic`` is false), so on any device the
 training forward is plain PyTorch, autograd for the backward, with the
-stochastic-depth masks from the forward's ``generator``.
+stochastic-depth and dropout masks from the forward's ``generator``. An
+eval attention half the kernels do not take runs that same plain
+composition, as JAX's does past its gate (with ``cfg.viz_mode``:
+``force_xla``, which pins the MLP half too).
 """
 
 from __future__ import annotations
@@ -75,7 +80,7 @@ class ATSAttention(Attention):
         self.sample_count = sample_count
         self.eps = eps
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, generator: Optional[torch.Generator] = None):
         """Pre-normed x [B, N, D] and mask [B, N] -> (proj(attention)
         [B, K, D], the mask after this block [B, K], the sample ids
         [B, K] or None); K = N unless the block samples."""
@@ -96,7 +101,8 @@ class ATSAttention(Attention):
         # an fp32 value product
         out = attention_probs_ref(q, k, v, self.scale, q_valid=q_valid,
                                   k_valid=mask, norm_p=True)[0]
-        x = self.proj_drop(self.proj(out.transpose(1, 2).flatten(2)))
+        x = self.proj_drop(self.proj(out.transpose(1, 2).flatten(2)),
+                           generator)
         return x, (mask if sample_ids is None else new_mask), sample_ids
 
 
@@ -115,28 +121,32 @@ class ATSBlock(Block):
     def forward(self, x, mask, generator: Optional[torch.Generator] = None):
         """(x, mask) -> (x, the mask after this block, the sample ids or
         None)."""
-        if self.training:
-            y, new_mask, sample_ids = self.attn(self.norm1(x), mask)
+        if self.training or not self.kernels_take(x.shape[1]):
+            y, mask, sample_ids = self.attn(self.norm1(x), mask, generator)
             if sample_ids is not None:
                 x = take_tokens(x, sample_ids)
             x = x + self.drop_path1(y, generator)
-            x = x + self.drop_path2(self.mlp(self.norm2(x)), generator)
-            return x, new_mask, sample_ids
-        attn = self.attn
-        sample_ids = None
-        if attn.sample_count == 0:
-            x = fused_block_attention(x, *self._attn_params(), self.num_heads,
-                                      attn.scale, eps=self.eps, mask=mask)[0]
         else:
-            ln_w, ln_b, wqkv, bqkv, wproj, bproj = self._attn_params()
-            qkv = ln_qkv(x, ln_w, ln_b, wqkv, bqkv, eps=self.eps)
-            sample_ids, new_mask = sample_tokens(
-                *packed_heads(qkv, self.num_heads), mask, attn.scale,
-                attn.sample_count, attn.eps)
-            x = fused_rect_block(qkv, x, sample_ids, mask, wproj, bproj,
-                                 self.num_heads, attn.scale)
-            mask = new_mask
-        x = fused_mlp_residual(x, *self._mlp_params(), eps=self.eps)
+            attn = self.attn
+            sample_ids = None
+            if attn.sample_count == 0:
+                x = fused_block_attention(
+                    x, *self._attn_params(), self.num_heads, attn.scale,
+                    eps=self.eps, mask=mask)[0]
+            else:
+                ln_w, ln_b, wqkv, bqkv, wproj, bproj = self._attn_params()
+                qkv = ln_qkv(x, ln_w, ln_b, wqkv, bqkv, eps=self.eps)
+                sample_ids, new_mask = sample_tokens(
+                    *packed_heads(qkv, self.num_heads), mask, attn.scale,
+                    attn.sample_count, attn.eps)
+                x = fused_rect_block(qkv, x, sample_ids, mask, wproj, bproj,
+                                     self.num_heads, attn.scale)
+                mask = new_mask
+        if self.training or self.force_plain:
+            x = x + self.drop_path2(self.mlp(self.norm2(x), generator),
+                                    generator)
+        else:
+            x = fused_mlp_residual(x, *self._mlp_params(), eps=self.eps)
         return x, mask, sample_ids
 
 
@@ -163,7 +173,8 @@ class ATSVisionTransformer(ViTBase):
                         sample_count=counts.get(i, 0),
                         ats_eps=c.ats_eps, mlp_ratio=c.mlp_ratio,
                         qkv_bias=c.qkv_bias, drop=c.drop_rate,
-                        drop_path=drop_path, layer_norm_eps=c.layer_norm_eps)
+                        drop_path=drop_path, layer_norm_eps=c.layer_norm_eps,
+                        force_plain=c.viz_mode)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """Logits; in eval with ``cfg.viz_mode`` also
@@ -171,7 +182,7 @@ class ATSVisionTransformer(ViTBase):
         pad slot}, "Features": {block: tokens after it}}. ``generator``:
         the stochastic-depth masks' generator in training."""
         c = self.cfg
-        x = self.embed(x)
+        x = self.embed(x, generator)
         B, N = x.shape[:2]
         mask = torch.ones(B, N, dtype=torch.bool, device=x.device)
         decisions = {}

@@ -70,7 +70,7 @@ class HeuristicVisionTransformer(ViTBase):
         {block: tokens after it}}. ``generator``: the stochastic-depth
         masks' generator in training."""
         c = self.cfg
-        x = self.embed(x)
+        x = self.embed(x, generator)
         B, N = x.shape[:2]
         decisions = {}
         features = {}

@@ -51,7 +51,7 @@ class ToMeVisionTransformer(ViTBase):
         it}}. ``generator``: the stochastic-depth masks' generator in
         training."""
         c = self.cfg
-        x = self.embed(x)
+        x = self.embed(x, generator)
         size = None
         assignments = {}
         features = {}

@@ -26,7 +26,7 @@ class TopKVisionTransformer(ViTBase):
         order}, "Features": {block: tokens after it}}. ``generator``: the
         stochastic-depth masks' generator in training."""
         c = self.cfg
-        x = self.embed(x)
+        x = self.embed(x, generator)
         decisions = {}
         features = {}
         for i, blk in enumerate(self.blocks):

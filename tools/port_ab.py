@@ -22,11 +22,16 @@ above, the masked attention and the rectangular attention of 138 kept
 rows over 197 keys, and an ATS@0.7 forward; one whose backward takes the
 mask also times the masked backward (heuristic's block-3 mask, no
 by-product cotangents, as its train step runs it) per launch, and the
-heuristic and DyViT@0.7 forwards. Each run also prints the ptxas
-registers of the attention backward's variants (``bwd_registers``, from
-its checkout's build log). The last lines give each checkout's medians
-over its runs. Needs one CUDA card; numbers from separate calls are not
-compared.
+heuristic and DyViT@0.7 forwards. Both also time, per launch as above,
+every bf16 GEMM of a DeiT-S block at B=256, N=197 (``gemm_times``: the
+forward's qkv, proj and fc2 with their residuals and fc1 with GELU, with
+and without GELU'; the backward's four dY . W products, fp32 out where
+the LayerNorm backward reads them, fc2's with the GELU' factor and the
+column sums; the four weight gradients with their bias sums) and a ToMe@0.7
+forward. Each run also prints the ptxas registers of the attention
+backward's variants (``bwd_registers``, from its checkout's build log).
+The last lines give each checkout's medians over its runs. Needs one CUDA
+card; numbers from separate calls are not compared.
 """
 
 from __future__ import annotations
@@ -137,6 +142,42 @@ def bwd_registers():
             regs[name] = int(re.search(r"Used (\d+) registers", line)[1])
     return regs
 
+def gemm_times():
+    # each GEMM of the block per launch (both checkouts take these calls)
+    f32 = torch.float32
+    M = B * N
+    heads, h, dy, dq, dh, res = (
+        torch.randn(M, n, generator=g).to("cuda", bf16)
+        for n in (D, H4, D, 3 * D, H4, D))
+    gp = torch.randn(M, H4, generator=g).to("cuda")
+    parts = torch.empty(-(-M // 128), H4, device="cuda")
+    y_d, y_h = (torch.empty(M, n, device="cuda", dtype=bf16) for n in (D, H4))
+    y_d32, gp_out = (torch.empty(M, n, device="cuda") for n in (D, H4))
+    dw = {k: torch.empty_like(p[k]) for k in ("wqkv", "wproj", "w1", "w2",
+                                              "bqkv", "bproj", "b2")}
+    gemm, wgrad = _build.gemm, _build.gemm_wgrad
+    return dict(
+        gemm_proj_res_x10=ten(lambda: gemm(heads, p["wproj"], p["bproj"],
+                                           y_d, res=res)),
+        gemm_fc1_gelu_grad_x10=ten(lambda: gemm(
+            ln, p["w1"], p["b1"], y_h, gelu=True, gelu_grad=gp_out)),
+        gemm_fc2_res_x10=ten(lambda: gemm(h, p["w2"], p["b2"], y_d,
+                                          res=res)),
+        gemm_dyw_qkv_x10=ten(lambda: gemm(dq, p["wqkv"], None, y_d32,
+                                          w_kn=True)),
+        gemm_dyw_proj_x10=ten(lambda: gemm(dy, p["wproj"], None, y_d,
+                                           w_kn=True)),
+        gemm_dyw_fc2_x10=ten(lambda: gemm(dy, p["w2"], None, y_h, w_kn=True,
+                                          mul=gp, col_sums=parts)),
+        gemm_dyw_fc1_x10=ten(lambda: gemm(dh, p["w1"], None, y_d32,
+                                          w_kn=True)),
+        wgrad_qkv_x10=ten(lambda: wgrad(dq, ln, dw["wqkv"], dw["bqkv"])),
+        wgrad_proj_x10=ten(lambda: wgrad(dy, heads, dw["wproj"],
+                                         dw["bproj"])),
+        wgrad_fc1_x10=ten(lambda: wgrad(dh, ln, dw["w1"])),
+        wgrad_fc2_x10=ten(lambda: wgrad(dy, h, dw["w2"], dw["b2"])),
+        tome_forward=forward_ms("tome_small_patch16_224"))
+
 def train_ms(label):
     return 1e3 * statistics.median(train_run(label, 6)[0][2:])
 
@@ -157,7 +198,7 @@ with torch.no_grad():
         layer_norm_x10=ten(lambda: _build.layer_norm(
             ln, p["ls1"], p["lb1"], ln_out, eps=1e-6)),
         topk_forward=forward_ms("topk_small_patch16_224"),
-        **ats_times(), **bwd_times())))
+        **ats_times(), **bwd_times(), **gemm_times())))
 print(json.dumps(dict(bwd_registers=bwd_registers())))
 """
 
