@@ -12,7 +12,9 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    build/tokenreduction_tpu_torch/<source hash>/; print each kernel
    variant's registers and spills (ptxas), by its demangled name, and the
    bf16 GEMM's tile, stages and dynamic shared memory a block, as the
-   library reports them (tr_gemm_sm90_config).
+   library reports them (tr_gemm_sm90_config), and the sm_90a
+   attention's dynamic shared memory a block at each main-path width
+   (tr_attention_sm90_smem).
 2. kernels: each kernel counterpart against its plain PyTorch version on
    the same CUDA tensors at the main path's widths, fp32 at B=32 (bound
    1e-4 of max|plain|) and bf16 at B=256 (bound 2e-2 of max|plain|), with
@@ -69,6 +71,18 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    clock), its bound and,
    where one PyTorch call computes the same function (F.linear, matmul,
    matmul(dy.t(), x)), that call's time.
+   Last, each launch of the sm_90a attention (csrc/attention_sm90.cu)
+   alone at B=256 and N = 197, 138, 97, 68 (topk@0.7's widths), 50, 13,
+   4 (topk@0.25's) and at B=32, N=197: the eval forward without and with
+   row0 and colsum, with ToMe's bias, with a validity mask, and the
+   training branch's normalised-P forward with its row statistics; the
+   backward of the branch (row0 cotangent), of ToMe's core (bias, colsum
+   cotangent, dbias) and of a masked core; and the rectangular attention
+   (csrc/short_attention.cu, mma.sync) at ATS's (M, N). Each output is
+   held to 1e-2 of its own max (bf16) or 1e-4 (fp32), beside its time per
+   launch, TFLOP/s (failing above the dense ceiling), its bound and
+   SDPA's time on the same q, k, v (the output alone; the bias or the
+   pair mask as a float mask; its backward alone through autograd).
    Beside each counterpart's time: its bound (bytes or operations at the
    H100's peak rates) and the eager bf16 composition of library calls
    (F.layer_norm, F.linear, scaled_dot_product_attention with the bias and
@@ -138,7 +152,8 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    and its time per step by kernel.
 
 Phases 4 and 5 are the main path's runs: each counterpart's launch count,
-and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), is set to
+and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad) and of the
+sm_90a attention's two (short_attention, short_attention_bwd), is set to
 0 just before and read just after. fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
@@ -187,7 +202,9 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     layer_norm_bwd_ref,
     layer_norm_f32,
     layer_norm_stats,
+    MASK_VALUE,
     linear_f32,
+    merged_heads,
     packed_heads,
     rect_attention_ref,
 )
@@ -324,18 +341,26 @@ GEMM_SOURCE = "tokenreduction_tpu_torch/csrc/gemm_sm90.cu"
 GEMM_REPLACES = {"gemm": "tokenreduction_tpu/ops/fused_mlp_train.py:162",
                  "gemm_wgrad": "tokenreduction_tpu/ops/fused_mlp_train.py:218"}
 ATTENTION = "tokenreduction_tpu_torch/csrc/short_attention.cu"
+ATTENTION_SM90 = "tokenreduction_tpu_torch/csrc/attention_sm90.cu"
+# the sm_90a attention's forward and backward: their records name the
+# attention core's TPU kernels
+ATTENTION_REPLACES = {
+    "short_attention": "tokenreduction_tpu/ops/flash_attention.py:183",
+    "short_attention_bwd":
+        "tokenreduction_tpu/ops/flash_attention_train.py:145"}
 CUDA_SOURCES = {
-    "fused_full_block": [LN_GEMM, ATTENTION],
-    "fused_block_attention": [ATTENTION, LN_GEMM],
-    "fused_mlp_gather_residual": [LN_GEMM],
-    "fused_mlp_residual": [LN_GEMM],
-    "attend_branch_train": [ATTENTION, LN_GEMM],
-    "mlp_branch": [LN_GEMM],
-    "attention_core_train": [ATTENTION],
-    "fused_attention": [ATTENTION],
-    "fused_attention_qkv": [ATTENTION],
+    "fused_full_block": [LN_GEMM, ATTENTION_SM90, GEMM_SOURCE],
+    "fused_block_attention": [ATTENTION_SM90, ATTENTION, LN_GEMM,
+                              GEMM_SOURCE],
+    "fused_mlp_gather_residual": [LN_GEMM, GEMM_SOURCE],
+    "fused_mlp_residual": [LN_GEMM, GEMM_SOURCE],
+    "attend_branch_train": [ATTENTION_SM90, LN_GEMM, GEMM_SOURCE],
+    "mlp_branch": [LN_GEMM, GEMM_SOURCE],
+    "attention_core_train": [ATTENTION_SM90],
+    "fused_attention": [ATTENTION_SM90],
+    "fused_attention_qkv": [ATTENTION_SM90],
     "fused_rect_attention": [ATTENTION],
-    "fused_rect_block": [ATTENTION, LN_GEMM],
+    "fused_rect_block": [ATTENTION, LN_GEMM, GEMM_SOURCE],
 }
 FULL_BLOCK_N = (197, 138, 97, 68, 50, 13, 4)
 BLOCK_ATTN_N = (197, 138, 97, 50, 13)
@@ -427,17 +452,22 @@ def require(cond: bool, msg: str):
 # the bf16 GEMM's launchers (csrc/gemm_sm90.cu), counted apart: every
 # counterpart but the attention core launches them
 GEMMS = {"gemm": _build.gemm, "gemm_wgrad": _build.gemm_wgrad}
+# the sm_90a attention's launchers (csrc/attention_sm90.cu), counted apart:
+# every attention counterpart launches them in bf16
+ATTENTIONS = {"short_attention": _build.short_attention_heads,
+              "short_attention_bwd": _build.short_attention_bwd_heads}
 
 
 def reset_counts():
-    for w in (*WRAPPERS.values(), *GEMMS.values()):
+    for w in (*WRAPPERS.values(), *GEMMS.values(), *ATTENTIONS.values()):
         w.launches = 0
     for w in TRAIN_WRAPPERS.values():
         w.backward_launches = 0
 
 
-def gemm_counts() -> dict:
-    return {name: f.launches for name, f in GEMMS.items()}
+def launcher_counts() -> dict:
+    return {name: f.launches for name, f in (*GEMMS.items(),
+                                             *ATTENTIONS.items())}
 
 
 def counts() -> dict:
@@ -892,6 +922,20 @@ def train_cases(dtype, gen):
                           batch_mask(masks[blk], B)))
 
 
+def core_forward(q, k, v, bias=None, mask=None):
+    """The training core's bf16 forward launch over [B, H, N, hd] views:
+    (out, row0, colsum, stats), the residuals its backward reads."""
+    B, H, N, hd = q.shape
+    out = torch.empty(B, N, H, hd, device=DEVICE, dtype=q.dtype) \
+        .transpose(1, 2)
+    row0 = torch.empty(B, H, N, device=DEVICE)
+    colsum = torch.empty_like(row0)
+    stats = torch.empty(B, H, N, 2, device=DEVICE)
+    _build.short_attention_heads(q, k, v, out, SCALE, bias=bias, mask=mask,
+                                 row0=row0, colsum=colsum, stats=stats)
+    return out, row0, colsum, stats
+
+
 def as_list(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
@@ -974,9 +1018,14 @@ def launcher_cases(gen):
             ("merged heads", "row0"), (merged, row0),
             attention_train_ref(qkv, HEADS, SCALE)))
 
+        # the backward reads the forward's output, row0 and statistics
+        stats = torch.empty(B, HEADS, N, 2, device=DEVICE)
+        _build.short_attention(qkv, merged, HEADS, SCALE, row0=row0,
+                               stats=stats, norm_p=True)
         dout, drow0 = randn(B, N, D), randn(B, HEADS, N, dtype=torch.float32)
         dqkv = torch.empty_like(qkv)
-        _build.short_attention_bwd(qkv, dout, drow0, dqkv, HEADS, SCALE)
+        _build.short_attention_bwd(qkv, merged, dout, drow0, dqkv, HEADS,
+                                   SCALE, stats=stats, row0=row0)
         want = attention_bwd_ref(qkv, dout, drow0, HEADS, SCALE)
         yield "short_attention_bwd", shape, [
             (label, dqkv[..., i * D:(i + 1) * D], want[..., i * D:(i + 1) * D])
@@ -995,14 +1044,18 @@ def launcher_cases(gen):
         yield "head_mean_keys", shape, [
             ("keys", keys, head_mean_keys_ref(qkv, HEADS))]
         q, k, v = packed_heads(qkv, HEADS)
+        out, row0, _, stats = core_forward(q, k, v, bias=bias)
+        yield "short_attention, bias, stats", shape, list(zip(
+            ("row max", "1/sum"), stats.unbind(-1),
+            stats_ref(q, k, bias=bias).unbind(-1)))
         dout = randn(B, N, HEADS, D // HEADS).transpose(1, 2)
         dcs = randn(B, HEADS, N, dtype=torch.float32)
         grads = torch.empty(3, B, HEADS, N, D // HEADS, device=DEVICE,
                             dtype=bf16).unbind(0)
         dbias = torch.empty(B, HEADS, N, device=DEVICE)
-        _build.short_attention_bwd_heads(q, k, v, dout, *grads, SCALE,
-                                         bias=bias, drow0=drow0, dcs=dcs,
-                                         dbias=dbias)
+        _build.short_attention_bwd_heads(q, k, v, out, dout, *grads, SCALE,
+                                         stats=stats, row0=row0, bias=bias,
+                                         drow0=drow0, dcs=dcs, dbias=dbias)
         yield "short_attention_bwd, bias, colsum cotangent, dbias", shape, \
             list(zip(("dq", "dk", "dv", "dbias"), (*grads, dbias),
                      attention_core_train_bwd_ref(q, k, v, bias, dout, drow0,
@@ -1104,10 +1157,25 @@ def launcher_cases(gen):
     drow0, dcs = (randn(B, HEADS, N, dtype=torch.float32) for _ in range(2))
     for blk in HEURISTIC_BLOCKS:
         mask = batch_mask(masks[blk], B)
+        out, row0, _, stats = core_forward(q, k, v, mask=mask)
+        # the statistics the masked core saves (the eval recipe): a fully
+        # masked row keeps the JAX pair mask's -FLT_MAX as its max, exactly
+        # (the rows are uniform over all N keys); the other rows' max and
+        # every row's 1/sum against their own max
+        want = stats_ref(q, k, mask=mask)
+        dead = ~mask[:, None, :].expand(-1, HEADS, -1)
+        require(bool((stats[..., 0][dead] == MASK_VALUE).all()),
+                f"short_attention, mask, stats block {blk}: a fully masked "
+                f"row's max is not -FLT_MAX")
+        yield "short_attention, mask, stats", f"B={B} N={N} block {blk}", [
+            ("row max, rows with a valid key", stats[..., 0][~dead],
+             want[..., 0][~dead]),
+            ("1/sum", stats[..., 1], want[..., 1])]
         for cots in ({}, dict(drow0=drow0, dcs=dcs)):
             grads = torch.empty(3, B, HEADS, N, hd, device=DEVICE,
                                 dtype=bf16).unbind(0)
-            _build.short_attention_bwd_heads(q, k, v, dout, *grads, SCALE,
+            _build.short_attention_bwd_heads(q, k, v, out, dout, *grads,
+                                             SCALE, stats=stats, row0=row0,
                                              mask=mask, **cots)
             want = attention_core_train_bwd_ref(
                 q, k, v, None, dout, cots.get("drow0"), cots.get("dcs"),
@@ -1325,6 +1393,226 @@ def phase_gemms() -> dict:
                                    plain_ms=per_launch_ms(plain),
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    library_ms=lib_ms, max_abs_err=worst)
+    return rec
+
+
+# the sm_90a attention's launches alone (csrc/attention_sm90.cu): B = 256
+# at topk@0.7's widths and topk@0.25's, and B = 32 at 197
+ATTENTION_SHAPES = tuple((256, n) for n in (197, 138, 97, 68, 50, 13, 4)) \
+    + ((32, 197),)
+
+
+def stats_ref(q, k, bias=None, mask=None):
+    """The row statistics [B, H, N, 2] fp32 that the training forwards
+    write: the row max of the logits (the JAX pair mask's -FLT_MAX kept)
+    and 1/sum of their exponentials."""
+    logits = (q.float() @ k.float().transpose(-1, -2)) * SCALE
+    if bias is not None:
+        logits = logits + bias.float()[:, None, None, :]
+    if mask is not None:
+        pair = mask[:, None, :, None] & mask[:, None, None, :]
+        logits = logits.masked_fill(~pair, MASK_VALUE)
+    m = logits.amax(-1)
+    return torch.stack([m, 1.0 / torch.exp(logits - m[..., None]).sum(-1)],
+                       -1)
+
+
+def sdpa_backward(q, k, v, dout, attn_mask=None):
+    """A call that runs SDPA's backward alone (autograd over leaf copies of
+    q, k, v, the forward run once here): the nearest library call of the
+    attention backward (no row0 or colsum by-products, no dbias)."""
+    with torch.enable_grad():  # also under a caller's no_grad
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
+                                             scale=SCALE)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def attention_cases(B, N, gen):
+    """(launch, variant, run, [(output label, got, want)], flops, bytes,
+    library call, plain call) for each variant of the sm_90a attention that
+    the main path launches, at B images of N tokens: the eval forward
+    without and with the by-products (and with ToMe's bias, ATS's and
+    heuristic's mask), the training branch's normalised-P forward with its
+    statistics, and the backward of the branch (row0 cotangent), of ToMe's
+    core (bias, colsum cotangent, dbias: the exact-delta variant) and of
+    heuristic's masked core. bytes: those of the function, each of its
+    inputs read once and each of its outputs written once: the forward's
+    output, row0 and row statistics that the port's backward reads, and
+    the statistics that its training forward writes for it, are residuals
+    of the port's design (JAX's kernels read and write none of them) and
+    do not count. The forward's statistics are held as two outputs, the
+    row max and 1/sum, each against its own max. The library call is SDPA on the
+    same q, k, v with the bias or the pair mask as a float mask: the
+    output alone, no by-products."""
+    bf16 = torch.bfloat16
+    dev_gen = torch.Generator(device=DEVICE).manual_seed(B * 1000 + N)
+
+    def rn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=dev_gen, device=DEVICE).to(dtype)
+
+    qkv = rn(B, N, 3 * D)
+    q, k, v = packed_heads(qkv, HEADS)
+    bias = log_sizes(B, N, gen, torch.float32)
+    mask = token_mask(B, N, gen)
+    merged = torch.empty(B, N, D, device=DEVICE, dtype=bf16)
+    row0 = torch.empty(B, HEADS, N, device=DEVICE)
+    colsum = torch.empty_like(row0)
+    stats = torch.empty(B, HEADS, N, 2, device=DEVICE)
+    E, vec = 2, 4 * B * HEADS * N
+    io = E * 4 * B * N * D  # q, k, v in, the output out
+    fwd_flops = 4 * B * N * N * D
+    by_products = ("merged heads", "row0", "colsum"), (merged, row0, colsum)
+    for label, kw, (names, outs), want_fn, extra, lib_mask in (
+            ("forward", {}, (("merged heads",), (merged,)),
+             lambda: attention_ref(qkv, HEADS, SCALE)[:1], 0, None),
+            ("forward, row0 + colsum", dict(row0=row0, colsum=colsum),
+             by_products, lambda: attention_ref(qkv, HEADS, SCALE), 2 * vec,
+             None),
+            ("forward, bias, row0 + colsum",
+             dict(bias=bias, row0=row0, colsum=colsum), by_products,
+             lambda: attention_ref(qkv, HEADS, SCALE, bias),
+             2 * vec + 4 * B * N, float_mask(bf16, bias)),
+            ("forward, mask, row0 + colsum",
+             dict(mask=mask, row0=row0, colsum=colsum), by_products,
+             lambda: attention_ref(qkv, HEADS, SCALE, mask=mask),
+             2 * vec + B * N, float_mask(bf16, None, mask, mask)),
+            ("forward, normalised P, row0, stats",
+             dict(row0=row0, stats=stats, norm_p=True),
+             (("merged heads", "row0", "row max", "1/sum"),
+              (merged, row0, *stats.unbind(-1))),
+             lambda: (*attention_train_ref(qkv, HEADS, SCALE),
+                      *stats_ref(q, k).unbind(-1)), vec, None)):
+        want = want_fn()
+        yield ("short_attention", label,
+               lambda kw=kw: _build.short_attention(qkv, merged, HEADS, SCALE,
+                                                    **kw),
+               list(zip(names, outs, want)), fwd_flops, io + extra,
+               lambda m=lib_mask: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=m, scale=SCALE), want_fn)
+    # the backward: the branch's (packed qkv, the row0 cotangent)
+    _build.short_attention(qkv, merged, HEADS, SCALE, row0=row0, stats=stats,
+                           norm_p=True)
+    dout, drow0 = rn(B, N, D), rn(B, HEADS, N, dtype=torch.float32)
+    dcs = rn(B, HEADS, N, dtype=torch.float32)
+    dqkv = torch.empty_like(qkv)
+    bwd_flops = 10 * B * N * N * D  # S, dP, dV, dK, dQ
+    bwd_io = E * 7 * B * N * D  # q, k, v, dout in; dq, dk, dv out
+    want = attention_bwd_ref(qkv, dout, drow0, HEADS, SCALE)
+    yield ("short_attention_bwd", "backward, row0 cotangent",
+           lambda: _build.short_attention_bwd(qkv, merged, dout, drow0, dqkv,
+                                              HEADS, SCALE, stats=stats,
+                                              row0=row0),
+           [(n, lambda i=i: dqkv[..., i * D:(i + 1) * D],
+             want[..., i * D:(i + 1) * D])
+            for i, n in enumerate(("dq", "dk", "dv"))],
+           bwd_flops, bwd_io + vec,  # drow0 in
+           sdpa_backward(q, k, v, merged_heads(dout, HEADS)),
+           lambda: attention_bwd_ref(qkv, dout, drow0, HEADS, SCALE))
+    # the core's, over [B, H, N, hd] views: ToMe's (bias, both cotangents,
+    # dbias) and heuristic's (mask, no cotangents)
+    hd = D // HEADS
+    dout_h = rn(B, N, HEADS, hd).transpose(1, 2)
+    grads = torch.empty(3, B, HEADS, N, hd, device=DEVICE,
+                        dtype=bf16).unbind(0)
+    dbias = torch.empty(B, HEADS, N, device=DEVICE)
+    for label, fw, kw, extra, lib_mask in (
+            ("backward, bias, colsum cotangent, dbias", dict(bias=bias),
+             dict(bias=bias, drow0=drow0, dcs=dcs, dbias=dbias),
+             3 * vec + 4 * B * N, float_mask(bf16, bias)),  # + bias
+            ("backward, mask", dict(mask=mask), dict(mask=mask),
+             B * N, float_mask(bf16, None, mask, mask))):
+        out, r0, _, st = core_forward(q, k, v, **fw)
+        want = attention_core_train_bwd_ref(
+            q, k, v, kw.get("bias"), dout_h, kw.get("drow0"), kw.get("dcs"),
+            SCALE, kw.get("mask"))
+        names = ("dq", "dk", "dv", "dbias")[:4 if "dbias" in kw else 3]
+        yield ("short_attention_bwd", label,
+               lambda out=out, r0=r0, st=st, kw=kw:
+               _build.short_attention_bwd_heads(q, k, v, out, dout_h, *grads,
+                                                SCALE, stats=st, row0=r0,
+                                                **kw),
+               list(zip(names, (*grads, dbias), want)), bwd_flops,
+               bwd_io + extra, sdpa_backward(q, k, v, dout_h, lib_mask),
+               lambda kw=kw: attention_core_train_bwd_ref(
+                   q, k, v, kw.get("bias"), dout_h, kw.get("drow0"),
+                   kw.get("dcs"), SCALE, kw.get("mask")))
+
+
+def rect_cases(gen):
+    """The rectangular attention (csrc/short_attention.cu's mma.sync
+    kernel: its query rows are gathered by id) at ATS's (M, N), B = 256, in
+    the form of attention_cases."""
+    B = 256
+    for M, N in RECT_MN:
+        dev_gen = torch.Generator(device=DEVICE).manual_seed(M * 1000 + N)
+        qkv = torch.randn(B, N, 3 * D, generator=dev_gen, device=DEVICE) \
+            .to(torch.bfloat16)
+        mask = token_mask(B, N, gen)
+        idx = kept_ids(B, N, M, mask, gen)
+        ids = idx.to(torch.int32)
+        merged = torch.empty(B, M, D, device=DEVICE, dtype=torch.bfloat16)
+        want = rect_attention_ref(qkv, idx, mask, HEADS, SCALE)
+        yield ("short_attention (mma.sync)", f"B={B} M={M} N={N}",
+               lambda qkv=qkv, merged=merged, mask=mask, ids=ids:
+               _build.short_attention(qkv, merged, HEADS, SCALE, mask=mask,
+                                      ids=ids),
+               [("merged heads", merged, want)], 4 * B * M * N * D,
+               2 * (2 * B * N * D + 2 * B * M * D) + 4 * B * M + B * N,
+               lambda qkv=qkv, idx=idx, mask=mask: library_rect(qkv, idx,
+                                                                mask),
+               lambda qkv=qkv, idx=idx, mask=mask: rect_attention_ref(
+                   qkv, idx, mask, HEADS, SCALE))
+
+
+def phase_attention() -> dict:
+    """Phase 2, last part: each launch of the attention alone at every
+    shape of ATTENTION_SHAPES (and the rectangular one at ATS's (M, N)),
+    against its plain version (bf16 outputs within 1e-2 of their own max,
+    fp32 ones 1e-4), with its time per launch beside its bound, the
+    plain version's time and SDPA's. A rate above the tensor cores' dense
+    peak at the card's highest SM clock fails. Returns the JSON records of
+    short_attention (the eval forward with row0 and colsum) and
+    short_attention_bwd (the branch's) at B = 256, N = 197."""
+    gen = torch.Generator().manual_seed(6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ceiling = sms * SM_FLOP_PER_CLOCK * max_sm_clock_hz()
+    rec = {}
+    cases = [(f"B={B} N={N}", case) for B, N in ATTENTION_SHAPES
+             for case in attention_cases(B, N, gen)]
+    cases += [(case[1], (case[0], "rectangular") + case[2:])
+              for case in rect_cases(gen)]
+    for tag, (launch, label, run, outs, flops, nbytes, library, plain) in \
+            cases:
+        run()
+        torch.cuda.synchronize()
+        errs, worst = [], 0.0
+        for name, got, want in outs:
+            got = got() if callable(got) else got
+            abs_err, rel = rel_err(got, want)
+            bound_ = LAUNCH_BOUND[got.dtype]
+            require(rel <= bound_, f"{launch} {label} {tag} {name}: error "
+                    f"{rel:.3e} of its max|plain| > bound {bound_:.0e}")
+            errs.append(f"{name} {abs_err:.3e} ({rel:.2e} of max)")
+            worst = max(worst, abs_err)
+        ms = per_launch_ms(run)
+        lib_ms = per_launch_ms(library)
+        t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        rate = flops / ms * 1e3
+        require(rate <= ceiling, f"{launch} {label} {tag}: "
+                f"{rate / 1e12:.1f} TFLOP/s is above the ceiling")
+        print(f"phase 2 attention {launch} {label} {tag}: {', '.join(errs)}; "
+              f"kernel {ms:.4f} ms per launch ({rate / 1e12:.1f} TFLOP/s), "
+              f"bound {bound_ms:.4f} ms ({bound_by}), SDPA {lib_ms:.4f} ms",
+              flush=True)
+        if tag == "B=256 N=197" and label in (
+                "forward, row0 + colsum", "backward, row0 cotangent"):
+            rec[launch] = dict(shape=f"bf16 {label} {tag}", ms=ms,
+                               plain_ms=per_launch_ms(plain),
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=lib_ms, max_abs_err=worst)
     return rec
 
 
@@ -1601,9 +1889,9 @@ def viz_check(label, name, kw, B):
     with torch.no_grad():
         out, viz = model(x)
     torch.cuda.synchronize()
-    require(counts() == NONE and not any(gemm_counts().values()),
-            f"{label} viz: launches {counts()}, {gemm_counts()}: the viz pin "
-            "must run no kernel")
+    require(counts() == NONE and not any(launcher_counts().values()),
+            f"{label} viz: launches {counts()}, {launcher_counts()}: the "
+            "viz pin must run no kernel")
     with torch.no_grad():
         ref, viz_ref = cpu_model(x.cpu())
     key = VIZ_DECISIONS[cfg.method]
@@ -1974,9 +2262,11 @@ def phase_serve(card: str) -> dict:
             f"a kernel of the path never ran: {got}")
     require(not any(got[k] for k in OFF_PATH_WRAPPERS),
             f"a counterpart off the path ran: {got}")
-    got.update(gemm_counts())
+    got.update(launcher_counts())
     require(got["gemm"] > 0 and got["gemm_wgrad"] == 0,
-            f"serve gemm launches {gemm_counts()}")
+            f"serve gemm launches {launcher_counts()}")
+    require(got["short_attention"] > 0 and got["short_attention_bwd"] == 0,
+            f"serve attention launches {launcher_counts()}")
     print(f"phase 4 launches {got}", flush=True)
     for label in ("ats@0.7", "heuristic", "dyvit@0.7"):
         eval_profile(label, card, profile=label != "dyvit@0.7")
@@ -2111,7 +2401,8 @@ def kernel_family(name: str) -> str:
     name = name.replace("void ", "").replace("trk::(anonymous namespace)::",
                                              "")
     name = name.split("(")[0]
-    own = ("gemm_kernel", "short_attention", "layer_norm", "sum_partials")
+    own = ("gemm_kernel", "short_attention", "attention_fwd_sm90",
+           "attention_bwd_sm90", "layer_norm", "sum_partials")
     return name if name.startswith(own) else name.split("<")[0]
 
 
@@ -2138,9 +2429,11 @@ def phase_train(card: str) -> dict:
     require(got == expected, f"train launches {got} != {expected}")
     require(all(got[k] for k in TRAIN_WRAPPERS),
             f"a kernel of the path never ran: {got}")
-    got.update(gemm_counts())
+    got.update(launcher_counts())
     require(got["gemm"] > 0 and got["gemm_wgrad"] > 0,
-            f"train gemm launches {gemm_counts()}")
+            f"train gemm launches {launcher_counts()}")
+    require(got["short_attention"] > 0 and got["short_attention_bwd"] > 0,
+            f"train attention launches {launcher_counts()}")
     print(f"phase 5 launches {got}", flush=True)
 
     kernels = (layers.attend_branch_train, layers.mlp_branch,
@@ -2250,11 +2543,18 @@ def main():
           f"{cfg['BK']}, {cfg['STAGES']} stages, {smem} bytes of dynamic "
           f"shared memory a block ({smem / 1024:.1f} of the H100's 227 KB; "
           "ptxas counts static shared memory only)", flush=True)
+    for n in (197, 138, 97, 68, 50, 13, 4):
+        smem = _build.attention_smem(n)
+        print(f"phase 1 attention_sm90 N={n}: {smem['forward']} bytes of "
+              f"dynamic shared memory a forward block (128 threads), "
+              f"{smem['backward']} a backward block (256 threads)",
+              flush=True)
     elapsed("1")
 
     rec = phase_kernels()
     phase_launchers()
     gemm_rec = phase_gemms()
+    attn_rec = phase_attention()
     elapsed("2")
     for dtype in (torch.float32, torch.bfloat16):
         phase_models(dtype)
@@ -2268,6 +2568,8 @@ def main():
     launches.update({k: v for k, v in trained.items() if k in TRAIN_WRAPPERS})
     launches["gemm"] += trained["gemm"]
     launches["gemm_wgrad"] = trained["gemm_wgrad"]
+    launches["short_attention"] += trained["short_attention"]
+    launches["short_attention_bwd"] = trained["short_attention_bwd"]
     elapsed("5")
 
     kernels = [dict(name=name, route="cuda", source=CUDA_SOURCES[name][0],
@@ -2280,6 +2582,11 @@ def main():
                      wrapper="tokenreduction_tpu_torch/ops/_build.py",
                      replaces=GEMM_REPLACES[name], launches=launches[name],
                      on_main_path=True, **gemm_rec[name]) for name in GEMMS]
+    kernels += [dict(name=name, route="cuda", source=ATTENTION_SM90,
+                     wrapper="tokenreduction_tpu_torch/ops/_build.py",
+                     replaces=ATTENTION_REPLACES[name],
+                     launches=launches[name], on_main_path=True,
+                     **attn_rec[name]) for name in ATTENTIONS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,45 +30,29 @@
 // And head_mean_keys: the head mean of the keys of a packed qkv, [B, N, hd]
 // (ToMe's merge metric).
 //
-// One thread block per (image, head): that head's q, k and v live in
-// shared memory and each warp owns query rows. The softmax is fp32 with
-// the exact row max. The eval forward rounds the unnormalised
-// probabilities to the operand type before the product with V and applies
-// the 1/sum scale to the [hd] output (the eval TPU kernels' recipe, also
-// the forward of the TPU's training attention core); with norm_p the
-// normalised probabilities are rounded instead (the training TPU kernel of
-// the whole attention branch, ops/fused_block_train.py). colsum is reduced
-// inside the block in a fixed order: no atomics, deterministic.
+// The bf16 square attention and its backward are attention_sm90.cu's
+// (TMA, wgmma); this file keeps the rest. One thread block per (image,
+// head): that head's q, k and v live in shared memory and each warp owns
+// query rows, with the exact row max in an fp32 softmax.
 //
-// bf16: the products on the tensor cores (mma.sync m16n8k16, ldmatrix). A
-// warp owns 16 query rows and walks the keys in chunks of 64 three times
-// (row max, row sum, then probabilities, PV and the by-products), so its
-// registers do not grow with N. fp32 (the parity dtype): FMAs on the CUDA
-// cores, a lane per key.
+// bf16, the rectangular variant only (its query rows are gathered by id,
+// which a TMA box cannot do): products on the tensor cores (mma.sync
+// m16n8k16, ldmatrix); a warp owns 16 query rows and walks the keys in
+// chunks of 64 three times (row max, row sum, then probabilities and PV),
+// so its registers do not grow with N; the unnormalised probabilities are
+// rounded before PV and the output scaled by 1/sum. Pinned by its launch
+// bounds to 128 registers (two blocks an SM).
 //
-// The backward recomputes the probabilities with the exact row max (no
-// statistics are saved by the forward) and runs in two phases per (image,
-// head). Phase 1, a warp per 16 query rows: the row statistics, then
-// delta_i = sum_j P_ij dP_ij with dP = dO V^T plus the row0 cotangent on
-// query row 0 and the colsum cotangent on every row (so delta carries
-// them, which the shortcut rowsum(dO * O) would miss), then
-// dS = P (dP - delta) * scale and dQ = dS K. Phase 2, a warp per 16 keys,
-// reads the statistics phase 1 left in shared memory and walks the
-// queries: dV = P^T dO, dK = dS^T Q, and dbias_j = sum_i P_ij (dP_ij -
-// delta_i), the unscaled dS summed over the key's column. Each sum stays
-// inside one warp, so there are no atomics. The rounding points are the
-// TPU kernels': P before dV, dS, and dq, dk, dv; dS is rounded after the
-// scale, which at head dim 64 (scale 2^-3) is the same number as JAX's
-// round(dS) K scale.
-//
-// The bias, the mask, the rectangular rows, the colsum cotangent and dbias
-// are compiled into their own variants, so the kernels without them keep
-// their code.
-//
-// A first version. At N <= 197 the forward is bound by reading q, k, v and
-// by the exponentials, not by tensor-core operations; the backward
-// recomputes QK^T four times per query tile; keeping qkv on chip between
-// the projection and the attention is later work.
+// fp32 (the parity dtype), the forward with every option and the backward:
+// FMAs on the CUDA cores, a lane per key. The backward recomputes the
+// probabilities with the exact row max and runs in two phases per (image,
+// head). Phase 1, a warp per query row: the row statistics, delta_i =
+// sum_j P_ij dP_ij with dP = dO V^T plus the row0 cotangent on query row 0
+// and the colsum cotangent on every row, dS = P (dP - delta) * scale (zero
+// at a masked pair) and dQ = dS K. Phase 2, a warp per key: dV = P^T dO,
+// dK = dS^T Q and dbias_j = the unscaled dS summed over the key's column.
+// Each sum stays inside one warp: no atomics. colsum is reduced inside the
+// block in a fixed order.
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
@@ -106,11 +90,11 @@ __host__ __device__ int q_rows(int n) { return (n + 15) / 16 * 16; }
 __host__ __device__ int k_rows(int n) { return (n + CHUNK - 1) / CHUNK * CHUNK; }
 
 // q rows padded to tiles of 16 (m query rows), then k (keys to chunks of
-// 64) and v (to tiles of 16) over n keys, then the fp32 column-sum buffer
-// and the per-key bias, key caps and query caps (see Caps).
+// 64) and v (to tiles of 16) over n keys, then the key caps and the query
+// caps (see Caps).
 size_t mma_smem_bytes(int m, int n) {
   return sizeof(bf16) * static_cast<size_t>(q_rows(m) + q_rows(n) + k_rows(n)) * QLD +
-         sizeof(float) * (WARPS + 3) * MAXN;
+         sizeof(float) * 2 * MAXN;
 }
 
 // dst[n][d] = the rows of one (image, head) of src for n < N, zero for
@@ -132,12 +116,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const Heads<const bf16>& sr
     }
     *reinterpret_cast<uint4*>(dst + n * QLD + d) = v;
   }
-}
-
-// dst[j] = the fp32 row src[j] for j < N (null: zero), zero up to MAXN.
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int N) {
-  for (int j = threadIdx.x; j < MAXN; j += THREADS)
-    dst[j] = src != nullptr && j < N ? src[j] : 0.f;
 }
 
 // The warp's 16 rows (fragments af over HD) against rows[j0 .. j0+63]:
@@ -162,22 +140,19 @@ __device__ __forceinline__ void rows_product(const uint32_t (*af)[4], const bf16
     }
 }
 
-// The mask as caps on the logits (MASK variants): a pair's logit x becomes
-// min(x, key cap, query cap), a cap being +inf for a valid token and
-// -FLT_MAX for an invalid one: the JAX pair mask's replacement.
+// The mask as caps on the logits: a pair's logit x becomes min(x, key cap,
+// query cap), a cap being +inf for a valid token and -FLT_MAX for an
+// invalid one: the JAX pair mask's replacement.
 struct Caps {
   const float* keys;  // [MAXN], per key
   float q0, q1;       // the warp's query rows g and g + 8
 };
 
 // Logits of the warp's 16 rows against columns j0..j0+63 (see
-// rows_product): the product times scale, plus the column's bias
-// sbias[j] with BIAS; with MASK a pair whose query or key is invalid is
-// -FLT_MAX (replaced, after the bias; see Caps); columns >= n are -inf.
-template <bool BIAS, bool MASK = false>
-__device__ __forceinline__ void qk_chunk(const uint32_t (*qf)[4], const bf16* sK,
-                                         const float* sbias, int j0, int n, float scale, int lane,
-                                         float (*s)[4], const Caps& cap = {nullptr, INFINITY, INFINITY}) {
+// rows_product): the product times scale; a pair whose query or key is
+// invalid is -FLT_MAX (see Caps); columns >= n are -inf.
+__device__ __forceinline__ void qk_chunk(const uint32_t (*qf)[4], const bf16* sK, int j0, int n,
+                                         float scale, int lane, float (*s)[4], const Caps& cap) {
   rows_product(qf, sK, j0, lane, s);
   const int t = lane & 3;
 #pragma unroll
@@ -185,33 +160,9 @@ __device__ __forceinline__ void qk_chunk(const uint32_t (*qf)[4], const bf16* sK
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int j = j0 + nt * 8 + 2 * t + (i & 1);
-      float x = s[nt][i] * scale;
-      if constexpr (BIAS) x += sbias[j];
-      if constexpr (MASK) x = fminf(fminf(x, cap.keys[j]), i < 2 ? cap.q0 : cap.q1);
+      const float x = fminf(fminf(s[nt][i] * scale, cap.keys[j]), i < 2 ? cap.q0 : cap.q1);
       s[nt][i] = j < n ? x : -INFINITY;
     }
-}
-
-// acc (16 x HD, C layout) += P . rows[j0 .. j0+63], with P the 16 x 64
-// chunk p in C layout, rounded to bf16.
-__device__ __forceinline__ void chunk_times_rows(const float (*p)[4], const bf16* rows, int j0,
-                                                 int lane, float (*acc)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < CHUNK / 16; ++kk) {
-    const uint32_t pf[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      uint32_t r[4];
-      ldmatrix_x4(r, rows + (j0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QLD + dp * 16 +
-                         (lane >> 4) * 8,
-                  true);
-      mma_16x8x16(acc[2 * dp], pf, r[0], r[1]);
-      mma_16x8x16(acc[2 * dp + 1], pf, r[2], r[3]);
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -227,16 +178,14 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Exact row max and 1/row sum of the warp's 16 rows (rows g and g+8) over
 // n keys; query rows >= m get 1/sum = 0, so their probabilities are 0. A
 // fully masked row has the max -FLT_MAX and is uniform over its n keys.
-template <bool BIAS, bool MASK = false>
-__device__ __forceinline__ void row_stats(const uint32_t (*qf)[4], const bf16* sK,
-                                          const float* sbias, int i0, int n, int m, float scale,
-                                          int lane, float& m0, float& m1, float& r0, float& r1,
-                                          const Caps& cap = {nullptr, INFINITY, INFINITY}) {
+__device__ __forceinline__ void row_stats(const uint32_t (*qf)[4], const bf16* sK, int i0, int n,
+                                          int m, float scale, int lane, float& m0, float& m1,
+                                          float& r0, float& r1, const Caps& cap) {
   const int g = lane >> 2, nq = q_rows(n);
   float s[CHUNK / 8][4];
   m0 = -INFINITY, m1 = -INFINITY;
   for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-    qk_chunk<BIAS, MASK>(qf, sK, sbias, j0, n, scale, lane, s, cap);
+    qk_chunk(qf, sK, j0, n, scale, lane, s, cap);
 #pragma unroll
     for (int nt = 0; nt < CHUNK / 8; ++nt) {
       m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
@@ -247,7 +196,7 @@ __device__ __forceinline__ void row_stats(const uint32_t (*qf)[4], const bf16* s
   m1 = quad_max(m1);
   float l0 = 0.f, l1 = 0.f;
   for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-    qk_chunk<BIAS, MASK>(qf, sK, sbias, j0, n, scale, lane, s, cap);
+    qk_chunk(qf, sK, j0, n, scale, lane, s, cap);
 #pragma unroll
     for (int nt = 0; nt < CHUNK / 8; ++nt) {
       l0 += expf(s[nt][0] - m0) + expf(s[nt][1] - m0);
@@ -260,51 +209,39 @@ __device__ __forceinline__ void row_stats(const uint32_t (*qf)[4], const bf16* s
   r1 = i0 + g + 8 < m ? 1.0f / l1 : 0.f;
 }
 
-// NORM_P: round the normalised probabilities before PV (training branch,
-// and the packed-qkv eval attention). BIAS: add the per-key bias. MASK:
-// the validity mask [B, N] (one byte per token): the pair of query i and
-// key j is valid when both tokens are. RECT (with MASK): the M query rows
-// are q rows ids[b, m] (their validity is the mask at that row) over all N
-// keys; no by-products. Two blocks per SM (at most 128 registers): left
-// free, ptxas takes 166-198 registers, one block fits, and the unmasked
-// kernel runs 33% slower (tools/port_ab.py on the H100).
-template <bool NORM_P, bool BIAS, bool MASK, bool RECT>
+// The rectangular attention: the M query rows are q rows ids[b, m] (their
+// validity is the mask [B, N] at that row, one byte per token) over all N
+// keys, under the pair mask; the unnormalised probabilities rounded before
+// PV, the output scaled by 1/sum; no by-products. Two blocks per SM (at
+// most 128 registers): left free, ptxas takes more, one block fits, and
+// the kernel ran 33% slower (tools/port_ab.py, H100 80GB HBM3, 700 W).
 __global__ void __launch_bounds__(THREADS, 2)
-    short_attention_mma_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
-                               Heads<bf16> out, const float* __restrict__ bias,
-                               const unsigned char* __restrict__ mask,
-                               const int* __restrict__ ids, float* __restrict__ row0,
-                               float* __restrict__ colsum, int N, int M, int H, float scale) {
+    rect_attention_mma_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
+                              Heads<bf16> out, const unsigned char* __restrict__ mask,
+                              const int* __restrict__ ids, int N, int M, int H, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int mq = q_rows(M), nq = q_rows(N), nk = k_rows(N);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);                // [mq][QLD]
-  bf16* sK = sQ + mq * QLD;                                // [nk][QLD]
-  bf16* sV = sK + nk * QLD;                                // [nq][QLD]
-  float* csbuf = reinterpret_cast<float*>(sV + nq * QLD);  // [WARPS][MAXN]
-  float* sbias = csbuf + WARPS * MAXN;                     // [MAXN]
-  float* skv = sbias + MAXN;                               // [MAXN] key caps (MASK)
-  float* sqv = skv + MAXN;                                 // [MAXN] query caps (MASK)
+  bf16* sQ = reinterpret_cast<bf16*>(smem);            // [mq][QLD]
+  bf16* sK = sQ + mq * QLD;                            // [nk][QLD]
+  bf16* sV = sK + nk * QLD;                            // [nq][QLD]
+  float* skv = reinterpret_cast<float*>(sV + nq * QLD);  // [MAXN] key caps
+  float* sqv = skv + MAXN;                             // [MAXN] query caps
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int* brow_ids = RECT ? ids + static_cast<size_t>(b) * M : nullptr;
+  const int* brow_ids = ids + static_cast<size_t>(b) * M;
   load_rows(sQ, q, b, h, M, mq, brow_ids, N);
   load_rows(sK, k, b, h, N, nk);
   load_rows(sV, v, b, h, N, nq);
-  if constexpr (BIAS) load_vec(sbias, bias + static_cast<size_t>(b) * N, N);
-  if constexpr (MASK) {
-    const unsigned char* mrow = mask + static_cast<size_t>(b) * N;
-    for (int j = threadIdx.x; j < MAXN; j += THREADS) {
-      skv[j] = j < N && mrow[j] ? INFINITY : -FLT_MAX;
-      // a query row's token (an id out of range traps in load_rows;
-      // clamped here so that this read stays inside the row)
-      const int r = RECT ? (j < M ? min(max(brow_ids[j], 0), N - 1) : 0) : j;
-      sqv[j] = j < M && mrow[r] ? INFINITY : -FLT_MAX;
-    }
+  const unsigned char* mrow = mask + static_cast<size_t>(b) * N;
+  for (int j = threadIdx.x; j < MAXN; j += THREADS) {
+    skv[j] = j < N && mrow[j] ? INFINITY : -FLT_MAX;
+    // a query row's token (an id out of range traps in load_rows; clamped
+    // here so that this read stays inside the row)
+    const int r = j < M ? min(max(brow_ids[j], 0), N - 1) : 0;
+    sqv[j] = j < M && mrow[r] ? INFINITY : -FLT_MAX;
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  if (colsum != nullptr)
-    for (int j = lane; j < MAXN; j += 32) csbuf[warp * MAXN + j] = 0.f;
   __syncthreads();
 
   for (int i0 = warp * 16; i0 < mq; i0 += WARPS * 16) {
@@ -312,31 +249,22 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks)
       ldmatrix_x4(qf[ks], sQ + (i0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
-    const Caps cap{skv, MASK ? sqv[i0 + g] : INFINITY, MASK ? sqv[i0 + g + 8] : INFINITY};
+    const Caps cap{skv, sqv[i0 + g], sqv[i0 + g + 8]};
 
     // passes 1 and 2: exact row max and row sum
     float m0, m1, r0, r1;
-    row_stats<BIAS, MASK>(qf, sK, sbias, i0, N, M, scale, lane, m0, m1, r0, r1, cap);
-    // the 1/sum scale goes on the exponentials before PV (NORM_P) or on
-    // the output after it
-    const float o0 = NORM_P ? 1.f : r0, o1 = NORM_P ? 1.f : r1;
-    // pass 3: probabilities, PV, row0 and colsum
+    row_stats(qf, sK, i0, N, M, scale, lane, m0, m1, r0, r1, cap);
+    // pass 3: probabilities and PV
     float s[CHUNK / 8][4];
     float o[HD / 8][4] = {};
     for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-      qk_chunk<BIAS, MASK>(qf, sK, sbias, j0, N, scale, lane, s, cap);
+      qk_chunk(qf, sK, j0, N, scale, lane, s, cap);
 #pragma unroll
       for (int nt = 0; nt < CHUNK / 8; ++nt) {
         s[nt][0] = expf(s[nt][0] - m0);
         s[nt][1] = expf(s[nt][1] - m0);
         s[nt][2] = expf(s[nt][2] - m1);
         s[nt][3] = expf(s[nt][3] - m1);
-        if constexpr (NORM_P) {
-          s[nt][0] *= r0;
-          s[nt][1] *= r0;
-          s[nt][2] *= r1;
-          s[nt][3] *= r1;
-        }
       }
 #pragma unroll
       for (int kk = 0; kk < CHUNK / 16; ++kk) {
@@ -356,21 +284,6 @@ __global__ void __launch_bounds__(THREADS, 2)
           mma_16x8x16(o[2 * dp + 1], pf, r[2], r[3]);
         }
       }
-#pragma unroll
-      for (int nt = 0; nt < CHUNK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = j0 + nt * 8 + 2 * t + e;
-          if (row0 != nullptr && i0 == 0 && g == 0 && j < N)
-            row0[static_cast<size_t>(bh) * N + j] = s[nt][e] * o0;
-          if (colsum != nullptr) {
-            float c = s[nt][e] * o0 + s[nt][2 + e] * o1;
-            c += __shfl_xor_sync(0xffffffffu, c, 4);
-            c += __shfl_xor_sync(0xffffffffu, c, 8);
-            c += __shfl_xor_sync(0xffffffffu, c, 16);
-            if (g == 0 && j < N) csbuf[warp * MAXN + j] += c;
-          }
-        }
     }
 #pragma unroll
     for (int dt = 0; dt < HD / 8; ++dt) {
@@ -378,27 +291,12 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int ia = i0 + g, ib = i0 + g + 8;
       if (ia < M)
         *reinterpret_cast<__nv_bfloat162*>(out.row(b, h, ia) + d) =
-            __floats2bfloat162_rn(o[dt][0] * o0, o[dt][1] * o0);
+            __floats2bfloat162_rn(o[dt][0] * r0, o[dt][1] * r0);
       if (ib < M)
         *reinterpret_cast<__nv_bfloat162*>(out.row(b, h, ib) + d) =
-            __floats2bfloat162_rn(o[dt][2] * o1, o[dt][3] * o1);
+            __floats2bfloat162_rn(o[dt][2] * r1, o[dt][3] * r1);
     }
   }
-
-  if (colsum != nullptr) {
-    __syncthreads();
-    for (int j = threadIdx.x; j < N; j += THREADS) {
-      float acc = 0.f;
-      for (int w = 0; w < WARPS; ++w) acc += csbuf[w * MAXN + j];
-      colsum[static_cast<size_t>(bh) * N + j] = acc;
-    }
-  }
-}
-
-// The masked variants add one [MAXN] row of caps.
-size_t bwd_mma_smem_bytes(int n, bool masked) {
-  return sizeof(bf16) * 4 * static_cast<size_t>(k_rows(n)) * QLD +
-         sizeof(float) * (masked ? 7 : 6) * MAXN;
 }
 
 // The caps of the square attention's tokens (MASK variants of the
@@ -408,204 +306,6 @@ size_t bwd_mma_smem_bytes(int n, bool masked) {
 __device__ __forceinline__ void load_caps(float* cap, const unsigned char* mrow, int N) {
   for (int j = threadIdx.x; j < MAXN; j += THREADS)
     cap[j] = j < N && mrow[j] ? INFINITY : -FLT_MAX;
-}
-
-// EXT: the per-key bias, the colsum cotangent dcs and the bias gradient
-// dbias (each pointer may still be null: zero, or not written). MASK: the
-// validity mask [B, N] (one byte per token): the forward's caps on the
-// recomputed logits, and dS zeroed at every masked pair.
-template <bool EXT, bool MASK>
-__global__ void __launch_bounds__(THREADS)
-    short_attention_bwd_mma_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
-                                   Heads<const bf16> dout, Heads<bf16> dq, Heads<bf16> dk,
-                                   Heads<bf16> dv, const float* __restrict__ bias,
-                                   const unsigned char* __restrict__ mask,
-                                   const float* __restrict__ drow0,
-                                   const float* __restrict__ dcs, float* __restrict__ dbias,
-                                   int N, int H, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nq = q_rows(N), nk = k_rows(N);
-  // q, k, v and dO, each [nk][QLD], zero past N: both phases walk whole
-  // chunks of 64 over queries or keys
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + nk * QLD;
-  bf16* sV = sK + nk * QLD;
-  bf16* sO = sV + nk * QLD;
-  float* sM = reinterpret_cast<float*>(sO + nk * QLD);  // [MAXN] row max
-  float* sR = sM + MAXN;                                // [MAXN] 1/row sum, 0 past N
-  float* sD = sR + MAXN;                                // [MAXN] delta
-  float* sW = sD + MAXN;                                // [MAXN] row0 cotangent, 0 past N
-  float* sB = sW + MAXN;                                // [MAXN] bias, 0 past N (EXT)
-  float* sC = sB + MAXN;                                // [MAXN] colsum cotangent (EXT)
-  float* sCap = sC + MAXN;                              // [MAXN] caps (MASK)
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  load_rows(sQ, q, b, h, N, nk);
-  load_rows(sK, k, b, h, N, nk);
-  load_rows(sV, v, b, h, N, nk);
-  load_rows(sO, dout, b, h, N, nk);
-  for (int j = threadIdx.x; j < MAXN; j += THREADS) sM[j] = 0.f, sR[j] = 0.f, sD[j] = 0.f;
-  load_vec(sW, drow0 == nullptr ? nullptr : drow0 + static_cast<size_t>(bh) * N, N);
-  if constexpr (EXT) {
-    load_vec(sB, bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * N, N);
-    load_vec(sC, dcs == nullptr ? nullptr : dcs + static_cast<size_t>(bh) * N, N);
-  }
-  if constexpr (MASK) load_caps(sCap, mask + static_cast<size_t>(b) * N, N);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  auto store_rows = [&](const float (*acc)[4], const Heads<bf16>& dst, int r0) {
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      const int d = dt * 8 + 2 * t;
-      if (r0 + g < N)
-        *reinterpret_cast<__nv_bfloat162*>(dst.row(b, h, r0 + g) + d) =
-            __floats2bfloat162_rn(acc[dt][0], acc[dt][1]);
-      if (r0 + g + 8 < N)
-        *reinterpret_cast<__nv_bfloat162*>(dst.row(b, h, r0 + g + 8) + d) =
-            __floats2bfloat162_rn(acc[dt][2], acc[dt][3]);
-    }
-  };
-
-  // phase 1: a warp per 16 query rows
-  for (int i0 = warp * 16; i0 < nq; i0 += WARPS * 16) {
-    uint32_t qf[HD / 16][4], of[HD / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      ldmatrix_x4(qf[ks], sQ + (i0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
-      ldmatrix_x4(of[ks], sO + (i0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
-    }
-    // the warp's query rows' caps (MASK): the forward's logits
-    const Caps cap{sCap, MASK ? sCap[i0 + g] : INFINITY, MASK ? sCap[i0 + g + 8] : INFINITY};
-    float m0, m1, r0, r1;
-    row_stats<EXT, MASK>(qf, sK, sB, i0, N, N, scale, lane, m0, m1, r0, r1, cap);
-    float s[CHUNK / 8][4], dp[CHUNK / 8][4];
-    // P and dP of the chunk at j0: the row0 cotangent added on query row
-    // 0, then the colsum cotangent on every row
-    auto probs = [&](int j0) {
-      qk_chunk<EXT, MASK>(qf, sK, sB, j0, N, scale, lane, s, cap);
-      rows_product(of, sV, j0, lane, dp);
-#pragma unroll
-      for (int nt = 0; nt < CHUNK / 8; ++nt) {
-        const int j = j0 + nt * 8 + 2 * t;
-        s[nt][0] = expf(s[nt][0] - m0) * r0;
-        s[nt][1] = expf(s[nt][1] - m0) * r0;
-        s[nt][2] = expf(s[nt][2] - m1) * r1;
-        s[nt][3] = expf(s[nt][3] - m1) * r1;
-        if (i0 == 0 && g == 0) {
-          dp[nt][0] += sW[j];
-          dp[nt][1] += sW[j + 1];
-        }
-        if constexpr (EXT) {
-          dp[nt][0] += sC[j];
-          dp[nt][1] += sC[j + 1];
-          dp[nt][2] += sC[j];
-          dp[nt][3] += sC[j + 1];
-        }
-      }
-    };
-    float d0 = 0.f, d1 = 0.f;
-    for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-      probs(j0);
-#pragma unroll
-      for (int nt = 0; nt < CHUNK / 8; ++nt) {
-        d0 += s[nt][0] * dp[nt][0] + s[nt][1] * dp[nt][1];
-        d1 += s[nt][2] * dp[nt][2] + s[nt][3] * dp[nt][3];
-      }
-    }
-    d0 = quad_sum(d0);
-    d1 = quad_sum(d1);
-    if (t == 0) {
-      sM[i0 + g] = m0, sR[i0 + g] = r0, sD[i0 + g] = d0;
-      sM[i0 + g + 8] = m1, sR[i0 + g + 8] = r1, sD[i0 + g + 8] = d1;
-    }
-    float acc[HD / 8][4] = {};
-    for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-      probs(j0);
-#pragma unroll
-      for (int nt = 0; nt < CHUNK / 8; ++nt) {
-        s[nt][0] *= (dp[nt][0] - d0) * scale;
-        s[nt][1] *= (dp[nt][1] - d0) * scale;
-        s[nt][2] *= (dp[nt][2] - d1) * scale;
-        s[nt][3] *= (dp[nt][3] - d1) * scale;
-        if constexpr (MASK) {
-          // dS is zero at a masked pair: a fully masked row's P is
-          // uniform and its dP - delta does not vanish by itself
-          const int j = j0 + nt * 8 + 2 * t;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (!(sCap[j + (i & 1)] > 0.f && (i < 2 ? cap.q0 : cap.q1) > 0.f)) s[nt][i] = 0.f;
-        }
-      }
-      chunk_times_rows(s, sK, j0, lane, acc);
-    }
-    store_rows(acc, dq, i0);
-  }
-  __syncthreads();  // every row's statistics and delta are in shared memory
-
-  // phase 2: a warp per 16 keys, over the queries in chunks of 64
-  for (int j0 = warp * 16; j0 < nq; j0 += WARPS * 16) {
-    uint32_t kf[HD / 16][4], vf[HD / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      ldmatrix_x4(kf[ks], sK + (j0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
-      ldmatrix_x4(vf[ks], sV + (j0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
-    }
-    const bool live0 = j0 + g < N, live1 = j0 + g + 8 < N;
-    const float w0 = sW[j0 + g], w1 = sW[j0 + g + 8];
-    // the warp's keys' bias and colsum cotangent (zero without EXT)
-    const float b0 = EXT ? sB[j0 + g] : 0.f, b1 = EXT ? sB[j0 + g + 8] : 0.f;
-    const float c0 = EXT ? sC[j0 + g] : 0.f, c1 = EXT ? sC[j0 + g + 8] : 0.f;
-    // the warp's keys' caps (MASK)
-    const float kc0 = MASK ? sCap[j0 + g] : INFINITY, kc1 = MASK ? sCap[j0 + g + 8] : INFINITY;
-    float s[CHUNK / 8][4], dp[CHUNK / 8][4];
-    float dka[HD / 8][4] = {}, dva[HD / 8][4] = {};
-    float db0 = 0.f, db1 = 0.f;
-    for (int q0 = 0; q0 < nq; q0 += CHUNK) {
-      qk_chunk<false>(kf, sQ, nullptr, q0, N, scale, lane, s);  // S^T; queries >= N are -inf
-      rows_product(vf, sO, q0, lane, dp);                       // dP^T = V dO^T
-#pragma unroll
-      for (int nt = 0; nt < CHUNK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = q0 + nt * 8 + 2 * t + e;
-          const float mi = sM[i], ri = sR[i], di = sD[i];
-          float l0 = s[nt][e], l1 = s[nt][2 + e];
-          float dp0 = dp[nt][e] + (i == 0 ? w0 : 0.f);
-          float dp1 = dp[nt][2 + e] + (i == 0 ? w1 : 0.f);
-          if constexpr (EXT) l0 += b0, l1 += b1, dp0 += c0, dp1 += c1;
-          if constexpr (MASK) {  // the caps after the bias, as in phase 1
-            const float qc = sCap[i];
-            l0 = fminf(fminf(l0, kc0), qc);
-            l1 = fminf(fminf(l1, kc1), qc);
-          }
-          const float p0 = live0 ? expf(l0 - mi) * ri : 0.f;
-          const float p1 = live1 ? expf(l1 - mi) * ri : 0.f;
-          float u0 = p0 * (dp0 - di), u1 = p1 * (dp1 - di);  // unscaled dS
-          if constexpr (MASK) {  // zero at a masked pair (P^T dO keeps P)
-            if (!(kc0 > 0.f && sCap[i] > 0.f)) u0 = 0.f;
-            if (!(kc1 > 0.f && sCap[i] > 0.f)) u1 = 0.f;
-          }
-          if constexpr (EXT) db0 += u0, db1 += u1;
-          s[nt][e] = p0;
-          s[nt][2 + e] = p1;
-          dp[nt][e] = u0 * scale;
-          dp[nt][2 + e] = u1 * scale;
-        }
-      chunk_times_rows(s, sO, q0, lane, dva);   // dV += P^T dO
-      chunk_times_rows(dp, sQ, q0, lane, dka);  // dK += dS^T Q
-    }
-    store_rows(dka, dk, j0);
-    store_rows(dva, dv, j0);
-    if constexpr (EXT) {
-      db0 = quad_sum(db0);
-      db1 = quad_sum(db1);
-      if (dbias != nullptr && t == 0) {
-        if (live0) dbias[static_cast<size_t>(bh) * N + j0 + g] = db0;
-        if (live1) dbias[static_cast<size_t>(bh) * N + j0 + g + 8] = db1;
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------- fp32
@@ -933,7 +633,7 @@ Heads<T> heads(P ptr, const long long* strides, int i) {
 // by-products) selects the rectangular variant: out row m is query row
 // ids[b, m] over all N keys. Without ids, M must equal N. The caller
 // checks shapes, dtypes and strides (bf16: multiples of 8, 16-byte
-// aligned).
+// aligned). bf16 takes the rectangular variant only.
 extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const void* v,
                                   void* out, const long long* strides, const void* bias,
                                   const void* mask, const void* ids, void* row0, void* colsum,
@@ -954,26 +654,15 @@ extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const
   float* cs = static_cast<float*>(colsum);
   cudaError_t err;
   if (dtype == kBFloat16) {
-    using Kernel = decltype(&short_attention_mma_kernel<false, false, false, false>);
-    // [norm_p][bias][mask]; the rectangular variant has a mask only
-    const Kernel variants[2][2][2] = {
-        {{short_attention_mma_kernel<false, false, false, false>,
-          short_attention_mma_kernel<false, false, true, false>},
-         {short_attention_mma_kernel<false, true, false, false>,
-          short_attention_mma_kernel<false, true, true, false>}},
-        {{short_attention_mma_kernel<true, false, false, false>,
-          short_attention_mma_kernel<true, false, true, false>},
-         {short_attention_mma_kernel<true, true, false, false>,
-          short_attention_mma_kernel<true, true, true, false>}}};
-    const Kernel kernel = rect ? short_attention_mma_kernel<false, false, true, true>
-                               : variants[norm_p != 0][bias != nullptr][masked];
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    // the square bf16 attention is attention_sm90.cu's tr_attention_sm90
+    if (!rect) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(rect_attention_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(mma_smem_bytes(MAXN, MAXN)));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<B * H, THREADS, mma_smem_bytes(M, N), s>>>(
+    rect_attention_mma_kernel<<<B * H, THREADS, mma_smem_bytes(M, N), s>>>(
         heads<const bf16>(q, strides, 0), heads<const bf16>(k, strides, 1),
-        heads<const bf16>(v, strides, 2), heads<bf16>(out, strides, 3), bp, mp, ip, r0, cs, N, M,
-        H, scale);
+        heads<const bf16>(v, strides, 2), heads<bf16>(out, strides, 3), mp, ip, N, M, H, scale);
   } else if (dtype == kFloat32) {
     const auto kernel = rect     ? short_attention_fma_kernel<true, true>
                         : masked ? short_attention_fma_kernel<true, false>
@@ -998,7 +687,7 @@ extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const
 // ([B, N], one byte per token, non-zero = valid), the fp32 cotangents
 // drow0 and dcs [B, H, N], and the fp32 per-head bias gradient dbias
 // [B, H, N]; each of the last five may be null (zero, none, or not
-// written). The caller checks shapes, dtypes and strides.
+// written). The caller checks shapes, dtypes and strides. fp32 only.
 extern "C" int tr_short_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                       const void* dout, void* dq, void* dk, void* dv,
                                       const long long* strides, const void* bias,
@@ -1016,22 +705,7 @@ extern "C" int tr_short_attention_bwd(int dtype, const void* q, const void* k, c
   float* db = static_cast<float*>(dbias);
   const bool masked = mask != nullptr;
   cudaError_t err;
-  if (dtype == kBFloat16) {
-    const bool ext = bias != nullptr || dcs != nullptr || dbias != nullptr;
-    using Kernel = decltype(&short_attention_bwd_mma_kernel<false, false>);
-    const Kernel variants[2][2] = {
-        {short_attention_bwd_mma_kernel<false, false>, short_attention_bwd_mma_kernel<false, true>},
-        {short_attention_bwd_mma_kernel<true, false>, short_attention_bwd_mma_kernel<true, true>}};
-    const Kernel kernel = variants[ext][masked];
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bwd_mma_smem_bytes(MAXN, masked)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<B * H, THREADS, bwd_mma_smem_bytes(N, masked), s>>>(
-        heads<const bf16>(q, strides, 0), heads<const bf16>(k, strides, 1),
-        heads<const bf16>(v, strides, 2), heads<const bf16>(dout, strides, 3),
-        heads<bf16>(dq, strides, 4), heads<bf16>(dk, strides, 5), heads<bf16>(dv, strides, 6), bp,
-        mp, w, c, db, N, H, scale);
-  } else if (dtype == kFloat32) {
+  if (dtype == kFloat32) {
     const auto kernel =
         masked ? short_attention_bwd_fma_kernel<true> : short_attention_bwd_fma_kernel<false>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

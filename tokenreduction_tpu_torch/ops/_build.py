@@ -62,6 +62,11 @@ _SIGNATURES = {
                                _P, _P, _I, _I, _I, _F, _P),
     "tr_head_mean_keys": (_I, _P, _P, _I, _I, _I, _P),
     "tr_gemm_sm90_config": (_P,),
+    "tr_attention_sm90": (_P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _F, _I, _P),
+    "tr_attention_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _S, _P, _P, _P,
+                              _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "tr_attention_sm90_smem": (_I, _P),
 }
 # what tr_gemm_sm90_config reports, in its order
 _GEMM_CONFIG = ("BM", "BN", "BK", "STAGES", "SMEM_BYTES")
@@ -370,7 +375,8 @@ def _strides(*heads):
 
 
 def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
-                          ids=None, row0=None, colsum=None, norm_p=False):
+                          ids=None, row0=None, colsum=None, stats=None,
+                          norm_p=False):
     """out = softmax(q k^T * scale [+ bias] [pair mask]) v per (image,
     head): q, k, v [B, H, N, 64] and out [B, H, M, 64] with the head dim
     contiguous and any other strides (multiples of 8 in bf16); optional
@@ -380,9 +386,24 @@ def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
     training branch's forward), else the unnormalised ones (eval, and the
     training core's forward). With ids (contiguous int32 [B, M], a mask,
     no bias, no by-products) out row m is query row ids[b, m] over all N
-    keys; without, M = N. See csrc/short_attention.cu."""
+    keys; without, M = N. bf16 without ids: the sm_90a kernel
+    (csrc/attention_sm90.cu), which also writes the row statistics to
+    ``stats`` (fp32 [B, H, N, 2]: the row max of the logits and 1/sum)
+    when given, and ``short_attention_heads.launches`` counts it; else
+    csrc/short_attention.cu (stats: bf16 only)."""
     B, H, N, _ = q.shape
     M = out.shape[2]
+    if q.dtype == torch.bfloat16 and ids is None:
+        err = kernels().lib.tr_attention_sm90(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _strides(q, k, v, out),
+            _ptr(bias), _ptr(mask), _ptr(row0), _ptr(colsum), _ptr(stats), B,
+            N, H, scale, int(norm_p), _stream(q))
+        _check("tr_attention_sm90", err)
+        short_attention_heads.launches += 1
+        return
+    if stats is not None:
+        raise ValueError("short_attention: the row statistics come from the "
+                         "bf16 square attention only")
     err = kernels().lib.tr_short_attention(
         _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
         _strides(q, k, v, out), _ptr(bias), _ptr(mask), _ptr(ids),
@@ -390,28 +411,49 @@ def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
     _check("tr_short_attention", err)
 
 
+short_attention_heads.launches = 0
+
+
 def short_attention(qkv, out, num_heads, scale, *, bias=None, mask=None,
-                    ids=None, row0=None, colsum=None, norm_p=False):
+                    ids=None, row0=None, colsum=None, stats=None,
+                    norm_p=False):
     """``short_attention_heads`` off a packed qkv [B, N, 3D], written as
     merged heads out [B, M, D]."""
     short_attention_heads(*packed_heads(qkv, num_heads),
                           merged_heads(out, num_heads), scale, bias=bias,
                           mask=mask, ids=ids, row0=row0, colsum=colsum,
-                          norm_p=norm_p)
+                          stats=stats, norm_p=norm_p)
 
 
-def short_attention_bwd_heads(q, k, v, dout, dq, dk, dv, scale, *, bias=None,
-                              mask=None, drow0=None, dcs=None, dbias=None):
+def short_attention_bwd_heads(q, k, v, out, dout, dq, dk, dv, scale, *,
+                              stats=None, row0=None, bias=None, mask=None,
+                              drow0=None, dcs=None, dbias=None):
     """dq, dk, dv of the attention with the normalised probabilities
     (every operand [B, H, N, 64] as in ``short_attention_heads``) from
-    q, k, v, the output's gradient dout, the fp32 bias [B, N], the bool
-    validity mask [B, N] (the forward's pair mask on the recomputed logits,
-    and dS zeroed at every masked pair) and the fp32 cotangents of row0
-    (drow0) and colsum (dcs) [B, H, N]; with dbias [B, H, N] fp32 also the
-    per-head bias gradient, the unscaled dS summed over the queries. None
-    is zero (no mask; for dbias, not written). See
-    csrc/short_attention.cu."""
+    q, k, v, the forward's output ``out``, the output's gradient dout, the
+    fp32 bias [B, N], the bool validity mask [B, N] (the forward's pair
+    mask, and dS zeroed at every masked pair) and the fp32 cotangents of
+    row0 (drow0) and colsum (dcs) [B, H, N]; with dbias [B, H, N] fp32
+    also the per-head bias gradient, the unscaled dS summed over the
+    queries. None is zero (no mask; for dbias, not written). bf16: the
+    sm_90a kernel (csrc/attention_sm90.cu), which reads the forward's
+    ``stats`` and ``row0`` (with drow0) and ``out`` (delta's shortcut
+    form), counted by ``short_attention_bwd_heads.launches``; fp32:
+    csrc/short_attention.cu, which recomputes everything from q, k, v."""
     B, H, N, _ = q.shape
+    if q.dtype == torch.bfloat16:
+        if stats is None or out is None or (drow0 is not None
+                                            and row0 is None):
+            raise ValueError("short_attention_bwd: the bf16 backward reads "
+                             "the forward's output, stats and row0")
+        err = kernels().lib.tr_attention_bwd_sm90(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(dq),
+            _ptr(dk), _ptr(dv), _strides(q, k, v, out, dout, dq, dk, dv),
+            _ptr(stats), _ptr(row0), _ptr(bias), _ptr(mask), _ptr(drow0),
+            _ptr(dcs), _ptr(dbias), B, N, H, scale, _stream(q))
+        _check("tr_attention_bwd_sm90", err)
+        short_attention_bwd_heads.launches += 1
+        return
     err = kernels().lib.tr_short_attention_bwd(
         _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq),
         _ptr(dk), _ptr(dv), _strides(q, k, v, dout, dq, dk, dv), _ptr(bias),
@@ -420,14 +462,29 @@ def short_attention_bwd_heads(q, k, v, dout, dq, dk, dv, scale, *, bias=None,
     _check("tr_short_attention_bwd", err)
 
 
-def short_attention_bwd(qkv, dout, drow0, dqkv, num_heads, scale):
-    """``short_attention_bwd_heads`` off a packed qkv [B, N, 3D] and the
-    merged heads' gradient dout [B, N, D], written as the packed dqkv
-    [B, N, 3D]."""
+short_attention_bwd_heads.launches = 0
+
+
+def short_attention_bwd(qkv, out, dout, drow0, dqkv, num_heads, scale, *,
+                        stats=None, row0=None):
+    """``short_attention_bwd_heads`` off a packed qkv [B, N, 3D], the
+    forward's merged heads out and their gradient dout [B, N, D], written
+    as the packed dqkv [B, N, 3D]."""
     short_attention_bwd_heads(*packed_heads(qkv, num_heads),
+                              merged_heads(out, num_heads),
                               merged_heads(dout, num_heads),
                               *packed_heads(dqkv, num_heads), scale,
-                              drow0=drow0)
+                              stats=stats, row0=row0, drow0=drow0)
+
+
+@functools.lru_cache(maxsize=None)
+def attention_smem(n: int) -> dict:
+    """The dynamic shared memory a block of the sm_90a attention takes at
+    n keys, as its library reports it: {"forward", "backward"} bytes."""
+    out = (ctypes.c_int * 2)()
+    _check("tr_attention_sm90_smem",
+           kernels().lib.tr_attention_sm90_smem(n, ctypes.addressof(out)))
+    return {"forward": out[0], "backward": out[1]}
 
 
 def head_mean_keys(qkv, keys, num_heads):

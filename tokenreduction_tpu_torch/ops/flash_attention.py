@@ -53,7 +53,8 @@ hand-written kernels (``csrc/``):
    k and v in shared memory (read through strides, so the packed qkv and
    the [B, H, N, hd] layouts are one kernel), the bias added after the
    scale and the mask after the bias, writing merged heads and the
-   by-products;
+   by-products; in bf16 ``csrc/attention_sm90.cu`` (TMA loads, QK^T and
+   PV on wgmma);
 3. with ``want_keys``, ``head_mean_keys`` off the packed qkv;
 4. ``gemm``: the out projection, with its bias and the residual fused
    into the epilogue.
@@ -64,18 +65,17 @@ gathered tokens never make a round trip through device memory; steps 2
 and 3 run at width K.
 
 The rectangular block is steps 2 and 4 over the kept rows: the
-rectangular ``short_attention`` variant loads the M query rows through
+rectangular ``short_attention`` variant (``csrc/short_attention.cu``,
+mma.sync: a TMA box cannot gather rows) loads the M query rows through
 their ids (no one-hot product: the card gathers rows at no cost), and the
 out projection's epilogue adds the residual rows gathered through the
 same ids, as the gathered MLP half does.
 
 What bounds it: at N <= 197 and D = 384 the products are small. The
-attention is bound by reading qkv and by its exponentials, not by
-tensor-core operations; the GEMMs at K = 384 lose a large share to each
+attention is held by its elementwise softmax at two warpgroups an SM,
+not by reading qkv nor by tensor-core operations (PERF.md §6); the GEMMs at K = 384 lose a large share to each
 output tile's fill and epilogue (the LN output and qkv each make one
-round trip through device memory). This is a simple first version on
-mma.sync; wgmma, TMA, persistent tiles and keeping qkv on chip are later
-work.
+round trip through device memory). Keeping qkv on chip is later work.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (the same
 name with ``_ref``); on a CUDA tensor it launches the kernels or raises.
@@ -443,10 +443,13 @@ def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 fused_block_attention.launches = 0
 
 
-def fused_attention_cuda(name: str, q, k, v, scale: float, bias, mask=None):
+def fused_attention_cuda(name: str, q, k, v, scale: float, bias, mask=None,
+                         want_stats: bool = False):
     """``short_attention`` over checked-here CUDA q, k, v [B, H, N, hd]:
-    (out, row0, colsum), out a [B, H, N, hd] view of merged heads
-    [B, N, D], so that merging the heads afterwards copies nothing."""
+    (out, row0, colsum, stats), out a [B, H, N, hd] view of merged heads
+    [B, N, D], so that merging the heads afterwards copies nothing; stats
+    is None, or with ``want_stats`` (bf16) the row statistics
+    [B, H, N, 2] fp32 that the backward reads."""
     from tokenreduction_tpu_torch.ops import _build
 
     B, H, N, hd = q.shape
@@ -458,9 +461,11 @@ def fused_attention_cuda(name: str, q, k, v, scale: float, bias, mask=None):
         .transpose(1, 2)
     row0 = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
     colsum = torch.empty_like(row0)
+    stats = torch.empty(B, H, N, 2, dtype=torch.float32, device=q.device) \
+        if want_stats else None
     _build.short_attention_heads(q, k, v, out, scale, bias=bias, mask=mask,
-                                 row0=row0, colsum=colsum)
-    return out, row0, colsum
+                                 row0=row0, colsum=colsum, stats=stats)
+    return out, row0, colsum, stats
 
 
 def fused_attention(q, k, v, scale: float, *, bias=None, mask=None):
@@ -469,7 +474,8 @@ def fused_attention(q, k, v, scale: float, *, bias=None, mask=None):
     additive bias [B, N]; mask: None or the validity mask [B, N]."""
     if not q.is_cuda:
         return fused_attention_ref(q, k, v, scale, bias=bias, mask=mask)
-    res = fused_attention_cuda("fused_attention", q, k, v, scale, bias, mask)
+    res = fused_attention_cuda("fused_attention", q, k, v, scale, bias,
+                               mask)[:3]
     fused_attention.launches += 1
     return res
 

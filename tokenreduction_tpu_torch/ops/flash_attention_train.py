@@ -22,32 +22,38 @@ them to XLA.
 
 Numerics (the TPU kernels' rounding points): the forward is
 ``fused_attention``'s eval recipe (the unnormalised exponentials rounded
-before the value product, 1/sum after it). The backward recomputes the
-normalised probabilities P with the exact row max and rounds P before
+before the value product, 1/sum after it). The backward takes the
+normalised probabilities P (exact row max) and rounds P before
 dV = P^T dO; dP = dO V^T plus the row0 cotangent on query row 0 and the
-colsum cotangent on every query row; dS = P (dP - rowsum(dP P)) in fp32,
-whose column sums over the queries are the per-head bias gradient (summed
-over the heads outside the kernel, as on the TPU); with the mask the
-logits are capped as in the forward and dS is zero at every masked pair
-(JAX ``flash_attention_train.py:80-84``: a fully masked row's P is uniform,
-so dP - rowsum(dP P) does not vanish by itself), while dV = P^T dO keeps
-that uniform P; dS rounded, then
-dq = round(dS) K scale and dk = round(dS)^T Q scale, rounded. The kernel
-rounds dS after the scale: at head dim 64 the scale is 2^-3, a power of
+colsum cotangent on every query row; dS = P (dP - delta) in fp32 with
+delta_i = sum_j P_ij dP_ij, whose column sums over the queries are the
+per-head bias gradient (summed over the heads outside the kernel, as on
+the TPU); with the mask the logits are capped as in the forward and dS is
+zero at every masked pair (JAX ``flash_attention_train.py:80-84``: a
+fully masked row's P is uniform, so dP - delta does not vanish by itself),
+while dV = P^T dO keeps that uniform P; dS rounded, then
+dq = round(dS) K scale and dk = round(dS)^T Q scale, rounded. The kernels
+round dS after the scale: at head dim 64 the scale is 2^-3, a power of
 two, so both orders give the same numbers.
 
 Where it splits, and why: the TPU runs forward and backward as one Pallas
 kernel each over groups of (image, head) slices in VMEM. On the card each
-is one launch of the hand-written kernels in ``csrc/short_attention.cu``
-(one block per (image, head), that head's q, k, v and dO in shared
-memory, read through their strides so the views of the packed projection
-need no copy): ``short_attention`` forward, ``short_attention_bwd``
-backward with the bias, the mask, both cotangents and dbias. The output
-is a view of merged heads, so merging them afterwards copies nothing.
+is one launch of a hand-written kernel, one block per (image, head) with
+that head's operands in shared memory, read through their strides so the
+views of the packed projection need no copy: ``short_attention`` forward,
+``short_attention_bwd`` backward with the bias, the mask, both cotangents
+and dbias. In bf16 they are ``csrc/attention_sm90.cu``'s (TMA, wgmma):
+the forward also writes the row statistics (row max, 1/sum), which the
+backward reads with the forward's output and row0, so P is computed once
+per pair and delta takes the form rowsum(dO O) + [i = 0] row0 . drow0 +
+P dcs; in fp32, the parity dtype, ``csrc/short_attention.cu``'s, which
+recompute P and delta in full. The output is a view of merged heads, so
+merging them afterwards copies nothing.
 
-What bounds it: at N <= 197 the forward is bound by reading q, k, v and
-by its exponentials, the backward by recomputing QK^T (four passes per
-query tile, one per key tile) on mma.sync; a first version.
+What bounds it: not the loads. The bf16 forward is held by its
+elementwise softmax (row max, exponentials, sums and by-products) at two
+warpgroups an SM; the backward, one block an SM, runs its loads, its
+products and its elementwise work one after another (PERF.md §6).
 
 On a CPU tensor the core runs ``fused_attention_ref`` forward and
 ``attention_core_train_bwd_ref`` backward; on a CUDA tensor it launches
@@ -99,8 +105,10 @@ def attention_core_train_bwd_ref(q, k, v, bias, dout, drow0, dcs,
             ((ds.transpose(-1, -2) @ q32) * scale).to(dt), dv, dsu.sum(2))
 
 
-def _bwd_cuda(q, k, v, bias, mask, dout, drow0, dcs, scale, want_dbias):
-    """Backward launch; returns (dq, dk, dv, per-head dbias or None)."""
+def _bwd_cuda(q, k, v, bias, mask, out, row0, stats, dout, drow0, dcs, scale,
+              want_dbias):
+    """Backward launch (out, row0, stats: the forward's, read by the bf16
+    kernel); returns (dq, dk, dv, per-head dbias or None)."""
     from tokenreduction_tpu_torch.ops import _build
 
     name = "attention_core_train"
@@ -120,10 +128,9 @@ def _bwd_cuda(q, k, v, bias, mask, dout, drow0, dcs, scale, want_dbias):
     dbias = torch.empty(B, H, N, dtype=torch.float32,
                         device=q.device) if want_dbias else None
     _build.short_attention_bwd_heads(
-        q, k, v, dout, dq, dk, dv, scale,
+        q, k, v, out, dout, dq, dk, dv, scale, stats=stats, row0=row0,
         bias=bias_operand(name, bias, B, N, q.device), mask=mask,
-        drow0=row(drow0),
-        dcs=row(dcs), dbias=dbias)
+        drow0=row(drow0), dcs=row(dcs), dbias=dbias)
     return dq, dk, dv, dbias
 
 
@@ -135,24 +142,28 @@ class _AttentionCore(torch.autograd.Function):
         if q.is_cuda:
             B, _, N, _ = q.shape
             mask = mask_operand("attention_core_train", mask, B, N, q.device)
-            res = fused_attention_cuda("attention_core_train", q, k, v, scale,
-                                       bias, mask)
+            *res, stats = fused_attention_cuda(
+                "attention_core_train", q, k, v, scale, bias, mask,
+                want_stats=q.dtype == torch.bfloat16)
             attention_core_train.launches += 1
+            # the bf16 backward reads the output, row0 and the row statistics
+            ctx.save_for_backward(q, k, v, bias, mask, res[0], res[1], stats)
         else:
             res = fused_attention_ref(q, k, v, scale, bias=bias, mask=mask)
-        ctx.save_for_backward(q, k, v, bias, mask)
-        return res
+            ctx.save_for_backward(q, k, v, bias, mask, None, None, None)
+        return tuple(res)
 
     @staticmethod
     def backward(ctx, dout, drow0, dcs):
-        q, k, v, bias, mask = ctx.saved_tensors
+        q, k, v, bias, mask, out, row0, stats = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(q)
         dout = dout.to(q.dtype)
         want_dbias = bias is not None and ctx.needs_input_grad[3]
         if q.is_cuda:
-            dq, dk, dv, dbias = _bwd_cuda(q, k, v, bias, mask, dout, drow0,
-                                          dcs, ctx.scale, want_dbias)
+            dq, dk, dv, dbias = _bwd_cuda(q, k, v, bias, mask, out, row0,
+                                          stats, dout, drow0, dcs, ctx.scale,
+                                          want_dbias)
             attention_core_train.launches += 1
             attention_core_train.backward_launches += 1
         else:

@@ -29,21 +29,23 @@ is a chain of the hand-written kernels (``csrc/``):
 - forward: ``layer_norm``; ``gemm`` qkv; ``short_attention`` with the
   normalised probabilities rounded and row0; ``gemm`` proj;
 - backward: ``gemm`` dattn = dY Wproj reading Wproj untransposed;
-  ``gemm_wgrad`` dWproj, dbproj; ``short_attention_bwd`` (recomputes P
-  with the exact row max, writes the packed dqkv); ``gemm_wgrad`` dWqkv,
+  ``gemm_wgrad`` dWproj, dbproj; ``short_attention_bwd`` (P from the
+  forward's row statistics, writes the packed dqkv); ``gemm_wgrad`` dWqkv,
   dbqkv; ``gemm`` dLN = dqkv Wqkv in fp32; ``layer_norm_bwd``. The weight
   gradients are fp32 partials over slices of the rows summed in a fixed
   order: no atomics, the same bits from run to run.
 
 The forward saves the LN output, qkv and the merged heads (5D elements of
 x's dtype per row) instead of recomputing them: at topk@0.7 DeiT-S b256
-bf16 the 12 attention halves hold 417,024 rows, about 1.6 GB.
+bf16 the 12 attention halves hold 417,024 rows, about 1.6 GB; and row0
+and the attention's row statistics (fp32, 3H per row), which the
+attention backward reads with the merged heads (csrc/attention_sm90.cu).
 
-What bounds it: the four products at K = 384 lose much of each 128x128
-tile to its fill and epilogue, and the attention backward recomputes
-QK^T four times per query tile; at N <= 197 neither approaches the
-tensor-core rate. A simple first version on mma.sync; wgmma, TMA and
-keeping qkv on chip are later work.
+What bounds it: the four products at K = 384 lose much of each output
+tile to its fill and epilogue (csrc/gemm_sm90.cu); the attention
+(csrc/attention_sm90.cu) not by its loads: its forward by its elementwise
+softmax at two warpgroups an SM, its backward by loads, products and
+elementwise work that run one after another.
 
 On a CPU tensor the branch runs ``attend_branch_train_ref`` forward and
 ``attend_branch_train_bwd_ref`` backward; on a CUDA tensor it launches
@@ -153,18 +155,22 @@ def _fwd_cuda(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads, scale, eps):
     _build.gemm(ln, wqkv, bqkv, qkv.view(B * N, 3 * D))
     merged = torch.empty_like(x)
     row0 = torch.empty(B, num_heads, N, dtype=torch.float32, device=x.device)
+    # the row statistics for the backward (the bf16 kernel's)
+    stats = torch.empty(B, num_heads, N, 2, dtype=torch.float32,
+                        device=x.device) if x.dtype == torch.bfloat16 \
+        else None
     _build.short_attention(qkv, merged, num_heads, scale, row0=row0,
-                           norm_p=True)
+                           stats=stats, norm_p=True)
     branch = torch.empty_like(x)
     _build.gemm(merged.view(B * N, D), wproj, bproj, branch.view(B * N, D))
-    return branch, row0, (ln, qkv, merged)
+    return branch, row0, (ln, qkv, merged, row0, stats)
 
 
 def _bwd_cuda(x, ls, wqkv, wproj, saved, dy, drow0, num_heads, scale, eps):
     """Backward launches; returns the seven gradients."""
     from tokenreduction_tpu_torch.ops import _build
 
-    ln, qkv, merged = saved
+    ln, qkv, merged, row0, stats = saved
     B, N, D = x.shape
     M = B * N
     dy = dy.view(M, D)
@@ -174,7 +180,8 @@ def _bwd_cuda(x, ls, wqkv, wproj, saved, dy, drow0, num_heads, scale, eps):
     dbproj = torch.empty(D, dtype=ls.dtype, device=x.device)
     _build.gemm_wgrad(dy, merged.view(M, D), dwproj, dbproj)
     dqkv = torch.empty_like(qkv)
-    _build.short_attention_bwd(qkv, dattn, drow0, dqkv, num_heads, scale)
+    _build.short_attention_bwd(qkv, merged, dattn, drow0, dqkv, num_heads,
+                               scale, stats=stats, row0=row0)
     dqkv = dqkv.view(M, 3 * D)
     dwqkv = torch.empty_like(wqkv)
     dbqkv = torch.empty(3 * D, dtype=wqkv.dtype, device=x.device)

@@ -25,8 +25,9 @@ proj GEMM writes it so, and LN2 and the fc2 epilogue read it).
 What bounds it: at N <= 197 and D = 384 the products are small, so the
 attention and the LN/GELU passes weigh more than tensor-core operations,
 and the K = 384 GEMMs lose a large share to each output tile's fill and
-epilogue. This is a simple first version on mma.sync; wgmma, TMA,
-persistent tiles and keeping the intermediates on chip are later work.
+epilogue. The GEMM (``csrc/gemm_sm90.cu``) and the attention
+(``csrc/attention_sm90.cu``) run on wgmma with TMA loads; keeping the
+intermediates on chip is later work.
 
 The TPU's VMEM plans (``full_block_supported``, ``_plan_group``) have no
 counterpart: the limit on the card is the attention kernel's N <= 256,

@@ -16,7 +16,16 @@ of 20), so that the host's launch cost is hidden: the qkv GEMM, the fc1
 GEMM with GELU, the attention and the LayerNorm at the same shapes, and
 the attention backward (the training branch's, with the row0 cotangent,
 and ToMe's, with the bias, both cotangents and dbias, over [B, H, N, hd]
-views). Both also time a topk@0.7 bf16 b256 forward (median of 10); a
+views), and every other variant of the attention the main path launches
+(``attention_times``: the eval forward with row0 and colsum, with ToMe's
+bias, with a mask, and the training branch's normalised-P forward, with
+its row statistics where the checkout writes them), beside SDPA on the
+same q, k, v (the output alone; with the bias or the pair mask as a float
+mask; its backward alone through autograd where the checkout's
+``chip_smoke.py`` has ``sdpa_backward``). A checkout whose attention
+backward reads the forward's output and statistics gets them from one
+forward launch first. Both also time the heuristic train step, and a
+topk@0.7 bf16 b256 forward (median of 10); a
 checkout whose attention takes a validity mask also times, per launch as
 above, the masked attention and the rectangular attention of 138 kept
 rows over 197 keys, and an ATS@0.7 forward; one whose backward takes the
@@ -29,9 +38,11 @@ and without GELU'; the backward's four dY . W products, fp32 out where
 the LayerNorm backward reads them, fc2's with the GELU' factor and the
 column sums; the four weight gradients with their bias sums) and a ToMe@0.7
 forward. Each run also prints the ptxas registers of the attention
-backward's variants (``bwd_registers``, from its checkout's build log).
-The last lines give each checkout's medians over its runs. Needs one CUDA
-card; numbers from separate calls are not compared.
+kernels' variants (``attention_registers``, from its checkout's build
+log).
+The first line is the card's name and power limit (nvidia-smi); the last
+lines give each checkout's medians over its runs. Needs one CUDA card;
+numbers from separate calls are not compared.
 """
 
 from __future__ import annotations
@@ -99,9 +110,59 @@ def ats_times():
             qkv, rect, HEADS, SCALE, mask=mask, ids=ids)),
         ats_forward=forward_ms("ats_small_patch16_224"))
 
+# whether the checkout's attention backward reads the forward's output,
+# row0 and row statistics (the sm_90a kernels)
+RESIDUALS = "stats" in inspect.signature(
+    _build.short_attention_bwd_heads).parameters
+
+def attention_times():
+    # every forward variant the main path launches, per launch, and SDPA
+    # (the output alone) on the same q, k, v views
+    import torch.nn.functional as F
+    from chip_smoke import float_mask
+    from tokenreduction_tpu_torch.ops.flash_attention import packed_heads
+    row0 = torch.empty(B, HEADS, N, device="cuda")
+    colsum = torch.empty_like(row0)
+    bias = torch.log(torch.randint(1, 5, (B, N), generator=g).float()) \
+        .to("cuda")
+    mask = (torch.rand(B, N, generator=g) > 0.2).to("cuda")
+    train = dict(row0=row0, norm_p=True)
+    if RESIDUALS:
+        train["stats"] = torch.empty(B, HEADS, N, 2, device="cuda")
+    q, k, v = packed_heads(qkv, HEADS)
+    sdpa = lambda m=None: ten(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m, scale=SCALE))
+    return dict(
+        attention_scores_x10=ten(lambda: _build.short_attention(
+            qkv, merged, HEADS, SCALE, row0=row0, colsum=colsum)),
+        attention_bias_x10=ten(lambda: _build.short_attention(
+            qkv, merged, HEADS, SCALE, bias=bias, row0=row0, colsum=colsum)),
+        attention_mask_scores_x10=ten(lambda: _build.short_attention(
+            qkv, merged, HEADS, SCALE, mask=mask, row0=row0, colsum=colsum)),
+        attention_normp_x10=ten(lambda: _build.short_attention(
+            qkv, merged, HEADS, SCALE, **train)),
+        sdpa_x10=sdpa(), sdpa_bias_x10=sdpa(float_mask(bf16, bias)),
+        sdpa_mask_x10=sdpa(float_mask(bf16, None, mask, mask)))
+
+def bwd_call(q, k, v, dout, grads, **kw):
+    # one backward launch; where the backward reads the forward's
+    # residuals, they come from one forward launch first
+    if not RESIDUALS:
+        return lambda: _build.short_attention_bwd_heads(
+            q, k, v, dout, *grads, SCALE, **kw)
+    hd = D // HEADS
+    out = torch.empty(B, N, HEADS, hd, device="cuda",
+                      dtype=bf16).transpose(1, 2)
+    row0 = torch.empty(B, HEADS, N, device="cuda")
+    stats = torch.empty(B, HEADS, N, 2, device="cuda")
+    _build.short_attention_heads(q, k, v, out, SCALE, bias=kw.get("bias"),
+                                 mask=kw.get("mask"), row0=row0, stats=stats)
+    return lambda: _build.short_attention_bwd_heads(
+        q, k, v, out, dout, *grads, SCALE, stats=stats, row0=row0, **kw)
+
 def bwd_times():
     # the attention backward per launch; with the mask where the checkout
-    # has it
+    # has it; SDPA's backward alone (autograd) on the same q, k, v
     hd = D // HEADS
     q, k, v = (t.contiguous() for t in
                torch.randn(3, B, HEADS, N, hd, generator=g).to("cuda", bf16))
@@ -113,33 +174,35 @@ def bwd_times():
                         dtype=bf16).unbind(0)
     dbias = torch.empty(B, HEADS, N, device="cuda")
     out = dict(
-        attention_bwd_x10=ten(lambda: _build.short_attention_bwd_heads(
-            q, k, v, dout, *grads, SCALE, drow0=drow0)),
-        attention_bwd_bias_x10=ten(lambda: _build.short_attention_bwd_heads(
-            q, k, v, dout, *grads, SCALE, bias=bias, drow0=drow0, dcs=dcs,
+        attention_bwd_x10=ten(bwd_call(q, k, v, dout, grads, drow0=drow0)),
+        attention_bwd_bias_x10=ten(bwd_call(
+            q, k, v, dout, grads, bias=bias, drow0=drow0, dcs=dcs,
             dbias=dbias)))
+    if RESIDUALS:  # a checkout whose chip_smoke.py has the SDPA backward
+        from chip_smoke import sdpa_backward
+        out["sdpa_bwd_x10"] = ten(sdpa_backward(q, k, v, dout))
     if "mask" in inspect.signature(
             _build.short_attention_bwd_heads).parameters:
         from chip_smoke import batch_mask, heuristic_block_masks
         mask = batch_mask(heuristic_block_masks()[3], B)
         out.update(
-            attention_bwd_mask_x10=ten(
-                lambda: _build.short_attention_bwd_heads(
-                    q, k, v, dout, *grads, SCALE, mask=mask)),
+            attention_bwd_mask_x10=ten(bwd_call(q, k, v, dout, grads,
+                                                mask=mask)),
             heuristic_forward=forward_ms("heuristic_small_patch16_224"),
             dyvit_forward=forward_ms("dyvit_small_patch16_224"))
     return out
 
-def bwd_registers():
-    # "Used N registers" of each attention backward variant, by the
-    # kernel's mangled name, from this checkout's build log
+def attention_registers():
+    # "Used N registers" of each attention kernel variant, by the kernel's
+    # mangled name, from this checkout's build log
     log = (_build.kernels().path.parent / "build.log").read_text()
     regs, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and "short_attention_bwd" in name and "registers" in line:
-            regs[name] = int(re.search(r"Used (\d+) registers", line)[1])
+        elif name and "attention" in name and "registers" in line:
+            regs[name[-70:]] = int(re.search(r"Used (\d+) registers",
+                                             line)[1])
     return regs
 
 def gemm_times():
@@ -182,7 +245,8 @@ def train_ms(label):
     return 1e3 * statistics.median(train_run(label, 6)[0][2:])
 
 steps = dict(train_topk=train_ms("topk@0.7"), train_dense=train_ms("dense"),
-             train_tome=train_ms("tome@0.7"))
+             train_tome=train_ms("tome@0.7"),
+             train_heuristic=train_ms("heuristic"))
 with torch.no_grad():
     print(json.dumps(dict(
         **steps,
@@ -198,8 +262,9 @@ with torch.no_grad():
         layer_norm_x10=ten(lambda: _build.layer_norm(
             ln, p["ls1"], p["lb1"], ln_out, eps=1e-6)),
         topk_forward=forward_ms("topk_small_patch16_224"),
-        **ats_times(), **bwd_times(), **gemm_times())))
-print(json.dumps(dict(bwd_registers=bwd_registers())))
+        **ats_times(), **attention_times(), **bwd_times(),
+        **gemm_times())))
+print(json.dumps(dict(attention_registers=attention_registers())))
 """
 
 
@@ -220,6 +285,10 @@ def main():
     ap.add_argument("change", type=pathlib.Path)
     ap.add_argument("--pairs", type=int, default=3)
     args = ap.parse_args()
+    # the card and its power limit, beside which every time stands
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
     results = {"parent": [], "change": []}
     for _ in range(args.pairs):
         for label in ("parent", "change", "change", "parent"):
