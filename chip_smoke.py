@@ -12,9 +12,10 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    build/tokenreduction_tpu_torch/<source hash>/; print each kernel
    variant's registers and spills (ptxas), by its demangled name, and the
    bf16 GEMM's tile, stages and dynamic shared memory a block, as the
-   library reports them (tr_gemm_sm90_config), and the sm_90a
+   library reports them (tr_gemm_sm90_config), the sm_90a
    attention's dynamic shared memory a block at each main-path width
-   (tr_attention_sm90_smem).
+   and of its rectangular variant at ATS's (M, N) pairs
+   (tr_attention_sm90_smem), and the LayerNorm backward's.
 2. kernels: each kernel counterpart against its plain PyTorch version on
    the same CUDA tensors at the main path's widths, fp32 at B=32 (bound
    1e-4 of max|plain|) and bf16 at B=256 (bound 2e-2 of max|plain|), with
@@ -78,11 +79,29 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    training branch's normalised-P forward with its row statistics; the
    backward of the branch (row0 cotangent), of ToMe's core (bias, colsum
    cotangent, dbias) and of a masked core; and the rectangular attention
-   (csrc/short_attention.cu, mma.sync) at ATS's (M, N). Each output is
+   (the RECT variant of the same forward: query rows gathered by
+   cp.async) at ATS's (M, N), whose slots padded with the CLS row must
+   equal the CLS slot bit for bit and whose dead slot (a fully masked
+   row) must be the mean of the values within 1e-2. Each output is
    held to 1e-2 of its own max (bf16) or 1e-4 (fp32), beside its time per
    launch, TFLOP/s (failing above the dense ceiling), its bound and
    SDPA's time on the same q, k, v (the output alone; the bias or the
-   pair mask as a float mask; its backward alone through autograd).
+   pair mask as a float mask; its backward alone through autograd; the
+   kept query rows gathered first for the rectangular one).
+   Then the LayerNorm backward (layer_norm_bwd, csrc/ln_gemm.cu) alone, in
+   bf16 and fp32, at B=256 and N = 197, 138, 97, 68, at B=32, N=197 (a
+   ragged last band) and at DeiT-Ti's K = 192 (the general instance): dx
+   within 1e-2 (bf16) or 1e-4 (fp32) of its own max, d gamma and d beta
+   likewise, and a second launch bit-equal to the first; its time per
+   launch beside its bound, the plain version's time and
+   aten.native_layer_norm_backward's. Last, the other hand-written
+   kernels alone at B=256, their time per launch beside their bound and
+   the one PyTorch call computing the same function: layer_norm of bf16
+   rows (F.layer_norm), fp32 rows and gathered rows, sum_partials at the
+   LayerNorm backward's [bands, 2K] (and its former [264, 2K]) and at each
+   weight and bias gradient's [splits, L] (part.sum(0)), head_mean_keys at ToMe@0.7's
+   widths (the head mean of the packed keys); after phase 5, each with its
+   launches on the main path.
    Beside each counterpart's time: its bound (bytes or operations at the
    H100's peak rates) and the eager bf16 composition of library calls
    (F.layer_norm, F.linear, scaled_dot_product_attention with the bias and
@@ -148,13 +167,16 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    finite and the params must move; ms/step and img/s over steps 3-8. Then
    the same steps with the eager bf16 library composition in place of the
    three training counterparts, and last a torch.profiler window of two
-   topk@0.7, two ToMe@0.7 and two heuristic steps: the device's busy share
-   and its time per step by kernel.
+   steps each of dense, topk@0.7, ToMe@0.7 and heuristic: the device's
+   busy share and its time per step by kernel.
 
 Phases 4 and 5 are the main path's runs: each counterpart's launch count,
-and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad) and of the
-sm_90a attention's two (short_attention, short_attention_bwd), is set to
-0 just before and read just after. fused_attention,
+and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
+sm_90a attention's three (short_attention, short_attention_bwd,
+rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
+backward (once in each training branch's backward) and of layer_norm,
+sum_partials and head_mean_keys, is set to 0 just before and read just
+after. fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
 fused_rect_block's attention stage): they must launch 0 times there, and
@@ -343,11 +365,16 @@ GEMM_REPLACES = {"gemm": "tokenreduction_tpu/ops/fused_mlp_train.py:162",
 ATTENTION = "tokenreduction_tpu_torch/csrc/short_attention.cu"
 ATTENTION_SM90 = "tokenreduction_tpu_torch/csrc/attention_sm90.cu"
 # the sm_90a attention's forward and backward: their records name the
-# attention core's TPU kernels
+# attention core's TPU kernels; its rectangular forward names
+# fused_rect_attention's
 ATTENTION_REPLACES = {
     "short_attention": "tokenreduction_tpu/ops/flash_attention.py:183",
     "short_attention_bwd":
-        "tokenreduction_tpu/ops/flash_attention_train.py:145"}
+        "tokenreduction_tpu/ops/flash_attention_train.py:145",
+    "rect_attention": "tokenreduction_tpu/ops/flash_attention.py:817"}
+# the LayerNorm backward of the training branches: its record names
+# mlp_branch's backward, the most launched
+LN_BWD_REPLACES = "tokenreduction_tpu/ops/fused_mlp_train.py:218"
 CUDA_SOURCES = {
     "fused_full_block": [LN_GEMM, ATTENTION_SM90, GEMM_SOURCE],
     "fused_block_attention": [ATTENTION_SM90, ATTENTION, LN_GEMM,
@@ -359,8 +386,8 @@ CUDA_SOURCES = {
     "attention_core_train": [ATTENTION_SM90],
     "fused_attention": [ATTENTION_SM90],
     "fused_attention_qkv": [ATTENTION_SM90],
-    "fused_rect_attention": [ATTENTION],
-    "fused_rect_block": [ATTENTION, LN_GEMM, GEMM_SOURCE],
+    "fused_rect_attention": [ATTENTION_SM90],
+    "fused_rect_block": [ATTENTION_SM90, LN_GEMM, GEMM_SOURCE],
 }
 FULL_BLOCK_N = (197, 138, 97, 68, 50, 13, 4)
 BLOCK_ATTN_N = (197, 138, 97, 50, 13)
@@ -374,6 +401,9 @@ TOME_N = TRAIN_N
 # (kept rows M, keys N) of their sampling blocks
 ATS_N = (197, 138, 97, 68, 50, 13, 4)
 RECT_MN = ((138, 197), (97, 138), (68, 97), (50, 197), (13, 50), (4, 13))
+# and a pair with more kept rows than keys, which no model makes, for the
+# rectangular attention's checks alone
+RECT_WIDE_MN = (80, 50)
 # DyViT@0.7's reduction blocks: (N -> K) of the idx prologue
 DYVIT_NK = ((197, 138), (138, 97), (97, 68))
 # heuristic's masked blocks whose masks phase 2 drives: the first (184
@@ -456,18 +486,30 @@ GEMMS = {"gemm": _build.gemm, "gemm_wgrad": _build.gemm_wgrad}
 # every attention counterpart launches them in bf16
 ATTENTIONS = {"short_attention": _build.short_attention_heads,
               "short_attention_bwd": _build.short_attention_bwd_heads}
+# every counted launcher: (function, its count's attribute). Beside the
+# above, the rectangular forward of csrc/attention_sm90.cu (ATS's sampling
+# blocks), the LayerNorm forward and backward and sum_partials
+# (csrc/ln_gemm.cu) and head_mean_keys (csrc/short_attention.cu)
+LAUNCHERS = {
+    **{name: (f, "launches") for name, f in (*GEMMS.items(),
+                                             *ATTENTIONS.items())},
+    "rect_attention": (_build.short_attention_heads, "rect_launches"),
+    **{name: (getattr(_build, name), "launches")
+       for name in ("layer_norm_bwd", "layer_norm", "sum_partials",
+                    "head_mean_keys")}}
 
 
 def reset_counts():
-    for w in (*WRAPPERS.values(), *GEMMS.values(), *ATTENTIONS.values()):
+    for w in WRAPPERS.values():
         w.launches = 0
+    for f, attr in LAUNCHERS.values():
+        setattr(f, attr, 0)
     for w in TRAIN_WRAPPERS.values():
         w.backward_launches = 0
 
 
 def launcher_counts() -> dict:
-    return {name: f.launches for name, f in (*GEMMS.items(),
-                                             *ATTENTIONS.items())}
+    return {name: getattr(f, attr) for name, (f, attr) in LAUNCHERS.items()}
 
 
 def counts() -> dict:
@@ -1539,12 +1581,32 @@ def attention_cases(B, N, gen):
                    kw.get("dcs"), SCALE, kw.get("mask")))
 
 
+def check_rect_rows(merged, qkv, idx, mask, tag):
+    """The rectangular attention's special rows: a slot padded with the CLS
+    row gives the CLS slot's output bit for bit, and the dead slot 1 (a
+    fully masked query row) is uniform over the N keys: the mean of the
+    values, within 1e-2 of its max."""
+    pads = idx == 0
+    pads[:, 0] = False
+    require(bool((merged == merged[:, :1]).all(-1)[pads].all()),
+            f"rect_attention {tag}: a padded slot differs from the CLS slot")
+    dead = ~torch.gather(mask, 1, idx[:, 1:2])[:, 0]
+    require(bool(dead.any()), f"rect_attention {tag}: no dead slot")
+    uniform = qkv[:, :, 2 * D:].float().mean(1)
+    _, rel = rel_err(merged[dead, 1].float(), uniform[dead])
+    require(rel <= LAUNCH_BOUND[torch.bfloat16], f"rect_attention {tag}: a "
+            f"fully masked row is {rel:.3e} of its max off the values' mean")
+    return int(pads.sum()), int(dead.sum())
+
+
 def rect_cases(gen):
-    """The rectangular attention (csrc/short_attention.cu's mma.sync
-    kernel: its query rows are gathered by id) at ATS's (M, N), B = 256, in
-    the form of attention_cases."""
+    """The rectangular attention (the RECT variant of
+    csrc/attention_sm90.cu's forward: its query rows gathered by id) at
+    ATS's (M, N) and at RECT_WIDE_MN, B = 256, in the form of
+    attention_cases; each case's padded and fully masked rows checked
+    first (check_rect_rows)."""
     B = 256
-    for M, N in RECT_MN:
+    for M, N in (*RECT_MN, RECT_WIDE_MN):
         dev_gen = torch.Generator(device=DEVICE).manual_seed(M * 1000 + N)
         qkv = torch.randn(B, N, 3 * D, generator=dev_gen, device=DEVICE) \
             .to(torch.bfloat16)
@@ -1553,7 +1615,13 @@ def rect_cases(gen):
         ids = idx.to(torch.int32)
         merged = torch.empty(B, M, D, device=DEVICE, dtype=torch.bfloat16)
         want = rect_attention_ref(qkv, idx, mask, HEADS, SCALE)
-        yield ("short_attention (mma.sync)", f"B={B} M={M} N={N}",
+        _build.short_attention(qkv, merged, HEADS, SCALE, mask=mask, ids=ids)
+        torch.cuda.synchronize()
+        tag = f"B={B} M={M} N={N}"
+        pads, dead = check_rect_rows(merged, qkv, idx, mask, tag)
+        print(f"phase 2 attention rect_attention {tag}: {pads} padded slots "
+              f"equal to CLS, {dead} fully masked rows uniform", flush=True)
+        yield ("rect_attention", tag,
                lambda qkv=qkv, merged=merged, mask=mask, ids=ids:
                _build.short_attention(qkv, merged, HEADS, SCALE, mask=mask,
                                       ids=ids),
@@ -1573,14 +1641,15 @@ def phase_attention() -> dict:
     plain version's time and SDPA's. A rate above the tensor cores' dense
     peak at the card's highest SM clock fails. Returns the JSON records of
     short_attention (the eval forward with row0 and colsum) and
-    short_attention_bwd (the branch's) at B = 256, N = 197."""
+    short_attention_bwd (the branch's) at B = 256, N = 197, and of
+    rect_attention at M = 138, N = 197."""
     gen = torch.Generator().manual_seed(6)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ceiling = sms * SM_FLOP_PER_CLOCK * max_sm_clock_hz()
     rec = {}
     cases = [(f"B={B} N={N}", case) for B, N in ATTENTION_SHAPES
              for case in attention_cases(B, N, gen)]
-    cases += [(case[1], (case[0], "rectangular") + case[2:])
+    cases += [(case[1], (case[0], "forward, mask") + case[2:])
               for case in rect_cases(gen)]
     for tag, (launch, label, run, outs, flops, nbytes, library, plain) in \
             cases:
@@ -1607,13 +1676,191 @@ def phase_attention() -> dict:
               f"kernel {ms:.4f} ms per launch ({rate / 1e12:.1f} TFLOP/s), "
               f"bound {bound_ms:.4f} ms ({bound_by}), SDPA {lib_ms:.4f} ms",
               flush=True)
-        if tag == "B=256 N=197" and label in (
-                "forward, row0 + colsum", "backward, row0 cotangent"):
+        if tag in ("B=256 N=197", "B=256 M=138 N=197") and label in (
+                "forward, row0 + colsum", "backward, row0 cotangent",
+                "forward, mask") and launch not in rec:
             rec[launch] = dict(shape=f"bf16 {label} {tag}", ms=ms,
                                plain_ms=per_launch_ms(plain),
                                bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=lib_ms, max_abs_err=worst)
     return rec
+
+
+# the LayerNorm backward's launches alone (csrc/ln_gemm.cu): B = 256 at
+# the training widths, B = 32 at N = 197 (M = 6304: a ragged last band),
+# each in bf16 and fp32 at DeiT-S's K = 384, and the general instance at
+# DeiT-Ti's K = 192
+LN_BWD_SHAPES = tuple((256, n, D) for n in TRAIN_N) + ((32, 197, D),
+                                                       (32, 197, 192))
+
+
+def ln_bwd_inputs(M, K, dtype, gen):
+    """x [M, K], gamma and beta [K] in dtype, and the fp32 dLN [M, K]."""
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, generator=gen)).to(
+            DEVICE)
+
+    return (rn(M, K).to(dtype), rn(K, scale=0.1, shift=1.0).to(dtype),
+            rn(K, scale=0.1).to(dtype), rn(M, K))
+
+
+def library_ln_bwd(x, w, b, dln):
+    """The one PyTorch call that computes the LayerNorm backward:
+    aten.native_layer_norm_backward on the same x, the forward's mean and
+    rstd (from aten.native_layer_norm), and dLN cast once, outside the
+    call, to x's dtype (the call takes the output gradient in the input's
+    dtype)."""
+    K = x.shape[1]
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [K], w, b, EPS)
+    dy = dln.to(x.dtype)
+    return lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [K], mean, rstd, w, b, [True, True, True])
+
+
+def phase_ln_bwd() -> dict:
+    """Phase 2: each layer_norm_bwd launch alone at LN_BWD_SHAPES against
+    its fp32 plain version: dx within 1e-2 of its own max in bf16 and 1e-4
+    in fp32, d gamma and d beta (rounded to the parameters' dtype) within
+    1e-2 and 1e-4 of theirs; a second launch must give the same bits. Then
+    its time per launch beside its bound (bytes: x, dLN and gamma read
+    once, dx and the two gradients written once), the plain version's time
+    and aten.native_layer_norm_backward's. Returns the JSON record of the
+    bf16 launch at B = 256, N = 197."""
+    gen = torch.Generator().manual_seed(7)
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for B, N, K in LN_BWD_SHAPES:
+            M, shape = B * N, f"B={B} N={N} K={K}"
+            x, w, b, dln = ln_bwd_inputs(M, K, dtype, gen)
+            dx, dwb = torch.empty_like(x), torch.empty(2, K, device=DEVICE,
+                                                       dtype=dtype)
+
+            def run():
+                _build.layer_norm_bwd(x, w, dln, dx, dwb, eps=EPS)
+
+            def plain():
+                x_hat, rstd = layer_norm_stats(x.float(), EPS)
+                return layer_norm_bwd_ref(dln, x_hat, rstd, w)
+
+            run()
+            first = dx.clone(), dwb.clone()
+            run()
+            torch.cuda.synchronize()
+            require(torch.equal(first[0], dx) and torch.equal(first[1], dwb),
+                    f"layer_norm_bwd {tag} {shape}: two launches differ")
+            errs, worst = [], 0.0
+            for label, got, want in zip(("dx", "d scale", "d bias"),
+                                        (dx, dwb[0], dwb[1]), plain()):
+                abs_err, rel = rel_err(got, want.to(dtype))
+                bound_ = LAUNCH_BOUND[dtype]
+                require(rel <= bound_, f"layer_norm_bwd {tag} {shape} "
+                        f"{label}: error {rel:.3e} of its max|plain| > "
+                        f"bound {bound_:.0e}")
+                errs.append(f"{label} {abs_err:.3e} ({rel:.2e} of max, "
+                            f"bound {bound_:.0e})")
+                worst = max(worst, abs_err)
+            E = x.element_size()
+            nbytes = M * K * (2 * E + 4) + 3 * K * E
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            ms, lib_ms = per_launch_ms(run), per_launch_ms(
+                library_ln_bwd(x, w, b, dln))
+            plain_ms = per_launch_ms(plain)
+            print(f"phase 2 layer_norm_bwd {tag} {shape}: {', '.join(errs)};"
+                  f" two launches bit-equal; kernel {ms:.4f} ms per launch, "
+                  f"bound {bound_ms:.4f} ms (bytes), plain {plain_ms:.4f} "
+                  f"ms, library {lib_ms:.4f} ms", flush=True)
+            if not rec and dtype == torch.bfloat16:
+                rec = dict(shape=f"bf16 {shape}", ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by="bytes",
+                           library_ms=lib_ms, max_abs_err=worst)
+    return rec
+
+
+def wgrad_shapes():
+    """(label, [splits, L] of the fp32 partials) that gemm_wgrad sums at
+    B = 256, N = 197: each weight's, then each bias's."""
+    M, out = 256 * 197, []
+    for label, n_out, K in (("qkv", 3 * D, D), ("proj", D, D),
+                            ("fc1", H4, D), ("fc2", D, H4)):
+        splits = _build.wgrad_plan(M, n_out, K, torch.device(DEVICE))[0]
+        out += [(f"dW {label}", (splits, n_out * K)),
+                (f"db {label}", (splits, n_out))]
+    return out
+
+
+def standalone_cases():
+    """(kernel, shape, run, nbytes, library call or None) for the other
+    hand-written kernels of the main path, at B = 256 (their time per
+    launch, bound and library call; the LayerNorm backward and the
+    rectangular attention have their own cases above): layer_norm of bf16,
+    fp32 and gathered rows, sum_partials at the LayerNorm backward's
+    [bands, 2K] and its former [264, 2K] (two blocks an SM) and at
+    gemm_wgrad's [splits, L] (bf16 out), head_mean_keys at ToMe@0.7's
+    widths."""
+    gen = torch.Generator().manual_seed(8)
+    bf16, B = torch.bfloat16, 256
+
+    def rn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen).to(DEVICE, dtype)
+
+    w, b = rn(D), rn(D)
+    M = B * 197
+    for label, x in (("bf16 rows", rn(M, D)),
+                     ("fp32 rows", rn(M, D, dtype=torch.float32))):
+        y = torch.empty(M, D, device=DEVICE, dtype=bf16)
+        yield ("layer_norm", f"{label} B={B} N=197",
+               lambda x=x, y=y: _build.layer_norm(x, w, b, y, eps=EPS),
+               M * D * (x.element_size() + 2) + 4 * D,
+               (lambda x=x: F.layer_norm(x, (D,), w, b, EPS))
+               if x.dtype == bf16 else None)
+    N, K = 197, 138
+    x = rn(B * N, D)
+    idx = torch.stack([torch.randperm(N, generator=gen)[:K]
+                       for _ in range(B)]).to(DEVICE, torch.int32)
+    y = torch.empty(B * K, D, device=DEVICE, dtype=bf16)
+    yield ("layer_norm", f"gathered rows B={B} N={N} K={K}",
+           lambda: _build.layer_norm(x, w, b, y, eps=EPS, idx=idx,
+                                     rows_out=K, rows_in=N),
+           B * K * (2 * D * 2 + 4) + 4 * D, None)
+    ln_bands = _build.ln_bwd_plan(M, torch.cuda.get_device_properties(
+        0).multi_processor_count)[0]
+    for label, (S, L) in (("layer_norm_bwd's former", (264, 2 * D)),
+                          ("layer_norm_bwd's", (ln_bands, 2 * D)),
+                          *wgrad_shapes()):
+        part = rn(S, L, dtype=torch.float32)
+        out = torch.empty(L, device=DEVICE, dtype=bf16)
+        yield ("sum_partials", f"{label} [{S}, {L}]",
+               lambda part=part, out=out: _build.sum_partials(part, out),
+               S * L * 4 + L * 2, lambda part=part: part.sum(0))
+    hd = D // HEADS
+    for N in TOME_N:
+        qkv = rn(B, N, 3 * D)
+        keys = torch.empty(B, N, hd, device=DEVICE, dtype=bf16)
+        yield ("head_mean_keys", f"B={B} N={N}",
+               lambda qkv=qkv, keys=keys: _build.head_mean_keys(qkv, keys,
+                                                                HEADS),
+               B * N * (D + hd) * 2,
+               lambda qkv=qkv, N=N: qkv[..., D:2 * D].view(B, N, HEADS,
+                                                            hd).mean(2))
+
+
+def phase_standalone() -> list:
+    """Phase 2: each of standalone_cases' launches alone, its time per
+    launch beside its bound (bytes at the H100's rate) and its library
+    call's; returns [(kernel, shape, ms, bound ms, library ms or None)]
+    for the table printed with the main path's launches (main)."""
+    rows = []
+    for name, shape, run, nbytes, library in standalone_cases():
+        ms = per_launch_ms(run)
+        lib_ms = per_launch_ms(library) if library else None
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"phase 2 standalone {name} {shape}: kernel {ms:.4f} ms per "
+              f"launch, bound {bound_ms:.4f} ms (bytes), library {lib}",
+              flush=True)
+        rows.append((name, shape, ms, bound_ms, lib_ms))
+    return rows
 
 
 def check_case(name, tag, shape, dtype, got, want, labels, rec):
@@ -2267,6 +2514,11 @@ def phase_serve(card: str) -> dict:
             f"serve gemm launches {launcher_counts()}")
     require(got["short_attention"] > 0 and got["short_attention_bwd"] == 0,
             f"serve attention launches {launcher_counts()}")
+    # the rectangular attention: once in each of ATS's sampling blocks
+    require(got["rect_attention"] == got["fused_rect_block"] > 0
+            and got["layer_norm_bwd"] == 0,
+            f"serve rectangular attention and LN backward launches "
+            f"{launcher_counts()}")
     print(f"phase 4 launches {got}", flush=True)
     for label in ("ats@0.7", "heuristic", "dyvit@0.7"):
         eval_profile(label, card, profile=label != "dyvit@0.7")
@@ -2434,6 +2686,13 @@ def phase_train(card: str) -> dict:
             f"train gemm launches {launcher_counts()}")
     require(got["short_attention"] > 0 and got["short_attention_bwd"] > 0,
             f"train attention launches {launcher_counts()}")
+    # the LayerNorm backward: once in the backward of each training branch
+    ln_bwd = TRAIN_STEPS * sum(PER_TRAIN_STEP_BWD[label][k]
+                               for label in TRAIN_MODELS
+                               for k in ("attend_branch_train", "mlp_branch"))
+    require(got["layer_norm_bwd"] == ln_bwd and got["rect_attention"] == 0,
+            f"train LN backward launches {got['layer_norm_bwd']} != {ln_bwd}"
+            f" or rectangular attention {got['rect_attention']} != 0")
     print(f"phase 5 launches {got}", flush=True)
 
     kernels = (layers.attend_branch_train, layers.mlp_branch,
@@ -2453,7 +2712,7 @@ def phase_train(card: str) -> dict:
         (layers.attend_branch_train, layers.mlp_branch,
          layers.attention_core_train) = kernels
 
-    for label in ("topk@0.7", "tome@0.7", "heuristic"):
+    for label in ("dense", "topk@0.7", "tome@0.7", "heuristic"):
         _, _, prof = train_run(label, 4, profile=True)
         if prof is None:
             print(f"phase 5 profile {label}: device time not measured (the "
@@ -2549,12 +2808,23 @@ def main():
               f"dynamic shared memory a forward block (128 threads), "
               f"{smem['backward']} a backward block (256 threads)",
               flush=True)
+    for m, n in RECT_MN:
+        print(f"phase 1 attention_sm90 rectangular M={m} N={n}: "
+              f"{_build.attention_smem(n, m)['rectangular']} bytes of "
+              "dynamic shared memory a block (128 threads)", flush=True)
+    for K in (D, 192):
+        warps = _build.LN_BWD_WARPS if K == D else 8
+        print(f"phase 1 layer_norm_bwd K={K}: {warps * 2 * K * 4} bytes of "
+              f"dynamic shared memory a block ({warps * 32} threads)",
+              flush=True)
     elapsed("1")
 
     rec = phase_kernels()
     phase_launchers()
     gemm_rec = phase_gemms()
     attn_rec = phase_attention()
+    ln_bwd_rec = phase_ln_bwd()
+    standalone = phase_standalone()
     elapsed("2")
     for dtype in (torch.float32, torch.bfloat16):
         phase_models(dtype)
@@ -2566,11 +2836,14 @@ def main():
     elapsed("4")
     trained = phase_train(card)
     launches.update({k: v for k, v in trained.items() if k in TRAIN_WRAPPERS})
-    launches["gemm"] += trained["gemm"]
-    launches["gemm_wgrad"] = trained["gemm_wgrad"]
-    launches["short_attention"] += trained["short_attention"]
-    launches["short_attention_bwd"] = trained["short_attention_bwd"]
+    for name in LAUNCHERS:
+        launches[name] += trained[name]
     elapsed("5")
+    for name, shape, ms, bound_ms, lib_ms in standalone:
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"standalone {name} {shape}: {ms:.4f} ms per launch, bound "
+              f"{bound_ms:.4f} ms (bytes), library {lib}; {launches[name]} "
+              "launches on the main path (phases 4-5)", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=CUDA_SOURCES[name][0],
                     cuda_sources=CUDA_SOURCES[name],
@@ -2586,7 +2859,13 @@ def main():
                      wrapper="tokenreduction_tpu_torch/ops/_build.py",
                      replaces=ATTENTION_REPLACES[name],
                      launches=launches[name], on_main_path=True,
-                     **attn_rec[name]) for name in ATTENTIONS]
+                     **attn_rec[name])
+                for name in (*ATTENTIONS, "rect_attention")]
+    kernels.append(dict(name="layer_norm_bwd", route="cuda", source=LN_GEMM,
+                        wrapper="tokenreduction_tpu_torch/ops/_build.py",
+                        replaces=LN_BWD_REPLACES,
+                        launches=launches["layer_norm_bwd"],
+                        on_main_path=True, **ln_bwd_rec))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

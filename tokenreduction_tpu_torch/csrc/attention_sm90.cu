@@ -7,11 +7,11 @@
 // forward of ops/flash_attention_train.py attention_core_train),
 // fused_attention_qkv (:313), fused_block_attention (:660) and
 // ops/fused_full_block.py fused_full_block (:118), the attention of
-// ops/fused_block_train.py attend_branch_train (fwd :246, bwd :296), and
-// the backward _bwd_kernel of ops/flash_attention_train.py (:38-99).
-// short_attention.cu keeps the fp32 kernels (the parity dtype), the
-// rectangular variant (its query rows are gathered by id, which TMA cannot
-// do) and head_mean_keys.
+// ops/fused_block_train.py attend_branch_train (fwd :246, bwd :296), the
+// backward _bwd_kernel of ops/flash_attention_train.py (:38-99), and the
+// rectangular attention _rect_kernel (:772) of fused_rect_attention (:817)
+// and fused_rect_block (:925). short_attention.cu keeps the fp32 kernels
+// (the parity dtype) and head_mean_keys.
 //
 // Operands. q, k, v, the output and every gradient are [B, H, N, 64] with
 // the head dim contiguous and their own batch, head and row strides
@@ -53,6 +53,26 @@
 // bits. The output tile goes through the query tile's shared memory (no
 // longer read) and leaves by a TMA store.
 //
+// The rectangular variant (RECT): the M query rows ids[b, m] of q over all
+// N keys and values under the validity mask, the query cap being the mask
+// at the gathered token; the eval recipe; no by-products; out [B, H, M,
+// 64]. A TMA box cannot gather rows, but only Q is gathered: K and V are
+// loaded by TMA as above. Each thread copies 16-byte chunks of the gathered
+// rows by cp.async into the 128-byte-swizzled layout that the TMA box writes
+// and the wgmma descriptors read (chunk c of tile row r at c ^ (r % 8)),
+// rows past M zero; after the copies complete, each thread fences them
+// into the async proxy before the block's barrier and the first wgmma.
+// The output tile leaves by a TMA store on an [B, H, M, 64] map: no row
+// past M is written. An id outside 0..N-1 traps. What bounds it at B = 256,
+// (M, N) = (138, 197): reading q's kept rows, k, v and writing the output,
+// about 0.039 ms at 3.35 TB/s; the kernel runs the square forward's single
+// pass over the keys, on ceil(M / 64) query tiles. At N <= 64 (ATS@0.25's
+// last blocks) an instance that holds one key tile of S (KT = 1) takes 79
+// registers, not 255, so four blocks share an SM instead of two: there a
+// block's fixed latency, not its work, sets the time. A launch takes at
+// most as many query tiles as key tiles; more kept rows than keys (no
+// model's) go in launches of that many rows each.
+//
 // Backward (_bwd_kernel's arithmetic and rounding points): P from the
 // forward's statistics (no recomputed row max or sum); dP = dO V^T plus the
 // row0 cotangent on query row 0 and the colsum cotangent on every valid
@@ -91,6 +111,7 @@
 
 #include <cuda_bf16.h>
 
+#include "common.cuh"
 #include "sm90.cuh"
 
 namespace trk {
@@ -109,10 +130,12 @@ constexpr float LN2 = 0.6931471805599453f;
 
 __host__ __device__ int tiles_of(int n) { return (n + ROWS - 1) / ROWS; }
 
-// forward: q, k, v tiles; bias and caps [MAXN]; per-warp column sums
-// [4][MAXN]; 3 barriers; 1 KB to align the tiles to the swizzle's 1024
-size_t fwd_smem_bytes(int n) {
-  return 1024 + static_cast<size_t>(3 * tiles_of(n)) * TILE + 6 * MAXN * 4 + 3 * 8;
+// forward: the q tiles of m query rows (m = n but in the rectangular
+// variant), the k and v tiles of n keys; bias and caps [MAXN]; per-warp
+// column sums [4][MAXN] (the rectangular variant's query caps [MAXN]); 3
+// barriers; 1 KB to align the tiles to the swizzle's 1024
+size_t fwd_smem_bytes(int n, int m) {
+  return 1024 + static_cast<size_t>(tiles_of(m) + 2 * tiles_of(n)) * TILE + 6 * MAXN * 4 + 3 * 8;
 }
 
 // backward: q, k, v, dO tiles; two staged dS^T tiles; O's tiles, then the
@@ -289,29 +312,80 @@ __device__ __forceinline__ void key_vectors(float* bias2, float* cap, const floa
   }
 }
 
+// The rectangular variant's gathered query rows: row m of the q operand's
+// (image b, head h) is q + b sb + h sh + ids[b ld + m] sn (elements).
+struct Gather {
+  const bf16* q;
+  long long sb, sh, sn;
+  const int* ids;  // [B, ld], the launch's M columns from the first
+  int ld;
+};
+
+// The rectangular variant's query tiles at `tiles`, by cp.async, and its
+// query caps: thread (r, c) = (tid / 8, tid % 8) copies chunk c (16 bytes)
+// of slots m = r + 16 j (j < 16: tile j / 4, tile row m % 64) from q row
+// ids[b, m] to position c ^ (m % 8) of the tile row, as the TMA box's
+// 128-byte swizzle writes it; the tiles' slots past M are zeros. The
+// thread's ids are loaded together first, then every copy is issued: tile
+// 0's copies are one commit group, the other tiles' (maybe none) a
+// second. qcap[m] = +inf for a valid gathered token, -FLT_MAX for an
+// invalid one or past M. An id outside 0..N-1 traps.
+__device__ __forceinline__ void gather_q(uint8_t* tiles, float* qcap, const Gather& ga,
+                                         const unsigned char* mask, int b, int h, int N, int M) {
+  constexpr int SLOTS = MAXN / 16;  // a thread's slots
+  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, rows = tiles_of(M) * ROWS;
+  const int* ids = ga.ids + static_cast<size_t>(b) * ga.ld;
+  int id[SLOTS];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) id[j] = r + 16 * j < M ? ids[r + 16 * j] : 0;
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const int m = r + 16 * j;
+    const bool in = m < M;
+    if (in && static_cast<unsigned>(id[j]) >= static_cast<unsigned>(N)) __trap();
+    if (m < rows)  // the query tiles' rows only
+      cp_async16(tiles + (m >> 6) * TILE + (m & 63) * 128 + ((c ^ (m & 7)) << 4),
+                 in ? ga.q + b * ga.sb + h * ga.sh + id[j] * ga.sn + c * 8 : ga.q, in);
+    if (j == 3) cp_async_commit();
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j)
+    if ((j & 7) == c) {
+      const int m = r + 16 * j;
+      qcap[m] = m < M && mask[static_cast<size_t>(b) * N + id[j]] ? INFINITY : -FLT_MAX;
+    }
+}
+
 // ------------------------------------------------------------- forward
 // NORM_P: round the normalised probabilities before PV (training branch,
 // and the packed-qkv eval attention), else the eval recipe. MASK: the
-// validity mask (one byte per token). bias, row0, colsum and stats may be
-// null.
-template <bool NORM_P, bool MASK>
-__global__ void __launch_bounds__(THREADS, 2)
+// validity mask (one byte per token). RECT: the rectangular variant (with
+// MASK, not NORM_P): the M query rows gathered through ga, out [B, H, M,
+// 64]; bias, row0, colsum and stats null. Otherwise M = N, bias, row0,
+// colsum and stats may be null, and ga is not read. KT: the key tiles a
+// row of S holds in registers (MAXT, or 1 for N <= 64).
+template <bool NORM_P, bool MASK, bool RECT, int KT>
+__global__ void __launch_bounds__(THREADS, KT == MAXT ? 2 : 4)
     attention_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        const __grid_constant__ CUtensorMap map_o, int h_first,
                        const float* __restrict__ bias, const unsigned char* __restrict__ mask,
                        float* __restrict__ row0, float* __restrict__ colsum,
-                       float2* __restrict__ stats, int N, int H, float scale) {
+                       float2* __restrict__ stats, const Gather ga, int N, int M, int H,
+                       float scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* tiles = smem_raw + (base - raw);
   const int nt = tiles_of(N);
-  const uint32_t sq = base, sk = sq + nt * TILE, sv = sk + nt * TILE;
-  float* bias2 = reinterpret_cast<float*>(tiles + 3 * nt * TILE);
+  const int nq = RECT ? M : N, ntq = tiles_of(nq);  // query rows and tiles (ntq <= nt)
+  const uint32_t sq = base, sk = sq + ntq * TILE, sv = sk + nt * TILE;
+  float* bias2 = reinterpret_cast<float*>(tiles + (ntq + 2 * nt) * TILE);
   float* cap = bias2 + MAXN;
   float* csw = cap + MAXN;  // [4][MAXN]
+  float* qcap = csw;        // RECT: the query rows' caps [MAXN]
   const uint32_t bars = smem_addr(csw + 4 * MAXN);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -323,30 +397,41 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   __syncthreads();
   if (tid == 0) {
-    // bars: query tile 0 and the keys; + 8: the values; + 16: the other
-    // query tiles
-    mbar_expect_tx(bars, (1 + nt) * TILE);
-    load_tile(sq, &map_q, hq, bars, 0, h, b);
+    // bars: query tile 0 (not RECT) and the keys; + 8: the values; + 16:
+    // the other query tiles (not RECT)
+    mbar_expect_tx(bars, (RECT ? nt : 1 + nt) * TILE);
+    if (!RECT) load_tile(sq, &map_q, hq, bars, 0, h, b);
     for (int i = 0; i < nt; ++i) load_tile(sk + i * TILE, &map_k, hk, bars, i * ROWS, h, b);
     mbar_expect_tx(bars + 8, nt * TILE);
     for (int i = 0; i < nt; ++i) load_tile(sv + i * TILE, &map_v, hv, bars + 8, i * ROWS, h, b);
-    if (nt > 1) {
+    if (!RECT && nt > 1) {
       mbar_expect_tx(bars + 16, (nt - 1) * TILE);
       for (int i = 1; i < nt; ++i) load_tile(sq + i * TILE, &map_q, hq, bars + 16, i * ROWS, h, b);
     }
   }
+  if constexpr (RECT) gather_q(tiles, qcap, ga, mask, b, h, N, M);
   key_vectors(bias2, cap, bias, MASK ? mask : nullptr, b, N);
+  if constexpr (RECT) {
+    cp_async_wait<0>();  // the query tiles have landed: into the async proxy
+    fence_async_smem();
+  }
   __syncthreads();
   mbar_wait(bars, 0);
 
   const float c2 = scale * LOG2E;
-  float cs[MAXT][2] = {};  // the lane's column sums, over the query tiles so far
+  float cs[KT][2] = {};  // the lane's column sums, over the query tiles so far
+  // (The loop runs to the key tiles' count and stops at the query tiles':
+  // with any other bound, the query tiles' count or the larger of the two,
+  // ptxas spilled several times as many of the rectangular variant's
+  // registers and it ran slower, in bring-up runs. The host launches at
+  // most as many query tiles as key tiles.)
   for (int qi = 0; qi < nt; ++qi) {
-    if (qi == 1) mbar_wait(bars + 16, 0);
-    float s[MAXT][32];
+    if (RECT && qi >= ntq) break;
+    if (!RECT && qi == 1) mbar_wait(bars + 16, 0);
+    float s[KT][32];
     wgmma_fence();
 #pragma unroll
-    for (int kt = 0; kt < MAXT; ++kt) {
+    for (int kt = 0; kt < KT; ++kt) {
       if (kt < nt) {
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
@@ -356,16 +441,17 @@ __global__ void __launch_bounds__(THREADS, 2)
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int kt = 0; kt < MAXT; ++kt) fence32(s[kt]);
+    for (int kt = 0; kt < KT; ++kt) fence32(s[kt]);
 
     const int r0 = qi * ROWS + warp * 16 + g, r1 = r0 + 8;
     float rr0 = 0.f, rr1 = 0.f;
-    if (qi * ROWS + warp * 16 < N) {  // the warp has a query row < N
-      const float qc0 = MASK ? cap[r0] : INFINITY, qc1 = MASK ? cap[r1] : INFINITY;
+    if (qi * ROWS + warp * 16 < nq) {  // the warp has a query row
+      const float* qc = RECT ? qcap : cap;
+      const float qc0 = MASK ? qc[r0] : INFINITY, qc1 = MASK ? qc[r1] : INFINITY;
       // the row max and sum in two running values each (shorter chains)
       float m0[2] = {-INFINITY, -INFINITY}, m1[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int kt = 0; kt < MAXT; ++kt) {
+      for (int kt = 0; kt < KT; ++kt) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           if (kt < nt && kt * ROWS + 8 * j < N) {
@@ -391,7 +477,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       const float mx0 = quad_max(fmaxf(m0[0], m0[1])), mx1 = quad_max(fmaxf(m1[0], m1[1]));
       float l0[2] = {0.f, 0.f}, l1[2] = {0.f, 0.f};
 #pragma unroll
-      for (int kt = 0; kt < MAXT; ++kt) {
+      for (int kt = 0; kt < KT; ++kt) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           float* x = s[kt] + 4 * j;
@@ -408,11 +494,11 @@ __global__ void __launch_bounds__(THREADS, 2)
         }
       }
       const float sum0 = quad_sum(l0[0] + l0[1]), sum1 = quad_sum(l1[0] + l1[1]);
-      rr0 = r0 < N ? 1.f / sum0 : 0.f;  // rows past N take no part
-      rr1 = r1 < N ? 1.f / sum1 : 0.f;
+      rr0 = r0 < nq ? 1.f / sum0 : 0.f;  // rows past the last take no part
+      rr1 = r1 < nq ? 1.f / sum1 : 0.f;
       if constexpr (NORM_P) {
 #pragma unroll
-        for (int kt = 0; kt < MAXT; ++kt)
+        for (int kt = 0; kt < KT; ++kt)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             s[kt][4 * j] *= rr0;
@@ -423,7 +509,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       }
       // the normalised probabilities: s itself (NORM_P), or s times 1/sum
       const float n0 = NORM_P ? 1.f : rr0, n1 = NORM_P ? 1.f : rr1;
-      if (stats != nullptr && t == 0) {
+      if (!RECT && stats != nullptr && t == 0) {
         // the row max in the logits' own units (-FLT_MAX stays itself)
         if (r0 < N)
           stats[static_cast<size_t>(bh) * N + r0] =
@@ -432,9 +518,9 @@ __global__ void __launch_bounds__(THREADS, 2)
           stats[static_cast<size_t>(bh) * N + r1] =
               make_float2(mx1 == -FLT_MAX ? mx1 : mx1 * LN2, rr1);
       }
-      if (row0 != nullptr && r0 == 0) {
+      if (!RECT && row0 != nullptr && r0 == 0) {
 #pragma unroll
-        for (int kt = 0; kt < MAXT; ++kt)
+        for (int kt = 0; kt < KT; ++kt)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -443,9 +529,9 @@ __global__ void __launch_bounds__(THREADS, 2)
               if (c < N) row0[static_cast<size_t>(bh) * N + c] = s[kt][4 * j + e] * n0;
             }
       }
-      if (colsum != nullptr) {
+      if (!RECT && colsum != nullptr) {
 #pragma unroll
-        for (int kt = 0; kt < MAXT; ++kt) {
+        for (int kt = 0; kt < KT; ++kt) {
           if (kt < nt) {
             float v[16], sums[2];
 #pragma unroll
@@ -461,23 +547,23 @@ __global__ void __launch_bounds__(THREADS, 2)
       }
     } else {
 #pragma unroll
-      for (int kt = 0; kt < MAXT; ++kt) zero32(s[kt]);
+      for (int kt = 0; kt < KT; ++kt) zero32(s[kt]);
     }
 
     // O = P V: P rounded to bf16 in place, 16 keys a step, up to the last
     // step with a key < N (V's rows past N are zeros, P there is 0)
-    uint32_t pa[MAXT][16];
+    uint32_t pa[KT][16];
 #pragma unroll
-    for (int kt = 0; kt < MAXT; ++kt)
+    for (int kt = 0; kt < KT; ++kt)
 #pragma unroll
       for (int i = 0; i < 16; ++i) pa[kt][i] = pack_bf16(s[kt][2 * i], s[kt][2 * i + 1]);
     float o[32];
 #pragma unroll
-    for (int kt = 0; kt < MAXT; ++kt) fence16(pa[kt]);
+    for (int kt = 0; kt < KT; ++kt) fence16(pa[kt]);
     if (qi == 0) mbar_wait(bars + 8, 0);  // the values have landed
     wgmma_fence();
 #pragma unroll
-    for (int kt = 0; kt < MAXT; ++kt)
+    for (int kt = 0; kt < KT; ++kt)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         if (kt < nt && kt * ROWS + 16 * kk < N)
@@ -487,7 +573,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     fence32(o);
 
     // the output tile, rounded, into this query tile's shared memory (read
-    // by no product any more), then one TMA store (rows past N dropped)
+    // by no product any more), then one TMA store (rows past N, or with
+    // RECT past M, dropped)
     uint8_t* otile = tiles + qi * TILE;
     const float f0 = NORM_P ? 1.f : rr0, f1 = NORM_P ? 1.f : rr1;
     const int lr = warp * 16 + g;
@@ -503,10 +590,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (tid == 0) store_tile(&map_o, ho, sq + qi * TILE, qi * ROWS, h, b);
   }
 
-  if (colsum != nullptr) {
+  if (!RECT && colsum != nullptr) {
     const int c0 = butterfly_col(lane);
 #pragma unroll
-    for (int kt = 0; kt < MAXT; ++kt)
+    for (int kt = 0; kt < KT; ++kt)
       if (kt < nt) {
         csw[warp * MAXN + kt * ROWS + c0] = cs[kt][0];
         csw[warp * MAXN + kt * ROWS + c0 + 1] = cs[kt][1];
@@ -946,38 +1033,64 @@ cudaError_t heads_maps(CUtensorMap* maps, const void* const* ptrs, const long lo
 }  // namespace
 }  // namespace trk
 
-// Returns the cudaError_t of the launch (0 on success). The bf16 square
-// attention: q, k, v, out [B, H, N, 64] with the head dim contiguous;
-// strides holds their (batch, head, row) strides in elements (multiples
-// of 8, starts 16-byte aligned). bias (fp32 [B, N]), mask ([B, N], one byte
-// per token, non-zero = valid), row0, colsum (fp32 [B, H, N]) and stats
-// (fp32 [B, H, N, 2]: the row max of the logits and 1/sum) may be null;
-// norm_p rounds the normalised probabilities before PV.
+// Returns the cudaError_t of the launch (0 on success). The bf16 forward:
+// q, k, v [B, H, N, 64] and out [B, H, M, 64] with the head dim
+// contiguous; strides holds their (batch, head, row) strides in elements
+// (multiples of 8, starts 16-byte aligned). Without ids, the square
+// attention (M = N): bias (fp32 [B, N]), mask ([B, N], one byte per token,
+// non-zero = valid), row0, colsum (fp32 [B, H, N]) and stats (fp32
+// [B, H, N, 2]: the row max of the logits and 1/sum) may be null; norm_p
+// rounds the normalised probabilities before PV. With ids (int32 [B, M]),
+// the rectangular attention: out row m is q row ids[b, m] over all N keys,
+// with a mask and no bias, by-products, stats or norm_p.
 extern "C" int tr_attention_sm90(const void* q, const void* k, const void* v, void* out,
                                  const long long* strides, const void* bias, const void* mask,
-                                 void* row0, void* colsum, void* stats, int B, int N, int H,
-                                 float scale, int norm_p, void* stream) {
+                                 const void* ids, void* row0, void* colsum, void* stats, int B,
+                                 int N, int M, int H, float scale, int norm_p, void* stream) {
   using namespace trk;
-  if (N < 1 || N > MAXN || H < 1 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool rect = ids != nullptr;
+  if (N < 1 || N > MAXN || M < 1 || M > MAXN || H < 1 || B < 0 || (!rect && M != N) ||
+      (rect && (mask == nullptr || bias != nullptr || row0 != nullptr || colsum != nullptr ||
+                stats != nullptr || norm_p)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   CUtensorMap maps[4];
-  const void* ptrs[4] = {q, k, v, out};
+  const void* ptrs[3] = {q, k, v};
   int h_first;
-  cudaError_t err = heads_maps(maps, ptrs, strides, 4, B, H, N, &h_first);
+  cudaError_t err = heads_maps(maps, ptrs, strides, 3, B, H, N, &h_first);
   if (err != cudaSuccess) return static_cast<int>(err);
-  using Kernel = decltype(&attention_fwd_sm90<false, false>);
+  using Kernel = decltype(&attention_fwd_sm90<false, false, false, MAXT>);
   const Kernel variants[2][2] = {
-      {attention_fwd_sm90<false, false>, attention_fwd_sm90<false, true>},
-      {attention_fwd_sm90<true, false>, attention_fwd_sm90<true, true>}};
-  const Kernel kernel = variants[norm_p != 0][mask != nullptr];
+      {attention_fwd_sm90<false, false, false, MAXT>, attention_fwd_sm90<false, true, false, MAXT>},
+      {attention_fwd_sm90<true, false, false, MAXT>, attention_fwd_sm90<true, true, false, MAXT>}};
+  // the rectangular variant over one key tile holds one tile of S: more
+  // blocks an SM
+  const Kernel rect_kernel = N <= ROWS ? attention_fwd_sm90<false, true, true, 1>
+                                       : attention_fwd_sm90<false, true, true, MAXT>;
+  const Kernel kernel = rect ? rect_kernel : variants[norm_p != 0][mask != nullptr];
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(fwd_smem_bytes(MAXN)));
+                             static_cast<int>(fwd_smem_bytes(MAXN, MAXN)));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B * H, THREADS, fwd_smem_bytes(N), static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], h_first, static_cast<const float*>(bias),
-      static_cast<const unsigned char*>(mask), static_cast<float*>(row0),
-      static_cast<float*>(colsum), static_cast<float2*>(stats), N, H, scale);
-  return static_cast<int>(cudaGetLastError());
+  // a launch takes at most as many query tiles as there are key tiles: more
+  // kept rows than keys (no model's) go in launches of that many rows
+  const int step = rect ? tiles_of(N) * ROWS : M;
+  for (int m0 = 0; m0 < M; m0 += step) {
+    const int rows = M - m0 < step ? M - m0 : step;
+    bool ho;  // the map of this launch's output rows
+    err = heads_map(&maps[3], static_cast<bf16*>(out) + m0 * strides[11], strides + 9, B, H, rows,
+                    &ho);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int hf = (h_first & 7) | static_cast<int>(ho) << 3;
+    const Gather ga{static_cast<const bf16*>(q), strides[0], strides[1], strides[2],
+                    static_cast<const int*>(ids) + m0, M};
+    kernel<<<B * H, THREADS, fwd_smem_bytes(N, rows), static_cast<cudaStream_t>(stream)>>>(
+        maps[0], maps[1], maps[2], maps[3], hf, static_cast<const float*>(bias),
+        static_cast<const unsigned char*>(mask), static_cast<float*>(row0),
+        static_cast<float*>(colsum), static_cast<float2*>(stats), ga, N, rows, H, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // Returns the cudaError_t of the launch (0 on success): the bf16 dq, dk, dv
@@ -1023,10 +1136,13 @@ extern "C" int tr_attention_bwd_sm90(const void* q, const void* k, const void* v
 }
 
 // The dynamic shared memory a block of each kernel takes at n keys, for
-// the host: out[2] = {forward, backward}.
-extern "C" int tr_attention_sm90_smem(int n, int* out) {
-  if (n < 1 || n > trk::MAXN) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = static_cast<int>(trk::fwd_smem_bytes(n));
+// the host: out[3] = {forward, backward, the rectangular forward of m
+// query rows}.
+extern "C" int tr_attention_sm90_smem(int n, int m, int* out) {
+  if (n < 1 || n > trk::MAXN || m < 1 || m > trk::MAXN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = static_cast<int>(trk::fwd_smem_bytes(n, n));
   out[1] = static_cast<int>(trk::bwd_smem_bytes(n));
+  out[2] = static_cast<int>(trk::fwd_smem_bytes(n, m));
   return 0;
 }

@@ -8,9 +8,10 @@
 //                   operand type or fp32. One warp per row.
 //   layer_norm_bwd: dX = rstd (dXhat - mean(dXhat) - Xhat mean(dXhat Xhat))
 //                   with dXhat = dLN * gamma, from X and the fp32 dLN, in
-//                   X's type; the per-block partial sums of dLN * Xhat and
-//                   dLN (the gradients of gamma and beta) go to a
-//                   workspace that sum_partials reduces in a fixed order.
+//                   X's type; each band of rows's partial sums of dLN *
+//                   Xhat and dLN (the gradients of gamma and beta) go to
+//                   a workspace that sum_partials reduces in band order
+//                   (see its kernel's note).
 //   gemm:           Y[M, n_out] = epi( X[M, K] . W^T + bias ), W in
 //                   nn.Linear's [n_out, K] layout, or Y = X . W with W
 //                   [K, n_out] (the backward's dY . W, read untransposed:
@@ -66,8 +67,6 @@ constexpr int BK = 32;
 constexpr int THREADS = 256;
 constexpr int STAGES = 3;  // K slices in the cp.async ring
 constexpr int LN_THREADS = 256;
-constexpr int LN_WARPS = LN_THREADS / 32;
-constexpr int LN_CHUNKS = 4;  // layer_norm_bwd keeps a row in registers: K <= 4 * 256
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -110,91 +109,218 @@ __global__ void __launch_bounds__(LN_THREADS)
   }
 }
 
-// A warp per row (rows strided over the grid); lane l holds columns
-// (l + 32 c) * 8 .. +7. The statistics are recomputed from X exactly as
-// layer_norm_kernel computes them. part: [gridDim.x][2][K] fp32, the
-// block's sums of dLN * Xhat and of dLN, its warps added in order.
-template <typename T>
-__global__ void __launch_bounds__(LN_THREADS)
-    layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dln, int M, int K,
-                          const T* __restrict__ w, float eps, T* __restrict__ dx,
-                          float* __restrict__ part) {
-  extern __shared__ __align__(16) float red[];  // [LN_WARPS][2 * K]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float gw[LN_CHUNKS][8] = {}, gb[LN_CHUNKS][8] = {};
-  for (int m = blockIdx.x * LN_WARPS + warp; m < M; m += gridDim.x * LN_WARPS) {
-    const T* row = x + static_cast<size_t>(m) * K;
-    const float* drow = dln + static_cast<size_t>(m) * K;
-    float f[LN_CHUNKS][8], g[LN_CHUNKS][8];
-    float s = 0.f;
+// ---- layer_norm_bwd
+// The LayerNorm backward of the TPU kernels
+// tokenreduction_tpu/ops/fused_block_train.py _bwd_kernel (:199-204) and
+// ops/fused_mlp_train.py _bwd_kernel (:112-128): dX in X's type, and
+// d gamma = sum over rows of dLN * Xhat, d beta = sum of dLN.
+//
+// What bounds it: bytes. Each element reads X (bf16: 2 bytes) and dLN
+// (fp32: 4) and writes dX (2): 8 bytes an element, 155 MB at B = 256,
+// N = 197, D = 384, 0.046 ms at 3.35 TB/s. The arithmetic is a few
+// operations an element and four warp reductions a row.
+//
+// Design. The rows are cut into bands of consecutive rows, one block a
+// band and at most one block an SM (ops/_build.py ln_bwd_plan: the bands
+// depend on M and the SM count only, never on scheduling). Warp w of a
+// block takes the band's rows w, w + 16, ... and holds a whole row in
+// registers: at K = 384 (the DeiT-S width, compiled apart) a lane holds
+// 12 elements, 3 chunks of 4 (8-byte loads of bf16 X, 16-byte loads of
+// dLN, each coalesced over the warp), and no lane idles. While the warp
+// computes a row, the loads of its next row, X and dLN together, are in
+// flight into a second set of registers, so a row's reductions never wait
+// on a load that could have been issued earlier: 16 warps an SM keep
+// about 37 KB of loads in flight, above the 20 KB an SM needs to draw its
+// share of 3.35 TB/s at about 0.8 us of latency. A bring-up measurement
+// (PERF.md) picked the registers over a shared-memory ring filled
+// by 1-D bulk copies, which was not built: a second row in flight
+// changed nothing, so the loads in flight do not hold the kernel back.
+// The statistics are recomputed from X in fp32, two-pass, as
+// layer_norm_kernel computes them (the sums are split over the lanes in
+// other chunks, so they may round apart in the last bit).
+//
+// The parameter gradients, in a fixed order with no serial tail over the
+// rows: each warp sums its rows' dLN * Xhat and dLN in registers; the
+// block adds its warps in index order in shared memory and writes one
+// fp32 partial row [2K]; a second launch (sum_partials) adds the partial
+// rows in band order, a thread per column over one-warp blocks, and
+// rounds d gamma and d beta once. The bring-up measurement picked it over
+// the last block to finish summing them (a ticket counter): one SM
+// reading every band's partial row took longer than the second launch.
+// Two launches give the same bits.
+//
+// Other K (multiples of 8 up to 1024): the general instance, 8 warps a
+// block, up to 8 chunks a lane (those past K masked) and no prefetch (two
+// rows of 1024 would not fit in a thread's registers).
+constexpr int LNB_MAX_K = 1024;
+
+// KC: K fixed at compile time (a multiple of 128), or 0 for any K.
+template <int KC> struct LnBwd {
+  static constexpr int CH = KC ? KC / 128 : LNB_MAX_K / 128;  // chunks of 4 a lane
+  static constexpr int WARPS = KC ? 16 : 8;
+  static constexpr int THREADS = WARPS * 32;
+  // a warp's rows in flight behind the one it computes
+  static constexpr int DEPTH = KC ? 1 : 0;
+};
+
+// Four neighbouring elements as loaded (8 bytes of bf16, 16 of fp32),
+// read and written past L1: each byte of X, dLN and dX is touched once.
+template <typename T> struct Chunk;
+template <> struct Chunk<float> { using type = float4; };
+template <> struct Chunk<__nv_bfloat16> { using type = uint2; };
+
+__device__ __forceinline__ uint2 ld_chunk(const __nv_bfloat16* p) {
+  return __ldcs(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 ld_chunk(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void unpack4(uint2 r, float* f) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  f[0] = a.x, f[1] = a.y, f[2] = b.x, f[3] = b.y;
+}
+__device__ __forceinline__ void unpack4(float4 r, float* f) {
+  f[0] = r.x, f[1] = r.y, f[2] = r.z, f[3] = r.w;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* f) {
+  uint2 r;
+  *reinterpret_cast<__nv_bfloat162*>(&r.x) = __floats2bfloat162_rn(f[0], f[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&r.y) = __floats2bfloat162_rn(f[2], f[3]);
+  __stcs(reinterpret_cast<uint2*>(p), r);
+}
+__device__ __forceinline__ void store4(float* p, const float* f) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
+}
+
+// Two warp sums at once (each in warp_sum's order).
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
-    for (int c = 0; c < LN_CHUNKS; ++c) {
-      const int k = (lane + 32 * c) * 8;
-      if (k >= K) continue;
-      load8(row + k, f[c]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += f[c][i];
-    }
-    const float mu = warp_sum(s) / K;
-    float q = 0.f;
-#pragma unroll
-    for (int c = 0; c < LN_CHUNKS; ++c) {
-      if ((lane + 32 * c) * 8 >= K) continue;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) q += (f[c][i] - mu) * (f[c][i] - mu);
-    }
-    const float rs = 1.0f / sqrtf(warp_sum(q) / K + eps);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int c = 0; c < LN_CHUNKS; ++c) {
-      const int k = (lane + 32 * c) * 8;
-      if (k >= K) continue;
-      float d[8];
-      load8(drow + k, d);
-      load8(w + k, g[c]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        f[c][i] = (f[c][i] - mu) * rs;  // x_hat
-        gw[c][i] += d[i] * f[c][i];
-        gb[c][i] += d[i];
-        g[c][i] *= d[i];  // dx_hat
-        s1 += g[c][i];
-        s2 += g[c][i] * f[c][i];
-      }
-    }
-    const float m1 = warp_sum(s1) / K, m2 = warp_sum(s2) / K;
-#pragma unroll
-    for (int c = 0; c < LN_CHUNKS; ++c) {
-      const int k = (lane + 32 * c) * 8;
-      if (k >= K) continue;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) g[c][i] = rs * (g[c][i] - m1 - f[c][i] * m2);
-      store8(dx + static_cast<size_t>(m) * K + k, g[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < LN_CHUNKS; ++c) {
-    const int k = (lane + 32 * c) * 8;
-    if (k >= K) continue;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      red[warp * 2 * K + k + i] = gw[c][i];
-      red[warp * 2 * K + K + k + i] = gb[c][i];
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < 2 * K; j += LN_THREADS) {
-    float acc = 0.f;
-    for (int wi = 0; wi < LN_WARPS; ++wi) acc += red[wi * 2 * K + j];
-    part[static_cast<size_t>(blockIdx.x) * 2 * K + j] = acc;
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
   }
 }
 
+// Block i takes rows [i * rows, min(M, (i + 1) * rows)); lane chunk c
+// covers columns 4 (lane + 32 c) .. + 3. part: [gridDim.x][2K] fp32, each
+// block's sums of dLN * Xhat and dLN.
+template <typename T, int KC>
+__global__ void __launch_bounds__(LnBwd<KC>::THREADS, 1)
+    layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dln, int M, int K,
+                          int rows, const T* __restrict__ w, float eps, T* __restrict__ dx,
+                          float* __restrict__ part) {
+  using C = typename Chunk<T>::type;
+  using P = LnBwd<KC>;
+  constexpr int CH = P::CH, DEPTH = P::DEPTH;
+  extern __shared__ __align__(16) float red[];  // [WARPS][2K]
+  const int kk = KC ? KC : K;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m_end = min(M, (static_cast<int>(blockIdx.x) + 1) * rows);
+  auto col = [&](int c) { return 4 * (lane + 32 * c); };
+  auto in = [&](int c) { return KC != 0 || col(c) < kk; };
+
+  float g[CH][4], gw[CH][4] = {}, gb[CH][4] = {};
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    if (in(c)) unpack4(*reinterpret_cast<const C*>(w + col(c)), g[c]);
+  // slot 0: the row computed; slots 1 .. DEPTH: the next rows, in flight
+  C xq[DEPTH + 1][CH];
+  float4 dq[DEPTH + 1][CH];
+  auto load = [&](int m, C* xr, float4* dr) {
+    const T* xrow = x + static_cast<size_t>(m) * kk;
+    const float* drow = dln + static_cast<size_t>(m) * kk;
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if (in(c)) {
+        xr[c] = ld_chunk(xrow + col(c));
+        dr[c] = ld_chunk(drow + col(c));
+      }
+  };
+
+  int m = static_cast<int>(blockIdx.x) * rows + warp;
+#pragma unroll
+  for (int i = 0; i < DEPTH; ++i)
+    if (m + i * P::WARPS < m_end) load(m + i * P::WARPS, xq[i], dq[i]);
+  for (; m < m_end; m += P::WARPS) {
+    if (m + DEPTH * P::WARPS < m_end) load(m + DEPTH * P::WARPS, xq[DEPTH], dq[DEPTH]);
+    float f[CH][4], d[CH][4];
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if (in(c)) {
+        unpack4(xq[0][c], f[c]);
+        unpack4(dq[0][c], d[c]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s += f[c][i];
+      }
+    const float mu = warp_sum(s) / kk;
+    float q = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if (in(c)) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q += (f[c][i] - mu) * (f[c][i] - mu);
+      }
+    const float rs = 1.0f / sqrtf(warp_sum(q) / kk + eps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if (in(c)) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          f[c][i] = (f[c][i] - mu) * rs;  // x_hat
+          gw[c][i] += d[c][i] * f[c][i];
+          gb[c][i] += d[c][i];
+          d[c][i] *= g[c][i];  // dx_hat
+          s1 += d[c][i];
+          s2 += d[c][i] * f[c][i];
+        }
+      }
+    warp_sum2(s1, s2);
+    const float m1 = s1 / kk, m2 = s2 / kk;
+    T* out = dx + static_cast<size_t>(m) * kk;
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if (in(c)) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[c][i] = rs * (d[c][i] - m1 - f[c][i] * m2);
+        store4(out + col(c), d[c]);
+      }
+#pragma unroll
+    for (int i = 0; i < DEPTH; ++i)
+#pragma unroll
+      for (int c = 0; c < CH; ++c) xq[i][c] = xq[i + 1][c], dq[i][c] = dq[i + 1][c];
+  }
+
+  // the block's partial row: its warps added in index order
+  const int L = 2 * kk;
+  float* mine = red + warp * L;
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    if (in(c)) {
+      *reinterpret_cast<float4*>(mine + col(c)) = make_float4(gw[c][0], gw[c][1], gw[c][2], gw[c][3]);
+      *reinterpret_cast<float4*>(mine + kk + col(c)) =
+          make_float4(gb[c][0], gb[c][1], gb[c][2], gb[c][3]);
+    }
+  __syncthreads();
+  float* row_part = part + static_cast<size_t>(blockIdx.x) * L;
+  for (int j = threadIdx.x; j < L; j += P::THREADS) {
+    float acc = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < P::WARPS; ++wi) acc += red[wi * L + j];
+    row_part[j] = acc;
+  }
+}
+
+// A thread per column, the loads of a column's rows in flight 16 at a
+// time.
 template <typename TO>
 __global__ void sum_partials_kernel(const float* __restrict__ part, int S, int L,
                                     TO* __restrict__ out) {
-  for (int i = blockIdx.x * 256 + threadIdx.x; i < L; i += gridDim.x * 256) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < L; i += gridDim.x * blockDim.x) {
     float acc = 0.f;
+#pragma unroll 16
     for (int z = 0; z < S; ++z) acc += part[static_cast<size_t>(z) * L + i];
     store1(out + i, acc);
   }
@@ -213,14 +339,6 @@ template <bool A_KM, bool B_KN> struct Tile {
   static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
   static constexpr size_t SMEM_BYTES = sizeof(float) * STAGES * STAGE_ELEMS;
 };
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
-}
 
 // Start the copies of an [R][C] fp32 tile (C contiguous in device and
 // shared memory) whose element (0, 0) is element (r0, c0) of a row-major
@@ -318,7 +436,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
   }
   for (int i = 0, k0 = k_begin; k0 < k_end; ++i, k0 += BK) {
     const int buf = i % STAGES;
-    cp_async_wait_all_but_newest();
+    cp_async_wait<STAGES - 2>();  // all but the newest slice
     __syncthreads();  // slice i visible; slice i-1's buffer free
     const int kn = k0 + (STAGES - 1) * BK;
     if (kn < k_end) load_slice<A_KM, B_KN>(a, tiles, (i + STAGES - 1) % STAGES, m0, n0, kn, k_end);
@@ -399,17 +517,18 @@ int launch_layer_norm(const void* x, const int* idx, int M, int K, int rows_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_layer_norm_bwd(const void* x, const float* dln, int M, int K, const void* w, float eps,
-                          void* dx, float* part, int blocks, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * LN_WARPS * 2 * K;
+template <typename T, int KC>
+int launch_layer_norm_bwd(const void* x, const float* dln, int M, int K, int bands, int rows,
+                          const void* w, float eps, void* dx, float* part, cudaStream_t stream) {
+  using P = LnBwd<KC>;
+  const auto kernel = layer_norm_bwd_kernel<T, KC>;
+  const size_t smem = sizeof(float) * P::WARPS * 2 * K;
   const cudaError_t err = cudaFuncSetAttribute(
-      layer_norm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  layer_norm_bwd_kernel<T><<<blocks, LN_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), dln, M, K, static_cast<const T*>(w), eps, static_cast<T*>(dx),
-      part);
+  kernel<<<bands, P::THREADS, smem, stream>>>(static_cast<const T*>(x), dln, M, K, rows,
+                                               static_cast<const T*>(w), eps, static_cast<T*>(dx),
+                                               part);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -444,21 +563,28 @@ extern "C" int tr_layer_norm(int dtype, int x_dtype, const void* x, const void* 
 }
 
 // Returns the cudaError_t of the launch (0 on success). `dtype` is the
-// type of x, w, dx; dln and part are fp32, part [blocks][2][K]. K must be
-// a multiple of 8 and at most 1024; the caller checks the rest.
+// type of x, w, dx; dln and part are fp32, part [bands][2][K]: each band's
+// sums, which sum_partials reduces in band order. Block i takes rows
+// [i * rows, min(M, (i + 1) * rows)): bands * rows >= M. K must be a
+// multiple of 8 and at most 1024; the caller checks the rest.
 extern "C" int tr_layer_norm_bwd(int dtype, const void* x, const void* dln, int M, int K,
-                                 const void* w, float eps, void* dx, void* part, int blocks,
-                                 void* stream) {
+                                 const void* w, float eps, void* dx, void* part, int bands,
+                                 int rows, void* stream) {
   using namespace trk;
   if (M == 0) return 0;
-  if (K % 8 != 0 || K > LN_CHUNKS * 256 || blocks < 1)
+  if (K % 8 != 0 || K > LNB_MAX_K || bands < 1 || rows < 1 ||
+      static_cast<long long>(bands) * rows < M)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* d = static_cast<const float*>(dln);
   float* p = static_cast<float*>(part);
-  if (dtype == kFloat32) return launch_layer_norm_bwd<float>(x, d, M, K, w, eps, dx, p, blocks, s);
+  if (dtype == kFloat32)
+    return K == 384 ? launch_layer_norm_bwd<float, 384>(x, d, M, K, bands, rows, w, eps, dx, p, s)
+                    : launch_layer_norm_bwd<float, 0>(x, d, M, K, bands, rows, w, eps, dx, p, s);
   if (dtype == kBFloat16)
-    return launch_layer_norm_bwd<__nv_bfloat16>(x, d, M, K, w, eps, dx, p, blocks, s);
+    return K == 384
+               ? launch_layer_norm_bwd<__nv_bfloat16, 384>(x, d, M, K, bands, rows, w, eps, dx, p, s)
+               : launch_layer_norm_bwd<__nv_bfloat16, 0>(x, d, M, K, bands, rows, w, eps, dx, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -522,13 +648,17 @@ extern "C" int tr_sum_partials(const void* part, int S, int L, int out_dtype, vo
   using namespace trk;
   if (L == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = L < 1024 * 256 ? (L + 255) / 256 : 1024;
+  // a narrow L (a bias gradient's, the LayerNorm backward's 2K) over
+  // one-warp blocks, so it still takes many SMs; a wide one (a weight
+  // gradient's) over blocks of 256, which keep more loads in flight an SM
+  const int threads = L <= 32 * 1024 ? 32 : 256;
+  const int blocks = L < 1024 * threads ? (L + threads - 1) / threads : 1024;
   const float* p = static_cast<const float*>(part);
   if (out_dtype == kFloat32)
-    sum_partials_kernel<float><<<blocks, 256, 0, s>>>(p, S, L, static_cast<float*>(out));
+    sum_partials_kernel<float><<<blocks, threads, 0, s>>>(p, S, L, static_cast<float*>(out));
   else if (out_dtype == kBFloat16)
-    sum_partials_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(p, S, L,
-                                                             static_cast<__nv_bfloat16*>(out));
+    sum_partials_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+        p, S, L, static_cast<__nv_bfloat16*>(out));
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

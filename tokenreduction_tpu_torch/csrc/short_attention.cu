@@ -18,7 +18,7 @@
 // rectangular variant (fused_rect_attention and fused_rect_block there)
 // takes M query rows ids[b, m] of q over all N keys and values, the query
 // validity being the mask at that row, and writes out [B, H, M, 64] and
-// no by-products.
+// no by-products (an id outside 0..N-1 traps).
 // Its backward: from q, k, v, the output's gradient dO, the fp32
 // cotangents of row0 and colsum, the bias and the validity mask, the
 // gradients dq, dk, dv (same layouts) and the per-head bias gradient
@@ -30,20 +30,13 @@
 // And head_mean_keys: the head mean of the keys of a packed qkv, [B, N, hd]
 // (ToMe's merge metric).
 //
-// The bf16 square attention and its backward are attention_sm90.cu's
-// (TMA, wgmma); this file keeps the rest. One thread block per (image,
-// head): that head's q, k and v live in shared memory and each warp owns
-// query rows, with the exact row max in an fp32 softmax.
+// Every bf16 attention, square and rectangular, and the bf16 backward are
+// attention_sm90.cu's (TMA, cp.async, wgmma); this file keeps the fp32
+// kernels (the parity dtype) and head_mean_keys. One thread block per
+// (image, head): that head's k and v live in shared memory and each warp
+// owns query rows, with the exact row max in an fp32 softmax.
 //
-// bf16, the rectangular variant only (its query rows are gathered by id,
-// which a TMA box cannot do): products on the tensor cores (mma.sync
-// m16n8k16, ldmatrix); a warp owns 16 query rows and walks the keys in
-// chunks of 64 three times (row max, row sum, then probabilities and PV),
-// so its registers do not grow with N; the unnormalised probabilities are
-// rounded before PV and the output scaled by 1/sum. Pinned by its launch
-// bounds to 128 registers (two blocks an SM).
-//
-// fp32 (the parity dtype), the forward with every option and the backward:
+// fp32, the forward with every option and the backward:
 // FMAs on the CUDA cores, a lane per key. The backward recomputes the
 // probabilities with the exact row max and runs in two phases per (image,
 // head). Phase 1, a warp per query row: the row statistics, delta_i =
@@ -80,225 +73,6 @@ struct Heads {
   }
 };
 
-// ---------------------------------------------------------------- bf16
-constexpr int QLD = HD + 8;  // 144-byte rows: 16-byte aligned, ldmatrix conflict-free
-constexpr int CHUNK = 64;    // keys per pass step: 8 mma n-tiles
-
-// Query rows (and V rows) are padded to whole mma tiles of 16, key rows
-// to whole chunks of 64; the padding is zero.
-__host__ __device__ int q_rows(int n) { return (n + 15) / 16 * 16; }
-__host__ __device__ int k_rows(int n) { return (n + CHUNK - 1) / CHUNK * CHUNK; }
-
-// q rows padded to tiles of 16 (m query rows), then k (keys to chunks of
-// 64) and v (to tiles of 16) over n keys, then the key caps and the query
-// caps (see Caps).
-size_t mma_smem_bytes(int m, int n) {
-  return sizeof(bf16) * static_cast<size_t>(q_rows(m) + q_rows(n) + k_rows(n)) * QLD +
-         sizeof(float) * 2 * MAXN;
-}
-
-// dst[n][d] = the rows of one (image, head) of src for n < N, zero for
-// N <= n < rows, in 16-byte chunks (row strides are multiples of 8). With
-// ids, dst row n is src row ids[n]; an id outside [0, n_src) traps.
-__device__ __forceinline__ void load_rows(bf16* dst, const Heads<const bf16>& src, int b, int h,
-                                          int N, int rows, const int* ids = nullptr,
-                                          int n_src = 0) {
-  for (int c = threadIdx.x; c < rows * (HD / 8); c += THREADS) {
-    const int n = c / (HD / 8), d = (c % (HD / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (n < N) {
-      int r = n;
-      if (ids != nullptr) {
-        r = ids[n];
-        if (static_cast<unsigned>(r) >= static_cast<unsigned>(n_src)) __trap();
-      }
-      v = *reinterpret_cast<const uint4*>(src.row(b, h, r) + d);
-    }
-    *reinterpret_cast<uint4*>(dst + n * QLD + d) = v;
-  }
-}
-
-// The warp's 16 rows (fragments af over HD) against rows[j0 .. j0+63]:
-// s = A . rows^T in mma C layout, s[nt][0..1] row g, s[nt][2..3] row g+8,
-// columns j0 + nt*8 + 2t (+1).
-__device__ __forceinline__ void rows_product(const uint32_t (*af)[4], const bf16* rows, int j0,
-                                             int lane, float (*s)[4]) {
-#pragma unroll
-  for (int nt = 0; nt < CHUNK / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-#pragma unroll
-    for (int pr = 0; pr < CHUNK / 16; ++pr) {
-      uint32_t r[4];
-      ldmatrix_x4(r, rows + (j0 + pr * 16 + (lane & 7) + ((lane >> 4) << 3)) * QLD + ks * 16 +
-                         ((lane >> 3) & 1) * 8,
-                  false);
-      mma_16x8x16(s[2 * pr], af[ks], r[0], r[1]);
-      mma_16x8x16(s[2 * pr + 1], af[ks], r[2], r[3]);
-    }
-}
-
-// The mask as caps on the logits: a pair's logit x becomes min(x, key cap,
-// query cap), a cap being +inf for a valid token and -FLT_MAX for an
-// invalid one: the JAX pair mask's replacement.
-struct Caps {
-  const float* keys;  // [MAXN], per key
-  float q0, q1;       // the warp's query rows g and g + 8
-};
-
-// Logits of the warp's 16 rows against columns j0..j0+63 (see
-// rows_product): the product times scale; a pair whose query or key is
-// invalid is -FLT_MAX (see Caps); columns >= n are -inf.
-__device__ __forceinline__ void qk_chunk(const uint32_t (*qf)[4], const bf16* sK, int j0, int n,
-                                         float scale, int lane, float (*s)[4], const Caps& cap) {
-  rows_product(qf, sK, j0, lane, s);
-  const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < CHUNK / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = j0 + nt * 8 + 2 * t + (i & 1);
-      const float x = fminf(fminf(s[nt][i] * scale, cap.keys[j]), i < 2 ? cap.q0 : cap.q1);
-      s[nt][i] = j < n ? x : -INFINITY;
-    }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Exact row max and 1/row sum of the warp's 16 rows (rows g and g+8) over
-// n keys; query rows >= m get 1/sum = 0, so their probabilities are 0. A
-// fully masked row has the max -FLT_MAX and is uniform over its n keys.
-__device__ __forceinline__ void row_stats(const uint32_t (*qf)[4], const bf16* sK, int i0, int n,
-                                          int m, float scale, int lane, float& m0, float& m1,
-                                          float& r0, float& r1, const Caps& cap) {
-  const int g = lane >> 2, nq = q_rows(n);
-  float s[CHUNK / 8][4];
-  m0 = -INFINITY, m1 = -INFINITY;
-  for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-    qk_chunk(qf, sK, j0, n, scale, lane, s, cap);
-#pragma unroll
-    for (int nt = 0; nt < CHUNK / 8; ++nt) {
-      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
-      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
-    }
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
-  float l0 = 0.f, l1 = 0.f;
-  for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-    qk_chunk(qf, sK, j0, n, scale, lane, s, cap);
-#pragma unroll
-    for (int nt = 0; nt < CHUNK / 8; ++nt) {
-      l0 += expf(s[nt][0] - m0) + expf(s[nt][1] - m0);
-      l1 += expf(s[nt][2] - m1) + expf(s[nt][3] - m1);
-    }
-  }
-  l0 = quad_sum(l0);  // every lane shuffles
-  l1 = quad_sum(l1);
-  r0 = i0 + g < m ? 1.0f / l0 : 0.f;
-  r1 = i0 + g + 8 < m ? 1.0f / l1 : 0.f;
-}
-
-// The rectangular attention: the M query rows are q rows ids[b, m] (their
-// validity is the mask [B, N] at that row, one byte per token) over all N
-// keys, under the pair mask; the unnormalised probabilities rounded before
-// PV, the output scaled by 1/sum; no by-products. Two blocks per SM (at
-// most 128 registers): left free, ptxas takes more, one block fits, and
-// the kernel ran 33% slower (tools/port_ab.py, H100 80GB HBM3, 700 W).
-__global__ void __launch_bounds__(THREADS, 2)
-    rect_attention_mma_kernel(Heads<const bf16> q, Heads<const bf16> k, Heads<const bf16> v,
-                              Heads<bf16> out, const unsigned char* __restrict__ mask,
-                              const int* __restrict__ ids, int N, int M, int H, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int mq = q_rows(M), nq = q_rows(N), nk = k_rows(N);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);            // [mq][QLD]
-  bf16* sK = sQ + mq * QLD;                            // [nk][QLD]
-  bf16* sV = sK + nk * QLD;                            // [nq][QLD]
-  float* skv = reinterpret_cast<float*>(sV + nq * QLD);  // [MAXN] key caps
-  float* sqv = skv + MAXN;                             // [MAXN] query caps
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int* brow_ids = ids + static_cast<size_t>(b) * M;
-  load_rows(sQ, q, b, h, M, mq, brow_ids, N);
-  load_rows(sK, k, b, h, N, nk);
-  load_rows(sV, v, b, h, N, nq);
-  const unsigned char* mrow = mask + static_cast<size_t>(b) * N;
-  for (int j = threadIdx.x; j < MAXN; j += THREADS) {
-    skv[j] = j < N && mrow[j] ? INFINITY : -FLT_MAX;
-    // a query row's token (an id out of range traps in load_rows; clamped
-    // here so that this read stays inside the row)
-    const int r = j < M ? min(max(brow_ids[j], 0), N - 1) : 0;
-    sqv[j] = j < M && mrow[r] ? INFINITY : -FLT_MAX;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  __syncthreads();
-
-  for (int i0 = warp * 16; i0 < mq; i0 += WARPS * 16) {
-    uint32_t qf[HD / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      ldmatrix_x4(qf[ks], sQ + (i0 + (lane & 15)) * QLD + ks * 16 + (lane >> 4) * 8, false);
-    const Caps cap{skv, sqv[i0 + g], sqv[i0 + g + 8]};
-
-    // passes 1 and 2: exact row max and row sum
-    float m0, m1, r0, r1;
-    row_stats(qf, sK, i0, N, M, scale, lane, m0, m1, r0, r1, cap);
-    // pass 3: probabilities and PV
-    float s[CHUNK / 8][4];
-    float o[HD / 8][4] = {};
-    for (int j0 = 0; j0 < nq; j0 += CHUNK) {
-      qk_chunk(qf, sK, j0, N, scale, lane, s, cap);
-#pragma unroll
-      for (int nt = 0; nt < CHUNK / 8; ++nt) {
-        s[nt][0] = expf(s[nt][0] - m0);
-        s[nt][1] = expf(s[nt][1] - m0);
-        s[nt][2] = expf(s[nt][2] - m1);
-        s[nt][3] = expf(s[nt][3] - m1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < CHUNK / 16; ++kk) {
-        const int jb = j0 + kk * 16;
-        if (jb >= nq) break;
-        const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
-          uint32_t r[4];
-          ldmatrix_x4(r, sV + (jb + (lane & 7) + ((lane >> 3) & 1) * 8) * QLD + dp * 16 +
-                             (lane >> 4) * 8,
-                      true);
-          mma_16x8x16(o[2 * dp], pf, r[0], r[1]);
-          mma_16x8x16(o[2 * dp + 1], pf, r[2], r[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      const int d = dt * 8 + 2 * t;
-      const int ia = i0 + g, ib = i0 + g + 8;
-      if (ia < M)
-        *reinterpret_cast<__nv_bfloat162*>(out.row(b, h, ia) + d) =
-            __floats2bfloat162_rn(o[dt][0] * r0, o[dt][1] * r0);
-      if (ib < M)
-        *reinterpret_cast<__nv_bfloat162*>(out.row(b, h, ib) + d) =
-            __floats2bfloat162_rn(o[dt][2] * r1, o[dt][3] * r1);
-    }
-  }
-}
-
 // The caps of the square attention's tokens (MASK variants of the
 // backward): cap[j] = +inf for a valid token j < N, else -FLT_MAX. A
 // token is a query row and a key at once, so one row serves both sides of
@@ -316,8 +90,8 @@ size_t fma_smem_bytes(int n) {
   return sizeof(float) * (WARPS * HD + 2 * WARPS * MAXN + static_cast<size_t>(n) * (HD + KLD));
 }
 
-// MASK and RECT as in the bf16 kernel; a warp per query row, which
-// reads q row ids[b, i] with RECT.
+// MASK: the validity mask; RECT: the rectangular variant. A warp per
+// query row, which reads q row ids[b, i] with RECT.
 template <bool MASK, bool RECT>
 __global__ void __launch_bounds__(THREADS)
     short_attention_fma_kernel(Heads<const float> q, Heads<const float> k, Heads<const float> v,
@@ -435,10 +209,10 @@ size_t bwd_fma_smem_bytes(int n, bool masked) {
                           (masked ? 5 : 4) * MAXN);
 }
 
-// fp32 backward on the CUDA cores, the same two phases as the bf16 kernel
-// with a warp per query row (phase 1) and per key (phase 2); shared memory
-// holds K and V in phase 1, then Q and dO in phase 2. bias, dcs and dbias
-// may be null. MASK as in the bf16 kernel.
+// fp32 backward on the CUDA cores, in two phases: a warp per query row
+// (phase 1) and per key (phase 2); shared memory holds K and V in phase 1,
+// then Q and dO in phase 2. bias, dcs and dbias may be null. MASK: the
+// validity mask.
 template <bool MASK>
 __global__ void __launch_bounds__(THREADS)
     short_attention_bwd_fma_kernel(Heads<const float> q, Heads<const float> k,
@@ -627,20 +401,20 @@ Heads<T> heads(P ptr, const long long* strides, int i) {
 // [B, H, N, 64] operands with the head dim contiguous and out is
 // [B, H, M, 64]; strides holds the (batch, head, row) strides of q, k, v
 // and out, in elements. bias (fp32 [B, N]), mask ([B, N], one byte per
-// token, non-zero = valid), row0 and colsum may be null; norm_p rounds the
-// normalised probabilities before PV (bf16; in fp32 the rounding is a
-// no-op). ids (int32 [B, M], with a mask and no bias, norm_p or
+// token, non-zero = valid), row0 and colsum may be null; norm_p (rounding
+// the normalised probabilities before PV) is a no-op in fp32. ids (int32 [B, M], with a mask and no bias, norm_p or
 // by-products) selects the rectangular variant: out row m is query row
 // ids[b, m] over all N keys. Without ids, M must equal N. The caller
-// checks shapes, dtypes and strides (bf16: multiples of 8, 16-byte
-// aligned). bf16 takes the rectangular variant only.
+// checks shapes, dtypes and strides. fp32 only: bf16 is
+// attention_sm90.cu's tr_attention_sm90.
 extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const void* v,
                                   void* out, const long long* strides, const void* bias,
                                   const void* mask, const void* ids, void* row0, void* colsum,
                                   int B, int N, int M, int H, float scale, int norm_p,
                                   void* stream) {
   using namespace trk;
-  if (N < 1 || N > MAXN || M < 1 || M > MAXN) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != kFloat32 || N < 1 || N > MAXN || M < 1 || M > MAXN)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool rect = ids != nullptr, masked = mask != nullptr;
   if (!rect && M != N) return static_cast<int>(cudaErrorInvalidValue);
   if (rect && (!masked || norm_p || bias != nullptr || row0 != nullptr || colsum != nullptr))
@@ -652,31 +426,16 @@ extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const
   const int* ip = static_cast<const int*>(ids);
   float* r0 = static_cast<float*>(row0);
   float* cs = static_cast<float*>(colsum);
-  cudaError_t err;
-  if (dtype == kBFloat16) {
-    // the square bf16 attention is attention_sm90.cu's tr_attention_sm90
-    if (!rect) return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaFuncSetAttribute(rect_attention_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(mma_smem_bytes(MAXN, MAXN)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rect_attention_mma_kernel<<<B * H, THREADS, mma_smem_bytes(M, N), s>>>(
-        heads<const bf16>(q, strides, 0), heads<const bf16>(k, strides, 1),
-        heads<const bf16>(v, strides, 2), heads<bf16>(out, strides, 3), mp, ip, N, M, H, scale);
-  } else if (dtype == kFloat32) {
-    const auto kernel = rect     ? short_attention_fma_kernel<true, true>
-                        : masked ? short_attention_fma_kernel<true, false>
-                                 : short_attention_fma_kernel<false, false>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(fma_smem_bytes(MAXN)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<B * H, THREADS, fma_smem_bytes(N), s>>>(
-        heads<const float>(q, strides, 0), heads<const float>(k, strides, 1),
-        heads<const float>(v, strides, 2), heads<float>(out, strides, 3), bp, mp, ip, r0, cs, N,
-        M, H, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const auto kernel = rect     ? short_attention_fma_kernel<true, true>
+                      : masked ? short_attention_fma_kernel<true, false>
+                               : short_attention_fma_kernel<false, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(fma_smem_bytes(MAXN)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B * H, THREADS, fma_smem_bytes(N), s>>>(
+      heads<const float>(q, strides, 0), heads<const float>(k, strides, 1),
+      heads<const float>(v, strides, 2), heads<float>(out, strides, 3), bp, mp, ip, r0, cs, N, M,
+      H, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

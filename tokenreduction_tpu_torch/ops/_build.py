@@ -42,8 +42,9 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LINK_FLAGS = (*ARCH, "-shared")
 LIB_NAME = "libtokenreduction_kernels.so"
 GEMM_TILE = 128  # rows of a gemm output tile (and of each col_sums row)
-# blocks a row-reducing launch aims for: two per SM of the H100's 132
-REDUCE_BLOCKS = 264
+# layer_norm_bwd's plan makes at most one band for each LN_BWD_WARPS rows
+# (a row for each warp of a block at K = 384)
+LN_BWD_WARPS = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,7 +52,7 @@ _F = ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)  # strides, in elements
 _SIGNATURES = {
     "tr_layer_norm": (_I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P, _P),
-    "tr_layer_norm_bwd": (_I, _P, _P, _I, _I, _P, _F, _P, _P, _I, _P),
+    "tr_layer_norm_bwd": (_I, _P, _P, _I, _I, _P, _F, _P, _P, _I, _I, _P),
     "tr_gemm": (_I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I,
                 _I, _I, _P, _P, _P),
     "tr_gemm_wgrad": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
@@ -62,11 +63,11 @@ _SIGNATURES = {
                                _P, _P, _I, _I, _I, _F, _P),
     "tr_head_mean_keys": (_I, _P, _P, _I, _I, _I, _P),
     "tr_gemm_sm90_config": (_P,),
-    "tr_attention_sm90": (_P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _F, _I, _P),
+    "tr_attention_sm90": (_P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _F, _I, _P),
     "tr_attention_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _S, _P, _P, _P,
                               _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    "tr_attention_sm90_smem": (_I, _P),
+    "tr_attention_sm90_smem": (_I, _I, _P),
 }
 # what tr_gemm_sm90_config reports, in its order
 _GEMM_CONFIG = ("BM", "BN", "BK", "STAGES", "SMEM_BYTES")
@@ -255,28 +256,49 @@ def layer_norm(x, w, b, y, *, eps, idx=None, rows_out=1, rows_in=1):
     """y[M, K] = LN(x rows), in w's dtype; see csrc/ln_gemm.cu. Row m
     reads x row m, or, with idx int32 [M], row (m // rows_out) * rows_in
     + idx[m]. x is w's dtype or float32; contiguous CUDA tensors, checked
-    by the caller."""
+    by the caller. ``layer_norm.launches`` counts the launches."""
     M, K = y.shape
     err = kernels().lib.tr_layer_norm(
         _DTYPE_CODE[w.dtype], _DTYPE_CODE[x.dtype], _ptr(x), _ptr(idx), M, K,
         rows_out, rows_in, _ptr(w), _ptr(b), eps, _ptr(y), _stream(x))
     _check("tr_layer_norm", err)
+    layer_norm.launches += 1
+
+
+layer_norm.launches = 0
+
+
+def ln_bwd_plan(M: int, sms: int) -> tuple[int, int]:
+    """(bands, rows a band) of ``layer_norm_bwd`` over M rows on a card of
+    ``sms`` SMs: block i takes the consecutive rows [i * rows, min(M,
+    (i + 1) * rows)), at most one block an SM and one for each
+    LN_BWD_WARPS rows (a row a warp), the last band the shortest. The
+    bands, and so every bit of the result, depend on M and the SM count
+    alone (not on K nor on the order the blocks run in)."""
+    rows = max(1, _cdiv(M, max(1, min(sms, _cdiv(M, LN_BWD_WARPS)))))
+    return _cdiv(M, rows), rows
 
 
 def layer_norm_bwd(x, w, dln, dx, dwb, *, eps):
     """dx [M, K] (x's dtype) and dwb [2, K] = (d gamma, d beta) in dwb's
     dtype, from x [M, K], gamma w [K] and the fp32 dln [M, K]; see
-    csrc/ln_gemm.cu. Per-block partials of the parameter gradients are
-    summed in a fixed order. Contiguous CUDA tensors, checked by the
-    caller."""
+    csrc/ln_gemm.cu. The rows in the bands of ``ln_bwd_plan``, each
+    band's fp32 partial sums of the parameter gradients then summed in band
+    order by ``sum_partials``. Contiguous CUDA tensors, checked by the
+    caller. ``layer_norm_bwd.launches`` counts the launches of the
+    LayerNorm backward's kernel."""
     M, K = x.shape
-    blocks = max(1, min(_cdiv(M, 8), REDUCE_BLOCKS))
-    part = torch.empty(blocks, 2 * K, dtype=torch.float32, device=x.device)
+    bands, rows = ln_bwd_plan(M, _sms(x.device))
+    part = torch.empty(bands, 2 * K, dtype=torch.float32, device=x.device)
     err = kernels().lib.tr_layer_norm_bwd(
         _DTYPE_CODE[x.dtype], _ptr(x), _ptr(dln), M, K, _ptr(w), eps,
-        _ptr(dx), _ptr(part), blocks, _stream(x))
+        _ptr(dx), _ptr(part), bands, rows, _stream(x))
     _check("tr_layer_norm_bwd", err)
+    layer_norm_bwd.launches += 1
     sum_partials(part, dwb.view(2 * K))
+
+
+layer_norm_bwd.launches = 0
 
 
 def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
@@ -330,12 +352,7 @@ def gemm_wgrad(dy, x, dw, db=None):
     ``gemm_wgrad.launches`` counts the bf16 launches (the sm_90a kernel)."""
     M, n_out = dy.shape
     K = x.shape[1]
-    cfg = gemm_config()
-    tiles = _cdiv(n_out, cfg["BM"]) * _cdiv(K, cfg["BN"])
-    steps = max(1, _cdiv(M, cfg["BK"]))
-    per = _cdiv(steps, max(1, min(steps, _sms(dy.device) // tiles)))
-    rows_per_split = per * cfg["BK"]
-    splits = _cdiv(steps, per)
+    splits, rows_per_split = wgrad_plan(M, n_out, K, dy.device)
     ws = torch.empty(splits, n_out * K, dtype=torch.float32, device=dy.device)
     bws = None if db is None else torch.empty(
         splits, n_out, dtype=torch.float32, device=dy.device)
@@ -353,6 +370,17 @@ def gemm_wgrad(dy, x, dw, db=None):
 gemm_wgrad.launches = 0
 
 
+def wgrad_plan(M: int, n_out: int, K: int, device) -> tuple[int, int]:
+    """(splits, rows a split) of ``gemm_wgrad`` over M rows: whole K steps
+    of the bf16 GEMM (BK rows), as many slices as leave each SM of the
+    card one BM x BN output tile of one slice."""
+    cfg = gemm_config()
+    tiles = _cdiv(n_out, cfg["BM"]) * _cdiv(K, cfg["BN"])
+    steps = max(1, _cdiv(M, cfg["BK"]))
+    per = _cdiv(steps, max(1, min(steps, _sms(device) // tiles)))
+    return _cdiv(steps, per), per * cfg["BK"]
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -360,11 +388,15 @@ def _sms(device: torch.device) -> int:
 
 def sum_partials(part, out):
     """out [L] = part [S, L] (fp32) summed over S in order, in out's
-    dtype."""
+    dtype. ``sum_partials.launches`` counts the launches."""
     S, L = part.shape
     err = kernels().lib.tr_sum_partials(
         _ptr(part), S, L, _DTYPE_CODE[out.dtype], _ptr(out), _stream(part))
     _check("tr_sum_partials", err)
+    sum_partials.launches += 1
+
+
+sum_partials.launches = 0
 
 
 def _strides(*heads):
@@ -386,24 +418,28 @@ def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
     training branch's forward), else the unnormalised ones (eval, and the
     training core's forward). With ids (contiguous int32 [B, M], a mask,
     no bias, no by-products) out row m is query row ids[b, m] over all N
-    keys; without, M = N. bf16 without ids: the sm_90a kernel
+    keys; without, M = N. bf16: the sm_90a kernel
     (csrc/attention_sm90.cu), which also writes the row statistics to
     ``stats`` (fp32 [B, H, N, 2]: the row max of the logits and 1/sum)
-    when given, and ``short_attention_heads.launches`` counts it; else
-    csrc/short_attention.cu (stats: bf16 only)."""
+    when given; ``short_attention_heads.launches`` counts its square
+    launches and ``short_attention_heads.rect_launches`` its rectangular
+    ones. fp32: csrc/short_attention.cu (no stats)."""
     B, H, N, _ = q.shape
     M = out.shape[2]
-    if q.dtype == torch.bfloat16 and ids is None:
+    if q.dtype == torch.bfloat16:
         err = kernels().lib.tr_attention_sm90(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _strides(q, k, v, out),
-            _ptr(bias), _ptr(mask), _ptr(row0), _ptr(colsum), _ptr(stats), B,
-            N, H, scale, int(norm_p), _stream(q))
+            _ptr(bias), _ptr(mask), _ptr(ids), _ptr(row0), _ptr(colsum),
+            _ptr(stats), B, N, M, H, scale, int(norm_p), _stream(q))
         _check("tr_attention_sm90", err)
-        short_attention_heads.launches += 1
+        if ids is None:
+            short_attention_heads.launches += 1
+        else:
+            short_attention_heads.rect_launches += 1
         return
     if stats is not None:
         raise ValueError("short_attention: the row statistics come from the "
-                         "bf16 square attention only")
+                         "bf16 attention only")
     err = kernels().lib.tr_short_attention(
         _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
         _strides(q, k, v, out), _ptr(bias), _ptr(mask), _ptr(ids),
@@ -412,6 +448,7 @@ def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
 
 
 short_attention_heads.launches = 0
+short_attention_heads.rect_launches = 0
 
 
 def short_attention(qkv, out, num_heads, scale, *, bias=None, mask=None,
@@ -478,21 +515,27 @@ def short_attention_bwd(qkv, out, dout, drow0, dqkv, num_heads, scale, *,
 
 
 @functools.lru_cache(maxsize=None)
-def attention_smem(n: int) -> dict:
+def attention_smem(n: int, m: int | None = None) -> dict:
     """The dynamic shared memory a block of the sm_90a attention takes at
-    n keys, as its library reports it: {"forward", "backward"} bytes."""
-    out = (ctypes.c_int * 2)()
-    _check("tr_attention_sm90_smem",
-           kernels().lib.tr_attention_sm90_smem(n, ctypes.addressof(out)))
-    return {"forward": out[0], "backward": out[1]}
+    n keys, as its library reports it: {"forward", "backward",
+    "rectangular"} bytes, the last at m query rows (default n)."""
+    out = (ctypes.c_int * 3)()
+    _check("tr_attention_sm90_smem", kernels().lib.tr_attention_sm90_smem(
+        n, n if m is None else m, ctypes.addressof(out)))
+    return dict(zip(("forward", "backward", "rectangular"), out))
 
 
 def head_mean_keys(qkv, keys, num_heads):
     """keys [B, N, hd] = the head mean of the keys of a packed qkv
     [B, N, 3D], summed in fp32 in head order and rounded once. See
-    csrc/short_attention.cu."""
+    csrc/short_attention.cu. ``head_mean_keys.launches`` counts the
+    launches."""
     B, N, D3 = qkv.shape
     err = kernels().lib.tr_head_mean_keys(
         _DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(keys), B * N, num_heads,
         D3 // 3 // num_heads, _stream(qkv))
     _check("tr_head_mean_keys", err)
+    head_mean_keys.launches += 1
+
+
+head_mean_keys.launches = 0

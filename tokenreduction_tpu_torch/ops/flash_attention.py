@@ -65,11 +65,13 @@ gathered tokens never make a round trip through device memory; steps 2
 and 3 run at width K.
 
 The rectangular block is steps 2 and 4 over the kept rows: the
-rectangular ``short_attention`` variant (``csrc/short_attention.cu``,
-mma.sync: a TMA box cannot gather rows) loads the M query rows through
-their ids (no one-hot product: the card gathers rows at no cost), and the
-out projection's epilogue adds the residual rows gathered through the
-same ids, as the gathered MLP half does.
+rectangular ``short_attention`` variant (in bf16 the sm_90a forward of
+``csrc/attention_sm90.cu``: a TMA box cannot gather rows, so its threads
+copy the M query rows through their ids by cp.async into the same
+swizzled tiles, while K and V come by TMA; no one-hot product: the card
+gathers rows at no cost), and the out projection's epilogue adds the
+residual rows gathered through the same ids, as the gathered MLP half
+does.
 
 What bounds it: at N <= 197 and D = 384 the products are small. The
 attention is held by its elementwise softmax at two warpgroups an SM,

@@ -27,8 +27,7 @@ backward reads the forward's output and statistics gets them from one
 forward launch first. Both also time the heuristic train step, and a
 topk@0.7 bf16 b256 forward (median of 10); a
 checkout whose attention takes a validity mask also times, per launch as
-above, the masked attention and the rectangular attention of 138 kept
-rows over 197 keys, and an ATS@0.7 forward; one whose backward takes the
+above, the masked attention, and an ATS@0.7 forward; one whose backward takes the
 mask also times the masked backward (heuristic's block-3 mask, no
 by-product cotangents, as its train step runs it) per launch, and the
 heuristic and DyViT@0.7 forwards. Both also time, per launch as above,
@@ -37,9 +36,18 @@ forward's qkv, proj and fc2 with their residuals and fc1 with GELU, with
 and without GELU'; the backward's four dY . W products, fp32 out where
 the LayerNorm backward reads them, fc2's with the GELU' factor and the
 column sums; the four weight gradients with their bias sums) and a ToMe@0.7
-forward. Each run also prints the ptxas registers of the attention
-kernels' variants (``attention_registers``, from its checkout's build
-log).
+forward. They also time, per launch as above, the rectangular attention
+at each of ATS's (M, N) pairs with the checkout's kept rows and mask
+(``rect_times``, beside the kept query rows gathered, then SDPA), the
+LayerNorm backward at B=256 and N = 197, 138, 97, 68 (``ln_bwd_times``,
+beside ``aten.native_layer_norm_backward``), and the other hand-written
+kernels (``standalone_times``: ``layer_norm`` of bf16, fp32 and gathered
+rows beside ``F.layer_norm``; ``sum_partials`` at every shape that one
+LayerNorm backward and the block's weight gradients give it in that
+checkout, beside ``part.sum(0)``; ``head_mean_keys`` beside the head mean
+of the packed keys). Each run also prints the ptxas registers of the
+attention kernels' variants (``attention_registers``, from its
+checkout's build log), and of the LayerNorm backward's.
 The first line is the card's name and power limit (nvidia-smi); the last
 lines give each checkout's medians over its runs. Needs one CUDA card;
 numbers from separate calls are not compared.
@@ -99,16 +107,107 @@ def ats_times():
     if "mask" not in inspect.signature(_build.short_attention).parameters:
         return {}
     mask = (torch.rand(B, N, generator=g) > 0.2).to("cuda")
-    M = 138
-    ids = torch.sort(torch.randperm(N - 1, generator=g)[:M] + 1).values
-    ids = ids.repeat(B, 1).to("cuda", torch.int32).contiguous()
-    rect = torch.empty(B, M, D, device="cuda", dtype=bf16)
     return dict(
         attention_mask_x10=ten(lambda: _build.short_attention(
             qkv, merged, HEADS, SCALE, mask=mask)),
-        rect_attention_x10=ten(lambda: _build.short_attention(
-            qkv, rect, HEADS, SCALE, mask=mask, ids=ids)),
         ats_forward=forward_ms("ats_small_patch16_224"))
+
+def rect_times():
+    # the rectangular attention per launch at ATS's (M, N), with the
+    # checkout's kept rows (CLS pads, a dead slot) and token mask, beside
+    # the kept query rows gathered, then SDPA
+    from chip_smoke import RECT_MN, kept_ids, library_rect, token_mask
+    out = {}
+    for M, Nk in RECT_MN:
+        qkv_r = torch.randn(B, Nk, 3 * D, generator=g).to("cuda", bf16)
+        mask = token_mask(B, Nk, g)
+        idx = kept_ids(B, Nk, M, mask, g)
+        ids = idx.to(torch.int32)
+        o = torch.empty(B, M, D, device="cuda", dtype=bf16)
+        out[f"rect_{M}x{Nk}_x10"] = ten(lambda: _build.short_attention(
+            qkv_r, o, HEADS, SCALE, mask=mask, ids=ids))
+        out[f"rect_{M}x{Nk}_sdpa_x10"] = ten(
+            lambda: library_rect(qkv_r, idx, mask))
+    return out
+
+def ln_bwd_times():
+    # the LayerNorm backward per launch at B=256 and the training widths,
+    # beside aten.native_layer_norm_backward (dLN cast to bf16 once, the
+    # forward's mean and rstd from aten.native_layer_norm)
+    out = {}
+    for Nl in (197, 138, 97, 68):
+        M = B * Nl
+        xl = torch.randn(M, D, generator=g).to("cuda", bf16)
+        dln = torch.randn(M, D, generator=g).to("cuda")
+        dx = torch.empty_like(xl)
+        dwb = torch.empty(2, D, device="cuda", dtype=bf16)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(
+            xl, [D], p["ls1"], p["lb1"], 1e-6)
+        dy = dln.to(bf16)
+        out[f"ln_bwd_{Nl}_x10"] = ten(lambda: _build.layer_norm_bwd(
+            xl, p["ls1"], dln, dx, dwb, eps=1e-6))
+        out[f"ln_bwd_{Nl}_aten_x10"] = ten(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, xl, [D], mean, rstd, p["ls1"], p["lb1"],
+                [True, True, True]))
+    return out
+
+def standalone_times():
+    # the other hand-written kernels per launch: layer_norm of bf16, fp32
+    # and gathered rows (F.layer_norm beside the bf16 rows), sum_partials
+    # at every [S, L] that one layer_norm_bwd and the block's four
+    # gemm_wgrad calls give it in this checkout (recorded), beside
+    # part.sum(0), and head_mean_keys beside the head mean of the packed
+    # keys
+    import torch.nn.functional as F
+    out, shapes = {}, []
+    x32 = ln.float()
+    ln_y = torch.empty_like(ln)
+    out["layer_norm_bf16_x10"] = ten(lambda: _build.layer_norm(
+        ln, p["ls1"], p["lb1"], ln_y, eps=1e-6))
+    out["layer_norm_bf16_F_x10"] = ten(lambda: F.layer_norm(
+        ln, (D,), p["ls1"], p["lb1"], 1e-6))
+    out["layer_norm_fp32_x10"] = ten(lambda: _build.layer_norm(
+        x32, p["ls1"], p["lb1"], ln_y, eps=1e-6))
+    K = 138
+    idx = torch.stack([torch.randperm(N, generator=g)[:K]
+                       for _ in range(B)]).to("cuda", torch.int32)
+    y_k = torch.empty(B * K, D, device="cuda", dtype=bf16)
+    out["layer_norm_gathered_x10"] = ten(lambda: _build.layer_norm(
+        ln, p["ls1"], p["lb1"], y_k, eps=1e-6, idx=idx, rows_out=K,
+        rows_in=N))
+    real = _build.sum_partials
+
+    def record(part, o):
+        shapes.append(tuple(part.shape))
+        real(part, o)
+
+    record.launches = 0  # the checkout's launcher may count on its name
+    _build.sum_partials = record
+    try:
+        dln = torch.randn(B * N, D, generator=g).to("cuda")
+        _build.layer_norm_bwd(ln, p["ls1"], dln, torch.empty_like(ln),
+                              torch.empty(2, D, device="cuda", dtype=bf16),
+                              eps=1e-6)
+        for n_out, k_in in ((3 * D, D), (D, D), (H4, D), (D, H4)):
+            dyw = torch.randn(B * N, n_out, generator=g).to("cuda", bf16)
+            xw = torch.randn(B * N, k_in, generator=g).to("cuda", bf16)
+            _build.gemm_wgrad(dyw, xw, torch.empty(n_out, k_in, device="cuda",
+                                                   dtype=bf16),
+                              torch.empty(n_out, device="cuda", dtype=bf16))
+    finally:
+        _build.sum_partials = real
+    for S, L in dict.fromkeys(shapes):
+        part = torch.randn(S, L, generator=g).to("cuda")
+        o = torch.empty(L, device="cuda", dtype=bf16)
+        out[f"sum_partials_{S}x{L}_x10"] = ten(lambda: real(part, o))
+        out[f"sum_partials_{S}x{L}_sum_x10"] = ten(lambda: part.sum(0))
+    keys = torch.empty(B, N, D // HEADS, device="cuda", dtype=bf16)
+    out["head_mean_keys_x10"] = ten(lambda: _build.head_mean_keys(
+        qkv, keys, HEADS))
+    out["head_mean_keys_mean_x10"] = ten(lambda: qkv[..., D:2 * D].view(
+        B, N, HEADS, D // HEADS).mean(2))
+    return out
 
 # whether the checkout's attention backward reads the forward's output,
 # row0 and row statistics (the sm_90a kernels)
@@ -193,14 +292,15 @@ def bwd_times():
     return out
 
 def attention_registers():
-    # "Used N registers" of each attention kernel variant, by the kernel's
-    # mangled name, from this checkout's build log
+    # "Used N registers" of each attention and LayerNorm backward kernel
+    # variant, by the kernel's mangled name, from this checkout's build log
     log = (_build.kernels().path.parent / "build.log").read_text()
     regs, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and "attention" in name and "registers" in line:
+        elif name and ("attention" in name or "layer_norm_bwd" in name) \
+                and "registers" in line:
             regs[name[-70:]] = int(re.search(r"Used (\d+) registers",
                                              line)[1])
     return regs
@@ -263,7 +363,8 @@ with torch.no_grad():
             ln, p["ls1"], p["lb1"], ln_out, eps=1e-6)),
         topk_forward=forward_ms("topk_small_patch16_224"),
         **ats_times(), **attention_times(), **bwd_times(),
-        **gemm_times())))
+        **gemm_times(), **rect_times(), **ln_bwd_times(),
+        **standalone_times())))
 print(json.dumps(dict(attention_registers=attention_registers())))
 """
 
