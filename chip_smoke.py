@@ -94,14 +94,29 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    within 1e-2 (bf16) or 1e-4 (fp32) of its own max, d gamma and d beta
    likewise, and a second launch bit-equal to the first; its time per
    launch beside its bound, the plain version's time and
-   aten.native_layer_norm_backward's. Last, the other hand-written
-   kernels alone at B=256, their time per launch beside their bound and
+   aten.native_layer_norm_backward's. Then head_mean_keys
+   (csrc/short_attention.cu: 16-byte lanes, the heads' loads unrolled at
+   3, 6 and 12 heads) at every ToMe@0.7 width, B=256 and B=32, bf16 and
+   fp32, bit-equal to head_mean_keys_ref; and sum_partials_many
+   (csrc/ln_gemm.cu: every partial sum of a branch backward in one launch)
+   on the job sets that the attention and MLP branch backwards hand it at
+   B=256, N=197 and N=68 (recorded from one backward of each), on eight
+   jobs, on one job whose width is no multiple of 4 and on nine jobs (two
+   launches), bit-equal to one single-job launch per job and to the plain
+   z-order sum; each with its time per launch by CUDA events and by
+   torch.profiler's device time (below about 0.04 ms the event time is the
+   host's), its bound, and the library calls' (the head mean of the packed
+   keys; one part.sum(0) a job), each timed call on its own copies of the
+   inputs, cycled through more than twice the card's L2 (cold), so that it
+   reads from HBM as its bound counts. Last, the other hand-written
+   kernels alone at B=256 (cold likewise, as is the layer_norm record),
+   their time per launch beside their bound and
    the one PyTorch call computing the same function: layer_norm of bf16
    rows (F.layer_norm), fp32 rows and gathered rows, sum_partials at the
    LayerNorm backward's [bands, 2K] (and its former [264, 2K]) and at each
    weight and bias gradient's [splits, L] (part.sum(0)), head_mean_keys at ToMe@0.7's
    widths (the head mean of the packed keys); after phase 5, each with its
-   launches on the main path.
+   launches on the main path (the sums': of the batched launches).
    Beside each counterpart's time: its bound (bytes or operations at the
    H100's peak rates) and the eager bf16 composition of library calls
    (F.layer_norm, F.linear, scaled_dot_product_attention with the bias and
@@ -164,7 +179,9 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    amp, drop_path 0.1 from a seeded CUDA generator, grouped AdamW lr 1e-3
    with backbone_lr_scale 0.01, clip 1.0, EMA 0.99996, label smoothing 0.1
    -- 8 steps on seeded random images and labels; the losses must be
-   finite and the params must move; ms/step and img/s over steps 3-8. Then
+   finite and the params must move; ms/step and img/s over steps 3-8; each
+   model's sum launches, one in each branch backward (at most 2 a block:
+   dense and topk@0.7 24 a step), are required. Then
    the same steps with the eager bf16 library composition in place of the
    three training counterparts, and last a torch.profiler window of two
    steps each of dense, topk@0.7, ToMe@0.7 and heuristic: the device's
@@ -174,9 +191,9 @@ Phases 4 and 5 are the main path's runs: each counterpart's launch count,
 and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
 sm_90a attention's three (short_attention, short_attention_bwd,
 rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
-backward (once in each training branch's backward) and of layer_norm,
-sum_partials and head_mean_keys, is set to 0 just before and read just
-after. fused_attention,
+backward and of the partial sums (once each in each training branch's
+backward), of head_mean_keys (once in each of ToMe@0.7's three merging
+blocks) and of layer_norm, is set to 0 just before and read just after. fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
 fused_rect_block's attention stage): they must launch 0 times there, and
@@ -191,7 +208,9 @@ kernels' JSON record and the result JSON.
 from __future__ import annotations
 
 import copy
+import functools
 import gc
+import itertools
 import json
 import pathlib
 import shutil
@@ -207,7 +226,11 @@ import tokenreduction_tpu_torch
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.core.config import SIZE_PRESETS, ViTConfig
-from tokenreduction_tpu_torch.ops import _build
+from tokenreduction_tpu_torch.ops import (
+    _build,
+    fused_block_train,
+    fused_mlp_train,
+)
 from tokenreduction_tpu_torch.ops.flash_attention import (
     attention_ref,
     fused_attention,
@@ -375,6 +398,13 @@ ATTENTION_REPLACES = {
 # the LayerNorm backward of the training branches: its record names
 # mlp_branch's backward, the most launched
 LN_BWD_REPLACES = "tokenreduction_tpu/ops/fused_mlp_train.py:218"
+# the LayerNorm forward of every counterpart: its record names the full
+# block's TPU kernel, the most launched; the fixed-order partial sums, the
+# training backward kernels' VMEM accumulators: mlp_branch's backward;
+# the head-mean keys, the ksum by-product of fused_block_attention's
+LN_REPLACES = "tokenreduction_tpu/ops/fused_full_block.py:118"
+SUMS_REPLACES = "tokenreduction_tpu/ops/fused_mlp_train.py:218"
+KEYS_REPLACES = "tokenreduction_tpu/ops/flash_attention.py:660"
 CUDA_SOURCES = {
     "fused_full_block": [LN_GEMM, ATTENTION_SM90, GEMM_SOURCE],
     "fused_block_attention": [ATTENTION_SM90, ATTENTION, LN_GEMM,
@@ -495,8 +525,8 @@ LAUNCHERS = {
                                              *ATTENTIONS.items())},
     "rect_attention": (_build.short_attention_heads, "rect_launches"),
     **{name: (getattr(_build, name), "launches")
-       for name in ("layer_norm_bwd", "layer_norm", "sum_partials",
-                    "head_mean_keys")}}
+       for name in ("layer_norm_bwd", "layer_norm", "head_mean_keys")},
+    "sum_partials": (_build.sum_partials_many, "launches")}
 
 
 def reset_counts():
@@ -1128,7 +1158,7 @@ def launcher_cases(gen):
 
         dw = torch.empty(3 * D, D, device=DEVICE, dtype=bf16)
         db = torch.empty(3 * D, device=DEVICE, dtype=bf16)
-        _build.gemm_wgrad(dq, ln, dw, db)
+        _build.sum_partials_many(_build.gemm_wgrad(dq, ln, dw, db))
         yield "gemm_wgrad", shape, [
             ("dW", dw, (dq.float().T @ ln.float()).to(bf16)),
             ("db", db, dq.float().sum(0).to(bf16))]
@@ -1136,7 +1166,8 @@ def launcher_cases(gen):
         dln = randn(M, D, dtype=torch.float32)
         dx = torch.empty_like(x)
         dwb = torch.empty(2, D, device=DEVICE, dtype=bf16)
-        _build.layer_norm_bwd(x, p["ls1"], dln, dx, dwb, eps=EPS)
+        _build.sum_partials_many(
+            _build.layer_norm_bwd(x, p["ls1"], dln, dx, dwb, eps=EPS))
         x_hat, rstd = layer_norm_stats(x.float(), EPS)
         want = layer_norm_bwd_ref(dln, x_hat, rstd, p["ls1"])
         yield "layer_norm_bwd", shape, [
@@ -1369,7 +1400,8 @@ def gemm_cases(M, gen, gather=None):
         if with_db:
             outs.append(("db", db, g.float().sum(0).to(bf16)))
         yield ("gemm_wgrad", label + (" + db" if with_db else ""),
-               lambda g=g, x=x, dw=dw, db=db: _build.gemm_wgrad(g, x, dw, db),
+               lambda g=g, x=x, dw=dw, db=db: _build.sum_partials_many(
+                   _build.gemm_wgrad(g, x, dw, db)),
                outs, 2 * M * n_out * K,
                E * (g.numel() + x.numel() + dw.numel()) + (
                    E * n_out if with_db else 0),
@@ -1737,7 +1769,8 @@ def phase_ln_bwd() -> dict:
                                                        dtype=dtype)
 
             def run():
-                _build.layer_norm_bwd(x, w, dln, dx, dwb, eps=EPS)
+                _build.sum_partials_many(
+                    _build.layer_norm_bwd(x, w, dln, dx, dwb, eps=EPS))
 
             def plain():
                 x_hat, rstd = layer_norm_stats(x.float(), EPS)
@@ -1790,14 +1823,15 @@ def wgrad_shapes():
 
 
 def standalone_cases():
-    """(kernel, shape, run, nbytes, library call or None) for the other
-    hand-written kernels of the main path, at B = 256 (their time per
-    launch, bound and library call; the LayerNorm backward and the
-    rectangular attention have their own cases above): layer_norm of bf16,
-    fp32 and gathered rows, sum_partials at the LayerNorm backward's
-    [bands, 2K] and its former [264, 2K] (two blocks an SM) and at
-    gemm_wgrad's [splits, L] (bf16 out), head_mean_keys at ToMe@0.7's
-    widths."""
+    """(kernel, shape, make the timed call, nbytes, make the library call or
+    None) for the other hand-written kernels of the main path, at B = 256
+    (their time per launch, bound and library call; the LayerNorm backward
+    and the rectangular attention have their own cases above): layer_norm
+    of bf16, fp32 and gathered rows, sum_partials at the LayerNorm
+    backward's [bands, 2K] and its former [264, 2K] (two blocks an SM) and
+    at gemm_wgrad's [splits, L] (bf16 out), head_mean_keys at ToMe@0.7's
+    widths. Each make returns a call on its own copies of the inputs
+    (``cold``)."""
     gen = torch.Generator().manual_seed(8)
     bf16, B = torch.bfloat16, 256
 
@@ -1808,20 +1842,23 @@ def standalone_cases():
     M = B * 197
     for label, x in (("bf16 rows", rn(M, D)),
                      ("fp32 rows", rn(M, D, dtype=torch.float32))):
-        y = torch.empty(M, D, device=DEVICE, dtype=bf16)
         yield ("layer_norm", f"{label} B={B} N=197",
-               lambda x=x, y=y: _build.layer_norm(x, w, b, y, eps=EPS),
+               lambda x=x: functools.partial(
+                   _build.layer_norm, x.clone(), w, b,
+                   torch.empty(M, D, device=DEVICE, dtype=bf16), eps=EPS),
                M * D * (x.element_size() + 2) + 4 * D,
-               (lambda x=x: F.layer_norm(x, (D,), w, b, EPS))
+               (lambda x=x: functools.partial(F.layer_norm, x.clone(), (D,),
+                                              w, b, EPS))
                if x.dtype == bf16 else None)
     N, K = 197, 138
     x = rn(B * N, D)
     idx = torch.stack([torch.randperm(N, generator=gen)[:K]
                        for _ in range(B)]).to(DEVICE, torch.int32)
-    y = torch.empty(B * K, D, device=DEVICE, dtype=bf16)
     yield ("layer_norm", f"gathered rows B={B} N={N} K={K}",
-           lambda: _build.layer_norm(x, w, b, y, eps=EPS, idx=idx,
-                                     rows_out=K, rows_in=N),
+           lambda: functools.partial(
+               _build.layer_norm, x.clone(), w, b,
+               torch.empty(B * K, D, device=DEVICE, dtype=bf16), eps=EPS,
+               idx=idx.clone(), rows_out=K, rows_in=N),
            B * K * (2 * D * 2 + 4) + 4 * D, None)
     ln_bands = _build.ln_bwd_plan(M, torch.cuda.get_device_properties(
         0).multi_processor_count)[0]
@@ -1829,31 +1866,41 @@ def standalone_cases():
                           ("layer_norm_bwd's", (ln_bands, 2 * D)),
                           *wgrad_shapes()):
         part = rn(S, L, dtype=torch.float32)
-        out = torch.empty(L, device=DEVICE, dtype=bf16)
         yield ("sum_partials", f"{label} [{S}, {L}]",
-               lambda part=part, out=out: _build.sum_partials(part, out),
-               S * L * 4 + L * 2, lambda part=part: part.sum(0))
+               lambda part=part, L=L: functools.partial(
+                   _build.sum_partials, part.clone(),
+                   torch.empty(L, device=DEVICE, dtype=bf16)),
+               S * L * 4 + L * 2,
+               lambda part=part: functools.partial(torch.sum, part.clone(),
+                                                   0))
     hd = D // HEADS
     for N in TOME_N:
         qkv = rn(B, N, 3 * D)
-        keys = torch.empty(B, N, hd, device=DEVICE, dtype=bf16)
         yield ("head_mean_keys", f"B={B} N={N}",
-               lambda qkv=qkv, keys=keys: _build.head_mean_keys(qkv, keys,
-                                                                HEADS),
+               lambda qkv=qkv, N=N: functools.partial(
+                   _build.head_mean_keys, qkv.clone(),
+                   torch.empty(B, N, hd, device=DEVICE, dtype=bf16), HEADS),
                B * N * (D + hd) * 2,
-               lambda qkv=qkv, N=N: qkv[..., D:2 * D].view(B, N, HEADS,
-                                                            hd).mean(2))
+               lambda qkv=qkv: functools.partial(library_keys, qkv.clone()))
+
+
+def library_keys(qkv):
+    """The head mean of the packed keys in one PyTorch call (DeiT-S)."""
+    B, N, _ = qkv.shape
+    return qkv[..., D:2 * D].view(B, N, HEADS, D // HEADS).mean(2)
 
 
 def phase_standalone() -> list:
     """Phase 2: each of standalone_cases' launches alone, its time per
-    launch beside its bound (bytes at the H100's rate) and its library
-    call's; returns [(kernel, shape, ms, bound ms, library ms or None)]
-    for the table printed with the main path's launches (main)."""
+    launch (over cold copies of its inputs) beside its bound (bytes at the
+    H100's rate) and its library call's; returns [(kernel, shape, ms,
+    bound ms, library ms or None)] for the table printed with the main
+    path's launches (main)."""
     rows = []
-    for name, shape, run, nbytes, library in standalone_cases():
-        ms = per_launch_ms(run)
-        lib_ms = per_launch_ms(library) if library else None
+    for name, shape, make, nbytes, make_library in standalone_cases():
+        ms = per_launch_ms(cold(make, nbytes))
+        lib_ms = per_launch_ms(cold(make_library, nbytes)) \
+            if make_library else None
         bound_ms = nbytes / PEAK_BYTES * 1e3
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"phase 2 standalone {name} {shape}: kernel {ms:.4f} ms per "
@@ -1861,6 +1908,271 @@ def phase_standalone() -> list:
               flush=True)
         rows.append((name, shape, ms, bound_ms, lib_ms))
     return rows
+
+
+def device_ms(fn, calls: int = 10) -> float | None:
+    """The card's time per call of fn from torch.profiler: the device time
+    of every kernel that ``calls`` back-to-back calls launch, over calls
+    (None when the profiler saw no device events). Below about 0.04 ms
+    the event time of per_launch_ms is the host's launch cost; this is
+    not."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3 if us > 0 else None
+
+
+COLD_COPIES = 256  # at most, so inputs under about 0.4 MB stay in the L2
+
+
+def cold(make, nbytes: int):
+    """A call that runs make()'s calls in turn, each on its own copies of
+    the inputs (make returns a call with fresh copies): so many that the
+    calls between two uses of one copy touch twice the card's L2 (50 MB on
+    the H100), and a timed call reads its nbytes from HBM, as its bound
+    counts them, not from the L2 that its previous call filled. At most
+    COLD_COPIES copies: the smallest sums stay in the L2, where a launch
+    costs far more than its bound."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    copies = min(COLD_COPIES, 1 + -(-2 * l2 // max(1, nbytes)))
+    calls = itertools.cycle([make() for _ in range(copies)])
+    return lambda: next(calls)()
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def phase_keys() -> dict:
+    """Phase 2: head_mean_keys (csrc/short_attention.cu) at every ToMe@0.7
+    width, B = 256 and B = 32, bf16 and fp32, bit-equal to
+    head_mean_keys_ref (fp32 head-order sum, one true division, one
+    rounding); at B = 256 its time per launch (events and torch.profiler,
+    over cold copies of qkv) beside its bound (bytes: the keys read once,
+    the mean written once), the plain version's and the head mean of the
+    packed keys in one PyTorch call. Returns the JSON record of bf16
+    B = 256, N = 197."""
+    gen = torch.Generator().manual_seed(9)
+    rec, hd = {}, D // HEADS
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for B, N in [(B, N) for B in (256, 32) for N in TOME_N]:
+            shape = f"B={B} N={N} D={D} H={HEADS}"
+            qkv = torch.randn(B, N, 3 * D, generator=gen).to(DEVICE, dtype)
+            keys = torch.empty(B, N, hd, device=DEVICE, dtype=dtype)
+            _build.head_mean_keys(qkv, keys, HEADS)
+            want = head_mean_keys_ref(qkv, HEADS)
+            torch.cuda.synchronize()
+            diff = (keys.float() - want.float()).abs().max().item()
+            require(torch.equal(keys, want), f"head_mean_keys {tag} {shape}"
+                    f": not bit-equal to head_mean_keys_ref (max abs "
+                    f"difference {diff:.3e})")
+            if B != 256:
+                print(f"phase 2 keys head_mean_keys {tag} {shape}: "
+                      "bit-equal to head_mean_keys_ref", flush=True)
+                continue
+            nbytes = B * N * (D + hd) * qkv.element_size()
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            run = cold(lambda qkv=qkv, keys=keys: functools.partial(
+                _build.head_mean_keys, qkv.clone(), torch.empty_like(keys),
+                HEADS), nbytes)
+            plain = cold(lambda qkv=qkv: functools.partial(
+                head_mean_keys_ref, qkv.clone(), HEADS), nbytes)
+            library = cold(lambda qkv=qkv: functools.partial(
+                library_keys, qkv.clone()), nbytes)
+            ms, dev_ms = per_launch_ms(run), device_ms(run)
+            plain_ms, lib_ms = per_launch_ms(plain), per_launch_ms(library)
+            print(f"phase 2 keys head_mean_keys {tag} {shape}: bit-equal to "
+                  f"head_mean_keys_ref; kernel {ms:.4f} ms per launch "
+                  f"(events), {fmt_ms(dev_ms)} (device, torch.profiler), "
+                  f"bound {bound_ms:.4f} ms (bytes), plain {plain_ms:.4f} "
+                  f"ms, library {lib_ms:.4f} ms (cold copies)", flush=True)
+            if not rec:
+                rec = dict(shape=f"{tag} {shape}", max_abs_err=diff, ms=ms,
+                           device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by="bytes",
+                           library_ms=lib_ms)
+    return rec
+
+
+def branch_sums(B, N, gen) -> dict:
+    """{branch: [(partials, out)]}: the pairs that the bf16 attention and
+    MLP branch backwards hand to their one sum launch at B, N (DeiT-S),
+    recorded from one backward of each with real partials."""
+    bf16 = torch.bfloat16
+    p = block_params(bf16, gen)
+
+    def rn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen).to(DEVICE, dtype)
+
+    x, dy = rn(B, N, D), rn(B, N, D)
+    drow0 = rn(B, HEADS, N, dtype=torch.float32)
+    recorded, real = [], _build.sum_partials_many
+    _build.sum_partials_many = recorded.append
+    try:
+        saved = fused_block_train._fwd_cuda(
+            x, *(p[k] for k in ATTN), HEADS, SCALE, EPS)[2]
+        fused_block_train._bwd_cuda(x, p["ls1"], p["wqkv"], p["wproj"],
+                                    saved, dy, drow0, HEADS, SCALE, EPS)
+        saved = fused_mlp_train._fwd_cuda(x, *(p[k] for k in MLP), EPS)[1]
+        fused_mlp_train._bwd_cuda(x, p["ls2"], p["w1"], p["w2"], saved, dy,
+                                  EPS)
+    finally:
+        _build.sum_partials_many = real
+    require(len(recorded) == 2 and all(len(r) == 5 for r in recorded),
+            f"branch backwards' sum launches: {[len(r) for r in recorded]}")
+    return dict(zip(("attention", "mlp"), recorded))
+
+
+def sum_sets():
+    """(label, [(partials, out)]) for phase_sums: each branch's job set at
+    B = 256 and N = 197 and at topk@0.7's narrowest stage (N = 68), a set
+    of eight jobs (fp32 and bf16 outs, one and 394 rows, a width that is
+    no multiple of 4), a job of such a width alone, and nine jobs (two
+    launches, split in order)."""
+    gen = torch.Generator().manual_seed(10)
+    for N in (197, 68):
+        for branch, pairs in branch_sums(256, N, gen).items():
+            yield f"{branch} branch B=256 N={N}", pairs
+
+    def job(S, L, dtype=torch.bfloat16):
+        return (torch.randn(S, L, generator=gen).to(DEVICE),
+                torch.empty(L, device=DEVICE, dtype=dtype))
+
+    eight = [job(7, 1152), job(132, 768, torch.float32), job(1, 4),
+             job(394, 1536), job(22, 147456), job(9, 1001),
+             job(5, 10, torch.float32), job(3, 589824)]
+    yield "eight jobs", eight
+    yield "one job of width 1001", [job(9, 1001)]
+    yield "nine jobs", eight + [job(13, 333, torch.float32)]
+
+
+def plain_sum(part, out_dtype):
+    """The plain version: fp32 rows added in z order from 0, rounded once."""
+    acc = torch.zeros(part.shape[1], device=part.device)
+    for row in part:
+        acc = acc + row
+    return acc.to(out_dtype)
+
+
+def plain_sums(pairs):
+    return [plain_sum(part, out.dtype) for part, out in pairs]
+
+
+def single_sums(pairs):
+    """One single-job launch a pair."""
+    for pair in pairs:
+        _build.sum_partials(*pair)
+
+
+def library_sums(pairs):
+    """One part.sum(0) a pair: no one PyTorch call computes a set."""
+    return [part.sum(0) for part, _ in pairs]
+
+
+def phase_sums() -> dict:
+    """Phase 2: sum_partials_many (csrc/ln_gemm.cu) on each of sum_sets'
+    job sets, bit-equal to one single-job sum_partials launch per job and
+    to the plain z-order sum, in the launches sum_order gives; its time
+    per launch (events and torch.profiler, over cold copies of the pairs)
+    beside its bound (bytes: the partials read once, the outputs written
+    once), the single launches' and the part.sum(0) calls' (one a job: no
+    one PyTorch call computes a set). Returns the JSON record of the
+    attention branch's set at B = 256, N = 197."""
+    rec = {}
+    for label, pairs in sum_sets():
+        outs = [o for _, o in pairs]
+        launches = len(_build.sum_order([tuple(p.shape) for p, _ in pairs]))
+        before = _build.sum_partials_many.launches
+        _build.sum_partials_many(pairs)
+        require(_build.sum_partials_many.launches - before == launches,
+                f"sums {label}: {_build.sum_partials_many.launches - before}"
+                f" launches, the plan's {launches}")
+        batched = [o.clone() for o in outs]
+        single_sums(pairs)
+        single = [o.clone() for o in outs]
+        plain = plain_sums(pairs)
+        torch.cuda.synchronize()
+        err = 0.0
+        for i, (b, s1, pl) in enumerate(zip(batched, single, plain)):
+            shape = tuple(pairs[i][0].shape)
+            require(torch.equal(b, s1), f"sums {label} job {i} {shape}: the "
+                    "batched launch and the single one differ")
+            require(torch.equal(b, pl), f"sums {label} job {i} {shape}: not "
+                    "bit-equal to the plain z-order sum")
+            err = max(err, (b.float() - pl.float()).abs().max().item())
+
+        nbytes = sum(p.numel() * 4 + o.numel() * o.element_size()
+                     for p, o in pairs)
+
+        def timed(fn, pairs=pairs, nbytes=nbytes):
+            """fn over cold copies of the pairs."""
+            return cold(lambda: functools.partial(fn, [
+                (p.clone(), torch.empty_like(o)) for p, o in pairs]), nbytes)
+
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        run, run_single = timed(_build.sum_partials_many), timed(single_sums)
+        library = timed(library_sums)
+        ms, dev_ms = per_launch_ms(run), device_ms(run)
+        single_ms, single_dev = per_launch_ms(run_single), \
+            device_ms(run_single)
+        lib_ms, lib_dev = per_launch_ms(library), device_ms(library)
+        shapes = " ".join(f"[{p.shape[0]}, {p.shape[1]}]" for p, _ in pairs)
+        print(f"phase 2 sums {label} ({len(pairs)} jobs {shapes}): "
+              f"{launches} launch(es) bit-equal to {len(pairs)} single "
+              f"launches and to the plain sum; batched {ms:.4f} ms "
+              f"(events), {fmt_ms(dev_ms)} (device); single launches "
+              f"{single_ms:.4f} ms, {fmt_ms(single_dev)} (device); "
+              f"part.sum(0) calls {lib_ms:.4f} ms, {fmt_ms(lib_dev)} "
+              f"(device); bound {bound_ms:.4f} ms (bytes); cold copies",
+              flush=True)
+        if not rec:
+            plain_ms = per_launch_ms(timed(plain_sums))
+            rec = dict(shape=f"{label}, {shapes}", max_abs_err=err, ms=ms,
+                       device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                       library_calls_ms=lib_ms, library_calls=len(pairs),
+                       single_launches_ms=single_ms,
+                       single_launches_device_ms=single_dev)
+    return rec
+
+
+def layer_norm_record() -> dict:
+    """The JSON record of layer_norm (csrc/ln_gemm.cu): bf16 rows at
+    B = 256, N = 197 against the plain fp32 LayerNorm rounded to bf16
+    (within 1e-2 of its max), its time per launch (over cold copies of x)
+    beside its bound (bytes: x read once, y written once, the parameters),
+    the plain version's and F.layer_norm's."""
+    gen = torch.Generator().manual_seed(11)
+    bf16, M = torch.bfloat16, 256 * 197
+    x, w, b = (torch.randn(*shape, generator=gen).to(DEVICE, bf16)
+               for shape in ((M, D), (D,), (D,)))
+    y = torch.empty_like(x)
+    _build.layer_norm(x, w, b, y, eps=EPS)
+    abs_err, rel = rel_err(y, layer_norm_f32(x.float(), w, b, EPS).to(bf16))
+    require(rel <= LAUNCH_BOUND[bf16], f"layer_norm bf16 rows: error "
+            f"{rel:.3e} of its max|plain|")
+    nbytes = M * D * 4 + 4 * D
+    run = cold(lambda: functools.partial(
+        _build.layer_norm, x.clone(), w, b, torch.empty_like(y), eps=EPS),
+        nbytes)
+    plain = cold(lambda: lambda x=x.clone(): layer_norm_f32(
+        x.float(), w, b, EPS).to(bf16), nbytes)
+    library = cold(lambda: functools.partial(F.layer_norm, x.clone(), (D,),
+                                             w, b, EPS), nbytes)
+    return dict(shape=f"bf16 rows B=256 N=197 K={D}", max_abs_err=abs_err,
+                ms=per_launch_ms(run), device_ms=device_ms(run),
+                plain_ms=per_launch_ms(plain),
+                bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                library_ms=per_launch_ms(library))
 
 
 def check_case(name, tag, shape, dtype, got, want, labels, rec):
@@ -2516,9 +2828,13 @@ def phase_serve(card: str) -> dict:
             f"serve attention launches {launcher_counts()}")
     # the rectangular attention: once in each of ATS's sampling blocks
     require(got["rect_attention"] == got["fused_rect_block"] > 0
-            and got["layer_norm_bwd"] == 0,
-            f"serve rectangular attention and LN backward launches "
+            and got["layer_norm_bwd"] == 0 and got["sum_partials"] == 0,
+            f"serve rectangular attention, LN backward and sum launches "
             f"{launcher_counts()}")
+    # the head-mean keys: once in each of ToMe@0.7's three merging blocks
+    require(got["head_mean_keys"] == 3 * SERVE_BATCHES,
+            f"serve head_mean_keys launches {got['head_mean_keys']} != "
+            f"{3 * SERVE_BATCHES}")
     print(f"phase 4 launches {got}", flush=True)
     for label in ("ats@0.7", "heuristic", "dyvit@0.7"):
         eval_profile(label, card, profile=label != "dyvit@0.7")
@@ -2654,7 +2970,8 @@ def kernel_family(name: str) -> str:
                                              "")
     name = name.split("(")[0]
     own = ("gemm_kernel", "short_attention", "attention_fwd_sm90",
-           "attention_bwd_sm90", "layer_norm", "sum_partials")
+           "attention_bwd_sm90", "layer_norm", "sum_partials",
+           "head_mean_keys")
     return name if name.startswith(own) else name.split("<")[0]
 
 
@@ -2665,7 +2982,17 @@ def phase_train(card: str) -> dict:
     reset_counts()
     step_ms = {}
     for label in TRAIN_MODELS:
+        sums_before = _build.sum_partials_many.launches
         seconds, step_losses, _ = train_run(label, TRAIN_STEPS)
+        # one sum launch in each branch backward: at most 2 a block
+        sums = _build.sum_partials_many.launches - sums_before
+        want = TRAIN_STEPS * sum(PER_TRAIN_STEP_BWD[label][k] for k in (
+            "attend_branch_train", "mlp_branch"))
+        require(sums == want <= 2 * 12 * TRAIN_STEPS,
+                f"{label}: {sums} sum launches in {TRAIN_STEPS} steps, not "
+                f"{want} (one a branch backward, at most 2 a block)")
+        print(f"phase 5 sums {label}: {sums / TRAIN_STEPS:g} sum launches a "
+              f"step ({sums / TRAIN_STEPS / 12:g} a block of 12)", flush=True)
         timed = seconds[2:]
         step_ms[label] = 1e3 * sum(timed) / len(timed)
         print(f"phase 5 train {label} bf16 amp b{TRAIN_B}: "
@@ -2690,9 +3017,12 @@ def phase_train(card: str) -> dict:
     ln_bwd = TRAIN_STEPS * sum(PER_TRAIN_STEP_BWD[label][k]
                                for label in TRAIN_MODELS
                                for k in ("attend_branch_train", "mlp_branch"))
-    require(got["layer_norm_bwd"] == ln_bwd and got["rect_attention"] == 0,
-            f"train LN backward launches {got['layer_norm_bwd']} != {ln_bwd}"
-            f" or rectangular attention {got['rect_attention']} != 0")
+    require(got["layer_norm_bwd"] == got["sum_partials"] == ln_bwd
+            and got["rect_attention"] == 0 and got["head_mean_keys"] == 0,
+            f"train LN backward launches {got['layer_norm_bwd']} or sum "
+            f"launches {got['sum_partials']} != {ln_bwd}, or rectangular "
+            f"attention {got['rect_attention']} or head_mean_keys "
+            f"{got['head_mean_keys']} != 0")
     print(f"phase 5 launches {got}", flush=True)
 
     kernels = (layers.attend_branch_train, layers.mlp_branch,
@@ -2824,6 +3154,9 @@ def main():
     gemm_rec = phase_gemms()
     attn_rec = phase_attention()
     ln_bwd_rec = phase_ln_bwd()
+    keys_rec = phase_keys()
+    sums_rec = phase_sums()
+    ln_rec = layer_norm_record()
     standalone = phase_standalone()
     elapsed("2")
     for dtype in (torch.float32, torch.bfloat16):
@@ -2861,11 +3194,15 @@ def main():
                      launches=launches[name], on_main_path=True,
                      **attn_rec[name])
                 for name in (*ATTENTIONS, "rect_attention")]
-    kernels.append(dict(name="layer_norm_bwd", route="cuda", source=LN_GEMM,
-                        wrapper="tokenreduction_tpu_torch/ops/_build.py",
-                        replaces=LN_BWD_REPLACES,
-                        launches=launches["layer_norm_bwd"],
-                        on_main_path=True, **ln_bwd_rec))
+    kernels += [dict(name=name, route="cuda", source=source,
+                     wrapper="tokenreduction_tpu_torch/ops/_build.py",
+                     replaces=replaces, launches=launches[name],
+                     on_main_path=True, **record)
+                for name, source, replaces, record in (
+                    ("layer_norm_bwd", LN_GEMM, LN_BWD_REPLACES, ln_bwd_rec),
+                    ("layer_norm", LN_GEMM, LN_REPLACES, ln_rec),
+                    ("sum_partials", LN_GEMM, SUMS_REPLACES, sums_rec),
+                    ("head_mean_keys", ATTENTION, KEYS_REPLACES, keys_rec))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

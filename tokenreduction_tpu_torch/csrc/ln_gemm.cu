@@ -28,7 +28,7 @@
 //                   sums of dY (the bias gradient) from the blocks of the
 //                   first column tile.
 //   sum_partials:   out[L] = sum over S fp32 partials, in order, in the
-//                   output type.
+//                   output type, for up to eight such jobs a launch.
 //
 // fp32 operands (the parity dtype) go through FMA in true fp32 on the CUDA
 // cores, in this file; bf16 operands through the sm_90a kernel of
@@ -313,16 +313,110 @@ __global__ void __launch_bounds__(LnBwd<KC>::THREADS, 1)
   }
 }
 
-// A thread per column, the loads of a column's rows in flight 16 at a
-// time.
-template <typename TO>
-__global__ void sum_partials_kernel(const float* __restrict__ part, int S, int L,
-                                    TO* __restrict__ out) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < L; i += gridDim.x * blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 16
-    for (int z = 0; z < S; ++z) acc += part[static_cast<size_t>(z) * L + i];
-    store1(out + i, acc);
+// The fixed-order sums of fp32 partial rows, up to kSumJobs of them in one
+// launch (a branch backward's weight, bias and LayerNorm parameter
+// gradients): job j is out_j[i] = the sum over z < S_j of part_j[z][i],
+// added in z order from 0 and rounded once to out_j's type. The TPU
+// kernels carry these sums across their sequential grid in VMEM; here
+// each is a chain of S dependent adds a column, and the cost of the former
+// launch a sum was the host's, so one launch takes every sum of a branch.
+// A column's chain is bound by the latency of its loads, so each thread
+// keeps two batches of rows in flight, the next batch's loads issued
+// before the current one is added. A thread of a short job (S <= kSumTall,
+// L % 4 == 0: the weight and bias gradients' few slices) takes
+// four columns, a float4 load a row, kSumShort rows a batch; a thread of a
+// tall job (the LayerNorm bands, db1's row tiles) or of a width that is no
+// multiple of 4 takes one column, kSumLong rows a batch, so its chain has
+// four times as many rows in flight and its job four times as many
+// threads. A block takes kSumThreads threads' columns of one job and finds
+// the job by a scan of the table's first blocks. The host orders the jobs
+// tallest first (ops/_build.py sum_order), so the long chains start first
+// and overlap the wide weight-gradient sums. The table goes by value as a
+// __grid_constant__ parameter: no copy to the card and no launch besides
+// the sum's.
+constexpr int kSumJobs = 8;  // the jobs a launch (ops/_build.py SUM_JOBS)
+constexpr int kSumThreads = 64, kSumTall = 32;
+constexpr int kSumShort = 8, kSumLong = 32;  // rows a batch
+
+struct SumJob {
+  const float* part;  // [S][L], 16-byte aligned
+  void* out;          // [L], float or bf16 (dtype)
+  int S, L, dtype, cols;  // cols: columns a thread, 4 or 1
+};
+
+struct SumTable {
+  SumJob job[kSumJobs];
+  int first[kSumJobs];  // each job's first block, ascending
+  int n;
+};
+
+// Rows [z0, z0 + R) (those below S) of C consecutive columns at p, row
+// stride L, into buf.
+template <int C, int R>
+__device__ __forceinline__ void load_rows(float (&buf)[R][C], const float* p, int z0, int S,
+                                          int L) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (z0 + i < S) {
+      const float* row = p + static_cast<size_t>(z0 + i) * L;
+      if constexpr (C == 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+        buf[i][0] = v.x, buf[i][1] = v.y, buf[i][2] = v.z, buf[i][3] = v.w;
+      } else {
+        buf[i][0] = __ldg(row);
+      }
+    }
+}
+
+// acc[c] = the sum of the S rows of column c at p, in z order from 0.
+template <int C, int R>
+__device__ __forceinline__ void sum_rows(const float* p, int S, int L, float (&acc)[C]) {
+  float cur[R][C], nxt[R][C];
+  load_rows<C, R>(cur, p, 0, S, L);
+  for (int z0 = 0; z0 < S; z0 += R) {
+    load_rows<C, R>(nxt, p, z0 + R, S, L);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (z0 + i < S)
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] += cur[i][c];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) cur[i][c] = nxt[i][c];
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_sums(const SumJob& job, int c0, const float (&acc)[C]) {
+  const int cols = min(C, job.L - c0);
+  if (job.dtype == kFloat32) {
+    float* out = static_cast<float*>(job.out) + c0;
+    for (int c = 0; c < cols; ++c) store1(out + c, acc[c]);
+  } else {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(job.out) + c0;
+    for (int c = 0; c < cols; ++c) store1(out + c, acc[c]);
+  }
+}
+
+__global__ void __launch_bounds__(kSumThreads)
+    sum_partials_kernel(const __grid_constant__ SumTable t) {
+  const int b = static_cast<int>(blockIdx.x);
+  int j = 0;
+#pragma unroll
+  for (int i = 1; i < kSumJobs; ++i)
+    if (i < t.n && t.first[i] <= b) j = i;
+  const SumJob& job = t.job[j];
+  const int c0 = ((b - t.first[j]) * kSumThreads + static_cast<int>(threadIdx.x)) * job.cols;
+  if (c0 >= job.L) return;
+  if (job.cols == 4) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    sum_rows<4, kSumShort>(job.part + c0, job.S, job.L, acc);
+    store_sums(job, c0, acc);
+  } else {
+    float acc[1] = {0.f};
+    sum_rows<1, kSumLong>(job.part + c0, job.S, job.L, acc);
+    store_sums(job, c0, acc);
   }
 }
 
@@ -641,25 +735,32 @@ extern "C" int tr_gemm_wgrad(int dtype, const void* dy, const void* x, int rows,
   return launch_gemm_sm90(a, true, true, splits, s);
 }
 
-// out[i] = sum over z < S of part[z][i] in order, for i < L, written in
-// out_dtype. Returns the cudaError_t of the launch.
-extern "C" int tr_sum_partials(const void* part, int S, int L, int out_dtype, void* out,
-                               void* stream) {
+// The sums of n <= kSumJobs jobs in one launch, in the given order (the
+// caller's: tallest first, ops/_build.py sum_order): job j is out_j[i] =
+// sum over z < S_j of part_j[z][i] in order, for i < L_j, written in
+// out_dtype_j, where ptrs[2j], ptrs[2j + 1] are part_j (16-byte aligned)
+// and out_j, and ints[3j .. 3j + 2] are S_j, L_j and out_dtype_j. The
+// jobs' blocks follow one another in that order. Returns the cudaError_t
+// of the launch.
+extern "C" int tr_sum_partials_many(int n, const unsigned long long* ptrs, const int* ints,
+                                    void* stream) {
   using namespace trk;
-  if (L == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // a narrow L (a bias gradient's, the LayerNorm backward's 2K) over
-  // one-warp blocks, so it still takes many SMs; a wide one (a weight
-  // gradient's) over blocks of 256, which keep more loads in flight an SM
-  const int threads = L <= 32 * 1024 ? 32 : 256;
-  const int blocks = L < 1024 * threads ? (L + threads - 1) / threads : 1024;
-  const float* p = static_cast<const float*>(part);
-  if (out_dtype == kFloat32)
-    sum_partials_kernel<float><<<blocks, threads, 0, s>>>(p, S, L, static_cast<float*>(out));
-  else if (out_dtype == kBFloat16)
-    sum_partials_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        p, S, L, static_cast<__nv_bfloat16*>(out));
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > kSumJobs) return static_cast<int>(cudaErrorInvalidValue);
+  SumTable t{};
+  t.n = n;
+  int blocks = 0;
+  for (int j = 0; j < n; ++j) {
+    const int S = ints[3 * j], L = ints[3 * j + 1], dtype = ints[3 * j + 2];
+    if (S < 0 || L < 0 || ptrs[2 * j] % 16 != 0 || (dtype != kFloat32 && dtype != kBFloat16))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int cols = S <= kSumTall && L % 4 == 0 ? 4 : 1;
+    t.job[j] = SumJob{reinterpret_cast<const float*>(static_cast<uintptr_t>(ptrs[2 * j])),
+                      reinterpret_cast<void*>(static_cast<uintptr_t>(ptrs[2 * j + 1])), S, L,
+                      dtype, cols};
+    t.first[j] = blocks;
+    blocks += (L + kSumThreads * cols - 1) / (kSumThreads * cols);
+  }
+  if (blocks == 0) return 0;
+  sum_partials_kernel<<<blocks, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

@@ -368,24 +368,96 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------- keys
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+// 16 bytes of T as fp32 lanes.
+template <typename T> struct Lanes;
+template <> struct Lanes<float> {
+  static constexpr int V = 4;
+  __device__ static void unpack(const uint4& raw, float* f) {
+    f[0] = __uint_as_float(raw.x), f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z), f[3] = __uint_as_float(raw.w);
+  }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+template <> struct Lanes<bf16> {
+  static constexpr int V = 8;
+  __device__ static void unpack(const uint4& raw, float* f) {
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h2[i]);
+      f[2 * i] = v.x, f[2 * i + 1] = v.y;
+    }
+  }
+  __device__ static uint4 pack(const float* f) {
+    uint4 raw;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return raw;
+  }
+};
+
+constexpr int KEYS_THREADS = 256;
 
 // keys[m, d] = (sum over heads h, in order, of the fp32 key k[m, h, d]) / H,
-// rounded to T, off a packed qkv [M, 3 * H * hd]: a thread per element.
-template <typename T>
-__global__ void head_mean_keys_kernel(const T* __restrict__ qkv, T* __restrict__ keys, int M,
-                                      int H, int hd) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= static_cast<long long>(M) * hd) return;
-  const int m = static_cast<int>(e / hd), d = static_cast<int>(e % hd);
+// rounded once to T, off a packed qkv [M, 3 * H * hd]: the counterpart of
+// the ksum by-product of _block_attn_kernel
+// (tokenreduction_tpu/ops/flash_attention.py). Bound by bytes: the keys
+// read once, their mean written once. A thread per 16 bytes of a row's
+// mean (8 bf16 or 4 fp32 lanes): each head's slice is one 16-byte load, so
+// a warp reads whole 128-byte lines, and with H a template constant
+// (DeiT-Ti's 3, -S's 6, -B's 12 heads) all H loads are in registers before
+// the first add.
+template <typename T, int H>
+__global__ void __launch_bounds__(KEYS_THREADS)
+    head_mean_keys_kernel(const T* __restrict__ qkv, T* __restrict__ keys, int M, int hd) {
+  constexpr int V = Lanes<T>::V;
+  const int groups = hd / V;  // also one head's slice, in 16-byte vectors
+  const long long e = static_cast<long long>(blockIdx.x) * KEYS_THREADS + threadIdx.x;
+  if (e >= static_cast<long long>(M) * groups) return;
+  const int m = static_cast<int>(e / groups), g = static_cast<int>(e % groups);
   const int D = H * hd;
-  const T* kr = qkv + static_cast<size_t>(m) * 3 * D + D + d;
-  float acc = to_f32(kr[0]);
-  for (int h = 1; h < H; ++h) acc += to_f32(kr[h * hd]);
-  store_f32(keys + e, acc / static_cast<float>(H));
+  const uint4* kr =
+      reinterpret_cast<const uint4*>(qkv + static_cast<size_t>(m) * 3 * D + D + g * V);
+  uint4 raw[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) raw[h] = __ldg(kr + h * groups);
+  float acc[V], f[V];
+  Lanes<T>::unpack(raw[0], acc);
+#pragma unroll
+  for (int h = 1; h < H; ++h) {
+    Lanes<T>::unpack(raw[h], f);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += f[i];
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = acc[i] / static_cast<float>(H);
+  // keys [M, hd] is contiguous: this thread's lanes start at e * V
+  reinterpret_cast<uint4*>(keys)[e] = Lanes<T>::pack(acc);
+}
+
+// The head counts of DeiT-Ti, -S and -B; any other H, an hd that is no
+// multiple of the vector or a pointer that is not 16-byte aligned is
+// refused (cudaErrorInvalidValue).
+template <typename T>
+int launch_head_mean_keys(const void* qkv, void* keys, int M, int H, int hd, cudaStream_t s) {
+  constexpr int V = Lanes<T>::V;
+  if (hd % V != 0 || reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(keys) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = H == 3    ? head_mean_keys_kernel<T, 3>
+                      : H == 6  ? head_mean_keys_kernel<T, 6>
+                      : H == 12 ? head_mean_keys_kernel<T, 12>
+                                : nullptr;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(M) * (hd / V);
+  const int blocks = static_cast<int>((n + KEYS_THREADS - 1) / KEYS_THREADS);
+  kernel<<<blocks, KEYS_THREADS, 0, s>>>(static_cast<const T*>(qkv), static_cast<T*>(keys), M,
+                                         hd);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Heads of the operands from strides[3 * i .. 3 * i + 2] (batch, head, row).
@@ -482,23 +554,16 @@ extern "C" int tr_short_attention_bwd(int dtype, const void* q, const void* k, c
 }
 
 // Returns the cudaError_t of the launch (0 on success): keys [M, hd], the
-// head mean of the keys of the packed qkv [M, 3 * H * hd], both in `dtype`
-// and contiguous.
+// head mean of the keys of the packed qkv [M, 3 * H * hd], both in `dtype`,
+// contiguous and 16-byte aligned, H = 3, 6 or 12, hd a multiple of 8 (bf16)
+// or 4 (fp32).
 extern "C" int tr_head_mean_keys(int dtype, const void* qkv, void* keys, int M, int H, int hd,
                                  void* stream) {
   using namespace trk;
   if (M == 0) return 0;
-  if (H < 1 || hd < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(M) * hd;
-  const int blocks = static_cast<int>((n + 255) / 256);
-  if (dtype == kBFloat16)
-    head_mean_keys_kernel<bf16><<<blocks, 256, 0, s>>>(static_cast<const bf16*>(qkv),
-                                                       static_cast<bf16*>(keys), M, H, hd);
-  else if (dtype == kFloat32)
-    head_mean_keys_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(qkv),
-                                                        static_cast<float*>(keys), M, H, hd);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == kBFloat16) return launch_head_mean_keys<bf16>(qkv, keys, M, H, hd, s);
+  if (dtype == kFloat32) return launch_head_mean_keys<float>(qkv, keys, M, H, hd, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

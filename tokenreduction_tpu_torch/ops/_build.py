@@ -11,11 +11,13 @@ kernel wrappers import this module only on their CUDA branch.
 Each launcher takes tensors the wrapper has already checked, passes their
 pointers and PyTorch's current stream, and raises if the C call returns a
 non-zero ``cudaError_t``. Launchers that reduce over rows allocate their
-fp32 partials with ``torch.empty`` and sum them in a fixed order.
+fp32 partials with ``torch.empty`` and return them with their outputs, for
+the caller to sum in a fixed order in one ``sum_partials_many`` launch.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 import dataclasses
 import functools
@@ -42,6 +44,9 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LINK_FLAGS = (*ARCH, "-shared")
 LIB_NAME = "libtokenreduction_kernels.so"
 GEMM_TILE = 128  # rows of a gemm output tile (and of each col_sums row)
+# the jobs of one sum_partials_many launch: csrc/ln_gemm.cu's kSumJobs,
+# whose entry point refuses more
+SUM_JOBS = 8
 # layer_norm_bwd's plan makes at most one band for each LN_BWD_WARPS rows
 # (a row for each warp of a block at K = 384)
 LN_BWD_WARPS = 16
@@ -56,7 +61,7 @@ _SIGNATURES = {
     "tr_gemm": (_I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I,
                 _I, _I, _P, _P, _P),
     "tr_gemm_wgrad": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "tr_sum_partials": (_P, _I, _I, _I, _P, _P),
+    "tr_sum_partials_many": (_I, _P, _P, _P),
     "tr_short_attention": (_I, _P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _F, _I, _P),
     "tr_short_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _S, _P, _P, _P,
@@ -282,11 +287,12 @@ def ln_bwd_plan(M: int, sms: int) -> tuple[int, int]:
 def layer_norm_bwd(x, w, dln, dx, dwb, *, eps):
     """dx [M, K] (x's dtype) and dwb [2, K] = (d gamma, d beta) in dwb's
     dtype, from x [M, K], gamma w [K] and the fp32 dln [M, K]; see
-    csrc/ln_gemm.cu. The rows in the bands of ``ln_bwd_plan``, each
-    band's fp32 partial sums of the parameter gradients then summed in band
-    order by ``sum_partials``. Contiguous CUDA tensors, checked by the
-    caller. ``layer_norm_bwd.launches`` counts the launches of the
-    LayerNorm backward's kernel."""
+    csrc/ln_gemm.cu. The rows in the bands of ``ln_bwd_plan``; each
+    band's fp32 partial sums of the parameter gradients are summed in band
+    order by the caller's ``sum_partials_many`` launch, so dwb is written
+    by that launch: returns the [(partials, dwb)] it takes. Contiguous
+    CUDA tensors, checked by the caller. ``layer_norm_bwd.launches``
+    counts the launches of the LayerNorm backward's kernel."""
     M, K = x.shape
     bands, rows = ln_bwd_plan(M, _sms(x.device))
     part = torch.empty(bands, 2 * K, dtype=torch.float32, device=x.device)
@@ -295,7 +301,7 @@ def layer_norm_bwd(x, w, dln, dx, dwb, *, eps):
         _ptr(dx), _ptr(part), bands, rows, _stream(x))
     _check("tr_layer_norm_bwd", err)
     layer_norm_bwd.launches += 1
-    sum_partials(part, dwb.view(2 * K))
+    return [(part, dwb.view(2 * K))]
 
 
 layer_norm_bwd.launches = 0
@@ -348,7 +354,10 @@ def gemm_wgrad(dy, x, dw, db=None):
     many as leave each SM one output tile of one slice (the bf16 GEMM's
     BM x BN tiles); each slice's fp32 partials are written
     apart and summed in a fixed order, so the result is the same bits from
-    run to run. Contiguous CUDA tensors, checked by the caller.
+    run to run, by the caller's ``sum_partials_many`` launch, so dw and
+    db are written by that launch: returns the [(partials, dw),
+    (partials, db)] it takes (db's if given). Contiguous CUDA tensors,
+    checked by the caller.
     ``gemm_wgrad.launches`` counts the bf16 launches (the sm_90a kernel)."""
     M, n_out = dy.shape
     K = x.shape[1]
@@ -362,23 +371,33 @@ def gemm_wgrad(dy, x, dw, db=None):
     _check("tr_gemm_wgrad", err)
     if dy.dtype == torch.bfloat16:
         gemm_wgrad.launches += 1
-    sum_partials(ws, dw.view(-1))
+    pairs = [(ws, dw.view(-1))]
     if db is not None:
-        sum_partials(bws, db)
+        pairs.append((bws, db))
+    return pairs
 
 
 gemm_wgrad.launches = 0
 
 
 def wgrad_plan(M: int, n_out: int, K: int, device) -> tuple[int, int]:
-    """(splits, rows a split) of ``gemm_wgrad`` over M rows: whole K steps
-    of the bf16 GEMM (BK rows), as many slices as leave each SM of the
-    card one BM x BN output tile of one slice."""
+    """(splits, rows a split) of ``gemm_wgrad`` over M rows on ``device``:
+    ``wgrad_split`` with the card's SMs and the bf16 GEMM's tile."""
     cfg = gemm_config()
-    tiles = _cdiv(n_out, cfg["BM"]) * _cdiv(K, cfg["BN"])
-    steps = max(1, _cdiv(M, cfg["BK"]))
-    per = _cdiv(steps, max(1, min(steps, _sms(device) // tiles)))
-    return _cdiv(steps, per), per * cfg["BK"]
+    return wgrad_split(M, n_out, K, _sms(device), cfg["BM"], cfg["BN"],
+                       cfg["BK"])
+
+
+def wgrad_split(M: int, n_out: int, K: int, sms: int, bm: int, bn: int,
+                bk: int) -> tuple[int, int]:
+    """(splits, rows a split) of the weight gradient over M rows: whole K
+    steps (bk rows), as many slices as leave each of ``sms`` SMs one
+    bm x bn output tile of one slice; slice z takes rows [z * rows,
+    (z + 1) * rows)."""
+    tiles = _cdiv(n_out, bm) * _cdiv(K, bn)
+    steps = max(1, _cdiv(M, bk))
+    per = _cdiv(steps, max(1, min(steps, sms // tiles)))
+    return _cdiv(steps, per), per * bk
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,17 +405,47 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def sum_order(shapes) -> list[list[int]]:
+    """The launches of ``sum_partials_many`` for jobs of [S, L] partials
+    (``shapes``, in the caller's order): the jobs in groups of SUM_JOBS in
+    that order, a launch a group, each launch's jobs tallest first (larger
+    S first, equal S in the caller's order), so that the long chains start
+    first. The launch gives each job its blocks in this order."""
+    return [sorted(range(start, min(len(shapes), start + SUM_JOBS)),
+                   key=lambda j: -shapes[j][0])
+            for start in range(0, len(shapes), SUM_JOBS)]
+
+
+def sum_partials_many(pairs):
+    """out [L] = part [S, L] (fp32) summed over S in z order, in out's
+    dtype, for every (part, out) of ``pairs``: one launch for each
+    SUM_JOBS pairs, in ``sum_order``'s order (each column's order, and so
+    its bits, are those of a launch of its pair alone). Contiguous CUDA
+    tensors on one device, the partials 16-byte aligned, checked by the
+    caller. ``sum_partials_many.launches`` counts the launches."""
+    # the host's cost is what one launch saves, so the table goes as two
+    # flat arrays: (part, out) pointers and (S, L, out dtype)
+    for launch in _cached_sum_order(tuple(part.shape for part, _ in pairs)):
+        ptrs, ints = array.array("Q"), array.array("i")
+        for j in launch:
+            part, out = pairs[j]
+            ptrs.extend((part.data_ptr(), out.data_ptr()))
+            ints.extend((*part.shape, _DTYPE_CODE[out.dtype]))
+        err = kernels().lib.tr_sum_partials_many(
+            len(launch), ptrs.buffer_info()[0], ints.buffer_info()[0],
+            _stream(pairs[launch[0]][0]))
+        _check("tr_sum_partials_many", err)
+        sum_partials_many.launches += 1
+
+
+sum_partials_many.launches = 0
+_cached_sum_order = functools.lru_cache(maxsize=1024)(sum_order)
+
+
 def sum_partials(part, out):
     """out [L] = part [S, L] (fp32) summed over S in order, in out's
-    dtype. ``sum_partials.launches`` counts the launches."""
-    S, L = part.shape
-    err = kernels().lib.tr_sum_partials(
-        _ptr(part), S, L, _DTYPE_CODE[out.dtype], _ptr(out), _stream(part))
-    _check("tr_sum_partials", err)
-    sum_partials.launches += 1
-
-
-sum_partials.launches = 0
+    dtype: ``sum_partials_many`` of one pair."""
+    sum_partials_many([(part, out)])
 
 
 def _strides(*heads):
@@ -528,8 +577,9 @@ def attention_smem(n: int, m: int | None = None) -> dict:
 def head_mean_keys(qkv, keys, num_heads):
     """keys [B, N, hd] = the head mean of the keys of a packed qkv
     [B, N, 3D], summed in fp32 in head order and rounded once. See
-    csrc/short_attention.cu. ``head_mean_keys.launches`` counts the
-    launches."""
+    csrc/short_attention.cu: 3, 6 or 12 heads of a width that is a
+    multiple of 8 (bf16) or 4 (fp32), 16-byte aligned, or the launch is
+    refused. ``head_mean_keys.launches`` counts the launches."""
     B, N, D3 = qkv.shape
     err = kernels().lib.tr_head_mean_keys(
         _DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(keys), B * N, num_heads,

@@ -242,7 +242,9 @@ def head_mean_keys_ref(qkv, num_heads: int):
     acc = k[:, 0]
     for h in range(1, num_heads):
         acc = acc + k[:, h]
-    return (acc / num_heads).to(qkv.dtype)
+    # a true division, as JAX's and the kernel's: on a CUDA tensor PyTorch
+    # multiplies by the reciprocal of a Python number divisor instead
+    return (acc / acc.new_full((), num_heads)).to(qkv.dtype)
 
 
 def ln_qkv_ref(x, ln_scale, ln_bias, wqkv, bqkv, eps: float):

@@ -32,8 +32,10 @@ is a chain of the hand-written kernels (``csrc/``):
   ``gemm_wgrad`` dWproj, dbproj; ``short_attention_bwd`` (P from the
   forward's row statistics, writes the packed dqkv); ``gemm_wgrad`` dWqkv,
   dbqkv; ``gemm`` dLN = dqkv Wqkv in fp32; ``layer_norm_bwd``. The weight
-  gradients are fp32 partials over slices of the rows summed in a fixed
-  order: no atomics, the same bits from run to run.
+  and bias gradients are fp32 partials over slices of the rows, and the
+  LayerNorm's parameter gradients over bands of rows; all five are summed
+  in a fixed order by one ``sum_partials_many`` launch, the branch's last:
+  no atomics, the same bits from run to run.
 
 The forward saves the LN output, qkv and the merged heads (5D elements of
 x's dtype per row) instead of recomputing them: at topk@0.7 DeiT-S b256
@@ -178,19 +180,22 @@ def _bwd_cuda(x, ls, wqkv, wproj, saved, dy, drow0, num_heads, scale, eps):
     _build.gemm(dy, wproj, None, dattn.view(M, D), w_kn=True)
     dwproj = torch.empty_like(wproj)
     dbproj = torch.empty(D, dtype=ls.dtype, device=x.device)
-    _build.gemm_wgrad(dy, merged.view(M, D), dwproj, dbproj)
+    # the branch's fixed-order partial sums, one launch at the end
+    sums = _build.gemm_wgrad(dy, merged.view(M, D), dwproj, dbproj)
     dqkv = torch.empty_like(qkv)
     _build.short_attention_bwd(qkv, merged, dattn, drow0, dqkv, num_heads,
                                scale, stats=stats, row0=row0)
     dqkv = dqkv.view(M, 3 * D)
     dwqkv = torch.empty_like(wqkv)
     dbqkv = torch.empty(3 * D, dtype=wqkv.dtype, device=x.device)
-    _build.gemm_wgrad(dqkv, ln, dwqkv, dbqkv)
+    sums += _build.gemm_wgrad(dqkv, ln, dwqkv, dbqkv)
     dln = torch.empty(M, D, dtype=torch.float32, device=x.device)
     _build.gemm(dqkv, wqkv, None, dln, w_kn=True)
     dx = torch.empty_like(x)
     dlnp = torch.empty(2, D, dtype=ls.dtype, device=x.device)
-    _build.layer_norm_bwd(x.view(M, D), ls, dln, dx.view(M, D), dlnp, eps=eps)
+    sums += _build.layer_norm_bwd(x.view(M, D), ls, dln, dx.view(M, D), dlnp,
+                                  eps=eps)
+    _build.sum_partials_many(sums)
     return dx, dlnp[0], dlnp[1], dwqkv, dbqkv, dwproj, dbproj
 
 

@@ -29,9 +29,12 @@ chain of the hand-written kernels in ``csrc/ln_gemm.cu``:
   writes GELU'(h) in fp32; ``gemm`` fc2 with bias;
 - backward: ``gemm`` dH = (dY W2) * GELU'(h) reading W2 untransposed,
   with the column sums of the fp32 dH (db1) per row tile; ``gemm_wgrad``
-  for dW2, db2 and dW1 (fp32 partials over slices of the rows, summed in
-  a fixed order: no atomics, the same bits from run to run); ``gemm`` dLN
-  = dH W1 in fp32; ``layer_norm_bwd`` for dx, d gamma and d beta.
+  for dW2, db2 and dW1 (fp32 partials over slices of the rows); ``gemm``
+  dLN = dH W1 in fp32; ``layer_norm_bwd`` for dx, d gamma and d beta
+  (partials over bands of rows). The five partial sums (db1, dW2, db2,
+  dW1, the LayerNorm's) are one ``sum_partials_many`` launch, the
+  branch's last, each in a fixed order: no atomics, the same bits from
+  run to run.
 
 The forward saves the LN output and the hidden activation in x's dtype
 and GELU'(h) in fp32 (2D + 4D elements of x's dtype and 4D fp32 per row)
@@ -131,17 +134,19 @@ def _bwd_cuda(x, ls, w1, w2, saved, g, eps):
                             dtype=torch.float32, device=x.device)
     _build.gemm(g, w2, None, dh, w_kn=True, mul=gp, col_sums=db1_parts)
     db1 = torch.empty(H4, dtype=w1.dtype, device=x.device)
-    _build.sum_partials(db1_parts, db1)
+    sums = [(db1_parts, db1)]  # the fixed-order partial sums, one launch
     dw2, db2 = torch.empty_like(w2), torch.empty(D, dtype=w2.dtype,
                                                  device=x.device)
-    _build.gemm_wgrad(g, a, dw2, db2)
+    sums += _build.gemm_wgrad(g, a, dw2, db2)
     dw1 = torch.empty_like(w1)
-    _build.gemm_wgrad(dh, ln, dw1)
+    sums += _build.gemm_wgrad(dh, ln, dw1)
     dln = torch.empty(M, D, dtype=torch.float32, device=x.device)
     _build.gemm(dh, w1, None, dln, w_kn=True)
     dx = torch.empty_like(x)
     dlnp = torch.empty(2, D, dtype=ls.dtype, device=x.device)
-    _build.layer_norm_bwd(x.view(M, D), ls, dln, dx.view(M, D), dlnp, eps=eps)
+    sums += _build.layer_norm_bwd(x.view(M, D), ls, dln, dx.view(M, D), dlnp,
+                                  eps=eps)
+    _build.sum_partials_many(sums)
     return dx, dlnp[0], dlnp[1], dw1, db1, dw2, db2
 
 

@@ -45,9 +45,21 @@ kernels (``standalone_times``: ``layer_norm`` of bf16, fp32 and gathered
 rows beside ``F.layer_norm``; ``sum_partials`` at every shape that one
 LayerNorm backward and the block's weight gradients give it in that
 checkout, beside ``part.sum(0)``; ``head_mean_keys`` beside the head mean
-of the packed keys). Each run also prints the ptxas registers of the
-attention kernels' variants (``attention_registers``, from its
-checkout's build log), and of the LayerNorm backward's.
+of the packed keys). They also time ``head_mean_keys`` at ToMe@0.7's
+widths (B=256) and at B=32, N=197 (``keys_times``), and each training
+branch backward's partial sums at B=256, N = 197 and 68
+(``branch_sum_times``: the pairs recorded from one backward in that
+checkout, timed as the checkout launches them, one launch a pair and one
+``part.sum(0)`` a pair), each per call by events and by
+``torch.profiler``'s device time (``device_ms``). These kernels and their
+library calls (``standalone_times`` too) run over copies of their inputs
+(``cold``) that cycle through more than twice the card's L2, so that each
+call reads from HBM, as the bytes of its bound. Then the host time of
+each branch backward (``_bwd_cuda``: median of 30 calls, the queue
+drained before each, no synchronisation inside). Each run also prints the
+ptxas registers of the attention kernels' variants
+(``attention_registers``, from its checkout's build log), of the
+LayerNorm backward's, the sums' and the head-mean keys'.
 The first line is the card's name and power limit (nvidia-smi); the last
 lines give each checkout's medians over its runs. Needs one CUDA card;
 numbers from separate calls are not compared.
@@ -64,7 +76,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import inspect, json, re, statistics, torch
+import functools, inspect, itertools, json, re, statistics, torch
 from chip_smoke import D, H4, HEADS, SCALE, block_params, cuda_ms, train_run
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.ops import _build
@@ -89,6 +101,23 @@ def ten(fn):
         for _ in range(10):
             fn()
     return cuda_ms(run, 20) / 10
+
+def cold(make, nbytes):
+    # make()'s calls in turn, each on its own copies of the inputs: so
+    # many that the calls between two uses of one copy touch twice the
+    # card's L2, and a timed call reads its nbytes from HBM, not from the
+    # L2 that its previous call filled (at most 256 copies)
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    copies = min(256, 1 + -(-2 * l2 // max(1, nbytes)))
+    calls = itertools.cycle([make() for _ in range(copies)])
+    return lambda: next(calls)()
+
+def summed(pairs):
+    # gemm_wgrad and layer_norm_bwd return the pairs of their partial sums
+    # for the caller's sum_partials_many launch; in a checkout without it
+    # (5c803b4) they launch their sums themselves and return None
+    if pairs:
+        _build.sum_partials_many(pairs)
 
 model, _ = create_model("deit_small_patch16_224_local", device="cuda",
                         generator=torch.Generator().manual_seed(1))
@@ -144,8 +173,8 @@ def ln_bwd_times():
         _, mean, rstd = torch.ops.aten.native_layer_norm(
             xl, [D], p["ls1"], p["lb1"], 1e-6)
         dy = dln.to(bf16)
-        out[f"ln_bwd_{Nl}_x10"] = ten(lambda: _build.layer_norm_bwd(
-            xl, p["ls1"], dln, dx, dwb, eps=1e-6))
+        out[f"ln_bwd_{Nl}_x10"] = ten(lambda: summed(_build.layer_norm_bwd(
+            xl, p["ls1"], dln, dx, dwb, eps=1e-6)))
         out[f"ln_bwd_{Nl}_aten_x10"] = ten(
             lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, xl, [D], mean, rstd, p["ls1"], p["lb1"],
@@ -153,60 +182,179 @@ def ln_bwd_times():
     return out
 
 def standalone_times():
-    # the other hand-written kernels per launch: layer_norm of bf16, fp32
-    # and gathered rows (F.layer_norm beside the bf16 rows), sum_partials
-    # at every [S, L] that one layer_norm_bwd and the block's four
-    # gemm_wgrad calls give it in this checkout (recorded), beside
-    # part.sum(0), and head_mean_keys beside the head mean of the packed
-    # keys
+    # the other hand-written kernels per launch, over cold copies of their
+    # inputs: layer_norm of bf16, fp32 and gathered rows (F.layer_norm
+    # beside the bf16 rows), sum_partials at every [S, L] that one
+    # layer_norm_bwd and the block's four gemm_wgrad calls give it in this
+    # checkout, beside part.sum(0), and head_mean_keys beside the head
+    # mean of the packed keys
     import torch.nn.functional as F
     out, shapes = {}, []
-    x32 = ln.float()
-    ln_y = torch.empty_like(ln)
-    out["layer_norm_bf16_x10"] = ten(lambda: _build.layer_norm(
-        ln, p["ls1"], p["lb1"], ln_y, eps=1e-6))
-    out["layer_norm_bf16_F_x10"] = ten(lambda: F.layer_norm(
-        ln, (D,), p["ls1"], p["lb1"], 1e-6))
-    out["layer_norm_fp32_x10"] = ten(lambda: _build.layer_norm(
-        x32, p["ls1"], p["lb1"], ln_y, eps=1e-6))
     K = 138
     idx = torch.stack([torch.randperm(N, generator=g)[:K]
                        for _ in range(B)]).to("cuda", torch.int32)
-    y_k = torch.empty(B * K, D, device="cuda", dtype=bf16)
-    out["layer_norm_gathered_x10"] = ten(lambda: _build.layer_norm(
-        ln, p["ls1"], p["lb1"], y_k, eps=1e-6, idx=idx, rows_out=K,
-        rows_in=N))
+
+    def layer_norm(x, rows=B * N, **kw):
+        return cold(lambda: functools.partial(
+            _build.layer_norm, x.clone(), p["ls1"], p["lb1"], torch.empty(
+                rows, D, device="cuda", dtype=bf16), eps=1e-6, **kw),
+            rows * D * (x.element_size() + 2))
+
+    out["layer_norm_bf16_x10"] = ten(layer_norm(ln))
+    out["layer_norm_bf16_F_x10"] = ten(cold(lambda: functools.partial(
+        F.layer_norm, ln.clone(), (D,), p["ls1"], p["lb1"], 1e-6),
+        B * N * D * 4))
+    out["layer_norm_fp32_x10"] = ten(layer_norm(ln.float()))
+    out["layer_norm_gathered_x10"] = ten(layer_norm(
+        ln, B * K, idx=idx, rows_out=K, rows_in=N))
     real = _build.sum_partials
-
-    def record(part, o):
-        shapes.append(tuple(part.shape))
-        real(part, o)
-
-    record.launches = 0  # the checkout's launcher may count on its name
-    _build.sum_partials = record
+    if not hasattr(_build, "sum_partials_many"):
+        # 5c803b4 only: there the launchers sum their partials themselves,
+        # one sum_partials launch a sum
+        def record(part, o):
+            shapes.append(tuple(part.shape))
+            real(part, o)
+        record.launches = 0  # the checkout's launcher may count on its name
+        _build.sum_partials = record
     try:
         dln = torch.randn(B * N, D, generator=g).to("cuda")
-        _build.layer_norm_bwd(ln, p["ls1"], dln, torch.empty_like(ln),
-                              torch.empty(2, D, device="cuda", dtype=bf16),
-                              eps=1e-6)
+        rets = [_build.layer_norm_bwd(
+            ln, p["ls1"], dln, torch.empty_like(ln),
+            torch.empty(2, D, device="cuda", dtype=bf16), eps=1e-6)]
         for n_out, k_in in ((3 * D, D), (D, D), (H4, D), (D, H4)):
             dyw = torch.randn(B * N, n_out, generator=g).to("cuda", bf16)
             xw = torch.randn(B * N, k_in, generator=g).to("cuda", bf16)
-            _build.gemm_wgrad(dyw, xw, torch.empty(n_out, k_in, device="cuda",
-                                                   dtype=bf16),
-                              torch.empty(n_out, device="cuda", dtype=bf16))
+            rets.append(_build.gemm_wgrad(
+                dyw, xw, torch.empty(n_out, k_in, device="cuda", dtype=bf16),
+                torch.empty(n_out, device="cuda", dtype=bf16)))
     finally:
         _build.sum_partials = real
+    for ret in rets:  # the pairs, where the launchers return them
+        shapes.extend(tuple(part.shape) for part, _ in ret or ())
     for S, L in dict.fromkeys(shapes):
         part = torch.randn(S, L, generator=g).to("cuda")
-        o = torch.empty(L, device="cuda", dtype=bf16)
-        out[f"sum_partials_{S}x{L}_x10"] = ten(lambda: real(part, o))
-        out[f"sum_partials_{S}x{L}_sum_x10"] = ten(lambda: part.sum(0))
+        nbytes = S * L * 4 + L * 2
+        out[f"sum_partials_{S}x{L}_x10"] = ten(cold(
+            lambda: functools.partial(real, part.clone(), torch.empty(
+                L, device="cuda", dtype=bf16)), nbytes))
+        out[f"sum_partials_{S}x{L}_sum_x10"] = ten(cold(
+            lambda: functools.partial(torch.sum, part.clone(), 0), nbytes))
+    nbytes = B * N * (D + D // HEADS) * 2
     keys = torch.empty(B, N, D // HEADS, device="cuda", dtype=bf16)
-    out["head_mean_keys_x10"] = ten(lambda: _build.head_mean_keys(
-        qkv, keys, HEADS))
-    out["head_mean_keys_mean_x10"] = ten(lambda: qkv[..., D:2 * D].view(
-        B, N, HEADS, D // HEADS).mean(2))
+    out["head_mean_keys_x10"] = ten(cold(lambda: functools.partial(
+        _build.head_mean_keys, qkv.clone(), torch.empty_like(keys), HEADS),
+        nbytes))
+    out["head_mean_keys_mean_x10"] = ten(cold(lambda: functools.partial(
+        mean_keys, qkv.clone()), nbytes))
+    return out
+
+def mean_keys(q):
+    # the head mean of the packed keys in one PyTorch call
+    Bq, Nq, _ = q.shape
+    return q[..., D:2 * D].view(Bq, Nq, HEADS, D // HEADS).mean(2)
+
+def device_ms(fn, calls=10):
+    # the card's time per call of fn: torch.profiler's device time of the
+    # kernels of ten back-to-back calls, over ten (None when the profiler
+    # saw no device events)
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3 if us > 0 else None
+
+def keys_times():
+    # head_mean_keys per launch (events and device time, over cold copies
+    # of qkv) at ToMe@0.7's widths, B=256, and at B=32, N=197, beside the
+    # head mean of the packed keys
+    out = {}
+    for Bk, Nk in ((256, 197), (256, 138), (256, 97), (256, 68), (32, 197)):
+        qkv_k = torch.randn(Bk, Nk, 3 * D, generator=g).to("cuda", bf16)
+        nbytes = Bk * Nk * (D + D // HEADS) * 2
+        run = cold(lambda: functools.partial(
+            _build.head_mean_keys, qkv_k.clone(), torch.empty(
+                Bk, Nk, D // HEADS, device="cuda", dtype=bf16), HEADS),
+            nbytes)
+        mean = cold(lambda: functools.partial(mean_keys, qkv_k.clone()),
+                    nbytes)
+        tag = f"keys_{Bk}x{Nk}"
+        out.update({f"{tag}_x10": ten(run), f"{tag}_dev": device_ms(run),
+                    f"{tag}_mean_x10": ten(mean),
+                    f"{tag}_mean_dev": device_ms(mean)})
+    return out
+
+def branch_inputs(Nb):
+    from tokenreduction_tpu_torch.ops import fused_block_train as fbt
+    from tokenreduction_tpu_torch.ops import fused_mlp_train as fmt
+    xb, dyb = (torch.randn(B, Nb, D, generator=g).to("cuda", bf16)
+               for _ in range(2))
+    drow0 = torch.randn(B, HEADS, Nb, generator=g).to("cuda")
+    attn = ("ls1", "lb1", "wqkv", "bqkv", "wproj", "bproj")
+    mlp = ("ls2", "lb2", "w1", "b1", "w2", "b2")
+    saved_a = fbt._fwd_cuda(xb, *(p[k] for k in attn), HEADS, SCALE, 1e-6)[2]
+    saved_m = fmt._fwd_cuda(xb, *(p[k] for k in mlp), 1e-6)[1]
+    return dict(
+        attention=lambda: fbt._bwd_cuda(xb, p["ls1"], p["wqkv"], p["wproj"],
+                                        saved_a, dyb, drow0, HEADS, SCALE,
+                                        1e-6),
+        mlp=lambda: fmt._bwd_cuda(xb, p["ls2"], p["w1"], p["w2"], saved_m,
+                                  dyb, 1e-6))
+
+def branch_sum_times():
+    # each branch backward's partial sums at B=256 and N = 197 and 68, the
+    # pairs recorded from one backward in this checkout: as the checkout
+    # launches them (one batched launch, or one launch a pair), as one
+    # launch a pair, and as one part.sum(0) a pair; events and device
+    # time, over cold copies of the pairs. Then the host time of each branch backward (median of 30, the
+    # queue drained before each, no synchronisation inside)
+    import time
+    out = {}
+    real_sum = _build.sum_partials
+    # None only in 5c803b4, whose branches launch one sum_partials a sum
+    batched = getattr(_build, "sum_partials_many", None)
+    name = "sum_partials" if batched is None else "sum_partials_many"
+    for Nb in (197, 68):
+        for branch, bwd in branch_inputs(Nb).items():
+            pairs = []
+            setattr(_build, name, pairs.extend if batched else
+                    lambda part, o: pairs.append((part, o)))
+            try:
+                bwd()
+            finally:
+                setattr(_build, name, batched or real_sum)
+            nbytes = sum(part.numel() * 4 + o.numel() * o.element_size()
+                         for part, o in pairs)
+
+            def timed(fn, pairs=pairs, nbytes=nbytes):
+                return cold(lambda: functools.partial(fn, [
+                    (part.clone(), torch.empty_like(o))
+                    for part, o in pairs]), nbytes)
+
+            singles = timed(lambda ps: [real_sum(*pair) for pair in ps])
+            launch = timed(batched) if batched else singles
+            calls = timed(lambda ps: [part.sum(0) for part, _ in ps])
+            tag = f"sums_{branch}_{Nb}"
+            out.update({
+                f"{tag}_jobs": len(pairs),
+                f"{tag}_x10": ten(launch), f"{tag}_dev": device_ms(launch),
+                f"{tag}_single_x10": ten(singles),
+                f"{tag}_single_dev": device_ms(singles),
+                f"{tag}_sum_x10": ten(calls),
+                f"{tag}_sum_dev": device_ms(calls)})
+            host = []
+            for _ in range(33):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bwd()
+                host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            out[f"bwd_host_{branch}_{Nb}"] = 1e3 * statistics.median(host[3:])
     return out
 
 # whether the checkout's attention backward reads the forward's output,
@@ -299,8 +447,9 @@ def attention_registers():
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and ("attention" in name or "layer_norm_bwd" in name) \
-                and "registers" in line:
+        elif name and any(k in name for k in (
+                "attention", "layer_norm_bwd", "sum_partials",
+                "head_mean_keys")) and "registers" in line:
             regs[name[-70:]] = int(re.search(r"Used (\d+) registers",
                                              line)[1])
     return regs
@@ -318,7 +467,8 @@ def gemm_times():
     y_d32, gp_out = (torch.empty(M, n, device="cuda") for n in (D, H4))
     dw = {k: torch.empty_like(p[k]) for k in ("wqkv", "wproj", "w1", "w2",
                                               "bqkv", "bproj", "b2")}
-    gemm, wgrad = _build.gemm, _build.gemm_wgrad
+    gemm = _build.gemm
+    wgrad = lambda *a: summed(_build.gemm_wgrad(*a))
     return dict(
         gemm_proj_res_x10=ten(lambda: gemm(heads, p["wproj"], p["bproj"],
                                            y_d, res=res)),
@@ -364,7 +514,7 @@ with torch.no_grad():
         topk_forward=forward_ms("topk_small_patch16_224"),
         **ats_times(), **attention_times(), **bwd_times(),
         **gemm_times(), **rect_times(), **ln_bwd_times(),
-        **standalone_times())))
+        **standalone_times(), **keys_times(), **branch_sum_times())))
 print(json.dumps(dict(attention_registers=attention_registers())))
 """
 
@@ -397,7 +547,10 @@ def main():
             results[label].append(out)
             print(label, json.dumps(out), flush=True)
     for label, runs in results.items():
-        medians = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        # a device time the profiler did not see (None) is left out
+        medians = {k: statistics.median(v) if (v := [
+            r[k] for r in runs if r[k] is not None]) else None
+            for k in runs[0]}
         print(f"median {label} (ms): {json.dumps(medians)}", flush=True)
 
 
