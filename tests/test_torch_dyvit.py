@@ -221,10 +221,12 @@ def test_bridge_round_trips_score_predictors():
 
 def test_refusals():
     model = port_model(init_params(), keep_rate=(0.7,))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="DyViT training and the teachers"):
         model.train()(torch.from_numpy(images(b=2)[0]))
     with pytest.raises(ValueError, match="distilled"):
         create_model("dyvit_small_patch16_224", device="cpu", **DIMS,
                      reduction_loc=LOC, keep_rate=(0.7,), distilled=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="DyViT training and the teachers"):
         create_model("dyvit_small_patch16_224_teacher", device="cpu")

@@ -97,14 +97,14 @@ def kernels_take(N: int, head_dim: int, force_plain: bool = False) -> bool:
             and head_dim == HEAD_DIM)
 
 
-_SCORES = (None, "cls", "keys")
+_SCORES = (None, "cls", "keys", "colsum")
 
 
 def _check_score(score):
     if score not in _SCORES:
         raise NotImplementedError(
-            f"score={score!r} is not ported yet; it comes with its method "
-            "(ROADMAP Queue 1 item 6)")
+            f"score={score!r} is not ported: no model of the JAX package "
+            "asks for it")
 
 
 def _drop(x, rate: float, shape, generator, layer: str):
@@ -187,8 +187,9 @@ class Attention(nn.Module):
     ``score="cls"`` also returns the head-mean CLS->patch attention column
     [B, N-1] (topk/evit score, reference models/topk.py:60-61),
     ``score="keys"`` the head-mean keys [B, N, hd] (ToMe metric,
-    models/tome.py:58). The other scores of the JAX module come with their
-    methods.
+    models/tome.py:58), ``score="colsum"`` the attention mass each key
+    receives, summed over heads and queries [B, N] (k-medoids' token
+    weights, models/kmedoids.py:237-251).
 
     In training without attention dropout, where the block's gates let
     the kernels take it (``kernels=True``: ``kernels_take``, decided by
@@ -217,8 +218,8 @@ class Attention(nn.Module):
         q, k, v = self.qkv(x).view(B, N, 3, self.num_heads, -1) \
             .permute(2, 0, 3, 1, 4).unbind(0)
         if self.training and self.attn_drop.p == 0.0 and kernels:
-            out, row0, _ = attention_core_train(q, k, v, self.scale, bias,
-                                                mask)
+            out, row0, colsum = attention_core_train(q, k, v, self.scale,
+                                                     bias, mask)
             cls_row = row0[:, :, 1:]
         else:
             probs = attention_probs_ref(q, k, v, self.scale, bias=bias,
@@ -229,6 +230,7 @@ class Attention(nn.Module):
             probs = self.attn_drop(probs, generator)
             out = (probs.to(v.dtype).float() @ v.float()).to(v.dtype)
             cls_row = probs[:, :, 0, 1:]
+            colsum = probs.sum(2) if score == "colsum" else None
         x = self.proj_drop(self.proj(out.transpose(1, 2).reshape(B, N, D)),
                            generator)
         aux = None
@@ -236,6 +238,8 @@ class Attention(nn.Module):
             aux = cls_row.mean(1)
         elif score == "keys":
             aux = k.mean(1)
+        elif score == "colsum":
+            aux = colsum.sum(1)
         return x, (aux, None)
 
 
@@ -295,7 +299,9 @@ class Block(nn.Module):
         ``fused_block_attention`` call (JAX core/layers.py:448-485); in
         training one ``attend_branch_train`` call where there is no bias
         and no mask (with the keys, their plain recompute, as JAX
-        core/layers.py:404-447), else ``Attention``. A block the kernels
+        core/layers.py:404-447), else ``Attention`` (also for
+        ``score="colsum"``, as the JAX gate admits only None, "cls" and
+        "keys" to the branch). A block the kernels
         do not take runs ``Attention`` in eval too (the JAX composition
         past its gates, core/layers.py:486-490)."""
         _check_score(score)
@@ -309,13 +315,15 @@ class Block(nn.Module):
             aux = None
             if score == "cls":
                 aux = res[1][:, :, 1:].mean(1)
+            elif score == "colsum":
+                aux = res[2].sum(1)
             elif score == "keys":
                 aux = res[3]
             return res[0], (aux, None)
         if idx is not None:
             x = take_tokens(x, idx)
         if (self.training and kernels and bias is None and mask is None
-                and self.attn_kernels):
+                and score != "colsum" and self.attn_kernels):
             branch, row0 = attend_branch_train(
                 x, *self._attn_params(), self.num_heads, self.attn.scale,
                 self.eps)

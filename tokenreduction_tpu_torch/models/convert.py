@@ -7,7 +7,12 @@ convert_torch_state_dict``: Dense kernels [in, out] -> nn.Linear weights
 score predictors map from ``score_predictor_{i}/{in_ln, in_fc, out_fc1,
 out_fc2, out_fc3}`` to ``score_predictor.{i}.<name>.{weight, bias}``
 (the port's own names; no loader of the reference's ``in_conv`` /
-``out_conv`` checkpoint names exists on either side). It works on
+``out_conv`` checkpoint names exists on either side). The cluster
+family's modules map from ``cluster_layers_{k}/<name>/{kernel, scale,
+bias}`` to ``cluster_layers.{k}.<name>.{weight, bias}`` (Dense kernels
+transposed; the LayerNorms ``weight_ln`` and ``norm``), and their raw
+params ``queries``, ``v`` and ``scale`` to ``cluster_layers.{k}.<leaf>``.
+It works on
 any nested mapping of array-likes (numpy arrays in the tests) and imports
 no JAX. ``torch_names_from_flax`` maps any tree shaped like the params
 (gradients, optimizer labels, EMA params) to the port's parameter names
@@ -20,6 +25,10 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+
+# the cluster layers' LayerNorms; their other submodules are Dense
+_CLUSTER_NORMS = ("weight_ln", "norm")
 
 
 def flax_path_to_torch_name(path: tuple[str, ...]):
@@ -40,6 +49,13 @@ def flax_path_to_torch_name(path: tuple[str, ...]):
             return (f"blocks.{i}.{path[1]}.{path[2]}.{suffix}",
                     "linear" if weight else None)
         return None
+    if top.startswith("cluster_layers_") and len(path) in (2, 3):
+        k = top[len("cluster_layers_"):]
+        if len(path) == 2:  # raw params: queries, v, SiT's scale
+            return f"cluster_layers.{k}.{leaf}", None
+        linear = weight and path[1] not in _CLUSTER_NORMS
+        return (f"cluster_layers.{k}.{path[1]}.{suffix}",
+                "linear" if linear else None)
     if top.startswith("score_predictor_") and len(path) == 3:
         i = top[len("score_predictor_"):]
         linear = weight and path[1] != "in_ln"

@@ -6,7 +6,9 @@ the card ``torch.gather`` is the plain gather. Its scatter-add keeps two
 forms: on the CPU the sequential ``.at[].add`` of the JAX package's CPU
 path, and on the card the one-hot product of its TPU path, because
 ``index_add_`` on CUDA floats sums colliding rows in an order that
-changes from run to run.
+changes from run to run. ``take_rows`` (the cluster family's distance
+rows and columns) and ``complement_idx`` (EViT's fused patches) are a
+plain gather and a sort on every device.
 """
 
 from __future__ import annotations
@@ -40,3 +42,27 @@ def scatter_add_tokens(dst: torch.Tensor, idx: torch.Tensor,
     onehot = torch.nn.functional.one_hot(idx.long(), dst.shape[1]).float()
     added = torch.bmm(onehot.transpose(1, 2), src.float())
     return dst + added.to(dst.dtype)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """Gather along ``axis`` of x with batched ids idx [B, K] (JAX
+    ops/gather.py:44-64): for x [B, N, M], axis 1 gives out[b, k, m] =
+    x[b, idx[b, k], m], axis 2 out[b, n, k] = x[b, n, idx[b, k]]."""
+    shape = [1] * x.dim()
+    shape[0], shape[axis] = idx.shape
+    size = list(x.shape)
+    size[axis] = idx.shape[1]
+    return torch.gather(x, axis, idx.long().view(shape).expand(size))
+
+
+def complement_idx(idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sorted complement of idx [B, K] within range(dim) -> [B, dim - K]
+    (JAX ops/gather.py:88-102, reference models/evit.py:25-46): zeros
+    scattered at the selected positions of an arange, sorted, the first K
+    dropped. Where 0 is selected the K zeros sort to the front; where it
+    is not, one of the K + 1 zeros is the unselected 0 and stays."""
+    K = idx.shape[1]
+    a = torch.arange(dim, dtype=idx.dtype, device=idx.device) \
+        .expand(idx.shape[0], dim)
+    masked = a.scatter(1, idx.long(), 0)
+    return torch.sort(masked, dim=-1)[0][:, K:]

@@ -86,7 +86,7 @@ class DynamicVisionTransformer(ViTBase):
             raise NotImplementedError(
                 "DyViT training (the Gumbel draw, the policy softmax, the "
                 "teacher and the 4-term loss) is not ported yet (ROADMAP "
-                "Queue 1 item 6)")
+                "Queue 1, \"DyViT training and the teachers\")")
         c = self.cfg
         x = self.embed(x)
         B = x.shape[0]

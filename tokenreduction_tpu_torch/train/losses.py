@@ -3,7 +3,8 @@
 Pure functions of (logits, targets) -> scalar, computed in the logits'
 dtype as the JAX functions are (the train step passes bf16 logits under
 amp and casts the loss to fp32). The distillation and DyViT losses come
-with their methods (ROADMAP Queue 1 item 6).
+with DyViT's training (ROADMAP Queue 1, "DyViT training and the
+teachers").
 """
 
 from __future__ import annotations

@@ -12,16 +12,16 @@ constant_cls / constant_pos / attn_only freeze params entirely
 (label "frozen": no update).
 
 Only AdamW is ported; the JAX package's other optimizers come with the
-loop (ROADMAP Queue 1 item 7). The update equals the JAX package's optax
-chain: ``clip_by_global_norm`` (g * max / |g| only when |g| >= max; unlike
-``torch.nn.utils.clip_grad_norm_`` nothing is added to the norm), then
-per group ``optax.adamw`` (eps outside the square root, bias corrections
-in fp32, decoupled decay scaled by the learning rate, the learning rate
-of update t taken from schedule(t) with t counted from 0). Params are the
-names of ``model.named_parameters()``; the update works in place on the
-fp32 masters and the moments, and never synchronises with the host: the
-learning rates and bias corrections are host floats of the step count,
-the clip factor stays on the device.
+loop (ROADMAP Queue 1, "Full training loop and CLI"). The update equals
+the JAX package's optax chain: ``clip_by_global_norm`` (g * max / |g|
+only when |g| >= max; unlike ``torch.nn.utils.clip_grad_norm_`` nothing
+is added to the norm), then per group ``optax.adamw`` (eps outside the
+square root, bias corrections in fp32, decoupled decay scaled by the
+learning rate, the learning rate of update t taken from schedule(t) with
+t counted from 0). Params are the names of ``model.named_parameters()``;
+the update works in place on the fp32 masters and the moments, and never
+synchronises with the host: the learning rates and bias corrections are
+host floats of the step count, the clip factor stays on the device.
 """
 
 from __future__ import annotations
@@ -169,7 +169,7 @@ def create_optimizer(params: Mapping[str, torch.Tensor], cfg: OptimConfig,
     if cfg.opt.lower() != "adamw":
         raise NotImplementedError(
             f"optimizer {cfg.opt!r} is not ported yet; AdamW is (ROADMAP "
-            "Queue 1 item 7)")
+            "Queue 1, \"Full training loop and CLI\")")
     labels = param_labels(params, new_module_names, cfg)
     b1, b2 = cfg.opt_betas or (0.9, 0.999)
     full = group_lr_fn(base_schedule, 1.0, 0, steps_per_epoch)
@@ -185,6 +185,17 @@ def create_optimizer(params: Mapping[str, torch.Tensor], cfg: OptimConfig,
                       "new_param_no_decay": 0.0, "no_decay": 0.0},
         b1=b1, b2=b2, eps=cfg.opt_eps, clip_grad=clip)
     return opt, labels
+
+
+@torch.no_grad()
+def project_params(params: Mapping[str, torch.Tensor]):
+    """The projection the reference makes inside its forward
+    (models/sinkhorn.py:73-76), after the update and in place (JAX
+    train/optim.py:391-402): every Sinkhorn cluster vector
+    ``cluster_layers.{k}.v`` renormalised onto the unit sphere."""
+    for name, p in params.items():
+        if name.split(".")[-1] == "v" and "cluster_layers" in name:
+            p.div_(torch.linalg.vector_norm(p, dim=-1, keepdim=True))
 
 
 @torch.no_grad()

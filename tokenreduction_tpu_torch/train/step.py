@@ -2,8 +2,10 @@
 
 One ``train_step`` call covers ``grad_accum_steps`` microbatch forwards
 and backwards with the mean loss, the global gradient norm (taken before
-clipping), the clipped grouped update and the EMA of the fp32 params,
-with no host synchronisation inside: the metrics stay on the device.
+clipping), the clipped grouped update, with ``project_sinkhorn`` the
+Sinkhorn cluster vectors renormalised (JAX step.py:179-180), and the EMA
+of the fp32 params, with no host synchronisation inside: the metrics
+stay on the device.
 
 AMP is the JAX recipe, not ``torch.autocast``: every fp32 master is cast
 to bf16 and so are the images (JAX step.py:114-115), and the model runs
@@ -29,7 +31,11 @@ import torch
 from torch.func import functional_call
 
 from tokenreduction_tpu_torch.core.device import resolve_device
-from tokenreduction_tpu_torch.train.optim import ema_update, global_norm
+from tokenreduction_tpu_torch.train.optim import (
+    ema_update,
+    global_norm,
+    project_params,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +46,8 @@ class StepConfig:
     # reference --no-train-mode (train.py:111-113): run the training
     # forward with the model in eval mode
     train_mode: bool = True
+    # Sinkhorn's cluster vectors back onto the unit sphere after each
+    # update (train/optim.py project_params)
     project_sinkhorn: bool = False
     watch_norms: bool = False
     hutchinson: bool = False
@@ -95,21 +103,17 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
     Batch: dict(image=[A*M, C, H, W], label=[A*M, ...]) where A =
     grad_accum_steps; microbatches are the leading-axis splits.
     Metrics: {"loss", "grad_norm"} as device scalars."""
+    loop = '(ROADMAP Queue 1, "Full training loop and CLI")'
     if cfg.hutchinson:
         raise NotImplementedError(
-            "hutchinson (adahessian) comes with the optimizers (ROADMAP "
-            "Queue 1 item 7)")
-    if cfg.project_sinkhorn:
-        raise NotImplementedError(
-            "project_sinkhorn comes with the sinkhorn method (ROADMAP "
-            "Queue 1 item 6)")
+            f"hutchinson (adahessian) comes with the optimizers {loop}")
     if cfg.watch_norms:
-        raise NotImplementedError(
-            "watch_norms comes with the train loop (ROADMAP Queue 1 item 7)")
+        raise NotImplementedError(f"watch_norms comes with the train loop "
+                                  f"{loop}")
     if mixup_fn is not None or aug_fn is not None:
         raise NotImplementedError(
-            "mixup_fn and aug_fn come with the train loop and the device "
-            "augmentation (ROADMAP Queue 1 item 7)")
+            f"mixup_fn and aug_fn come with the train loop and the device "
+            f"augmentation {loop}")
     accum = cfg.grad_accum_steps
 
     def train_step(state: TrainState, batch):
@@ -132,6 +136,8 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
         grad_norm = global_norm(grads.values())
         optimizer.update(state.params, grads, state.opt_state, state.step,
                          grad_norm)
+        if cfg.project_sinkhorn:
+            project_params(state.params)
         if cfg.ema_decay > 0 and state.ema_params is not None:
             ema_update(state.ema_params, state.params, cfg.ema_decay)
         state = dataclasses.replace(state, step=state.step + 1)
