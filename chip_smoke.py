@@ -53,7 +53,10 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    forward outputs and every gradient, with non-zero row0 (and, for the
    core, colsum) cotangents, against the plain forward and the plain
    hand-written backward at the training widths, fp32 at B=32 (1e-4) and
-   bf16 at B=256 (2e-2), each tensor of its own max|plain|; each new bf16
+   bf16 at B=256 (2e-2), each tensor of its own max|plain|, also at the
+   distilled DeiT-S's N=198 (CLS, dist token, 196 patches); the DyViT
+   teacher's fused_full_block in fp32 at B=256, N=197 (1e-4), with its
+   bound at the fp32 rate; each new bf16
    launch alone (gemm with W untransposed, with the GELU' factor and
    column sums, gemm_wgrad, short_attention_bwd, layer_norm_bwd, the
    training attention forward; the biased attention forward, head_mean_keys
@@ -187,9 +190,23 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    the card's medoids) the same way; and Sinkhorn@0.7's loss and
    gradients, then one step with project_sinkhorn whose cluster vectors
    must have rows of unit norm.
-   Last, dense with drop_rate and attn_drop_rate 0.1: a bf16 amp train
+   Then dense with drop_rate and attn_drop_rate 0.1: a bf16 amp train
    step from a seeded CUDA generator, twice from the same start, must give
    the same loss and parameters bit for bit (another seed another loss).
+   Last, DyViT's training and the teachers, fp32 B=8 against the CPU: the
+   DyViT teacher's logits and post-norm patch tokens (12 fp32
+   fused_full_block launches) and RegNetY-160's logits at its published
+   widths, within 1e-4 of max|CPU| with the same top-1; the loss
+   (train/loop.py's build_loss_fn) and every gradient of DyViT@0.7's
+   training forward without and with dyvit_distill (the CPU model takes
+   the card's Gumbel uniforms, GumbelReplay; the decisions equal in
+   place), and of DeiT-S distilled against RegNetY-160, soft and hard,
+   within 1e-4; the launches of one train step (DyViT: 12 mlp_branch
+   forwards and 12 backwards, no attend_branch_train, 12 fused_full_block
+   in the teacher; the distilled DeiT-S: both branches at N=198); and
+   DyViT@0.7 with its teacher in bf16 amp at B=32: the loss within 2e-2,
+   at least 0.99 of the Gumbel decisions equal to the CPU's (bf16 scores
+   tie within an ulp; bound from a measured run), gradients reported.
 4. serve: 5 batches of 256 bf16 images through each model (ATS@0.7,
    heuristic, DyViT@0.7, EViT@0.7 and the cluster family included;
    DPC-KNN's density noise from a seeded CUDA generator); outputs must be
@@ -213,7 +230,14 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    composition in place of the three training counterparts, and last a
    torch.profiler window of two steps each of dense, topk@0.7, ToMe@0.7
    and heuristic: the device's busy share and its time per step by
-   kernel.
+   kernel. Each train line gives the run's peak memory allocated. The
+   same 8 steps of the two distillation cells: DyViT@0.7 with
+   dyvit_distill and its fp32 teacher, DeiT-S distilled with a
+   RegNetY-160 hard teacher (train/loop.py's loss; the teacher's forward
+   timed by CUDA events); their profiled windows also break the device
+   time down: the port's kernels, the teacher's forward, and DyViT's 12
+   policy attention halves (one timed alone, forward and backward, at
+   b256).
 
 Phases 4 and 5 are the main path's runs: each counterpart's launch count,
 and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
@@ -235,6 +259,7 @@ kernels' JSON record and the result JSON.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import functools
 import gc
@@ -256,6 +281,7 @@ from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.core.config import SIZE_PRESETS, ViTConfig
 from tokenreduction_tpu_torch.ops import (
     _build,
+    dyvit as dyvit_ops,
     fused_block_train,
     fused_mlp_train,
 )
@@ -314,6 +340,7 @@ from tokenreduction_tpu_torch.reduction import cluster as cluster_model
 from tokenreduction_tpu_torch.reduction import tome as tome_model
 from tokenreduction_tpu_torch.reduction.heuristic import heuristic_masks
 from tokenreduction_tpu_torch.train import losses
+from tokenreduction_tpu_torch.train import loop as train_loop
 from tokenreduction_tpu_torch.train.optim import OptimConfig, create_optimizer
 from tokenreduction_tpu_torch.train.step import (
     StepConfig,
@@ -357,8 +384,10 @@ TRAIN_BOUND = {torch.float32: dict(loss=1e-4, grads=1e-4, kept_set=1.0),
 # report prints how far; the card's bf16 ones stay close to fp32)
 FP32_GRAD_REF = ("heuristic",)
 EPS = 1e-6
-# H100 SXM peak rates (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
+# H100 SXM peak rates (NVIDIA data sheet, dense): bf16 tensor cores and HBM3;
+# fp32 outside the tensor cores (the port's fp32 kernels, TF32 off)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_FP32_FLOPS = 67e12
 EVAL_WRAPPERS = {
     "fused_full_block": fused_full_block,
     "fused_block_attention": fused_block_attention,
@@ -503,6 +532,37 @@ MODELS = {
 TRAIN_MODELS = ("dense", "topk@0.7", "tome@0.7", "heuristic")
 # trained in phase 5 and held against the CPU in fp32 only (phase 3)
 CLUSTER_TRAIN = ("evit@0.7", "kmedoids@0.7")
+# the distilled DeiT-S's tokens: CLS, the dist token and 196 patches
+DISTILLED_N = 198
+# the teachers, fp32 on the card in their own parameters
+TEACHERS = {"dyvit teacher": "dyvit_small_patch16_224_teacher",
+            "regnety_160": "regnety_160"}
+# the train loop's arguments (train/loop.py::build_loss_fn), the JAX CLI's
+# defaults: label smoothing 0.1, DyViT's weights, DeiT's alpha and tau
+LOOP_ARGS = dict(smoothing=0.1, bce_loss=False, ratio_weight=2.0,
+                 cls_distill_weight=0.5, token_distill_weight=0.5,
+                 cls_weight=1.0, mse_token=False, dyvit_distill=False,
+                 distillation_type="none", distillation_alpha=0.5,
+                 distillation_tau=1.0, train_mode=True)
+# DyViT's training and the distillation cells: (student name, its
+# kwargs), the teacher (TEACHERS) or None, the loop's arguments
+DISTILL_MODELS = {
+    "dyvit@0.7": (MODELS["dyvit@0.7"], None, {}),
+    "dyvit@0.7 distill": (
+        ("dyvit_small_patch16_224", dict(**MODELS["dyvit@0.7"][1],
+                                         dyvit_distillation=True)),
+        "dyvit teacher", dict(dyvit_distill=True)),
+    **{f"deit-s distilled {kind}": (
+        ("deit_small_patch16_224_local", dict(distilled=True)),
+        "regnety_160", dict(distillation_type=kind))
+       for kind in ("soft", "hard")},
+}
+# trained in phase 5 (and checked in phase 3 with the others)
+DISTILL_TRAIN = ("dyvit@0.7 distill", "deit-s distilled hard")
+# bf16 amp B=32: the share of DyViT's Gumbel decisions equal to the CPU's
+# (the CPU model on the card's uniforms; bound set from the measured
+# 0.9996)
+DYVIT_BF16_SAME = 0.99
 NONE = dict.fromkeys(WRAPPERS, 0)
 # launches of one forward: 12 score-less blocks (dense); 9 score-less
 # blocks and 3 reduction blocks (topk at loc 3 6 9); 12 attention and 12
@@ -549,12 +609,22 @@ PER_TRAIN_STEP_BWD = {
     "kmedoids@0.7": {**NO_TRAIN, "attend_branch_train": 9, "mlp_branch": 12,
                      "attention_core_train": 3},
 }
-for _label in ("topk@0.7", "evit@0.7", "sinkhorn@0.7"):
+for _label in ("topk@0.7", "evit@0.7", "sinkhorn@0.7",
+               "deit-s distilled soft", "deit-s distilled hard"):
     PER_TRAIN_STEP_BWD[_label] = PER_TRAIN_STEP_BWD["dense"]
+# DyViT in training: every attention half under the policy (plain
+# PyTorch, as XLA in JAX), every MLP half mlp_branch
+for _label in ("dyvit@0.7", "dyvit@0.7 distill"):
+    PER_TRAIN_STEP_BWD[_label] = {**NO_TRAIN, "mlp_branch": 12}
 PER_TRAIN_STEP = {label: {**NONE, **{k: 2 * n for k, n in bwd.items()}}
                   for label, bwd in PER_TRAIN_STEP_BWD.items()}
+# DyViT's dense teacher: 12 fp32 full blocks a step (the RegNet teacher's
+# convolutions are cuDNN's)
+PER_TRAIN_STEP["dyvit@0.7 distill"]["fused_full_block"] = 12
 SERVE_BATCHES, SERVE_B = 5, 256
 TRAIN_STEPS, TRAIN_B = 8, 256
+# phase 5's counted train cells
+TRAIN_CELLS = TRAIN_MODELS + CLUSTER_TRAIN + DISTILL_TRAIN
 
 
 def require(cond: bool, msg: str):
@@ -620,7 +690,7 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 
 def bound(name: str, B: int, N: int, K: int | None = None,
-          masked: bool = False):
+          masked: bool = False, dtype=torch.bfloat16):
     """(least ms, "bytes" or "operations") of a bf16 counterpart at these
     shapes (K: the gathered MLP's rows, or the rectangular attention's
     kept rows): each input read once and each output written once over
@@ -630,11 +700,12 @@ def bound(name: str, B: int, N: int, K: int | None = None,
     kept-row ids, only the kept rows count. ``masked``: a bool validity
     mask [B, N] read too (the rectangular counterparts always read one).
     fused_block_attention with K: the idx prologue, the block over the K
-    kept rows (of x only they are read) and their int64 ids."""
+    kept rows (of x only they are read) and their int64 ids. fp32: 4-byte
+    elements and the fp32 rate outside the tensor cores."""
     ids = 0
     if name == "fused_block_attention" and K is not None:
         N, ids = K, 8 * B * K
-    E, M = 2, B * N
+    E, M = (4 if dtype == torch.float32 else 2), B * N
     attn_w = 4 * D * D + 6 * D  # wqkv, bqkv, wproj, bproj, LN scale, bias
     mlp_w = 8 * D * D + H4 + 3 * D
     by_products = 4 * B * HEADS * N  # one fp32 [B, H, N]
@@ -677,7 +748,8 @@ def bound(name: str, B: int, N: int, K: int | None = None,
     if masked:
         nbytes += B * N
     nbytes += ids
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
         else "bytes"
 
@@ -900,6 +972,13 @@ def kernel_cases(dtype, gen):
                lambda x=x, i=idx: fused_block_attention_ref(
                    take_tokens(x, i), *attn, HEADS, SCALE),
                library)
+    if dtype == torch.float32:
+        # the DyViT teacher's blocks: fp32 at the train batch (phase 5)
+        x = torch.randn(TRAIN_B, 197, D, generator=gen).to(DEVICE, dtype)
+        yield ("fused_full_block", f"B={TRAIN_B} N=197 teacher",
+               lambda x=x: fused_full_block(x, *attn, *mlp, HEADS, SCALE),
+               lambda x=x: fused_full_block_ref(x, *attn, *mlp, HEADS, SCALE),
+               lambda x=x: library_full_block(x, *attn, *mlp))
 
 
 def heuristic_block_masks() -> dict:
@@ -1062,6 +1141,13 @@ def train_cases(dtype, gen):
                f"B={B} N={N} mask, block {blk}: {valid} patches valid",
                *core_case(qkv, None, dout, drow0, dcs,
                           batch_mask(masks[blk], B)))
+    # the distilled DeiT-S's branches: CLS, the dist token and 196 patches
+    N = DISTILLED_N
+    x = torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
+    dy = torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
+    drow0 = torch.randn(B, HEADS, N, generator=gen).to(DEVICE)
+    for name in ("attend_branch_train", "mlp_branch"):
+        yield (name, f"B={B} N={N} distilled", *case(name, x, dy, drow0))
 
 
 def core_forward(q, k, v, bias=None, mask=None):
@@ -2279,6 +2365,10 @@ def phase_kernels() -> dict:
                               rec[name])
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
             lib = ""
+            if "teacher" in shape:
+                teacher_ms, teacher_by = bound(name, TRAIN_B, 197,
+                                               dtype=dtype)
+                lib = f", bound {teacher_ms:.4f} ms ({teacher_by}, fp32)"
             if dtype == torch.bfloat16:
                 lib_ms = cuda_ms(library)
                 dims = [int(part.split("=")[1]) for part in shape.split()
@@ -3155,6 +3245,210 @@ def dropout_step_check():
           f"another seed {lc.item():.6f}", flush=True)
 
 
+def make_teacher(label: str, device=DEVICE):
+    """A teacher of TEACHERS, fp32 with seeded weights (eval mode)."""
+    model, _ = create_model(TEACHERS[label], device=device,
+                            generator=torch.Generator().manual_seed(3))
+    return model.eval()
+
+
+def teacher_check(label: str):
+    """Phase 3: a teacher's fp32 outputs at B=8 on the card against the
+    same teacher on the CPU, each within 1e-4 of its max|CPU|, with the
+    launches of one forward (the DyViT teacher: 12 fp32 full blocks; the
+    RegNet: none, its convolutions are cuDNN's)."""
+    B, bound_ = MODEL_BATCH[torch.float32], MODEL_BOUND[torch.float32]
+    teacher = make_teacher(label)
+    cpu_teacher = copy.deepcopy(teacher).cpu()
+    x = images(B, torch.Generator().manual_seed(2))
+    reset_counts()
+    with torch.no_grad():
+        out = as_list(teacher(x))
+        torch.cuda.synchronize()
+        got = counts()
+        want = as_list(cpu_teacher(x.cpu()))
+    launches = {**NONE, "fused_full_block": 12 if "dyvit" in label else 0}
+    require(got == launches, f"teacher {label}: launches {got}")
+    errs = []
+    for what, o, w in zip(("logits", "tokens"), out, want):
+        abs_err, rel = rel_err(o.cpu(), w)
+        require(rel <= bound_, f"teacher {label} {what}: {rel:.3e} of "
+                f"max|CPU| > {bound_:.0e}")
+        errs.append(f"{what} {tuple(o.shape)} max abs err {abs_err:.3e} "
+                    f"({rel:.2e} of max|CPU|)")
+    top1 = (out[0].argmax(-1).cpu() == want[0].argmax(-1)).float().mean()
+    require(top1.item() == 1.0, f"teacher {label}: top-1 {top1.item()}")
+    print(f"phase 3 teacher {label} ({TEACHERS[label]}) fp32 B={B}: "
+          f"{'; '.join(errs)} (bound {bound_:.0e}); top-1 equal; launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+
+
+GUMBEL_UNIFORM = dyvit_ops.gumbel_uniform
+
+
+class GumbelReplay:
+    """DyViT's Gumbel uniforms, drawn and recorded until ``replay`` is set
+    (the card's run), then handed out in the same order (the CPU's run),
+    so that the CPU model takes the card's decisions, as k-medoids' CPU
+    model takes the card's ids."""
+
+    def __init__(self):
+        self.draws, self.replay = [], False
+
+    def __call__(self, shape, dtype, device, generator):
+        if self.replay:
+            return self.draws.pop(0).to(device)
+        u = GUMBEL_UNIFORM(shape, dtype, device, generator)
+        self.draws.append(u.cpu())
+        return u
+
+
+def timed_teacher(apply, events: list):
+    """apply with a pair of CUDA events around each call, in ``events``."""
+    def run(images):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = apply(images)
+        end.record()
+        events.append((start, end))
+        return out
+    return run
+
+
+def distill_setup(label: str, device=DEVICE, amp: bool = False,
+                  events: list | None = None):
+    """(student, its loss_fn from train_loop.build_loss_fn with the
+    teacher's train_loop.make_teacher_apply, the student's new module
+    names) of a DISTILL_MODELS cell on ``device``, seeded weights; with
+    ``amp`` bench.py's drop_path 0.1, with ``events`` the teacher's calls
+    timed (timed_teacher)."""
+    (name, kw), teacher_label, extra = DISTILL_MODELS[label]
+    model, cfg = create_model(name, device=device,
+                              generator=torch.Generator().manual_seed(1),
+                              **kw, **({"drop_path_rate": 0.1} if amp
+                                       else {}))
+    args = argparse.Namespace(**{**LOOP_ARGS, **extra})
+    teacher_apply = None
+    if teacher_label is not None:
+        teacher_apply = train_loop.make_teacher_apply(
+            make_teacher(teacher_label, device))
+        if events is not None:
+            teacher_apply = timed_teacher(teacher_apply, events)
+    loss_fn = train_loop.build_loss_fn(
+        args, cfg, train_loop.build_base_criterion(args, False, False),
+        teacher_apply)
+    return model, loss_fn, getattr(model, "new_module_names", list)()
+
+
+def distill_check(label: str, dtype=torch.float32):
+    """Phase 3: the loss and every gradient of one training forward and
+    backward on the card against the CPU (the CPU model takes the card's
+    Gumbel uniforms; the teachers are the same on both devices, fp32 on
+    the uncast images), DyViT's decisions in place, and the launches of
+    one train step. fp32 at B=8: the loss and gradients within 1e-4, the
+    decisions equal. bf16 amp at B=32: the loss within TRAIN_BOUND's, the
+    share of decisions equal to the CPU's at least DYVIT_BF16_SAME (bf16
+    scores tie within an ulp and their Gumbel argmax flips), the
+    gradients, taken over other tokens where a decision flips, reported
+    only."""
+    fp32 = dtype == torch.float32
+    tag = "fp32" if fp32 else "bf16 amp"
+    B, bound_ = MODEL_BATCH[dtype], TRAIN_BOUND[dtype]
+    cfg = StepConfig(amp=not fp32)
+    model, loss_fn, new_names = distill_setup(label)
+    cpu_model, cpu_loss_fn, _ = distill_setup(label, "cpu")  # same seeds
+    gen = torch.Generator().manual_seed(2)
+    x = images(B, gen)
+    y = torch.randint(0, 1000, (B,), generator=gen).to(DEVICE)
+    opt, _ = create_optimizer(dict(model.named_parameters()),
+                              OptimConfig(lr=1e-3, clip_grad=1.0,
+                                          backbone_lr_scale=0.01),
+                              lambda s: 1e-3, new_names)
+    state = init_train_state(model, opt, device=DEVICE)
+    cpu_state = init_train_state(cpu_model, opt, device="cpu")
+    outs = {}
+
+    def recording(fn, dev):
+        def run(out, *rest):
+            outs[dev] = out
+            return fn(out, *rest)
+        return run
+
+    model.train()
+    cpu_model.train()
+    gumbel = dyvit_ops.gumbel_uniform = GumbelReplay()
+    try:
+        reset_counts()
+        loss, grads = loss_and_grads(
+            model, recording(loss_fn, "cuda"), state.params, x, y, cfg,
+            torch.Generator(device=DEVICE).manual_seed(4))
+        torch.cuda.synchronize()
+        got, got_bwd = counts(), backward_counts()
+        require(got == PER_TRAIN_STEP[label]
+                and got_bwd == PER_TRAIN_STEP_BWD[label],
+                f"{label} {tag}: launches {got}, backward {got_bwd}")
+        gumbel.replay = True
+        cpu_loss, cpu_grads = loss_and_grads(
+            cpu_model, recording(cpu_loss_fn, "cpu"), cpu_state.params,
+            x.cpu(), y.cpu(), cfg, torch.Generator().manual_seed(4))
+        require(counts() == got, "a CPU train step launched a kernel")
+        require(not gumbel.draws,
+                f"{label} {tag}: {len(gumbel.draws)} Gumbel draws unused")
+    finally:
+        dyvit_ops.gumbel_uniform = GUMBEL_UNIFORM
+    _, loss_rel = rel_err(loss.cpu().reshape(1), cpu_loss.reshape(1))
+    require(loss_rel <= bound_["loss"], f"{label} {tag}: loss "
+            f"{loss_rel:.3e} of max|CPU| > {bound_['loss']:.0e}")
+    worst_name, worst = max(((n, rel_err(g.cpu(), cpu_grads[n])[1])
+                             for n, g in grads.items()), key=lambda t: t[1])
+    require(not fp32 or worst <= bound_["grads"], f"{label} {tag}: gradient "
+            f"{worst_name} {worst:.3e} of max|CPU| > {bound_['grads']:.0e}")
+    limit = f"bound {bound_['grads']:.0e}" if fp32 else "reported only"
+    what = ""
+    if label.startswith("dyvit"):
+        decided = [d.detach().round().cpu() for d in outs["cuda"][-1]]
+        cpu_decided = [d.detach().round() for d in outs["cpu"][-1]]
+        same = sum(int((a == b).sum()) for a, b in zip(decided, cpu_decided))
+        total = sum(d.numel() for d in cpu_decided)
+        least = 1.0 if fp32 else DYVIT_BF16_SAME
+        require(same >= least * total, f"{label} {tag}: {total - same} of "
+                f"{total} Gumbel decisions differ from the CPU's")
+        kept = [f"{d.float().mean().item():.3f}" for d in decided]
+        what = (f"; Gumbel decisions equal {same}/{total} ({same / total:.4f}"
+                f", bound {least}), kept share a stage {kept}")
+    step = make_train_step(model, loss_fn, opt, cfg,
+                           torch.Generator(device=DEVICE).manual_seed(4))
+    reset_counts()
+    state, metrics = step(state, {"image": x, "label": y})
+    torch.cuda.synchronize()
+    require(counts() == PER_TRAIN_STEP[label]
+            and backward_counts() == PER_TRAIN_STEP_BWD[label]
+            and bool(torch.isfinite(metrics["loss"])),
+            f"{label} {tag}: train step launches {counts()}, loss "
+            f"{metrics['loss'].item()}")
+    print(f"phase 3 train {label} {tag} B={B}: loss {loss.item():.6f} vs CPU "
+          f"{cpu_loss.item():.6f} ({loss_rel:.2e} rel, bound "
+          f"{bound_['loss']:.0e}); worst gradient leaf {worst_name} "
+          f"{worst:.2e} of its max|CPU| ({limit}){what}; "
+          f"launches of one train step "
+          f"{ {k: v for k, v in counts().items() if v} }, backward "
+          f"{ {k: v for k, v in backward_counts().items() if v} }",
+          flush=True)
+
+
+def phase_distill():
+    """Phase 3, DyViT's training and the teachers: each teacher's outputs,
+    then DyViT@0.7's training without and with dyvit_distill and the
+    distilled DeiT-S with the RegNet teacher, soft and hard, in fp32, and
+    DyViT@0.7's with dyvit_distill in bf16 amp."""
+    for label in TEACHERS:
+        teacher_check(label)
+    for label in DISTILL_MODELS:
+        distill_check(label)
+    distill_check("dyvit@0.7 distill", torch.bfloat16)
+
+
 def phase_serve(card: str) -> dict:
     """Phase 4: serve SERVE_BATCHES batches of SERVE_B bf16 images per
     model; the launch counts of this run go into the JSON record."""
@@ -3361,19 +3655,32 @@ def eval_profile(label: str, card: str, profile: bool = True):
 
 def train_run(label: str, steps: int, profile: bool = False):
     """bench.py's train recipe for `steps` steps of TRAIN_B; returns
-    (seconds per step, losses, profile) where profile, after two more
-    steps under torch.profiler, is (the device's busy share of their
-    wall time, {kernel: device microseconds}), else None."""
+    (seconds per step, losses, profile, extra) where profile, after two
+    more steps under torch.profiler, is (the device's busy share of their
+    wall time, {kernel: device microseconds}), else None; extra holds the
+    peak memory allocated over the steps (torch.cuda.max_memory_allocated,
+    the batches on the card included) and, for a DISTILL_MODELS cell, the
+    teacher's mean ms a step over steps 3-`steps` (CUDA events around its
+    forward). A DISTILL_MODELS cell trains with its loop's loss and
+    teacher, and its student's new modules at full LR."""
     settle()
-    name, kw = MODELS[label]
-    model, _ = create_model(name, device=DEVICE, drop_path_rate=0.1,
-                            generator=torch.Generator().manual_seed(1), **kw)
+    torch.cuda.reset_peak_memory_stats()
+    teacher_events = []
+    if label in DISTILL_MODELS:
+        model, loss_fn, new_names = distill_setup(label, amp=True,
+                                                  events=teacher_events)
+    else:
+        name, kw = MODELS[label]
+        model, _ = create_model(name, device=DEVICE, drop_path_rate=0.1,
+                                generator=torch.Generator().manual_seed(1),
+                                **kw)
+        loss_fn, new_names = label_smoothing_loss, []
     opt, _ = create_optimizer(dict(model.named_parameters()),
                               OptimConfig(lr=1e-3, clip_grad=1.0,
                                           backbone_lr_scale=0.01),
-                              lambda s: 1e-3, [])
+                              lambda s: 1e-3, new_names)
     state = init_train_state(model, opt, ema=True, device=DEVICE)
-    step = make_train_step(model, label_smoothing_loss, opt,
+    step = make_train_step(model, loss_fn, opt,
                            StepConfig(ema_decay=0.99996, amp=True),
                            torch.Generator(device=DEVICE).manual_seed(5))
     data = torch.Generator(device=DEVICE).manual_seed(3)
@@ -3389,6 +3696,10 @@ def train_run(label: str, steps: int, profile: bool = False):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         step_losses.append(metrics["loss"])
+    extra = dict(peak=torch.cuda.max_memory_allocated())
+    if teacher_events:
+        extra["teacher_ms"] = statistics.mean(
+            a.elapsed_time(b) for a, b in teacher_events[2:steps])
     prof_out = None
     if profile:
         def run(i):
@@ -3405,7 +3716,58 @@ def train_run(label: str, steps: int, profile: bool = False):
                     for n, p in first.items())
     require(moved > 0 and ema_moved > 0,
             f"{label}: params moved {moved}, EMA {ema_moved}")
-    return seconds, step_losses, prof_out
+    return seconds, step_losses, prof_out, extra
+
+
+def policy_attention_ms(B: int = TRAIN_B) -> float:
+    """One DyViT attention half's plain composition under a policy
+    (Attention's policy branch: qkv, the fp32 logits, softmax_with_policy,
+    the value product in bf16, proj), forward and backward in bf16 as amp
+    runs it, at B x 197 with 0.7 of the patches kept: ms by CUDA events."""
+    gen = torch.Generator().manual_seed(12)
+    attn = layers.Attention(D, HEADS).to(DEVICE, torch.bfloat16)
+    x = torch.randn(B, 197, D, generator=gen).to(DEVICE, torch.bfloat16) \
+        .requires_grad_()
+    keep = (torch.rand(B, 196, 1, generator=gen) < 0.7).float()
+    policy = torch.cat([torch.ones(B, 1, 1), keep], 1).to(DEVICE,
+                                                        torch.bfloat16)
+    dy = torch.randn(B, 197, D, generator=gen).to(DEVICE, torch.bfloat16)
+    leaves = (x, *attn.parameters())
+
+    def run():
+        y, _ = attn(x, policy=policy)
+        torch.autograd.grad(y, leaves, dy)
+
+    return cuda_ms(run, runs=10)
+
+
+def distill_breakdown(label: str, device_ms_step: float, by_kernel: dict,
+                      teacher_ms: float | None):
+    """Where a distillation step's device time goes: the teacher's forward
+    (CUDA events in the counted run), DyViT's 12 policy attention halves
+    (timed alone, policy_attention_ms), and the port's kernels (the
+    profiled window's device time by kernel)."""
+    own = sum(us for name, us in by_kernel.items()
+              if name.startswith(PORT_KERNELS)) / 2e3
+    parts = [f"the port's kernels {own:.2f} ms "
+             f"({100 * own / device_ms_step:.1f}%)"]
+    if teacher_ms is not None:
+        parts.append(f"the teacher's forward {teacher_ms:.2f} ms "
+                     f"({100 * teacher_ms / device_ms_step:.1f}%, events)")
+    if label.startswith("dyvit"):
+        policy = 12 * policy_attention_ms()
+        parts.append(f"12 policy attention halves {policy:.2f} ms "
+                     f"({100 * policy / device_ms_step:.1f}%, timed alone, "
+                     "forward and backward)")
+    print(f"phase 5 breakdown {label} bf16 amp b{TRAIN_B}: of "
+          f"{device_ms_step:.2f} ms of device time a step: "
+          + "; ".join(parts), flush=True)
+
+
+# the port's own kernels (csrc/), by their names' prefixes
+PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "short_attention",
+                "attention_fwd_sm90", "attention_bwd_sm90", "layer_norm",
+                "sum_partials", "head_mean_keys")
 
 
 def kernel_family(name: str) -> str:
@@ -3425,10 +3787,10 @@ def phase_train(card: str) -> dict:
     JSON record. Then the eager library composition's steps and, last,
     the profiled windows, whose launches are not counted."""
     reset_counts()
-    step_ms = {}
-    for label in TRAIN_MODELS + CLUSTER_TRAIN:
+    step_ms, teacher_ms = {}, {}
+    for label in TRAIN_CELLS:
         sums_before = _build.sum_partials_many.launches
-        seconds, step_losses, _ = train_run(label, TRAIN_STEPS)
+        seconds, step_losses, _, extra = train_run(label, TRAIN_STEPS)
         # one sum launch in each branch backward: at most 2 a block
         sums = _build.sum_partials_many.launches - sums_before
         want = TRAIN_STEPS * sum(PER_TRAIN_STEP_BWD[label][k] for k in (
@@ -3440,15 +3802,22 @@ def phase_train(card: str) -> dict:
               f"step ({sums / TRAIN_STEPS / 12:g} a block of 12)", flush=True)
         timed = seconds[2:]
         step_ms[label] = 1e3 * sum(timed) / len(timed)
+        teacher = ""
+        if "teacher_ms" in extra:
+            teacher_ms[label] = extra["teacher_ms"]
+            teacher = (f"; the teacher's forward {teacher_ms[label]:.2f} ms "
+                       "a step (CUDA events)")
         print(f"phase 5 train {label} bf16 amp b{TRAIN_B}: "
               f"{step_ms[label]:.2f} ms/step, "
               f"{TRAIN_B * len(timed) / sum(timed):.1f} img/s over steps "
               f"3-{TRAIN_STEPS} (first step {seconds[0] * 1e3:.1f} ms); "
+              f"peak memory allocated {extra['peak'] / 2**30:.2f} GiB (the "
+              f"{TRAIN_STEPS} batches {TRAIN_STEPS * TRAIN_B * 3 * 224 * 224 * 4 / 2**30:.2f} GiB of it){teacher}; "
               f"losses {[round(v, 4) for v in step_losses.tolist()]} on "
               f"{card}", flush=True)
     got = counts()
     expected = {k: TRAIN_STEPS * sum(PER_TRAIN_STEP[label][k]
-                                     for label in TRAIN_MODELS + CLUSTER_TRAIN)
+                                     for label in TRAIN_CELLS)
                 for k in WRAPPERS}
     require(got == expected, f"train launches {got} != {expected}")
     require(all(got[k] for k in TRAIN_WRAPPERS),
@@ -3460,7 +3829,7 @@ def phase_train(card: str) -> dict:
             f"train attention launches {launcher_counts()}")
     # the LayerNorm backward: once in the backward of each training branch
     ln_bwd = TRAIN_STEPS * sum(PER_TRAIN_STEP_BWD[label][k]
-                               for label in TRAIN_MODELS + CLUSTER_TRAIN
+                               for label in TRAIN_CELLS
                                for k in ("attend_branch_train", "mlp_branch"))
     require(got["layer_norm_bwd"] == got["sum_partials"] == ln_bwd
             and got["rect_attention"] == 0 and got["head_mean_keys"] == 0,
@@ -3477,7 +3846,7 @@ def phase_train(card: str) -> dict:
     layers.attention_core_train = library_core
     try:
         for label in TRAIN_MODELS:
-            seconds, _, _ = train_run(label, TRAIN_STEPS)
+            seconds, _, _, _ = train_run(label, TRAIN_STEPS)
             timed = seconds[2:]
             print(f"phase 5 train {label} bf16 amp b{TRAIN_B}, eager library "
                   f"composition: {1e3 * sum(timed) / len(timed):.2f} ms/step, "
@@ -3487,8 +3856,9 @@ def phase_train(card: str) -> dict:
         (layers.attend_branch_train, layers.mlp_branch,
          layers.attention_core_train) = kernels
 
-    for label in ("dense", "topk@0.7", "tome@0.7", "heuristic"):
-        _, _, prof = train_run(label, 4, profile=True)
+    for label in ("dense", "topk@0.7", "tome@0.7", "heuristic",
+                  *DISTILL_TRAIN):
+        _, _, prof, _ = train_run(label, 4, profile=True)
         if prof is None:
             print(f"phase 5 profile {label}: device time not measured (the "
                   "profiler saw no device events)", flush=True)
@@ -3506,6 +3876,9 @@ def phase_train(card: str) -> dict:
               f"by kernel: " + "; ".join(
                   f"{name} {100 * us / total:.1f}%" for name, us in top),
               flush=True)
+        if label in DISTILL_TRAIN:
+            distill_breakdown(label, total / 2e3, by_kernel,
+                              teacher_ms.get(label))
     return got
 
 
@@ -3610,12 +3983,12 @@ def main():
         phase_train_models(dtype)
     sinkhorn_step_check()
     dropout_step_check()
+    phase_distill()
     elapsed("3")
     launches = phase_serve(card)
     elapsed("4")
     trained = phase_train(card)
-    launches.update({k: v for k, v in trained.items() if k in TRAIN_WRAPPERS})
-    for name in LAUNCHERS:
+    for name in (*WRAPPERS, *LAUNCHERS):
         launches[name] += trained[name]
     elapsed("5")
     for name, shape, ms, bound_ms, lib_ms in standalone:

@@ -11,7 +11,9 @@ JAX's draw) and in its sentinel case (an empty cluster takes token 0);
 eval and training, against the JAX block's aux, with the gradients of a
 loss that reads it. The models are held as tests/test_torch_evit.py
 holds EViT: one Flax init through the weight bridge, logits and every
-viz artifact (ids exactly), in viz mode and without it. Training:
+viz artifact (ids exactly), in viz mode and without it, also at
+``reduction_loc=(2, 1)`` (the stages counted in block order, as JAX's
+``cnt``). Training:
 k-medoids' loss and gradients against ``jax.value_and_grad``, its
 ``colsum`` blocks through ``Attention`` and ``attention_core_train``,
 and one Sinkhorn step with ``project_sinkhorn`` against JAX's
@@ -215,13 +217,17 @@ def test_colsum_score_matches_jax(train):
                                    atol=tol, err_msg=n)
 
 
-CASES = {m: dict(keep_rate=(0.7,)) for m in METHODS}
-CASES["dpcknn equal weight"] = dict(keep_rate=(0.7,), equal_weight=True)
+CASES = {m: dict(reduction_loc=LOC, keep_rate=(0.7,)) for m in METHODS}
+CASES["dpcknn equal weight"] = dict(reduction_loc=LOC, keep_rate=(0.7,),
+                                    equal_weight=True)
+# the stages counted in block order, not by their place in reduction_loc
+# (JAX's cnt): at loc (2, 1) block 1 runs stage 0
+CASES.update({f"{m} loc 2 1": dict(reduction_loc=(2, 1), keep_rate=(0.7,))
+              for m in METHODS})
 
 
 def jax_model(method, **kw):
-    return jax_create_model(f"{method}_small_patch16_224", **DIMS,
-                            reduction_loc=LOC, **kw)[0]
+    return jax_create_model(f"{method}_small_patch16_224", **DIMS, **kw)[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,8 +241,7 @@ def init_params(case):
 
 def port_model(case, params, **kw):
     model, _ = create_model(f"{case.split()[0]}_small_patch16_224",
-                            device="cpu", **DIMS, reduction_loc=LOC,
-                            **CASES[case], **kw)
+                            device="cpu", **DIMS, **CASES[case], **kw)
     model.load_state_dict(state_dict_from_flax(params), strict=True)
     return model
 

@@ -11,8 +11,9 @@ is held against Flax's at 1e-5. The model is held as
 tests/test_torch_ats.py holds ATS: one Flax init through the weight
 bridge (the score predictors included), the same seeded images, logits
 and ``Features`` within 1e-4 and ``Kept_Tokens`` exactly, at keep 0.7 and
-0.5. The refusals: DyViT training, DyViT on the distilled backbone, and
-idx with a bias or a mask.
+0.5. The refusals: DyViT training without a generator, DyViT on the
+distilled backbone, and idx with a bias or a mask (DyViT's training
+against JAX: tests/test_torch_dyvit_train.py).
 """
 
 import functools
@@ -220,13 +221,11 @@ def test_bridge_round_trips_score_predictors():
 
 
 def test_refusals():
+    """DyViT on the distilled backbone is refused, and training draws its
+    Gumbel noise from an explicit generator: without one it raises."""
     model = port_model(init_params(), keep_rate=(0.7,))
-    with pytest.raises(NotImplementedError,
-                       match="DyViT training and the teachers"):
+    with pytest.raises(ValueError, match="generator"):
         model.train()(torch.from_numpy(images(b=2)[0]))
     with pytest.raises(ValueError, match="distilled"):
         create_model("dyvit_small_patch16_224", device="cpu", **DIMS,
                      reduction_loc=LOC, keep_rate=(0.7,), distilled=True)
-    with pytest.raises(NotImplementedError,
-                       match="DyViT training and the teachers"):
-        create_model("dyvit_small_patch16_224_teacher", device="cpu")

@@ -1,6 +1,7 @@
 """Package boundary of the PyTorch port: no JAX, no build on the CPU,
-launch counters untouched by CPU forwards and train steps, and refusals
-for what is not ported yet."""
+launch counters untouched by CPU forwards and train steps, every name of
+the JAX registry built and run, and refusals for what is not ported
+yet."""
 
 import os
 import pathlib
@@ -15,6 +16,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 TINY = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)
+SIZES = {"tiny": 192, "small": 384, "base": 768}
 
 _CHILD = textwrap.dedent("""
     import sys
@@ -62,6 +64,22 @@ _CHILD = textwrap.dedent("""
         assert sorted(viz["Features"]) == [1, 2, 3], sorted(viz["Features"])
     heuristic, _ = T.create_model("heuristic_small_patch16_224", **tiny)
     heuristic.train()(torch.randn(2, 3, 32, 32)).sum().backward()
+    dyvit, _ = T.create_model("dyvit_small_patch16_224",
+                              dyvit_distillation=True, **tiny)
+    logits, tokens, mask, decisions = dyvit.train()(
+        torch.randn(2, 3, 32, 32), generator=torch.Generator().manual_seed(0))
+    assert tokens.shape == (2, 16, 64) and len(decisions) == 2
+    (logits.sum() + sum(d.sum() for d in decisions)).backward()
+    teacher, _ = T.create_model("dyvit_small_patch16_224_teacher",
+                                **{k: v for k, v in tiny.items()
+                                   if k not in ("reduction_loc", "keep_rate")})
+    with torch.no_grad():
+        assert teacher(torch.randn(2, 3, 32, 32))[1].shape == (2, 16, 64)
+    regnet, _ = T.create_model("regnety_160", device="cpu", img_size=32,
+                               depths=(1, 1), widths=(16, 32), group_width=8,
+                               stem_width=8)
+    with torch.no_grad():
+        assert regnet(torch.randn(2, 3, 32, 32)).shape == (2, 1000)
     model, _ = T.create_model("topk_small_patch16_224", drop_path_rate=0.1,
                               **tiny)
     with torch.no_grad():
@@ -97,8 +115,9 @@ _CHILD = textwrap.dedent("""
 
 def test_port_imports_and_runs_without_jax():
     """A fresh interpreter imports the port and runs a tiny ToMe, ATS and
-    heuristic forward (eval and training), a tiny DyViT eval forward, a
-    tiny topk forward and one amp train step
+    heuristic forward (eval and training), a tiny DyViT eval and
+    distillation training forward, the two teachers' forwards, a tiny
+    topk forward and one amp train step
     (drop_path 0.1) on the CPU with no JAX, Flax or optax module loaded, no
     kernel build and no kernel launch."""
     env = dict(os.environ)
@@ -166,24 +185,44 @@ def test_cpu_forward_leaves_launch_counters_at_zero():
                                   "dyvit_base_patch16_224_teacher",
                                   "regnety_160"])
 def test_registry_refuses_unported_methods(name):
+    """The four names the port refused until the teachers were ported now
+    build on the CPU and run a forward: the DyViT teachers at their size's
+    widths (two blocks) return (CLS logits, patch tokens), RegNetY-160 at
+    its published widths its logits."""
     from tokenreduction_tpu_torch import create_model
 
-    with pytest.raises(NotImplementedError,
-                       match="DyViT training and the teachers"):
-        create_model(name, device="cpu")
+    kw = {} if name == "regnety_160" else dict(depth=2)
+    model, cfg = create_model(name, device="cpu", img_size=64, **kw)
+    with torch.no_grad():
+        out = model(torch.zeros(1, 3, 64, 64))
+    if name == "regnety_160":
+        assert cfg.widths == (224, 448, 1232, 3024)
+        assert out.shape == (1, 1000)
+    else:
+        size = name.split("_")[1]
+        assert out[0].shape == (1, 1000)
+        assert out[1].shape == (1, 16, SIZES[size])
+    assert all(bool(torch.isfinite(t).all())
+               for t in (out if isinstance(out, tuple) else (out,)))
 
 
 def test_registry_names_and_unknown_name():
     from tokenreduction_tpu_torch import create_model, list_models
 
+    from tokenreduction_tpu.models.registry import (
+        list_models as jax_list_models,
+    )
+
     assert list_models() == sorted(
-        f"{p}_{s}_patch16_224{x}"
-        for s in ("tiny", "small", "base")
-        for p, x in (("deit", "_local"), ("deit", "_local_viz"),
-                     ("topk", ""), ("evit", ""), ("tome", ""),
-                     ("sit", ""), ("patchmerger", ""), ("sinkhorn", ""),
-                     ("dpcknn", ""), ("kmedoids", ""), ("ats", ""),
-                     ("heuristic", ""), ("dyvit", "")))
+        [f"{p}_{s}_patch16_224{x}"
+         for s in ("tiny", "small", "base")
+         for p, x in (("deit", "_local"), ("deit", "_local_viz"),
+                      ("topk", ""), ("evit", ""), ("tome", ""),
+                      ("sit", ""), ("patchmerger", ""), ("sinkhorn", ""),
+                      ("dpcknn", ""), ("kmedoids", ""), ("ats", ""),
+                      ("heuristic", ""), ("dyvit", ""),
+                      ("dyvit", "_teacher"))] + ["regnety_160"])
+    assert list_models() == jax_list_models() and len(list_models()) == 43
     with pytest.raises(KeyError):
         create_model("resnet50", device="cpu")
 

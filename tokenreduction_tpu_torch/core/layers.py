@@ -21,7 +21,9 @@ goes through ``attend_branch_train`` and every MLP half through
 ``mlp_branch`` (each with a hand-written backward), then
 ``x + drop_path(branch)`` in x's dtype; where the JAX gate sends a half
 to its XLA composition, ``Attention`` runs instead: for an attention half
-with a bias or a mask, or with attention dropout or dropout above 0. Its
+with a bias or a mask, or with attention dropout or dropout above 0, and
+for every attention half under DyViT's policy (its policy softmax, in
+eval too; the MLP half keeps its kernel). Its
 qkv and out projections are ``nn.Linear``, and between them, in training
 without attention dropout, the attention core ``attention_core_train``
 (again a hand-written backward, the bias and the mask included), else the
@@ -62,6 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tokenreduction_tpu_torch.ops.dyvit import softmax_with_policy
 from tokenreduction_tpu_torch.ops.flash_attention import (
     HEAD_DIM,
     SHORT_ATTENTION_MAX_N,
@@ -191,12 +194,17 @@ class Attention(nn.Module):
     receives, summed over heads and queries [B, N] (k-medoids' token
     weights, models/kmedoids.py:237-251).
 
-    In training without attention dropout, where the block's gates let
-    the kernels take it (``kernels=True``: ``kernels_take``, decided by
-    the block), q, k and v go through ``attention_core_train`` (the JAX
-    gate, core/layers.py:272-301); otherwise the plain composition runs
-    (fp32 probabilities, as the JAX ``attention_core``), with attention
-    dropout on the probabilities before the value product."""
+    With DyViT's ``policy`` [B, N, 1] (a soft keep mask of the keys) the
+    logits are an unrounded fp32 product, the probabilities come from
+    ``softmax_with_policy`` and go to the value product in v's dtype, with
+    no attention dropout: the reference builds the module but never calls
+    it (JAX core/layers.py:302-324). Else, in training without attention
+    dropout, where the block's gates let the kernels take it
+    (``kernels=True``: ``kernels_take``, decided by the block), q, k and v
+    go through ``attention_core_train`` (the JAX gate, core/layers.py:
+    272-301); otherwise the plain composition runs (fp32 probabilities,
+    as the JAX ``attention_core``), with attention dropout on the
+    probabilities before the value product."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0):
@@ -208,7 +216,7 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.proj_drop = Dropout(proj_drop)
 
-    def forward(self, x, *, bias=None, mask=None,
+    def forward(self, x, *, bias=None, mask=None, policy=None,
                 score: Optional[str] = None,
                 generator: Optional[torch.Generator] = None,
                 kernels: bool = False):
@@ -217,7 +225,13 @@ class Attention(nn.Module):
         B, N, D = x.shape
         q, k, v = self.qkv(x).view(B, N, 3, self.num_heads, -1) \
             .permute(2, 0, 3, 1, 4).unbind(0)
-        if self.training and self.attn_drop.p == 0.0 and kernels:
+        if policy is not None:
+            logits = (q.float() @ k.float().transpose(-2, -1)) * self.scale
+            probs = softmax_with_policy(logits, policy)
+            out = (probs.to(v.dtype).float() @ v.float()).to(v.dtype)
+            cls_row = probs[:, :, 0, 1:]
+            colsum = probs.sum(2) if score == "colsum" else None
+        elif self.training and self.attn_drop.p == 0.0 and kernels:
             out, row0, colsum = attention_core_train(q, k, v, self.scale,
                                                      bias, mask)
             cls_row = row0[:, :, 1:]
@@ -287,12 +301,15 @@ class Block(nn.Module):
         return kernels_take(N, self.attn.qkv.in_features // self.num_heads,
                             self.force_plain)
 
-    def attend(self, x, *, bias=None, mask=None, idx=None,
+    def attend(self, x, *, bias=None, mask=None, policy=None, idx=None,
                score: Optional[str] = None,
                generator: Optional[torch.Generator] = None):
         """norm1 -> attention -> droppath -> residual, returning
         (x, (aux, None)); bias: None or ToMe's per-key bias [B, N]; mask:
-        None or the validity mask [B, N]; idx: None or the absolute ids
+        None or the validity mask [B, N]; policy: None or DyViT's keep
+        policy [B, N, 1], which sends the half to ``Attention``'s policy
+        branch in eval and training alike (JAX core/layers.py:302-315,
+        :404-416, :448-490); idx: None or the absolute ids
         [B, K] of the tokens to keep (CLS included), the same as
         ``take_tokens(x, idx)`` first. Where the kernels take the block
         (``kernels_take`` at the width the attention runs at), in eval one
@@ -306,7 +323,7 @@ class Block(nn.Module):
         past its gates, core/layers.py:486-490)."""
         _check_score(score)
         N = x.shape[1] if idx is None else idx.shape[1]
-        kernels = self.kernels_take(N)
+        kernels = self.kernels_take(N) and policy is None
         if not self.training and kernels:
             res = fused_block_attention(
                 x, *self._attn_params(), self.num_heads, self.attn.scale,
@@ -336,8 +353,9 @@ class Block(nn.Module):
                 aux = self.attn.qkv(self.norm1(x)) \
                     .view(B, N, 3, self.num_heads, -1)[:, :, 1].mean(2)
             return x + self.drop_path1(branch, generator), (aux, None)
-        y, aux = self.attn(self.norm1(x), bias=bias, mask=mask, score=score,
-                           generator=generator, kernels=kernels)
+        y, aux = self.attn(self.norm1(x), bias=bias, mask=mask,
+                           policy=policy, score=score, generator=generator,
+                           kernels=kernels)
         return x + self.drop_path1(y, generator), aux
 
     def ffn(self, x, generator: Optional[torch.Generator] = None):
@@ -365,17 +383,21 @@ class Block(nn.Module):
                                              eps=self.eps)
         return self.ffn(take_tokens(x, idx), generator)
 
-    def forward(self, x, *, mask=None, score: Optional[str] = None,
+    def forward(self, x, *, mask=None, policy=None,
+                score: Optional[str] = None,
                 generator: Optional[torch.Generator] = None):
         """Returns (x, (aux, None)); a score-less eval block without a
-        mask that the kernels take is one ``fused_full_block`` call (JAX
-        core/layers.py:574-616, its width gate included), any other
-        block ``attend`` and ``ffn``."""
-        if (score is None and mask is None and not self.training
-                and self.kernels_take(x.shape[1])):
+        mask or a policy that the kernels take is one ``fused_full_block``
+        call (JAX core/layers.py:574-616, its width gate included), any
+        other block ``attend`` and ``ffn`` (under a policy the MLP half
+        still takes its kernel, as JAX's ``ffn`` does not look at the
+        policy, core/layers.py:497-533)."""
+        if (score is None and mask is None and policy is None
+                and not self.training and self.kernels_take(x.shape[1])):
             out = fused_full_block(
                 x, *self._attn_params(), *self._mlp_params(), self.num_heads,
                 self.attn.scale, eps=self.eps)
             return out, (None, None)
-        x, aux = self.attend(x, mask=mask, score=score, generator=generator)
+        x, aux = self.attend(x, mask=mask, policy=policy, score=score,
+                             generator=generator)
         return self.ffn(x, generator), aux

@@ -12,7 +12,13 @@ family's modules map from ``cluster_layers_{k}/<name>/{kernel, scale,
 bias}`` to ``cluster_layers.{k}.<name>.{weight, bias}`` (Dense kernels
 transposed; the LayerNorms ``weight_ln`` and ``norm``), and their raw
 params ``queries``, ``v`` and ``scale`` to ``cluster_layers.{k}.<leaf>``.
-It works on
+The DyViT teacher's names are the dense ViT's. RegNet's tree
+(``models/regnet.py`` there: ``stem``, ``s{i}_b{j}``, ``head_fc``) maps to
+timm's names (``stem``, ``s{i}.b{j}``, ``head.fc``): conv kernels [kh, kw,
+cin / groups, cout] -> [cout, cin / groups, kh, kw], the frozen
+BatchNorms' ``scale``, ``bias``, ``mean``, ``var`` -> ``weight``,
+``bias``, ``running_mean``, ``running_var``, the head's Dense kernel
+transposed. It works on
 any nested mapping of array-likes (numpy arrays in the tests) and imports
 no JAX. ``torch_names_from_flax`` maps any tree shaped like the params
 (gradients, optimizer labels, EMA params) to the port's parameter names
@@ -21,6 +27,7 @@ leaf by leaf, leaves untouched.
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -29,11 +36,34 @@ import torch
 
 # the cluster layers' LayerNorms; their other submodules are Dense
 _CLUSTER_NORMS = ("weight_ln", "norm")
+# RegNet: a block's Flax name, and the frozen BatchNorm's leaves
+_REGNET_BLOCK = re.compile(r"s\d+_b\d+")
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _regnet_name(path: tuple[str, ...]):
+    """(timm name, transform) of a RegNet leaf, None for another path."""
+    top, leaf = path[0], path[-1]
+    if top == "head_fc" and len(path) == 2:
+        return f"head.fc.{'weight' if leaf == 'kernel' else 'bias'}", \
+            "linear" if leaf == "kernel" else None
+    if top == "stem" or _REGNET_BLOCK.fullmatch(top):
+        prefix = ".".join(top.split("_") + list(path[1:-2]))
+        if path[-2] == "bn":
+            return f"{prefix}.bn.{_BN_LEAVES[leaf]}", None
+        if leaf == "kernel":
+            return f"{prefix}.{path[-2]}.weight", "conv"
+        return f"{prefix}.{path[-2]}.bias", None
+    return None
 
 
 def flax_path_to_torch_name(path: tuple[str, ...]):
     """(flax path) -> (timm name, transform) with transform "linear"
     (transpose), "conv" (HWIO -> OIHW) or None. None for unknown paths."""
+    regnet = _regnet_name(path)
+    if regnet is not None:
+        return regnet
     top, leaf = path[0], path[-1]
     if top in ("cls_token", "pos_embed", "dist_token") and len(path) == 1:
         return top, None

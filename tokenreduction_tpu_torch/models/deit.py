@@ -1,5 +1,6 @@
-"""Dense DeiT backbone (timm VisionTransformer equivalent) and its viz
-variant. Counterpart of ``tokenreduction_tpu/models/deit.py:26-133``.
+"""Dense DeiT backbone (timm VisionTransformer equivalent), its viz
+variant and the DyViT teacher. Counterpart of
+``tokenreduction_tpu/models/deit.py``.
 
 Images enter as NCHW. Weights are made on the CPU from an explicit
 ``torch.Generator`` (seed 0 when none is given), so a seed gives the same
@@ -147,3 +148,21 @@ class VisionTransformer(ViTBase):
         if capture and not self.training:
             return out, {"Features": features}
         return out
+
+
+class VisionTransformerTeacher(ViTBase):
+    """The dense teacher of DyViT's distillation (JAX ``models/deit.py:
+    136-151``, reference models/dyvit.py:319-336): returns (CLS logits,
+    post-norm patch tokens). It is always deterministic: ``train()`` keeps
+    it in eval mode, so its blocks run as in eval (on the card one
+    ``fused_full_block`` each) whatever mode the caller asks for."""
+
+    def train(self, mode: bool = True):
+        return super().train(False)
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        x = self.embed(x)
+        for blk in self.blocks:
+            x, _ = blk(x)
+        feature = self.norm(x)
+        return self.head(feature[:, 0]), feature[:, 1:]

@@ -184,10 +184,11 @@ class _SoftClusterViT(_ClusterViT):
                "Features": {}}
         if self.capture_centers:
             viz["Center_Feats"] = {}
+        stage = 0  # the stages in block order, as JAX's cnt
         for i, blk in enumerate(self.blocks):
             if i in c.reduction_loc:
-                layer = self.cluster_layers[c.reduction_loc.index(i)]
-                rest, soft, centers = layer(x[:, p:])
+                rest, soft, centers = self.cluster_layers[stage](x[:, p:])
+                stage += 1
                 if c.viz_mode:
                     viz["Soft_Assignment_Maps"][i] = soft
                     viz["Assignment_Maps"][i] = soft.argmax(-2)
@@ -246,6 +247,7 @@ class DPCKNNVisionTransformer(_ClusterViT):
                                 device=x.device)
         viz = {"Kept_Tokens": {}, "Assignment_Maps": {}, "Center_Feats": {},
                "Features": {}}
+        stage = 0  # the stages in block order, as JAX's cnt
         for i, blk in enumerate(self.blocks):
             if i in c.reduction_loc:
                 rest = x[:, p:]
@@ -253,9 +255,10 @@ class DPCKNNVisionTransformer(_ClusterViT):
                 if generator is not None:
                     noise = torch.rand(rest.shape[:2], generator=generator,
                                        device=x.device).to(rest.dtype)
-                layer = self.cluster_layers[c.reduction_loc.index(i)]
                 rest, idx_token, agg_weight, idx_centers, idx_cluster, \
-                    centers = layer(rest, idx_token, agg_weight, noise)
+                    centers = self.cluster_layers[stage](
+                        rest, idx_token, agg_weight, noise)
+                stage += 1
                 if c.viz_mode:
                     viz["Kept_Tokens"][i] = idx_centers
                     viz["Assignment_Maps"][i] = idx_cluster
@@ -291,9 +294,9 @@ class KMedoidsVisionTransformer(_ClusterViT):
         viz = {"Kept_Tokens": {}, "Assignment_Maps": {}, "Center_Feats": {},
                "Features": {}}
         colsum = None
+        stage = 0  # the stages in block order, as JAX's cnt
         for i, blk in enumerate(self.blocks):
             if i in c.reduction_loc:
-                stage = c.reduction_loc.index(i)
                 weights = first = None
                 if not c.equal_weight:
                     weights = colsum[:, p:, None]
@@ -309,6 +312,7 @@ class KMedoidsVisionTransformer(_ClusterViT):
                     viz["Assignment_Maps"][i] = assignment
                     viz["Center_Feats"][i] = centers
                 x = torch.cat([x[:, :p], centers], dim=1)
+                stage += 1
             # the attention mass is needed only before a reduction
             want = "colsum" if (i + 1) in c.reduction_loc else None
             x, (aux, _) = blk(x, score=want, generator=generator)

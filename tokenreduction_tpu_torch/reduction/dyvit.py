@@ -1,4 +1,4 @@
-"""DynamicViT: learned token pruning (reference models/dyvit.py), eval.
+"""DynamicViT: learned token pruning (reference models/dyvit.py).
 
 Counterpart of ``tokenreduction_tpu/reduction/dyvit.py``. At each
 reduction block a small predictor (``PredictorLG``) scores the patch
@@ -14,8 +14,19 @@ the out projection adds them back, the block at width K) and one
 The predictors are plain PyTorch (the JAX package leaves them to XLA).
 The kept counts are Python ints, so nothing waits for the card.
 
-Training (the Gumbel draw, the policy softmax, the teacher and the
-4-term loss) raises ``NotImplementedError`` until it is ported.
+Training (JAX ``reduction/dyvit.py:74-146``) keeps every block at 197
+tokens and prunes through a mask: at each reduction block the predictor
+scores the patches, a straight-through hard Gumbel-softmax draws each
+patch's keep decision (column 0), times the previous decision, and the
+policy ``[1 for CLS; decision]`` goes to every block from there on (ones
+before the first reduction). Under a policy the attention halves run
+``Attention``'s policy softmax (plain PyTorch, as XLA computes it in
+JAX) and the MLP halves ``mlp_branch``. The Gumbel uniforms come from the
+forward's ``generator``, the generator of dropout and drop path; training
+without one raises. The forward returns ``(logits, the [B, N] decision
+of each stage)`` or, built with ``dyvit_distillation``, ``(logits,
+post-norm patch tokens, the last decision [B, N, 1] (no gradient), the
+decisions)`` for ``train/losses.py::dyvit_distillation_loss``.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from torch import nn
 
 from tokenreduction_tpu_torch.core.config import expand_keep_rate
 from tokenreduction_tpu_torch.models.deit import ViTBase
+from tokenreduction_tpu_torch.ops import dyvit as dyvit_ops
 from tokenreduction_tpu_torch.ops.gather import take_tokens
 
 
@@ -59,7 +71,7 @@ class PredictorLG(nn.Module):
 
 
 class DynamicVisionTransformer(ViTBase):
-    def __init__(self, cfg, **kwargs):
+    def __init__(self, cfg, *, dyvit_distillation: bool = False, **kwargs):
         if cfg.distilled:
             # as the JAX registry refuses it: the reference's DyViT
             # forward never handles the dist token (models/dyvit.py:205-214)
@@ -68,6 +80,11 @@ class DynamicVisionTransformer(ViTBase):
                 "reference's forward never handles the dist token, "
                 "models/dyvit.py:205-214)")
         super().__init__(cfg, **kwargs)
+        self.dyvit_distillation = dyvit_distillation
+
+    @staticmethod
+    def new_module_names():
+        return ["score_predictor"]  # reference dyvit.py:194-195
 
     def make_modules(self):
         self.token_ratio = expand_keep_rate(self.cfg)
@@ -79,14 +96,12 @@ class DynamicVisionTransformer(ViTBase):
         return list(self.cfg.reduction_loc)
 
     def forward(self, x, generator: torch.Generator | None = None):
-        """Logits; with ``cfg.viz_mode`` also {"Kept_Tokens": {block:
-        [B, K] patch ids local to the block's input, in descending score
-        order}, "Features": {block: tokens after it}}."""
+        """In eval the logits; with ``cfg.viz_mode`` also {"Kept_Tokens":
+        {block: [B, K] patch ids local to the block's input, in descending
+        score order}, "Features": {block: tokens after it}}. In training
+        see ``forward_train``."""
         if self.training:
-            raise NotImplementedError(
-                "DyViT training (the Gumbel draw, the policy softmax, the "
-                "teacher and the 4-term loss) is not ported yet (ROADMAP "
-                "Queue 1, \"DyViT training and the teachers\")")
+            return self.forward_train(x, generator)
         c = self.cfg
         x = self.embed(x)
         B = x.shape[0]
@@ -121,3 +136,35 @@ class DynamicVisionTransformer(ViTBase):
         if c.viz_mode:
             return out, {"Kept_Tokens": decisions, "Features": features}
         return out
+
+    def forward_train(self, x, generator: torch.Generator | None):
+        """The masked training forward (see the module docstring); the
+        Gumbel uniforms, the dropout and the drop-path masks from
+        ``generator``."""
+        if generator is None:
+            raise ValueError(
+                "DyViT in training draws its Gumbel noise from an explicit "
+                "torch.Generator: pass generator= to the model's forward")
+        c = self.cfg
+        x = self.embed(x, generator)
+        B = x.shape[0]
+        ones = dict(dtype=x.dtype, device=x.device)
+        prev_decision = torch.ones(B, c.num_patches, 1, **ones)
+        policy = torch.ones(B, c.num_patches + 1, 1, **ones)
+        out_pred_prob = []
+        stage = 0
+        for i, blk in enumerate(self.blocks):
+            if i in c.reduction_loc:
+                score = self.score_predictor[stage](x[:, 1:], prev_decision)
+                hard = dyvit_ops.gumbel_softmax_hard(score, generator)
+                prev_decision = hard[:, :, 0:1] * prev_decision
+                out_pred_prob.append(prev_decision.reshape(B, -1))
+                policy = torch.cat([torch.ones(B, 1, 1, **ones),
+                                    prev_decision], dim=1)
+                stage += 1
+            x, _ = blk(x, policy=policy, generator=generator)
+        x = self.norm(x)
+        logits = self.head(x[:, 0])
+        if self.dyvit_distillation:
+            return logits, x[:, 1:], prev_decision.detach(), out_pred_prob
+        return logits, out_pred_prob

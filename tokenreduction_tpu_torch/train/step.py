@@ -97,9 +97,12 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
                     aug_fn: Optional[Callable] = None):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
-    loss_fn(output, targets, images, params) -> scalar loss
-    generator: the stochastic-depth masks' generator, on the model's
-      device (needed when drop_path_rate > 0)
+    loss_fn(output, targets, images, params) -> scalar loss; output is
+      the model's, a tuple for DyViT and a distilled DeiT, and images are
+      the microbatch before the amp cast (a teacher's input)
+    generator: the generator of the drop-path and dropout masks and of
+      DyViT's Gumbel draw, on the model's device (needed when a rate is
+      above 0, and for DyViT)
     Batch: dict(image=[A*M, C, H, W], label=[A*M, ...]) where A =
     grad_accum_steps; microbatches are the leading-axis splits.
     Metrics: {"loss", "grad_norm"} as device scalars."""
