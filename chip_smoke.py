@@ -15,7 +15,12 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    library reports them (tr_gemm_sm90_config), the sm_90a
    attention's dynamic shared memory a block at each main-path width
    and of its rectangular variant at ATS's (M, N) pairs
-   (tr_attention_sm90_smem), and the LayerNorm backward's.
+   (tr_attention_sm90_smem), the fp32 tensor-core kernels' plans as the
+   library reports them, each equal to the host's (_build.GEMM_TF32,
+   _build.attention_tf32_plan at each main-path width and 256), and the
+   LayerNorm backward's; and, from the built library's SASS (cuobjdump),
+   a TF32 tensor-core instruction (HGMMA or HMMA .TF32) in every variant
+   of the fp32 GEMM and the fp32 square attention, or it fails.
 2. kernels: each kernel counterpart against its plain PyTorch version on
    the same CUDA tensors at the main path's widths, fp32 at B=32 (bound
    1e-4 of max|plain|) and bf16 at B=256 (bound 2e-2 of max|plain|), with
@@ -123,8 +128,18 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    weight and bias gradient's [splits, L] (part.sum(0)), head_mean_keys at ToMe@0.7's
    widths (the head mean of the packed keys); after phase 5, each with its
    launches on the main path (the sums': of the batched launches).
+   Then the fp32 kernels on the tensor cores (3xTF32), each launch alone
+   at B=256 and B=32, N=197: the forward GEMM (csrc/gemm_tf32_sm90.cu) at
+   qkv, proj + residual, fc1 + GELU, fc2 + residual and fc2 with #3's
+   gathered residual (197 -> 138 and 13 -> 4 rows), and the square
+   attention (short_attention_tf32_kernel) without by-products, with row0
+   and colsum, with ToMe's bias and with a validity mask: each output
+   within 1e-4 of its own max|plain|, beside its time per launch, cuBLAS
+   SGEMM's (F.linear) or SDPA's in fp32 (TF32 off), the 3xTF32 bound and
+   the FMA bound.
    Beside each counterpart's time: its bound (bytes or operations at the
-   H100's peak rates) and the eager bf16 composition of library calls
+   H100's peak rates: fp32 products as 3xTF32) and the eager bf16
+   composition of library calls
    (F.layer_norm, F.linear, scaled_dot_product_attention with the bias and
    the pair mask as its float mask, the kept query rows gathered first for
    the rectangular attention, the kept rows gathered first for the idx
@@ -217,7 +232,11 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    heuristic, k-medoids@0.7 and DPC-KNN@0.7: the device's busy share and
    its time per forward by kernel; and, for the cluster family, the
    device time of the clustering between the blocks against the whole
-   forward (CUDA events around each clustering call, 3 forwards).
+   forward (CUDA events around each clustering call, 3 forwards). Last,
+   validate's default precision: 5 batches of 256 fp32 images through
+   dense and topk@0.7, img/s over batches 2-5, each forward's 48 fp32
+   GEMMs and 12 fp32 attentions on the tensor-core kernels (a measurement;
+   not counted with the main path).
 5. train: bench.py's train step for dense, topk@0.7, ToMe@0.7,
    heuristic, EViT@0.7 and k-medoids@0.7 -- b256,
    amp, drop_path 0.1 from a seeded CUDA generator, grouped AdamW lr 1e-3
@@ -237,10 +256,13 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    timed by CUDA events); their profiled windows also break the device
    time down: the port's kernels, the teacher's forward, and DyViT's 12
    policy attention halves (one timed alone, forward and backward, at
-   b256).
+   b256); DyViT's window must show the teacher on the tensor-core kernels
+   and no fp32 FMA GEMM or FMA attention.
 
 Phases 4 and 5 are the main path's runs: each counterpart's launch count,
 and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
+fp32 tensor-core GEMM and attention (gemm_tf32, attention_tf32: the DyViT
+teacher's 4 and 1 a block in phase 5, none in phase 4's bf16 run), of the
 sm_90a attention's three (short_attention, short_attention_bwd,
 rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
 backward and of the partial sums (once each in each training branch's
@@ -266,6 +288,7 @@ import gc
 import itertools
 import json
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -384,9 +407,14 @@ TRAIN_BOUND = {torch.float32: dict(loss=1e-4, grads=1e-4, kept_set=1.0),
 # report prints how far; the card's bf16 ones stay close to fp32)
 FP32_GRAD_REF = ("heuristic",)
 EPS = 1e-6
-# H100 SXM peak rates (NVIDIA data sheet, dense): bf16 tensor cores and HBM3;
-# fp32 outside the tensor cores (the port's fp32 kernels, TF32 off)
+# H100 SXM peak rates (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
+# bound the bf16 kernels; TF32 tensor cores bound an fp32-accurate product
+# (3xTF32: three TF32 products each, the least time the card needs for one:
+# the fp32 forward GEMM and square attention run so); fp32 outside the
+# tensor cores bounds the FMA kernels (the fp32 backward, the fp32 training
+# GEMM layouts, the rectangular fp32 attention), printed beside the first
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_FP32_FLOPS = 67e12
 EVAL_WRAPPERS = {
     "fused_full_block": fused_full_block,
@@ -440,6 +468,7 @@ WRAPPER_SOURCES = {
                          ("fused_rect_block", "flash_attention"))}
 LN_GEMM = "tokenreduction_tpu_torch/csrc/ln_gemm.cu"
 GEMM_SOURCE = "tokenreduction_tpu_torch/csrc/gemm_sm90.cu"
+GEMM_TF32_SOURCE = "tokenreduction_tpu_torch/csrc/gemm_tf32_sm90.cu"
 # the bf16 GEMM computes the MXU products of every counterpart but the
 # attention core; its record names mlp_branch's, the most launched
 GEMM_REPLACES = {"gemm": "tokenreduction_tpu/ops/fused_mlp_train.py:162",
@@ -464,19 +493,24 @@ LN_BWD_REPLACES = "tokenreduction_tpu/ops/fused_mlp_train.py:218"
 LN_REPLACES = "tokenreduction_tpu/ops/fused_full_block.py:118"
 SUMS_REPLACES = "tokenreduction_tpu/ops/fused_mlp_train.py:218"
 KEYS_REPLACES = "tokenreduction_tpu/ops/flash_attention.py:660"
+# (bf16 first; then the fp32 route's: csrc/short_attention.cu's attention
+# and the fp32 GEMMs)
 CUDA_SOURCES = {
-    "fused_full_block": [LN_GEMM, ATTENTION_SM90, GEMM_SOURCE],
+    "fused_full_block": [LN_GEMM, ATTENTION_SM90, GEMM_SOURCE, ATTENTION,
+                         GEMM_TF32_SOURCE],
     "fused_block_attention": [ATTENTION_SM90, ATTENTION, LN_GEMM,
-                              GEMM_SOURCE],
-    "fused_mlp_gather_residual": [LN_GEMM, GEMM_SOURCE],
-    "fused_mlp_residual": [LN_GEMM, GEMM_SOURCE],
-    "attend_branch_train": [ATTENTION_SM90, LN_GEMM, GEMM_SOURCE],
-    "mlp_branch": [LN_GEMM, GEMM_SOURCE],
-    "attention_core_train": [ATTENTION_SM90],
-    "fused_attention": [ATTENTION_SM90],
-    "fused_attention_qkv": [ATTENTION_SM90],
-    "fused_rect_attention": [ATTENTION_SM90],
-    "fused_rect_block": [ATTENTION_SM90, LN_GEMM, GEMM_SOURCE],
+                              GEMM_SOURCE, GEMM_TF32_SOURCE],
+    "fused_mlp_gather_residual": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
+    "fused_mlp_residual": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
+    "attend_branch_train": [ATTENTION_SM90, LN_GEMM, GEMM_SOURCE, ATTENTION,
+                            GEMM_TF32_SOURCE],
+    "mlp_branch": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
+    "attention_core_train": [ATTENTION_SM90, ATTENTION],
+    "fused_attention": [ATTENTION_SM90, ATTENTION],
+    "fused_attention_qkv": [ATTENTION_SM90, ATTENTION],
+    "fused_rect_attention": [ATTENTION_SM90, ATTENTION],
+    "fused_rect_block": [ATTENTION_SM90, LN_GEMM, GEMM_SOURCE, ATTENTION,
+                         GEMM_TF32_SOURCE],
 }
 FULL_BLOCK_N = (197, 138, 97, 68, 50, 13, 4)
 BLOCK_ATTN_N = (197, 138, 97, 50, 13)
@@ -641,12 +675,17 @@ ATTENTIONS = {"short_attention": _build.short_attention_heads,
               "short_attention_bwd": _build.short_attention_bwd_heads}
 # every counted launcher: (function, its count's attribute). Beside the
 # above, the rectangular forward of csrc/attention_sm90.cu (ATS's sampling
-# blocks), the LayerNorm forward and backward and sum_partials
-# (csrc/ln_gemm.cu) and head_mean_keys (csrc/short_attention.cu)
+# blocks), the fp32 forward GEMM (csrc/gemm_tf32_sm90.cu) and the fp32
+# square attention (csrc/short_attention.cu short_attention_tf32_kernel) on
+# the tensor cores in 3xTF32, the LayerNorm forward and backward and
+# sum_partials (csrc/ln_gemm.cu) and head_mean_keys
+# (csrc/short_attention.cu)
 LAUNCHERS = {
     **{name: (f, "launches") for name, f in (*GEMMS.items(),
                                              *ATTENTIONS.items())},
     "rect_attention": (_build.short_attention_heads, "rect_launches"),
+    "gemm_tf32": (_build.gemm, "tf32_launches"),
+    "attention_tf32": (_build.short_attention_heads, "tf32_launches"),
     **{name: (getattr(_build, name), "launches")
        for name in ("layer_norm_bwd", "layer_norm", "head_mean_keys")},
     "sum_partials": (_build.sum_partials_many, "launches")}
@@ -690,7 +729,7 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 
 def bound(name: str, B: int, N: int, K: int | None = None,
-          masked: bool = False, dtype=torch.bfloat16):
+          masked: bool = False, dtype=torch.bfloat16, fma: bool = False):
     """(least ms, "bytes" or "operations") of a bf16 counterpart at these
     shapes (K: the gathered MLP's rows, or the rectangular attention's
     kept rows): each input read once and each output written once over
@@ -701,7 +740,8 @@ def bound(name: str, B: int, N: int, K: int | None = None,
     mask [B, N] read too (the rectangular counterparts always read one).
     fused_block_attention with K: the idx prologue, the block over the K
     kept rows (of x only they are read) and their int64 ids. fp32: 4-byte
-    elements and the fp32 rate outside the tensor cores."""
+    elements and 3xTF32 on the tensor cores (three TF32 products for each
+    product), or with ``fma`` the fp32 rate outside the tensor cores."""
     ids = 0
     if name == "fused_block_attention" and K is not None:
         N, ids = K, 8 * B * K
@@ -748,8 +788,11 @@ def bound(name: str, B: int, N: int, K: int | None = None,
     if masked:
         nbytes += B * N
     nbytes += ids
-    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    if dtype == torch.bfloat16:
+        t_ops = flops / PEAK_FLOPS
+    else:
+        t_ops = flops / PEAK_FP32_FLOPS if fma else 3 * flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
         else "bytes"
 
@@ -1874,6 +1917,164 @@ def phase_attention() -> dict:
     return rec
 
 
+# the fp32 forward GEMM (csrc/gemm_tf32_sm90.cu) and the fp32 square
+# attention (csrc/short_attention.cu short_attention_tf32_kernel), 3xTF32
+# on the tensor cores, each launch alone: B = 256 (the DyViT teacher's and
+# the eval batch) and B = 32, N = 197; the gathered residual of #3 at
+# topk@0.7's first reduction (197 -> 138 rows) and topk@0.25's last
+# (13 -> 4)
+FP32_SHAPES = ((256, 197), (32, 197))
+FP32_GATHER = ((197, 138), (13, 4))
+# dense TF32 operations a clock of one H100 SM (half the bf16 rate)
+SM_TF32_FLOP_PER_CLOCK = 2048
+
+
+def fp32_gemm_cases(B, N, gen):
+    """(launch, label, run, [(output label, got, want)], flops, bytes,
+    library call, plain call) of each fp32 forward product of a DeiT-S
+    block at B x N rows: qkv, proj + residual, fc1 + GELU, fc2 + residual,
+    and fc2 with #3's gathered residual at FP32_GATHER. The library call
+    is cuBLAS SGEMM with its bias (F.linear, TF32 off), the product alone.
+    bytes: each input read once, each output written once."""
+    f32 = torch.float32
+    p = block_params(f32, gen)
+    dev_gen = torch.Generator(device=DEVICE).manual_seed(B * 1000 + N + 7)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=dev_gen, device=DEVICE)
+
+    def case(label, x, w, b, kw, rows=None):
+        M, n_out = x.shape[0], w.shape[0]
+        y = torch.empty(M, n_out, device=DEVICE)
+
+        def plain():
+            out = linear_f32(x, w, b)
+            if kw.get("gelu"):
+                out = F.gelu(out)
+            if "res" in kw:
+                out = out + (kw["res"] if rows is None else kw["res"][rows])
+            return out
+
+        nbytes = 4 * (x.numel() + w.numel() + b.numel() + y.numel()) + (
+            4 * M * n_out if "res" in kw else 0) + (4 * M if rows is not None
+                                                    else 0)
+        return ("gemm_tf32", label,
+                lambda: _build.gemm(x, w, b, y, **kw), [("y", y, plain())],
+                2 * M * x.shape[1] * n_out, nbytes,
+                lambda: F.linear(x, w, b), plain)
+
+    M = B * N
+    ln, h, res = rn(M, D), rn(M, H4), rn(M, D)
+    yield case("qkv", ln, p["wqkv"], p["bqkv"], {})
+    yield case("proj + residual", ln, p["wproj"], p["bproj"], dict(res=res))
+    yield case("fc1 + GELU", ln, p["w1"], p["b1"], dict(gelu=True))
+    yield case("fc2 + residual", h, p["w2"], p["b2"], dict(res=res))
+    for n_in, K in FP32_GATHER:
+        stage = rn(B * n_in, D)
+        idx = torch.randint(0, n_in, (B * K,), generator=dev_gen,
+                            device=DEVICE, dtype=torch.int32)
+        rows = (torch.arange(B * K, device=DEVICE) // K) * n_in + idx
+        yield case(f"fc2 + gathered residual, {n_in} -> {K} rows a sample",
+                   rn(B * K, H4),
+                   p["w2"], p["b2"],
+                   dict(res=stage, idx=idx, rows_out=K, rows_in=n_in), rows)
+
+
+def fp32_attention_cases(B, N, gen):
+    """The same for the fp32 square attention off a packed qkv at B images
+    of N tokens: the forward without by-products (the DyViT teacher's),
+    with row0 and colsum, with ToMe's bias and with a validity mask. The
+    library call is SDPA in fp32 on the same q, k, v (TF32 off), the bias
+    or the pair mask as a float mask: the output alone."""
+    f32 = torch.float32
+    dev_gen = torch.Generator(device=DEVICE).manual_seed(B * 1000 + N + 11)
+    qkv = torch.randn(B, N, 3 * D, generator=dev_gen, device=DEVICE)
+    q, k, v = packed_heads(qkv, HEADS)
+    bias = log_sizes(B, N, gen, f32)
+    mask = token_mask(B, N, gen)
+    merged = torch.empty(B, N, D, device=DEVICE)
+    row0 = torch.empty(B, HEADS, N, device=DEVICE)
+    colsum = torch.empty_like(row0)
+    vec = 4 * B * HEADS * N
+    names = ("merged heads", "row0", "colsum")
+    for label, kw, extra, lib_mask in (
+            ("forward", {}, 0, None),
+            ("forward, row0 + colsum", dict(row0=row0, colsum=colsum),
+             2 * vec, None),
+            ("forward, bias, row0 + colsum",
+             dict(bias=bias, row0=row0, colsum=colsum), 2 * vec + 4 * B * N,
+             float_mask(f32, bias)),
+            ("forward, mask, row0 + colsum",
+             dict(mask=mask, row0=row0, colsum=colsum), 2 * vec + B * N,
+             float_mask(f32, None, mask, mask))):
+        def plain(kw=kw):
+            return attention_ref(qkv, HEADS, SCALE, kw.get("bias"),
+                                 kw.get("mask"))
+
+        want = plain()
+        outs = (merged, row0, colsum) if "row0" in kw else (merged,)
+        yield ("attention_tf32", label,
+               lambda kw=kw: _build.short_attention(qkv, merged, HEADS, SCALE,
+                                                    **kw),
+               list(zip(names, outs, want)), 4 * B * N * N * D,
+               4 * 4 * B * N * D + extra,
+               lambda m=lib_mask: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=m, scale=SCALE), plain)
+
+
+def phase_fp32() -> dict:
+    """Phase 2: each fp32 launch of the tensor-core kernels alone at
+    FP32_SHAPES (fp32 outputs within 1e-4 of their own max|plain|), with
+    its time per launch, the library call's, the 3xTF32 bound (three TF32
+    products at the tensor cores' rate, or the bytes) and the FMA bound
+    (the products at the fp32 rate outside them, or the bytes). A rate of
+    three TF32 products above the TF32 tensor cores' dense peak at the
+    card's highest SM clock fails. Returns the JSON records of gemm_tf32
+    (qkv) and attention_tf32 (the teacher's forward) at B = 256, N = 197."""
+    gen = torch.Generator().manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ceiling = sms * SM_TF32_FLOP_PER_CLOCK * max_sm_clock_hz()
+    print(f"phase 2 fp32: dense TF32 ceiling {ceiling / 1e12:.1f} TFLOP/s "
+          f"({sms} SMs at the highest SM clock)", flush=True)
+    rec = {}
+    for B, N in FP32_SHAPES:
+        cases = [*fp32_gemm_cases(B, N, gen), *fp32_attention_cases(B, N, gen)]
+        for launch, label, run, outs, flops, nbytes, library, plain in cases:
+            run()
+            torch.cuda.synchronize()
+            errs, worst = [], 0.0
+            for name, got, want in outs:
+                abs_err, rel = rel_err(got, want)
+                bound_ = LAUNCH_BOUND[torch.float32]
+                require(rel <= bound_, f"{launch} {label} B={B} N={N} "
+                        f"{name}: error {rel:.3e} of its max|plain| > "
+                        f"bound {bound_:.0e}")
+                errs.append(f"{name} {abs_err:.3e} ({rel:.2e} of max)")
+                worst = max(worst, abs_err)
+            ms, lib_ms = per_launch_ms(run), per_launch_ms(library)
+            t_bytes = nbytes / PEAK_BYTES
+            t_tf32, t_fma = 3 * flops / PEAK_TF32_FLOPS, flops / PEAK_FP32_FLOPS
+            bound_ms, fma_ms = max(t_tf32, t_bytes) * 1e3, \
+                max(t_fma, t_bytes) * 1e3
+            bound_by = "operations" if t_tf32 >= t_bytes else "bytes"
+            rate = 3 * flops / ms * 1e3
+            require(rate <= ceiling, f"{launch} {label} B={B} N={N}: "
+                    f"{rate / 1e12:.1f} TFLOP/s of TF32 is above the ceiling")
+            print(f"phase 2 fp32 {launch} {label} B={B} N={N}: "
+                  f"{', '.join(errs)}; kernel {ms:.4f} ms per launch "
+                  f"({flops / ms / 1e9:.1f} fp32 TFLOP/s, "
+                  f"{rate / 1e12:.1f} of TF32), 3xTF32 bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), FMA bound {fma_ms:.4f} "
+                  f"ms, library {lib_ms:.4f} ms", flush=True)
+            if (B, N) == FP32_SHAPES[0] and launch not in rec:
+                rec[launch] = dict(shape=f"fp32 {label} B={B} N={N}", ms=ms,
+                                   plain_ms=per_launch_ms(plain),
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   fma_bound_ms=fma_ms, library_ms=lib_ms,
+                                   max_abs_err=worst)
+    return rec
+
+
 # the LayerNorm backward's launches alone (csrc/ln_gemm.cu): B = 256 at
 # the training widths, B = 32 at N = 197 (M = 6304: a ragged last band),
 # each in bf16 and fp32 at DeiT-S's K = 384, and the general instance at
@@ -2368,7 +2569,10 @@ def phase_kernels() -> dict:
             if "teacher" in shape:
                 teacher_ms, teacher_by = bound(name, TRAIN_B, 197,
                                                dtype=dtype)
-                lib = f", bound {teacher_ms:.4f} ms ({teacher_by}, fp32)"
+                fma_ms, fma_by = bound(name, TRAIN_B, 197, dtype=dtype,
+                                       fma=True)
+                lib = (f", bound {teacher_ms:.4f} ms ({teacher_by}, "
+                       f"3xTF32), FMA bound {fma_ms:.4f} ms ({fma_by})")
             if dtype == torch.bfloat16:
                 lib_ms = cuda_ms(library)
                 dims = [int(part.split("=")[1]) for part in shape.split()
@@ -3494,6 +3698,8 @@ def phase_serve(card: str) -> dict:
             f"serve gemm launches {launcher_counts()}")
     require(got["short_attention"] > 0 and got["short_attention_bwd"] == 0,
             f"serve attention launches {launcher_counts()}")
+    require(got["gemm_tf32"] == got["attention_tf32"] == 0,
+            f"serve fp32 launches in a bf16 run {launcher_counts()}")
     # the rectangular attention: once in each of ATS's sampling blocks
     require(got["rect_attention"] == got["fused_rect_block"] > 0
             and got["layer_norm_bwd"] == 0 and got["sum_partials"] == 0,
@@ -3764,8 +3970,26 @@ def distill_breakdown(label: str, device_ms_step: float, by_kernel: dict,
           + "; ".join(parts), flush=True)
 
 
+def teacher_on_tensor_cores(by_kernel: dict):
+    """The DyViT@0.7 distilled step's profile: the fp32 teacher's products
+    and attention on the tensor-core kernels, and no fp32 FMA GEMM
+    (gemm_kernel) and no FMA attention left in the step."""
+    fma = sorted(n for n in by_kernel
+                 if n.startswith(("gemm_kernel", "short_attention_fma")))
+    tf32 = {k: sum(us for n, us in by_kernel.items() if n.startswith(k))
+            for k in TF32_KERNELS}
+    require(not fma and all(tf32.values()),
+            f"dyvit@0.7 distill: FMA kernels {fma} in the step, the "
+            f"tensor-core kernels' device time {tf32}")
+    print("phase 5 teacher on the tensor cores: no FMA GEMM or FMA "
+          "attention in the DyViT@0.7 distilled step; " + ", ".join(
+              f"{k} {us / 2e3:.2f} ms a step" for k, us in tf32.items()),
+          flush=True)
+
+
 # the port's own kernels (csrc/), by their names' prefixes
-PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "short_attention",
+PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "gemm_tf32_sm90_kernel",
+                "short_attention",
                 "attention_fwd_sm90", "attention_bwd_sm90", "layer_norm",
                 "sum_partials", "head_mean_keys")
 
@@ -3827,6 +4051,12 @@ def phase_train(card: str) -> dict:
             f"train gemm launches {launcher_counts()}")
     require(got["short_attention"] > 0 and got["short_attention_bwd"] > 0,
             f"train attention launches {launcher_counts()}")
+    # fp32 only in the DyViT teacher's blocks: 4 products and an attention
+    # each, on the tensor cores
+    require(got["gemm_tf32"] == 4 * got["fused_full_block"] > 0
+            and got["attention_tf32"] == got["fused_full_block"],
+            f"train fp32 launches {launcher_counts()}, the teacher's blocks "
+            f"{got['fused_full_block']}")
     # the LayerNorm backward: once in the backward of each training branch
     ln_bwd = TRAIN_STEPS * sum(PER_TRAIN_STEP_BWD[label][k]
                                for label in TRAIN_CELLS
@@ -3876,6 +4106,8 @@ def phase_train(card: str) -> dict:
               f"by kernel: " + "; ".join(
                   f"{name} {100 * us / total:.1f}%" for name, us in top),
               flush=True)
+        if label == "dyvit@0.7 distill":
+            teacher_on_tensor_cores(by_kernel)
         if label in DISTILL_TRAIN:
             distill_breakdown(label, total / 2e3, by_kernel,
                               teacher_ms.get(label))
@@ -3904,6 +4136,82 @@ def ptxas_lines(log: str):
                 "trk::(anonymous namespace)::", "")
                 for n, line in zip(names, lines)}
     return [(plain[n], line) for n, line in pairs]
+
+
+# the fp32 kernels on the tensor cores, by their names' prefixes
+TF32_KERNELS = ("gemm_tf32_sm90_kernel", "short_attention_tf32_kernel")
+# a TF32 product on the tensor cores in SASS: wgmma (HGMMA) or mma.sync
+# (HMMA) with TF32 operands
+TF32_MMA = re.compile(r"\bH(?:G)?MMA\.\S*TF32[^;]*")
+
+
+def tf32_sass(path: pathlib.Path) -> dict:
+    """{variant's mangled name: its first TF32 MMA instruction} for every
+    variant of TF32_KERNELS in the built library (cuobjdump -sass, beside
+    nvcc); fails if a variant has none, or a kernel has no variant."""
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1) if any(k in head.group(1)
+                                      for k in TF32_KERNELS) else None
+            if fn:
+                found.setdefault(fn, None)
+        elif fn and found[fn] is None and TF32_MMA.search(line):
+            found[fn] = TF32_MMA.search(line).group(0).strip()
+    for k in TF32_KERNELS:
+        require(any(k in fn for fn in found), f"{k}: not in the library")
+    require(all(found.values()), "no TF32 tensor-core instruction in "
+            f"{[fn for fn, line in found.items() if line is None]}")
+    return found
+
+
+# validate's default precision: fp32 eval forwards at b256 (phase 4, after
+# the counted serve run; a measurement only)
+FP32_EVAL = ("dense", "topk@0.7")
+
+
+def phase_fp32_eval(card: str):
+    """Phase 4: SERVE_BATCHES batches of SERVE_B fp32 images through dense
+    and topk@0.7 (JAX's validate runs fp32 unless --use_amp is given):
+    finite logits, img/s over batches 2-5, and every product and attention
+    of each forward on the tensor-core kernels (48 gemm_tf32 and 12
+    attention_tf32 launches a forward)."""
+    for label in FP32_EVAL:
+        settle()
+        name, kw = MODELS[label]
+        model, _ = create_model(name, device=DEVICE,
+                                generator=torch.Generator().manual_seed(1),
+                                **kw)
+        model = model.eval()
+        xs = images(SERVE_BATCHES * SERVE_B,
+                    torch.Generator().manual_seed(3)) \
+            .view(SERVE_BATCHES, SERVE_B, 3, 224, 224)
+        before = launcher_counts()
+        seconds = []
+        with torch.no_grad():
+            for x in xs:
+                t0 = time.perf_counter()
+                out = model(x)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                require(out.shape == (SERVE_B, 1000) and
+                        bool(torch.isfinite(out).all()),
+                        f"{label}: non-finite or misshapen fp32 logits")
+        got = {k: launcher_counts()[k] - before[k]
+               for k in ("gemm_tf32", "attention_tf32")}
+        require(got == dict(gemm_tf32=48 * SERVE_BATCHES,
+                            attention_tf32=12 * SERVE_BATCHES),
+                f"{label} fp32: tensor-core launches {got}")
+        ips = SERVE_B * (SERVE_BATCHES - 1) / sum(seconds[1:])
+        print(f"phase 4 serve {label} fp32 b{SERVE_B}: {ips:.1f} img/s over "
+              f"batches 2-{SERVE_BATCHES} (first batch "
+              f"{seconds[0] * 1e3:.1f} ms), launches {got} on {card}",
+              flush=True)
+        del model, xs
 
 
 T0 = time.perf_counter()
@@ -3960,6 +4268,24 @@ def main():
         print(f"phase 1 attention_sm90 rectangular M={m} N={n}: "
               f"{_build.attention_smem(n, m)['rectangular']} bytes of "
               "dynamic shared memory a block (128 threads)", flush=True)
+    tf32 = _build.gemm_tf32_config()
+    require(tf32 == {k: _build.GEMM_TF32[k] for k in tf32},
+            f"gemm_tf32: the library's plan {tf32} is not the host's "
+            f"{_build.GEMM_TF32}")
+    print(f"phase 1 gemm_tf32_sm90_kernel: tile {tf32['BM']}x{tf32['BN']}x"
+          f"{tf32['BK']}, {tf32['STAGES']} stages, {tf32['SMEM_BYTES']} bytes "
+          "of dynamic shared memory a block (the host's plan)", flush=True)
+    for n in (*FULL_BLOCK_N, 256):
+        plan = _build.attention_tf32_library_plan(n)
+        require(plan == _build.attention_tf32_plan(n),
+                f"attention_tf32 N={n}: the library's plan {plan} is not "
+                f"the host's {_build.attention_tf32_plan(n)}")
+        print(f"phase 1 short_attention_tf32_kernel N={n}: {plan['smem']} "
+              f"bytes of dynamic shared memory a block ({plan['threads']} "
+              f"threads), {plan['chunks']} chunks of 32 keys in registers "
+              "(the host's plan)", flush=True)
+    for fn, line in tf32_sass(kern.path).items():
+        print(f"phase 1 sass: {fn}: {line}", flush=True)
     for K in (D, 192):
         warps = _build.LN_BWD_WARPS if K == D else 8
         print(f"phase 1 layer_norm_bwd K={K}: {warps * 2 * K * 4} bytes of "
@@ -3971,6 +4297,7 @@ def main():
     phase_launchers()
     gemm_rec = phase_gemms()
     attn_rec = phase_attention()
+    fp32_rec = phase_fp32()
     ln_bwd_rec = phase_ln_bwd()
     keys_rec = phase_keys()
     sums_rec = phase_sums()
@@ -3986,6 +4313,7 @@ def main():
     phase_distill()
     elapsed("3")
     launches = phase_serve(card)
+    phase_fp32_eval(card)
     elapsed("4")
     trained = phase_train(card)
     for name in (*WRAPPERS, *LAUNCHERS):
@@ -4013,6 +4341,15 @@ def main():
                      launches=launches[name], on_main_path=True,
                      **attn_rec[name])
                 for name in (*ATTENTIONS, "rect_attention")]
+    # the fp32 kernels on the tensor cores: their launches are the DyViT
+    # teacher's fp32 #1 (phase 5)
+    kernels += [dict(name=name, route="cuda", source=source,
+                     wrapper="tokenreduction_tpu_torch/ops/_build.py",
+                     replaces=REPLACES["fused_full_block"],
+                     launches=launches[name], on_main_path=True,
+                     **fp32_rec[name])
+                for name, source in (("gemm_tf32", GEMM_TF32_SOURCE),
+                                     ("attention_tf32", ATTENTION))]
     kernels += [dict(name=name, route="cuda", source=source,
                      wrapper="tokenreduction_tpu_torch/ops/_build.py",
                      replaces=replaces, launches=launches[name],

@@ -30,10 +30,14 @@
 //   sum_partials:   out[L] = sum over S fp32 partials, in order, in the
 //                   output type, for up to eight such jobs a launch.
 //
-// fp32 operands (the parity dtype) go through FMA in true fp32 on the CUDA
-// cores, in this file; bf16 operands through the sm_90a kernel of
-// gemm_sm90.cu (TMA, mbarrier, wgmma), which the entry points below call
-// with the same arguments. With bf16 operands the residual and Y may also
+// fp32 operands of the forward layout (W [n_out, K] and no GELU' out: every
+// eval product and the training forward's but fc1's) go through the sm_90a
+// kernel of gemm_tf32_sm90.cu (TMA, mbarrier, wgmma in 3xTF32 on the
+// tensor cores); the fp32 layouts that only fp32 training launches (the
+// fc1 with GELU' out, dY . W and the weight gradient) through FMA in true
+// fp32 on the CUDA cores, in this file; bf16 operands through the sm_90a
+// kernel of gemm_sm90.cu (TMA, mbarrier, wgmma). The entry points below
+// call each with the same arguments. With bf16 operands the residual and Y may also
 // be fp32: the whole block keeps its residual stream y in fp32 between its
 // halves, as the TPU kernel does, so its proj GEMM writes fp32 y, LN2
 // reads it, and the fc2 GEMM adds it; the backward's dLN products write
@@ -50,7 +54,7 @@
 // product at DeiT-S width about a third of its time; written once, the
 // normalised rows cost one round trip of [M, K] in the operand type.
 //
-// The fp32 GEMM computes a 128x128 output tile per block over 32-deep K
+// The FMA GEMM computes a 128x128 output tile per block over 32-deep K
 // slices, copied by cp.async into a ring of three shared-memory stages, so
 // two slices are in flight while one multiplies.
 #include <stdint.h>
@@ -592,13 +596,15 @@ int launch_gemm(const GemmArgs& a, int splits, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The four compiled fp32 variants: eval and forward, the training fc1
-// (GELU' out), the backward's dY . W, and the weight gradient.
+// The fp32 variants: the forward layout on the tensor cores
+// (gemm_tf32_sm90.cu); on the FMA kernel the three that only fp32 training
+// launches: the fc1 with GELU' out, the backward's dY . W, and the weight
+// gradient.
 int launch_gemm_f32(const GemmArgs& a, bool a_km, bool b_kn, int splits, cudaStream_t s) {
   if (a_km) return launch_gemm<true, true, false>(a, splits, s);
   if (b_kn) return launch_gemm<false, true, false>(a, splits, s);
   if (a.gelu_grad != nullptr) return launch_gemm<false, false, true>(a, splits, s);
-  return launch_gemm<false, false, false>(a, splits, s);
+  return launch_gemm_tf32_sm90(a, s);
 }
 
 template <typename TX, typename T>

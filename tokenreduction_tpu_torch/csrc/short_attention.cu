@@ -32,12 +32,14 @@
 //
 // Every bf16 attention, square and rectangular, and the bf16 backward are
 // attention_sm90.cu's (TMA, cp.async, wgmma); this file keeps the fp32
-// kernels (the parity dtype) and head_mean_keys. One thread block per
-// (image, head): that head's k and v live in shared memory and each warp
-// owns query rows, with the exact row max in an fp32 softmax.
+// kernels and head_mean_keys. One thread block per (image, head): that
+// head's k and v live in shared memory and each warp owns query rows, with
+// the exact row max in an fp32 softmax.
 //
-// fp32, the forward with every option and the backward:
-// FMAs on the CUDA cores, a lane per key. The backward recomputes the
+// fp32, the square forward with every option: 3xTF32 on the tensor cores,
+// mma.sync (short_attention_tf32_kernel, see its note). The rectangular
+// forward (ATS in fp32) and the backward (fp32 training only): FMAs on the
+// CUDA cores, a lane per key. The backward recomputes the
 // probabilities with the exact row max and runs in two phases per (image,
 // head). Phase 1, a warp per query row: the row statistics, delta_i =
 // sum_j P_ij dP_ij with dP = dO V^T plus the row0 cotangent on query row 0
@@ -87,28 +89,27 @@ constexpr int KLD = HD + 1;  // odd word stride: lanes reading different keys hi
 constexpr int KEYS_PER_LANE = MAXN / 32;
 
 size_t fma_smem_bytes(int n) {
-  return sizeof(float) * (WARPS * HD + 2 * WARPS * MAXN + static_cast<size_t>(n) * (HD + KLD));
+  return sizeof(float) * (WARPS * HD + WARPS * MAXN + static_cast<size_t>(n) * (HD + KLD));
 }
 
-// MASK: the validity mask; RECT: the rectangular variant. A warp per
-// query row, which reads q row ids[b, i] with RECT.
-template <bool MASK, bool RECT>
+// The rectangular forward (ATS in fp32): out row m is query row ids[b, m]
+// over all N keys, with the validity mask and no bias or by-products; a
+// warp per query row, a lane per key. The square variants run
+// short_attention_tf32_kernel.
 __global__ void __launch_bounds__(THREADS)
-    short_attention_fma_kernel(Heads<const float> q, Heads<const float> k, Heads<const float> v,
-                               Heads<float> out, const float* __restrict__ bias,
-                               const unsigned char* __restrict__ mask,
-                               const int* __restrict__ ids, float* __restrict__ row0,
-                               float* __restrict__ colsum, int N, int M, int H, float scale) {
+    short_attention_rect_fma_kernel(Heads<const float> q, Heads<const float> k,
+                                    Heads<const float> v, Heads<float> out,
+                                    const unsigned char* __restrict__ mask,
+                                    const int* __restrict__ ids, int N, int M, int H,
+                                    float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qbuf = reinterpret_cast<float*>(smem);  // [WARPS][HD]
   float* pbuf = qbuf + WARPS * HD;               // [WARPS][MAXN]
-  float* csbuf = pbuf + WARPS * MAXN;            // [WARPS][MAXN]
-  float* Vs = csbuf + WARPS * MAXN;              // [N][HD]
+  float* Vs = pbuf + WARPS * MAXN;               // [N][HD]
   float* Ks = Vs + N * HD;                       // [N][KLD]
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * N;
-  const unsigned char* mrow = MASK ? mask + static_cast<size_t>(b) * N : nullptr;
+  const unsigned char* mrow = mask + static_cast<size_t>(b) * N;
   for (int e = threadIdx.x; e < N * HD; e += THREADS) {
     const int n = e / HD, d = e % HD;
     Ks[n * KLD + d] = k.row(b, h, n)[d];
@@ -119,17 +120,10 @@ __global__ void __launch_bounds__(THREADS)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* qv = qbuf + warp * HD;
   float* p = pbuf + warp * MAXN;
-  float cs[KEYS_PER_LANE];
-#pragma unroll
-  for (int t = 0; t < KEYS_PER_LANE; ++t) cs[t] = 0.f;
-
   for (int i = warp; i < M; i += WARPS) {
-    int qi = i;
-    if constexpr (RECT) {
-      qi = ids[static_cast<size_t>(b) * M + i];
-      if (static_cast<unsigned>(qi) >= static_cast<unsigned>(N)) __trap();
-    }
-    const bool q_ok = !MASK || mrow[qi];
+    const int qi = ids[static_cast<size_t>(b) * M + i];
+    if (static_cast<unsigned>(qi) >= static_cast<unsigned>(N)) __trap();
+    const bool q_ok = mrow[qi];
     const float* qrow = q.row(b, h, qi);
     qv[lane] = qrow[lane];
     qv[lane + 32] = qrow[lane + 32];
@@ -147,9 +141,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll 8
         for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kr[d], acc);
         acc *= scale;
-        if (brow != nullptr) acc += brow[j];
-        if constexpr (MASK)
-          if (!(q_ok && mrow[j])) acc = -FLT_MAX;  // the JAX pair mask
+        if (!(q_ok && mrow[j])) acc = -FLT_MAX;  // the JAX pair mask
       }
       s[t] = acc;
       mx = fmaxf(mx, acc);
@@ -166,12 +158,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int t = 0; t < KEYS_PER_LANE; ++t) {
       const int j = lane + 32 * t;
-      if (j < N) {
-        p[j] = s[t];
-        const float pr = s[t] * rinv;
-        cs[t] += pr;
-        if (row0 != nullptr && i == 0) row0[static_cast<size_t>(bh) * N + j] = pr;
-      }
+      if (j < N) p[j] = s[t];
     }
     __syncwarp();
 
@@ -187,21 +174,360 @@ __global__ void __launch_bounds__(THREADS)
     orow[2 * lane + 1] = o1 * rinv;
     __syncwarp();
   }
+}
+
+// ---------------------------------------------------------------- fp32 on the tensor cores
+// The square fp32 forward with every option (bias, mask, row0, colsum) in
+// 3xTF32 on the tensor cores: the counterpart of the fp32 attention of the
+// TPU kernels tokenreduction_tpu/ops/fused_full_block.py fused_full_block,
+// ops/flash_attention.py fused_block_attention, fused_attention and
+// fused_attention_qkv, and the forward of ops/flash_attention_train.py
+// attention_core_train, whose fp32 dots run on the MXU in the multi-pass
+// form at the kernels' pinned DEFAULT precision.
+//
+// What bounds it: at B = 256, H = 6, N = 197 the products take 15.3 GFLOP,
+// 45.8 in 3xTF32 (three TF32 products each), 0.093 ms at the H100's 494.7
+// TFLOP/s of dense TF32; q, k, v in and the output out are 310 MB, 0.093
+// ms at 3.35 TB/s. On the CUDA cores (FMA, 67 TFLOP/s) the products alone
+// take 0.228 ms.
+//
+// Design. One block per (image, head), 8 warps in 4 pairs: the head's Q, K
+// and V in shared memory, fp32, copied by cp.async all at once, rows padded
+// with zeros to KC * 32, a row stride of 68 floats, so every fragment load
+// below hits 32 banks. A pair of warps takes 16 query rows at a time, each
+// warp half of the keys, with mma.sync.m16n8k8.tf32 tiles:
+//   - S = Q K^T over the warp's keys: the fragments split in registers as
+//     they are read (no hi/lo copies in shared memory: Q, K and V alone
+//     are 182 KB at N = 197), the warp's half of the row of S (KC * 16
+//     keys, 8 KC registers a thread) kept in registers. KC is a template
+//     constant (N <= 32 KC): every loop over the keys is unrolled with no
+//     test of N inside it, so the products of neighbouring key tiles
+//     overlap (a test a tile made each its own basic block, and a build
+//     that had one ran slower on the H100). A warp that held whole rows of
+//     S spilled at 255 registers; pairs of 12 or 16 warps, with fewer
+//     registers a thread, spilled more and ran slower than 4 pairs;
+//   - the logits in the FMA kernel's order: scale, bias, caps (-FLT_MAX at
+//     a masked pair, -inf past N); the exact row max and the sum over the
+//     four lanes that share a row, then over the pair through shared
+//     memory (the max of the two halves; their sums added half 0 first);
+//   - O = P V over the warp's keys with the unnormalised P split after the
+//     softmax, the two halves' partial O added (half 0 first) through the
+//     tile's own rows of Q in shared memory, no longer read, each warp
+//     scaling and storing 32 of the 64 columns by 1/sum. The accumulator
+//     layout of S (a thread's two neighbouring keys 2t, 2t+1 of a tile of
+//     8) is not mma's A layout (keys t, t+4), so the product reads keys in
+//     the order 2t -> k index t, 2t+1 -> t+4 on both sides: P's registers
+//     are A's fragment as they stand, and V's rows are read in that order
+//     (the sum over keys is the same);
+//   - each product is lo.hi + hi.lo + hi.hi a slice, into one fp32
+//     accumulator: about 2^-22 of a product is dropped (lo.lo). The tensor
+//     cores add a product to their accumulator with truncation, so each
+//     addition at the sum's full size pulls it toward zero by up to an
+//     ulp: the small products of every slice go in first, then the large
+//     ones, 8 additions at full size for a logit (the head dim's slices)
+//     and one a key tile for O, where the products in slice order made 24
+//     and three a tile (a build that added them so had several times the
+//     FMA kernel's error in a block's output);
+//   - row0 from the pair that holds query row 0; colsum of the normalised
+//     probabilities: a warp's 16 rows by a shuffle butterfly, added in its
+//     pair's row of shared memory (each key is one warp's) tile after tile,
+//     then the pairs' rows in order: no atomics, the same bits from run to
+//     run.
+constexpr int TC_LD = HD + 4;
+constexpr int TC_WARPS = 8;
+constexpr int TC_PAIRS = TC_WARPS / 2;
+constexpr int TC_THREADS = TC_WARPS * 32;
+constexpr int TC_KEYS = 32;  // the keys of a chunk: N <= TC_KEYS * KC
+constexpr int TC_STATS = 64;  // a pair's row statistics: [half][max, sum][16 rows]
+
+int tf32_chunks(int n) { return (n + TC_KEYS - 1) / TC_KEYS; }
+
+size_t tf32_smem_bytes(int n) {  // Q, K, V, the pairs' colsum rows, their statistics
+  const size_t rows = static_cast<size_t>(tf32_chunks(n)) * TC_KEYS;
+  return sizeof(float) * (rows * (3 * TC_LD + TC_PAIRS) + TC_PAIRS * TC_STATS);
+}
+
+// d += a . b, m16n8k8, TF32 operands as fp32 bit patterns, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The two small products of a 3xTF32 product, d += a_lo . b_hi + a_hi .
+// b_lo, a split already, b = {b0, b1} split here.
+__device__ __forceinline__ void mma_small(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b0, bh[0], bl[0]);
+  split_tf32(b1, bh[1], bl[1]);
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+}
+
+// Its large product, d += a_hi . b_hi.
+__device__ __forceinline__ void mma_big(float (&d)[4], const uint32_t (&ah)[4], float b0,
+                                        float b1) {
+  const uint32_t bh[2] = {tf32_rna(b0), tf32_rna(b1)};
+  mma_tf32(d, ah, bh);
+}
+
+// The A fragment of 16 rows x 8 columns at p (row stride TC_LD): a thread's
+// rows g and g + 8, columns t and t + 4, split.
+__device__ __forceinline__ void a_fragment(const float* p, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const float a[4] = {p[0], p[8 * TC_LD], p[4], p[8 * TC_LD + 4]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+}
+
+template <bool MASK, int KC>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    short_attention_tf32_kernel(Heads<const float> q, Heads<const float> k, Heads<const float> v,
+                                Heads<float> out, const float* __restrict__ bias,
+                                const unsigned char* __restrict__ mask,
+                                float* __restrict__ row0, float* __restrict__ colsum, int N,
+                                int H, float scale) {
+  constexpr int ROWS = KC * TC_KEYS, NH = ROWS / 16;  // a warp's key tiles of 8
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [ROWS][TC_LD]
+  float* Ks = Qs + ROWS * TC_LD;               // [ROWS][TC_LD]
+  float* Vs = Ks + ROWS * TC_LD;               // [ROWS][TC_LD]
+  float* csw = Vs + ROWS * TC_LD;              // [TC_PAIRS][ROWS]
+  float* stw = csw + TC_PAIRS * ROWS;          // [TC_PAIRS][TC_STATS]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * N;
+  const unsigned char* mrow = MASK ? mask + static_cast<size_t>(b) * N : nullptr;
+  for (int e = threadIdx.x; e < ROWS * (HD / 4); e += TC_THREADS) {
+    const int n = e / (HD / 4), c = (e % (HD / 4)) * 4;
+    const bool in = n < N;  // rows past N are zero-filled
+    const int src = in ? n : 0;
+    cp_async16(Qs + n * TC_LD + c, q.row(b, h, src) + c, in);
+    cp_async16(Ks + n * TC_LD + c, k.row(b, h, src) + c, in);
+    cp_async16(Vs + n * TC_LD + c, v.row(b, h, src) + c, in);
+  }
+  cp_async_commit();
+  for (int e = threadIdx.x; e < TC_PAIRS * ROWS; e += TC_THREADS) csw[e] = 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp >> 1, half = warp & 1;
+  const int key0 = half * (ROWS / 2);  // this warp's keys: key0 + 0 .. ROWS / 2 - 1
+  float* cs = csw + pair * ROWS;
+  float* st = stw + pair * TC_STATS;  // st[32 half + 16 (sum) + row]
+  const auto pair_sync = [pair]() {
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+  };
+  for (int r0 = pair * 16; r0 < N; r0 += TC_PAIRS * 16) {
+    // this thread's rows: ra = r0 + g and rb = r0 + g + 8 (rows past N are
+    // zeros and are never written)
+    const int ra = r0 + g, rb = ra + 8;
+    float s[NH][4];
+#pragma unroll
+    for (int j = 0; j < NH; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    // the small products of every slice, then the large ones: a logit is
+    // truncated at its full size 8 times, not 24 (see the note)
+#pragma unroll
+    for (int big = 0; big < 2; ++big)
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        a_fragment(Qs + ra * TC_LD + 8 * kk + t, ah, al);
+        const float* kr = Ks + (key0 + g) * TC_LD + 8 * kk + t;
+#pragma unroll
+        for (int j = 0; j < NH; ++j) {
+          if (big)
+            mma_big(s[j], ah, kr[8 * j * TC_LD], kr[8 * j * TC_LD + 4]);
+          else
+            mma_small(s[j], ah, al, kr[8 * j * TC_LD], kr[8 * j * TC_LD + 4]);
+        }
+      }
+
+    // the logits (scale, bias, caps) and the exact row max: s[j][e] is row
+    // ra and s[j][2 + e] row rb, at key key0 + 8 j + 2 t + e
+    const bool oka = !MASK || (ra < N && mrow[ra]);
+    const bool okb = !MASK || (rb < N && mrow[rb]);
+    float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + 2 * t + e;
+        const bool in = key < N;
+        float xa = s[j][e] * scale, xb = s[j][2 + e] * scale;
+        if (brow != nullptr) {
+          const float bk = in ? brow[key] : 0.f;
+          xa += bk, xb += bk;
+        }
+        if constexpr (MASK) {
+          const bool kok = in && mrow[key];
+          if (!(oka && kok)) xa = -FLT_MAX;  // the JAX pair mask
+          if (!(okb && kok)) xb = -FLT_MAX;
+        }
+        s[j][e] = in ? xa : -INFINITY;
+        s[j][2 + e] = in ? xb : -INFINITY;
+        mxa = fmaxf(mxa, s[j][e]);
+        mxb = fmaxf(mxb, s[j][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, o));
+      mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, o));
+    }
+    if (t == 0) st[32 * half + g] = mxa, st[32 * half + 8 + g] = mxb;
+    pair_sync();  // also: both warps are done reading the tile's rows of Q
+    mxa = fmaxf(st[g], st[32 + g]);
+    mxb = fmaxf(st[8 + g], st[40 + g]);
+    float suma = 0.f, sumb = 0.f;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = key0 + 8 * j + 2 * t + e < N;
+        s[j][e] = in ? expf(s[j][e] - mxa) : 0.f;
+        s[j][2 + e] = in ? expf(s[j][2 + e] - mxb) : 0.f;
+        suma += s[j][e];
+        sumb += s[j][2 + e];
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      suma += __shfl_xor_sync(0xffffffffu, suma, o);
+      sumb += __shfl_xor_sync(0xffffffffu, sumb, o);
+    }
+    if (t == 0) st[32 * half + 16 + g] = suma, st[32 * half + 24 + g] = sumb;
+    pair_sync();
+    const float ria = 1.0f / (st[16 + g] + st[48 + g]);
+    const float rib = 1.0f / (st[24 + g] + st[56 + g]);
+
+    if (row0 != nullptr && r0 == 0 && g == 0) {
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = key0 + 8 * j + 2 * t + e;
+          if (key < N) row0[static_cast<size_t>(bh) * N + key] = s[j][e] * ria;
+        }
+    }
+    if (colsum != nullptr) {
+      const float wa = ra < N ? ria : 0.f, wb = rb < N ? rib : 0.f;
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float c = s[j][e] * wa + s[j][2 + e] * wb;
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+          if (g == 0) cs[key0 + 8 * j + 2 * t + e] += c;  // keys past N stay 0
+        }
+    }
+
+    // O = P V over the warp's keys: A = P's registers (k index t <- key
+    // 2t, t + 4 <- key 2t + 1)
+    float o[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+    for (int big = 0; big < 2; ++big)
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const float p[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        uint32_t ph[4], pl[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(p[i], ph[i], pl[i]);
+        const float* vr = Vs + (key0 + 8 * j + 2 * t) * TC_LD + g;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          if (big)
+            mma_big(o[n], ph, vr[8 * n], vr[TC_LD + 8 * n]);
+          else
+            mma_small(o[n], ph, pl, vr[8 * n], vr[TC_LD + 8 * n]);
+        }
+      }
+    // the two halves' O: each warp hands over the 32 columns the other
+    // stores, through the tile's rows of Q
+    float* xo = Qs + r0 * TC_LD;
+    constexpr int OWN = HD / 16;  // a warp's column tiles of 8
+    // (o indexed by constants only, the halves chosen by selects: an index
+    // that depends on the warp would put o in local memory)
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+      const int col = 8 * ((1 - half) * OWN + i) + 2 * t;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = half ? o[i][e] : o[OWN + i][e];
+      *reinterpret_cast<float2*>(xo + g * TC_LD + col) = make_float2(x[0], x[1]);
+      *reinterpret_cast<float2*>(xo + (g + 8) * TC_LD + col) = make_float2(x[2], x[3]);
+    }
+    pair_sync();
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+      const int col = 8 * (half * OWN + i) + 2 * t;
+      const float2 xa = *reinterpret_cast<const float2*>(xo + g * TC_LD + col);
+      const float2 xb = *reinterpret_cast<const float2*>(xo + (g + 8) * TC_LD + col);
+      const float x[4] = {xa.x, xa.y, xb.x, xb.y};
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // half 0's partial first
+        const float mine = half ? o[OWN + i][e] : o[i][e];
+        y[e] = half ? x[e] + mine : mine + x[e];
+      }
+      if (ra < N) *reinterpret_cast<float2*>(out.row(b, h, ra) + col) = make_float2(y[0] * ria, y[1] * ria);
+      if (rb < N) *reinterpret_cast<float2*>(out.row(b, h, rb) + col) = make_float2(y[2] * rib, y[3] * rib);
+    }
+  }
 
   if (colsum != nullptr) {
-    float* c = csbuf + warp * MAXN;
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) c[j] = cs[t];
-    }
     __syncthreads();
-    for (int j = threadIdx.x; j < N; j += THREADS) {
+    for (int j = threadIdx.x; j < N; j += TC_THREADS) {
       float acc = 0.f;
-      for (int w = 0; w < WARPS; ++w) acc += csbuf[w * MAXN + j];
+      for (int p = 0; p < TC_PAIRS; ++p) acc += csw[p * ROWS + j];
       colsum[static_cast<size_t>(bh) * N + j] = acc;
     }
   }
+}
+
+template <bool MASK, int KC>
+int launch_attention_tf32_kc(const Heads<const float>& q, const Heads<const float>& k,
+                             const Heads<const float>& v, const Heads<float>& out,
+                             const float* bias, const unsigned char* mask, float* row0,
+                             float* colsum, int B, int N, int H, float scale, cudaStream_t s) {
+  const auto kernel = short_attention_tf32_kernel<MASK, KC>;
+  const size_t bytes = tf32_smem_bytes(N);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B * H, TC_THREADS, bytes, s>>>(q, k, v, out, bias, mask, row0, colsum, N, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The variant whose row of S holds N keys: KC = ceil(N / 32), 1 .. 8.
+template <bool MASK>
+int launch_attention_tf32(const Heads<const float>& q, const Heads<const float>& k,
+                          const Heads<const float>& v, const Heads<float>& out, const float* bias,
+                          const unsigned char* mask, float* row0, float* colsum, int B, int N,
+                          int H, float scale, cudaStream_t s) {
+#define TR_TF32_KC(KC)                                                                      \
+  case KC:                                                                                  \
+    return launch_attention_tf32_kc<MASK, KC>(q, k, v, out, bias, mask, row0, colsum, B, N, \
+                                              H, scale, s);
+  switch (tf32_chunks(N)) {
+    TR_TF32_KC(1)
+    TR_TF32_KC(2)
+    TR_TF32_KC(3)
+    TR_TF32_KC(4)
+    TR_TF32_KC(5)
+    TR_TF32_KC(6)
+    TR_TF32_KC(7)
+    TR_TF32_KC(8)
+  }
+#undef TR_TF32_KC
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 size_t bwd_fma_smem_bytes(int n, bool masked) {
@@ -498,17 +824,35 @@ extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const
   const int* ip = static_cast<const int*>(ids);
   float* r0 = static_cast<float*>(row0);
   float* cs = static_cast<float*>(colsum);
-  const auto kernel = rect     ? short_attention_fma_kernel<true, true>
-                      : masked ? short_attention_fma_kernel<true, false>
-                               : short_attention_fma_kernel<false, false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(fma_smem_bytes(MAXN)));
+  const auto qh = heads<const float>(q, strides, 0), kh = heads<const float>(k, strides, 1);
+  const auto vh = heads<const float>(v, strides, 2);
+  const auto oh = heads<float>(out, strides, 3);
+  // the square variants on the tensor cores; the rectangular one (ATS in
+  // fp32) stays on the FMA kernel
+  if (!rect)
+    return masked ? launch_attention_tf32<true>(qh, kh, vh, oh, bp, mp, r0, cs, B, N, H, scale, s)
+                  : launch_attention_tf32<false>(qh, kh, vh, oh, bp, mp, r0, cs, B, N, H, scale,
+                                                 s);
+  const cudaError_t err =
+      cudaFuncSetAttribute(short_attention_rect_fma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(fma_smem_bytes(MAXN)));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B * H, THREADS, fma_smem_bytes(N), s>>>(
-      heads<const float>(q, strides, 0), heads<const float>(k, strides, 1),
-      heads<const float>(v, strides, 2), heads<float>(out, strides, 3), bp, mp, ip, r0, cs, N, M,
-      H, scale);
+  short_attention_rect_fma_kernel<<<B * H, THREADS, fma_smem_bytes(N), s>>>(qh, kh, vh, oh, mp, ip,
+                                                                            N, M, H, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core forward's plan at n keys, for the host: out[3] = {dynamic
+// shared memory a block in bytes, threads a block, 32-key chunks of the row
+// of S held in registers (the kernel variant)}.
+extern "C" int tr_attention_tf32_plan(int n, int* out) {
+  using namespace trk;
+  if (n < 1 || n > MAXN) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = static_cast<int>(tf32_smem_bytes(n));
+  out[1] = TC_THREADS;
+  out[2] = tf32_chunks(n);
+  return 0;
 }
 
 // Returns the cudaError_t of the launch (0 on success): dq, dk, dv from q,

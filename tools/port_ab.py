@@ -59,7 +59,14 @@ each branch backward (``_bwd_cuda``: median of 30 calls, the queue
 drained before each, no synchronisation inside). Each run also prints the
 ptxas registers of the attention kernels' variants
 (``attention_registers``, from its checkout's build log), of the
-LayerNorm backward's, the sums' and the head-mean keys'.
+LayerNorm backward's, the sums' and the head-mean keys'. Both also time
+validate's default precision and the DyViT teacher's (``fp32_times``):
+per launch as above the fp32 GEMM (qkv, proj and fc2 with their
+residuals, fc1 with GELU) and the fp32 attention (without and with row0
+and colsum) at B=256, N=197, the fp32 full block (median of 20), the fp32
+dense and topk@0.7 b256 forwards (median of 5), and the DyViT@0.7
+distilled train step with its fp32 teacher's forward (``distill_ms``:
+the median of steps 3-6, the teacher's mean by CUDA events).
 The first line is the card's name and power limit (nvidia-smi); the last
 lines give each checkout's medians over its runs. Needs one CUDA card;
 numbers from separate calls are not compared.
@@ -494,9 +501,58 @@ def gemm_times():
 def train_ms(label):
     return 1e3 * statistics.median(train_run(label, 6)[0][2:])
 
+def fp32_times():
+    # validate's default precision and the DyViT teacher's: the fp32 GEMM
+    # and attention per launch at B=256, N=197, the fp32 full block, the
+    # fp32 dense and topk@0.7 forwards at b256, and the DyViT@0.7 distilled
+    # step with its fp32 teacher's forward (CUDA events)
+    f32 = torch.float32
+    M = B * N
+    q32 = block_params(f32, g)
+    ln32, h32, res32 = (torch.randn(M, n, generator=g).to("cuda")
+                        for n in (D, H4, D))
+    y3, yd, yh = (torch.empty(M, n, device="cuda") for n in (3 * D, D, H4))
+    qkv32 = torch.randn(B, N, 3 * D, generator=g).to("cuda")
+    merged32 = torch.empty(B, N, D, device="cuda")
+    row0 = torch.empty(B, HEADS, N, device="cuda")
+    colsum = torch.empty_like(row0)
+    x32 = torch.randn(B, N, D, generator=g).to("cuda")
+    images32 = torch.randn(B, 3, 224, 224, generator=g).to("cuda")
+    gemm = _build.gemm
+    out = dict(
+        fp32_gemm_qkv_x10=ten(lambda: gemm(ln32, q32["wqkv"], q32["bqkv"],
+                                           y3)),
+        fp32_gemm_proj_res_x10=ten(lambda: gemm(
+            ln32, q32["wproj"], q32["bproj"], yd, res=res32)),
+        fp32_gemm_fc1_gelu_x10=ten(lambda: gemm(ln32, q32["w1"], q32["b1"],
+                                                yh, gelu=True)),
+        fp32_gemm_fc2_res_x10=ten(lambda: gemm(h32, q32["w2"], q32["b2"], yd,
+                                               res=res32)),
+        fp32_attention_x10=ten(lambda: _build.short_attention(
+            qkv32, merged32, HEADS, SCALE)),
+        fp32_attention_row0_colsum_x10=ten(lambda: _build.short_attention(
+            qkv32, merged32, HEADS, SCALE, row0=row0, colsum=colsum)),
+        fp32_full_block=cuda_ms(lambda: fused_full_block(
+            x32, *q32.values(), HEADS, SCALE), 20))
+    for label, name, kw in (
+            ("dense", "deit_small_patch16_224_local", {}),
+            ("topk", "topk_small_patch16_224",
+             dict(reduction_loc=(3, 6, 9), keep_rate=(0.7,)))):
+        m, _ = create_model(name, device="cuda",
+                            generator=torch.Generator().manual_seed(1), **kw)
+        m = m.eval()
+        out[f"fp32_{label}_forward"] = cuda_ms(lambda: m(images32), 5)
+        del m
+    return out
+
+def distill_ms():
+    seconds, _, _, extra = train_run("dyvit@0.7 distill", 6)
+    return dict(train_dyvit_distill=1e3 * statistics.median(seconds[2:]),
+                dyvit_teacher=extra["teacher_ms"])
+
 steps = dict(train_topk=train_ms("topk@0.7"), train_dense=train_ms("dense"),
              train_tome=train_ms("tome@0.7"),
-             train_heuristic=train_ms("heuristic"))
+             train_heuristic=train_ms("heuristic"), **distill_ms())
 with torch.no_grad():
     print(json.dumps(dict(
         **steps,
@@ -514,7 +570,8 @@ with torch.no_grad():
         topk_forward=forward_ms("topk_small_patch16_224"),
         **ats_times(), **attention_times(), **bwd_times(),
         **gemm_times(), **rect_times(), **ln_bwd_times(),
-        **standalone_times(), **keys_times(), **branch_sum_times())))
+        **standalone_times(), **keys_times(), **branch_sum_times(),
+        **fp32_times())))
 print(json.dumps(dict(attention_registers=attention_registers())))
 """
 
