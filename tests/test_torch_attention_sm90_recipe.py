@@ -32,8 +32,6 @@ JAX's logits within 1e-5 of their max.
 """
 
 import math
-import pathlib
-import re
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +45,6 @@ from tokenreduction_tpu.ops.flash_attention_train import (
 from tokenreduction_tpu.ops.fused_block_train import (
     attend_branch_train as jax_attend_branch,
 )
-from tokenreduction_tpu_torch.ops import _build
 from tokenreduction_tpu_torch.ops.flash_attention import (
     layer_norm_bwd_ref,
     layer_norm_stats,
@@ -338,48 +335,3 @@ def test_branch_vjp_matches_jax(N, dtype_name):
         w = np.asarray(w, dtype=np.float32)
         close(got.T if got.dim() == 2 and label != "dx" else got, w, dtype,
               label)
-
-
-# ---- the fp32 square attention's plan (csrc/short_attention.cu
-# short_attention_tf32_kernel)
-TF32_SOURCE = (pathlib.Path(_build.__file__).parent.parent / "csrc"
-               / "short_attention.cu").read_text()
-
-
-def test_attention_tf32_plan_is_the_c_kernels():
-    """The Python plan's constants are the kernel's: 8 warps, rows of
-    64 + 4 floats, chunks of 32 keys (KC 1 .. 8 compiled) and 64 floats of
-    row statistics a pair of warps."""
-    def const(pattern):
-        return int(re.search(pattern, TF32_SOURCE).group(1))
-
-    assert _build.ATTENTION_TF32_WARPS == const(
-        r"constexpr int TC_WARPS = (\d+);")
-    assert _build.ATTENTION_TF32_LD == HD + const(
-        r"constexpr int TC_LD = HD \+ (\d+);")
-    assert _build.ATTENTION_TF32_KEYS == const(
-        r"constexpr int TC_KEYS = (\d+);")
-    assert _build.ATTENTION_TF32_STATS == const(
-        r"constexpr int TC_STATS = (\d+);")
-    for kc in range(1, 256 // _build.ATTENTION_TF32_KEYS + 1):
-        assert f"TR_TF32_KC({kc})" in TF32_SOURCE
-
-
-def test_attention_tf32_plan_fits_every_width():
-    """At every N from 1 to 256: the block's shared memory (Q, K and V,
-    rows padded to whole chunks, a row of colsum partials and the row
-    statistics of each pair of warps) within the H100's 227 KB, and the
-    smallest variant whose row of S holds every key."""
-    keys, pairs = _build.ATTENTION_TF32_KEYS, _build.ATTENTION_TF32_WARPS // 2
-    for n in range(1, 257):
-        plan = _build.attention_tf32_plan(n)
-        rows = plan["chunks"] * keys
-        assert rows - keys < n <= rows and 1 <= plan["chunks"] <= 8
-        assert plan["smem"] == 4 * (
-            rows * (3 * _build.ATTENTION_TF32_LD + pairs)
-            + pairs * _build.ATTENTION_TF32_STATS)
-        assert plan["smem"] <= _build.SMEM_PER_BLOCK
-        assert plan["threads"] == 32 * _build.ATTENTION_TF32_WARPS
-    for bad in (0, 257):
-        with pytest.raises(ValueError):
-            _build.attention_tf32_plan(bad)

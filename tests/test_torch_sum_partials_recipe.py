@@ -371,46 +371,3 @@ def test_keys_lanes_match_jax(D, heads, N, dtype_name):
     want = np.asarray(want, dtype=np.float32)
     err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
     assert err <= BOUND[dtype]
-
-
-# ---- the fp32 forward GEMM's plan (csrc/gemm_tf32_sm90.cu)
-GEMM_TF32_C = {
-    name: int(re.search(rf"constexpr int {name} = (\d+);", (
-        pathlib.Path(_build.__file__).parent.parent / "csrc"
-        / "gemm_tf32_sm90.cu").read_text()).group(1))
-    for name in ("BM", "BN", "BK", "STAGES")}
-# DeiT-Ti, -S and -B: (embed dim, MLP width)
-DEIT_WIDTHS = {"deit-ti": (192, 768), "deit-s": (384, 1536),
-               "deit-b": (768, 3072)}
-
-
-def test_gemm_tf32_plan_is_the_c_kernels():
-    """The Python plan's tile and stages are the kernel's constants, and
-    its shared memory the kernel's formula: the 1 KB alignment, each stage
-    A and B raw and their lo parts, three 8-byte mbarriers a stage."""
-    plan = _build.GEMM_TF32
-    assert {k: plan[k] for k in GEMM_TF32_C} == GEMM_TF32_C
-    c = GEMM_TF32_C
-    assert plan["SMEM_BYTES"] == 1024 + c["STAGES"] * 2 * (
-        c["BM"] + c["BN"]) * c["BK"] * 4 + 3 * c["STAGES"] * 8
-    assert c["BK"] * 4 == 128  # one row of the 128-byte TMA swizzle
-
-
-@pytest.mark.parametrize("model", DEIT_WIDTHS)
-@pytest.mark.parametrize("B,N", [(256, 197), (32, 197), (256, 4), (1, 1)])
-def test_gemm_tf32_plan_fits_at_deit_shapes(model, B, N):
-    """Every forward product of a block (qkv, proj, fc1, fc2) at DeiT-Ti,
-    -S and -B widths: the block's shared memory within the H100's 227 KB,
-    a persistent grid of at most one block an SM and one a tile, and the
-    tiles covering the output."""
-    D, H4 = DEIT_WIDTHS[model]
-    M = B * N
-    for K, n_out in ((D, 3 * D), (D, D), (D, H4), (H4, D)):
-        assert K % 8 == 0 and n_out % 8 == 0  # what tr_gemm takes
-        plan = _build.gemm_tf32_plan(M, n_out, SMS)
-        assert plan["SMEM_BYTES"] <= _build.SMEM_PER_BLOCK
-        assert 1 <= plan["grid"] <= min(SMS, plan["tiles"])
-        rows, cols = plan["tiles"] // -(-n_out // plan["BN"]), \
-            -(-n_out // plan["BN"])
-        assert rows * plan["BM"] >= M > (rows - 1) * plan["BM"]
-        assert cols * plan["BN"] >= n_out > (cols - 1) * plan["BN"]

@@ -20,6 +20,10 @@ inputs:
   1536, where one TF32 pass lands outside that bound (the card's
   accumulator truncates where this one rounds: chip_smoke.py holds the
   kernels to their plain versions on the card);
+- the training forward's fc1 epilogue: GELU and GELU' (the port's
+  ``gelu_grad``) of the 3xTF32 pre-activation plus bias, against the JAX
+  package's fp32 ``_gelu_and_prime`` of ``jnp.dot`` at HIGHEST, at the
+  fc1 widths of DeiT-Ti, -S and -B, within 1e-5 of max|JAX|;
 - ``attention`` is the kernel's order: S = 3xTF32(q, k) * scale + bias,
   -FLT_MAX at a masked pair, the exact row max, P = exp(S - max), the sum,
   O = 3xTF32(P, v) over each half of the keys (a pair of warps, keys
@@ -28,9 +32,9 @@ inputs:
   197 with a bias and a mask whose image 0 has only CLS valid (fully
   masked query rows), within 1e-5 of max|JAX|.
 
-The host-side plans of both kernels are tested in
-tests/test_torch_attention_sm90_recipe.py and
-tests/test_torch_sum_partials_recipe.py.
+The kernels' shared memory a block is checked where it is decided, by
+static_asserts in their sources, and chip_smoke.py prints their plans as
+the built library reports them.
 """
 
 import jax.numpy as jnp
@@ -41,6 +45,8 @@ import torch
 from tokenreduction_tpu.ops.flash_attention import (
     fused_attention as jax_fused_attention,
 )
+from tokenreduction_tpu.ops.fused_mlp_train import _gelu_and_prime
+from tokenreduction_tpu_torch.ops.fused_mlp_train import gelu_grad
 
 FLT_MAX = float(np.finfo(np.float32).max)
 BOUND = 1e-5  # of max|JAX|
@@ -149,6 +155,21 @@ def test_gemm_3xtf32_matches_jax_highest(K):
     assert rel(gemm3(ta, tb, step=4), want) <= BOUND  # K steps of 32
     # one TF32 pass is not enough: the reason for three
     assert rel(gemm1(ta, tb), want) > BOUND
+
+
+@pytest.mark.parametrize("K", [192, 384, 768])  # DeiT-Ti, -S, -B
+def test_gemm_3xtf32_gelu_grad_matches_jax(K):
+    rng = np.random.default_rng(700 + K)
+    x = rng.standard_normal((24, K)).astype(np.float32)
+    w = (rng.standard_normal((32, K)) * K ** -0.5).astype(np.float32)
+    b = (0.5 * rng.standard_normal(32)).astype(np.float32)
+    pre = jnp.dot(jnp.asarray(x), jnp.asarray(w).T,
+                  precision="highest") + jnp.asarray(b)
+    want_gelu, want_grad = _gelu_and_prime(pre, jnp.float32)
+    h = gemm3(torch.from_numpy(x), torch.from_numpy(w), step=4) \
+        + torch.from_numpy(b)
+    assert rel(torch.nn.functional.gelu(h), want_gelu) <= BOUND
+    assert rel(gelu_grad(h), want_grad) <= BOUND
 
 
 # ---- the attention

@@ -2,7 +2,7 @@
 // gathered row of a residual, eight-element loads and stores, and the
 // exact-erf GELU and its derivative.
 // ln_gemm.cu keeps the C entry points and the fp32 GEMM of the layouts
-// only fp32 training runs (FMA on the CUDA cores); gemm_sm90.cu holds the
+// only the fp32 backward runs (FMA on the CUDA cores); gemm_sm90.cu holds the
 // bf16 GEMM (TMA, mbarrier, wgmma) that the entry points call for bf16
 // operands, gemm_tf32_sm90.cu the fp32 GEMM of the forward layout (the
 // same, in 3xTF32).
@@ -98,8 +98,8 @@ __device__ __forceinline__ float gelu_grad(float v) {
 int launch_gemm_sm90(const GemmArgs& a, bool a_mn, bool b_mn, int splits, cudaStream_t stream);
 
 // The fp32 GEMM of gemm_tf32_sm90.cu: the forward layout (W [n_out, K]),
-// bias, GELU and an fp32 residual (rows gathered through idx), Y fp32; no
-// GELU', factor, column sums or split. Returns a cudaError_t.
+// bias, GELU (and GELU' out) and an fp32 residual (rows gathered through
+// idx), Y fp32; no factor, column sums or split. Returns a cudaError_t.
 int launch_gemm_tf32_sm90(const GemmArgs& a, cudaStream_t stream);
 
 }  // namespace trk

@@ -1,11 +1,11 @@
 // The fp32 GEMM of the forward layout, for Hopper (sm_90a), in 3xTF32 on
 // the tensor cores: Y[M, n_out] = epi(X[M, K] . W^T + bias), W in
 // nn.Linear's [n_out, K] layout, fp32 operands, bias, residual and Y. epi:
-// optional exact-erf GELU, then an optional fp32 residual whose rows may
-// be gathered through idx. ln_gemm.cu's tr_gemm calls it for every fp32
-// launch of that layout (eval, and the training forward's products other
-// than fc1 with GELU'); the fp32 layouts of the backward and the training
-// fc1 stay on ln_gemm.cu's FMA kernel.
+// optional exact-erf GELU (with GELU' of the pre-activation written out
+// when asked: the training forward's fc1), then an optional fp32 residual
+// whose rows may be gathered through idx. ln_gemm.cu's tr_gemm calls it
+// for every fp32 launch of that layout, eval and training forward; the
+// fp32 layouts of the backward stay on ln_gemm.cu's FMA kernel.
 //
 // It replaces the fp32 matrix products of the TPU kernels
 // tokenreduction_tpu/ops/fused_full_block.py fused_full_block,
@@ -127,6 +127,11 @@ struct Tiles {
   }
 };
 
+// GRAD: the GELU epilogue also writes GELU' of the pre-activation (the
+// training forward's fc1); a variant of its own: in the one kernel the
+// extra epilogue code slowed the other products by 2-12% on an H100
+// (tools/port_ab.py).
+template <bool GRAD>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_tf32_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                           const __grid_constant__ CUtensorMap map_b, GemmArgs a) {
@@ -263,7 +268,12 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int row = row_a + 8 * r;
         if (row >= a.M) continue;
         float x0 = d[4 * j + 2 * r] + bb.x, x1 = d[4 * j + 2 * r + 1] + bb.y;
-        if (a.gelu) x0 = gelu(x0), x1 = gelu(x1);
+        if (a.gelu) {
+          if constexpr (GRAD)
+            *reinterpret_cast<float2*>(a.gelu_grad + static_cast<size_t>(row) * a.n_out + col) =
+                make_float2(gelu_grad(x0), gelu_grad(x1));
+          x0 = gelu(x0), x1 = gelu(x1);
+        }
         if (res) {
           const float2 rr =
               *reinterpret_cast<const float2*>(res + res_row(a, row) * a.n_out + col);
@@ -298,15 +308,16 @@ cudaError_t tensor_map_f32(CUtensorMap* map, const void* ptr, int rows, int cols
 
 int launch_gemm_tf32_sm90(const GemmArgs& a, cudaStream_t stream) {
   if (a.M == 0 || a.n_out == 0) return 0;
-  if (a.gelu_grad != nullptr || a.mul != nullptr || a.col_sums != nullptr || a.k_split ||
+  if (a.mul != nullptr || a.col_sums != nullptr || a.k_split ||
       !a.y_f32 || (a.res != nullptr && !a.res_f32))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_a, map_b;
   cudaError_t err = tensor_map_f32(&map_a, a.x, a.M, a.K, BM);
   if (err == cudaSuccess) err = tensor_map_f32(&map_b, a.w, a.n_out, a.K, BN);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(gemm_tf32_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
+  const auto kernel =
+      a.gelu_grad != nullptr ? gemm_tf32_sm90_kernel<true> : gemm_tf32_sm90_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
@@ -315,7 +326,7 @@ int launch_gemm_tf32_sm90(const GemmArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long count = static_cast<long long>((a.M + BM - 1) / BM) * ((a.n_out + BN - 1) / BN);
   const int grid = static_cast<int>(count < sms ? count : sms);
-  gemm_tf32_sm90_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(map_a, map_b, a);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(map_a, map_b, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,14 +30,14 @@
 //   sum_partials:   out[L] = sum over S fp32 partials, in order, in the
 //                   output type, for up to eight such jobs a launch.
 //
-// fp32 operands of the forward layout (W [n_out, K] and no GELU' out: every
-// eval product and the training forward's but fc1's) go through the sm_90a
+// fp32 operands of the forward layout (W [n_out, K]: every eval product
+// and every training forward's, GELU' out included) go through the sm_90a
 // kernel of gemm_tf32_sm90.cu (TMA, mbarrier, wgmma in 3xTF32 on the
-// tensor cores); the fp32 layouts that only fp32 training launches (the
-// fc1 with GELU' out, dY . W and the weight gradient) through FMA in true
-// fp32 on the CUDA cores, in this file; bf16 operands through the sm_90a
-// kernel of gemm_sm90.cu (TMA, mbarrier, wgmma). The entry points below
-// call each with the same arguments. With bf16 operands the residual and Y may also
+// tensor cores); the fp32 layouts that only the fp32 backward launches
+// (dY . W and the weight gradient) through FMA in true fp32 on the CUDA
+// cores, in this file; bf16 operands through the sm_90a kernel of
+// gemm_sm90.cu (TMA, mbarrier, wgmma). The entry points below call each
+// with the same arguments. With bf16 operands the residual and Y may also
 // be fp32: the whole block keeps its residual stream y in fp32 between its
 // halves, as the TPU kernel does, so its proj GEMM writes fp32 y, LN2
 // reads it, and the fc2 GEMM adds it; the backward's dLN products write
@@ -477,16 +477,13 @@ __device__ __forceinline__ void load_slice(const GemmArgs& a, float* tiles, int 
 
 // The fp32 epilogue of one element; returns the value written (0 outside
 // Y). MUL: the layout whose launches may carry the fp32 factor (the
-// backward's dY . W); GRAD: the variant that writes GELU'.
-template <bool MUL, bool GRAD>
+// backward's dY . W).
+template <bool MUL>
 __device__ __forceinline__ float store(const GemmArgs& a, int row, int col, float acc) {
   if (row >= a.M || col >= a.n_out) return 0.f;
   float v = acc;
   if (a.bias) v += static_cast<const float*>(a.bias)[col];
-  if (a.gelu) {
-    if (GRAD) a.gelu_grad[static_cast<size_t>(row) * a.n_out + col] = gelu_grad(v);
-    v = gelu(v);
-  }
+  if (a.gelu) v = gelu(v);
   if (MUL && a.mul) v *= a.mul[static_cast<size_t>(row) * a.n_out + col];
   if (a.res) v += static_cast<const float*>(a.res)[res_row(a, row) * a.n_out + col];
   static_cast<float*>(a.y)[static_cast<size_t>(row) * a.n_out + col] = v;
@@ -495,11 +492,10 @@ __device__ __forceinline__ float store(const GemmArgs& a, int row, int col, floa
 
 // The fp32 GEMM. A_KM: A is stored [K][M] (the weight gradient's dY), and
 // the K rows may be split over blockIdx.z; B_KN: B is stored [K][n_out]
-// (the backward's untransposed weight, or wgrad's X); GRAD: the GELU
-// epilogue also writes GELU' (the training forward's fc1). The backward's
+// (the backward's untransposed weight, or wgrad's X). The backward's
 // own epilogue steps (the fp32 factor, the column sums) compile only into
 // the layout with B_KN and not A_KM, the split only into A_KM.
-template <bool A_KM, bool B_KN, bool GRAD>
+template <bool A_KM, bool B_KN>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
   using TL = Tile<A_KM, B_KN>;
   constexpr bool BWD = B_KN && !A_KM;
@@ -565,7 +561,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float v = store<BWD, GRAD>(a, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
+      const float v = store<BWD>(a, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
       if constexpr (BWD) cs[j] += v;
     }
   if (BWD && a.col_sums != nullptr) {
@@ -584,10 +580,10 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
     a.a_sums[static_cast<size_t>(blockIdx.z) * a.M + m0 + tid] = a_sum;
 }
 
-template <bool A_KM, bool B_KN, bool GRAD>
+template <bool A_KM, bool B_KN>
 int launch_gemm(const GemmArgs& a, int splits, cudaStream_t stream) {
   using TL = Tile<A_KM, B_KN>;
-  const auto kernel = gemm_kernel<A_KM, B_KN, GRAD>;
+  const auto kernel = gemm_kernel<A_KM, B_KN>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(TL::SMEM_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -597,13 +593,11 @@ int launch_gemm(const GemmArgs& a, int splits, cudaStream_t stream) {
 }
 
 // The fp32 variants: the forward layout on the tensor cores
-// (gemm_tf32_sm90.cu); on the FMA kernel the three that only fp32 training
-// launches: the fc1 with GELU' out, the backward's dY . W, and the weight
-// gradient.
+// (gemm_tf32_sm90.cu); on the FMA kernel the two that only the fp32
+// backward launches: dY . W and the weight gradient.
 int launch_gemm_f32(const GemmArgs& a, bool a_km, bool b_kn, int splits, cudaStream_t s) {
-  if (a_km) return launch_gemm<true, true, false>(a, splits, s);
-  if (b_kn) return launch_gemm<false, true, false>(a, splits, s);
-  if (a.gelu_grad != nullptr) return launch_gemm<false, false, true>(a, splits, s);
+  if (a_km) return launch_gemm<true, true>(a, splits, s);
+  if (b_kn) return launch_gemm<false, true>(a, splits, s);
   return launch_gemm_tf32_sm90(a, s);
 }
 

@@ -240,12 +240,15 @@ constexpr int TC_THREADS = TC_WARPS * 32;
 constexpr int TC_KEYS = 32;  // the keys of a chunk: N <= TC_KEYS * KC
 constexpr int TC_STATS = 64;  // a pair's row statistics: [half][max, sum][16 rows]
 
-int tf32_chunks(int n) { return (n + TC_KEYS - 1) / TC_KEYS; }
+constexpr int tf32_chunks(int n) { return (n + TC_KEYS - 1) / TC_KEYS; }
 
-size_t tf32_smem_bytes(int n) {  // Q, K, V, the pairs' colsum rows, their statistics
-  const size_t rows = static_cast<size_t>(tf32_chunks(n)) * TC_KEYS;
-  return sizeof(float) * (rows * (3 * TC_LD + TC_PAIRS) + TC_PAIRS * TC_STATS);
+// Q, K, V, the pairs' colsum rows, their statistics
+constexpr size_t tf32_smem_bytes(int n) {
+  return sizeof(float) * (static_cast<size_t>(tf32_chunks(n)) * TC_KEYS * (3 * TC_LD + TC_PAIRS) +
+                          TC_PAIRS * TC_STATS);
 }
+// the widest variant's block within the H100's 227 KB (smaller n take less)
+static_assert(tf32_smem_bytes(MAXN) <= 232448, "over the H100's 227 KB of shared memory a block");
 
 // d += a . b, m16n8k8, TF32 operands as fp32 bit patterns, fp32 accumulators.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],

@@ -78,22 +78,6 @@ _SIGNATURES = {
 }
 # what tr_gemm_sm90_config and tr_gemm_tf32_config report, in their order
 _GEMM_CONFIG = ("BM", "BN", "BK", "STAGES", "SMEM_BYTES")
-# the plan of the fp32 GEMM of the forward layout (csrc/gemm_tf32_sm90.cu):
-# a 128 x 128 tile, K steps of 32 fp32 (one 128-byte swizzled row), three
-# stages of A and B with their TF32 lo parts (64 KB each), 1 KB for the
-# swizzle's alignment and three mbarriers a stage
-GEMM_TF32 = dict(BM=128, BN=128, BK=32, STAGES=3,
-                 SMEM_BYTES=1024 + 3 * 2 * (128 + 128) * 32 * 4 + 3 * 3 * 8)
-# the plan of the fp32 square attention (csrc/short_attention.cu
-# short_attention_tf32_kernel): 8 warps a block in pairs, Q, K and V rows
-# of 64 + 4 floats, padded to chunks of 32 keys, a row of colsum partials
-# and 64 floats of row statistics a pair
-ATTENTION_TF32_WARPS = 8
-ATTENTION_TF32_LD = 68
-ATTENTION_TF32_KEYS = 32
-ATTENTION_TF32_STATS = 64
-# the H100's shared memory a block (the opt-in maximum)
-SMEM_PER_BLOCK = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -338,10 +322,10 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
     share one dtype; res and y have it too or, with bf16 operands, float32.
     Contiguous CUDA tensors, checked by the caller. ``gemm.launches``
     counts the bf16 launches (the sm_90a kernel). fp32: the forward layout
-    (``w_kn`` false, no ``gelu_grad``) runs csrc/gemm_tf32_sm90.cu, 3xTF32
-    on the tensor cores, counted by ``gemm.tf32_launches``; the layouts
-    that only fp32 training launches (``w_kn``, ``gelu_grad``) run the FMA
-    kernel of csrc/ln_gemm.cu (tr_gemm picks by the same rule)."""
+    (``w_kn`` false; GELU' out too) runs csrc/gemm_tf32_sm90.cu, 3xTF32 on
+    the tensor cores, counted by ``gemm.tf32_launches``; the layout that
+    only the fp32 backward launches (``w_kn``) runs the FMA kernel of
+    csrc/ln_gemm.cu (tr_gemm picks by the same rule)."""
     M, n_out = y.shape
     res_dtype = _DTYPE_CODE[x.dtype if res is None else res.dtype]
     err = kernels().lib.tr_gemm(
@@ -352,7 +336,7 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
     _check("tr_gemm", err)
     if x.dtype == torch.bfloat16:
         gemm.launches += 1
-    elif not w_kn and gelu_grad is None:
+    elif not w_kn:
         gemm.tf32_launches += 1
 
 
@@ -371,20 +355,12 @@ def gemm_config() -> dict:
     return dict(zip(_GEMM_CONFIG, out))
 
 
-def gemm_tf32_plan(M: int, n_out: int, sms: int) -> dict:
-    """The fp32 forward GEMM's plan (csrc/gemm_tf32_sm90.cu) at M rows and
-    n_out columns on a card of ``sms`` SMs: GEMM_TF32's tile, stages and
-    dynamic shared memory a block, and its persistent grid (one block an
-    SM, at most one a tile)."""
-    tiles = _cdiv(M, GEMM_TF32["BM"]) * _cdiv(n_out, GEMM_TF32["BN"])
-    return {**GEMM_TF32, "tiles": tiles, "grid": min(tiles, sms)}
-
-
 @functools.lru_cache(maxsize=None)
 def gemm_tf32_config() -> dict:
     """The fp32 forward GEMM's tile, stages and dynamic shared memory a
-    block as its library reports them (tr_gemm_tf32_config): the card's
-    check of GEMM_TF32."""
+    block (csrc/gemm_tf32_sm90.cu), as its library reports them
+    (tr_gemm_tf32_config); its grid is persistent, one block an SM and at
+    most one a tile."""
     out = (ctypes.c_int * len(_GEMM_CONFIG))()
     _check("tr_gemm_tf32_config",
            kernels().lib.tr_gemm_tf32_config(ctypes.addressof(out)))
@@ -551,26 +527,15 @@ short_attention_heads.rect_launches = 0
 short_attention_heads.tf32_launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def attention_tf32_plan(n: int) -> dict:
     """The fp32 square attention's plan at n keys (csrc/short_attention.cu
-    short_attention_tf32_kernel): {"smem": dynamic shared memory a block
-    in bytes (Q, K and V, rows padded to whole chunks, a row of colsum
+    short_attention_tf32_kernel), as its library reports it
+    (tr_attention_tf32_plan): {"smem": dynamic shared memory a block in
+    bytes (Q, K and V, rows padded to whole chunks, a row of colsum
     partials and the row statistics of each pair of warps), "threads",
     "chunks": the 32-key chunks of a row of S held in a pair's registers,
     the kernel variant}."""
-    if not 1 <= n <= 256:
-        raise ValueError(f"attention_tf32_plan: n={n} outside 1..256")
-    chunks = _cdiv(n, ATTENTION_TF32_KEYS)
-    rows, pairs = chunks * ATTENTION_TF32_KEYS, ATTENTION_TF32_WARPS // 2
-    return dict(smem=4 * (rows * (3 * ATTENTION_TF32_LD + pairs)
-                          + pairs * ATTENTION_TF32_STATS),
-                threads=32 * ATTENTION_TF32_WARPS, chunks=chunks)
-
-
-@functools.lru_cache(maxsize=None)
-def attention_tf32_library_plan(n: int) -> dict:
-    """``attention_tf32_plan`` as the library reports it
-    (tr_attention_tf32_plan): the card's check of the Python plan."""
     out = (ctypes.c_int * 3)()
     _check("tr_attention_tf32_plan", kernels().lib.tr_attention_tf32_plan(
         n, ctypes.addressof(out)))
