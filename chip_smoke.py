@@ -17,10 +17,13 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    and of its rectangular variant at ATS's (M, N) pairs
    (tr_attention_sm90_smem), the fp32 tensor-core kernels' plans as the
    library reports them (_build.gemm_tf32_config, and
-   _build.attention_tf32_plan at each main-path width and 256), and the
-   LayerNorm backward's; and, from the built library's SASS (cuobjdump),
-   a TF32 tensor-core instruction (HGMMA or HMMA .TF32) in every variant
-   of the fp32 GEMM and the fp32 square attention, or it fails.
+   _build.attention_tf32_plan at each main-path width and 256: the square
+   forward's and the backward's shared memory, and the rectangular
+   forward's at ATS's (M, N) pairs), and the LayerNorm backward's; and,
+   from the built library's SASS (cuobjdump), a TF32 tensor-core
+   instruction (HGMMA or HMMA .TF32) in every variant of the fp32 GEMM,
+   the fp32 forward attention (square and rectangular) and the fp32
+   attention backward, or it fails.
 2. kernels: each kernel counterpart against its plain PyTorch version on
    the same CUDA tensors at the main path's widths, fp32 at B=32 (bound
    1e-4 of max|plain|) and bf16 at B=256 (bound 2e-2 of max|plain|), with
@@ -133,10 +136,21 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    qkv, proj + residual, fc1 + GELU (also with GELU' out, the training
    forward's), fc2 + residual and fc2 with #3's gathered residual (197 -> 138 and 13 -> 4 rows), and the square
    attention (short_attention_tf32_kernel) without by-products, with row0
-   and colsum, with ToMe's bias and with a validity mask: each output
-   within 1e-4 of its own max|plain|, beside its time per launch, cuBLAS
-   SGEMM's (F.linear) or SDPA's in fp32 (TF32 off), the 3xTF32 bound and
-   the FMA bound.
+   and colsum, with ToMe's bias and with a validity mask, the attention
+   backward (short_attention_bwd_tf32_kernel) without options, with the
+   branch's row0 cotangent, with ToMe's bias, both cotangents and dbias,
+   with a validity mask (fully masked query rows) and with all of them,
+   and the rectangular attention (the RECT variant) at ATS's (M, N) pairs
+   and 80x50 (B=256) and 138x197 (B=32), its CLS pads bit-equal to the
+   CLS slot and its dead slot the values' mean: each output within 1e-4
+   of its own max|plain| (a backward's and a rectangular forward's second
+   launch bit-equal to the first), beside its time per launch, cuBLAS
+   SGEMM's (F.linear) or SDPA's in fp32 (TF32 off; the backward's SDPA's
+   backward alone, the rectangular one's on the gathered rows), the
+   3xTF32 bound and the FMA bound. Last the fp32 backward's GEMM layouts,
+   still on ln_gemm.cu's FMA gemm_kernel, at B=256 and B=32: the four
+   dY . W products and the four weight gradients, within 1e-4 of their
+   own max, beside cuBLAS SGEMM and both bounds.
    Beside each counterpart's time: its bound (bytes or operations at the
    H100's peak rates: fp32 products as 3xTF32) and the eager bf16
    composition of library calls
@@ -234,9 +248,10 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    device time of the clustering between the blocks against the whole
    forward (CUDA events around each clustering call, 3 forwards). Last,
    validate's default precision: 5 batches of 256 fp32 images through
-   dense and topk@0.7, img/s over batches 2-5, each forward's 48 fp32
-   GEMMs and 12 fp32 attentions on the tensor-core kernels (a measurement;
-   not counted with the main path).
+   dense, topk@0.7 and ATS@0.7, img/s over batches 2-5, each forward's
+   48 fp32 GEMMs and 12 fp32 attentions on the tensor-core kernels
+   (ATS's: 9 square and 3 rectangular ones), each model a path of its
+   own, its counts set to 0 just before and read just after.
 5. train: bench.py's train step for dense, topk@0.7, ToMe@0.7,
    heuristic, EViT@0.7 and k-medoids@0.7 -- b256,
    amp, drop_path 0.1 from a seeded CUDA generator, grouped AdamW lr 1e-3
@@ -257,12 +272,18 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    time down: the port's kernels, the teacher's forward, and DyViT's 12
    policy attention halves (one timed alone, forward and backward, at
    b256); DyViT's window must show the teacher on the tensor-core kernels
-   and no fp32 FMA GEMM or FMA attention.
+   and no fp32 FMA GEMM. Last, the JAX CLI's default precision: 8 fp32
+   train steps of topk@0.7 at b256 (no amp), a path of its own, with 12
+   tensor-core attention backward launches a step (and 48 + 48 FMA GEMM
+   layouts, 48 tensor-core GEMMs and 12 attentions) required.
 
 Phases 4 and 5 are the main path's runs: each counterpart's launch count,
 and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
 fp32 tensor-core GEMM and attention (gemm_tf32, attention_tf32: the DyViT
-teacher's 4 and 1 a block in phase 5, none in phase 4's bf16 run), of the
+teacher's 4 and 1 a block in phase 5, none in phase 4's bf16 run; the
+fp32 backward's attention_bwd_tf32 and FMA GEMMs from phase 5's fp32
+train step, the fp32 rectangular attention from phase 4's ATS@0.7 fp32
+forwards, each read from its own path's run), of the
 sm_90a attention's three (short_attention, short_attention_bwd,
 rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
 backward and of the partial sums (once each in each training branch's
@@ -410,9 +431,9 @@ EPS = 1e-6
 # H100 SXM peak rates (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
 # bound the bf16 kernels; TF32 tensor cores bound an fp32-accurate product
 # (3xTF32: three TF32 products each, the least time the card needs for one:
-# the fp32 forward GEMM and square attention run so); fp32 outside the
-# tensor cores bounds the FMA kernels (the fp32 backward's attention and
-# GEMM layouts, the rectangular fp32 attention), printed beside the first
+# the fp32 forward GEMM and every fp32 attention run so); fp32 outside the
+# tensor cores bounds the FMA kernels (the fp32 backward's GEMM layouts),
+# printed beside the first
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_FP32_FLOPS = 67e12
@@ -474,6 +495,7 @@ GEMM_TF32_SOURCE = "tokenreduction_tpu_torch/csrc/gemm_tf32_sm90.cu"
 GEMM_REPLACES = {"gemm": "tokenreduction_tpu/ops/fused_mlp_train.py:162",
                  "gemm_wgrad": "tokenreduction_tpu/ops/fused_mlp_train.py:218"}
 ATTENTION = "tokenreduction_tpu_torch/csrc/short_attention.cu"
+ATTENTION_BWD = "tokenreduction_tpu_torch/csrc/short_attention_bwd.cu"
 ATTENTION_SM90 = "tokenreduction_tpu_torch/csrc/attention_sm90.cu"
 # the sm_90a attention's forward and backward: their records name the
 # attention core's TPU kernels; its rectangular forward names
@@ -493,8 +515,8 @@ LN_BWD_REPLACES = "tokenreduction_tpu/ops/fused_mlp_train.py:218"
 LN_REPLACES = "tokenreduction_tpu/ops/fused_full_block.py:118"
 SUMS_REPLACES = "tokenreduction_tpu/ops/fused_mlp_train.py:218"
 KEYS_REPLACES = "tokenreduction_tpu/ops/flash_attention.py:660"
-# (bf16 first; then the fp32 route's: csrc/short_attention.cu's attention
-# and the fp32 GEMMs)
+# (bf16 first; then the fp32 route's: csrc/short_attention.cu's attention,
+# short_attention_bwd.cu's backward and the fp32 GEMMs)
 CUDA_SOURCES = {
     "fused_full_block": [LN_GEMM, ATTENTION_SM90, GEMM_SOURCE, ATTENTION,
                          GEMM_TF32_SOURCE],
@@ -503,9 +525,9 @@ CUDA_SOURCES = {
     "fused_mlp_gather_residual": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
     "fused_mlp_residual": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
     "attend_branch_train": [ATTENTION_SM90, LN_GEMM, GEMM_SOURCE, ATTENTION,
-                            GEMM_TF32_SOURCE],
+                            ATTENTION_BWD, GEMM_TF32_SOURCE],
     "mlp_branch": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
-    "attention_core_train": [ATTENTION_SM90, ATTENTION],
+    "attention_core_train": [ATTENTION_SM90, ATTENTION, ATTENTION_BWD],
     "fused_attention": [ATTENTION_SM90, ATTENTION],
     "fused_attention_qkv": [ATTENTION_SM90, ATTENTION],
     "fused_rect_attention": [ATTENTION_SM90, ATTENTION],
@@ -676,19 +698,32 @@ ATTENTIONS = {"short_attention": _build.short_attention_heads,
 # every counted launcher: (function, its count's attribute). Beside the
 # above, the rectangular forward of csrc/attention_sm90.cu (ATS's sampling
 # blocks), the fp32 forward GEMM (csrc/gemm_tf32_sm90.cu) and the fp32
-# square attention (csrc/short_attention.cu short_attention_tf32_kernel) on
-# the tensor cores in 3xTF32, the LayerNorm forward and backward and
-# sum_partials (csrc/ln_gemm.cu) and head_mean_keys
-# (csrc/short_attention.cu)
+# attention (csrc/short_attention.cu: the square and the rectangular
+# forward of short_attention_tf32_kernel; csrc/short_attention_bwd.cu: the
+# backward) on the tensor cores in 3xTF32, the fp32
+# backward's GEMM layouts on csrc/ln_gemm.cu's FMA gemm_kernel, the
+# LayerNorm forward and backward and sum_partials (csrc/ln_gemm.cu) and
+# head_mean_keys (csrc/short_attention.cu)
 LAUNCHERS = {
     **{name: (f, "launches") for name, f in (*GEMMS.items(),
                                              *ATTENTIONS.items())},
     "rect_attention": (_build.short_attention_heads, "rect_launches"),
     "gemm_tf32": (_build.gemm, "tf32_launches"),
     "attention_tf32": (_build.short_attention_heads, "tf32_launches"),
+    "rect_attention_tf32": (_build.short_attention_heads,
+                            "tf32_rect_launches"),
+    "attention_bwd_tf32": (_build.short_attention_bwd_heads,
+                           "tf32_launches"),
+    "gemm_fma": (_build.gemm, "fma_launches"),
+    "gemm_wgrad_fma": (_build.gemm_wgrad, "fma_launches"),
     **{name: (getattr(_build, name), "launches")
        for name in ("layer_norm_bwd", "layer_norm", "head_mean_keys")},
     "sum_partials": (_build.sum_partials_many, "launches")}
+
+
+# the fp32 launchers, none of which a bf16 run launches
+FP32_LAUNCHERS = ("gemm_tf32", "attention_tf32", "rect_attention_tf32",
+                  "attention_bwd_tf32", "gemm_fma", "gemm_wgrad_fma")
 
 
 def reset_counts():
@@ -1816,7 +1851,7 @@ def check_rect_rows(merged, qkv, idx, mask, tag):
     """The rectangular attention's special rows: a slot padded with the CLS
     row gives the CLS slot's output bit for bit, and the dead slot 1 (a
     fully masked query row) is uniform over the N keys: the mean of the
-    values, within 1e-2 of its max."""
+    values, within 1e-2 (bf16) or 1e-4 (fp32) of its max."""
     pads = idx == 0
     pads[:, 0] = False
     require(bool((merged == merged[:, :1]).all(-1)[pads].all()),
@@ -1825,7 +1860,7 @@ def check_rect_rows(merged, qkv, idx, mask, tag):
     require(bool(dead.any()), f"rect_attention {tag}: no dead slot")
     uniform = qkv[:, :, 2 * D:].float().mean(1)
     _, rel = rel_err(merged[dead, 1].float(), uniform[dead])
-    require(rel <= LAUNCH_BOUND[torch.bfloat16], f"rect_attention {tag}: a "
+    require(rel <= LAUNCH_BOUND[merged.dtype], f"rect_attention {tag}: a "
             f"fully masked row is {rel:.3e} of its max off the values' mean")
     return int(pads.sum()), int(dead.sum())
 
@@ -2030,35 +2065,145 @@ def fp32_attention_cases(B, N, gen):
                    q, k, v, attn_mask=m, scale=SCALE), plain)
 
 
+def fp32_bwd_cases(B, N, gen):
+    """The same for the fp32 attention backward (short_attention_bwd_tf32_
+    kernel) over [B, H, N, hd] operands at B images of N tokens: without
+    options, with the branch's row0 cotangent, with ToMe's bias, both
+    cotangents and dbias, with a validity mask (fully masked query rows),
+    and with the mask, the bias, both cotangents and dbias. The plain
+    version is attention_core_train_bwd_ref; the library call SDPA's fp32
+    backward alone (autograd) on the same q, k, v and dout, the bias or the
+    pair mask as a float mask. flops: the five essential products (S, dP,
+    dQ, dK, dV; the kernel recomputes S and dP); bytes: q, k, v, dout in,
+    dq, dk, dv out and the vectors each option reads or writes."""
+    f32, hd = torch.float32, D // HEADS
+    dev_gen = torch.Generator(device=DEVICE).manual_seed(B * 1000 + N + 13)
+    q, k, v, dout = torch.randn(4, B, HEADS, N, hd, generator=dev_gen,
+                                device=DEVICE).unbind(0)
+    drow0, dcs = torch.randn(2, B, HEADS, N, generator=dev_gen,
+                             device=DEVICE).unbind(0)
+    bias = log_sizes(B, N, gen, f32)
+    mask = token_mask(B, N, gen)
+    dq, dk, dv = torch.empty(3, B, HEADS, N, hd, device=DEVICE).unbind(0)
+    dbias = torch.empty(B, HEADS, N, device=DEVICE)
+    vec = 4 * B * HEADS * N
+    cot = dict(drow0=drow0, dcs=dcs)
+    for label, kw, extra, lib_mask in (
+            ("backward", {}, 0, None),
+            ("backward, row0 cotangent", dict(drow0=drow0), vec, None),
+            ("backward, bias, cotangents, dbias",
+             dict(bias=bias, dbias=dbias, **cot), 3 * vec + 4 * B * N,
+             float_mask(f32, bias)),
+            ("backward, mask", dict(mask=mask), B * N,
+             float_mask(f32, None, mask, mask)),
+            ("backward, mask, bias, cotangents, dbias",
+             dict(mask=mask, bias=bias, dbias=dbias, **cot),
+             3 * vec + 5 * B * N, float_mask(f32, bias, mask, mask))):
+        def plain(kw=kw):
+            return attention_core_train_bwd_ref(
+                q, k, v, kw.get("bias"), dout, kw.get("drow0"), kw.get("dcs"),
+                SCALE, kw.get("mask"))
+
+        want = plain()
+        names, outs = ("dq", "dk", "dv"), (dq, dk, dv)
+        if "dbias" in kw:
+            names, outs = names + ("dbias",), outs + (dbias,)
+        yield ("attention_bwd_tf32", label,
+               lambda kw=kw: _build.short_attention_bwd_heads(
+                   q, k, v, None, dout, dq, dk, dv, SCALE, **kw),
+               list(zip(names, outs, want)), 10 * B * HEADS * N * N * hd,
+               7 * 4 * B * HEADS * N * hd + extra,
+               sdpa_backward(q, k, v, dout, lib_mask), plain)
+
+
+# the rectangular fp32 attention at ATS's (M, N) pairs and RECT_WIDE_MN
+# (B = 256), and at ATS@0.7's first pair (B = 32)
+FP32_RECT = {256: (*RECT_MN, RECT_WIDE_MN), 32: RECT_MN[:1]}
+
+
+def fp32_rect_cases(B, gen):
+    """The same for the fp32 rectangular attention (short_attention_tf32_
+    kernel's RECT variant) off a packed qkv at B images and FP32_RECT's
+    pairs, each kept-row set with CLS pads and a dead slot (check_rect_rows
+    first: pads equal to the CLS slot bit for bit, the dead slot the mean
+    of the values). The library call is the kept query rows gathered, then
+    SDPA in fp32."""
+    for M, N in FP32_RECT[B]:
+        dev_gen = torch.Generator(device=DEVICE).manual_seed(M * 1000 + N + B)
+        qkv = torch.randn(B, N, 3 * D, generator=dev_gen, device=DEVICE)
+        mask = token_mask(B, N, gen)
+        idx = kept_ids(B, N, M, mask, gen)
+        ids = idx.to(torch.int32)
+        merged = torch.empty(B, M, D, device=DEVICE)
+        _build.short_attention(qkv, merged, HEADS, SCALE, mask=mask, ids=ids)
+        torch.cuda.synchronize()
+        tag = f"B={B} M={M} N={N}"
+        pads, dead = check_rect_rows(merged, qkv, idx, mask, tag)
+        print(f"phase 2 fp32 rect_attention_tf32 {tag}: {pads} padded slots "
+              f"equal to CLS, {dead} fully masked rows uniform", flush=True)
+
+        def plain(qkv=qkv, idx=idx, mask=mask):
+            return rect_attention_ref(qkv, idx, mask, HEADS, SCALE)
+
+        yield ("rect_attention_tf32", f"forward, mask, {M}x{N}",
+               lambda qkv=qkv, merged=merged, mask=mask, ids=ids:
+               _build.short_attention(qkv, merged, HEADS, SCALE, mask=mask,
+                                      ids=ids),
+               [("merged heads", merged, plain())], 4 * B * M * N * D,
+               4 * (2 * B * N * D + 2 * B * M * D) + 4 * B * M + B * N,
+               lambda qkv=qkv, idx=idx, mask=mask: library_rect(qkv, idx,
+                                                                mask),
+               plain)
+
+
 def phase_fp32() -> dict:
     """Phase 2: each fp32 launch of the tensor-core kernels alone at
     FP32_SHAPES (fp32 outputs within 1e-4 of their own max|plain|), with
     its time per launch, the library call's, the 3xTF32 bound (three TF32
     products at the tensor cores' rate, or the bytes) and the FMA bound
-    (the products at the fp32 rate outside them, or the bytes). A rate of
-    three TF32 products above the TF32 tensor cores' dense peak at the
-    card's highest SM clock fails. Returns the JSON records of gemm_tf32
-    (qkv) and attention_tf32 (the teacher's forward) at B = 256, N = 197."""
+    (the products at the fp32 rate outside them, or the bytes); the
+    backward's and the rectangular forward's outputs of a second launch
+    bit-equal to the first. A rate of three TF32 products above the TF32
+    tensor cores' dense peak at the card's highest SM clock fails. Then
+    the FMA GEMM's fp32 backward layouts (fp32_fma_gemm_cases). Returns
+    the JSON records of gemm_tf32 (qkv), attention_tf32 (the teacher's
+    forward), attention_bwd_tf32 (the branch's backward) and
+    rect_attention_tf32 (138 x 197) at B = 256."""
     gen = torch.Generator().manual_seed(12)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ceiling = sms * SM_TF32_FLOP_PER_CLOCK * max_sm_clock_hz()
     print(f"phase 2 fp32: dense TF32 ceiling {ceiling / 1e12:.1f} TFLOP/s "
           f"({sms} SMs at the highest SM clock)", flush=True)
     rec = {}
+    record = {"gemm_tf32": "qkv", "attention_tf32": "forward",
+              "attention_bwd_tf32": "backward, row0 cotangent",
+              "rect_attention_tf32": "forward, mask, 138x197"}
     for B, N in FP32_SHAPES:
-        cases = [*fp32_gemm_cases(B, N, gen), *fp32_attention_cases(B, N, gen)]
+        cases = [*fp32_gemm_cases(B, N, gen), *fp32_attention_cases(B, N, gen),
+                 *fp32_bwd_cases(B, N, gen), *fp32_rect_cases(B, gen)]
         for launch, label, run, outs, flops, nbytes, library, plain in cases:
+            # (the rectangular cases name their (M, N) in the label)
+            at = f"B={B}" if launch == "rect_attention_tf32" else \
+                f"B={B} N={N}"
             run()
             torch.cuda.synchronize()
             errs, worst = [], 0.0
             for name, got, want in outs:
                 abs_err, rel = rel_err(got, want)
                 bound_ = LAUNCH_BOUND[torch.float32]
-                require(rel <= bound_, f"{launch} {label} B={B} N={N} "
-                        f"{name}: error {rel:.3e} of its max|plain| > "
-                        f"bound {bound_:.0e}")
+                require(rel <= bound_, f"{launch} {label} {at} {name}: "
+                        f"error {rel:.3e} of its max|plain| > bound "
+                        f"{bound_:.0e}")
                 errs.append(f"{name} {abs_err:.3e} ({rel:.2e} of max)")
                 worst = max(worst, abs_err)
+            if launch in ("attention_bwd_tf32", "rect_attention_tf32"):
+                first = [got.clone() for _, got, _ in outs]
+                run()
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, got) for a, (_, got, _) in
+                            zip(first, outs)), f"{launch} {label} {at}: a "
+                        "second launch differs from the first")
+                errs.append("a second launch bit-equal")
             ms, lib_ms = per_launch_ms(run), per_launch_ms(library)
             t_bytes = nbytes / PEAK_BYTES
             t_tf32, t_fma = 3 * flops / PEAK_TF32_FLOPS, flops / PEAK_FP32_FLOPS
@@ -2066,20 +2211,104 @@ def phase_fp32() -> dict:
                 max(t_fma, t_bytes) * 1e3
             bound_by = "operations" if t_tf32 >= t_bytes else "bytes"
             rate = 3 * flops / ms * 1e3
-            require(rate <= ceiling, f"{launch} {label} B={B} N={N}: "
+            require(rate <= ceiling, f"{launch} {label} {at}: "
                     f"{rate / 1e12:.1f} TFLOP/s of TF32 is above the ceiling")
-            print(f"phase 2 fp32 {launch} {label} B={B} N={N}: "
+            print(f"phase 2 fp32 {launch} {label} {at}: "
                   f"{', '.join(errs)}; kernel {ms:.4f} ms per launch "
                   f"({flops / ms / 1e9:.1f} fp32 TFLOP/s, "
                   f"{rate / 1e12:.1f} of TF32), 3xTF32 bound "
                   f"{bound_ms:.4f} ms ({bound_by}), FMA bound {fma_ms:.4f} "
                   f"ms, library {lib_ms:.4f} ms", flush=True)
-            if (B, N) == FP32_SHAPES[0] and launch not in rec:
-                rec[launch] = dict(shape=f"fp32 {label} B={B} N={N}", ms=ms,
+            if (B, N) == FP32_SHAPES[0] and launch not in rec and \
+                    record[launch] == label:
+                rec[launch] = dict(shape=f"fp32 {label} {at}", ms=ms,
                                    plain_ms=per_launch_ms(plain),
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    library_ms=lib_ms, max_abs_err=worst)
+    for B, N in FP32_SHAPES:
+        fp32_fma_gemm_times(B, N, gen)
     return rec
+
+
+def fp32_fma_gemm_times(B, N, gen):
+    """Phase 2: the fp32 backward's GEMM layouts of a DeiT-S block, still
+    on csrc/ln_gemm.cu's FMA gemm_kernel, each launch alone at B x N rows:
+    the four dY . W products (W untransposed; fc2's with the GELU' factor
+    and the column sums) and the four weight gradients (with their bias
+    sums, and the partial sums' launch): each output within 1e-4 of its
+    own max|plain|, its time per launch beside cuBLAS SGEMM's (matmul,
+    matmul(dy.t(), x); TF32 off), the 3xTF32 bound and the FMA bound."""
+    p = block_params(torch.float32, gen)
+    dev_gen = torch.Generator(device=DEVICE).manual_seed(B * 1000 + N + 17)
+    M = B * N
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=dev_gen, device=DEVICE)
+
+    dq, dy, dh, x, h, gp = rn(M, 3 * D), rn(M, D), rn(M, H4), rn(M, D), \
+        rn(M, H4), rn(M, H4)
+    parts = torch.empty(-(-M // _build.GEMM_TILE), H4, device=DEVICE)
+    yd, yh = torch.empty(M, D, device=DEVICE), torch.empty(M, H4,
+                                                           device=DEVICE)
+    dw = {k: torch.empty_like(p[k]) for k in ("wqkv", "wproj", "w1", "w2",
+                                              "bqkv", "bproj", "b2")}
+
+    def wgrad(g, a, w, b=None):
+        _build.sum_partials_many(_build.gemm_wgrad(g, a, dw[w],
+                                                   None if b is None
+                                                   else dw[b]))
+
+    cases = (
+        ("dY . W qkv", lambda: _build.gemm(dq, p["wqkv"], None, yd,
+                                           w_kn=True),
+         [("y", yd, lambda: dq @ p["wqkv"])], lambda: dq @ p["wqkv"],
+         dq, D),
+        ("dY . W proj", lambda: _build.gemm(dy, p["wproj"], None, yd,
+                                            w_kn=True),
+         [("y", yd, lambda: dy @ p["wproj"])], lambda: dy @ p["wproj"],
+         dy, D),
+        ("dY . W fc2, GELU' factor, column sums",
+         lambda: _build.gemm(dy, p["w2"], None, yh, w_kn=True, mul=gp,
+                             col_sums=parts),
+         [("y", yh, lambda: (dy @ p["w2"]) * gp)], lambda: dy @ p["w2"],
+         dy, H4),
+        ("dY . W fc1", lambda: _build.gemm(dh, p["w1"], None, yd, w_kn=True),
+         [("y", yd, lambda: dh @ p["w1"])], lambda: dh @ p["w1"], dh, D),
+        ("weight gradient qkv", lambda: wgrad(dq, x, "wqkv", "bqkv"),
+         [("dw", dw["wqkv"], lambda: dq.t() @ x),
+          ("db", dw["bqkv"], lambda: dq.sum(0))], lambda: dq.t() @ x,
+         dq, D),
+        ("weight gradient proj", lambda: wgrad(dy, x, "wproj", "bproj"),
+         [("dw", dw["wproj"], lambda: dy.t() @ x),
+          ("db", dw["bproj"], lambda: dy.sum(0))], lambda: dy.t() @ x,
+         dy, D),
+        ("weight gradient fc1", lambda: wgrad(dh, x, "w1"),
+         [("dw", dw["w1"], lambda: dh.t() @ x)], lambda: dh.t() @ x, dh, D),
+        ("weight gradient fc2", lambda: wgrad(dy, h, "w2", "b2"),
+         [("dw", dw["w2"], lambda: dy.t() @ h),
+          ("db", dw["b2"], lambda: dy.sum(0))], lambda: dy.t() @ h, dy, H4))
+    for label, run, outs, library, g, K in cases:
+        run()
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want in outs:
+            abs_err, rel = rel_err(got, want())
+            require(rel <= LAUNCH_BOUND[torch.float32], f"gemm_fma {label} "
+                    f"B={B} N={N} {name}: error {rel:.3e} of its max|plain|")
+            errs.append(f"{name} {abs_err:.3e} ({rel:.2e} of max)")
+        flops = 2 * M * g.shape[1] * K
+        outs_bytes = sum(4 * got.numel() for _, got, _ in outs)
+        nbytes = 4 * (g.numel() + M * K if label.startswith("weight")
+                      else g.numel() + g.shape[1] * K) + outs_bytes + (
+            4 * (gp.numel() + parts.numel()) if "GELU'" in label else 0)
+        ms, lib_ms = per_launch_ms(run), per_launch_ms(library)
+        t_bytes = nbytes / PEAK_BYTES
+        bound_ms = max(3 * flops / PEAK_TF32_FLOPS, t_bytes) * 1e3
+        fma_ms = max(flops / PEAK_FP32_FLOPS, t_bytes) * 1e3
+        print(f"phase 2 fp32 gemm_fma {label} B={B} N={N}: {', '.join(errs)}"
+              f"; kernel {ms:.4f} ms per launch, 3xTF32 bound {bound_ms:.4f} "
+              f"ms, FMA bound {fma_ms:.4f} ms, cuBLAS SGEMM {lib_ms:.4f} ms",
+              flush=True)
 
 
 # the LayerNorm backward's launches alone (csrc/ln_gemm.cu): B = 256 at
@@ -3705,7 +3934,7 @@ def phase_serve(card: str) -> dict:
             f"serve gemm launches {launcher_counts()}")
     require(got["short_attention"] > 0 and got["short_attention_bwd"] == 0,
             f"serve attention launches {launcher_counts()}")
-    require(got["gemm_tf32"] == got["attention_tf32"] == 0,
+    require(not any(got[k] for k in FP32_LAUNCHERS),
             f"serve fp32 launches in a bf16 run {launcher_counts()}")
     # the rectangular attention: once in each of ATS's sampling blocks
     require(got["rect_attention"] == got["fused_rect_block"] > 0
@@ -3866,8 +4095,10 @@ def eval_profile(label: str, card: str, profile: bool = True):
           flush=True)
 
 
-def train_run(label: str, steps: int, profile: bool = False):
-    """bench.py's train recipe for `steps` steps of TRAIN_B; returns
+def train_run(label: str, steps: int, profile: bool = False,
+              amp: bool = True):
+    """bench.py's train recipe for `steps` steps of TRAIN_B (``amp`` false:
+    in fp32, the JAX CLI's default); returns
     (seconds per step, losses, profile, extra) where profile, after two
     more steps under torch.profiler, is (the device's busy share of their
     wall time, {kernel: device microseconds}), else None; extra holds the
@@ -3894,7 +4125,7 @@ def train_run(label: str, steps: int, profile: bool = False):
                               lambda s: 1e-3, new_names)
     state = init_train_state(model, opt, ema=True, device=DEVICE)
     step = make_train_step(model, loss_fn, opt,
-                           StepConfig(ema_decay=0.99996, amp=True),
+                           StepConfig(ema_decay=0.99996, amp=amp),
                            torch.Generator(device=DEVICE).manual_seed(5))
     data = torch.Generator(device=DEVICE).manual_seed(3)
     xs = torch.randn(steps, TRAIN_B, 3, 224, 224, generator=data,
@@ -3980,16 +4211,15 @@ def distill_breakdown(label: str, device_ms_step: float, by_kernel: dict,
 def teacher_on_tensor_cores(by_kernel: dict):
     """The DyViT@0.7 distilled step's profile: the fp32 teacher's products
     and attention on the tensor-core kernels, and no fp32 FMA GEMM
-    (gemm_kernel) and no FMA attention left in the step."""
-    fma = sorted(n for n in by_kernel
-                 if n.startswith(("gemm_kernel", "short_attention_fma")))
+    (gemm_kernel, which only the fp32 backward launches) in the step."""
+    fma = sorted(n for n in by_kernel if n.startswith("gemm_kernel"))
     tf32 = {k: sum(us for n, us in by_kernel.items() if n.startswith(k))
-            for k in TF32_KERNELS}
+            for k in ("gemm_tf32_sm90_kernel", "short_attention_tf32_kernel")}
     require(not fma and all(tf32.values()),
-            f"dyvit@0.7 distill: FMA kernels {fma} in the step, the "
+            f"dyvit@0.7 distill: FMA GEMMs {fma} in the step, the "
             f"tensor-core kernels' device time {tf32}")
-    print("phase 5 teacher on the tensor cores: no FMA GEMM or FMA "
-          "attention in the DyViT@0.7 distilled step; " + ", ".join(
+    print("phase 5 teacher on the tensor cores: no FMA GEMM in the "
+          "DyViT@0.7 distilled step; " + ", ".join(
               f"{k} {us / 2e3:.2f} ms a step" for k, us in tf32.items()),
           flush=True)
 
@@ -4061,7 +4291,8 @@ def phase_train(card: str) -> dict:
     # fp32 only in the DyViT teacher's blocks: 4 products and an attention
     # each, on the tensor cores
     require(got["gemm_tf32"] == 4 * got["fused_full_block"] > 0
-            and got["attention_tf32"] == got["fused_full_block"],
+            and got["attention_tf32"] == got["fused_full_block"]
+            and not any(got[k] for k in FP32_LAUNCHERS[2:]),
             f"train fp32 launches {launcher_counts()}, the teacher's blocks "
             f"{got['fused_full_block']}")
     # the LayerNorm backward: once in the backward of each training branch
@@ -4118,7 +4349,47 @@ def phase_train(card: str) -> dict:
         if label in DISTILL_TRAIN:
             distill_breakdown(label, total / 2e3, by_kernel,
                               teacher_ms.get(label))
+    got.update(fp32_train(card))
     return got
+
+
+# the JAX CLI's default precision: a train step in fp32 (phase 5), and its
+# launches a step: the attention backward on the tensor cores once and the
+# FMA GEMM's backward layouts four times (dY . W, weight gradients) in
+# each of the 12 branch backwards, the forward's products and attention
+# on the tensor cores
+FP32_TRAIN = "topk@0.7"
+FP32_TRAIN_STEP = dict(attention_bwd_tf32=12, gemm_fma=48, gemm_wgrad_fma=48,
+                       gemm_tf32=48, attention_tf32=12)
+
+
+def fp32_train(card: str) -> dict:
+    """Phase 5, last: FP32_TRAIN's train step in fp32 (bench.py's recipe
+    without amp), a path of its own: the counts set to 0 just before and
+    read just after; FP32_TRAIN_STEP's launches a step and no bf16 or
+    rectangular launch required. Returns the launch counts of its fp32
+    backward's launchers."""
+    reset_counts()
+    seconds, step_losses, _, extra = train_run(FP32_TRAIN, TRAIN_STEPS,
+                                               amp=False)
+    got = launcher_counts()
+    want = {k: TRAIN_STEPS * n for k, n in FP32_TRAIN_STEP.items()}
+    require({k: got[k] for k in want} == want and not any(
+        got[k] for k in ("gemm", "gemm_wgrad", "short_attention",
+                         "short_attention_bwd", "rect_attention",
+                         "rect_attention_tf32")),
+            f"{FP32_TRAIN} fp32 train launches {got}, not {want}")
+    timed = seconds[2:]
+    print(f"phase 5 train {FP32_TRAIN} fp32 b{TRAIN_B}: "
+          f"{1e3 * sum(timed) / len(timed):.2f} ms/step, "
+          f"{TRAIN_B * len(timed) / sum(timed):.1f} img/s over steps "
+          f"3-{TRAIN_STEPS} (first step {seconds[0] * 1e3:.1f} ms); peak "
+          f"memory allocated {extra['peak'] / 2**30:.2f} GiB; losses "
+          f"{[round(v, 4) for v in step_losses.tolist()]}; launches a step "
+          f"{ {k: got[k] / TRAIN_STEPS for k in want} } on {card}",
+          flush=True)
+    return {k: got[k] for k in ("attention_bwd_tf32", "gemm_fma",
+                                "gemm_wgrad_fma")}
 
 
 def ptxas_lines(log: str):
@@ -4146,7 +4417,8 @@ def ptxas_lines(log: str):
 
 
 # the fp32 kernels on the tensor cores, by their names' prefixes
-TF32_KERNELS = ("gemm_tf32_sm90_kernel", "short_attention_tf32_kernel")
+TF32_KERNELS = ("gemm_tf32_sm90_kernel", "short_attention_tf32_kernel",
+                "short_attention_bwd_tf32_kernel")
 # a TF32 product on the tensor cores in SASS: wgmma (HGMMA) or mma.sync
 # (HMMA) with TF32 operands
 TF32_MMA = re.compile(r"\bH(?:G)?MMA\.\S*TF32[^;]*")
@@ -4177,17 +4449,24 @@ def tf32_sass(path: pathlib.Path) -> dict:
 
 
 # validate's default precision: fp32 eval forwards at b256 (phase 4, after
-# the counted serve run; a measurement only)
-FP32_EVAL = ("dense", "topk@0.7")
+# the counted serve run), each a path of its own: its counts set to 0 just
+# before and read just after. A forward's fp32 launches: dense and
+# topk@0.7 48 gemm_tf32 and 12 square attentions; ATS@0.7 the same GEMMs,
+# 9 square attentions (its masked blocks) and 3 rectangular ones (its
+# sampling blocks)
+FP32_EVAL = {
+    "dense": dict(gemm_tf32=48, attention_tf32=12, rect_attention_tf32=0),
+    "topk@0.7": dict(gemm_tf32=48, attention_tf32=12, rect_attention_tf32=0),
+    "ats@0.7": dict(gemm_tf32=48, attention_tf32=9, rect_attention_tf32=3)}
 
 
-def phase_fp32_eval(card: str):
-    """Phase 4: SERVE_BATCHES batches of SERVE_B fp32 images through dense
-    and topk@0.7 (JAX's validate runs fp32 unless --use_amp is given):
+def phase_fp32_eval(card: str) -> dict:
+    """Phase 4: SERVE_BATCHES batches of SERVE_B fp32 images through each
+    FP32_EVAL model (JAX's validate runs fp32 unless --use_amp is given):
     finite logits, img/s over batches 2-5, and every product and attention
-    of each forward on the tensor-core kernels (48 gemm_tf32 and 12
-    attention_tf32 launches a forward)."""
-    for label in FP32_EVAL:
+    of each forward on the tensor-core kernels, as FP32_EVAL counts them,
+    and no other launcher. Returns ATS@0.7's run's launch counts."""
+    for label, per_forward in FP32_EVAL.items():
         settle()
         name, kw = MODELS[label]
         model, _ = create_model(name, device=DEVICE,
@@ -4197,7 +4476,7 @@ def phase_fp32_eval(card: str):
         xs = images(SERVE_BATCHES * SERVE_B,
                     torch.Generator().manual_seed(3)) \
             .view(SERVE_BATCHES, SERVE_B, 3, 224, 224)
-        before = launcher_counts()
+        reset_counts()
         seconds = []
         with torch.no_grad():
             for x in xs:
@@ -4208,17 +4487,19 @@ def phase_fp32_eval(card: str):
                 require(out.shape == (SERVE_B, 1000) and
                         bool(torch.isfinite(out).all()),
                         f"{label}: non-finite or misshapen fp32 logits")
-        got = {k: launcher_counts()[k] - before[k]
-               for k in ("gemm_tf32", "attention_tf32")}
-        require(got == dict(gemm_tf32=48 * SERVE_BATCHES,
-                            attention_tf32=12 * SERVE_BATCHES),
-                f"{label} fp32: tensor-core launches {got}")
+        got = launcher_counts()
+        want = {k: SERVE_BATCHES * per_forward.get(k, 0) for k in got
+                if k != "layer_norm"}
+        require({k: got[k] for k in want} == want,
+                f"{label} fp32: launches {got}, not {want}")
         ips = SERVE_B * (SERVE_BATCHES - 1) / sum(seconds[1:])
         print(f"phase 4 serve {label} fp32 b{SERVE_B}: {ips:.1f} img/s over "
               f"batches 2-{SERVE_BATCHES} (first batch "
-              f"{seconds[0] * 1e3:.1f} ms), launches {got} on {card}",
+              f"{seconds[0] * 1e3:.1f} ms), launches "
+              f"{ {k: n for k, n in got.items() if n} } on {card}",
               flush=True)
         del model, xs
+    return got
 
 
 T0 = time.perf_counter()
@@ -4283,8 +4564,13 @@ def main():
         plan = _build.attention_tf32_plan(n)
         print(f"phase 1 short_attention_tf32_kernel N={n}: {plan['smem']} "
               f"bytes of dynamic shared memory a block ({plan['threads']} "
-              f"threads), {plan['chunks']} chunks of 32 keys in registers",
+              f"threads), {plan['chunks']} chunks of 32 keys in registers; "
+              f"short_attention_bwd_tf32_kernel: {plan['bwd_smem']} bytes",
               flush=True)
+    for m, n in (*RECT_MN, RECT_WIDE_MN, (256, 256)):
+        print(f"phase 1 short_attention_tf32_kernel rectangular M={m} N={n}: "
+              f"{_build.attention_tf32_plan(n, m)['rect_smem']} bytes of "
+              "dynamic shared memory a block", flush=True)
     for fn, line in tf32_sass(kern.path).items():
         print(f"phase 1 sass: {fn}: {line}", flush=True)
     for K in (D, 192):
@@ -4314,7 +4600,9 @@ def main():
     phase_distill()
     elapsed("3")
     launches = phase_serve(card)
-    phase_fp32_eval(card)
+    # the fp32 rectangular attention's path: ATS@0.7's fp32 forwards
+    launches["rect_attention_tf32"] = \
+        phase_fp32_eval(card)["rect_attention_tf32"]
     elapsed("4")
     trained = phase_train(card)
     for name in (*WRAPPERS, *LAUNCHERS):
@@ -4351,6 +4639,20 @@ def main():
                      **fp32_rec[name])
                 for name, source in (("gemm_tf32", GEMM_TF32_SOURCE),
                                      ("attention_tf32", ATTENTION))]
+    # the fp32 backward's and the fp32 rectangular attention: their
+    # launches are phase 5's fp32 train step's and phase 4's ATS@0.7 fp32
+    # forwards'
+    for name in ("attention_bwd_tf32", "rect_attention_tf32"):
+        require(launches[name] > 0, f"{name}: no launch on its path")
+    kernels += [dict(name=name, route="cuda", source=source,
+                     wrapper="tokenreduction_tpu_torch/ops/_build.py",
+                     replaces=ATTENTION_REPLACES[replaces],
+                     launches=launches[name], on_main_path=True,
+                     **fp32_rec[name])
+                for name, source, replaces in (
+                    ("attention_bwd_tf32", ATTENTION_BWD,
+                     "short_attention_bwd"),
+                    ("rect_attention_tf32", ATTENTION, "rect_attention"))]
     kernels += [dict(name=name, route="cuda", source=source,
                      wrapper="tokenreduction_tpu_torch/ops/_build.py",
                      replaces=replaces, launches=launches[name],

@@ -3,8 +3,9 @@ PyTorch, against the JAX package.
 
 ``tokenreduction_tpu_torch/csrc/gemm_tf32_sm90.cu`` (the fp32 forward GEMM)
 and ``csrc/short_attention.cu``'s ``short_attention_tf32_kernel`` (the fp32
-square attention) multiply fp32 operands on the tensor cores as 3xTF32,
-which a CPU cannot run as CUDA. This file writes that arithmetic out in
+square and rectangular attention) and ``short_attention_bwd_tf32_kernel``
+(the fp32 attention backward) multiply fp32 operands on the tensor cores
+as 3xTF32, which a CPU cannot run as CUDA. This file writes that arithmetic out in
 PyTorch and holds it against the JAX package on the same seeded numpy
 inputs:
 
@@ -30,7 +31,24 @@ inputs:
   padded to chunks of 32), half 0 first, / sum, row0 and colsum of P /
   sum, against ``fused_attention`` in interpret mode at N = 4, 13, 68,
   197 with a bias and a mask whose image 0 has only CLS valid (fully
-  masked query rows), within 1e-5 of max|JAX|.
+  masked query rows), within 1e-5 of max|JAX|;
+- ``attention`` with the query rows gathered through kept ids (the RECT
+  variant: the query validity the mask at the id) against
+  ``fused_rect_attention`` in interpret mode at (M, N) = 4x13, 68x97 and
+  70x50, each kept-row set with CLS pads and a dead slot, within 1e-5 of
+  max|JAX|; a pad's output equals the CLS slot's bit for bit;
+- ``backward`` is the backward kernel's order: P recomputed as the
+  forward's (each half's sum, half 0 first), dP = 3xTF32(dO, v) plus the
+  row0 cotangent (row 0) and the colsum cotangent (every row), delta =
+  sum of P dP over each half of the keys, half 0 first, dS = P (dP -
+  delta) (zero at a masked pair), and dQ = dS K, dK = dS^T Q, dV = P^T dO
+  over each half of the keys or queries in 3xTF32 partials of 32 terms
+  (``gemm3`` with step 4), half 0 first, dQ and dK times the scale; dbias
+  the sum of dS over each half of the queries, half 0 first; against
+  ``attention_core_train``'s VJP in interpret mode (dbias summed over
+  the heads, as JAX returns it) at N = 4, 13, 68, 197, plain (zero
+  cotangents) and with a bias, a mask whose image 0 has only CLS valid
+  and non-zero row0 and colsum cotangents, within 1e-5 of max|JAX|.
 
 The kernels' shared memory a block is checked where it is decided, by
 static_asserts in their sources, and chip_smoke.py prints their plans as
@@ -42,8 +60,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from tokenreduction_tpu.ops.flash_attention import (
     fused_attention as jax_fused_attention,
+    fused_rect_attention as jax_fused_rect_attention,
+)
+from tokenreduction_tpu.ops.flash_attention_train import (
+    attention_core_train as jax_attention_core,
 )
 from tokenreduction_tpu.ops.fused_mlp_train import _gelu_and_prime
 from tokenreduction_tpu_torch.ops.fused_mlp_train import gelu_grad
@@ -94,14 +118,16 @@ def gemm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tf32(a) @ tf32(b).transpose(-1, -2)
 
 
-def attention(q, k, v, scale, bias, mask):
-    """(out [B, H, N, hd], row0 [B, H, N], colsum [B, H, N]) in the order
-    of short_attention_tf32_kernel."""
+def attention(q, k, v, scale, bias, mask, q_mask=None):
+    """(out [B, H, M, hd], row0 [B, H, N], colsum [B, H, N]) in the order
+    of short_attention_tf32_kernel; q_mask: the query rows' validity (RECT:
+    the mask at their ids), else the mask."""
     s = gemm3(q, k) * scale
     if bias is not None:
         s = s + bias[:, None, None, :]
     if mask is not None:
-        pair = mask[:, None, :, None] & mask[:, None, None, :]
+        qm = mask if q_mask is None else q_mask
+        pair = qm[:, None, :, None] & mask[:, None, None, :]
         s = s.masked_fill(~pair, -FLT_MAX)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     r = 1.0 / e.sum(-1, keepdim=True)
@@ -111,6 +137,41 @@ def attention(q, k, v, scale, bias, mask):
            + gemm3(e[..., half:], vt[..., half:])) * r
     p = e * r
     return out, p[:, :, 0], p.sum(2)
+
+
+def halves(a, b, half):
+    """a [..., R, L] . b [..., L, hd] over L in the backward's order: each
+    warp's half of L in 3xTF32 partials of 32 terms, half 0 first."""
+    bt = b.transpose(-1, -2)
+    return (gemm3(a[..., :half], bt[..., :half], step=4)
+            + gemm3(a[..., half:], bt[..., half:], step=4))
+
+
+def backward(q, k, v, dout, scale, bias, mask, drow0, dcs):
+    """(dq, dk, dv [B, H, N, hd], dbias [B, H, N]) in the order of
+    short_attention_bwd_tf32_kernel."""
+    half = -(-q.shape[-2] // 32) * 16  # a warp's keys or queries
+    s = gemm3(q, k) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    if mask is not None:
+        pair = mask[:, None, :, None] & mask[:, None, None, :]
+        s = s.masked_fill(~pair, -FLT_MAX)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e * (1.0 / (e[..., :half].sum(-1, keepdim=True)
+                    + e[..., half:].sum(-1, keepdim=True)))
+    dp = gemm3(dout, v)
+    dp[:, :, 0, :] += drow0  # the row0 cotangent enters at row 0
+    dp = dp + dcs[:, :, None, :]  # the colsum one on every row
+    pd = p * dp
+    ds = p * (dp - (pd[..., :half].sum(-1, keepdim=True)
+                    + pd[..., half:].sum(-1, keepdim=True)))
+    if mask is not None:
+        ds = ds.masked_fill(~pair, 0.0)
+    dst = ds.transpose(-1, -2)
+    return (halves(ds, k, half) * scale, halves(dst, q, half) * scale,
+            halves(p.transpose(-1, -2), dout, half),
+            dst[..., :half].sum(-1) + dst[..., half:].sum(-1))
 
 
 def rel(got, want) -> float:
@@ -195,3 +256,77 @@ def test_attention_3xtf32_order_matches_jax(N, kind):
                     None if mask is None else torch.from_numpy(mask))
     for label, g, w in zip(("out", "row0", "colsum"), got, want):
         assert rel(g, w) <= BOUND, label
+
+
+def bias_mask(rng, n):
+    """A ToMe bias [B, N] and a validity mask [B, N] whose image 0 has only
+    CLS valid (every other query row fully masked)."""
+    bias = np.log(rng.integers(1, 5, (B, n))).astype(np.float32)
+    mask = rng.random((B, n)) > 0.3
+    mask[:, 0] = True
+    mask[0, 1:] = False
+    return bias, mask
+
+
+# ---- the rectangular attention
+@pytest.mark.parametrize("M,N", [(4, 13), (68, 97), (70, 50)])
+def test_rect_attention_3xtf32_order_matches_jax(M, N):
+    rng = np.random.default_rng(500 + M * N)
+    qkv = rng.standard_normal((B, N, 3 * H * HD)).astype(np.float32)
+    _, mask = bias_mask(rng, N)
+    mask[0, 1:] = rng.random(N - 1) > 0.3  # image 0 valid but token 1
+    mask[0, 1] = False
+    n = min(M - 1, N - 1) - 1  # CLS, sampled ids, CLS pads at the tail
+    ids = np.zeros((B, M), dtype=np.int64)
+    for b in range(B):
+        ids[b, 1:1 + n] = np.sort(1 + rng.permutation(N - 1)[:n])
+        ids[b, 1] = np.flatnonzero(~mask[b])[0]  # a dead slot
+    scale = HD ** -0.5
+    want = jax_fused_rect_attention(
+        jnp.asarray(qkv), jnp.asarray(np.eye(N, dtype=np.float32)[ids]),
+        jnp.asarray(mask), H, scale, interpret=True)
+    t = torch.from_numpy(qkv).view(B, N, 3, H, HD).permute(2, 0, 3, 1, 4)
+    tids, tmask = torch.from_numpy(ids), torch.from_numpy(mask)
+    qg = torch.gather(t[0], 2, tids[:, None, :, None].expand(B, H, M, HD))
+    out = attention(qg, t[1], t[2], scale, None, tmask,
+                    torch.gather(tmask, 1, tids))[0]
+    got = out.transpose(1, 2).reshape(B, M, H * HD)
+    assert rel(got, want) <= BOUND
+    pads = ids == 0
+    pads[:, 0] = False
+    assert pads.any() and torch.equal(got[torch.from_numpy(pads)],
+                                      got[:, :1].expand(B, M, -1)[
+                                          torch.from_numpy(pads)])
+
+
+# ---- the backward
+@pytest.mark.parametrize("N", [4, 13, 68, 197])
+@pytest.mark.parametrize("kind", ["plain", "bias+mask+cotangents"])
+def test_backward_3xtf32_order_matches_jax(N, kind):
+    rng = np.random.default_rng(900 + N)
+    q, k, v, dout = (rng.standard_normal((B, H, N, HD)).astype(np.float32)
+                     for _ in range(4))
+    drow0 = dcs = np.zeros((B, H, N), np.float32)
+    bias = mask = None
+    if kind != "plain":
+        bias, mask = bias_mask(rng, N)
+        drow0, dcs = (rng.standard_normal((B, H, N)).astype(np.float32)
+                      for _ in range(2))
+    scale = HD ** -0.5
+    jmask = None if mask is None else jnp.asarray(mask)
+    if bias is None:
+        _, vjp = jax.vjp(lambda q, k, v: jax_attention_core(
+            q, k, v, scale, None, jmask, True), *map(jnp.asarray, (q, k, v)))
+    else:
+        _, vjp = jax.vjp(lambda q, k, v, b: jax_attention_core(
+            q, k, v, scale, b, jmask, True),
+            *map(jnp.asarray, (q, k, v, bias)))
+    want = vjp(tuple(map(jnp.asarray, (dout, drow0, dcs))))
+    got = backward(*map(torch.from_numpy, (q, k, v, dout)), scale,
+                   None if bias is None else torch.from_numpy(bias),
+                   None if mask is None else torch.from_numpy(mask),
+                   torch.from_numpy(drow0), torch.from_numpy(dcs))
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert rel(g, w) <= BOUND, label
+    if bias is not None:  # JAX sums the heads' bias gradients
+        assert rel(got[3].sum(1), want[3]) <= BOUND, "dbias"

@@ -18,184 +18,49 @@
 // rectangular variant (fused_rect_attention and fused_rect_block there)
 // takes M query rows ids[b, m] of q over all N keys and values, the query
 // validity being the mask at that row, and writes out [B, H, M, 64] and
-// no by-products (an id outside 0..N-1 traps).
-// Its backward: from q, k, v, the output's gradient dO, the fp32
-// cotangents of row0 and colsum, the bias and the validity mask, the
-// gradients dq, dk, dv (same layouts) and the per-head bias gradient
-// dbias [B, H, N] fp32 (the counterpart of _bwd_kernel in
-// tokenreduction_tpu/ops/flash_attention_train.py). With the mask it
-// recomputes the forward's capped logits, so a fully masked query row is
-// uniform again, and zeroes dS at every masked pair: dq, dk and dbias take
-// nothing from such a pair, while dV = P^T dO keeps the uniform rows' P.
-// And head_mean_keys: the head mean of the keys of a packed qkv, [B, N, hd]
-// (ToMe's merge metric).
+// no by-products (an id outside 0..N-1 traps). And head_mean_keys: the
+// head mean of the keys of a packed qkv, [B, N, hd] (ToMe's merge metric).
 //
 // Every bf16 attention, square and rectangular, and the bf16 backward are
 // attention_sm90.cu's (TMA, cp.async, wgmma); this file keeps the fp32
-// kernels and head_mean_keys. One thread block per (image, head): that
-// head's k and v live in shared memory and each warp owns query rows, with
-// the exact row max in an fp32 softmax.
-//
-// fp32, the square forward with every option: 3xTF32 on the tensor cores,
-// mma.sync (short_attention_tf32_kernel, see its note). The rectangular
-// forward (ATS in fp32) and the backward (fp32 training only): FMAs on the
-// CUDA cores, a lane per key. The backward recomputes the
-// probabilities with the exact row max and runs in two phases per (image,
-// head). Phase 1, a warp per query row: the row statistics, delta_i =
-// sum_j P_ij dP_ij with dP = dO V^T plus the row0 cotangent on query row 0
-// and the colsum cotangent on every row, dS = P (dP - delta) * scale (zero
-// at a masked pair) and dQ = dS K. Phase 2, a warp per key: dV = P^T dO,
-// dK = dS^T Q and dbias_j = the unscaled dS summed over the key's column.
-// Each sum stays inside one warp: no atomics. colsum is reduced inside the
-// block in a fixed order.
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+// forwards and head_mean_keys, short_attention_bwd.cu the fp32 backward.
+// Every fp32 kernel runs 3xTF32 on the tensor cores (mma.sync m16n8k8,
+// attention_tf32.cuh): one thread block per (image, head), 8 warps, the
+// head's operands in shared memory, the exact row max in an fp32 softmax,
+// and every sum in a fixed order: no atomics, the same bits from run to
+// run.
 
-#include "common.cuh"
+#include "attention_tf32.cuh"
 
 namespace trk {
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int HD = 64;
-constexpr int MAXN = 256;
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-
-// One [B, H, N, HD] operand with the head dim contiguous: element
-// (b, h, n, d) at p[b * sb + h * sh + n * sn + d].
-template <typename T>
-struct Heads {
-  T* p;
-  long long sb, sh, sn;
-  __device__ __forceinline__ T* row(int b, int h, int n) const {
-    return p + b * sb + h * sh + n * sn;
-  }
-};
-
-// The caps of the square attention's tokens (MASK variants of the
-// backward): cap[j] = +inf for a valid token j < N, else -FLT_MAX. A
-// token is a query row and a key at once, so one row serves both sides of
-// the pair: its logit is min(x, cap[i], cap[j]), as in the forward.
-__device__ __forceinline__ void load_caps(float* cap, const unsigned char* mrow, int N) {
-  for (int j = threadIdx.x; j < MAXN; j += THREADS)
-    cap[j] = j < N && mrow[j] ? INFINITY : -FLT_MAX;
-}
-
-// ---------------------------------------------------------------- fp32
-constexpr int KLD = HD + 1;  // odd word stride: lanes reading different keys hit different banks
-constexpr int KEYS_PER_LANE = MAXN / 32;
-
-size_t fma_smem_bytes(int n) {
-  return sizeof(float) * (WARPS * HD + WARPS * MAXN + static_cast<size_t>(n) * (HD + KLD));
-}
-
-// The rectangular forward (ATS in fp32): out row m is query row ids[b, m]
-// over all N keys, with the validity mask and no bias or by-products; a
-// warp per query row, a lane per key. The square variants run
-// short_attention_tf32_kernel.
-__global__ void __launch_bounds__(THREADS)
-    short_attention_rect_fma_kernel(Heads<const float> q, Heads<const float> k,
-                                    Heads<const float> v, Heads<float> out,
-                                    const unsigned char* __restrict__ mask,
-                                    const int* __restrict__ ids, int N, int M, int H,
-                                    float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qbuf = reinterpret_cast<float*>(smem);  // [WARPS][HD]
-  float* pbuf = qbuf + WARPS * HD;               // [WARPS][MAXN]
-  float* Vs = pbuf + WARPS * MAXN;               // [N][HD]
-  float* Ks = Vs + N * HD;                       // [N][KLD]
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const unsigned char* mrow = mask + static_cast<size_t>(b) * N;
-  for (int e = threadIdx.x; e < N * HD; e += THREADS) {
-    const int n = e / HD, d = e % HD;
-    Ks[n * KLD + d] = k.row(b, h, n)[d];
-    Vs[n * HD + d] = v.row(b, h, n)[d];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qv = qbuf + warp * HD;
-  float* p = pbuf + warp * MAXN;
-  for (int i = warp; i < M; i += WARPS) {
-    const int qi = ids[static_cast<size_t>(b) * M + i];
-    if (static_cast<unsigned>(qi) >= static_cast<unsigned>(N)) __trap();
-    const bool q_ok = mrow[qi];
-    const float* qrow = q.row(b, h, qi);
-    qv[lane] = qrow[lane];
-    qv[lane + 32] = qrow[lane + 32];
-    __syncwarp();
-
-    float s[KEYS_PER_LANE];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      const int j = lane + 32 * t;
-      float acc = -INFINITY;
-      if (j < N) {
-        acc = 0.f;
-        const float* kr = Ks + j * KLD;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) acc = fmaf(qv[d], kr[d], acc);
-        acc *= scale;
-        if (!(q_ok && mrow[j])) acc = -FLT_MAX;  // the JAX pair mask
-      }
-      s[t] = acc;
-      mx = fmaxf(mx, acc);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = j < N ? expf(s[t] - mx) : 0.f;
-      sum += s[t];
-    }
-    const float rinv = 1.0f / warp_sum(sum);
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) p[j] = s[t];
-    }
-    __syncwarp();
-
-    float o0 = 0.f, o1 = 0.f;
-    const float2* v2 = reinterpret_cast<const float2*>(Vs);
-    for (int j = 0; j < N; ++j) {
-      const float2 vv = v2[j * (HD / 2) + lane];
-      o0 = fmaf(p[j], vv.x, o0);
-      o1 = fmaf(p[j], vv.y, o1);
-    }
-    float* orow = out.row(b, h, i);
-    orow[2 * lane] = o0 * rinv;
-    orow[2 * lane + 1] = o1 * rinv;
-    __syncwarp();
-  }
-}
-
 // ---------------------------------------------------------------- fp32 on the tensor cores
-// The square fp32 forward with every option (bias, mask, row0, colsum) in
-// 3xTF32 on the tensor cores: the counterpart of the fp32 attention of the
-// TPU kernels tokenreduction_tpu/ops/fused_full_block.py fused_full_block,
-// ops/flash_attention.py fused_block_attention, fused_attention and
-// fused_attention_qkv, and the forward of ops/flash_attention_train.py
-// attention_core_train, whose fp32 dots run on the MXU in the multi-pass
-// form at the kernels' pinned DEFAULT precision.
+// The fp32 forward with every option (bias, mask, row0, colsum) in 3xTF32
+// on the tensor cores: the counterpart of the fp32 attention of the TPU
+// kernels tokenreduction_tpu/ops/fused_full_block.py fused_full_block,
+// ops/flash_attention.py fused_block_attention, fused_attention,
+// fused_attention_qkv and (RECT) fused_rect_attention and fused_rect_block,
+// and the forward of ops/flash_attention_train.py attention_core_train,
+// whose fp32 dots run on the MXU in the multi-pass form at the kernels'
+// pinned DEFAULT precision.
 //
 // What bounds it: at B = 256, H = 6, N = 197 the products take 15.3 GFLOP,
 // 45.8 in 3xTF32 (three TF32 products each), 0.093 ms at the H100's 494.7
 // TFLOP/s of dense TF32; q, k, v in and the output out are 310 MB, 0.093
 // ms at 3.35 TB/s. On the CUDA cores (FMA, 67 TFLOP/s) the products alone
-// take 0.228 ms.
+// take 0.228 ms. The rectangular forward at ATS@0.7's 138 x 197: 10.7
+// GFLOP (0.065 ms) against 263.5 MB (0.079 ms).
 //
 // Design. One block per (image, head), 8 warps in 4 pairs: the head's Q, K
 // and V in shared memory, fp32, copied by cp.async all at once, rows padded
-// with zeros to KC * 32, a row stride of 68 floats, so every fragment load
-// below hits 32 banks. A pair of warps takes 16 query rows at a time, each
-// warp half of the keys, with mma.sync.m16n8k8.tf32 tiles:
+// with zeros to KC * 32 (Q: to the 16-row tiles of the M gathered rows in
+// RECT, row m copied from query row ids[b, m]), a row stride of 68 floats,
+// so every fragment load below hits 32 banks. A pair of warps takes 16
+// query rows at a time, each warp half of the keys, with
+// mma.sync.m16n8k8.tf32 tiles:
 //   - S = Q K^T over the warp's keys: the fragments split in registers as
 //     they are read (no hi/lo copies in shared memory: Q, K and V alone
 //     are 182 KB at N = 197), the warp's half of the row of S (KC * 16
@@ -206,9 +71,9 @@ __global__ void __launch_bounds__(THREADS)
 //     that had one ran slower on the H100). A warp that held whole rows of
 //     S spilled at 255 registers; pairs of 12 or 16 warps, with fewer
 //     registers a thread, spilled more and ran slower than 4 pairs;
-//   - the logits in the FMA kernel's order: scale, bias, caps (-FLT_MAX at
-//     a masked pair, -inf past N); the exact row max and the sum over the
-//     four lanes that share a row, then over the pair through shared
+//   - the logits in the plain version's order: scale, bias, caps (-FLT_MAX
+//     at a masked pair, -inf past N); the exact row max and the sum over
+//     the four lanes that share a row, then over the pair through shared
 //     memory (the max of the two halves; their sums added half 0 first);
 //   - O = P V over the warp's keys with the unnormalised P split after the
 //     softmax, the two halves' partial O added (half 0 first) through the
@@ -233,69 +98,41 @@ __global__ void __launch_bounds__(THREADS)
 //     pair's row of shared memory (each key is one warp's) tile after tile,
 //     then the pairs' rows in order: no atomics, the same bits from run to
 //     run.
-constexpr int TC_LD = HD + 4;
-constexpr int TC_WARPS = 8;
+//   - RECT: the same with M rows of Q, each a copy of the query row its id
+//     names, and no bias or by-products; a slot padded with the CLS row
+//     goes through the same arithmetic as the CLS slot, so its output is
+//     the same bits.
 constexpr int TC_PAIRS = TC_WARPS / 2;
-constexpr int TC_THREADS = TC_WARPS * 32;
-constexpr int TC_KEYS = 32;  // the keys of a chunk: N <= TC_KEYS * KC
 constexpr int TC_STATS = 64;  // a pair's row statistics: [half][max, sum][16 rows]
 
-constexpr int tf32_chunks(int n) { return (n + TC_KEYS - 1) / TC_KEYS; }
+__host__ __device__ constexpr int tile_rows(int m) { return (m + 15) / 16 * 16; }
 
-// Q, K, V, the pairs' colsum rows, their statistics
-constexpr size_t tf32_smem_bytes(int n) {
-  return sizeof(float) * (static_cast<size_t>(tf32_chunks(n)) * TC_KEYS * (3 * TC_LD + TC_PAIRS) +
-                          TC_PAIRS * TC_STATS);
+// Q (m rows: the square forward's KC * 32, RECT's M in whole 16-row tiles),
+// K, V, the pairs' colsum rows, their statistics
+constexpr size_t tf32_smem_bytes(int n, int q_rows) {
+  return sizeof(float) * ((static_cast<size_t>(q_rows) + 2 * tf32_chunks(n) * TC_KEYS) * TC_LD +
+                          TC_PAIRS * tf32_chunks(n) * TC_KEYS + TC_PAIRS * TC_STATS);
 }
-// the widest variant's block within the H100's 227 KB (smaller n take less)
+constexpr size_t tf32_smem_bytes(int n) { return tf32_smem_bytes(n, tf32_chunks(n) * TC_KEYS); }
+// the widest variants' blocks within the H100's 227 KB (smaller n and m take less)
 static_assert(tf32_smem_bytes(MAXN) <= 232448, "over the H100's 227 KB of shared memory a block");
+static_assert(tf32_smem_bytes(MAXN, tile_rows(MAXN)) <= 232448,
+              "RECT: over the H100's 227 KB of shared memory a block");
 
-// d += a . b, m16n8k8, TF32 operands as fp32 bit patterns, fp32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The two small products of a 3xTF32 product, d += a_lo . b_hi + a_hi .
-// b_lo, a split already, b = {b0, b1} split here.
-__device__ __forceinline__ void mma_small(float (&d)[4], const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4], float b0, float b1) {
-  uint32_t bh[2], bl[2];
-  split_tf32(b0, bh[0], bl[0]);
-  split_tf32(b1, bh[1], bl[1]);
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-}
-
-// Its large product, d += a_hi . b_hi.
-__device__ __forceinline__ void mma_big(float (&d)[4], const uint32_t (&ah)[4], float b0,
-                                        float b1) {
-  const uint32_t bh[2] = {tf32_rna(b0), tf32_rna(b1)};
-  mma_tf32(d, ah, bh);
-}
-
-// The A fragment of 16 rows x 8 columns at p (row stride TC_LD): a thread's
-// rows g and g + 8, columns t and t + 4, split.
-__device__ __forceinline__ void a_fragment(const float* p, uint32_t (&ah)[4], uint32_t (&al)[4]) {
-  const float a[4] = {p[0], p[8 * TC_LD], p[4], p[8 * TC_LD + 4]};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
-}
-
-template <bool MASK, int KC>
+template <bool MASK, bool RECT, int KC>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     short_attention_tf32_kernel(Heads<const float> q, Heads<const float> k, Heads<const float> v,
                                 Heads<float> out, const float* __restrict__ bias,
                                 const unsigned char* __restrict__ mask,
-                                float* __restrict__ row0, float* __restrict__ colsum, int N,
-                                int H, float scale) {
+                                const int* __restrict__ ids, float* __restrict__ row0,
+                                float* __restrict__ colsum, int N, int M, int H, float scale) {
+  static_assert(MASK || !RECT, "the rectangular forward takes a mask");
   constexpr int ROWS = KC * TC_KEYS, NH = ROWS / 16;  // a warp's key tiles of 8
+  const int QR = RECT ? tile_rows(M) : ROWS;  // rows of Q in shared memory
+  const int MR = RECT ? M : N;                // query rows
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [ROWS][TC_LD]
-  float* Ks = Qs + ROWS * TC_LD;               // [ROWS][TC_LD]
+  float* Qs = reinterpret_cast<float*>(smem);  // [QR][TC_LD]
+  float* Ks = Qs + QR * TC_LD;                 // [ROWS][TC_LD]
   float* Vs = Ks + ROWS * TC_LD;               // [ROWS][TC_LD]
   float* csw = Vs + ROWS * TC_LD;              // [TC_PAIRS][ROWS]
   float* stw = csw + TC_PAIRS * ROWS;          // [TC_PAIRS][TC_STATS]
@@ -303,16 +140,27 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * N;
   const unsigned char* mrow = MASK ? mask + static_cast<size_t>(b) * N : nullptr;
+  const int* irow = RECT ? ids + static_cast<size_t>(b) * M : nullptr;
   for (int e = threadIdx.x; e < ROWS * (HD / 4); e += TC_THREADS) {
     const int n = e / (HD / 4), c = (e % (HD / 4)) * 4;
     const bool in = n < N;  // rows past N are zero-filled
     const int src = in ? n : 0;
-    cp_async16(Qs + n * TC_LD + c, q.row(b, h, src) + c, in);
     cp_async16(Ks + n * TC_LD + c, k.row(b, h, src) + c, in);
     cp_async16(Vs + n * TC_LD + c, v.row(b, h, src) + c, in);
   }
+  for (int e = threadIdx.x; e < QR * (HD / 4); e += TC_THREADS) {
+    const int n = e / (HD / 4), c = (e % (HD / 4)) * 4;
+    const bool in = n < MR;
+    int src = in ? n : 0;
+    if (RECT && in) {
+      src = irow[n];
+      if (static_cast<unsigned>(src) >= static_cast<unsigned>(N)) __trap();
+    }
+    cp_async16(Qs + n * TC_LD + c, q.row(b, h, src) + c, in);
+  }
   cp_async_commit();
-  for (int e = threadIdx.x; e < TC_PAIRS * ROWS; e += TC_THREADS) csw[e] = 0.f;
+  if (!RECT)
+    for (int e = threadIdx.x; e < TC_PAIRS * ROWS; e += TC_THREADS) csw[e] = 0.f;
   cp_async_wait<0>();
   __syncthreads();
 
@@ -325,35 +173,17 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const auto pair_sync = [pair]() {
     asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
   };
-  for (int r0 = pair * 16; r0 < N; r0 += TC_PAIRS * 16) {
-    // this thread's rows: ra = r0 + g and rb = r0 + g + 8 (rows past N are
-    // zeros and are never written)
+  for (int r0 = pair * 16; r0 < MR; r0 += TC_PAIRS * 16) {
+    // this thread's rows: ra = r0 + g and rb = r0 + g + 8 (rows past MR
+    // are zeros and are never written)
     const int ra = r0 + g, rb = ra + 8;
     float s[NH][4];
-#pragma unroll
-    for (int j = 0; j < NH; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    // the small products of every slice, then the large ones: a logit is
-    // truncated at its full size 8 times, not 24 (see the note)
-#pragma unroll
-    for (int big = 0; big < 2; ++big)
-#pragma unroll
-      for (int kk = 0; kk < HD / 8; ++kk) {
-        uint32_t ah[4], al[4];
-        a_fragment(Qs + ra * TC_LD + 8 * kk + t, ah, al);
-        const float* kr = Ks + (key0 + g) * TC_LD + 8 * kk + t;
-#pragma unroll
-        for (int j = 0; j < NH; ++j) {
-          if (big)
-            mma_big(s[j], ah, kr[8 * j * TC_LD], kr[8 * j * TC_LD + 4]);
-          else
-            mma_small(s[j], ah, al, kr[8 * j * TC_LD], kr[8 * j * TC_LD + 4]);
-        }
-      }
+    head_dim_products(s, Qs + ra * TC_LD + t, Ks + (key0 + g) * TC_LD + t);
 
     // the logits (scale, bias, caps) and the exact row max: s[j][e] is row
     // ra and s[j][2 + e] row rb, at key key0 + 8 j + 2 t + e
-    const bool oka = !MASK || (ra < N && mrow[ra]);
-    const bool okb = !MASK || (rb < N && mrow[rb]);
+    const bool oka = !MASK || (ra < MR && mrow[RECT ? irow[ra] : ra]);
+    const bool okb = !MASK || (rb < MR && mrow[RECT ? irow[rb] : rb]);
     float mxa = -INFINITY, mxb = -INFINITY;
 #pragma unroll
     for (int j = 0; j < NH; ++j) {
@@ -408,7 +238,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     const float ria = 1.0f / (st[16 + g] + st[48 + g]);
     const float rib = 1.0f / (st[24 + g] + st[56 + g]);
 
-    if (row0 != nullptr && r0 == 0 && g == 0) {
+    if (!RECT && row0 != nullptr && r0 == 0 && g == 0) {
 #pragma unroll
       for (int j = 0; j < NH; ++j)
 #pragma unroll
@@ -417,7 +247,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
           if (key < N) row0[static_cast<size_t>(bh) * N + key] = s[j][e] * ria;
         }
     }
-    if (colsum != nullptr) {
+    if (!RECT && colsum != nullptr) {
       const float wa = ra < N ? ria : 0.f, wb = rb < N ? rib : 0.f;
 #pragma unroll
       for (int j = 0; j < NH; ++j)
@@ -480,12 +310,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
         const float mine = half ? o[OWN + i][e] : o[i][e];
         y[e] = half ? x[e] + mine : mine + x[e];
       }
-      if (ra < N) *reinterpret_cast<float2*>(out.row(b, h, ra) + col) = make_float2(y[0] * ria, y[1] * ria);
-      if (rb < N) *reinterpret_cast<float2*>(out.row(b, h, rb) + col) = make_float2(y[2] * rib, y[3] * rib);
+      if (ra < MR) *reinterpret_cast<float2*>(out.row(b, h, ra) + col) = make_float2(y[0] * ria, y[1] * ria);
+      if (rb < MR) *reinterpret_cast<float2*>(out.row(b, h, rb) + col) = make_float2(y[2] * rib, y[3] * rib);
     }
   }
 
-  if (colsum != nullptr) {
+  if (!RECT && colsum != nullptr) {
     __syncthreads();
     for (int j = threadIdx.x; j < N; j += TC_THREADS) {
       float acc = 0.f;
@@ -495,30 +325,32 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
-template <bool MASK, int KC>
+template <bool MASK, bool RECT, int KC>
 int launch_attention_tf32_kc(const Heads<const float>& q, const Heads<const float>& k,
                              const Heads<const float>& v, const Heads<float>& out,
-                             const float* bias, const unsigned char* mask, float* row0,
-                             float* colsum, int B, int N, int H, float scale, cudaStream_t s) {
-  const auto kernel = short_attention_tf32_kernel<MASK, KC>;
-  const size_t bytes = tf32_smem_bytes(N);
+                             const float* bias, const unsigned char* mask, const int* ids,
+                             float* row0, float* colsum, int B, int N, int M, int H, float scale,
+                             cudaStream_t s) {
+  const auto kernel = short_attention_tf32_kernel<MASK, RECT, KC>;
+  const size_t bytes = RECT ? tf32_smem_bytes(N, tile_rows(M)) : tf32_smem_bytes(N);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B * H, TC_THREADS, bytes, s>>>(q, k, v, out, bias, mask, row0, colsum, N, H, scale);
+  kernel<<<B * H, TC_THREADS, bytes, s>>>(q, k, v, out, bias, mask, ids, row0, colsum, N, M, H,
+                                          scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The variant whose row of S holds N keys: KC = ceil(N / 32), 1 .. 8.
-template <bool MASK>
+template <bool MASK, bool RECT>
 int launch_attention_tf32(const Heads<const float>& q, const Heads<const float>& k,
                           const Heads<const float>& v, const Heads<float>& out, const float* bias,
-                          const unsigned char* mask, float* row0, float* colsum, int B, int N,
-                          int H, float scale, cudaStream_t s) {
+                          const unsigned char* mask, const int* ids, float* row0, float* colsum,
+                          int B, int N, int M, int H, float scale, cudaStream_t s) {
 #define TR_TF32_KC(KC)                                                                      \
   case KC:                                                                                  \
-    return launch_attention_tf32_kc<MASK, KC>(q, k, v, out, bias, mask, row0, colsum, B, N, \
-                                              H, scale, s);
+    return launch_attention_tf32_kc<MASK, RECT, KC>(q, k, v, out, bias, mask, ids, row0,    \
+                                                    colsum, B, N, M, H, scale, s);
   switch (tf32_chunks(N)) {
     TR_TF32_KC(1)
     TR_TF32_KC(2)
@@ -531,169 +363,6 @@ int launch_attention_tf32(const Heads<const float>& q, const Heads<const float>&
   }
 #undef TR_TF32_KC
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-size_t bwd_fma_smem_bytes(int n, bool masked) {
-  return sizeof(float) * (2 * static_cast<size_t>(n) * KLD + 2 * WARPS * HD + 2 * WARPS * MAXN +
-                          (masked ? 5 : 4) * MAXN);
-}
-
-// fp32 backward on the CUDA cores, in two phases: a warp per query row
-// (phase 1) and per key (phase 2); shared memory holds K and V in phase 1,
-// then Q and dO in phase 2. bias, dcs and dbias may be null. MASK: the
-// validity mask.
-template <bool MASK>
-__global__ void __launch_bounds__(THREADS)
-    short_attention_bwd_fma_kernel(Heads<const float> q, Heads<const float> k,
-                                   Heads<const float> v, Heads<const float> dout, Heads<float> dq,
-                                   Heads<float> dk, Heads<float> dv,
-                                   const float* __restrict__ bias,
-                                   const unsigned char* __restrict__ mask,
-                                   const float* __restrict__ drow0,
-                                   const float* __restrict__ dcs, float* __restrict__ dbias,
-                                   int N, int H, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sA = reinterpret_cast<float*>(smem);  // [N][KLD]: K, then Q
-  float* sB = sA + N * KLD;                    // [N][KLD]: V, then dO
-  float* vec = sB + N * KLD;                   // [WARPS][2][HD]: the warp's own two rows
-  float* pb = vec + 2 * WARPS * HD;            // [WARPS][MAXN] probabilities
-  float* db = pb + WARPS * MAXN;               // [WARPS][MAXN] dS
-  float* sM = db + WARPS * MAXN;               // [MAXN] row max
-  float* sR = sM + MAXN;                       // [MAXN] 1/row sum
-  float* sD = sR + MAXN;                       // [MAXN] delta
-  float* sW = sD + MAXN;                       // [MAXN] row0 cotangent
-  float* sCap = sW + MAXN;                     // [MAXN] caps (MASK)
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * N;
-  const float* crow = dcs == nullptr ? nullptr : dcs + static_cast<size_t>(bh) * N;
-  auto fill = [&](const Heads<const float>& a, const Heads<const float>& c) {
-    for (int e = threadIdx.x; e < N * HD; e += THREADS) {
-      const int n = e / HD, d = e % HD;
-      sA[n * KLD + d] = a.row(b, h, n)[d];
-      sB[n * KLD + d] = c.row(b, h, n)[d];
-    }
-  };
-  fill(k, v);
-  for (int j = threadIdx.x; j < MAXN; j += THREADS)
-    sW[j] = drow0 != nullptr && j < N ? drow0[static_cast<size_t>(bh) * N + j] : 0.f;
-  if constexpr (MASK) load_caps(sCap, mask + static_cast<size_t>(b) * N, N);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* u = vec + warp * 2 * HD;  // q (phase 1) or k (phase 2)
-  float* w = u + HD;               // dO (phase 1) or v (phase 2)
-  float* p = pb + warp * MAXN;
-  float* ds = db + warp * MAXN;
-  auto dot = [&](const float* a, const float* row) {
-    float acc = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) acc = fmaf(a[d], row[d], acc);
-    return acc;
-  };
-
-  // phase 1: a warp per query row i
-  for (int i = warp; i < N; i += WARPS) {
-    const float* qrow = q.row(b, h, i);
-    const float* orow = dout.row(b, h, i);
-    u[lane] = qrow[lane], u[lane + 32] = qrow[lane + 32];
-    w[lane] = orow[lane], w[lane + 32] = orow[lane + 32];
-    __syncwarp();
-    float s[KEYS_PER_LANE], dp[KEYS_PER_LANE];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = -INFINITY, dp[t] = 0.f;
-      if (j < N) {
-        s[t] = dot(u, sA + j * KLD) * scale;
-        if (brow != nullptr) s[t] += brow[j];
-        if constexpr (MASK) s[t] = fminf(fminf(s[t], sCap[j]), sCap[i]);
-        dp[t] = dot(w, sB + j * KLD) + (i == 0 ? sW[j] : 0.f);
-        if (crow != nullptr) dp[t] += crow[j];
-      }
-      mx = fmaxf(mx, s[t]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      s[t] = lane + 32 * t < N ? expf(s[t] - mx) : 0.f;
-      sum += s[t];
-    }
-    const float rinv = 1.0f / warp_sum(sum);
-    float dl = 0.f;
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      s[t] *= rinv;
-      dl += s[t] * dp[t];
-    }
-    dl = warp_sum(dl);
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) ds[j] = s[t] * (dp[t] - dl) * scale;
-      if constexpr (MASK)  // dS is zero at a masked pair
-        if (j < N && !(sCap[i] > 0.f && sCap[j] > 0.f)) ds[j] = 0.f;
-    }
-    if (lane == 0) sM[i] = mx, sR[i] = rinv, sD[i] = dl;
-    __syncwarp();
-    float q0 = 0.f, q1 = 0.f;
-    for (int j = 0; j < N; ++j) {
-      q0 = fmaf(ds[j], sA[j * KLD + lane], q0);
-      q1 = fmaf(ds[j], sA[j * KLD + lane + 32], q1);
-    }
-    float* dqrow = dq.row(b, h, i);
-    dqrow[lane] = q0, dqrow[lane + 32] = q1;
-    __syncwarp();
-  }
-  __syncthreads();
-  fill(q, dout);
-  __syncthreads();
-
-  // phase 2: a warp per key j
-  for (int j = warp; j < N; j += WARPS) {
-    const float* krow = k.row(b, h, j);
-    const float* vrow = v.row(b, h, j);
-    u[lane] = krow[lane], u[lane + 32] = krow[lane + 32];
-    w[lane] = vrow[lane], w[lane + 32] = vrow[lane + 32];
-    const float bj = brow != nullptr ? brow[j] : 0.f;
-    const float cj = crow != nullptr ? crow[j] : 0.f;
-    __syncwarp();
-    float dsum = 0.f;
-#pragma unroll
-    for (int t = 0; t < KEYS_PER_LANE; ++t) {
-      const int i = lane + 32 * t;
-      if (i >= N) continue;
-      float l = dot(u, sA + i * KLD) * scale;
-      if (brow != nullptr) l += bj;
-      if constexpr (MASK) l = fminf(fminf(l, sCap[j]), sCap[i]);
-      float dpv = dot(w, sB + i * KLD) + (i == 0 ? sW[j] : 0.f);
-      if (crow != nullptr) dpv += cj;
-      const float pr = expf(l - sM[i]) * sR[i];
-      float du = pr * (dpv - sD[i]);  // unscaled dS
-      if constexpr (MASK)             // zero at a masked pair (dV keeps P)
-        if (!(sCap[i] > 0.f && sCap[j] > 0.f)) du = 0.f;
-      p[i] = pr;
-      ds[i] = du * scale;
-      dsum += du;
-    }
-    __syncwarp();
-    float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-    for (int i = 0; i < N; ++i) {
-      v0 = fmaf(p[i], sB[i * KLD + lane], v0);
-      v1 = fmaf(p[i], sB[i * KLD + lane + 32], v1);
-      k0 = fmaf(ds[i], sA[i * KLD + lane], k0);
-      k1 = fmaf(ds[i], sA[i * KLD + lane + 32], k1);
-    }
-    float* dkrow = dk.row(b, h, j);
-    float* dvrow = dv.row(b, h, j);
-    dkrow[lane] = k0, dkrow[lane + 32] = k1;
-    dvrow[lane] = v0, dvrow[lane + 32] = v1;
-    dsum = warp_sum(dsum);
-    if (dbias != nullptr && lane == 0) dbias[static_cast<size_t>(bh) * N + j] = dsum;
-    __syncwarp();
-  }
 }
 
 // ---------------------------------------------------------------- keys
@@ -789,11 +458,6 @@ int launch_head_mean_keys(const void* qkv, void* keys, int M, int H, int hd, cud
   return static_cast<int>(cudaGetLastError());
 }
 
-// Heads of the operands from strides[3 * i .. 3 * i + 2] (batch, head, row).
-template <typename T, typename P>
-Heads<T> heads(P ptr, const long long* strides, int i) {
-  return Heads<T>{static_cast<T*>(ptr), strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-}
 
 }  // namespace
 }  // namespace trk
@@ -803,10 +467,11 @@ Heads<T> heads(P ptr, const long long* strides, int i) {
 // [B, H, M, 64]; strides holds the (batch, head, row) strides of q, k, v
 // and out, in elements. bias (fp32 [B, N]), mask ([B, N], one byte per
 // token, non-zero = valid), row0 and colsum may be null; norm_p (rounding
-// the normalised probabilities before PV) is a no-op in fp32. ids (int32 [B, M], with a mask and no bias, norm_p or
-// by-products) selects the rectangular variant: out row m is query row
-// ids[b, m] over all N keys. Without ids, M must equal N. The caller
-// checks shapes, dtypes and strides. fp32 only: bf16 is
+// the normalised probabilities before PV) is a no-op in fp32. ids (int32
+// [B, M], with a mask and no bias, norm_p or by-products) selects the
+// rectangular variant: out row m is query row ids[b, m] over all N keys.
+// Without ids, M must equal N. The caller checks shapes, dtypes and
+// strides. fp32 only (short_attention_tf32_kernel): bf16 is
 // attention_sm90.cu's tr_attention_sm90.
 extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const void* v,
                                   void* out, const long long* strides, const void* bias,
@@ -830,74 +495,29 @@ extern "C" int tr_short_attention(int dtype, const void* q, const void* k, const
   const auto qh = heads<const float>(q, strides, 0), kh = heads<const float>(k, strides, 1);
   const auto vh = heads<const float>(v, strides, 2);
   const auto oh = heads<float>(out, strides, 3);
-  // the square variants on the tensor cores; the rectangular one (ATS in
-  // fp32) stays on the FMA kernel
-  if (!rect)
-    return masked ? launch_attention_tf32<true>(qh, kh, vh, oh, bp, mp, r0, cs, B, N, H, scale, s)
-                  : launch_attention_tf32<false>(qh, kh, vh, oh, bp, mp, r0, cs, B, N, H, scale,
-                                                 s);
-  const cudaError_t err =
-      cudaFuncSetAttribute(short_attention_rect_fma_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(fma_smem_bytes(MAXN)));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  short_attention_rect_fma_kernel<<<B * H, THREADS, fma_smem_bytes(N), s>>>(qh, kh, vh, oh, mp, ip,
-                                                                            N, M, H, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (rect)
+    return launch_attention_tf32<true, true>(qh, kh, vh, oh, bp, mp, ip, r0, cs, B, N, M, H, scale,
+                                             s);
+  return masked ? launch_attention_tf32<true, false>(qh, kh, vh, oh, bp, mp, ip, r0, cs, B, N, M,
+                                                     H, scale, s)
+                : launch_attention_tf32<false, false>(qh, kh, vh, oh, bp, mp, ip, r0, cs, B, N,
+                                                      M, H, scale, s);
 }
 
-// The tensor-core forward's plan at n keys, for the host: out[3] = {dynamic
-// shared memory a block in bytes, threads a block, 32-key chunks of the row
-// of S held in registers (the kernel variant)}.
-extern "C" int tr_attention_tf32_plan(int n, int* out) {
+// The tensor-core kernels' plans at n keys (and m rectangular query rows),
+// for the host: out[5] = {dynamic shared memory a block of the square
+// forward in bytes, threads a block (every variant), 32-key chunks of the
+// rows of S held in registers (the kernel variant), dynamic shared memory
+// a block of the rectangular forward, and of the backward}.
+extern "C" int tr_attention_tf32_plan(int n, int m, int* out) {
   using namespace trk;
-  if (n < 1 || n > MAXN) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > MAXN || m < 1 || m > MAXN) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = static_cast<int>(tf32_smem_bytes(n));
   out[1] = TC_THREADS;
   out[2] = tf32_chunks(n);
+  out[3] = static_cast<int>(tf32_smem_bytes(n, tile_rows(m)));
+  out[4] = static_cast<int>(bwd_tf32_smem_bytes(n));
   return 0;
-}
-
-// Returns the cudaError_t of the launch (0 on success): dq, dk, dv from q,
-// k, v and dout, all [B, H, N, 64] operands in `dtype` with the head dim
-// contiguous (strides: the (batch, head, row) strides of q, k, v, dout, dq,
-// dk and dv, in elements), the fp32 bias [B, N], the validity mask
-// ([B, N], one byte per token, non-zero = valid), the fp32 cotangents
-// drow0 and dcs [B, H, N], and the fp32 per-head bias gradient dbias
-// [B, H, N]; each of the last five may be null (zero, none, or not
-// written). The caller checks shapes, dtypes and strides. fp32 only.
-extern "C" int tr_short_attention_bwd(int dtype, const void* q, const void* k, const void* v,
-                                      const void* dout, void* dq, void* dk, void* dv,
-                                      const long long* strides, const void* bias,
-                                      const void* mask, const void* drow0, const void* dcs,
-                                      void* dbias, int B, int N, int H, float scale,
-                                      void* stream) {
-  using namespace trk;
-  if (N < 1 || N > MAXN) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* bp = static_cast<const float*>(bias);
-  const unsigned char* mp = static_cast<const unsigned char*>(mask);
-  const float* w = static_cast<const float*>(drow0);
-  const float* c = static_cast<const float*>(dcs);
-  float* db = static_cast<float*>(dbias);
-  const bool masked = mask != nullptr;
-  cudaError_t err;
-  if (dtype == kFloat32) {
-    const auto kernel =
-        masked ? short_attention_bwd_fma_kernel<true> : short_attention_bwd_fma_kernel<false>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bwd_fma_smem_bytes(MAXN, masked)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<B * H, THREADS, bwd_fma_smem_bytes(N, masked), s>>>(
-        heads<const float>(q, strides, 0), heads<const float>(k, strides, 1),
-        heads<const float>(v, strides, 2), heads<const float>(dout, strides, 3),
-        heads<float>(dq, strides, 4), heads<float>(dk, strides, 5), heads<float>(dv, strides, 6),
-        bp, mp, w, c, db, N, H, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Returns the cudaError_t of the launch (0 on success): keys [M, hd], the

@@ -74,7 +74,7 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "tr_attention_sm90_smem": (_I, _I, _P),
     "tr_gemm_tf32_config": (_P,),
-    "tr_attention_tf32_plan": (_I, _P),
+    "tr_attention_tf32_plan": (_I, _I, _P),
 }
 # what tr_gemm_sm90_config and tr_gemm_tf32_config report, in their order
 _GEMM_CONFIG = ("BM", "BN", "BK", "STAGES", "SMEM_BYTES")
@@ -325,7 +325,8 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
     (``w_kn`` false; GELU' out too) runs csrc/gemm_tf32_sm90.cu, 3xTF32 on
     the tensor cores, counted by ``gemm.tf32_launches``; the layout that
     only the fp32 backward launches (``w_kn``) runs the FMA kernel of
-    csrc/ln_gemm.cu (tr_gemm picks by the same rule)."""
+    csrc/ln_gemm.cu (tr_gemm picks by the same rule), counted by
+    ``gemm.fma_launches``."""
     M, n_out = y.shape
     res_dtype = _DTYPE_CODE[x.dtype if res is None else res.dtype]
     err = kernels().lib.tr_gemm(
@@ -338,10 +339,13 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
         gemm.launches += 1
     elif not w_kn:
         gemm.tf32_launches += 1
+    else:
+        gemm.fma_launches += 1
 
 
 gemm.launches = 0
 gemm.tf32_launches = 0
+gemm.fma_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -379,7 +383,9 @@ def gemm_wgrad(dy, x, dw, db=None):
     db are written by that launch: returns the [(partials, dw),
     (partials, db)] it takes (db's if given). Contiguous CUDA tensors,
     checked by the caller.
-    ``gemm_wgrad.launches`` counts the bf16 launches (the sm_90a kernel)."""
+    ``gemm_wgrad.launches`` counts the bf16 launches (the sm_90a kernel),
+    ``gemm_wgrad.fma_launches`` the fp32 ones (csrc/ln_gemm.cu's FMA
+    kernel)."""
     M, n_out = dy.shape
     K = x.shape[1]
     splits, rows_per_split = wgrad_plan(M, n_out, K, dy.device)
@@ -392,6 +398,8 @@ def gemm_wgrad(dy, x, dw, db=None):
     _check("tr_gemm_wgrad", err)
     if dy.dtype == torch.bfloat16:
         gemm_wgrad.launches += 1
+    else:
+        gemm_wgrad.fma_launches += 1
     pairs = [(ws, dw.view(-1))]
     if db is not None:
         pairs.append((bws, db))
@@ -399,6 +407,7 @@ def gemm_wgrad(dy, x, dw, db=None):
 
 
 gemm_wgrad.launches = 0
+gemm_wgrad.fma_launches = 0
 
 
 def wgrad_plan(M: int, n_out: int, K: int, device) -> tuple[int, int]:
@@ -493,10 +502,10 @@ def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
     ``stats`` (fp32 [B, H, N, 2]: the row max of the logits and 1/sum)
     when given; ``short_attention_heads.launches`` counts its square
     launches and ``short_attention_heads.rect_launches`` its rectangular
-    ones. fp32: csrc/short_attention.cu (no stats); the square variants on
-    the tensor cores in 3xTF32 (short_attention_tf32_kernel, counted by
-    ``short_attention_heads.tf32_launches``), the rectangular one (ATS in
-    fp32) on the FMA kernel (tr_short_attention picks by ids)."""
+    ones. fp32: csrc/short_attention.cu's short_attention_tf32_kernel (no
+    stats), 3xTF32 on the tensor cores, its square variants counted by
+    ``short_attention_heads.tf32_launches`` and its rectangular ones (RECT,
+    ATS in fp32) by ``short_attention_heads.tf32_rect_launches``."""
     B, H, N, _ = q.shape
     M = out.shape[2]
     if q.dtype == torch.bfloat16:
@@ -520,26 +529,35 @@ def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
     _check("tr_short_attention", err)
     if ids is None:
         short_attention_heads.tf32_launches += 1
+    else:
+        short_attention_heads.tf32_rect_launches += 1
 
 
 short_attention_heads.launches = 0
 short_attention_heads.rect_launches = 0
 short_attention_heads.tf32_launches = 0
+short_attention_heads.tf32_rect_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def attention_tf32_plan(n: int) -> dict:
-    """The fp32 square attention's plan at n keys (csrc/short_attention.cu
-    short_attention_tf32_kernel), as its library reports it
-    (tr_attention_tf32_plan): {"smem": dynamic shared memory a block in
-    bytes (Q, K and V, rows padded to whole chunks, a row of colsum
-    partials and the row statistics of each pair of warps), "threads",
+def attention_tf32_plan(n: int, m: int | None = None) -> dict:
+    """The fp32 attention kernels' plan at n keys (csrc/short_attention.cu
+    short_attention_tf32_kernel, csrc/short_attention_bwd.cu
+    short_attention_bwd_tf32_kernel), as
+    their library reports it (tr_attention_tf32_plan): {"smem": the square
+    forward's dynamic shared memory a block in bytes (Q, K and V, rows
+    padded to whole chunks, a row of colsum partials and the row
+    statistics of each pair of warps), "threads" (every variant),
     "chunks": the 32-key chunks of a row of S held in a pair's registers,
-    the kernel variant}."""
-    out = (ctypes.c_int * 3)()
+    the kernel variant, "rect_smem": the rectangular forward's at m query
+    rows (default n), "bwd_smem": the backward's (two resident operands,
+    each group of 4 warps' two 16-row tiles and four partial tiles, the
+    row statistics and the per-token vectors)}."""
+    out = (ctypes.c_int * 5)()
     _check("tr_attention_tf32_plan", kernels().lib.tr_attention_tf32_plan(
-        n, ctypes.addressof(out)))
-    return dict(zip(("smem", "threads", "chunks"), out))
+        n, n if m is None else m, ctypes.addressof(out)))
+    return dict(zip(("smem", "threads", "chunks", "rect_smem", "bwd_smem"),
+                    out))
 
 
 def short_attention(qkv, out, num_heads, scale, *, bias=None, mask=None,
@@ -567,7 +585,9 @@ def short_attention_bwd_heads(q, k, v, out, dout, dq, dk, dv, scale, *,
     sm_90a kernel (csrc/attention_sm90.cu), which reads the forward's
     ``stats`` and ``row0`` (with drow0) and ``out`` (delta's shortcut
     form), counted by ``short_attention_bwd_heads.launches``; fp32:
-    csrc/short_attention.cu, which recomputes everything from q, k, v."""
+    csrc/short_attention_bwd.cu's short_attention_bwd_tf32_kernel, 3xTF32 on
+    the tensor cores, which recomputes everything from q, k, v, counted by
+    ``short_attention_bwd_heads.tf32_launches``."""
     B, H, N, _ = q.shape
     if q.dtype == torch.bfloat16:
         if stats is None or out is None or (drow0 is not None
@@ -588,9 +608,11 @@ def short_attention_bwd_heads(q, k, v, out, dout, dq, dk, dv, scale, *,
         _ptr(mask), _ptr(drow0), _ptr(dcs), _ptr(dbias), B, N, H, scale,
         _stream(q))
     _check("tr_short_attention_bwd", err)
+    short_attention_bwd_heads.tf32_launches += 1
 
 
 short_attention_bwd_heads.launches = 0
+short_attention_bwd_heads.tf32_launches = 0
 
 
 def short_attention_bwd(qkv, out, dout, drow0, dqkv, num_heads, scale, *,

@@ -46,8 +46,11 @@ and dbias. In bf16 they are ``csrc/attention_sm90.cu``'s (TMA, wgmma):
 the forward also writes the row statistics (row max, 1/sum), which the
 backward reads with the forward's output and row0, so P is computed once
 per pair and delta takes the form rowsum(dO O) + [i = 0] row0 . drow0 +
-P dcs; in fp32, the parity dtype, ``csrc/short_attention.cu``'s, which
-recompute P and delta in full. The output is a view of merged heads, so
+P dcs; in fp32, the parity dtype, ``csrc/short_attention.cu``'s and
+``csrc/short_attention_bwd.cu``'s, 3xTF32 on the tensor cores (mma.sync):
+the backward recomputes P and delta in full, in two phases (the row
+statistics, delta and dq a group of 4 warps per 16 query rows; dv, dk and
+dbias a group per 16 keys). The output is a view of merged heads, so
 merging them afterwards copies nothing.
 
 What bounds it: not the loads. The bf16 forward is held by its

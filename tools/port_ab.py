@@ -1,6 +1,7 @@
 """Time the PyTorch port in two checkouts, in turns, on one card.
 
     python3 tools/port_ab.py PARENT_DIR CHANGE_DIR [--pairs 3]
+    python3 tools/port_ab.py --once DIR
 
 Each checkout runs in its own process, with its own kernel build, in the
 order parent, change, change, parent, repeated ``--pairs`` times. The
@@ -66,7 +67,17 @@ residuals, fc1 with GELU) and the fp32 attention (without and with row0
 and colsum) at B=256, N=197, the fp32 full block (median of 20), the fp32
 dense and topk@0.7 b256 forwards (median of 5), and the DyViT@0.7
 distilled train step with its fp32 teacher's forward (``distill_ms``:
-the median of steps 3-6, the teacher's mean by CUDA events).
+the median of steps 3-6, the teacher's mean by CUDA events). And the
+fp32 training backward's kernels (``fp32_bwd_times``), per launch as
+above at B=256 and B=32, N=197: the attention backward without options,
+with the row0 cotangent, with the bias, both cotangents and dbias, and
+with heuristic's block-3 mask without and with both cotangents, beside
+SDPA's fp32 backward; the rectangular attention at ATS@0.7's pairs
+(138x197 also at B=32) beside the kept query rows gathered, then SDPA;
+the eight GEMM layouts of a block's backward (dY . W, weight gradients)
+beside cuBLAS SGEMM; and the fp32 topk@0.7 train step (no amp, median of
+steps 3-6) and the ATS@0.7 fp32 forward (median of 5) at b256.
+``--once DIR`` runs the child once in one checkout and prints its line.
 The first line is the card's name and power limit (nvidia-smi); the last
 lines give each checkout's medians over its runs. Needs one CUDA card;
 numbers from separate calls are not compared.
@@ -83,7 +94,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import functools, inspect, itertools, json, re, statistics, torch
+import functools, inspect, itertools, json, re, statistics, time, torch
 from chip_smoke import D, H4, HEADS, SCALE, block_params, cuda_ms, train_run
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.ops import _build
@@ -545,6 +556,140 @@ def fp32_times():
         del m
     return out
 
+def fp32_bwd_times():
+    # the fp32 training backward's kernels and the fp32 rectangular
+    # attention per launch: the attention backward at B=256 and B=32,
+    # N=197 (no option; the branch's row0 cotangent; ToMe's core: bias,
+    # both cotangents, dbias; heuristic's block-3 mask without and with
+    # both cotangents) beside SDPA's fp32 backward alone; the rectangular
+    # attention at ATS@0.7's pairs (B=256) and 138x197 at B=32 beside the
+    # kept query rows gathered, then SDPA; the backward's GEMM layouts
+    # (dY . W with W untransposed, fc2's with the GELU' factor and the
+    # column sums; the weight gradients with their bias sums and the
+    # partial sums' launch) beside cuBLAS SGEMM (matmul, matmul(dy.t(),
+    # x)); last the fp32 topk@0.7 train step (no amp) and the ATS@0.7 fp32
+    # forward at b256
+    from chip_smoke import (RECT_MN, batch_mask, float_mask,
+                            heuristic_block_masks, kept_ids,
+                            label_smoothing_loss, library_rect,
+                            sdpa_backward, token_mask)
+    from tokenreduction_tpu_torch.train.optim import (OptimConfig,
+                                                      create_optimizer)
+    from tokenreduction_tpu_torch.train.step import (StepConfig,
+                                                     init_train_state,
+                                                     make_train_step)
+    f32 = torch.float32
+    hd = D // HEADS
+    out = {}
+    for Bb in (256, 32):
+        q, k, v, dout = (t.contiguous() for t in torch.randn(
+            4, Bb, HEADS, N, hd, generator=g).to("cuda"))
+        drow0, dcs, bias = (torch.randn(Bb, HEADS, N, generator=g).to("cuda")
+                            for _ in range(3))
+        bias = bias[:, 0].contiguous()
+        mask = batch_mask(heuristic_block_masks()[3], Bb)
+        grads = torch.empty(3, Bb, HEADS, N, hd, device="cuda").unbind(0)
+        dbias = torch.empty(Bb, HEADS, N, device="cuda")
+        for name, kw, lib in (
+                ("plain", {}, None),
+                ("row0", dict(drow0=drow0), None),
+                ("bias", dict(bias=bias, drow0=drow0, dcs=dcs, dbias=dbias),
+                 float_mask(f32, bias)),
+                ("mask", dict(mask=mask), float_mask(f32, None, mask, mask)),
+                ("mask_cotangents", dict(mask=mask, drow0=drow0, dcs=dcs),
+                 None)):
+            out[f"fp32_bwd_{name}_b{Bb}_x10"] = ten(
+                lambda kw=kw: _build.short_attention_bwd_heads(
+                    q, k, v, None, dout, *grads, SCALE, **kw))
+            if name in ("plain", "bias", "mask"):
+                out[f"fp32_sdpa_bwd_{name}_b{Bb}_x10"] = ten(
+                    sdpa_backward(q, k, v, dout, lib))
+        del q, k, v, dout, grads
+    for Bb, M, Nk in ((256, *RECT_MN[0]), (256, *RECT_MN[1]),
+                      (256, *RECT_MN[2]), (32, *RECT_MN[0])):
+        qkv_r = torch.randn(Bb, Nk, 3 * D, generator=g).to("cuda")
+        mask = token_mask(Bb, Nk, g)
+        idx = kept_ids(Bb, Nk, M, mask, g)
+        ids = idx.to(torch.int32)
+        o = torch.empty(Bb, M, D, device="cuda")
+        tag = f"fp32_rect_{M}x{Nk}_b{Bb}"
+        out[f"{tag}_x10"] = ten(lambda: _build.short_attention(
+            qkv_r, o, HEADS, SCALE, mask=mask, ids=ids))
+        out[f"{tag}_sdpa_x10"] = ten(lambda: library_rect(qkv_r, idx, mask))
+    q32 = block_params(f32, g)
+    for Bb in (256, 32):
+        M = Bb * N
+        dq, dy, dh, xin, xh = (torch.randn(M, n, generator=g).to("cuda")
+                               for n in (3 * D, D, H4, D, H4))
+        gp = torch.randn(M, H4, generator=g).to("cuda")
+        parts = torch.empty(-(-M // 128), H4, device="cuda")
+        yd, yh = (torch.empty(M, n, device="cuda") for n in (D, H4))
+        dw = {k: torch.empty_like(q32[k]) for k in (
+            "wqkv", "wproj", "w1", "w2", "bqkv", "bproj", "b2")}
+        wgrad = lambda *a: summed(_build.gemm_wgrad(*a))
+        for name, run, lib in (
+                ("dyw_qkv", lambda: _build.gemm(dq, q32["wqkv"], None, yd,
+                                                w_kn=True),
+                 lambda: dq @ q32["wqkv"]),
+                ("dyw_proj", lambda: _build.gemm(dy, q32["wproj"], None, yd,
+                                                 w_kn=True),
+                 lambda: dy @ q32["wproj"]),
+                ("dyw_fc2", lambda: _build.gemm(dy, q32["w2"], None, yh,
+                                                w_kn=True, mul=gp,
+                                                col_sums=parts),
+                 lambda: dy @ q32["w2"]),
+                ("dyw_fc1", lambda: _build.gemm(dh, q32["w1"], None, yd,
+                                                w_kn=True),
+                 lambda: dh @ q32["w1"]),
+                ("wgrad_qkv", lambda: wgrad(dq, xin, dw["wqkv"], dw["bqkv"]),
+                 lambda: dq.t() @ xin),
+                ("wgrad_proj", lambda: wgrad(dy, xin, dw["wproj"],
+                                             dw["bproj"]),
+                 lambda: dy.t() @ xin),
+                ("wgrad_fc1", lambda: wgrad(dh, xin, dw["w1"]),
+                 lambda: dh.t() @ xin),
+                ("wgrad_fc2", lambda: wgrad(dy, xh, dw["w2"], dw["b2"]),
+                 lambda: dy.t() @ xh)):
+            out[f"fp32_gemm_{name}_b{Bb}_x10"] = ten(run)
+            out[f"fp32_gemm_{name}_b{Bb}_cublas_x10"] = ten(lib)
+        del dq, dy, dh, xin, xh, gp, yd, yh
+    # the JAX CLI's default precision: an fp32 train step (bench.py's
+    # recipe without amp, median of steps 3-6 on the host clock)
+    model, _ = create_model("topk_small_patch16_224", device="cuda",
+                            drop_path_rate=0.1, reduction_loc=(3, 6, 9),
+                            keep_rate=(0.7,),
+                            generator=torch.Generator().manual_seed(1))
+    opt, _ = create_optimizer(dict(model.named_parameters()),
+                              OptimConfig(lr=1e-3, clip_grad=1.0,
+                                          backbone_lr_scale=0.01),
+                              lambda s: 1e-3, [])
+    state = init_train_state(model, opt, ema=True, device="cuda")
+    step = make_train_step(model, label_smoothing_loss, opt,
+                           StepConfig(ema_decay=0.99996, amp=False),
+                           torch.Generator(device="cuda").manual_seed(5))
+    data = torch.Generator(device="cuda").manual_seed(3)
+    seconds = []
+    with torch.enable_grad():
+        for _ in range(6):
+            batch = {"image": torch.randn(B, 3, 224, 224, generator=data,
+                                          device="cuda"),
+                     "label": torch.randint(0, 1000, (B,), generator=data,
+                                            device="cuda")}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    out["fp32_train_topk"] = 1e3 * statistics.median(seconds[2:])
+    del model, opt, state, step
+    m, _ = create_model("ats_small_patch16_224", device="cuda",
+                        reduction_loc=(3, 6, 9), keep_rate=(0.7,),
+                        generator=torch.Generator().manual_seed(1))
+    m = m.eval()
+    images32 = torch.randn(B, 3, 224, 224, generator=g).to("cuda")
+    out["fp32_ats_forward"] = cuda_ms(lambda: m(images32), 5)
+    return out
+
 def distill_ms():
     seconds, _, _, extra = train_run("dyvit@0.7 distill", 6)
     return dict(train_dyvit_distill=1e3 * statistics.median(seconds[2:]),
@@ -571,7 +716,7 @@ with torch.no_grad():
         **ats_times(), **attention_times(), **bwd_times(),
         **gemm_times(), **rect_times(), **ln_bwd_times(),
         **standalone_times(), **keys_times(), **branch_sum_times(),
-        **fp32_times())))
+        **fp32_times(), **fp32_bwd_times())))
 print(json.dumps(dict(attention_registers=attention_registers())))
 """
 
@@ -589,14 +734,21 @@ def run(checkout: pathlib.Path) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("parent", type=pathlib.Path)
-    ap.add_argument("change", type=pathlib.Path)
+    ap.add_argument("parent", type=pathlib.Path, nargs="?")
+    ap.add_argument("change", type=pathlib.Path, nargs="?")
     ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--once", type=pathlib.Path,
+                    help="run the child once in this checkout alone")
     args = ap.parse_args()
     # the card and its power limit, beside which every time stands
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    if args.once:
+        print("once", json.dumps(run(args.once.resolve())), flush=True)
+        return
+    if args.parent is None or args.change is None:
+        ap.error("PARENT_DIR and CHANGE_DIR, or --once DIR")
     results = {"parent": [], "change": []}
     for _ in range(args.pairs):
         for label in ("parent", "change", "change", "parent"):
