@@ -16,14 +16,16 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    attention's dynamic shared memory a block at each main-path width
    and of its rectangular variant at ATS's (M, N) pairs
    (tr_attention_sm90_smem), the fp32 tensor-core kernels' plans as the
-   library reports them (_build.gemm_tf32_config, and
+   library reports them (_build.gemm_tf32_config,
+   _build.gemm_tf32_bwd_config: the backward GEMM's tile, rings and
+   shared memory a block for dY . W and the weight gradient, and
    _build.attention_tf32_plan at each main-path width and 256: the square
    forward's and the backward's shared memory, and the rectangular
    forward's at ATS's (M, N) pairs), and the LayerNorm backward's; and,
    from the built library's SASS (cuobjdump), a TF32 tensor-core
-   instruction (HGMMA or HMMA .TF32) in every variant of the fp32 GEMM,
-   the fp32 forward attention (square and rectangular) and the fp32
-   attention backward, or it fails.
+   instruction (HGMMA or HMMA .TF32) in every variant of the fp32 GEMMs
+   (forward and backward), the fp32 forward attention (square and
+   rectangular) and the fp32 attention backward, or it fails.
 2. kernels: each kernel counterpart against its plain PyTorch version on
    the same CUDA tensors at the main path's widths, fp32 at B=32 (bound
    1e-4 of max|plain|) and bf16 at B=256 (bound 2e-2 of max|plain|), with
@@ -147,10 +149,12 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    launch bit-equal to the first), beside its time per launch, cuBLAS
    SGEMM's (F.linear) or SDPA's in fp32 (TF32 off; the backward's SDPA's
    backward alone, the rectangular one's on the gathered rows), the
-   3xTF32 bound and the FMA bound. Last the fp32 backward's GEMM layouts,
-   still on ln_gemm.cu's FMA gemm_kernel, at B=256 and B=32: the four
-   dY . W products and the four weight gradients, within 1e-4 of their
-   own max, beside cuBLAS SGEMM and both bounds.
+   3xTF32 bound and the FMA bound. Last the fp32 backward's GEMM layouts
+   (csrc/gemm_tf32_bwd_sm90.cu, 3xTF32) at B=256 and B=32: the four
+   dY . W products and the four weight gradients (with their bias sums
+   and the partial sums' launch), each within 1e-4 of its own max|plain|
+   and a second launch bit-equal to the first, beside cuBLAS SGEMM and
+   both bounds.
    Beside each counterpart's time: its bound (bytes or operations at the
    H100's peak rates: fp32 products as 3xTF32) and the eager bf16
    composition of library calls
@@ -272,19 +276,21 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    time down: the port's kernels, the teacher's forward, and DyViT's 12
    policy attention halves (one timed alone, forward and backward, at
    b256); DyViT's window must show the teacher on the tensor-core kernels
-   and no fp32 FMA GEMM. Last, the JAX CLI's default precision: 8 fp32
-   train steps of topk@0.7 at b256 (no amp), a path of its own, with 12
-   tensor-core attention backward launches a step (and 48 + 48 FMA GEMM
-   layouts, 48 tensor-core GEMMs and 12 attentions) required.
+   and no fp32 backward GEMM. Last, the JAX CLI's default precision: 8
+   fp32 train steps of topk@0.7 at b256 (no amp), a path of its own, with
+   12 tensor-core attention backward launches a step (and 48 + 48
+   backward GEMM layouts, 48 forward GEMMs and 12 attentions, all on the
+   tensor cores) required, and a torch.profiler window of two such steps
+   (the device's time by kernel).
 
 Phases 4 and 5 are the main path's runs: each counterpart's launch count,
 and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
 fp32 tensor-core GEMM and attention (gemm_tf32, attention_tf32: the DyViT
 teacher's 4 and 1 a block in phase 5, none in phase 4's bf16 run; the
-fp32 backward's attention_bwd_tf32 and FMA GEMMs from phase 5's fp32
-train step, the fp32 rectangular attention from phase 4's ATS@0.7 fp32
-forwards, each read from its own path's run), of the
-sm_90a attention's three (short_attention, short_attention_bwd,
+fp32 backward's attention_bwd_tf32, gemm_bwd_tf32 and gemm_wgrad_tf32
+from phase 5's fp32 train step, the fp32 rectangular attention from
+phase 4's ATS@0.7 fp32 forwards, each read from its own path's run), of
+the sm_90a attention's three (short_attention, short_attention_bwd,
 rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
 backward and of the partial sums (once each in each training branch's
 backward), of head_mean_keys (once in each of ToMe@0.7's three merging
@@ -431,9 +437,8 @@ EPS = 1e-6
 # H100 SXM peak rates (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
 # bound the bf16 kernels; TF32 tensor cores bound an fp32-accurate product
 # (3xTF32: three TF32 products each, the least time the card needs for one:
-# the fp32 forward GEMM and every fp32 attention run so); fp32 outside the
-# tensor cores bounds the FMA kernels (the fp32 backward's GEMM layouts),
-# printed beside the first
+# every fp32 GEMM and attention run so); fp32 outside the tensor cores,
+# the rate of a true fp32 product on the CUDA cores, is printed beside it
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_FP32_FLOPS = 67e12
@@ -490,6 +495,7 @@ WRAPPER_SOURCES = {
 LN_GEMM = "tokenreduction_tpu_torch/csrc/ln_gemm.cu"
 GEMM_SOURCE = "tokenreduction_tpu_torch/csrc/gemm_sm90.cu"
 GEMM_TF32_SOURCE = "tokenreduction_tpu_torch/csrc/gemm_tf32_sm90.cu"
+GEMM_TF32_BWD_SOURCE = "tokenreduction_tpu_torch/csrc/gemm_tf32_bwd_sm90.cu"
 # the bf16 GEMM computes the MXU products of every counterpart but the
 # attention core; its record names mlp_branch's, the most launched
 GEMM_REPLACES = {"gemm": "tokenreduction_tpu/ops/fused_mlp_train.py:162",
@@ -525,8 +531,10 @@ CUDA_SOURCES = {
     "fused_mlp_gather_residual": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
     "fused_mlp_residual": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
     "attend_branch_train": [ATTENTION_SM90, LN_GEMM, GEMM_SOURCE, ATTENTION,
-                            ATTENTION_BWD, GEMM_TF32_SOURCE],
-    "mlp_branch": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE],
+                            ATTENTION_BWD, GEMM_TF32_SOURCE,
+                            GEMM_TF32_BWD_SOURCE],
+    "mlp_branch": [LN_GEMM, GEMM_SOURCE, GEMM_TF32_SOURCE,
+                   GEMM_TF32_BWD_SOURCE],
     "attention_core_train": [ATTENTION_SM90, ATTENTION, ATTENTION_BWD],
     "fused_attention": [ATTENTION_SM90, ATTENTION],
     "fused_attention_qkv": [ATTENTION_SM90, ATTENTION],
@@ -701,7 +709,8 @@ ATTENTIONS = {"short_attention": _build.short_attention_heads,
 # attention (csrc/short_attention.cu: the square and the rectangular
 # forward of short_attention_tf32_kernel; csrc/short_attention_bwd.cu: the
 # backward) on the tensor cores in 3xTF32, the fp32
-# backward's GEMM layouts on csrc/ln_gemm.cu's FMA gemm_kernel, the
+# backward's GEMM layouts (csrc/gemm_tf32_bwd_sm90.cu: dY . W and the
+# weight gradient) on them too, the
 # LayerNorm forward and backward and sum_partials (csrc/ln_gemm.cu) and
 # head_mean_keys (csrc/short_attention.cu)
 LAUNCHERS = {
@@ -714,8 +723,8 @@ LAUNCHERS = {
                             "tf32_rect_launches"),
     "attention_bwd_tf32": (_build.short_attention_bwd_heads,
                            "tf32_launches"),
-    "gemm_fma": (_build.gemm, "fma_launches"),
-    "gemm_wgrad_fma": (_build.gemm_wgrad, "fma_launches"),
+    "gemm_bwd_tf32": (_build.gemm, "tf32_bwd_launches"),
+    "gemm_wgrad_tf32": (_build.gemm_wgrad, "tf32_launches"),
     **{name: (getattr(_build, name), "launches")
        for name in ("layer_norm_bwd", "layer_norm", "head_mean_keys")},
     "sum_partials": (_build.sum_partials_many, "launches")}
@@ -723,7 +732,7 @@ LAUNCHERS = {
 
 # the fp32 launchers, none of which a bf16 run launches
 FP32_LAUNCHERS = ("gemm_tf32", "attention_tf32", "rect_attention_tf32",
-                  "attention_bwd_tf32", "gemm_fma", "gemm_wgrad_fma")
+                  "attention_bwd_tf32", "gemm_bwd_tf32", "gemm_wgrad_tf32")
 
 
 def reset_counts():
@@ -776,7 +785,8 @@ def bound(name: str, B: int, N: int, K: int | None = None,
     fused_block_attention with K: the idx prologue, the block over the K
     kept rows (of x only they are read) and their int64 ids. fp32: 4-byte
     elements and 3xTF32 on the tensor cores (three TF32 products for each
-    product), or with ``fma`` the fp32 rate outside the tensor cores."""
+    product), or with ``fma`` the fp32 rate outside the tensor cores (a
+    true fp32 product on the CUDA cores)."""
     ids = 0
     if name == "fused_block_attention" and K is not None:
         N, ids = K, 8 * B * K
@@ -2165,10 +2175,11 @@ def phase_fp32() -> dict:
     backward's and the rectangular forward's outputs of a second launch
     bit-equal to the first. A rate of three TF32 products above the TF32
     tensor cores' dense peak at the card's highest SM clock fails. Then
-    the FMA GEMM's fp32 backward layouts (fp32_fma_gemm_cases). Returns
-    the JSON records of gemm_tf32 (qkv), attention_tf32 (the teacher's
-    forward), attention_bwd_tf32 (the branch's backward) and
-    rect_attention_tf32 (138 x 197) at B = 256."""
+    the fp32 backward's GEMM layouts (fp32_bwd_gemm_times). Returns the
+    JSON records of gemm_tf32 (qkv), attention_tf32 (the teacher's
+    forward), attention_bwd_tf32 (the branch's backward),
+    rect_attention_tf32 (138 x 197), gemm_bwd_tf32 (dY . W qkv) and
+    gemm_wgrad_tf32 (the qkv weight gradient) at B = 256."""
     gen = torch.Generator().manual_seed(12)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ceiling = sms * SM_TF32_FLOP_PER_CLOCK * max_sm_clock_hz()
@@ -2226,18 +2237,24 @@ def phase_fp32() -> dict:
                                    bound_ms=bound_ms, bound_by=bound_by,
                                    library_ms=lib_ms, max_abs_err=worst)
     for B, N in FP32_SHAPES:
-        fp32_fma_gemm_times(B, N, gen)
+        for name, r in fp32_bwd_gemm_times(B, N, gen, ceiling).items():
+            if (B, N) == FP32_SHAPES[0]:
+                rec[name] = r
     return rec
 
 
-def fp32_fma_gemm_times(B, N, gen):
-    """Phase 2: the fp32 backward's GEMM layouts of a DeiT-S block, still
-    on csrc/ln_gemm.cu's FMA gemm_kernel, each launch alone at B x N rows:
-    the four dY . W products (W untransposed; fc2's with the GELU' factor
-    and the column sums) and the four weight gradients (with their bias
-    sums, and the partial sums' launch): each output within 1e-4 of its
-    own max|plain|, its time per launch beside cuBLAS SGEMM's (matmul,
-    matmul(dy.t(), x); TF32 off), the 3xTF32 bound and the FMA bound."""
+def fp32_bwd_gemm_times(B, N, gen, ceiling):
+    """Phase 2: the fp32 backward's GEMM layouts of a DeiT-S block
+    (csrc/gemm_tf32_bwd_sm90.cu, 3xTF32), each launch alone at B x N
+    rows: the four dY . W products (W untransposed; fc2's with the GELU'
+    factor and the column sums) and the four weight gradients (with their
+    bias sums, and the partial sums' launch): each output within 1e-4 of
+    its own max|plain| and a second launch's bit-equal to the first, its
+    time per launch beside cuBLAS SGEMM's (matmul, matmul(dy.t(), x);
+    TF32 off), the 3xTF32 bound and the FMA bound; a rate of three TF32
+    products above ``ceiling`` fails. Returns the JSON records of
+    gemm_bwd_tf32 (dY . W qkv) and gemm_wgrad_tf32 (the qkv weight
+    gradient)."""
     p = block_params(torch.float32, gen)
     dev_gen = torch.Generator(device=DEVICE).manual_seed(B * 1000 + N + 17)
     M = B * N
@@ -2287,15 +2304,27 @@ def fp32_fma_gemm_times(B, N, gen):
         ("weight gradient fc2", lambda: wgrad(dy, h, "w2", "b2"),
          [("dw", dw["w2"], lambda: dy.t() @ h),
           ("db", dw["b2"], lambda: dy.sum(0))], lambda: dy.t() @ h, dy, H4))
+    rec, record = {}, {"dY . W qkv": "gemm_bwd_tf32",
+                       "weight gradient qkv": "gemm_wgrad_tf32"}
     for label, run, outs, library, g, K in cases:
+        launch = "gemm_wgrad_tf32" if label.startswith("weight") \
+            else "gemm_bwd_tf32"
         run()
         torch.cuda.synchronize()
-        errs = []
-        for name, got, want in outs:
-            abs_err, rel = rel_err(got, want())
-            require(rel <= LAUNCH_BOUND[torch.float32], f"gemm_fma {label} "
+        errs, worst, wants = [], 0.0, [want() for _, _, want in outs]
+        for (name, got, _), want in zip(outs, wants):
+            abs_err, rel = rel_err(got, want)
+            require(rel <= LAUNCH_BOUND[torch.float32], f"{launch} {label} "
                     f"B={B} N={N} {name}: error {rel:.3e} of its max|plain|")
             errs.append(f"{name} {abs_err:.3e} ({rel:.2e} of max)")
+            worst = max(worst, abs_err)
+        first = [got.clone() for _, got, _ in outs]
+        run()
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, got) for a, (_, got, _) in
+                    zip(first, outs)), f"{launch} {label} B={B} N={N}: a "
+                "second launch differs from the first")
+        errs.append("a second launch bit-equal")
         flops = 2 * M * g.shape[1] * K
         outs_bytes = sum(4 * got.numel() for _, got, _ in outs)
         nbytes = 4 * (g.numel() + M * K if label.startswith("weight")
@@ -2303,12 +2332,26 @@ def fp32_fma_gemm_times(B, N, gen):
             4 * (gp.numel() + parts.numel()) if "GELU'" in label else 0)
         ms, lib_ms = per_launch_ms(run), per_launch_ms(library)
         t_bytes = nbytes / PEAK_BYTES
-        bound_ms = max(3 * flops / PEAK_TF32_FLOPS, t_bytes) * 1e3
+        t_tf32 = 3 * flops / PEAK_TF32_FLOPS
+        bound_ms = max(t_tf32, t_bytes) * 1e3
         fma_ms = max(flops / PEAK_FP32_FLOPS, t_bytes) * 1e3
-        print(f"phase 2 fp32 gemm_fma {label} B={B} N={N}: {', '.join(errs)}"
-              f"; kernel {ms:.4f} ms per launch, 3xTF32 bound {bound_ms:.4f} "
-              f"ms, FMA bound {fma_ms:.4f} ms, cuBLAS SGEMM {lib_ms:.4f} ms",
-              flush=True)
+        rate = 3 * flops / ms * 1e3
+        require(rate <= ceiling, f"{launch} {label} B={B} N={N}: "
+                f"{rate / 1e12:.1f} TFLOP/s of TF32 is above the ceiling")
+        print(f"phase 2 fp32 {launch} {label} B={B} N={N}: {', '.join(errs)}"
+              f"; kernel {ms:.4f} ms per launch ({flops / ms / 1e9:.1f} fp32 "
+              f"TFLOP/s, {rate / 1e12:.1f} of TF32), 3xTF32 bound "
+              f"{bound_ms:.4f} ms, FMA bound {fma_ms:.4f} ms, cuBLAS SGEMM "
+              f"{lib_ms:.4f} ms", flush=True)
+        if label in record:
+            rec[record[label]] = dict(
+                shape=f"fp32 {label} B={B} N={N}", ms=ms,
+                plain_ms=per_launch_ms(lambda: [want() for _, _, want in
+                                                outs]),
+                bound_ms=bound_ms,
+                bound_by="operations" if t_tf32 >= t_bytes else "bytes",
+                library_ms=lib_ms, max_abs_err=worst)
+    return rec
 
 
 # the LayerNorm backward's launches alone (csrc/ln_gemm.cu): B = 256 at
@@ -4210,22 +4253,26 @@ def distill_breakdown(label: str, device_ms_step: float, by_kernel: dict,
 
 def teacher_on_tensor_cores(by_kernel: dict):
     """The DyViT@0.7 distilled step's profile: the fp32 teacher's products
-    and attention on the tensor-core kernels, and no fp32 FMA GEMM
-    (gemm_kernel, which only the fp32 backward launches) in the step."""
-    fma = sorted(n for n in by_kernel if n.startswith("gemm_kernel"))
+    and attention on the tensor-core kernels, and no fp32 backward GEMM
+    (gemm_tf32_bwd_sm90_kernel, which only the fp32 training backward
+    launches) in the step; phase_train holds the counts of its launchers
+    (gemm_bwd_tf32, gemm_wgrad_tf32) to 0 in the counted amp run."""
+    bwd = sorted(n for n in by_kernel
+                 if n.startswith("gemm_tf32_bwd_sm90_kernel"))
     tf32 = {k: sum(us for n, us in by_kernel.items() if n.startswith(k))
             for k in ("gemm_tf32_sm90_kernel", "short_attention_tf32_kernel")}
-    require(not fma and all(tf32.values()),
-            f"dyvit@0.7 distill: FMA GEMMs {fma} in the step, the "
+    require(not bwd and all(tf32.values()),
+            f"dyvit@0.7 distill: fp32 backward GEMMs {bwd} in the step, the "
             f"tensor-core kernels' device time {tf32}")
-    print("phase 5 teacher on the tensor cores: no FMA GEMM in the "
-          "DyViT@0.7 distilled step; " + ", ".join(
+    print("phase 5 teacher on the tensor cores: no fp32 backward GEMM in "
+          "the DyViT@0.7 distilled step; " + ", ".join(
               f"{k} {us / 2e3:.2f} ms a step" for k, us in tf32.items()),
           flush=True)
 
 
 # the port's own kernels (csrc/), by their names' prefixes
-PORT_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "gemm_tf32_sm90_kernel",
+PORT_KERNELS = ("gemm_sm90_kernel", "gemm_tf32_sm90_kernel",
+                "gemm_tf32_bwd_sm90_kernel",
                 "short_attention",
                 "attention_fwd_sm90", "attention_bwd_sm90", "layer_norm",
                 "sum_partials", "head_mean_keys")
@@ -4237,7 +4284,8 @@ def kernel_family(name: str) -> str:
     name = name.replace("void ", "").replace("trk::(anonymous namespace)::",
                                              "")
     name = name.split("(")[0]
-    own = ("gemm_kernel", "short_attention", "attention_fwd_sm90",
+    own = ("gemm_tf32_bwd_sm90_kernel", "short_attention",
+           "attention_fwd_sm90",
            "attention_bwd_sm90", "layer_norm", "sum_partials",
            "head_mean_keys")
     return name if name.startswith(own) else name.split("<")[0]
@@ -4354,21 +4402,21 @@ def phase_train(card: str) -> dict:
 
 
 # the JAX CLI's default precision: a train step in fp32 (phase 5), and its
-# launches a step: the attention backward on the tensor cores once and the
-# FMA GEMM's backward layouts four times (dY . W, weight gradients) in
-# each of the 12 branch backwards, the forward's products and attention
-# on the tensor cores
+# launches a step: the attention backward once and the backward GEMM's
+# layouts four times (dY . W, weight gradients) in each of the 12 branch
+# backwards, the forward's products and attention, all on the tensor cores
 FP32_TRAIN = "topk@0.7"
-FP32_TRAIN_STEP = dict(attention_bwd_tf32=12, gemm_fma=48, gemm_wgrad_fma=48,
-                       gemm_tf32=48, attention_tf32=12)
+FP32_TRAIN_STEP = dict(attention_bwd_tf32=12, gemm_bwd_tf32=48,
+                       gemm_wgrad_tf32=48, gemm_tf32=48, attention_tf32=12)
 
 
 def fp32_train(card: str) -> dict:
     """Phase 5, last: FP32_TRAIN's train step in fp32 (bench.py's recipe
     without amp), a path of its own: the counts set to 0 just before and
     read just after; FP32_TRAIN_STEP's launches a step and no bf16 or
-    rectangular launch required. Returns the launch counts of its fp32
-    backward's launchers."""
+    rectangular launch required. Then a torch.profiler window of two more
+    steps, uncounted: the device's time by kernel. Returns the launch
+    counts of its fp32 backward's launchers."""
     reset_counts()
     seconds, step_losses, _, extra = train_run(FP32_TRAIN, TRAIN_STEPS,
                                                amp=False)
@@ -4388,8 +4436,24 @@ def fp32_train(card: str) -> dict:
           f"{[round(v, 4) for v in step_losses.tolist()]}; launches a step "
           f"{ {k: got[k] / TRAIN_STEPS for k in want} } on {card}",
           flush=True)
-    return {k: got[k] for k in ("attention_bwd_tf32", "gemm_fma",
-                                "gemm_wgrad_fma")}
+    step_ms = 1e3 * sum(timed) / len(timed)
+    _, _, prof, _ = train_run(FP32_TRAIN, 4, profile=True, amp=False)
+    if prof is None:
+        print(f"phase 5 profile {FP32_TRAIN} fp32: device time not measured "
+              "(the profiler saw no device events)", flush=True)
+    else:
+        busy, by_kernel = prof
+        total = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+        print(f"phase 5 profile {FP32_TRAIN} fp32 b{TRAIN_B}: device busy "
+              f"{100 * busy:.1f}% of two steps (torch.profiler); device time "
+              f"{total / 2e3:.2f} ms per step, "
+              f"{100 * total / 2e3 / step_ms:.1f}% of the unprofiled "
+              f"{step_ms:.2f} ms/step; device time by kernel: " + "; ".join(
+                  f"{name} {100 * us / total:.1f}% ({us / 2e3:.2f} ms)"
+                  for name, us in top), flush=True)
+    return {k: got[k] for k in ("attention_bwd_tf32", "gemm_bwd_tf32",
+                                "gemm_wgrad_tf32")}
 
 
 def ptxas_lines(log: str):
@@ -4417,7 +4481,8 @@ def ptxas_lines(log: str):
 
 
 # the fp32 kernels on the tensor cores, by their names' prefixes
-TF32_KERNELS = ("gemm_tf32_sm90_kernel", "short_attention_tf32_kernel",
+TF32_KERNELS = ("gemm_tf32_sm90_kernel", "gemm_tf32_bwd_sm90_kernel",
+                "short_attention_tf32_kernel",
                 "short_attention_bwd_tf32_kernel")
 # a TF32 product on the tensor cores in SASS: wgmma (HGMMA) or mma.sync
 # (HMMA) with TF32 operands
@@ -4560,6 +4625,13 @@ def main():
     print(f"phase 1 gemm_tf32_sm90_kernel: tile {tf32['BM']}x{tf32['BN']}x"
           f"{tf32['BK']}, {tf32['STAGES']} stages, {tf32['SMEM_BYTES']} bytes "
           "of dynamic shared memory a block", flush=True)
+    bwd = _build.gemm_tf32_bwd_config()
+    print(f"phase 1 gemm_tf32_bwd_sm90_kernel: tile {bwd['BM']}x{bwd['BN']}x"
+          f"{bwd['BK']}, {bwd['SPLIT_STAGES']} split stages; dY . W "
+          f"{bwd['RAW_STAGES_DYW']} raw stages, {bwd['SMEM_BYTES_DYW']} bytes, "
+          f"the weight gradient {bwd['RAW_STAGES_WGRAD']} raw stages, "
+          f"{bwd['SMEM_BYTES_WGRAD']} bytes of dynamic shared memory a block",
+          flush=True)
     for n in (*FULL_BLOCK_N, 256):
         plan = _build.attention_tf32_plan(n)
         print(f"phase 1 short_attention_tf32_kernel N={n}: {plan['smem']} "
@@ -4639,10 +4711,11 @@ def main():
                      **fp32_rec[name])
                 for name, source in (("gemm_tf32", GEMM_TF32_SOURCE),
                                      ("attention_tf32", ATTENTION))]
-    # the fp32 backward's and the fp32 rectangular attention: their
+    # the fp32 backward's kernels and the fp32 rectangular attention: their
     # launches are phase 5's fp32 train step's and phase 4's ATS@0.7 fp32
     # forwards'
-    for name in ("attention_bwd_tf32", "rect_attention_tf32"):
+    for name in ("attention_bwd_tf32", "rect_attention_tf32",
+                 "gemm_bwd_tf32", "gemm_wgrad_tf32"):
         require(launches[name] > 0, f"{name}: no launch on its path")
     kernels += [dict(name=name, route="cuda", source=source,
                      wrapper="tokenreduction_tpu_torch/ops/_build.py",
@@ -4653,6 +4726,12 @@ def main():
                     ("attention_bwd_tf32", ATTENTION_BWD,
                      "short_attention_bwd"),
                     ("rect_attention_tf32", ATTENTION, "rect_attention"))]
+    kernels += [dict(name=name, route="cuda", source=GEMM_TF32_BWD_SOURCE,
+                     wrapper="tokenreduction_tpu_torch/ops/_build.py",
+                     replaces=GEMM_REPLACES["gemm_wgrad"],
+                     launches=launches[name], on_main_path=True,
+                     **fp32_rec[name])
+                for name in ("gemm_bwd_tf32", "gemm_wgrad_tf32")]
     kernels += [dict(name=name, route="cuda", source=source,
                      wrapper="tokenreduction_tpu_torch/ops/_build.py",
                      replaces=replaces, launches=launches[name],

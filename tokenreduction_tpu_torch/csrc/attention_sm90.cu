@@ -1054,11 +1054,6 @@ extern "C" int tr_attention_sm90(const void* q, const void* k, const void* v, vo
                 stats != nullptr || norm_p)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  CUtensorMap maps[4];
-  const void* ptrs[3] = {q, k, v};
-  int h_first;
-  cudaError_t err = heads_maps(maps, ptrs, strides, 3, B, H, N, &h_first);
-  if (err != cudaSuccess) return static_cast<int>(err);
   using Kernel = decltype(&attention_fwd_sm90<false, false, false, MAXT>);
   const Kernel variants[2][2] = {
       {attention_fwd_sm90<false, false, false, MAXT>, attention_fwd_sm90<false, true, false, MAXT>},
@@ -1068,8 +1063,14 @@ extern "C" int tr_attention_sm90(const void* q, const void* k, const void* v, vo
   const Kernel rect_kernel = N <= ROWS ? attention_fwd_sm90<false, true, true, 1>
                                        : attention_fwd_sm90<false, true, true, MAXT>;
   const Kernel kernel = rect ? rect_kernel : variants[norm_p != 0][mask != nullptr];
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(fwd_smem_bytes(MAXN, MAXN)));
+  // first: the context the tensor maps need (sm90.cuh encoder)
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(fwd_smem_bytes(MAXN, MAXN)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[4];
+  const void* ptrs[3] = {q, k, v};
+  int h_first;
+  err = heads_maps(maps, ptrs, strides, 3, B, H, N, &h_first);
   if (err != cudaSuccess) return static_cast<int>(err);
   // a launch takes at most as many query tiles as there are key tiles: more
   // kept rows than keys (no model's) go in launches of that many rows
@@ -1113,18 +1114,19 @@ extern "C" int tr_attention_bwd_sm90(const void* q, const void* k, const void* v
       (!exact && (out == nullptr || (drow0 != nullptr && row0 == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  CUtensorMap maps[8];
-  const void* ptrs[8] = {q, k, v, out, dout, dq, dk, dv};
-  int h_first;
-  cudaError_t err = heads_maps(maps, ptrs, strides, 8, B, H, N, &h_first);
-  if (err != cudaSuccess) return static_cast<int>(err);
   using Kernel = decltype(&attention_bwd_sm90<false, false>);
   const Kernel variants[2][2] = {
       {attention_bwd_sm90<false, false>, attention_bwd_sm90<false, true>},
       {attention_bwd_sm90<true, false>, attention_bwd_sm90<true, true>}};
   const Kernel kernel = variants[mask != nullptr][dcs != nullptr || dbias != nullptr];
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bwd_smem_bytes(MAXN)));
+  // first: the context the tensor maps need (sm90.cuh encoder)
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bwd_smem_bytes(MAXN)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[8];
+  const void* ptrs[8] = {q, k, v, out, dout, dq, dk, dv};
+  int h_first;
+  err = heads_maps(maps, ptrs, strides, 8, B, H, N, &h_first);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<B * H, BWD_THREADS, bwd_smem_bytes(N), static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], h_first,

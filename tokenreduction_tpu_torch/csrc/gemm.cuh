@@ -1,11 +1,12 @@
-// What the two GEMM translation units share: the launch arguments, the
+// What the GEMM translation units share: the launch arguments, the
 // gathered row of a residual, eight-element loads and stores, and the
 // exact-erf GELU and its derivative.
-// ln_gemm.cu keeps the C entry points and the fp32 GEMM of the layouts
-// only the fp32 backward runs (FMA on the CUDA cores); gemm_sm90.cu holds the
-// bf16 GEMM (TMA, mbarrier, wgmma) that the entry points call for bf16
-// operands, gemm_tf32_sm90.cu the fp32 GEMM of the forward layout (the
-// same, in 3xTF32).
+// ln_gemm.cu keeps the C entry points; gemm_sm90.cu holds the bf16 GEMM
+// (TMA, mbarrier, wgmma) that the entry points call for bf16 operands,
+// gemm_tf32_sm90.cu the fp32 GEMM of the forward layout (the same, in
+// 3xTF32) and gemm_tf32_bwd_sm90.cu the fp32 GEMM of the backward's two
+// layouts (dY . W, the weight gradient; 3xTF32 with the MN-major operands
+// transposed in shared memory).
 #pragma once
 
 #include <stddef.h>
@@ -101,5 +102,12 @@ int launch_gemm_sm90(const GemmArgs& a, bool a_mn, bool b_mn, int splits, cudaSt
 // bias, GELU (and GELU' out) and an fp32 residual (rows gathered through
 // idx), Y fp32; no factor, column sums or split. Returns a cudaError_t.
 int launch_gemm_tf32_sm90(const GemmArgs& a, cudaStream_t stream);
+
+// The fp32 GEMM of gemm_tf32_bwd_sm90.cu. wgrad: the weight gradient (A
+// stored [K][M], K split into `splits` slices of a.k_split rows, a
+// multiple of 32; row sums of A into a_sums), else dY . W (B stored [K][n_out];
+// bias, GELU, the fp32 factor, an fp32 residual and column sums). Y fp32.
+// Returns a cudaError_t.
+int launch_gemm_tf32_bwd_sm90(const GemmArgs& a, bool wgrad, int splits, cudaStream_t stream);
 
 }  // namespace trk

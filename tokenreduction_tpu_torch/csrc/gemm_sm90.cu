@@ -450,16 +450,17 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, in
 
 template <bool A_MN, bool B_MN, bool GRAD>
 int launch(const GemmArgs& a, int splits, cudaStream_t stream) {
+  const auto kernel = gemm_sm90_kernel<A_MN, B_MN, GRAD>;
+  // first: the context the tensor maps need (sm90.cuh encoder)
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map_a, map_b;
   // A: [M, K] K-major, or [K, M] for wgrad; B: [n_out, K], or [K, n_out]
-  cudaError_t err = A_MN ? tensor_map(&map_a, a.x, a.K, a.M, BK)
-                         : tensor_map(&map_a, a.x, a.M, a.K, BM);
+  err = A_MN ? tensor_map(&map_a, a.x, a.K, a.M, BK) : tensor_map(&map_a, a.x, a.M, a.K, BM);
   if (err == cudaSuccess)
     err = B_MN ? tensor_map(&map_b, a.w, a.K, a.n_out, BK)
                : tensor_map(&map_b, a.w, a.n_out, a.K, BN);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto kernel = gemm_sm90_kernel<A_MN, B_MN, GRAD>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);

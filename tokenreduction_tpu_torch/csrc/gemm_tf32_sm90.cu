@@ -5,7 +5,9 @@
 // when asked: the training forward's fc1), then an optional fp32 residual
 // whose rows may be gathered through idx. ln_gemm.cu's tr_gemm calls it
 // for every fp32 launch of that layout, eval and training forward; the
-// fp32 layouts of the backward stay on ln_gemm.cu's FMA kernel.
+// fp32 layouts of the backward (dY . W, the weight gradient) run
+// gemm_tf32_bwd_sm90.cu, the same design with the operands transposed as
+// they are split.
 //
 // It replaces the fp32 matrix products of the TPU kernels
 // tokenreduction_tpu/ops/fused_full_block.py fused_full_block,
@@ -43,7 +45,7 @@
 //     A_hi.B_hi. The tensor cores add each product to their fp32
 //     accumulator with truncation, so one accumulator over all of K
 //     drifts toward zero by about an ulp an addition (a build with one had
-//     several times the FMA kernel's error over a block); a K step's
+//     several times a true fp32 product's error over a block); a K step's
 //     twelve products go into a partial from zero, the small ones first,
 //     and each partial is added to the tile's sum in fp32 with rounding to
 //     nearest. A stage is released (empty barrier) once its products have
@@ -59,6 +61,7 @@
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_tf32.cuh"
 #include "sm90.cuh"
 
 namespace trk {
@@ -76,47 +79,8 @@ constexpr int B_BYTES = BN * BK * 4;
 constexpr int RAW_BYTES = A_BYTES + B_BYTES;  // what TMA lands in a stage
 constexpr int STAGE_BYTES = 2 * RAW_BYTES;    // and the lo parts
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 3 * STAGES * 8;
-constexpr int ACC = BN / 2;  // fp32 accumulators per consumer thread
 static_assert(SMEM_BYTES <= 232448, "over the H100's 227 KB of shared memory a block");
-
-// Keep the compiler from moving reads or writes of the accumulators across
-// the asynchronous products.
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 128] = A[64 x 8] . B[8 x 128] (+ d unless scale_d is 0), TF32
-// from shared memory, both K-major (tf32 wgmma reads no other layout).
-__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+static_assert(BN / 2 == TF32_ACC && BK == 32, "gemm_tf32.cuh's wgmma and K step");
 
 struct Tiles {
   int m_tiles, n_tiles;
@@ -221,37 +185,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* y = static_cast<float*>(a.y);
   int stage = 0;
   uint32_t phase = 0;
-  float d[ACC], p[ACC];
+  float d[TF32_ACC], p[TF32_ACC];
   for (int t = blockIdx.x; t < tiles.count(); t += gridDim.x) {
     int m0, n0;
     tiles.at(t, m0, n0);
 #pragma unroll
-    for (int i = 0; i < ACC; ++i) d[i] = 0.f;
+    for (int i = 0; i < TF32_ACC; ++i) d[i] = 0.f;
     for (int k = 0; k < a.K; k += BK) {
       mbar_wait(ready0 + 8 * stage, phase);
       const uint32_t sa = base + stage * STAGE_BYTES + a_off;
       const uint32_t sb = base + stage * STAGE_BYTES + A_BYTES;
-      // the K step's products into p from zero: the small ones first, then
-      // hi.hi, so the step's partial sum is truncated at its full size
-      // four times, not twelve; then added to d in fp32 (round to nearest)
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) {
-        const uint64_t a_hi = smem_desc(sa + kk * 32, 16, 1024);
-        const uint64_t b_hi = smem_desc(sb + kk * 32, 16, 1024);
-        wgmma_tf32(p, smem_desc(sa + RAW_BYTES + kk * 32, 16, 1024), b_hi, kk);
-        wgmma_tf32(p, a_hi, smem_desc(sb + RAW_BYTES + kk * 32, 16, 1024), 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk)
-        wgmma_tf32(p, smem_desc(sa + kk * 32, 16, 1024), smem_desc(sb + kk * 32, 16, 1024), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(p);
+      k_step_3xtf32(p, sa, sb, RAW_BYTES);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage is read
 #pragma unroll
-      for (int i = 0; i < ACC; ++i) d[i] += p[i];
+      for (int i = 0; i < TF32_ACC; ++i) d[i] += p[i];
       if (++stage == STAGES) stage = 0, phase ^= 1;
     }
 
@@ -286,24 +234,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The map of a row-major fp32 tensor [rows][cols], cut into boxes of
-// box_rows x 32 columns (128 bytes) with the 128-byte swizzle; reads past
-// an edge are zeros.
-cudaError_t tensor_map_f32(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  EncodeTiled encode;
-  const cudaError_t err = encoder(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 int launch_gemm_tf32_sm90(const GemmArgs& a, cudaStream_t stream) {
@@ -311,13 +241,16 @@ int launch_gemm_tf32_sm90(const GemmArgs& a, cudaStream_t stream) {
   if (a.mul != nullptr || a.col_sums != nullptr || a.k_split ||
       !a.y_f32 || (a.res != nullptr && !a.res_f32))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map_a, map_b;
-  cudaError_t err = tensor_map_f32(&map_a, a.x, a.M, a.K, BM);
-  if (err == cudaSuccess) err = tensor_map_f32(&map_b, a.w, a.n_out, a.K, BN);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const auto kernel =
       a.gelu_grad != nullptr ? gemm_tf32_sm90_kernel<true> : gemm_tf32_sm90_kernel<false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  // first: the context the tensor maps need (sm90.cuh encoder)
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_a, map_b;
+  constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
+  err = tensor_map_f32(&map_a, a.x, a.M, a.K, BM, BK, SW);
+  if (err == cudaSuccess) err = tensor_map_f32(&map_b, a.w, a.n_out, a.K, BN, BK, SW);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);

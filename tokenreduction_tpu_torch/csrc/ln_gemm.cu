@@ -34,14 +34,14 @@
 // and every training forward's, GELU' out included) go through the sm_90a
 // kernel of gemm_tf32_sm90.cu (TMA, mbarrier, wgmma in 3xTF32 on the
 // tensor cores); the fp32 layouts that only the fp32 backward launches
-// (dY . W and the weight gradient) through FMA in true fp32 on the CUDA
-// cores, in this file; bf16 operands through the sm_90a kernel of
-// gemm_sm90.cu (TMA, mbarrier, wgmma). The entry points below call each
-// with the same arguments. With bf16 operands the residual and Y may also
-// be fp32: the whole block keeps its residual stream y in fp32 between its
-// halves, as the TPU kernel does, so its proj GEMM writes fp32 y, LN2
-// reads it, and the fc2 GEMM adds it; the backward's dLN products write
-// fp32.
+// (dY . W and the weight gradient) through gemm_tf32_bwd_sm90.cu (the
+// same, with the MN-major operands transposed as they are split); bf16
+// operands through the sm_90a kernel of gemm_sm90.cu (TMA, mbarrier,
+// wgmma). The entry points below call each with the same arguments. With
+// bf16 operands the residual and Y may also be fp32: the whole block keeps
+// its residual stream y in fp32 between its halves, as the TPU kernel
+// does, so its proj GEMM writes fp32 y, LN2 reads it, and the fc2 GEMM
+// adds it; the backward's dLN products write fp32.
 //
 // The weight gradients are sums over up to 50,432 rows. The TPU kernel
 // carries them across a sequential grid in VMEM-resident accumulators;
@@ -53,10 +53,6 @@
 // inside the GEMM, it was redone for every column tile and cost the fc1
 // product at DeiT-S width about a third of its time; written once, the
 // normalised rows cost one round trip of [M, K] in the operand type.
-//
-// The FMA GEMM computes a 128x128 output tile per block over 32-deep K
-// slices, copied by cp.async into a ring of three shared-memory stages, so
-// two slices are in flight while one multiplies.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -65,11 +61,6 @@
 namespace trk {
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
-constexpr int STAGES = 3;  // K slices in the cp.async ring
 constexpr int LN_THREADS = 256;
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
@@ -424,183 +415,6 @@ __global__ void __launch_bounds__(kSumThreads)
   }
 }
 
-// Staged tiles: STAGES K slices of A and B in dynamic shared memory. An
-// operand stored K-contiguous ([rows][k]) is staged as [BM or BN][BK + pad],
-// one stored K-major ([k][cols]) as [BK][BM or BN + pad]; the pad of 16
-// bytes keeps every row 16-byte aligned.
-template <bool A_KM, bool B_KN> struct Tile {
-  static constexpr int PAD = 4;
-  static constexpr int A_LD = A_KM ? BM + PAD : BK + PAD;
-  static constexpr int B_LD = B_KN ? BN + PAD : BK + PAD;
-  static constexpr int A_ELEMS = A_KM ? BK * A_LD : BM * A_LD;
-  static constexpr int B_ELEMS = B_KN ? BK * B_LD : BN * B_LD;
-  static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
-  static constexpr size_t SMEM_BYTES = sizeof(float) * STAGES * STAGE_ELEMS;
-};
-
-// Start the copies of an [R][C] fp32 tile (C contiguous in device and
-// shared memory) whose element (0, 0) is element (r0, c0) of a row-major
-// matrix with `ld` columns; rows >= r_end and columns >= c_end are
-// zero-filled (c_end is a multiple of 4, so a 16-byte chunk is all in or
-// all out).
-template <int R, int C, int LD>
-__device__ __forceinline__ void copy_tile(float* dst, const float* src, int ld, int r0, int r_end,
-                                          int c0, int c_end) {
-  constexpr int V = 4, CPR = C / V, CHUNKS = R * CPR / THREADS;
-#pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    const int chunk = threadIdx.x + c * THREADS;
-    const int r = chunk / CPR, cc = (chunk % CPR) * V;
-    const bool in = r0 + r < r_end && c0 + cc < c_end;
-    cp_async16(dst + r * LD + cc, in ? src + static_cast<size_t>(r0 + r) * ld + c0 + cc : src, in);
-  }
-}
-
-// Start the copies of the K slice at k0 (up to k_end) into stage `buf`.
-template <bool A_KM, bool B_KN>
-__device__ __forceinline__ void load_slice(const GemmArgs& a, float* tiles, int buf, int m0,
-                                           int n0, int k0, int k_end) {
-  using TL = Tile<A_KM, B_KN>;
-  float* A = tiles + buf * TL::STAGE_ELEMS;
-  float* B = A + TL::A_ELEMS;
-  const float* x = static_cast<const float*>(a.x);
-  const float* w = static_cast<const float*>(a.w);
-  if constexpr (A_KM)
-    copy_tile<BK, BM, TL::A_LD>(A, x, a.M, k0, k_end, m0, a.M);
-  else
-    copy_tile<BM, BK, TL::A_LD>(A, x, a.K, m0, a.M, k0, k_end);
-  if constexpr (B_KN)
-    copy_tile<BK, BN, TL::B_LD>(B, w, a.n_out, k0, k_end, n0, a.n_out);
-  else
-    copy_tile<BN, BK, TL::B_LD>(B, w, a.K, n0, a.n_out, k0, k_end);
-}
-
-// The fp32 epilogue of one element; returns the value written (0 outside
-// Y). MUL: the layout whose launches may carry the fp32 factor (the
-// backward's dY . W).
-template <bool MUL>
-__device__ __forceinline__ float store(const GemmArgs& a, int row, int col, float acc) {
-  if (row >= a.M || col >= a.n_out) return 0.f;
-  float v = acc;
-  if (a.bias) v += static_cast<const float*>(a.bias)[col];
-  if (a.gelu) v = gelu(v);
-  if (MUL && a.mul) v *= a.mul[static_cast<size_t>(row) * a.n_out + col];
-  if (a.res) v += static_cast<const float*>(a.res)[res_row(a, row) * a.n_out + col];
-  static_cast<float*>(a.y)[static_cast<size_t>(row) * a.n_out + col] = v;
-  return v;
-}
-
-// The fp32 GEMM. A_KM: A is stored [K][M] (the weight gradient's dY), and
-// the K rows may be split over blockIdx.z; B_KN: B is stored [K][n_out]
-// (the backward's untransposed weight, or wgrad's X). The backward's
-// own epilogue steps (the fp32 factor, the column sums) compile only into
-// the layout with B_KN and not A_KM, the split only into A_KM.
-template <bool A_KM, bool B_KN>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
-  using TL = Tile<A_KM, B_KN>;
-  constexpr bool BWD = B_KN && !A_KM;
-  extern __shared__ __align__(16) unsigned char dsmem[];
-  float* tiles = reinterpret_cast<float*>(dsmem);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  int k_begin = 0, k_end = a.K;
-  if constexpr (A_KM) {
-    if (a.k_split) {
-      k_begin = blockIdx.z * a.k_split;
-      k_end = min(a.K, k_begin + a.k_split);
-      a.y = static_cast<float*>(a.y) + static_cast<size_t>(blockIdx.z) * a.M * a.n_out;
-    }
-  }
-  // wgrad: the blocks of the first column tile also sum A's rows (dY's
-  // columns) over their slice; rows past k_end are zero-filled
-  const bool a_sums = A_KM && a.a_sums != nullptr && blockIdx.x == 0;
-  float a_sum = 0.f;
-
-  // 16x16 threads, each an 8x8 micro-tile strided over the 128x128 tile.
-  float acc[8][8] = {};
-  const int ty = tid >> 4, tx = tid & 15;
-  // K loop over a ring of STAGES slices: slice i multiplies while the
-  // copies of slices i+1 .. i+STAGES-1 are in flight. One commit group per
-  // slice (empty past the end) keeps the wait count uniform.
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    const int k0 = k_begin + st * BK;
-    if (k0 < k_end) load_slice<A_KM, B_KN>(a, tiles, st, m0, n0, k0, k_end);
-    cp_async_commit();
-  }
-  for (int i = 0, k0 = k_begin; k0 < k_end; ++i, k0 += BK) {
-    const int buf = i % STAGES;
-    cp_async_wait<STAGES - 2>();  // all but the newest slice
-    __syncthreads();  // slice i visible; slice i-1's buffer free
-    const int kn = k0 + (STAGES - 1) * BK;
-    if (kn < k_end) load_slice<A_KM, B_KN>(a, tiles, (i + STAGES - 1) % STAGES, m0, n0, kn, k_end);
-    cp_async_commit();
-    const float* A = tiles + buf * TL::STAGE_ELEMS;
-    const float* B = A + TL::A_ELEMS;
-    if (a_sums && tid < BM) {
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) a_sum += A[kk * TL::A_LD + tid];
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[8], bv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        av[i] = A_KM ? A[kk * TL::A_LD + ty + 16 * i] : A[(ty + 16 * i) * TL::A_LD + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        bv[j] = B_KN ? B[kk * TL::B_LD + tx + 16 * j] : B[(tx + 16 * j) * TL::B_LD + kk];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  float cs[8] = {};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float v = store<BWD>(a, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
-      if constexpr (BWD) cs[j] += v;
-    }
-  if (BWD && a.col_sums != nullptr) {
-    float* red = reinterpret_cast<float*>(dsmem);  // [16][BN]
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) red[ty * BN + tx + 16 * j] = cs[j];
-    __syncthreads();
-    if (tid < BN && n0 + tid < a.n_out) {
-      float c = 0.f;
-      for (int r = 0; r < 16; ++r) c += red[r * BN + tid];
-      a.col_sums[static_cast<size_t>(blockIdx.y) * a.n_out + n0 + tid] = c;
-    }
-  }
-  if (a_sums && tid < BM && m0 + tid < a.M)
-    a.a_sums[static_cast<size_t>(blockIdx.z) * a.M + m0 + tid] = a_sum;
-}
-
-template <bool A_KM, bool B_KN>
-int launch_gemm(const GemmArgs& a, int splits, cudaStream_t stream) {
-  using TL = Tile<A_KM, B_KN>;
-  const auto kernel = gemm_kernel<A_KM, B_KN>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(TL::SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.n_out + BN - 1) / BN, (a.M + BM - 1) / BM, splits);
-  kernel<<<grid, THREADS, TL::SMEM_BYTES, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The fp32 variants: the forward layout on the tensor cores
-// (gemm_tf32_sm90.cu); on the FMA kernel the two that only the fp32
-// backward launches: dY . W and the weight gradient.
-int launch_gemm_f32(const GemmArgs& a, bool a_km, bool b_kn, int splits, cudaStream_t s) {
-  if (a_km) return launch_gemm<true, true>(a, splits, s);
-  if (b_kn) return launch_gemm<false, true>(a, splits, s);
-  return launch_gemm_tf32_sm90(a, s);
-}
-
 template <typename TX, typename T>
 int launch_layer_norm(const void* x, const int* idx, int M, int K, int rows_out, int rows_in,
                       const void* w, const void* b, float eps, void* y, cudaStream_t stream) {
@@ -708,7 +522,8 @@ extern "C" int tr_gemm(int dtype, const void* x, int M, int K, const void* w, in
   a.rows_out = rows_out, a.rows_in = rows_in, a.y = y, a.y_f32 = y_dtype == kFloat32;
   a.col_sums = static_cast<float*>(col_sums);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_gemm_f32(a, false, w_kn != 0, 1, s);
+  if (dtype == kFloat32)
+    return w_kn ? launch_gemm_tf32_bwd_sm90(a, false, 1, s) : launch_gemm_tf32_sm90(a, s);
   return launch_gemm_sm90(a, false, w_kn != 0, 1, s);
 }
 
@@ -716,14 +531,15 @@ extern "C" int tr_gemm(int dtype, const void* x, int M, int K, const void* w, in
 // rows [z * rows_per_split, (z + 1) * rows_per_split) for z < splits, fp32
 // [splits][n_out][K]; bias_ws (or null) [splits][n_out] the partial column
 // sums of dY. dy [rows, n_out] and x [rows, K] share `dtype`;
-// rows_per_split is a multiple of 32 (fp32) or of 64 (bf16: the K step of
-// gemm_sm90.cu). Returns the cudaError_t of the launch.
+// rows_per_split is a multiple of the kernel's K step: 32 (fp32,
+// gemm_tf32_bwd_sm90.cu) or 64 (bf16, gemm_sm90.cu), which each launcher
+// checks. Returns the cudaError_t of the launch.
 extern "C" int tr_gemm_wgrad(int dtype, const void* dy, const void* x, int rows, int n_out,
                              int K, int splits, int rows_per_split, void* ws, void* bias_ws,
                              void* stream) {
   using namespace trk;
   if (n_out == 0 || K == 0) return 0;
-  if (K % 8 != 0 || n_out % 8 != 0 || splits < 1 || rows_per_split % BK != 0 ||
+  if (K % 8 != 0 || n_out % 8 != 0 || splits < 1 || rows_per_split < 1 ||
       static_cast<long long>(splits) * rows_per_split < rows ||
       (dtype != kFloat32 && dtype != kBFloat16))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -731,7 +547,7 @@ extern "C" int tr_gemm_wgrad(int dtype, const void* dy, const void* x, int rows,
   a.x = dy, a.M = n_out, a.K = rows, a.w = x, a.n_out = K;
   a.y = ws, a.y_f32 = 1, a.k_split = rows_per_split, a.a_sums = static_cast<float*>(bias_ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_gemm_f32(a, true, true, splits, s);
+  if (dtype == kFloat32) return launch_gemm_tf32_bwd_sm90(a, true, splits, s);
   return launch_gemm_sm90(a, true, true, splits, s);
 }
 

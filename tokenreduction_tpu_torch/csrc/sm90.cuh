@@ -113,7 +113,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled from libcuda, found once through the CUDA runtime,
-// so the library needs no link against libcuda.
+// so the library needs no link against libcuda. A libcuda call, it needs a
+// context current on the calling thread, which a host thread that has made
+// no CUDA call yet (autograd's backward thread, say) does not have: each
+// launcher first makes a runtime call that needs the context
+// (cudaFuncSetAttribute), which makes the device's primary context current.
 inline cudaError_t encoder(EncodeTiled* fn) {
   static EncodeTiled found = nullptr;
   static cudaError_t err = cudaErrorNotReady;

@@ -74,10 +74,17 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "tr_attention_sm90_smem": (_I, _I, _P),
     "tr_gemm_tf32_config": (_P,),
+    "tr_gemm_tf32_bwd_config": (_P,),
     "tr_attention_tf32_plan": (_I, _I, _P),
 }
 # what tr_gemm_sm90_config and tr_gemm_tf32_config report, in their order
 _GEMM_CONFIG = ("BM", "BN", "BK", "STAGES", "SMEM_BYTES")
+# and tr_gemm_tf32_bwd_config
+_GEMM_BWD_CONFIG = ("BM", "BN", "BK", "SPLIT_STAGES", "RAW_STAGES_DYW",
+                    "RAW_STAGES_WGRAD", "SMEM_BYTES_DYW", "SMEM_BYTES_WGRAD")
+# the share of whole waves of blocks that the fp32 weight gradient's tiles
+# of all slices fill at least (wgrad_split_tf32)
+WGRAD_FILL = 0.9
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -317,16 +324,15 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
     optional fp32 factor ``mul`` [M, n_out], then an optional residual,
     whose row m is gathered like ``layer_norm``'s rows when idx is given;
     ``col_sums`` [ceil(M / 128), n_out] fp32 receives the column sums of
-    each 128-row tile of the result before its rounding. See
-    csrc/ln_gemm.cu (fp32) and csrc/gemm_sm90.cu (bf16). x, w and bias
+    each 128-row tile of the result before its rounding. x, w and bias
     share one dtype; res and y have it too or, with bf16 operands, float32.
-    Contiguous CUDA tensors, checked by the caller. ``gemm.launches``
-    counts the bf16 launches (the sm_90a kernel). fp32: the forward layout
-    (``w_kn`` false; GELU' out too) runs csrc/gemm_tf32_sm90.cu, 3xTF32 on
-    the tensor cores, counted by ``gemm.tf32_launches``; the layout that
-    only the fp32 backward launches (``w_kn``) runs the FMA kernel of
-    csrc/ln_gemm.cu (tr_gemm picks by the same rule), counted by
-    ``gemm.fma_launches``."""
+    Contiguous CUDA tensors, checked by the caller. bf16 runs
+    csrc/gemm_sm90.cu, counted by ``gemm.launches``; fp32 runs 3xTF32 on
+    the tensor cores: the forward layout (``w_kn`` false; GELU' out too)
+    csrc/gemm_tf32_sm90.cu, counted by ``gemm.tf32_launches``, and the
+    layout that only the fp32 backward launches (``w_kn``)
+    csrc/gemm_tf32_bwd_sm90.cu, counted by ``gemm.tf32_bwd_launches``
+    (csrc/ln_gemm.cu's tr_gemm picks by the same rule)."""
     M, n_out = y.shape
     res_dtype = _DTYPE_CODE[x.dtype if res is None else res.dtype]
     err = kernels().lib.tr_gemm(
@@ -340,12 +346,12 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
     elif not w_kn:
         gemm.tf32_launches += 1
     else:
-        gemm.fma_launches += 1
+        gemm.tf32_bwd_launches += 1
 
 
 gemm.launches = 0
 gemm.tf32_launches = 0
-gemm.fma_launches = 0
+gemm.tf32_bwd_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -371,24 +377,35 @@ def gemm_tf32_config() -> dict:
     return dict(zip(_GEMM_CONFIG, out))
 
 
+@functools.lru_cache(maxsize=None)
+def gemm_tf32_bwd_config() -> dict:
+    """The fp32 backward GEMM's tile, rings and dynamic shared memory a
+    block for each layout (csrc/gemm_tf32_bwd_sm90.cu), as its library
+    reports them (tr_gemm_tf32_bwd_config): {"BM", "BN", "BK",
+    "SPLIT_STAGES", "RAW_STAGES_DYW", "RAW_STAGES_WGRAD",
+    "SMEM_BYTES_DYW", "SMEM_BYTES_WGRAD"}; its grid is persistent, one
+    block an SM and at most one a tile."""
+    out = (ctypes.c_int * len(_GEMM_BWD_CONFIG))()
+    _check("tr_gemm_tf32_bwd_config",
+           kernels().lib.tr_gemm_tf32_bwd_config(ctypes.addressof(out)))
+    return dict(zip(_GEMM_BWD_CONFIG, out))
+
+
 def gemm_wgrad(dy, x, dw, db=None):
     """dw [n_out, K] = dy^T x summed over the M rows of dy [M, n_out] and
     x [M, K], and db [n_out] (if given) = the column sums of dy, both in
     their own dtype. The rows are cut into slices of whole K steps of the
-    bf16 GEMM (BK rows; the fp32 one steps by 32, which divides it), as
-    many as leave each SM one output tile of one slice (the bf16 GEMM's
-    BM x BN tiles); each slice's fp32 partials are written
+    dtype's kernel (``wgrad_plan``); each slice's fp32 partials are written
     apart and summed in a fixed order, so the result is the same bits from
     run to run, by the caller's ``sum_partials_many`` launch, so dw and
     db are written by that launch: returns the [(partials, dw),
     (partials, db)] it takes (db's if given). Contiguous CUDA tensors,
-    checked by the caller.
-    ``gemm_wgrad.launches`` counts the bf16 launches (the sm_90a kernel),
-    ``gemm_wgrad.fma_launches`` the fp32 ones (csrc/ln_gemm.cu's FMA
-    kernel)."""
+    checked by the caller. ``gemm_wgrad.launches`` counts the bf16
+    launches (csrc/gemm_sm90.cu), ``gemm_wgrad.tf32_launches`` the fp32
+    ones (csrc/gemm_tf32_bwd_sm90.cu, 3xTF32 on the tensor cores)."""
     M, n_out = dy.shape
     K = x.shape[1]
-    splits, rows_per_split = wgrad_plan(M, n_out, K, dy.device)
+    splits, rows_per_split = wgrad_plan(M, n_out, K, dy.device, dy.dtype)
     ws = torch.empty(splits, n_out * K, dtype=torch.float32, device=dy.device)
     bws = None if db is None else torch.empty(
         splits, n_out, dtype=torch.float32, device=dy.device)
@@ -399,7 +416,7 @@ def gemm_wgrad(dy, x, dw, db=None):
     if dy.dtype == torch.bfloat16:
         gemm_wgrad.launches += 1
     else:
-        gemm_wgrad.fma_launches += 1
+        gemm_wgrad.tf32_launches += 1
     pairs = [(ws, dw.view(-1))]
     if db is not None:
         pairs.append((bws, db))
@@ -407,12 +424,19 @@ def gemm_wgrad(dy, x, dw, db=None):
 
 
 gemm_wgrad.launches = 0
-gemm_wgrad.fma_launches = 0
+gemm_wgrad.tf32_launches = 0
 
 
-def wgrad_plan(M: int, n_out: int, K: int, device) -> tuple[int, int]:
-    """(splits, rows a split) of ``gemm_wgrad`` over M rows on ``device``:
-    ``wgrad_split`` with the card's SMs and the bf16 GEMM's tile."""
+def wgrad_plan(M: int, n_out: int, K: int, device,
+               dtype=torch.bfloat16) -> tuple[int, int]:
+    """(splits, rows a split) of ``gemm_wgrad`` over M rows on ``device``
+    in ``dtype``: bf16 ``wgrad_split`` with the bf16 GEMM's tile, fp32
+    ``wgrad_split_tf32`` with the fp32 backward GEMM's, both with the
+    card's SMs."""
+    if dtype == torch.float32:
+        cfg = gemm_tf32_bwd_config()
+        return wgrad_split_tf32(M, n_out, K, _sms(device), cfg["BM"],
+                                cfg["BN"], cfg["BK"])
     cfg = gemm_config()
     return wgrad_split(M, n_out, K, _sms(device), cfg["BM"], cfg["BN"],
                        cfg["BK"])
@@ -428,6 +452,35 @@ def wgrad_split(M: int, n_out: int, K: int, sms: int, bm: int, bn: int,
     steps = max(1, _cdiv(M, bk))
     per = _cdiv(steps, max(1, min(steps, sms // tiles)))
     return _cdiv(steps, per), per * bk
+
+
+def wave_fill(blocks: int, sms: int) -> float:
+    """The share of whole waves of ``sms`` SMs that ``blocks`` fill."""
+    return blocks / (_cdiv(blocks, sms) * sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def wgrad_split_tf32(M: int, n_out: int, K: int, sms: int, bm: int, bn: int,
+                     bk: int) -> tuple[int, int]:
+    """(splits, rows a split) of the fp32 weight gradient over M rows, for
+    a persistent grid of one block an SM walking the bm x bn output tiles
+    of every slice: slices of whole K steps (bk rows), the fewest whose
+    tiles fill WGRAD_FILL of whole waves of ``sms`` (the fewest write the
+    fewest fp32 partials); where no count does, the fullest. Slice z takes
+    rows [z * rows, (z + 1) * rows)."""
+    tiles = _cdiv(n_out, bm) * _cdiv(K, bn)
+    steps = max(1, _cdiv(M, bk))
+    fullest = (0.0, 1, steps * bk)
+    for s in range(1, steps + 1):
+        per = _cdiv(steps, s)
+        if _cdiv(steps, per) != s:
+            continue  # the slices of a smaller count
+        fill = wave_fill(s * tiles, sms)
+        if fill >= WGRAD_FILL:
+            return s, per * bk
+        if fill > fullest[0]:
+            fullest = (fill, s, per * bk)
+    return fullest[1:]
 
 
 @functools.lru_cache(maxsize=None)
