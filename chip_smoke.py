@@ -283,7 +283,33 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    tensor cores) required, and a torch.profiler window of two such steps
    (the device's time by kernel).
 
-Phases 4 and 5 are the main path's runs: each counterpart's launch count,
+6. eval and artifacts: the eval CLIs as users run them, on port
+   checkpoints (<run>/best_checkpoint/{meta.json, tree.pt}) written from
+   seeded DeiT-S weights at full width (dense, topk@0.7, EViT@0.7,
+   ToMe@0.7, DPC-KNN@0.7, heuristic; reduction_loc 3 6 9), over
+   --dataset synthetic --synthetic-n 512 -b 256 at 224 px. It prints
+   first whether Pillow and pandas import, and which host path runs:
+   the data pipeline's Loader and run_table's scan when they do, else
+   numpy batches made from a seed (the same validate and extract code
+   below the Loader) and a CSV written with the csv module. Then:
+   validate_dirs --no-viz_mode (fp32 on the tensor-core kernels: each
+   row's gemm_tf32 and attention_tf32 launches > 0, no bf16 launch),
+   validate --use_amp of topk@0.7 (the bf16 kernels, each counterpart's
+   launches as phase 4's), validate_dirs in viz mode (no launch in a viz
+   row; the dense row, without viz as validate_dirs has it, runs the fp32
+   kernels again) and extract_cls_features_dirs (no launch; (384, 512)
+   .npy files); each run's counts set to 0 just before and read just
+   after. Each run's fp32 predictions must equal its viz-mode ones (the
+   plain fp32 composition, TF32 off; dense's from validate --viz_mode,
+   which writes its predictions JSON), losses within 1e-4 relative; a
+   CPU viz run and extraction of the first 16 images must agree with
+   the card's: decisions equal (DPC-KNN's at least 0.99; topk's and
+   EViT's but where the CPU's scores of the two tokens tie,
+   EVAL_SCORE_TIE), features within 1e-4 of max|CPU|. Each run's validate img/s end to end (checkpoint load and
+   host data path included) prints beside its forward-only img/s inside
+   that run and phase 4's img/s of the same model.
+
+Phases 4, 5 and 6 are the main path's runs: each counterpart's launch count,
 and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
 fp32 tensor-core GEMM and attention (gemm_tf32, attention_tf32: the DyViT
 teacher's 4 and 1 a block in phase 5, none in phase 4's bf16 run; the
@@ -294,7 +320,8 @@ the sm_90a attention's three (short_attention, short_attention_bwd,
 rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
 backward and of the partial sums (once each in each training branch's
 backward), of head_mean_keys (once in each of ToMe@0.7's three merging
-blocks) and of layer_norm, is set to 0 just before and read just after. fused_attention,
+blocks) and of layer_norm, is set to 0 just before and read just after
+(phase 6's launches add to phases 4 and 5's in the kernels' record). fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
 fused_rect_block's attention stage): they must launch 0 times there, and
@@ -686,6 +713,9 @@ PER_TRAIN_STEP = {label: {**NONE, **{k: 2 * n for k, n in bwd.items()}}
 # convolutions are cuDNN's)
 PER_TRAIN_STEP["dyvit@0.7 distill"]["fused_full_block"] = 12
 SERVE_BATCHES, SERVE_B = 5, 256
+# phase 4's forward-only img/s by (model, "bf16" or "fp32"), printed beside
+# phase 6's end-to-end eval
+FORWARD_IPS = {}
 TRAIN_STEPS, TRAIN_B = 8, 256
 # phase 5's counted train cells
 TRAIN_CELLS = TRAIN_MODELS + CLUSTER_TRAIN + DISTILL_TRAIN
@@ -2463,7 +2493,10 @@ def standalone_cases():
     None) for the other hand-written kernels of the main path, at B = 256
     (their time per launch, bound and library call; the LayerNorm backward
     and the rectangular attention have their own cases above): layer_norm
-    of bf16, fp32 and gathered rows, sum_partials at the LayerNorm
+    of bf16, fp32 and gathered rows (the library call F.layer_norm on the
+    same rows, with the parameters in the rows' type; on fp32 rows it
+    writes fp32 where the kernel writes bf16; gathered rows have no one
+    call), sum_partials at the LayerNorm
     backward's [bands, 2K] and its former [264, 2K] (two blocks an SM) and
     at gemm_wgrad's [splits, L] (bf16 out), head_mean_keys at ToMe@0.7's
     widths. Each make returns a call on its own copies of the inputs
@@ -2483,9 +2516,9 @@ def standalone_cases():
                    _build.layer_norm, x.clone(), w, b,
                    torch.empty(M, D, device=DEVICE, dtype=bf16), eps=EPS),
                M * D * (x.element_size() + 2) + 4 * D,
-               (lambda x=x: functools.partial(F.layer_norm, x.clone(), (D,),
-                                              w, b, EPS))
-               if x.dtype == bf16 else None)
+               lambda x=x: functools.partial(F.layer_norm, x.clone(), (D,),
+                                             w.to(x.dtype), b.to(x.dtype),
+                                             EPS))
     N, K = 197, 138
     x = rn(B * N, D)
     idx = torch.stack([torch.randperm(N, generator=gen)[:K]
@@ -3962,6 +3995,7 @@ def phase_serve(card: str) -> dict:
         for k, n in PER_FORWARD[label].items():
             expected[k] += n * SERVE_BATCHES
         ips = SERVE_B * (SERVE_BATCHES - 1) / sum(seconds[1:])
+        FORWARD_IPS[label, "bf16"] = ips
         print(f"phase 4 serve {label} bf16 b{SERVE_B}: {ips:.1f} img/s over "
               f"batches 2-{SERVE_BATCHES} (first batch "
               f"{seconds[0] * 1e3:.1f} ms) on {card}", flush=True)
@@ -4558,6 +4592,7 @@ def phase_fp32_eval(card: str) -> dict:
         require({k: got[k] for k in want} == want,
                 f"{label} fp32: launches {got}, not {want}")
         ips = SERVE_B * (SERVE_BATCHES - 1) / sum(seconds[1:])
+        FORWARD_IPS[label, "fp32"] = ips
         print(f"phase 4 serve {label} fp32 b{SERVE_B}: {ips:.1f} img/s over "
               f"batches 2-{SERVE_BATCHES} (first batch "
               f"{seconds[0] * 1e3:.1f} ms), launches "
@@ -4565,6 +4600,420 @@ def phase_fp32_eval(card: str) -> dict:
               flush=True)
         del model, xs
     return got
+
+
+# ---- phase 6: the eval and artifact contract, as users run it
+# run name -> the MODELS label of its checkpoint (seeded DeiT-S weights)
+EVAL_RUNS = {"deit_s": "dense", "topk_07": "topk@0.7", "evit_07": "evit@0.7",
+             "tome_07": "tome@0.7", "dpcknn_07": "dpcknn@0.7",
+             "heuristic": "heuristic"}
+EVAL_N, EVAL_B, EVAL_CPU_N, EVAL_SIZE = 512, 256, 16, 224
+# the share of DPC-KNN's chained decisions equal to the CPU's (phase 3's)
+EVAL_DPCKNN_SAME = CLUSTER_FP32_SAME
+# topk's and EViT's kept ids may differ from the CPU's only where the CPU's
+# CLS-attention scores of the two tokens tie within this share of the
+# stage's max score (as phase 3's soft assignments, SOFT_TIE): the card's
+# plain fp32 composition and the CPU's sum in different orders, and a
+# near-tie swaps two neighbours of the descending order
+EVAL_SCORE_TIE = SOFT_TIE
+
+
+def host_libraries() -> dict:
+    """{"PIL": version or None, "pandas": version or None}."""
+    found = {}
+    for name in ("PIL", "pandas"):
+        try:
+            found[name] = __import__(name).__version__
+        except ImportError:
+            found[name] = None
+    return found
+
+
+def numpy_source(seed: int):
+    """A validate/extract ``source`` without the Loader (no Pillow): numpy
+    batches of normalised HWC float32 images, image i drawn from
+    default_rng((seed, i)) (so a shorter run sees the same first images),
+    with the synthetic set's names."""
+    import numpy as np
+
+    def source(args, num_classes):
+        n, b, s = args.synthetic_n, args.batch_size, args.input_size
+
+        def batches():
+            for lo in range(0, n, b):
+                rngs = [np.random.default_rng((seed, i))
+                        for i in range(lo, min(lo + b, n))]
+                yield {"image": np.stack([r.standard_normal(
+                           (s, s, 3), dtype=np.float32) for r in rngs]),
+                       "label": np.asarray([r.integers(num_classes)
+                                            for r in rngs], np.int32),
+                       "valid": len(rngs)}
+
+        return batches(), lambda i: f"synthetic_{i:08d}.JPEG", False
+
+    return source
+
+
+def write_eval_checkpoints(runs: pathlib.Path):
+    """<runs>/<run>/best_checkpoint/{meta.json, tree.pt} of each EVAL_RUNS
+    model at DeiT-S's full width, its weights from a seeded generator."""
+    from tokenreduction_tpu_torch.utils.checkpoint import save_checkpoint
+
+    shutil.rmtree(runs, ignore_errors=True)
+    for seed, (run, label) in enumerate(EVAL_RUNS.items()):
+        name, kw = MODELS[label]
+        model, cfg = create_model(name, device="cpu",
+                                  generator=torch.Generator().manual_seed(
+                                      20 + seed), **kw)
+        save_checkpoint(str(runs / run / "best_checkpoint"),
+                        params=model.state_dict(), model_cfg=cfg,
+                        run_args={"model": name})
+
+
+def write_overview(runs: pathlib.Path, csv_path: pathlib.Path,
+                   pandas: bool):
+    """The run-overview CSV: run_table's scan, or without pandas the
+    columns the drivers read (Name, model, output_dir) from each
+    checkpoint's meta.json by the csv module."""
+    if pandas:
+        from tokenreduction_tpu_torch.evaluation import run_table
+
+        run_table.main(["--scan_root", str(runs), "--output", str(csv_path)])
+        return
+    import csv
+
+    with open(csv_path, "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["Name", "model", "output_dir"])
+        for run in sorted(EVAL_RUNS):
+            meta = json.loads((runs / run / "best_checkpoint" /
+                               "meta.json").read_text())
+            out.writerow([run, meta["run_args"]["model"], runs / run])
+
+
+class EvalRuns:
+    """Wraps a CLI module's ``main`` (validate's or extract's) so that each
+    run it makes is a path of its own: its counts set to 0 just before and
+    read just after, its host time end to end (checkpoint load, data path
+    and all) and the time of its synchronised forwards (the module's
+    ``forward``) recorded by its checkpoint's run name."""
+
+    def __init__(self, module, viz: bool = False):
+        self.module, self.viz = module, viz  # viz: every run is a viz run
+        self.main, self.forward = module.main, module.forward
+        self.runs = {}
+
+    def __enter__(self):
+        def forward(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.forward(*args, **kw)
+            torch.cuda.synchronize()
+            self.current["forward_s"] += time.perf_counter() - t0
+            return out
+
+        def main(argv, source=None):
+            run = pathlib.Path(argv[argv.index("--checkpoint") + 1]).name
+            self.current = dict(forward_s=0.0,
+                                viz=self.viz or "--viz_mode" in argv)
+            reset_counts()
+            t0 = time.perf_counter()
+            out = self.main(argv, source)
+            torch.cuda.synchronize()
+            self.current["seconds"] = time.perf_counter() - t0
+            self.current["counts"] = {**counts(), **launcher_counts()}
+            self.runs[run] = self.current
+            return out
+
+        self.module.main, self.module.forward = main, forward
+        return self
+
+    def __exit__(self, *exc):
+        self.module.main, self.module.forward = self.main, self.forward
+
+
+def eval_launches(label: str, rec: dict) -> str:
+    """Require a fp32 non-viz run on the tensor-core kernels (no bf16
+    launch) or a viz run with no launch at all; returns the counts."""
+    got = {k: n for k, n in rec["counts"].items() if n}
+    if rec["viz"]:
+        require(not got, f"phase 6 {label} viz: launches {got}")
+    else:
+        require(rec["counts"]["gemm_tf32"] > 0
+                and rec["counts"]["attention_tf32"] > 0
+                and rec["counts"]["gemm"] == 0
+                and rec["counts"]["short_attention"] == 0,
+                f"phase 6 {label} fp32: launches {got}")
+    return str(got)
+
+
+def decisions_same(got: dict, want: dict, images: list):
+    """Entries of the Stage-* decisions (Kept_Token, Assignment_Maps) equal
+    in place between two viz JSONs, over ``images``: (equal, all, the
+    first differing entries as text)."""
+    n_same = n_all = 0
+    differ = []
+    for key in images:
+        for stage, entry in want[key].items():
+            if not stage.startswith("Stage-"):
+                continue
+            for field, w in entry.items():
+                g = got[key][stage][field]
+                require(len(g) == len(w), f"{key} {stage} {field}: "
+                        f"{len(g)} entries, on the CPU {len(w)}")
+                same = [a == b for a, b in zip(g, w)]
+                n_same += sum(same)
+                n_all += len(w)
+                if not all(same) and len(differ) < 4:
+                    at = [i for i, s in enumerate(same) if not s]
+                    differ.append(f"{key} {stage} {field} at {at[:8]}: "
+                                  f"card {[g[i] for i in at[:8]]}, CPU "
+                                  f"{[w[i] for i in at[:8]]}")
+    return n_same, n_all, differ
+
+
+class ScoreRecord:
+    """Wraps validate's ``load_eval_model`` so that the models it builds
+    record each reduction block's CLS-attention score (topk's and EViT's
+    ranking), the last batch's, on the host: {block: [B, patches]}."""
+
+    def __init__(self, V):
+        self.v, self.load, self.scores = V, V.load_eval_model, {}
+
+    def __enter__(self):
+        def load(*args, **kw):
+            model, *rest = self.load(*args, **kw)
+            for i in model.cfg.reduction_loc:
+                blk = model.blocks[i]
+
+                def attend(x, *a, i=i, inner=blk.attend, **k):
+                    out = inner(x, *a, **k)
+                    if k.get("score") == "cls":
+                        self.scores[i] = out[1][0].float().cpu()
+                    return out
+
+                blk.attend = attend
+            return (model, *rest)
+
+        self.v.load_eval_model = load
+        return self
+
+    def __exit__(self, *exc):
+        self.v.load_eval_model = self.load
+
+
+def score_ties(got: dict, want: dict, scores: dict, images: list, loc):
+    """Of the card's chained Kept_Token entries that differ from the
+    CPU's, over ``images`` (the CPU run's batch, in order): (ties, others,
+    the widest tie's gap as a share of its stage's max score). A tie: the
+    CPU's scores of the two tokens at that stage (ids local to the CPU's
+    previous stage) differ by at most EVAL_SCORE_TIE of the stage's max
+    score."""
+    ties = others = 0
+    widest = 0.0
+    for n, key in enumerate(images):
+        prev = None
+        for blk in loc:
+            stage = f"Stage-{blk}"
+            g = got[key][stage]["Kept_Token"]
+            w = want[key][stage]["Kept_Token"]
+            score = scores[blk][n]
+            tol = EVAL_SCORE_TIE * float(score.abs().max())
+            for a, b in zip(g, w):
+                if a == b:
+                    continue
+                ids = [a, b] if prev is None else \
+                    [prev.index(v) if v in prev else None for v in (a, b)]
+                gap = None if None in ids else abs(float(
+                    score[ids[0]] - score[ids[1]]))
+                if gap is not None and gap <= tol:
+                    ties += 1
+                    widest = max(widest, gap / float(score.abs().max()))
+                else:
+                    others += 1
+            prev = w
+    return ties, others, widest
+
+
+def phase_eval(card: str) -> dict:
+    """Phase 6 (see the module docstring). Returns the launch counts of its
+    runs, summed, for the kernels' record."""
+    import numpy as np
+
+    from tokenreduction_tpu_torch.evaluation import (
+        extract_cls_features as E,
+        extract_cls_features_dirs,
+        validate as V,
+        validate_dirs,
+    )
+
+    libs = host_libraries()
+    print(f"phase 6 host libraries: "
+          f"{', '.join(f'{k} {v or 'absent'}' for k, v in libs.items())}; "
+          f"host path: {'the Loader' if libs['PIL'] else 'numpy batches'} "
+          f"and {'run_table' if libs['pandas'] else 'the csv module'}",
+          flush=True)
+    source = None if libs["PIL"] else numpy_source(5)
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase6"
+    runs, out = root / "runs", root / "out"
+    shutil.rmtree(root, ignore_errors=True)
+    write_eval_checkpoints(runs)
+    csv_path = root / "overview.csv"
+    write_overview(runs, csv_path, bool(libs["pandas"]))
+    data = ["--dataset", "synthetic", "--synthetic-n", str(EVAL_N), "-b",
+            str(EVAL_B), "--input-size", str(EVAL_SIZE)]
+    dirs = data + ["--csv", str(csv_path)]
+    total = dict.fromkeys([*WRAPPERS, *LAUNCHERS], 0)
+
+    def add(recs):
+        for rec in recs.values():
+            for k, n in rec["counts"].items():
+                total[k] += n
+
+    with EvalRuns(V) as fp32:
+        validate_dirs.main(dirs + ["--no-viz_mode", "--output_dir",
+                                   str(out / "fp32")], source)
+    with EvalRuns(V) as amp:
+        V.main(data + ["--use_amp", "--checkpoint", str(runs / "topk_07"),
+                       "--output_dir", str(out / "amp")], source)
+    with EvalRuns(V) as viz:
+        validate_dirs.main(dirs + ["--output_dir", str(out / "viz")], source)
+    # validate_dirs runs deit rows without viz; the dense model's viz run
+    # (the plain composition, no viz data) by validate itself
+    with EvalRuns(V) as dense_viz:
+        V.main(data + ["--viz_mode", "--checkpoint", str(runs / "deit_s"),
+                       "--output_dir", str(out / "dense_viz"),
+                       "--viz_output_name", "deit_s_viz_results.json"],
+               source)
+    with EvalRuns(E, viz=True) as ext:
+        extract_cls_features_dirs.main(dirs + ["--output_dir",
+                                               str(out / "npy")], source)
+    # the viz pass's dense row runs without viz: the fp32 kernels
+    eval_launches("deit_s", viz.runs["deit_s"])
+    for recs, want in ((fp32, EVAL_RUNS), (amp, ["topk_07"]),
+                       (viz, EVAL_RUNS), (dense_viz, ["deit_s"]),
+                       (ext, EVAL_RUNS)):
+        require(sorted(recs.runs) == sorted(want),
+                f"phase 6: runs {sorted(recs.runs)}, not {sorted(want)}")
+        add(recs.runs)
+
+    # bf16: the counterparts' launches of two batches, as phase 4 counts a
+    # topk@0.7 forward, on the bf16 GEMM and attention
+    rec = amp.runs["topk_07"]
+    batches = -(-EVAL_N // EVAL_B)
+    want = {k: batches * n for k, n in PER_FORWARD["topk@0.7"].items()}
+    require({k: rec["counts"][k] for k in want} == want
+            and rec["counts"]["gemm"] > 0
+            and rec["counts"]["short_attention"] > 0
+            and not any(rec["counts"][k] for k in FP32_LAUNCHERS),
+            f"phase 6 topk_07 --use_amp: launches {rec['counts']}")
+    amp_json = json.loads((out / "amp" / "viz_results.json").read_text())
+    require(all(np.isfinite(amp_json[k]["Loss"]) for k in amp_json
+                if k.startswith("synthetic_")),
+            "phase 6 topk_07 --use_amp: a non-finite loss")
+    print(f"phase 6 validate topk_07 --use_amp b{EVAL_B}: "
+          f"{EVAL_N / rec['seconds']:.1f} img/s end to end, "
+          f"{EVAL_N / rec['forward_s']:.1f} forward only (its batches' "
+          f"copies to the card included); Acc@1 "
+          f"{amp_json['Top1-Acc']}; launches "
+          f"{ {k: n for k, n in rec['counts'].items() if n} } on {card}",
+          flush=True)
+
+    cpu = root / "cpu"
+    for run, label in EVAL_RUNS.items():
+        name = f"{run}_viz_results.json"
+        nonviz = json.loads((out / "fp32" / name).read_text())
+        vizj = json.loads((out / "viz" / name).read_text())
+        images = [k for k in nonviz if k.startswith("synthetic_")]
+        require(len(images) == EVAL_N and list(vizj) == list(nonviz),
+                f"phase 6 {run}: {len(images)} images, keys differ "
+                f"{list(vizj) != list(nonviz)}")
+        if run == "deit_s":
+            vizj = json.loads((out / "dense_viz" / name).read_text())
+        worst = max(abs(vizj[k]["Loss"] - nonviz[k]["Loss"]) /
+                    abs(nonviz[k]["Loss"]) for k in images)
+        differ = [k for k in images
+                  if vizj[k]["Predictions"] != nonviz[k]["Predictions"]]
+        require(not differ and worst <= 1e-4,
+                f"phase 6 {run}: fp32 predictions differ from the plain "
+                f"viz run's in {len(differ)} images, losses {worst:.2e} "
+                "relative")
+        same = (f"predictions equal to the viz run's, losses within "
+                f"{worst:.2e} relative; ")
+        for b in E.EXTRACT_BLOCKS:
+            feats = np.load(out / "npy" / f"{run}_cls_features_{b}.npy")
+            require(feats.shape == (D, EVAL_N) and feats.dtype == np.float32
+                    and np.isfinite(feats).all(),
+                    f"phase 6 {run}: block {b} features {feats.shape} "
+                    f"{feats.dtype}")
+
+        # the CPU's viz run and extraction of the first EVAL_CPU_N images
+        cpu_data = ["--dataset", "synthetic", "--synthetic-n",
+                    str(EVAL_CPU_N), "-b", str(EVAL_CPU_N), "--input-size",
+                    str(EVAL_SIZE), "--device", "cpu", "--checkpoint",
+                    str(runs / run)]
+        report = same
+        if run != "deit_s":
+            with ScoreRecord(V) as scored:
+                V.main(cpu_data + ["--viz_mode", "--output_dir", str(cpu),
+                                   "--viz_output_name", name], source)
+            cpu_json = json.loads((cpu / name).read_text())
+            first = [k for k in cpu_json if k.startswith("synthetic_")]
+            require(first == images[:EVAL_CPU_N],
+                    f"phase 6 {run}: CPU images {first[:2]}...")
+            n_same, n_all, differ = decisions_same(vizj, cpu_json, first)
+            report += f"decisions equal to the CPU's {n_same}/{n_all}"
+            if label in ("topk@0.7", "evit@0.7"):
+                ties, others, widest = score_ties(
+                    vizj, cpu_json, scored.scores, first,
+                    MODELS[label][1]["reduction_loc"])
+                require(n_all > 0 and others == 0,
+                        f"phase 6 {run}: {others} kept ids differ from the "
+                        f"CPU's where its scores do not tie (and {ties} "
+                        f"ties); {'; '.join(differ)}")
+                report += (f", the other {ties} ties of the CPU's scores "
+                           f"(gaps within {widest:.2e} of the stage's max, "
+                           f"bound {EVAL_SCORE_TIE:.0e})"
+                           f"{': ' + '; '.join(differ) if ties else ''}")
+            else:
+                least = EVAL_DPCKNN_SAME if label == "dpcknn@0.7" else 1.0
+                require(n_all > 0 and n_same >= least * n_all,
+                        f"phase 6 {run}: {n_same}/{n_all} decisions equal "
+                        f"to the CPU's (bound {least}); {'; '.join(differ)}")
+                report += f" (bound {least})"
+            report += "; "
+        cpu_feats = E.main(cpu_data + ["--output_dir", str(cpu),
+                                       "--feature_output_name",
+                                       f"{run}_cls_features"], source)
+        worst = 0.0
+        for b in E.EXTRACT_BLOCKS:
+            card_feats = np.load(out / "npy" /
+                                 f"{run}_cls_features_{b}.npy")[:, :EVAL_CPU_N]
+            err = float(np.abs(card_feats - cpu_feats[b]).max() /
+                        np.abs(cpu_feats[b]).max())
+            worst = max(worst, err)
+        require(worst <= 1e-4, f"phase 6 {run}: features {worst:.2e} of "
+                "max|CPU| from the CPU's")
+        report += f"features within {worst:.2e} of max|CPU|"
+
+        rec, erec = fp32.runs[run], ext.runs[run]
+        vrec = (dense_viz if run == "deit_s" else viz).runs[run]
+        phase4 = "; ".join(f"{tag} {FORWARD_IPS[label, tag]:.1f}"
+                           for tag in ("fp32", "bf16")
+                           if (label, tag) in FORWARD_IPS)
+        print(f"phase 6 eval {run} b{EVAL_B} fp32: validate "
+              f"{EVAL_N / rec['seconds']:.1f} img/s end to end, "
+              f"{EVAL_N / rec['forward_s']:.1f} forward only (copies to "
+              f"the card included), launches "
+              f"{eval_launches(run, rec)}; viz validate "
+              f"{EVAL_N / vrec['seconds']:.1f} img/s, launches "
+              f"{eval_launches(run, vrec)}; extract "
+              f"{EVAL_N / erec['seconds']:.1f} img/s, launches "
+              f"{eval_launches(run, erec)}; phase 4 forward-only img/s "
+              f"{phase4 or 'not measured'}; Acc@1 {nonviz['Top1-Acc']}, "
+              f"Params {nonviz['Params']}M; {report}; on {card}",
+              flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return total
 
 
 T0 = time.perf_counter()
@@ -4680,11 +5129,15 @@ def main():
     for name in (*WRAPPERS, *LAUNCHERS):
         launches[name] += trained[name]
     elapsed("5")
+    evaluated = phase_eval(card)
+    for name in (*WRAPPERS, *LAUNCHERS):
+        launches[name] += evaluated[name]
+    elapsed("6")
     for name, shape, ms, bound_ms, lib_ms in standalone:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"standalone {name} {shape}: {ms:.4f} ms per launch, bound "
               f"{bound_ms:.4f} ms (bytes), library {lib}; {launches[name]} "
-              "launches on the main path (phases 4-5)", flush=True)
+              "launches on the main path (phases 4-6)", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=CUDA_SOURCES[name][0],
                     cuda_sources=CUDA_SOURCES[name],

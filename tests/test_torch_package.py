@@ -44,7 +44,8 @@ _CHILD = textwrap.dedent("""
     tiny = dict(device="cpu", num_classes=11, img_size=32, embed_dim=64,
                 num_heads=1, depth=4, patch_size=8, reduction_loc=(1, 2),
                 keep_rate=(0.7,))
-    tome, _ = T.create_model("tome_small_patch16_224", viz_mode=True, **tiny)
+    tome, tome_cfg = T.create_model("tome_small_patch16_224", viz_mode=True,
+                                    **tiny)
     with torch.no_grad():
         out, viz = tome.eval()(torch.randn(2, 3, 32, 32))
     assert out.shape == (2, 11), out.shape
@@ -97,6 +98,25 @@ _CHILD = textwrap.dedent("""
     state, metrics = step(state, {"image": torch.zeros(2, 3, 32, 32),
                                   "label": torch.tensor([1, 2])})
     assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+    import json, os, tempfile
+    from tokenreduction_tpu_torch import data  # noqa: F401
+    from tokenreduction_tpu_torch.evaluation import (  # noqa: F401
+        extract_cls_features, extract_cls_features_dirs, run_table,
+        validate, validate_dirs)
+    from tokenreduction_tpu_torch.utils import checkpoint, metrics  # noqa
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_checkpoint(
+            os.path.join(tmp, "run", "best_checkpoint"),
+            params=tome.state_dict(), model_cfg=tome_cfg,
+            run_args={"model": "tome_small_patch16_224"})
+        got = validate.main([
+            "--dataset", "synthetic", "--synthetic-n", "4", "--input-size",
+            "32", "-b", "2", "--viz_mode", "--device", "cpu",
+            "--checkpoint", os.path.join(tmp, "run"), "--output_dir", tmp])
+        written = json.load(open(os.path.join(tmp, "viz_results.json")))
+        assert list(written) == list(got) and len(got) == 6 + 4
+        assert sorted(written["synthetic_00000003.JPEG"]) == [
+            "Loss", "Predictions", "Stage-1", "Stage-2", "Target"]
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
     assert not bad, bad
@@ -118,8 +138,9 @@ def test_port_imports_and_runs_without_jax():
     heuristic forward (eval and training), a tiny DyViT eval and
     distillation training forward, the two teachers' forwards, a tiny
     topk forward and one amp train step
-    (drop_path 0.1) on the CPU with no JAX, Flax or optax module loaded, no
-    kernel build and no kernel launch."""
+    (drop_path 0.1), imports the data, utils and evaluation subpackages
+    and validates a ToMe checkpoint in viz mode, on the CPU with no JAX,
+    Flax or optax module loaded, no kernel build and no kernel launch."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
