@@ -154,7 +154,12 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    dY . W products and the four weight gradients (with their bias sums
    and the partial sums' launch), each within 1e-4 of its own max|plain|
    and a second launch bit-equal to the first, beside cuBLAS SGEMM and
-   both bounds.
+   both bounds. The fp32 attention backward's variants with the row0 or
+   colsum cotangent have no library call (SDPA returns no probabilities,
+   so no cotangent of them enters its backward): beside SDPA's backward
+   without them, the eager fp32 composition (the plain version) is timed;
+   and the DyViT teacher's fp32 fused_full_block beside the eager fp32
+   composition of library calls.
    Beside each counterpart's time: its bound (bytes or operations at the
    H100's peak rates: fp32 products as 3xTF32) and the eager bf16
    composition of library calls
@@ -309,7 +314,37 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    host data path included) prints beside its forward-only img/s inside
    that run and phase 4's img/s of the same model.
 
-Phases 4, 5 and 6 are the main path's runs: each counterpart's launch count,
+7. train CLI: the port's train CLI as users run it
+   (train/train_cli.py -> train/loop.py::run_training) at DeiT-S's full
+   width, topk@0.7 (loc 3 6 9), 224 px, --dataset synthetic. First the
+   --no-train-mode repair: one step of topk@0.7 in eval mode under
+   autograd, fp32 B=8, launches no kernel (the plain composition; the
+   eval kernels have no backward), its loss and every gradient within
+   1e-4 of max|CPU|, and the same forward under torch.no_grad() takes the
+   kernels (phase 4's count). Then the JAX CLI's default recipe (mixup
+   0.8, cutmix 1.0, label smoothing 0.1, drop-path 0.1, EMA, the grouped
+   AdamW and the cosine schedule), in amp and in fp32: b256 over 1024
+   images (RASampler: 4 steps an epoch), Loader worker processes as the
+   cores allow, two epochs, then --resume from the checkpoint dir for a
+   third, each run a path of its own (counts set to 0 just before, read
+   just after): finite losses; attend_branch_train and mlp_branch
+   launched as phase 5 counts them a step times the steps; the eval in the
+   loop (the params' and the EMA's, fp32) on the eval counterparts as
+   phase 4 counts a topk@0.7 forward times the forwards, on the
+   tensor-core kernels (gemm_tf32, attention_tf32); amp training on the
+   bf16 GEMM, fp32 training on the fp32 backward's kernels (48 + 12 a
+   step); best_checkpoint/{tree.pt, meta.json} written; the resumed run
+   logging epoch 2 only. Each run prints its train img/s end to end
+   (log.txt's images_per_sec) beside phase 5's step img/s of the same
+   cell, its eval seconds and its checkpoint seconds (save() on the main
+   thread, the background writes). Then the port's validate on the card
+   reads the amp run's best_checkpoint (256 images, the fp32 tensor-core
+   kernels). Last, the card against the CPU (the port on both): one epoch
+   at b16 over 32 images, fp32, drop-path 0, mixup and cutmix on, from
+   one .pth of seeded weights (--finetune): the first step's loss and the
+   epoch's test loss within 1e-4 relative, the later steps reported.
+
+Phases 4, 5, 6 and 7 are the main path's runs: each counterpart's launch count,
 and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
 fp32 tensor-core GEMM and attention (gemm_tf32, attention_tf32: the DyViT
 teacher's 4 and 1 a block in phase 5, none in phase 4's bf16 run; the
@@ -321,7 +356,8 @@ rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
 backward and of the partial sums (once each in each training branch's
 backward), of head_mean_keys (once in each of ToMe@0.7's three merging
 blocks) and of layer_norm, is set to 0 just before and read just after
-(phase 6's launches add to phases 4 and 5's in the kernels' record). fused_attention,
+(phase 6's and phase 7's launches add to phases 4 and 5's in the
+kernels' record). fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
 fused_rect_block's attention stage): they must launch 0 times there, and
@@ -341,6 +377,7 @@ import functools
 import gc
 import itertools
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -717,6 +754,9 @@ SERVE_BATCHES, SERVE_B = 5, 256
 # phase 6's end-to-end eval
 FORWARD_IPS = {}
 TRAIN_STEPS, TRAIN_B = 8, 256
+# phase 5's train img/s by (model, "amp" or "fp32"), printed beside phase
+# 7's train CLI
+TRAIN_IPS = {}
 # phase 5's counted train cells
 TRAIN_CELLS = TRAIN_MODELS + CLUSTER_TRAIN + DISTILL_TRAIN
 
@@ -2246,6 +2286,16 @@ def phase_fp32() -> dict:
                         "second launch differs from the first")
                 errs.append("a second launch bit-equal")
             ms, lib_ms = per_launch_ms(run), per_launch_ms(library)
+            library_is = f"library {lib_ms:.4f} ms"
+            if launch == "attention_bwd_tf32" and "cotangent" in label:
+                # SDPA returns no probabilities, so no cotangent of the CLS
+                # row or the column sums enters its backward: no one call
+                # computes this function; the eager fp32 composition (the
+                # plain version, autograd-free) is timed in its place
+                library_is = (f"library none (SDPA takes no row0 or colsum "
+                              f"cotangent; without them {lib_ms:.4f} ms), "
+                              f"eager fp32 composition "
+                              f"{per_launch_ms(plain):.4f} ms")
             t_bytes = nbytes / PEAK_BYTES
             t_tf32, t_fma = 3 * flops / PEAK_TF32_FLOPS, flops / PEAK_FP32_FLOPS
             bound_ms, fma_ms = max(t_tf32, t_bytes) * 1e3, \
@@ -2259,7 +2309,7 @@ def phase_fp32() -> dict:
                   f"({flops / ms / 1e9:.1f} fp32 TFLOP/s, "
                   f"{rate / 1e12:.1f} of TF32), 3xTF32 bound "
                   f"{bound_ms:.4f} ms ({bound_by}), FMA bound {fma_ms:.4f} "
-                  f"ms, library {lib_ms:.4f} ms", flush=True)
+                  f"ms, {library_is}", flush=True)
             if (B, N) == FP32_SHAPES[0] and launch not in rec and \
                     record[launch] == label:
                 rec[launch] = dict(shape=f"fp32 {label} {at}", ms=ms,
@@ -2884,7 +2934,10 @@ def phase_kernels() -> dict:
                 fma_ms, fma_by = bound(name, TRAIN_B, 197, dtype=dtype,
                                        fma=True)
                 lib = (f", bound {teacher_ms:.4f} ms ({teacher_by}, "
-                       f"3xTF32), FMA bound {fma_ms:.4f} ms ({fma_by})")
+                       f"3xTF32), FMA bound {fma_ms:.4f} ms ({fma_by}), "
+                       f"library {cuda_ms(library):.4f} ms (the eager fp32 "
+                       "composition: F.layer_norm, F.linear, SDPA, F.gelu; "
+                       "TF32 off)")
             if dtype == torch.bfloat16:
                 lib_ms = cuda_ms(library)
                 dims = [int(part.split("=")[1]) for part in shape.split()
@@ -4350,6 +4403,7 @@ def phase_train(card: str) -> dict:
             teacher_ms[label] = extra["teacher_ms"]
             teacher = (f"; the teacher's forward {teacher_ms[label]:.2f} ms "
                        "a step (CUDA events)")
+        TRAIN_IPS[label, "amp"] = TRAIN_B * len(timed) / sum(timed)
         print(f"phase 5 train {label} bf16 amp b{TRAIN_B}: "
               f"{step_ms[label]:.2f} ms/step, "
               f"{TRAIN_B * len(timed) / sum(timed):.1f} img/s over steps "
@@ -4462,6 +4516,7 @@ def fp32_train(card: str) -> dict:
                          "rect_attention_tf32")),
             f"{FP32_TRAIN} fp32 train launches {got}, not {want}")
     timed = seconds[2:]
+    TRAIN_IPS[FP32_TRAIN, "fp32"] = TRAIN_B * len(timed) / sum(timed)
     print(f"phase 5 train {FP32_TRAIN} fp32 b{TRAIN_B}: "
           f"{1e3 * sum(timed) / len(timed):.2f} ms/step, "
           f"{TRAIN_B * len(timed) / sum(timed):.1f} img/s over steps "
@@ -5016,6 +5071,333 @@ def phase_eval(card: str) -> dict:
     return total
 
 
+# phase 7: the train CLI at DeiT-S's full width (topk@0.7 at loc 3 6 9,
+# 224 px, the synthetic set): the default recipe (mixup 0.8, cutmix 1.0,
+# label smoothing 0.1, drop-path 0.1, EMA) in amp and in fp32 (the JAX
+# CLI's default), b256 over 1024 images (RASampler: 4 steps an epoch),
+# two epochs, then --resume for a third
+CLI_MODEL = ["--model", "topk_small_patch16_224", "--reduction_loc", "3",
+             "6", "9", "--keep_rate", "0.7", "--input-size", "224",
+             "--dataset", "synthetic", "--print-freq", "100"]
+CLI_N, CLI_B, CLI_EPOCHS = 1024, 256, 2
+# the card against the CPU: b16 over 32 images (--no-repeated-aug: 2
+# steps), fp32, drop-path 0, mixup and cutmix on, one epoch, from one
+# .pth; the first step's loss and the epoch's test loss within this
+# relative bound
+CLI_CPU_N, CLI_CPU_B, CLI_CPU_BOUND = 32, 16, 1e-4
+# validate's run on the trained checkpoint: one batch
+CLI_VALIDATE_N = 256
+
+
+def cli_workers() -> int:
+    """The worker processes of the CLI runs' Loaders: the cores this process may use, less one for
+    the main thread, at most 8."""
+    import os
+
+    return max(1, min(8, len(os.sched_getaffinity(0)) - 1))
+
+
+class CliRun:
+    """Wraps one train CLI run (``train_cli.main``) as a path of its own:
+    the counts set to 0 just before and read just after; the host time of
+    the evals in the loop (``loop.evaluate``, which ends reading its sums),
+    of ``AsyncCheckpointer.save`` on the main thread and of the background
+    writes (``save_checkpoint``); the loss tensor of every train step (the
+    loop's ``make_train_step``'s step), read after the run."""
+
+    def __init__(self):
+        from tokenreduction_tpu_torch.utils import checkpoint
+
+        self.ckpt = checkpoint
+        self.orig = (train_loop.evaluate, train_loop.make_train_step,
+                     checkpoint.AsyncCheckpointer.save,
+                     checkpoint.save_checkpoint)
+        self.eval_s, self.save_s, self.write_s = [], [], []
+        self.losses = []
+
+    def __enter__(self):
+        evaluate, make_step, save, write = self.orig
+
+        def timed(fn, into):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                into.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        def make_train_step(*a, **kw):
+            train_step = make_step(*a, **kw)
+
+            def recorded(state, batch):
+                state, metrics = train_step(state, batch)
+                self.losses.append(metrics["loss"])
+                return state, metrics
+            return recorded
+
+        train_loop.evaluate = timed(evaluate, self.eval_s)
+        train_loop.make_train_step = make_train_step
+        self.ckpt.AsyncCheckpointer.save = timed(save, self.save_s)
+        self.ckpt.save_checkpoint = timed(write, self.write_s)
+        reset_counts()
+        return self
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.counts = {**counts(), **launcher_counts()}
+        (train_loop.evaluate, train_loop.make_train_step,
+         self.ckpt.AsyncCheckpointer.save, self.ckpt.save_checkpoint) = \
+            self.orig
+
+
+def read_log(run: pathlib.Path) -> list:
+    return [json.loads(line) for line in
+            (run / "log.txt").read_text().splitlines()]
+
+
+def cli_run(argv: list):
+    """One train CLI run under CliRun; returns the CliRun."""
+    from tokenreduction_tpu_torch.train import train_cli
+
+    with CliRun() as rec:
+        train_cli.main(argv)
+    return rec
+
+
+def cli_train_launches(label: str, rec: CliRun, steps: int, forwards: int,
+                       amp: bool) -> dict:
+    """Require #9 and #10 as phase 5 counts them a step (a forward and a
+    backward each, 12 blocks) times the steps, the eval forwards' eval
+    counterparts as phase 4 counts a topk@0.7 forward times the forwards,
+    those on the fp32 tensor-core kernels (gemm_tf32, attention_tf32),
+    and the training products on the bf16 GEMM (amp) or the fp32 backward
+    GEMMs (fp32). Returns the non-zero counts."""
+    c = rec.counts
+    want = {k: steps * n for k, n in PER_TRAIN_STEP["topk@0.7"].items()
+            if k in TRAIN_WRAPPERS}
+    want.update({k: forwards * n for k, n in PER_FORWARD["topk@0.7"].items()
+                 if k in EVAL_WRAPPERS})
+    require({k: c[k] for k in want} == want and want["attend_branch_train"]
+            and want["mlp_branch"],
+            f"phase 7 {label}: launches {c}, not {want}")
+    require(c["gemm_tf32"] > 0 and c["attention_tf32"] > 0,
+            f"phase 7 {label}: the fp32 eval launched no tensor-core kernel "
+            f"{c}")
+    if amp:
+        require(c["gemm"] > 0 and c["short_attention_bwd"] > 0
+                and c["gemm_bwd_tf32"] == 0,
+                f"phase 7 {label}: amp training launches {c}")
+    else:
+        require(c["gemm"] == 0 and c["gemm_bwd_tf32"] == 48 * steps
+                and c["attention_bwd_tf32"] == 12 * steps,
+                f"phase 7 {label}: fp32 training launches {c}")
+    return {k: n for k, n in c.items() if n}
+
+
+def cli_recipe(label: str, amp: bool, root: pathlib.Path, total: dict,
+               card: str, resume_workers: int = 0):
+    """The default recipe's two epochs with the CLI's default Loader (one
+    prefetch thread), then the resumed third with ``resume_workers``
+    worker processes, each run a path of its own; returns the first run's
+    directory."""
+    run, resumed = root / label, root / f"{label} resumed"
+    base = CLI_MODEL + ["--batch-size", str(CLI_B), "--synthetic-n",
+                        str(CLI_N), "--save_more_than_best"] + (
+                            ["--use_amp"] if amp else [])
+    steps_per_epoch = CLI_N // CLI_B
+    forwards = 2 * -(-CLI_N // CLI_B)  # the params' and the EMA's evals
+    for what, argv, epochs, workers in (
+            ("", ["--epochs", str(CLI_EPOCHS), "--output_dir", str(run)],
+             range(CLI_EPOCHS), 0),
+            (" resumed", ["--epochs", str(CLI_EPOCHS + 1), "--output_dir",
+                          str(resumed), "--resume",
+                          str(run / "checkpoint")], [CLI_EPOCHS],
+             resume_workers)):
+        argv = argv + ["--num-workers", str(workers)]
+        t0 = time.perf_counter()
+        rec = cli_run(base + argv)
+        seconds = time.perf_counter() - t0
+        out = run if not what else resumed
+        rows = read_log(out)
+        require([r["epoch"] for r in rows] == list(epochs),
+                f"phase 7 {label}{what}: epochs {[r['epoch'] for r in rows]}"
+                f", not {list(epochs)}")
+        losses = torch.stack(rec.losses).cpu()
+        require(bool(torch.isfinite(losses).all()) and all(
+            math.isfinite(r[k]) for r in rows
+            for k in ("train_loss", "test_loss")),
+            f"phase 7 {label}{what}: losses {losses.tolist()}, rows {rows}")
+        for f in ("tree.pt", "meta.json"):
+            require((out / "best_checkpoint" / f).is_file(),
+                    f"phase 7 {label}{what}: no best_checkpoint/{f}")
+        got = cli_train_launches(f"{label}{what}", rec,
+                                 steps_per_epoch * len(epochs),
+                                 forwards * len(epochs), amp)
+        for k, n in rec.counts.items():
+            total[k] += n
+        phase5 = TRAIN_IPS.get(("topk@0.7", "amp" if amp else "fp32"))
+        print(f"phase 7 train CLI {label}{what} b{CLI_B}: epochs "
+              f"{list(epochs)}, {seconds:.1f} s the run; train img/s end to "
+              f"end (log.txt images_per_sec) "
+              f"{[round(r['images_per_sec'], 1) for r in rows]} beside phase "
+              f"5's step {phase5 or 0:.1f} img/s; epoch seconds "
+              f"{[round(r['epoch_time'], 2) for r in rows]}; eval "
+              f"{sum(rec.eval_s):.2f} s in {len(rec.eval_s)} evals "
+              f"({[round(s, 2) for s in rec.eval_s]}); checkpoint save() "
+              f"on the main thread {sum(rec.save_s):.3f} s in "
+              f"{len(rec.save_s)} saves, background writes "
+              f"{[round(s, 2) for s in rec.write_s]} s; losses "
+              f"{[round(v, 4) for v in losses.tolist()]}; test loss "
+              f"{[round(r['test_loss'], 4) for r in rows]}, acc1 "
+              f"{[r['test_acc1'] for r in rows]}; Loader "
+              f"{f'{workers} worker processes' if workers else 'thread'}; "
+              f"launches {got} on {card}", flush=True)
+    return run
+
+
+def cli_validate(run: pathlib.Path, total: dict, card: str):
+    """The train -> validate chain: the port's validate on the card reads
+    the run's best_checkpoint (fp32, the tensor-core kernels)."""
+    from tokenreduction_tpu_torch.evaluation import validate
+
+    reset_counts()
+    t0 = time.perf_counter()
+    data = validate.main(["--checkpoint", str(run), "--dataset", "synthetic",
+                          "--synthetic-n", str(CLI_VALIDATE_N), "-b",
+                          str(CLI_B), "--input-size", "224"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = {**counts(), **launcher_counts()}
+    for k, n in got.items():
+        total[k] += n
+    losses = [v["Loss"] for k, v in data.items()
+              if k.startswith("synthetic_")]
+    require(len(losses) == CLI_VALIDATE_N and all(
+        math.isfinite(v) for v in losses) and got["gemm_tf32"] > 0
+            and got["attention_tf32"] > 0 and got["gemm"] == 0,
+            f"phase 7 validate {run.name}: {len(losses)} images, launches "
+            f"{got}")
+    print(f"phase 7 validate {run.name}/best_checkpoint: Acc@1 "
+          f"{data['Top1-Acc']}, {CLI_VALIDATE_N / seconds:.1f} img/s end to "
+          f"end; launches { {k: n for k, n in got.items() if n} } on {card}",
+          flush=True)
+
+
+def cli_against_cpu(root: pathlib.Path, card: str):
+    """The card against the CPU (the port on both): one epoch at b16 over
+    32 images, fp32, drop-path 0, mixup and cutmix on (the host draws
+    from --seed), from one .pth of seeded weights."""
+    pth = root / "finetune.pth"
+    model, _ = create_model(MODELS["topk@0.7"][0], device="cpu",
+                            generator=torch.Generator().manual_seed(31),
+                            **MODELS["topk@0.7"][1])
+    torch.save({"model": model.state_dict()}, pth)
+    argv = CLI_MODEL + ["--batch-size", str(CLI_CPU_B), "--synthetic-n",
+                        str(CLI_CPU_N), "--epochs", "1", "--drop-path", "0",
+                        "--no-repeated-aug", "--finetune", str(pth)]
+    from tokenreduction_tpu_torch.utils.checkpoint import load_checkpoint
+
+    runs, params = {}, {}
+    for device in ("cuda", "cpu"):
+        out = root / f"against cpu {device}"
+        rec = cli_run(argv + ["--device", device, "--output_dir", str(out)])
+        runs[device] = (torch.stack(rec.losses).cpu(), read_log(out)[0])
+        params[device] = load_checkpoint(str(out / "best_checkpoint"))[0][
+            "params"]
+    worst_name, worst = max(((n, rel_err(t, params["cpu"][n])[1])
+                             for n, t in params["cuda"].items()),
+                            key=lambda t: t[1])
+    (card_losses, card_row), (cpu_losses, cpu_row) = runs["cuda"], \
+        runs["cpu"]
+    first = abs(card_losses[0] - cpu_losses[0]).item() / \
+        abs(cpu_losses[0]).item()
+    test = abs(card_row["test_loss"] - cpu_row["test_loss"]) / \
+        abs(cpu_row["test_loss"])
+    later = (card_losses[1:] - cpu_losses[1:]).abs() / cpu_losses[1:].abs()
+    require(first <= CLI_CPU_BOUND and test <= CLI_CPU_BOUND,
+            f"phase 7 card against CPU: first step's loss {first:.2e}, test "
+            f"loss {test:.2e} relative > {CLI_CPU_BOUND:.0e}")
+    print(f"phase 7 train CLI card against CPU fp32 b{CLI_CPU_B}, mixup and "
+          f"cutmix on: first step's loss {card_losses[0].item():.6f} vs "
+          f"{cpu_losses[0].item():.6f} ({first:.2e} rel, bound "
+          f"{CLI_CPU_BOUND:.0e}); test loss {card_row['test_loss']:.6f} vs "
+          f"{cpu_row['test_loss']:.6f} ({test:.2e} rel); later steps "
+          f"{[f'{v:.2e}' for v in later.tolist()]} rel (reported); acc1 "
+          f"{card_row['test_acc1']} vs {cpu_row['test_acc1']}; params after "
+          f"the epoch: worst leaf {worst_name} {worst:.2e} of its max|CPU| "
+          f"(reported) on {card}", flush=True)
+
+
+def no_train_mode_check(card: str):
+    """Repair 0.a on the card: one --no-train-mode step (the model in eval
+    mode under autograd) of topk@0.7 at B=8 in fp32 launches no eval
+    kernel and no training branch (the plain composition), and its loss
+    and every gradient agree with the CPU's within phase 3's 1e-4 of each
+    leaf's max|CPU|; the same eval forward under torch.no_grad() takes the
+    kernels."""
+    name, kw = MODELS["topk@0.7"]
+    model, _ = create_model(name, device=DEVICE,
+                            generator=torch.Generator().manual_seed(1), **kw)
+    cpu_model = copy.deepcopy(model).cpu()
+    gen = torch.Generator().manual_seed(2)
+    B = MODEL_BATCH[torch.float32]
+    x = images(B, gen)
+    y = torch.randint(0, 1000, (B,), generator=gen).to(DEVICE)
+    cfg = StepConfig(train_mode=False)
+    opt, _ = create_optimizer(dict(model.named_parameters()), OptimConfig(),
+                              lambda s: 1e-3, [])
+    params = init_train_state(model, opt, device=DEVICE).params
+    cpu_params = init_train_state(cpu_model, opt, device="cpu").params
+    model.eval()
+    cpu_model.eval()
+    reset_counts()
+    loss, grads = loss_and_grads(model, label_smoothing_loss, params, x, y,
+                                 cfg)
+    torch.cuda.synchronize()
+    got = {**counts(), **launcher_counts()}
+    require(not any(got.values()),
+            f"phase 7 --no-train-mode: an eval-mode step launched {got}")
+    cpu_loss, cpu_grads = loss_and_grads(cpu_model, label_smoothing_loss,
+                                         cpu_params, x.cpu(), y.cpu(), cfg)
+    _, loss_rel = rel_err(loss.cpu().reshape(1), cpu_loss.reshape(1))
+    worst_name, worst = max(((n, rel_err(g.cpu(), cpu_grads[n])[1])
+                             for n, g in grads.items()), key=lambda t: t[1])
+    bound_ = TRAIN_BOUND[torch.float32]
+    require(loss_rel <= bound_["loss"] and worst <= bound_["grads"],
+            f"phase 7 --no-train-mode: loss {loss_rel:.2e}, gradient "
+            f"{worst_name} {worst:.2e} of max|CPU|")
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    require(counts() == PER_FORWARD["topk@0.7"],
+            f"phase 7 --no-train-mode: a no_grad eval forward launched "
+            f"{counts()}")
+    print(f"phase 7 --no-train-mode topk@0.7 fp32 B={B}: no kernel launch "
+          f"in the step (the plain composition); loss {loss.item():.6f} vs "
+          f"CPU {cpu_loss.item():.6f} ({loss_rel:.2e} rel); worst gradient "
+          f"leaf {worst_name} {worst:.2e} of its max|CPU| (bound "
+          f"{bound_['grads']:.0e}); the no_grad eval forward's launches "
+          f"{ {k: n for k, n in counts().items() if n} } on {card}",
+          flush=True)
+
+
+def phase_cli(card: str) -> dict:
+    """Phase 7 (see the module docstring). Returns the launch counts of its
+    runs, summed, for the kernels' record."""
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase7"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    total = dict.fromkeys([*WRAPPERS, *LAUNCHERS], 0)
+    no_train_mode_check(card)
+    amp_run = cli_recipe("amp", True, root, total, card, cli_workers())
+    cli_recipe("fp32", False, root, total, card)
+    cli_validate(amp_run, total, card)
+    cli_against_cpu(root, card)
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 T0 = time.perf_counter()
 
 
@@ -5133,6 +5515,10 @@ def main():
     for name in (*WRAPPERS, *LAUNCHERS):
         launches[name] += evaluated[name]
     elapsed("6")
+    trained_cli = phase_cli(card)
+    for name in (*WRAPPERS, *LAUNCHERS):
+        launches[name] += trained_cli[name]
+    elapsed("7")
     for name, shape, ms, bound_ms, lib_ms in standalone:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"standalone {name} {shape}: {ms:.4f} ms per launch, bound "

@@ -11,7 +11,10 @@ to the plain composition, as JAX pins its XLA composition
 
 Which route a block takes is shown by counting the calls of each kernel
 wrapper (each runs its plain version on a CPU tensor) and of the plain
-modules, with a monkeypatch, in eval and in training. The models have one
+modules, with a monkeypatch, in eval and in training. The eval forwards
+run under ``torch.no_grad()``, as the port's eval entry points run them:
+an eval forward that autograd records takes the plain composition
+(``Block.eval_kernels``), since the eval kernels have no backward. The models have one
 head of 64 (the kernels' head dim), 4x4 patches: a 64-pixel image gives
 N = 257 tokens, one past the limit, a 32-pixel image 65. Beyond the limit
 the port's logits are held against the JAX model's (one Flax init through
@@ -98,7 +101,8 @@ def test_width_gate_routes_each_block(monkeypatch, img_size, tokens, train):
                             img_size=img_size, **WIDE)
     model.train(train)
     x = torch.from_numpy(images(img_size)[0])
-    out = model(x, generator=torch.Generator().manual_seed(0))
+    with torch.set_grad_enabled(train):  # an eval forward runs no_grad
+        out = model(x, generator=torch.Generator().manual_seed(0))
     assert model.embed(x).shape[1] == tokens
     assert out.shape == (2, 11)
     depth = WIDE["depth"]
@@ -119,7 +123,8 @@ def test_head_dim_gate(monkeypatch, head_dim):
     model, _ = create_model("deit_small_patch16_224_local", device="cpu",
                             img_size=32, **{**WIDE,
                                             "num_heads": 64 // head_dim})
-    model.eval()(torch.from_numpy(images(32)[0]))
+    with torch.no_grad():
+        model.eval()(torch.from_numpy(images(32)[0]))
     depth = WIDE["depth"]
     want = ({"fused_full_block": depth} if head_dim == 64
             else {"plain_attention": depth, "fused_mlp_residual": depth})
@@ -178,13 +183,15 @@ def test_viz_pin_launches_no_kernel(monkeypatch, name, train):
     x = torch.from_numpy(images(32)[0])
     model, _ = create_model(name, device="cpu", viz_mode=True, **dims, **kw)
     model.train(train)
-    model(x, generator=torch.Generator().manual_seed(0))
+    with torch.set_grad_enabled(model.training):  # eval runs no_grad
+        model(x, generator=torch.Generator().manual_seed(0))
     got = split(calls)
     assert got["kernel"] == 0 and got["plain"] > 0
     calls.clear()
     model, _ = create_model(name, device="cpu", **dims, **kw)
     model.train(train)
-    model(x, generator=torch.Generator().manual_seed(0))
+    with torch.set_grad_enabled(model.training):  # eval runs no_grad
+        model(x, generator=torch.Generator().manual_seed(0))
     got = split(calls)
     if train and name.startswith("ats"):
         assert got == {"kernel": 0, "plain": 2 * dims["depth"]}

@@ -104,6 +104,10 @@ _CHILD = textwrap.dedent("""
         extract_cls_features, extract_cls_features_dirs, run_table,
         validate, validate_dirs)
     from tokenreduction_tpu_torch.utils import checkpoint, metrics  # noqa
+    from tokenreduction_tpu_torch.utils.checkpoint import (  # noqa: F401
+        AsyncCheckpointer)
+    from tokenreduction_tpu_torch.train import (  # noqa: F401
+        loop, mixup, train_cli)
     with tempfile.TemporaryDirectory() as tmp:
         checkpoint.save_checkpoint(
             os.path.join(tmp, "run", "best_checkpoint"),
@@ -139,7 +143,9 @@ def test_port_imports_and_runs_without_jax():
     distillation training forward, the two teachers' forwards, a tiny
     topk forward and one amp train step
     (drop_path 0.1), imports the data, utils and evaluation subpackages
-    and validates a ToMe checkpoint in viz mode, on the CPU with no JAX,
+    and the train loop, mixup, the train CLI and the asynchronous
+    checkpointer, and validates a ToMe checkpoint in viz mode, on the CPU
+    with no JAX,
     Flax or optax module loaded, no kernel build and no kernel launch."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

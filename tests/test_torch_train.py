@@ -247,7 +247,7 @@ def test_unported_options_raise():
             step.make_train_step(None, None, None, cfg)
     with pytest.raises(NotImplementedError, match=loop):
         step.make_train_step(None, None, None, step.StepConfig(),
-                             mixup_fn=lambda *a: a)
+                             aug_fn=lambda *a: a)
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

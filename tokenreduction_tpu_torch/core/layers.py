@@ -50,6 +50,15 @@ composition, and ``Mlp``) on every device, eval and training alike:
   composition on every device. It is a pin chosen by the config, not a
   fallback: no kernel wrapper runs, and their launch counts stay 0.
 
+An eval forward that autograd records (``needs_grad``: grad mode on and
+the block's input or one of its parameters requiring grad, as under
+``--no-train-mode``) takes the plain composition as well: the eval
+kernels (``fused_full_block``, ``fused_block_attention``,
+``fused_mlp_residual``, ``fused_mlp_gather_residual``) have no backward.
+JAX forces its XLA composition for such a run
+(``train/loop.py:573-579`` there). Every ``torch.no_grad()`` eval keeps
+the kernels.
+
 Stochastic depth and dropout draw their masks from an explicit
 ``torch.Generator`` that the model's forward hands down (``generator=``),
 on the device of the activations; training with a drop-path or dropout
@@ -89,6 +98,13 @@ from tokenreduction_tpu_torch.ops.gather import take_tokens
 # shared memory), JAX's FULL_BLOCK_MAX_N: a wider attention half runs the
 # plain composition.
 FULL_BLOCK_MAX_N = SHORT_ATTENTION_MAX_N
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a forward over these tensors: grad mode is
+    on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def kernels_take(N: int, head_dim: int, force_plain: bool = False) -> bool:
@@ -294,6 +310,14 @@ class Block(nn.Module):
         return (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
 
+    def eval_kernels(self, x) -> bool:
+        """Whether this block in eval may run the eval kernels on x: no viz
+        pin, and a forward that needs no gradient (``needs_grad`` of x and
+        the block's parameters)."""
+        return (not self.training and not self.force_plain
+                and not needs_grad(x, *self._attn_params(),
+                                   *self._mlp_params()))
+
     def kernels_take(self, N: int) -> bool:
         """Whether this block runs its attention half (or the whole fused
         block) at width N on the kernel counterparts (``kernels_take``: the
@@ -324,7 +348,7 @@ class Block(nn.Module):
         _check_score(score)
         N = x.shape[1] if idx is None else idx.shape[1]
         kernels = self.kernels_take(N) and policy is None
-        if not self.training and kernels:
+        if kernels and self.eval_kernels(x):
             res = fused_block_attention(
                 x, *self._attn_params(), self.num_heads, self.attn.scale,
                 eps=self.eps, bias=bias, mask=mask, idx=idx,
@@ -365,10 +389,10 @@ class Block(nn.Module):
         core/layers.py:512-533), at any width; else the plain
         composition."""
         if not self.force_plain:
-            if not self.training:
+            if self.eval_kernels(x):
                 return fused_mlp_residual(x, *self._mlp_params(),
                                           eps=self.eps)
-            if self.mlp_kernels:
+            if self.training and self.mlp_kernels:
                 branch = mlp_branch(x, *self._mlp_params(), self.eps)
                 return x + self.drop_path2(branch, generator)
         return x + self.drop_path2(self.mlp(self.norm2(x), generator),
@@ -378,7 +402,7 @@ class Block(nn.Module):
         """take_tokens(x, idx) -> ffn; in eval, unless the viz pin holds,
         one ``fused_mlp_gather_residual`` call (JAX core/layers.py:543-560).
         idx: [B, K] absolute token ids including CLS."""
-        if not self.training and not self.force_plain:
+        if self.eval_kernels(x):
             return fused_mlp_gather_residual(x, idx, *self._mlp_params(),
                                              eps=self.eps)
         return self.ffn(take_tokens(x, idx), generator)
@@ -393,7 +417,7 @@ class Block(nn.Module):
         still takes its kernel, as JAX's ``ffn`` does not look at the
         policy, core/layers.py:497-533)."""
         if (score is None and mask is None and policy is None
-                and not self.training and self.kernels_take(x.shape[1])):
+                and self.kernels_take(x.shape[1]) and self.eval_kernels(x)):
             out = fused_full_block(
                 x, *self._attn_params(), *self._mlp_params(), self.num_heads,
                 self.attn.scale, eps=self.eps)

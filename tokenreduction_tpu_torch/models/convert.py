@@ -23,6 +23,19 @@ any nested mapping of array-likes (numpy arrays in the tests) and imports
 no JAX. ``torch_names_from_flax`` maps any tree shaped like the params
 (gradients, optimizer labels, EMA params) to the port's parameter names
 leaf by leaf, leaves untouched.
+
+The ``.pth`` route (``--finetune``, ``--teacher-path``) is the
+counterpart of JAX ``models/convert.py:63-215``:
+``load_torch_checkpoint`` reads the state dict (under ``"model"`` or
+``"state_dict"`` when the file wraps it), ``convert_torch_state_dict`` and
+``convert_regnet_state_dict`` keep the names the JAX converters map (timm's
+names, which are the port's own, so no name changes) and list the others
+as skipped, ``merge_pretrained`` copies every entry whose name and shape
+match into a model's state dict (strict=False) with the report the CLIs
+print, and ``resize_pos_embed`` interpolates position embeddings to
+another grid (PIL bicubic per channel, as JAX does). Downloads
+(``--pretrained``, an ``http`` teacher path) and Brain-Flax ``.npz``
+files are refused: ``refuse_download`` and ``refuse_npz``.
 """
 
 from __future__ import annotations
@@ -134,3 +147,118 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1)
         out[name] = torch.from_numpy(np.array(arr, order="C"))  # a copy
     return out
+
+
+# timm ViT names the JAX converter maps (convert.py:22-60 there); the
+# others (pre_logits, ...) are skipped
+_VIT_TOP = ("cls_token", "pos_embed", "dist_token")
+_VIT_BLOCK = re.compile(
+    r"blocks\.\d+\.(norm[12]\.(weight|bias)|"
+    r"(attn\.(qkv|proj)|mlp\.(fc1|fc2))\.(weight|bias))")
+_REGNET_NAME = re.compile(
+    r"(stem\.(conv\.weight|bn\.(weight|bias|running_mean|running_var))"
+    r"|head\.fc\.(weight|bias)"
+    r"|s\d+\.b\d+\.((conv[123]|downsample)\.(conv\.weight|"
+    r"bn\.(weight|bias|running_mean|running_var))"
+    r"|se\.fc[12]\.(weight|bias)))")
+
+
+def _vit_name_known(name: str) -> bool:
+    return (name in _VIT_TOP or _VIT_BLOCK.fullmatch(name) is not None
+            or re.fullmatch(r"patch_embed\.proj\.(weight|bias)|norm\.(weight|"
+                            r"bias)|(head|head_dist)\.(weight|bias)", name)
+            is not None)
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A ``.pth`` file's state dict {name: CPU tensor}: the file's
+    ``"model"`` or ``"state_dict"`` entry when it wraps one (a DeiT
+    release, a training checkpoint), else the file itself."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "state_dict"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    return {k: v for k, v in ckpt.items() if isinstance(v, torch.Tensor)}
+
+
+def convert_torch_state_dict(state: Mapping) -> tuple[dict, list]:
+    """(the entries of a timm ViT state dict that the port loads, the
+    skipped names). timm's names are the port's, so nothing is renamed or
+    transposed."""
+    keep = {k: v for k, v in state.items() if _vit_name_known(k)}
+    return keep, [k for k in state if k not in keep]
+
+
+def convert_regnet_state_dict(state: Mapping) -> tuple[dict, list]:
+    """The same for a timm RegNet state dict (the released regnety_160
+    teacher): ``num_batches_tracked`` and unknown names are skipped."""
+    keep = {k: v for k, v in state.items()
+            if _REGNET_NAME.fullmatch(k) is not None}
+    return keep, [k for k in state if k not in keep]
+
+
+def merge_pretrained(state: Mapping[str, torch.Tensor], pretrained: Mapping,
+                     strict: bool = False) -> tuple[dict, dict]:
+    """strict=False merge (reference models_act.py:96): each entry of a
+    model's ``state`` whose name is in ``pretrained`` with the same shape
+    takes its value (in the entry's dtype and device), the rest keeps its
+    own. Returns (merged state, report {"loaded", "shape_mismatch",
+    "missing_in_ckpt"}: lists of names)."""
+    report = {"loaded": [], "shape_mismatch": [], "missing_in_ckpt": []}
+    merged = {}
+    for name, value in state.items():
+        src = pretrained.get(name)
+        if src is None:
+            report["missing_in_ckpt"].append(name)
+        elif tuple(src.shape) != tuple(value.shape):
+            report["shape_mismatch"].append(name)
+        else:
+            merged[name] = torch.as_tensor(np.asarray(src)).to(
+                dtype=value.dtype, device=value.device)
+            report["loaded"].append(name)
+            continue
+        merged[name] = value
+    if strict and (report["shape_mismatch"] or report["missing_in_ckpt"]):
+        raise ValueError(f"strict load failed: {report}")
+    return merged, report
+
+
+def resize_pos_embed(pos_embed, new_tokens: int,
+                     num_prefix: int = 1) -> np.ndarray:
+    """Bicubic grid interpolation of position embeddings [1, prefix + n,
+    D] to ``new_tokens`` grid tokens (reference train.py:336-370), channel
+    by channel through PIL, as JAX's resize_pos_embed."""
+    from PIL import Image
+
+    pe = np.asarray(pos_embed)
+    prefix = pe[:, :num_prefix]
+    grid = pe[0, num_prefix:]
+    old_n = grid.shape[0]
+    if old_n == new_tokens:
+        return pe
+    old_s = int(round(old_n ** 0.5))
+    new_s = int(round(new_tokens ** 0.5))
+    d = grid.shape[-1]
+    out = np.zeros((new_s * new_s, d), dtype=np.float32)
+    img = grid.reshape(old_s, old_s, d).astype(np.float32)
+    for c in range(d):
+        ch = Image.fromarray(img[..., c], mode="F")
+        ch = ch.resize((new_s, new_s), Image.BICUBIC)
+        out[:, c] = np.asarray(ch, dtype=np.float32).reshape(-1)
+    return np.concatenate([prefix, out[None]], axis=1).astype(pe.dtype)
+
+
+def refuse_download(flag: str, local: str):
+    """Neither the port's users' machines nor its test machines are assumed
+    to reach the network: a flag that would download weights raises."""
+    raise ValueError(
+        f"{flag} downloads weights, which the port does not do: download "
+        f"the .pth yourself and pass it as a local {local} file instead")
+
+
+def refuse_npz(path: str):
+    raise NotImplementedError(
+        f"--finetune {path}: Brain-Flax .npz checkpoints are not ported yet "
+        '(ROADMAP.md Queue 1 item 4b, "Full training loop and CLI": the '
+        "rest of the flags); pass a timm .pth")

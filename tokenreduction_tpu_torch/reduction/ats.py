@@ -26,7 +26,8 @@ training forward is plain PyTorch, autograd for the backward, with the
 stochastic-depth and dropout masks from the forward's ``generator``. An
 eval attention half the kernels do not take runs that same plain
 composition, as JAX's does past its gate (with ``cfg.viz_mode``:
-``force_xla``, which pins the MLP half too).
+``force_xla``, which pins the MLP half too), and so does an eval forward
+that autograd records (``Block.eval_kernels``).
 """
 
 from __future__ import annotations
@@ -121,7 +122,8 @@ class ATSBlock(Block):
     def forward(self, x, mask, generator: Optional[torch.Generator] = None):
         """(x, mask) -> (x, the mask after this block, the sample ids or
         None)."""
-        if self.training or not self.kernels_take(x.shape[1]):
+        eval_kernels = self.eval_kernels(x)
+        if not eval_kernels or not self.kernels_take(x.shape[1]):
             y, mask, sample_ids = self.attn(self.norm1(x), mask, generator)
             if sample_ids is not None:
                 x = take_tokens(x, sample_ids)
@@ -142,7 +144,7 @@ class ATSBlock(Block):
                 x = fused_rect_block(qkv, x, sample_ids, mask, wproj, bproj,
                                      self.num_heads, attn.scale)
                 mask = new_mask
-        if self.training or self.force_plain:
+        if not eval_kernels:
             x = x + self.drop_path2(self.mlp(self.norm2(x), generator),
                                     generator)
         else:

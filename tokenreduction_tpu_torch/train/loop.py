@@ -1,6 +1,5 @@
-"""The training loop's loss assembly (counterpart of
-``tokenreduction_tpu/train/loop.py:76-149`` and the teacher wiring at
-``:404-481``, ``:565-572`` there).
+"""The training loop (counterpart of ``tokenreduction_tpu/train/loop.py``;
+reference train.py:240-719 and engine.py).
 
 ``build_base_criterion`` and ``build_loss_fn`` read the same argparse
 fields as the JAX functions (``smoothing``, ``bce_loss``,
@@ -13,19 +12,69 @@ distillation (soft or hard) against any teacher; else the base criterion
 of the logits. ``make_teacher_apply`` runs a teacher as JAX's
 ``teacher_apply``: under ``torch.no_grad()``, in eval mode, in its own
 fp32 parameters, on the images the step was given before any amp cast.
-The rest of the loop (data, schedule, checkpoints, the CLI) is still to
-be ported.
+
+``run_training`` is the epoch loop of the train CLI
+(``train/train_cli.py``) on one device: the data pipeline's Loader
+(``RASampler``, or ``ShardedSampler`` under ``--no-repeated-aug``), the
+model from the registry with ``--finetune``, the teachers, the linear LR
+scaling, the schedule, the grouped AdamW, mixup/cutmix, the train step,
+the eval of the params and of the EMA after each epoch (the better one
+kept), ``best_checkpoint`` and ``checkpoint`` through the
+``AsyncCheckpointer``, ``--resume``, ``--eval`` and the ``log.txt`` rows
+with JAX's keys. Its randomness: one ``torch.Generator`` on the model's
+device seeded from ``--seed`` (drop-path, dropout, DyViT's Gumbel draw,
+DPC-KNN's noise, equal-weight k-medoids' first medoid) and mixup's host
+``numpy.random.Generator`` from the same seed; a resumed run restarts
+both from the seed, as JAX restarts ``PRNGKey(seed)``. The eval in the
+loop passes no generator (JAX passes no RNG: DPC-KNN draws no noise),
+except to equal-weight k-medoids, whose eval needs its first medoid: a
+generator seeded from ``--seed`` anew for each eval. The host reads the
+step's loss every ``--print-freq`` steps and at the end of an epoch, not
+after each step.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tokenreduction_tpu_torch.core.config import expand_keep_rate
+from tokenreduction_tpu_torch.evaluation.validate import (
+    eval_device,
+    set_fp32_products,
+)
+from tokenreduction_tpu_torch.models import convert as C
+from tokenreduction_tpu_torch.models.registry import create_model
 from tokenreduction_tpu_torch.train import losses as L
+from tokenreduction_tpu_torch.train.mixup import (
+    MixupConfig,
+    make_mixup_fn,
+    multilabel_passthrough,
+)
+from tokenreduction_tpu_torch.train.optim import OptimConfig, create_optimizer
+from tokenreduction_tpu_torch.train.scheduler import SchedConfig, make_schedule
+from tokenreduction_tpu_torch.train.step import (
+    StepConfig,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from tokenreduction_tpu_torch.utils.checkpoint import (
+    AsyncCheckpointer,
+    load_checkpoint,
+    restore_train_state,
+)
+from tokenreduction_tpu_torch.utils.metrics import (
+    JSONLLogger,
+    MetricLogger,
+    mAP,
+)
 
 
 def build_base_criterion(args, multilabel: bool, mixup_on: bool):
@@ -121,3 +170,398 @@ def build_loss_fn(args, model_cfg, base_crit,
         return base_crit(logits, targets)
 
     return loss_fn
+
+
+def images_to_device(image: np.ndarray, device) -> torch.Tensor:
+    """A Loader batch's HWC float32 images as an NCHW tensor on
+    ``device`` (copied without waiting for the card)."""
+    x = torch.from_numpy(image).to(device, non_blocking=True)
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def labels_to_device(label: np.ndarray, device) -> torch.Tensor:
+    """Class ids as int64 (the losses' gather index), multilabel targets
+    as they are."""
+    t = torch.from_numpy(label)
+    if not t.is_floating_point():
+        t = t.long()
+    return t.to(device, non_blocking=True)
+
+
+def evaluate(eval_step, params, loader, device, multilabel: bool):
+    """engine.py:119-205 equivalent on one device: top-1/top-5 and the
+    mean cross-entropy over the real rows (the Loader's pads carry weight
+    0), or the multilabel mAP in both accuracies. The sums stay on the
+    device until the last batch (float64), then one read."""
+    if multilabel:
+        preds, targs = [], []
+        for batch in loader:
+            valid = batch.pop("valid", len(batch["image"]))
+            t = batch["label"]
+            if t.ndim == 3:
+                t = t.max(axis=1)
+            p, tt = eval_step(params, {
+                "image": images_to_device(batch["image"], device),
+                "label": labels_to_device(t, device)})
+            preds.append(p[:valid])
+            targs.append(tt[:valid])
+        score = mAP(torch.cat(targs).cpu().numpy(),
+                    torch.cat(preds).cpu().numpy())
+        return {"acc1": score, "acc5": score, "loss": 0.0}
+    tot = None
+    for batch in loader:
+        valid = batch.pop("valid", len(batch["image"]))
+        w = np.zeros((len(batch["image"]),), np.float32)
+        w[:valid] = 1.0
+        m = eval_step(params, {
+            "image": images_to_device(batch["image"], device),
+            "label": labels_to_device(batch["label"], device),
+            "weight": torch.from_numpy(w).to(device, non_blocking=True)})
+        m = {k: v.double() for k, v in m.items()}
+        tot = m if tot is None else {k: tot[k] + m[k] for k in tot}
+    tot = {k: float(v) for k, v in tot.items()} if tot else \
+        dict.fromkeys(("correct1", "correct5", "loss_sum", "count"), 0.0)
+    n = max(tot["count"], 1)
+    return {"acc1": 100.0 * tot["correct1"] / n,
+            "acc5": 100.0 * tot["correct5"] / n,
+            "loss": tot["loss_sum"] / n}
+
+
+def _load_finetune(args, model, model_cfg):
+    """--finetune: a timm .pth merged strict=False, pos_embed resized to
+    the model's grid; prints the report."""
+    if args.finetune.endswith(".npz"):
+        C.refuse_npz(args.finetune)
+    tree, _ = C.convert_torch_state_dict(
+        C.load_torch_checkpoint(args.finetune))
+    if "pos_embed" in tree:
+        # interpolate to the target grid (reference train.py:336-370)
+        tree["pos_embed"] = torch.from_numpy(C.resize_pos_embed(
+            tree["pos_embed"].numpy(), model_cfg.num_patches,
+            model_cfg.num_prefix_tokens))
+    merged, report = C.merge_pretrained(model.state_dict(), tree)
+    model.load_state_dict(merged, strict=True)
+    print(f"finetune load: {len(report['loaded'])} loaded, "
+          f"{len(report['shape_mismatch'])} mismatched")
+    return report
+
+
+def _build_teacher(args, num_classes, dim_kw, device):
+    """The DeiT distillation teacher (reference train.py:455-478) from the
+    registry, its weights from --teacher-path: a torch .pth (timm names)
+    or a port checkpoint directory (EMA params when they were best)."""
+    is_convnet = args.teacher_model.startswith("regnet")
+    kw = dim_kw
+    if is_convnet:
+        kw = {}
+        for k in ("depths", "widths", "group_width", "stem_width"):
+            v = getattr(args, f"teacher_regnet_{k}", None)
+            if v is not None:
+                kw[k] = v
+    teacher, _ = create_model(
+        args.teacher_model, num_classes=num_classes,
+        img_size=args.input_size, device=device,
+        generator=torch.Generator().manual_seed(0), **kw)
+    path = args.teacher_path
+    torch_suffixes = (".pth", ".pt", ".bin", ".tar")
+    if path and path.endswith(torch_suffixes):
+        conv = (C.convert_regnet_state_dict if is_convnet
+                else C.convert_torch_state_dict)
+        tree, _ = conv(C.load_torch_checkpoint(path))
+        merged, report = C.merge_pretrained(teacher.state_dict(), tree)
+        teacher.load_state_dict(merged, strict=True)
+        print(f"teacher load ({path}): {len(report['loaded'])} loaded, "
+              f"{len(report['shape_mismatch'])} mismatched")
+    elif path:
+        if os.path.isfile(path):
+            raise ValueError(
+                f"--teacher-path {path}: single files must be torch "
+                f"checkpoints ({'/'.join(torch_suffixes)}); directories are "
+                "read as the port's checkpoints")
+        tree, meta = load_checkpoint(path)
+        teacher.load_state_dict(
+            tree["ema_params"] if meta.get("ema_best")
+            and tree.get("ema_params") is not None else tree["params"],
+            strict=True)
+    return make_teacher_apply(teacher)
+
+
+def run_training(args):
+    """The train CLI's run (see the module docstring); returns
+    {"max_accuracy"} (with --eval, the eval's stats)."""
+    # imported here: the data path needs Pillow, which the rest of the
+    # port (and chip_smoke.py's runs without it) does not
+    from tokenreduction_tpu_torch.data import (
+        Loader,
+        RASampler,
+        ShardedSampler,
+        TransformConfig,
+        build_dataset,
+        make_transform,
+    )
+
+    device = eval_device(args)
+    set_fp32_products(args.use_amp)
+
+    # ----- data
+    tcfg = TransformConfig(
+        input_size=args.input_size, color_jitter=args.color_jitter,
+        aa=args.aa, train_interpolation=args.train_interpolation,
+        reprob=args.reprob, remode=args.remode, recount=args.recount,
+        three_augment=getattr(args, "ThreeAugment", False),
+        src_crop=getattr(args, "src", False))
+    ds_train, num_classes = build_dataset(
+        args.data, args.dataset, "train", num_classes=args.synthetic_classes,
+        img_size=args.input_size, synthetic_n=args.synthetic_n)
+    ds_val, _ = build_dataset(
+        args.data, args.dataset, "val", num_classes=args.synthetic_classes,
+        img_size=args.input_size, synthetic_n=args.synthetic_n)
+    multilabel = getattr(ds_train, "multilabel", False)
+    host_batch = args.batch_size * args.grad_accum_steps
+    sampler = (RASampler if args.repeated_aug else ShardedSampler)(
+        len(ds_train), 1, 0, seed=args.seed)
+    train_loader = Loader(
+        ds_train, sampler, host_batch,
+        make_transform(args.dataset, True, tcfg), drop_last=True,
+        seed=args.seed, num_workers=args.num_workers)
+    if len(train_loader) == 0:
+        # reference-faithful but easy to hit on tiny datasets: RASampler
+        # truncates the epoch to floor(n//256*256/world) samples
+        # (reference samplers.py:40)
+        print(f"WARNING: train loader is empty (dataset {len(ds_train)}, "
+              f"host batch {host_batch}, "
+              f"repeated_aug={bool(args.repeated_aug)}); every epoch "
+              "will train 0 steps. Use --no-repeated-aug and/or a "
+              "smaller --batch-size for tiny datasets.")
+    val_loader = Loader(
+        ds_val, ShardedSampler(len(ds_val), 1, 0, shuffle=False),
+        args.batch_size, make_transform(args.dataset, False, tcfg),
+        seed=args.seed, pad_partial=True, num_workers=args.num_workers)
+    steps_per_epoch = max(len(train_loader), 1)
+
+    # ----- model
+    model_kw = {}
+    for k in ("k_neighbors", "cluster_iters", "equal_weight", "sinkhorn_eps",
+              "heuristic_pattern", "min_radius", "not_contiguous"):
+        if hasattr(args, k):
+            model_kw[k] = getattr(args, k)
+    dim_kw = {k: getattr(args, k) for k in ("embed_dim", "depth",
+                                            "num_heads", "patch_size")
+              if getattr(args, k, None) is not None}
+    deit_distillation = args.distillation_type != "none"
+    model, model_cfg = create_model(
+        args.model, num_classes=num_classes, img_size=args.input_size,
+        reduction_loc=tuple(args.reduction_loc),
+        keep_rate=tuple(args.keep_rate),
+        drop_rate=args.drop, drop_path_rate=args.drop_path,
+        dyvit_distillation=bool(getattr(args, "dyvit_distill", False)),
+        # DeiT's distillation token only exists on the dense backbone
+        # (reference models_act.py:69-78; reduction models ignore it)
+        distilled=deit_distillation and "deit" in args.model,
+        device=device, generator=torch.Generator().manual_seed(args.seed),
+        **model_kw, **dim_kw)
+    if args.finetune:
+        _load_finetune(args, model, model_cfg)
+
+    # ----- teachers
+    teacher_apply = None
+    if deit_distillation:
+        teacher_apply = _build_teacher(args, num_classes, dim_kw, device)
+    if model_cfg.method == "dyvit" and getattr(args, "dyvit_distill", False) \
+            and not getattr(args, "no_dyvit_teacher", False):
+        teacher, _ = create_model(
+            args.model + "_teacher", num_classes=num_classes,
+            img_size=args.input_size, device=device,
+            generator=torch.Generator().manual_seed(0), **dim_kw)
+        if getattr(args, "dyvit_teacher_weights", ""):
+            tree, _ = load_checkpoint(args.dyvit_teacher_weights)
+            teacher.load_state_dict(tree["params"], strict=True)
+        teacher_apply = make_teacher_apply(teacher)
+
+    # ----- optimizer (linear LR scaling, reference train.py:416-419)
+    if not args.unscale_lr:
+        args.lr = args.lr * host_batch / args.lr_batch_normalizer
+    scfg = SchedConfig(
+        sched=args.sched, lr=args.lr, min_lr=args.min_lr,
+        warmup_lr=args.warmup_lr, warmup_epochs=args.warmup_epochs,
+        epochs=args.epochs, cooldown_epochs=args.cooldown_epochs,
+        decay_epochs=args.decay_epochs, decay_rate=args.decay_rate,
+        sched_in_steps=args.sched_in_steps,
+        steps_per_epoch=steps_per_epoch,
+        lr_noise=tuple(args.lr_noise) if args.lr_noise else None,
+        lr_noise_pct=args.lr_noise_pct, lr_noise_std=args.lr_noise_std,
+        seed=args.seed)
+    sched_host = make_schedule(scfg)
+
+    def base_schedule(step):
+        return sched_host(step if scfg.sched_in_steps
+                          else step // steps_per_epoch)
+
+    ocfg = OptimConfig(
+        opt=args.opt, lr=args.lr, weight_decay=args.weight_decay,
+        momentum=args.momentum, opt_eps=args.opt_eps,
+        opt_betas=tuple(args.opt_betas) if args.opt_betas else None,
+        clip_grad=args.clip_grad,
+        backbone_lr_scale=args.backbone_lr_scale,
+        backbone_freeze_steps=args.backbone_freeze_steps,
+        # the reference's alias (JAX loop.py:517): --constant_cls freezes
+        # pos_embed too, and --constant_pos alone freezes nothing
+        constant_cls=args.constant_cls, constant_pos=args.constant_cls,
+        attn_only=getattr(args, "attn_only", False))
+    new_names = getattr(type(model), "new_module_names", lambda: [])()
+    optimizer, _ = create_optimizer(dict(model.named_parameters()), ocfg,
+                                    base_schedule, new_names,
+                                    steps_per_epoch)
+
+    # ----- loss and steps
+    mixup_on = (not multilabel) and (
+        args.mixup > 0 or args.cutmix > 0 or args.cutmix_minmax is not None)
+    loss_fn = build_loss_fn(args, model_cfg,
+                            build_base_criterion(args, multilabel, mixup_on),
+                            teacher_apply)
+    mixup_fn = None
+    if mixup_on:
+        mixup_fn = make_mixup_fn(MixupConfig(
+            mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+            prob=args.mixup_prob, switch_prob=args.mixup_switch_prob,
+            label_smoothing=args.smoothing, num_classes=num_classes,
+            mode=args.mixup_mode,
+            cutmix_minmax=(tuple(args.cutmix_minmax)
+                           if args.cutmix_minmax else None)), args.seed)
+    if multilabel:
+        mixup_fn = multilabel_passthrough
+    if not args.train_mode:
+        print("--no-train-mode: the training forward runs in eval mode; "
+              "its blocks take the plain composition under autograd (the "
+              "eval kernels have no backward)")
+    if args.steps_per_call > 1:
+        print(f"NOTE: --steps_per_call {args.steps_per_call} fuses steps "
+              "into one XLA call in JAX; here the steps run one by one "
+              "(the same arithmetic)")
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    train_step = make_train_step(
+        model, loss_fn, optimizer,
+        StepConfig(grad_accum_steps=args.grad_accum_steps,
+                   ema_decay=args.model_ema_decay if args.model_ema else 0.0,
+                   amp=args.use_amp, train_mode=args.train_mode,
+                   project_sinkhorn=model_cfg.method == "sinkhorn"),
+        generator, mixup_fn)
+    # equal-weight k-medoids draws its first medoids in eval too
+    eval_gen = (torch.Generator(device=device)
+                if model_cfg.method == "kmedoids" and model_cfg.equal_weight
+                else None)
+    eval_step = make_eval_step(model, multilabel, eval_gen)
+
+    def run_eval(params):
+        if eval_gen is not None:
+            eval_gen.manual_seed(args.seed)
+        return evaluate(eval_step, params, val_loader, device, multilabel)
+
+    state = init_train_state(model, optimizer, ema=args.model_ema,
+                             device=device)
+
+    start_epoch = args.start_epoch
+    if args.resume:
+        tree, meta = load_checkpoint(args.resume)
+        state = restore_train_state(state, tree, meta)
+        start_epoch = meta["epoch"] + 1
+
+    logger = JSONLLogger(
+        os.path.join(args.output_dir, "log.txt") if args.output_dir
+        else None, use_wandb=args.wandb,
+        wandb_kwargs=dict(project=args.wandb_project, group=args.wandb_group))
+    if args.output_dir:
+        os.makedirs(args.output_dir, exist_ok=True)
+
+    if args.eval:
+        stats = run_eval(state.params)
+        print(f"Eval: {stats}")
+        return stats
+
+    # -1 so the first epoch always writes a best checkpoint, even at 0.0
+    # accuracy (the reference's `0.0 > 0.0` gate would save nothing)
+    max_accuracy = -1.0
+    ema_best = False
+    total_step = state.step
+    ckptr = AsyncCheckpointer()
+    run_args = {k: v for k, v in vars(args).items() if not callable(v)}
+    for epoch in range(start_epoch, args.epochs):
+        train_loader.set_epoch(epoch)
+        meter = MetricLogger()
+        t_ep = time.time()
+        n_img = 0
+        prof = None
+        if args.profile_dir and epoch == start_epoch:
+            prof = _start_profile(device)
+        pending = []
+        for i, batch in enumerate(meter.log_every(train_loader,
+                                                  args.print_freq,
+                                                  f"Epoch [{epoch}]")):
+            b = {"image": images_to_device(batch["image"], device),
+                 "label": labels_to_device(batch["label"], device)}
+            state, metrics = train_step(state, b)
+            total_step += 1
+            n_img += len(batch["image"])
+            pending.append(metrics["loss"])
+            if args.print_freq and i % args.print_freq == 0:
+                for loss in pending:  # the host reads the losses here
+                    meter.update(loss=float(loss))
+                pending = []
+        for loss in pending:
+            meter.update(loss=float(loss))
+        if prof is not None:
+            _stop_profile(prof, args.profile_dir)
+        epoch_time = time.time() - t_ep
+        ips = n_img / epoch_time
+
+        test_stats = run_eval(state.params)
+        cur, cur_is_ema = test_stats["acc1"], False
+        if state.ema_params is not None:
+            ema_stats = run_eval(state.ema_params)
+            if ema_stats["acc1"] > cur:
+                cur, cur_is_ema = ema_stats["acc1"], True
+        save = dict(params=state.params, ema_params=state.ema_params,
+                    opt_state=state.opt_state, epoch=epoch,
+                    step=total_step, model_cfg=model_cfg, run_args=run_args)
+        if cur > max_accuracy:
+            max_accuracy = max(cur, 0.0)
+            ema_best = cur_is_ema
+            if args.output_dir:
+                ckptr.save(os.path.join(args.output_dir, "best_checkpoint"),
+                           ema_best=ema_best, max_accuracy=max_accuracy,
+                           **save)
+        if args.save_more_than_best and args.output_dir:
+            ckptr.save(os.path.join(args.output_dir, "checkpoint"),
+                       ema_best=ema_best, max_accuracy=max_accuracy, **save)
+        lr_now = sched_host(total_step if scfg.sched_in_steps else epoch + 1)
+        log_stats = {
+            "epoch": epoch, "train_loss": meter.meters["loss"].global_avg,
+            "test_acc1": test_stats["acc1"], "test_acc5": test_stats["acc5"],
+            "test_loss": test_stats["loss"], "max_accuracy": max_accuracy,
+            "lr": lr_now, "images_per_sec": ips, "epoch_time": epoch_time,
+        }
+        print(json.dumps(log_stats))
+        logger.log(log_stats, step=total_step)
+    ckptr.wait()  # flush the write in flight
+    return {"max_accuracy": max_accuracy}
+
+
+def _start_profile(device):
+    """A torch.profiler window over the first epoch (--profile_dir): the
+    host's ops and, on the card, its kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")

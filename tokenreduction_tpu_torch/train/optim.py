@@ -11,8 +11,8 @@ Groups:
 constant_cls / constant_pos / attn_only freeze params entirely
 (label "frozen": no update).
 
-Only AdamW is ported; the JAX package's other optimizers come with the
-loop (ROADMAP Queue 1, "Full training loop and CLI"). The update equals
+Only AdamW is ported; the JAX package's other optimizers come with
+``ROADMAP.md`` Queue 1 item 4b (the rest of the flags). The update equals
 the JAX package's optax chain: ``clip_by_global_norm`` (g * max / |g|
 only when |g| >= max; unlike ``torch.nn.utils.clip_grad_norm_`` nothing
 is added to the norm), then per group ``optax.adamw`` (eps outside the
@@ -51,6 +51,10 @@ class OptimConfig:
     # head.bias only -- head_dist stays frozen), and pos_embed
     attn_only: bool = False
 
+
+# where the refusals of what is not ported yet point
+ITEM_4B = ('ROADMAP.md Queue 1 item 4b, "Full training loop and CLI": the '
+           'rest of the flags')
 
 BASE_NEW_NAMES = ["head", "head_dist", "pos_embed", "patch_embed"]
 GROUPS = ("new_param", "new_param_no_decay", "decay", "no_decay")
@@ -168,8 +172,8 @@ def create_optimizer(params: Mapping[str, torch.Tensor], cfg: OptimConfig,
     (see train/scheduler.py)."""
     if cfg.opt.lower() != "adamw":
         raise NotImplementedError(
-            f"optimizer {cfg.opt!r} is not ported yet; AdamW is (ROADMAP "
-            "Queue 1, \"Full training loop and CLI\")")
+            f"optimizer {cfg.opt!r} is not ported yet; AdamW is "
+            f"({ITEM_4B})")
     labels = param_labels(params, new_module_names, cfg)
     b1, b2 = cfg.opt_betas or (0.9, 0.999)
     full = group_lr_fn(base_schedule, 1.0, 0, steps_per_epoch)

@@ -4,9 +4,8 @@ A copy of ``tokenreduction_tpu/train/scheduler.py`` without JAX: pure
 functions step -> lr, evaluated on the host at each step (no device
 synchronisation). ``sched_in_steps`` switches the time base from epochs
 to optimizer steps exactly like the reference flag. lr noise raises
-until the loop's slice brings it (ROADMAP Queue 1, "Full training loop
-and CLI"): the JAX
-version draws it from ``jax.random``.
+until ``ROADMAP.md`` Queue 1 item 4b brings it: the JAX version draws it
+from ``jax.random``.
 """
 
 from __future__ import annotations
@@ -43,8 +42,8 @@ def make_schedule(cfg: SchedConfig) -> Callable[[float], float]:
     pre-scaled by the caller via `t_of_step`)."""
     if cfg.lr_noise is not None:
         raise NotImplementedError(
-            "lr_noise is not ported yet (ROADMAP Queue 1, \"Full training "
-            "loop and CLI\")")
+            "lr_noise is not ported yet (ROADMAP.md Queue 1 item 4b, \"Full "
+            "training loop and CLI\": the rest of the flags)")
     mult = cfg.steps_per_epoch if cfg.sched_in_steps else 1
     t_initial = (cfg.epochs - cfg.cooldown_epochs) * mult
     warmup_t = cfg.warmup_epochs * mult

@@ -1,8 +1,10 @@
-"""The train step (counterpart of tokenreduction_tpu/train/step.py:89-196).
+"""The train and eval steps (counterpart of
+tokenreduction_tpu/train/step.py:89-196 and :227-266).
 
-One ``train_step`` call covers ``grad_accum_steps`` microbatch forwards
-and backwards with the mean loss, the global gradient norm (taken before
-clipping), the clipped grouped update, with ``project_sinkhorn`` the
+One ``train_step`` call covers mixup (once for the whole batch),
+``grad_accum_steps`` microbatch forwards and backwards with the mean
+loss, the global gradient norm (taken before clipping), the clipped
+grouped update, with ``project_sinkhorn`` the
 Sinkhorn cluster vectors renormalised (JAX step.py:179-180), and the EMA
 of the fp32 params, with no host synchronisation inside: the metrics
 stay on the device.
@@ -32,6 +34,7 @@ from torch.func import functional_call
 
 from tokenreduction_tpu_torch.core.device import resolve_device
 from tokenreduction_tpu_torch.train.optim import (
+    ITEM_4B,
     ema_update,
     global_norm,
     project_params,
@@ -103,25 +106,28 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
     generator: the generator of the drop-path and dropout masks and of
       DyViT's Gumbel draw, on the model's device (needed when a rate is
       above 0, and for DyViT)
+    mixup_fn(images, labels) -> (images, targets): applied once to the
+      whole batch before the microbatch split (JAX step.py:125-127), e.g.
+      ``train/mixup.py::make_mixup_fn``
     Batch: dict(image=[A*M, C, H, W], label=[A*M, ...]) where A =
     grad_accum_steps; microbatches are the leading-axis splits.
     Metrics: {"loss", "grad_norm"} as device scalars."""
-    loop = '(ROADMAP Queue 1, "Full training loop and CLI")'
     if cfg.hutchinson:
         raise NotImplementedError(
-            f"hutchinson (adahessian) comes with the optimizers {loop}")
+            f"hutchinson (adahessian) comes with the optimizers ({ITEM_4B})")
     if cfg.watch_norms:
-        raise NotImplementedError(f"watch_norms comes with the train loop "
-                                  f"{loop}")
-    if mixup_fn is not None or aug_fn is not None:
-        raise NotImplementedError(
-            f"mixup_fn and aug_fn come with the train loop and the device "
-            f"augmentation {loop}")
+        raise NotImplementedError(f"watch_norms (--wandb_watch) is not "
+                                  f"ported yet ({ITEM_4B})")
+    if aug_fn is not None:
+        raise NotImplementedError(f"aug_fn (--device_aug) is not ported "
+                                  f"yet ({ITEM_4B})")
     accum = cfg.grad_accum_steps
 
     def train_step(state: TrainState, batch):
         model.train(cfg.train_mode)
         images, labels = batch["image"], batch["label"]
+        if mixup_fn is not None:
+            images, labels = mixup_fn(images, labels)
         micro = images.shape[0] // accum
         grads, loss_sum = None, None
         for i in range(accum):
@@ -147,3 +153,43 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
         return state, {"loss": loss_sum / accum, "grad_norm": grad_norm}
 
     return train_step
+
+
+def make_eval_step(model: torch.nn.Module, multilabel: bool = False,
+                   generator: Optional[torch.Generator] = None):
+    """``eval_step(params, batch)``: the model in eval mode over ``params``
+    ({name: tensor}, the fp32 masters or the EMA) on batch["image"] (NCHW),
+    under ``torch.no_grad()`` and in fp32 whatever the training precision,
+    as JAX's eval step runs its params (JAX step.py:227-266).
+
+    Multiclass: {"correct1", "correct5", "loss_sum", "count"}, the
+    weighted sums of correct top-1 and top-5 and of the cross-entropy,
+    and the weight; batch["weight"] (1 a real row, 0 a loader pad;
+    default all 1) masks the pads. Multilabel: (sigmoid probabilities,
+    batch["label"]) for the host's mAP. Every result stays on the device:
+    no host synchronisation. ``generator`` goes to the forward (None, as
+    JAX's eval passes no RNG, but for a model whose eval draws, such as
+    equal-weight k-medoids' first medoid)."""
+
+    def eval_step(params, batch):
+        model.eval()
+        with torch.no_grad():
+            out = functional_call(model, params, (batch["image"],),
+                                  {"generator": generator})
+        logits = (out[0] if isinstance(out, tuple) else out).float()
+        labels = batch["label"]
+        if multilabel:
+            return torch.sigmoid(logits), labels
+        w = batch.get("weight")
+        if w is None:
+            w = torch.ones(labels.shape, dtype=torch.float32,
+                           device=logits.device)
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -(logp.gather(-1, labels[:, None].long())[:, 0] * w).sum()
+        top5 = torch.topk(logits, min(5, logits.shape[-1]), dim=-1).indices
+        hit = top5 == labels[:, None]
+        return {"correct1": (hit[:, 0] * w).sum(),
+                "correct5": (hit.any(dim=-1) * w).sum(),
+                "loss_sum": loss, "count": w.sum()}
+
+    return eval_step

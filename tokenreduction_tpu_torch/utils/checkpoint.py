@@ -19,6 +19,10 @@ A checkpoint is a directory of two files:
   step, ema_best, max_accuracy, model_cfg, run_args), so the run table and
   the eval CLIs read both packages' checkpoints alike.
 
+``AsyncCheckpointer`` (JAX ``utils/checkpoint.py:77-137``) writes them
+without stalling the train loop, and ``restore_train_state`` puts a
+checkpoint back into a live train state (``--resume``).
+
 The JAX package's checkpoints are Orbax directories (``tree/``), which
 need JAX to read; this module does not read them. A JAX checkpoint's
 params become a port checkpoint through the JAX package's
@@ -31,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -78,6 +83,106 @@ def load_checkpoint(path: str):
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return tree, meta
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return tree
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.cpu()
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes that do not stall the train loop.
+
+    The train step updates the masters, the optimizer moments and the EMA
+    in place, so ``save`` first snapshots them on the device: one
+    ``clone()`` of each tensor on the current stream, then a CUDA event
+    recorded after the clones. A background thread waits on that event,
+    copies the snapshot to the host on a stream of its own and writes
+    ``tree.pt`` and ``meta.json`` (``save_checkpoint``). The main thread
+    never synchronises with the card. At most one write is in flight: a
+    new ``save`` waits for the previous one after taking its own
+    snapshot. An error of the write is raised by the next ``save`` or
+    ``wait``."""
+
+    def __init__(self):
+        self._thread = None
+        self._error = None
+
+    def save(self, path: str, *, params, ema_params=None, opt_state=None,
+             **meta):
+        with torch.no_grad():
+            snap = _tree_map(lambda t: t.detach().clone(),
+                             {"params": params, "ema_params": ema_params,
+                              "opt_state": opt_state})
+        tensors = []
+        _tree_map(tensors.append, snap)
+        event = None
+        if any(t.is_cuda for t in tensors):
+            event = torch.cuda.Event()
+            event.record()
+        self.wait()
+
+        def work():
+            try:
+                if event is not None:
+                    event.synchronize()
+                    with torch.cuda.stream(torch.cuda.Stream(
+                            device=event.device)):
+                        host = _tree_map(_cpu, snap)
+                else:
+                    host = snap
+                save_checkpoint(path, **host, **meta)
+            except Exception as e:  # raised by the next save or wait
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+def restore_train_state(state, tree: dict, meta: dict):
+    """``state`` (a ``train/step.py`` TrainState) with a checkpoint's
+    params, EMA params and optimizer moments copied into its tensors in
+    place, on their devices, and its step set to meta["step"]. When the
+    checkpoint's optimizer state does not match the live one (another
+    optimizer, other names), it restores the params and the EMA only and
+    keeps the fresh moments, as JAX's resume does (train/loop.py:634-642
+    there)."""
+    def copy_into(live, saved):
+        with torch.no_grad():
+            for name, t in live.items():
+                t.copy_(saved[name])
+
+    copy_into(state.params, tree["params"])
+    if state.ema_params is not None:
+        saved = tree.get("ema_params")
+        copy_into(state.ema_params,
+                  saved if saved is not None else tree["params"])
+    opt = tree.get("opt_state")
+    if isinstance(opt, dict) and sorted(opt) == sorted(state.opt_state) and \
+            all(sorted(opt[k]) == sorted(v)
+                for k, v in state.opt_state.items()):
+        for part, live in state.opt_state.items():
+            copy_into(live, opt[part])
+    else:
+        print("resume: the checkpoint's optimizer state does not match the "
+              "live one; restoring params only with a fresh optimizer state")
+    state.step = int(meta["step"])
+    return state
 
 
 def config_from_meta(meta: dict) -> ViTConfig:
