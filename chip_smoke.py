@@ -344,10 +344,41 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    one .pth of seeded weights (--finetune): the first step's loss and the
    epoch's test loss within 1e-4 relative, the later steps reported.
 
-Phases 4, 5, 6 and 7 are the main path's runs: each counterpart's launch count,
-and those of the bf16 GEMM's two launchers (gemm, gemm_wgrad), of the
-fp32 tensor-core GEMM and attention (gemm_tf32, attention_tf32: the DyViT
-teacher's 4 and 1 a block in phase 5, none in phase 4's bf16 run; the
+8. the rest of the train CLI's flags, at DeiT-S's full width. (a) The
+   train CLI with --device_aug (data/device_aug.py: the Loader copies
+   uint8 squares of 256 px, the step crops, flips, RandAugments,
+   normalises and erases them on the card): topk@0.7, b256 over 1024
+   synthetic images, amp and fp32, two epochs each with the eval in the
+   loop, each run a path of its own with phase 7's launch checks; each
+   prints its img/s an epoch beside phase 7's host path in the same call
+   and the training branches' launches a step (the aug is PyTorch on the
+   card and adds no kernel). Then the aug's own ms for a b256 batch (CUDA
+   events; it must launch no kernel of the port) beside the Loader's ms
+   a batch on the host path and on the uint8 path. (b) The aug on the
+   card against the CPU on the same uint8 inputs at fixed parameters:
+   crop, resize and flip and the eval transform within 1e-4 of 255; the
+   LUT ops (autocontrast, equalize, invert, posterize, solarize,
+   solarize-add) equal; the enhance ops within 1e-4 of 255; the five
+   geometric ops at most 1 level apart on at most 0.1% of the values;
+   the whole aug from one seed twice bitwise equal, fp32
+   [B, 3, 224, 224] on the card, within 0..255 without erasing. (c) Every
+   --opt name: three updates of topk@0.7's params (seeded noise on every
+   leaf) from the gradients of three fp32 B=32 batches, on the card and
+   on the CPU, within 1e-5 of each leaf's max|CPU| (adam, nadam,
+   adabelief and adahessian: at most 1e-4 of the params beyond it, each
+   within 1e-2, as fp32 itself is against fp64 there: OPT_ILL);
+   AdaHessian's Hutchinson diagonal at B=8 on the plain composition
+   launches no kernel and agrees with the CPU's on the same probe within
+   1e-4 of max|CPU|. (d) --finetune of a seeded Brain-Flax .npz that the
+   phase writes, topk@0.7 at DeiT-S width, on the card and the CPU
+   (train/loop.py::_load_finetune): every parameter as written, the fp32
+   logits within 1e-4 of max|CPU|. Each line prints its seconds.
+
+Phases 4, 5, 6, 7 and 8 are the main path's runs: each counterpart's
+launch count, and those of the bf16 GEMM's two launchers (gemm,
+gemm_wgrad), of the fp32 tensor-core GEMM and attention (gemm_tf32,
+attention_tf32: the DyViT teacher's 4 and 1 a block in phase 5, none
+in phase 4's bf16 run; the
 fp32 backward's attention_bwd_tf32, gemm_bwd_tf32 and gemm_wgrad_tf32
 from phase 5's fp32 train step, the fp32 rectangular attention from
 phase 4's ATS@0.7 fp32 forwards, each read from its own path's run), of
@@ -356,7 +387,7 @@ rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
 backward and of the partial sums (once each in each training branch's
 backward), of head_mean_keys (once in each of ToMe@0.7's three merging
 blocks) and of layer_norm, is set to 0 just before and read just after
-(phase 6's and phase 7's launches add to phases 4 and 5's in the
+(phase 6's, 7's and 8's launches add to phases 4 and 5's in the
 kernels' record). fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
@@ -5087,6 +5118,9 @@ CLI_N, CLI_B, CLI_EPOCHS = 1024, 256, 2
 CLI_CPU_N, CLI_CPU_B, CLI_CPU_BOUND = 32, 16, 1e-4
 # validate's run on the trained checkpoint: one batch
 CLI_VALIDATE_N = 256
+# phase 7's train img/s an epoch (log.txt) by "amp" or "fp32", printed
+# beside phase 8's --device_aug runs
+CLI_IPS = {}
 
 
 def cli_workers() -> int:
@@ -5166,7 +5200,7 @@ def cli_run(argv: list):
 
 
 def cli_train_launches(label: str, rec: CliRun, steps: int, forwards: int,
-                       amp: bool) -> dict:
+                       amp: bool, phase: str = "7") -> dict:
     """Require #9 and #10 as phase 5 counts them a step (a forward and a
     backward each, 12 blocks) times the steps, the eval forwards' eval
     counterparts as phase 4 counts a topk@0.7 forward times the forwards,
@@ -5180,18 +5214,19 @@ def cli_train_launches(label: str, rec: CliRun, steps: int, forwards: int,
                  if k in EVAL_WRAPPERS})
     require({k: c[k] for k in want} == want and want["attend_branch_train"]
             and want["mlp_branch"],
-            f"phase 7 {label}: launches {c}, not {want}")
+            f"phase {phase} {label}: launches {c}, not {want}")
     require(c["gemm_tf32"] > 0 and c["attention_tf32"] > 0,
-            f"phase 7 {label}: the fp32 eval launched no tensor-core kernel "
+            f"phase {phase} {label}: the fp32 eval launched no tensor-core "
+            f"kernel "
             f"{c}")
     if amp:
         require(c["gemm"] > 0 and c["short_attention_bwd"] > 0
                 and c["gemm_bwd_tf32"] == 0,
-                f"phase 7 {label}: amp training launches {c}")
+                f"phase {phase} {label}: amp training launches {c}")
     else:
         require(c["gemm"] == 0 and c["gemm_bwd_tf32"] == 48 * steps
                 and c["attention_bwd_tf32"] == 12 * steps,
-                f"phase 7 {label}: fp32 training launches {c}")
+                f"phase {phase} {label}: fp32 training launches {c}")
     return {k: n for k, n in c.items() if n}
 
 
@@ -5237,6 +5272,8 @@ def cli_recipe(label: str, amp: bool, root: pathlib.Path, total: dict,
         for k, n in rec.counts.items():
             total[k] += n
         phase5 = TRAIN_IPS.get(("topk@0.7", "amp" if amp else "fp32"))
+        if not what:
+            CLI_IPS[label] = [r["images_per_sec"] for r in rows]
         print(f"phase 7 train CLI {label}{what} b{CLI_B}: epochs "
               f"{list(epochs)}, {seconds:.1f} s the run; train img/s end to "
               f"end (log.txt images_per_sec) "
@@ -5398,6 +5435,412 @@ def phase_cli(card: str) -> dict:
     return total
 
 
+# phase 8: the rest of the train CLI's flags at DeiT-S's full width
+AUG_B, AUG_SQUARE = 256, 256  # the aug's timed batch: b256 of 256-px squares
+AUG_CHECK_B = 32  # the card against the CPU: two RandAugment groups
+AUG_LEVELS = 1e-4 * 255  # the float transforms' bound, in levels
+# the geometric ops: at most 1 level apart on at most this share of values
+AUG_GEOMETRIC_SHARE = 1e-3
+LOADER_N = 512  # images the Loader's ms a batch is timed over, each path
+OPT_NAMES = ("sgd", "nesterov", "momentum", "adam", "adamw", "adabelief",
+             "nadam", "radam", "adadelta", "adafactor", "rmsprop",
+             "rmsproptf", "novograd", "nvnovograd", "adamp", "sgdp",
+             "adahessian", "lookahead_adamw")
+OPT_B, OPT_STEPS, OPT_BOUND, DIAG_BOUND = 32, 3, 1e-5, 1e-4
+# the chains that add the weight decay to the gradient before Adam
+# normalises it: where g + wd p cancels to a few ulps, the step
+# g / (|g| + eps) is ill-conditioned, and fp32 on the CPU itself misses
+# the fp64 result at 196-264 of the 22M params by up to 1.4e-3 of a
+# leaf's max; likewise AdaHessian where the Hutchinson diagonal is near 0
+# (6 params, up to 1.8e-5; measured on the CPU at these params). There
+# at most this share of the params may miss OPT_BOUND, each within
+# OPT_ILL_WORST of its leaf's max|CPU|
+OPT_ILL = ("adam", "nadam", "adabelief", "adahessian")
+OPT_ILL_SHARE, OPT_ILL_WORST = 1e-4, 1e-2
+# the Hutchinson diagonal's batch: phase 3's fp32 batch (the CPU's double
+# backward of DeiT-S sets the time)
+DIAG_B = MODEL_BATCH[torch.float32]
+NPZ_BOUND = 1e-4
+
+
+def since(t0: float) -> str:
+    return f"{time.perf_counter() - t0:.1f} s"
+
+
+def aug_cli(label: str, amp: bool, root: pathlib.Path, total: dict,
+            card: str):
+    """The default recipe's two epochs with --device_aug (the Loader's one
+    prefetch thread copies uint8 squares, the step augments them on the
+    card), a path of its own; launches as phase 7's a step."""
+    t0 = time.perf_counter()
+    run = root / label
+    rec = cli_run(CLI_MODEL + [
+        "--batch-size", str(CLI_B), "--synthetic-n", str(CLI_N), "--epochs",
+        str(CLI_EPOCHS), "--device_aug", "--output_dir", str(run)] + (
+            ["--use_amp"] if amp else []))
+    rows = read_log(run)
+    steps = CLI_N // CLI_B * CLI_EPOCHS
+    losses_ = torch.stack(rec.losses).cpu()
+    require([r["epoch"] for r in rows] == list(range(CLI_EPOCHS))
+            and bool(torch.isfinite(losses_).all())
+            and all(math.isfinite(r["test_loss"]) for r in rows),
+            f"phase 8 --device_aug {label}: rows {rows}")
+    got = cli_train_launches(f"--device_aug {label}", rec, steps,
+                             2 * -(-CLI_N // CLI_B) * CLI_EPOCHS, amp, "8")
+    for k, n in rec.counts.items():
+        total[k] += n
+    per_step = {k: got[k] / steps for k in TRAIN_WRAPPERS if k in got}
+    print(f"phase 8 train CLI --device_aug {label} b{CLI_B}: train img/s an "
+          f"epoch (log.txt) "
+          f"{[round(r['images_per_sec'], 1) for r in rows]} beside phase 7's "
+          f"host path {[round(v, 1) for v in CLI_IPS.get(label, [])]}; "
+          f"epoch seconds {[round(r['epoch_time'], 2) for r in rows]}; eval "
+          f"{sum(rec.eval_s):.2f} s in {len(rec.eval_s)} evals; losses "
+          f"{[round(v, 4) for v in losses_.tolist()]}; training branches' "
+          f"launches a step {per_step}; "
+          f"launches {got} on {card}; {since(t0)}", flush=True)
+
+
+def loader_ms(transform, n: int) -> float:
+    """ms a b256 batch of the Loader (one prefetch thread) over n synthetic
+    images at 224 px with ``transform``."""
+    from tokenreduction_tpu_torch.data import Loader, ShardedSampler
+    from tokenreduction_tpu_torch.data.datasets import build_dataset
+
+    ds, _ = build_dataset("", "synthetic", "train", num_classes=1000,
+                          img_size=224, synthetic_n=n)
+    loader = Loader(ds, ShardedSampler(n, 1, 0, seed=0), CLI_B, transform,
+                    drop_last=True, seed=0)
+    t0 = time.perf_counter()
+    batches = sum(1 for _ in loader)
+    return 1e3 * (time.perf_counter() - t0) / batches
+
+
+def aug_times(card: str):
+    """The aug's own ms for a b256 batch of 256-px squares (CUDA events)
+    beside the Loader's ms a batch on the host path and on the uint8
+    path."""
+    t0 = time.perf_counter()
+    from tokenreduction_tpu_torch.data import TransformConfig, make_transform
+    from tokenreduction_tpu_torch.data.device_aug import (
+        DeviceAugConfig, make_device_augment)
+    from tokenreduction_tpu_torch.data.pipeline import make_raw_transform
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    x = torch.randint(0, 256, (AUG_B, AUG_SQUARE, AUG_SQUARE, 3),
+                      generator=gen, device=DEVICE, dtype=torch.uint8)
+    aug = make_device_augment(DeviceAugConfig(input_size=224))
+    reset_counts()
+    aug_ms = cuda_ms(lambda: aug(x, gen), runs=10, warmup=2)
+    require(not any({**counts(), **launcher_counts()}.values()),
+            "phase 8: the augmentation launched a kernel of the port")
+    host = loader_ms(make_transform("synthetic", True, TransformConfig(
+        input_size=224)), LOADER_N)
+    raw = loader_ms(make_raw_transform(int(224 / 0.875 + 0.5)), LOADER_N)
+    print(f"phase 8 aug b{AUG_B} of {AUG_SQUARE}-px squares on the card: "
+          f"{aug_ms:.2f} ms a batch (CUDA events, median of 10; "
+          f"{AUG_B / aug_ms * 1e3:.0f} img/s), no kernel of the port; the "
+          f"Loader (one thread, {LOADER_N} synthetic images): host "
+          f"transforms {host:.1f} ms a b{CLI_B} batch "
+          f"({CLI_B / host * 1e3:.1f} img/s), uint8 squares {raw:.1f} ms "
+          f"({CLI_B / raw * 1e3:.1f} img/s) on {card}; {since(t0)}",
+          flush=True)
+
+
+def aug_against_cpu(card: str):
+    """The aug's transforms on the card against the CPU on the same uint8
+    inputs at fixed parameters, and the whole aug from one seed."""
+    t0 = time.perf_counter()
+    from tokenreduction_tpu_torch.data import device_aug as A
+
+    gen = torch.Generator().manual_seed(9)
+    B, S = AUG_CHECK_B, AUG_SQUARE
+    u8 = torch.randint(0, 256, (B, S, S, 3), generator=gen,
+                       dtype=torch.uint8)
+    box = (torch.randint(0, 40, (B,), generator=gen).float(),
+           torch.randint(0, 40, (B,), generator=gen).float(),
+           torch.randint(60, 216, (B,), generator=gen).float(),
+           torch.randint(60, 216, (B,), generator=gen).float())
+    flip = torch.rand(B, generator=gen) < 0.5
+    mags = torch.rand(B, generator=gen) * 10
+    signs = torch.where(torch.rand(B, generator=gen) < 0.5, -1.0, 1.0)
+
+    def both(fn, *args):
+        cpu = fn(*args)
+        dev = fn(*[a.to(DEVICE) if torch.is_tensor(a) else a for a in args])
+        return dev.cpu(), cpu
+
+    def crop(u8_, top, left, h, w, flip_):
+        return A.hflip(A.crop_resize(u8_.float(), top, left, h, w, 224),
+                       flip_)
+
+    worst = {}
+    got, want = both(crop, u8, *box, flip)
+    worst["crop+resize+flip"] = (got - want).abs().max().item()
+    tf = A.make_device_eval_transform(A.DeviceAugConfig(input_size=224))
+    got, want = both(tf, u8)
+    std = min(A.IMAGENET_STD)
+    worst["eval transform"] = (got - want).abs().max().item() * 255 * std
+    for name, err in worst.items():
+        require(err <= AUG_LEVELS, f"phase 8 aug {name}: {err:.2e} levels "
+                f"> {AUG_LEVELS:.2e}")
+    imgs = u8[:, :224, :224].float()
+    for inc in (True, False):
+        for i, op in enumerate(A.ra_op_table(inc)):
+            got, want = both(lambda x, m, s: op(x, m, s, 16), imgs, mags,
+                             signs)
+            err = (got - want).abs()
+            tag = f"RA op {i}{'' if inc else ' plain'}"
+            if i in (0, 1, 2, 4, 5, 6):  # the LUT ops
+                require(torch.equal(got, want), f"phase 8 aug {tag}: not "
+                        f"equal ({err.max().item()} levels)")
+                worst[tag] = 0.0
+            elif i in (3, 11, 12, 13, 14):  # the geometric ops
+                share = (err > AUG_LEVELS).float().mean().item()
+                require(err.max().item() <= 1.0 and
+                        share <= AUG_GEOMETRIC_SHARE,
+                        f"phase 8 aug {tag}: {err.max().item()} levels, "
+                        f"{share:.2e} of values beyond {AUG_LEVELS:.2e}")
+                worst[tag] = err.max().item()
+            else:
+                require(err.max().item() <= AUG_LEVELS,
+                        f"phase 8 aug {tag}: {err.max().item():.2e} levels")
+                worst[tag] = err.max().item()
+    aug = A.make_device_augment(A.DeviceAugConfig(input_size=224))
+    x = u8.to(DEVICE)
+    a = aug(x, torch.Generator(device=DEVICE).manual_seed(1))
+    b = aug(x, torch.Generator(device=DEVICE).manual_seed(1))
+    plain = A.make_device_augment(A.DeviceAugConfig(input_size=224,
+                                                    reprob=0.0))
+    c = plain(x, torch.Generator(device=DEVICE).manual_seed(1))
+    mean = torch.tensor(A.IMAGENET_MEAN, device=DEVICE)[:, None, None]
+    lv = (c * torch.tensor(A.IMAGENET_STD, device=DEVICE)[:, None, None]
+          + mean) * 255
+    require(a.shape == (B, 3, 224, 224) and a.dtype == torch.float32
+            and a.device == x.device and bool(torch.isfinite(a).all())
+            and torch.equal(a, b) and lv.min().item() >= -1e-3
+            and lv.max().item() <= 255 + 1e-3,
+            f"phase 8 aug pipeline: {a.shape} {a.dtype}, equal "
+            f"{torch.equal(a, b)}, levels {lv.min().item()}.."
+            f"{lv.max().item()}")
+    print(f"phase 8 aug card against CPU (B={B}, {S}-px uint8 squares, "
+          f"fixed parameters): worst |card - CPU| in levels of 255 "
+          f"{ {k: float(f'{v:.2e}') for k, v in worst.items()} } (bounds: "
+          f"crop and eval {AUG_LEVELS:.2e}, LUT ops equal, geometric at "
+          f"most 1 level on {AUG_GEOMETRIC_SHARE:.0e} of values); the whole "
+          f"aug "
+          f"from one seed twice bitwise equal, [B, 3, 224, 224] fp32 on the "
+          f"card, without erasing within 0..255 on {card}; {since(t0)}",
+          flush=True)
+
+
+def optimizers_against_cpu(card: str):
+    """Every optimizer name, three updates of topk@0.7's params on the card
+    and on the CPU from the same gradients (three fp32 B=32 batches on the
+    card); AdaHessian's Hutchinson diagonal on the card (the plain
+    composition, no kernel launch) against the CPU's on the same probe.
+    Every param starts with seeded noise, so that no leaf starts at zero:
+    a zero-initialised bias holds nothing but three updates that partly
+    cancel, and fp32 itself then misses its fp64 value by 1.4e-5 of its
+    max (SGD, blocks.1.mlp.fc1.bias, on the CPU)."""
+    t0 = time.perf_counter()
+    name, kw = MODELS["topk@0.7"]
+    model, _ = create_model(name, device=DEVICE,
+                            generator=torch.Generator().manual_seed(12), **kw)
+    noise = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=noise).to(DEVICE))
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator().manual_seed(13)
+    grads = []
+    opt, _ = create_optimizer(params0, OptimConfig(), lambda s: 1e-3, [])
+    live = init_train_state(model, opt, device=DEVICE).params
+    for _ in range(OPT_STEPS):
+        x = images(OPT_B, gen)
+        y = torch.randint(0, 1000, (OPT_B,), generator=gen).to(DEVICE)
+        _, g = loss_and_grads(model, label_smoothing_loss, live, x, y,
+                              StepConfig())
+        grads.append(g)
+    # the Hutchinson diagonal: the card's pinned model against the CPU's
+    from tokenreduction_tpu_torch.train import step as train_step_mod
+
+    hmodel = copy.deepcopy(model)
+    train_step_mod.pin_plain_composition(hmodel)
+    cpu_model = copy.deepcopy(hmodel).cpu()
+    z = train_step_mod.rademacher_like(live, torch.Generator(
+        device=DEVICE).manual_seed(14))
+    x = images(DIAG_B, gen)
+    y = torch.randint(0, 1000, (DIAG_B,), generator=gen).to(DEVICE)
+    hmodel.train()
+    cpu_model.train()
+    reset_counts()
+    _, _, diag = train_step_mod.hutchinson_grads_and_diag(
+        hmodel, label_smoothing_loss, live, x, y, StepConfig(), z,
+        torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in {**counts(), **launcher_counts()}.items()
+                if n}
+    require(not launched, f"phase 8 adahessian: the Hutchinson step "
+            f"launched {launched}")
+    cpu_live = {n: t.detach().cpu().requires_grad_(True)
+                for n, t in live.items()}
+    _, _, cpu_diag = train_step_mod.hutchinson_grads_and_diag(
+        cpu_model, label_smoothing_loss, cpu_live, x.cpu(), y.cpu(),
+        StepConfig(), {n: t.cpu() for n, t in z.items()},
+        torch.Generator().manual_seed(0))
+    diag_name, diag_err = max(((n, rel_err(d.cpu(), cpu_diag[n])[1])
+                               for n, d in diag.items()), key=lambda t: t[1])
+    require(diag_err <= DIAG_BOUND, f"phase 8 adahessian diagonal "
+            f"{diag_name}: {diag_err:.2e} of max|CPU|")
+    errs = {}
+    for opt_name in OPT_NAMES:
+        sides = {}
+        for device in (DEVICE, "cpu"):
+            p = {n: t.to(device).clone() for n, t in params0.items()}
+            o, _ = create_optimizer(p, OptimConfig(opt=opt_name,
+                                                   clip_grad=1.0,
+                                                   backbone_lr_scale=0.1),
+                                    lambda s: 1e-3, [], steps_per_epoch=100)
+            st = o.init(p)
+            for i in range(OPT_STEPS):
+                extra = ({"hessian_diag": {n: d.to(device)
+                                           for n, d in diag.items()}}
+                         if o.needs_diag else {})
+                o.update(p, {n: g.to(device) for n, g in grads[i].items()},
+                         st, i, **extra)
+            sides[device] = p
+        worst, worst_n, beyond, total = 0.0, "", 0, 0
+        for n, t in sides[DEVICE].items():
+            want = sides["cpu"][n]
+            err = (t.cpu() - want).abs() / max(want.abs().max().item(),
+                                               1e-30)
+            if err.max().item() > worst:
+                worst, worst_n = err.max().item(), n
+            beyond += int((err > OPT_BOUND).sum())
+            total += want.numel()
+        if opt_name in OPT_ILL:
+            require(worst <= OPT_ILL_WORST and
+                    beyond <= OPT_ILL_SHARE * total,
+                    f"phase 8 --opt {opt_name}: {beyond} of {total} params "
+                    f"beyond {OPT_BOUND:.0e}, {worst_n} {worst:.2e} of "
+                    f"max|CPU|")
+        else:
+            require(worst <= OPT_BOUND, f"phase 8 --opt {opt_name}: "
+                    f"{worst_n} {worst:.2e} of max|CPU| > {OPT_BOUND:.0e}")
+        errs[opt_name] = (float(f"{worst:.2e}"), beyond)
+    print(f"phase 8 optimizers topk@0.7 fp32 (params with seeded noise), "
+          f"{OPT_STEPS} updates from the gradients of {OPT_STEPS} B={OPT_B} "
+          f"batches, card against CPU: "
+          f"(worst of a leaf's max|CPU|, params beyond {OPT_BOUND:.0e}) "
+          f"{errs} (bound {OPT_BOUND:.0e}; {', '.join(OPT_ILL)}: at most "
+          f"{OPT_ILL_SHARE:.0e} of the params beyond it, each within "
+          f"{OPT_ILL_WORST:.0e}); "
+          f"adahessian's Hutchinson diagonal B={DIAG_B}: no kernel launch, "
+          f"worst leaf {diag_name} {diag_err:.2e} of max|CPU| (bound "
+          f"{DIAG_BOUND:.0e}) on {card}; {since(t0)}", flush=True)
+
+
+def brain_npz(state: dict, num_heads: int) -> dict:
+    """A port ViT's state dict in the Brain-Flax .npz layout (the inverse
+    of models/convert.py::convert_jax_npz)."""
+    def a(t):
+        return t.detach().cpu().numpy()
+
+    out = {"embedding/kernel": a(state["patch_embed.proj.weight"]
+                                 .permute(2, 3, 1, 0)),
+           "embedding/bias": a(state["patch_embed.proj.bias"]),
+           "cls": a(state["cls_token"]),
+           "Transformer/posembed_input/pos_embedding": a(
+               state["pos_embed"]),
+           "Transformer/encoder_norm/scale": a(state["norm.weight"]),
+           "Transformer/encoder_norm/bias": a(state["norm.bias"]),
+           "head/kernel": a(state["head.weight"].t()),
+           "head/bias": a(state["head.bias"])}
+    i = 0
+    while f"blocks.{i}.norm1.weight" in state:
+        b, bp = f"blocks.{i}.", f"Transformer/encoderblock_{i}/"
+        mha = bp + "MultiHeadDotProductAttention_1/"
+        for ln, ours in (("LayerNorm_0", "norm1"), ("LayerNorm_2", "norm2")):
+            out[f"{bp}{ln}/scale"] = a(state[b + ours + ".weight"])
+            out[f"{bp}{ln}/bias"] = a(state[b + ours + ".bias"])
+        w = state[b + "attn.qkv.weight"].t()
+        d = w.shape[0]
+        split = w.reshape(d, 3, num_heads, d // num_heads)
+        bias = state[b + "attn.qkv.bias"].reshape(3, num_heads, -1)
+        for j, n in enumerate(("query", "key", "value")):
+            out[f"{mha}{n}/kernel"] = a(split[:, j])
+            out[f"{mha}{n}/bias"] = a(bias[j])
+        out[f"{mha}out/kernel"] = a(state[b + "attn.proj.weight"].t()
+                                    .reshape(num_heads, -1, d))
+        out[f"{mha}out/bias"] = a(state[b + "attn.proj.bias"])
+        for r, fc in ((0, "fc1"), (1, "fc2")):
+            out[f"{bp}MlpBlock_3/Dense_{r}/kernel"] = a(
+                state[f"{b}mlp.{fc}.weight"].t())
+            out[f"{bp}MlpBlock_3/Dense_{r}/bias"] = a(
+                state[f"{b}mlp.{fc}.bias"])
+        i += 1
+    return out
+
+
+def npz_finetune(root: pathlib.Path, card: str):
+    """--finetune of a seeded Brain-Flax .npz at DeiT-S width
+    (train/loop.py::_load_finetune) on the card and on the CPU: every
+    parameter loaded as written, the fp32 logits within 1e-4 of
+    max|CPU|."""
+    import types
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    name, kw = MODELS["topk@0.7"]
+    src, cfg = create_model(name, device="cpu",
+                            generator=torch.Generator().manual_seed(15), **kw)
+    path = root / "vit.npz"
+    np.savez(path, **brain_npz(src.state_dict(), HEADS))
+    args = types.SimpleNamespace(finetune=str(path))
+    x = images(MODEL_BATCH[torch.float32], torch.Generator().manual_seed(16))
+    logits, want = {}, src.state_dict()
+    for device in (DEVICE, "cpu"):
+        model, _ = create_model(name, device=device,
+                                generator=torch.Generator().manual_seed(0),
+                                **kw)
+        report = train_loop._load_finetune(args, model, cfg)
+        require(not report["shape_mismatch"] and not
+                report["missing_in_ckpt"] and all(
+                    torch.equal(t.cpu(), want[n])
+                    for n, t in model.state_dict().items()),
+                f"phase 8 --finetune .npz on {device}: {report}")
+        with torch.no_grad():
+            logits[device] = model.eval()(x.to(device))
+    _, err = rel_err(logits[DEVICE].cpu(), logits["cpu"])
+    require(err <= NPZ_BOUND, f"phase 8 --finetune .npz: logits {err:.2e} "
+            f"of max|CPU|")
+    print(f"phase 8 --finetune of a seeded Brain-Flax .npz, topk@0.7 at "
+          f"DeiT-S width ({len(report['loaded'])} params, each as written): "
+          f"fp32 logits B={MODEL_BATCH[torch.float32]} card against CPU "
+          f"{err:.2e} of max|CPU| (bound {NPZ_BOUND:.0e}) on {card}; "
+          f"{since(t0)}", flush=True)
+
+
+def phase_flags(card: str) -> dict:
+    """Phase 8 (see the module docstring). Returns the launch counts of its
+    train CLI runs, summed, for the kernels' record."""
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase8"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    total = dict.fromkeys([*WRAPPERS, *LAUNCHERS], 0)
+    settle()
+    aug_cli("amp", True, root, total, card)
+    aug_cli("fp32", False, root, total, card)
+    aug_times(card)
+    aug_against_cpu(card)
+    optimizers_against_cpu(card)
+    npz_finetune(root, card)
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 T0 = time.perf_counter()
 
 
@@ -5519,6 +5962,10 @@ def main():
     for name in (*WRAPPERS, *LAUNCHERS):
         launches[name] += trained_cli[name]
     elapsed("7")
+    trained_flags = phase_flags(card)
+    for name in (*WRAPPERS, *LAUNCHERS):
+        launches[name] += trained_flags[name]
+    elapsed("8")
     for name, shape, ms, bound_ms, lib_ms in standalone:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"standalone {name} {shape}: {ms:.4f} ms per launch, bound "

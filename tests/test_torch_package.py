@@ -98,6 +98,23 @@ _CHILD = textwrap.dedent("""
     state, metrics = step(state, {"image": torch.zeros(2, 3, 32, 32),
                                   "label": torch.tensor([1, 2])})
     assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+    # the augmentation on the device and an AdaHessian step with the
+    # per-module norms (the plain composition pinned)
+    from tokenreduction_tpu_torch.data.device_aug import (
+        DeviceAugConfig, make_device_augment)
+    aug = make_device_augment(DeviceAugConfig(input_size=32))
+    opt, _ = create_optimizer(dict(model.named_parameters()),
+                              OptimConfig(opt="adahessian"),
+                              lambda s: 1e-3, [])
+    state = init_train_state(model, opt, device="cpu")
+    step = make_train_step(
+        model, lambda o, t, i, p: losses.cross_entropy(o, t), opt,
+        StepConfig(hutchinson=True, watch_norms=True),
+        torch.Generator().manual_seed(0), aug_fn=aug)
+    state, metrics = step(state, {
+        "image": torch.randint(0, 256, (2, 37, 37, 3), dtype=torch.uint8),
+        "label": torch.tensor([1, 2])})
+    assert bool(torch.isfinite(metrics["grad_norm/blocks_0"]))
     import json, os, tempfile
     from tokenreduction_tpu_torch import data  # noqa: F401
     from tokenreduction_tpu_torch.evaluation import (  # noqa: F401
@@ -142,11 +159,12 @@ def test_port_imports_and_runs_without_jax():
     heuristic forward (eval and training), a tiny DyViT eval and
     distillation training forward, the two teachers' forwards, a tiny
     topk forward and one amp train step
-    (drop_path 0.1), imports the data, utils and evaluation subpackages
-    and the train loop, mixup, the train CLI and the asynchronous
-    checkpointer, and validates a ToMe checkpoint in viz mode, on the CPU
-    with no JAX,
-    Flax or optax module loaded, no kernel build and no kernel launch."""
+    (drop_path 0.1), one AdaHessian step on uint8 images augmented by
+    data/device_aug.py with the per-module norms, imports the data,
+    utils and evaluation subpackages and the train loop, mixup, the train
+    CLI and the asynchronous checkpointer, and validates a ToMe
+    checkpoint in viz mode, on the CPU with no JAX, Flax or optax module
+    loaded, no kernel build and no kernel launch."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])

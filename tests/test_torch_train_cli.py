@@ -13,7 +13,9 @@ within 1e-6, the accuracies equal), and so does the best checkpoint's
 ``meta.json``. The port alone: a resumed third epoch equals an
 uninterrupted run's, its default recipe (mixup, cutmix, drop-path 0.1,
 EMA) trains and its checkpoint validates, the ``--constant_cls`` alias,
-the refusals, the asynchronous checkpointer.
+the refusals (``--fsdp``, downloads) and the flags that no longer raise
+(tests/test_torch_train_cli_flags.py runs them), the asynchronous
+checkpointer.
 """
 
 import contextlib
@@ -188,11 +190,6 @@ def test_constant_pos_alias(tmp_path, pth, flag, frozen):
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--fsdp"], NotImplementedError, "Queue 1 item 5"),
-    (["--device_aug"], NotImplementedError, "Queue 1 item 4b"),
-    (["--opt", "sgd"], NotImplementedError, "Queue 1 item 4b"),
-    (["--sched", "plateau"], NotImplementedError, "Queue 1 item 4b"),
-    (["--lr-noise", "0.5"], NotImplementedError, "Queue 1 item 4b"),
-    (["--wandb_watch"], NotImplementedError, "Queue 1 item 4b"),
     (["--model-ema-force-cpu"], ValueError, "unsupported"),
     (["--pretrained"], ValueError, "local --finetune"),
     (["--teacher-path", "https://example.invalid/t.pth"], ValueError,
@@ -203,10 +200,29 @@ def test_unported_flags_raise_at_parse_time(argv, error, match):
         train_cli.parse_args(TOPK + argv + ["--device", "cpu"])
 
 
+@pytest.mark.parametrize("argv,field,value", [
+    (["--device_aug"], "device_aug", True),
+    (["--opt", "sgd"], "opt", "sgd"),
+    (["--sched", "plateau"], "sched", "plateau"),
+    (["--lr-noise", "0.5"], "lr_noise", [0.5]),
+    (["--wandb_watch"], "wandb_watch", True)])
+def test_formerly_refused_flags_parse(argv, field, value):
+    """The flags of ROADMAP.md Queue 1 item 4b parse into the run's args
+    (they raised until the port had them)."""
+    args = train_cli.parse_args(TOPK + argv + ["--device", "cpu"])
+    assert getattr(args, field) == value
+
+
 def test_finetune_npz_raises(tmp_path):
+    """A Brain-Flax .npz without encoder blocks (a hybrid backbone) is
+    refused as JAX refuses it; a ViT's .npz loads
+    (tests/test_torch_train_cli_flags.py)."""
     npz = str(tmp_path / "vit.npz")
-    np.savez(npz, x=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
+    np.savez(npz, **{k: np.zeros(1) for k in (
+        "embedding/kernel", "embedding/bias", "cls",
+        "Transformer/posembed_input/pos_embedding",
+        "Transformer/encoder_norm/scale", "Transformer/encoder_norm/bias")})
+    with pytest.raises(ValueError, match="not a Brain-Flax ViT"):
         run_port(TOPK + DIMS + DATA + ["--finetune", npz, "--epochs", "1"])
 
 

@@ -34,8 +34,15 @@ as skipped, ``merge_pretrained`` copies every entry whose name and shape
 match into a model's state dict (strict=False) with the report the CLIs
 print, and ``resize_pos_embed`` interpolates position embeddings to
 another grid (PIL bicubic per channel, as JAX does). Downloads
-(``--pretrained``, an ``http`` teacher path) and Brain-Flax ``.npz``
-files are refused: ``refuse_download`` and ``refuse_npz``.
+(``--pretrained``, an ``http`` teacher path) are refused:
+``refuse_download``.
+
+The ``.npz`` route (``--finetune x.npz``) is the port's copy of JAX
+``models/convert.py:212-300``: ``load_jax_npz_state`` reads a Google
+Brain Flax ViT checkpoint, ``convert_jax_npz`` builds the Flax param
+subtree from it (per-head q/k/v re-fused into one qkv kernel, the output
+projection flattened; hybrid and other non-ViT files refused), and
+``state_dict_from_flax`` takes that tree to the port's names.
 """
 
 from __future__ import annotations
@@ -257,8 +264,86 @@ def refuse_download(flag: str, local: str):
         f"the .pth yourself and pass it as a local {local} file instead")
 
 
-def refuse_npz(path: str):
-    raise NotImplementedError(
-        f"--finetune {path}: Brain-Flax .npz checkpoints are not ported yet "
-        '(ROADMAP.md Queue 1 item 4b, "Full training loop and CLI": the '
-        "rest of the flags); pass a timm .pth")
+def _set(tree: dict, path: tuple, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def load_jax_npz_state(path: str) -> dict:
+    """A Google Brain Flax ViT ``.npz`` checkpoint as {name: numpy}."""
+    with np.load(path) as w:
+        return {k: np.asarray(w[k]) for k in w.files}
+
+
+def convert_jax_npz(state: Mapping) -> tuple[dict, list]:
+    """(the Flax param subtree of a Brain-Flax ViT ``.npz`` mapping, the
+    skipped names), as JAX's ``convert_jax_npz``: the reference's
+    timm-inherited loader (deit_viz.py:252-327 ``_load_weights``) for the
+    plain ViT. The layouts are Flax's already (conv kernels HWIO, Dense
+    kernels [in, out]); the per-head q/k/v kernels [D, H, hd] are re-fused
+    into one [D, 3D] qkv kernel and ``out/kernel`` [H, hd, D] flattens to
+    the [D, D] proj kernel. Raises ValueError on a file with no
+    ``Transformer/encoderblock_*`` (hybrid backbones are not
+    supported)."""
+    prefix = "opt/target/" if "opt/target/embedding/kernel" in state else ""
+
+    def squash(a: np.ndarray) -> np.ndarray:
+        # 1x1x1xN "conv" biases in some Brain checkpoints (deit_viz.py:257)
+        if a.ndim == 4 and a.shape[0] == a.shape[1] == a.shape[2] == 1:
+            return a.reshape(-1)
+        return a
+
+    used = set()
+
+    def get(name: str) -> np.ndarray:
+        used.add(prefix + name)
+        return squash(np.asarray(state[prefix + name]))
+
+    def has(name: str) -> bool:
+        return prefix + name in state
+
+    tree: dict = {}
+    _set(tree, ("patch_embed", "proj", "kernel"), get("embedding/kernel"))
+    _set(tree, ("patch_embed", "proj", "bias"), get("embedding/bias"))
+    _set(tree, ("cls_token",), get("cls"))
+    _set(tree, ("pos_embed",),
+         get("Transformer/posembed_input/pos_embedding"))
+    _set(tree, ("norm", "scale"), get("Transformer/encoder_norm/scale"))
+    _set(tree, ("norm", "bias"), get("Transformer/encoder_norm/bias"))
+    if has("head/kernel"):
+        # a head of another class count is dropped by merge_pretrained's
+        # shape check (deit_viz.py:310-312)
+        _set(tree, ("head", "kernel"), get("head/kernel"))
+        _set(tree, ("head", "bias"), get("head/bias"))
+
+    i = 0
+    while has(f"Transformer/encoderblock_{i}/LayerNorm_0/scale"):
+        bp = f"Transformer/encoderblock_{i}/"
+        mha = bp + "MultiHeadDotProductAttention_1/"
+        base = (f"blocks_{i}",)
+        for ln, ours in (("LayerNorm_0", "norm1"), ("LayerNorm_2", "norm2")):
+            _set(tree, base + (ours, "scale"), get(f"{bp}{ln}/scale"))
+            _set(tree, base + (ours, "bias"), get(f"{bp}{ln}/bias"))
+        d = state[prefix + f"{mha}query/kernel"].shape[0]
+        _set(tree, base + ("attn", "qkv", "kernel"), np.concatenate(
+            [get(f"{mha}{n}/kernel").reshape(d, -1)
+             for n in ("query", "key", "value")], axis=1))
+        _set(tree, base + ("attn", "qkv", "bias"), np.concatenate(
+            [get(f"{mha}{n}/bias").reshape(-1)
+             for n in ("query", "key", "value")]))
+        _set(tree, base + ("attn", "proj", "kernel"),
+             get(f"{mha}out/kernel").reshape(-1, d))
+        _set(tree, base + ("attn", "proj", "bias"), get(f"{mha}out/bias"))
+        for r, fc in ((0, "fc1"), (1, "fc2")):
+            _set(tree, base + ("mlp", fc, "kernel"),
+                 get(f"{bp}MlpBlock_3/Dense_{r}/kernel"))
+            _set(tree, base + ("mlp", fc, "bias"),
+                 get(f"{bp}MlpBlock_3/Dense_{r}/bias"))
+        i += 1
+    if i == 0:
+        raise ValueError(
+            "no Transformer/encoderblock_* entries — not a Brain-Flax ViT "
+            "checkpoint (hybrid-backbone .npz files are not supported)")
+    return tree, sorted(set(state) - used)

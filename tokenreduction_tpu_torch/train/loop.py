@@ -15,9 +15,17 @@ fp32 parameters, on the images the step was given before any amp cast.
 
 ``run_training`` is the epoch loop of the train CLI
 (``train/train_cli.py``) on one device: the data pipeline's Loader
-(``RASampler``, or ``ShardedSampler`` under ``--no-repeated-aug``), the
-model from the registry with ``--finetune``, the teachers, the linear LR
-scaling, the schedule, the grouped AdamW, mixup/cutmix, the train step,
+(``RASampler``, or ``ShardedSampler`` under ``--no-repeated-aug``), with
+``--device_aug`` the uint8 squares that the augmentation on the card takes
+(``data/device_aug.py``, JAX loop.py:273-319; ThreeAugment and ``--src``
+fall back to the host transforms, as in JAX), the model from the registry
+with ``--finetune`` (a timm ``.pth`` or a Brain-Flax ``.npz``), the
+teachers, the linear LR scaling, the schedule (lr noise included; the
+plateau decay applied on the host to the optimizer's learning rates, its
+state kept, JAX loop.py:782-800), the grouped optimizer (``--opt``;
+AdaHessian pins the plain composition for the whole run, as JAX forces
+XLA), mixup/cutmix, the train step (``--wandb_watch``: each module's
+norms in the log rows),
 the eval of the params and of the EMA after each epoch (the better one
 kept), ``best_checkpoint`` and ``checkpoint`` through the
 ``AsyncCheckpointer``, ``--resume``, ``--eval`` and the ``log.txt`` rows
@@ -174,8 +182,12 @@ def build_loss_fn(args, model_cfg, base_crit,
 
 def images_to_device(image: np.ndarray, device) -> torch.Tensor:
     """A Loader batch's HWC float32 images as an NCHW tensor on
-    ``device`` (copied without waiting for the card)."""
+    ``device`` (copied without waiting for the card); uint8 squares (the
+    device augmentation's input) are copied as they are, uint8 HWC, and
+    the augmentation casts them on the card."""
     x = torch.from_numpy(image).to(device, non_blocking=True)
+    if x.dtype == torch.uint8:
+        return x
     return x.permute(0, 3, 1, 2).contiguous()
 
 
@@ -228,12 +240,15 @@ def evaluate(eval_step, params, loader, device, multilabel: bool):
 
 
 def _load_finetune(args, model, model_cfg):
-    """--finetune: a timm .pth merged strict=False, pos_embed resized to
+    """--finetune: a timm .pth, or a Brain-Flax ViT .npz through its Flax
+    tree (JAX loop.py:385-404), merged strict=False, pos_embed resized to
     the model's grid; prints the report."""
     if args.finetune.endswith(".npz"):
-        C.refuse_npz(args.finetune)
-    tree, _ = C.convert_torch_state_dict(
-        C.load_torch_checkpoint(args.finetune))
+        flax_tree, _ = C.convert_jax_npz(C.load_jax_npz_state(args.finetune))
+        tree = C.state_dict_from_flax(flax_tree)
+    else:
+        tree, _ = C.convert_torch_state_dict(
+            C.load_torch_checkpoint(args.finetune))
     if "pos_embed" in tree:
         # interpolate to the target grid (reference train.py:336-370)
         tree["pos_embed"] = torch.from_numpy(C.resize_pos_embed(
@@ -286,6 +301,47 @@ def _build_teacher(args, num_classes, dim_kw, device):
     return make_teacher_apply(teacher)
 
 
+def device_aug_setup(args, tcfg, ds_train, ds_val, multilabel: bool):
+    """(aug_fn, train transform, eval transform on the card, val
+    transform) of ``--device_aug`` (JAX loop.py:273-319): the Loader
+    copies uint8 squares (a cached set's own size, else
+    int(input_size / crop_pct + 0.5)) and the step augments them on the
+    card; a cached val set is transformed on the card too. Without the
+    flag, or with ThreeAugment or ``--src`` (the host recipe only), the
+    host transforms and no aug."""
+    from tokenreduction_tpu_torch.data import make_transform
+    from tokenreduction_tpu_torch.data.pipeline import make_raw_transform
+
+    host = (None, make_transform(args.dataset, True, tcfg), None,
+            make_transform(args.dataset, False, tcfg))
+    if not args.device_aug:
+        return host
+    if tcfg.three_augment or tcfg.src_crop:
+        print("device_aug: unsupported recipe (ThreeAugment/src); "
+              "falling back to host transforms")
+        return host
+    from tokenreduction_tpu_torch.data.device_aug import (
+        DeviceAugConfig,
+        make_device_augment,
+        make_device_eval_transform,
+    )
+    aug_cfg = DeviceAugConfig(
+        input_size=args.input_size,
+        recipe="asl" if multilabel else "imagenet",
+        aa=tcfg.aa if args.dataset != "nabirds" else "",
+        color_jitter=tcfg.color_jitter, reprob=tcfg.reprob,
+        recount=tcfg.recount)
+    images = getattr(ds_train, "images", None)
+    raw_size = (int(images.shape[1]) if images is not None
+                else int(args.input_size / tcfg.crop_pct + 0.5))
+    eval_tf, val_transform = host[2], host[3]
+    if getattr(ds_val, "images", None) is not None:
+        eval_tf = make_device_eval_transform(aug_cfg)
+        val_transform = make_raw_transform(int(ds_val.images.shape[1]))
+    return (make_device_augment(aug_cfg), make_raw_transform(raw_size),
+            eval_tf, val_transform)
+
+
 def run_training(args):
     """The train CLI's run (see the module docstring); returns
     {"max_accuracy"} (with --eval, the eval's stats)."""
@@ -297,7 +353,6 @@ def run_training(args):
         ShardedSampler,
         TransformConfig,
         build_dataset,
-        make_transform,
     )
 
     device = eval_device(args)
@@ -320,9 +375,10 @@ def run_training(args):
     host_batch = args.batch_size * args.grad_accum_steps
     sampler = (RASampler if args.repeated_aug else ShardedSampler)(
         len(ds_train), 1, 0, seed=args.seed)
+    aug_fn, train_transform, eval_tf, val_transform = device_aug_setup(
+        args, tcfg, ds_train, ds_val, multilabel)
     train_loader = Loader(
-        ds_train, sampler, host_batch,
-        make_transform(args.dataset, True, tcfg), drop_last=True,
+        ds_train, sampler, host_batch, train_transform, drop_last=True,
         seed=args.seed, num_workers=args.num_workers)
     if len(train_loader) == 0:
         # reference-faithful but easy to hit on tiny datasets: RASampler
@@ -335,7 +391,7 @@ def run_training(args):
               "smaller --batch-size for tiny datasets.")
     val_loader = Loader(
         ds_val, ShardedSampler(len(ds_val), 1, 0, shuffle=False),
-        args.batch_size, make_transform(args.dataset, False, tcfg),
+        args.batch_size, val_transform,
         seed=args.seed, pad_partial=True, num_workers=args.num_workers)
     steps_per_epoch = max(len(train_loader), 1)
 
@@ -362,6 +418,12 @@ def run_training(args):
         **model_kw, **dim_kw)
     if args.finetune:
         _load_finetune(args, model, model_cfg)
+    hutchinson = args.opt.lower() == "adahessian"
+    if hutchinson:
+        # make_train_step pins it: the kernels' autograd.Functions have no
+        # double backward (JAX loop.py:554-562 forces its XLA path)
+        print("adahessian: the plain composition pinned for the whole run "
+              "(the kernels have no double backward)")
 
     # ----- teachers
     teacher_apply = None
@@ -444,13 +506,14 @@ def run_training(args):
         StepConfig(grad_accum_steps=args.grad_accum_steps,
                    ema_decay=args.model_ema_decay if args.model_ema else 0.0,
                    amp=args.use_amp, train_mode=args.train_mode,
-                   project_sinkhorn=model_cfg.method == "sinkhorn"),
-        generator, mixup_fn)
+                   project_sinkhorn=model_cfg.method == "sinkhorn",
+                   watch_norms=args.wandb_watch, hutchinson=hutchinson),
+        generator, mixup_fn, aug_fn)
     # equal-weight k-medoids draws its first medoids in eval too
     eval_gen = (torch.Generator(device=device)
                 if model_cfg.method == "kmedoids" and model_cfg.equal_weight
                 else None)
-    eval_step = make_eval_step(model, multilabel, eval_gen)
+    eval_step = make_eval_step(model, multilabel, eval_gen, eval_tf)
 
     def run_eval(params):
         if eval_gen is not None:
@@ -483,6 +546,10 @@ def run_training(args):
     max_accuracy = -1.0
     ema_best = False
     total_step = state.step
+    # ReduceLROnPlateau on the host (JAX loop.py:682-800): the decay scales
+    # the optimizer's learning rates and keeps its state
+    plateau_scale, plateau_best, plateau_wait = 1.0, -1.0, 0
+    metrics = {}
     ckptr = AsyncCheckpointer()
     run_args = {k: v for k, v in vars(args).items() if not callable(v)}
     for epoch in range(start_epoch, args.epochs):
@@ -533,12 +600,27 @@ def run_training(args):
         if args.save_more_than_best and args.output_dir:
             ckptr.save(os.path.join(args.output_dir, "checkpoint"),
                        ema_best=ema_best, max_accuracy=max_accuracy, **save)
-        lr_now = sched_host(total_step if scfg.sched_in_steps else epoch + 1)
+        if args.sched == "plateau":
+            if cur > plateau_best + 1e-9:
+                plateau_best, plateau_wait = cur, 0
+            else:
+                plateau_wait += 1
+                if plateau_wait >= args.patience_epochs:
+                    plateau_wait = 0
+                    plateau_scale *= args.decay_rate
+                    optimizer.lr_scale = plateau_scale
+                    print(f"plateau: lr scale -> {plateau_scale}")
+        lr_now = plateau_scale * sched_host(
+            total_step if scfg.sched_in_steps else epoch + 1)
+        # wandb.watch's equivalent: the last step's per-module norms
+        watch_stats = {k: float(v) for k, v in metrics.items() if "/" in k} \
+            if args.wandb_watch else {}
         log_stats = {
             "epoch": epoch, "train_loss": meter.meters["loss"].global_avg,
             "test_acc1": test_stats["acc1"], "test_acc5": test_stats["acc5"],
             "test_loss": test_stats["loss"], "max_accuracy": max_accuracy,
-            "lr": lr_now, "images_per_sec": ips, "epoch_time": epoch_time,
+            **watch_stats, "lr": lr_now, "images_per_sec": ips,
+            "epoch_time": epoch_time,
         }
         print(json.dumps(log_stats))
         logger.log(log_stats, step=total_step)

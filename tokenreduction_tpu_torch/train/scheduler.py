@@ -3,16 +3,26 @@
 A copy of ``tokenreduction_tpu/train/scheduler.py`` without JAX: pure
 functions step -> lr, evaluated on the host at each step (no device
 synchronisation). ``sched_in_steps`` switches the time base from epochs
-to optimizer steps exactly like the reference flag. lr noise raises
-until ``ROADMAP.md`` Queue 1 item 4b brings it: the JAX version draws it
-from ``jax.random``.
+to optimizer steps exactly like the reference flag.
+
+lr noise (``lr_noise_factor``) is JAX's: a factor 1 + a truncated normal
+(|noise| < lr_noise_pct, scale lr_noise_std) on [start * T, end * T), or
+from start * T with one value, one draw per (seed, floor t). JAX draws it
+with ``jax.random``, which the port cannot reproduce; here it comes from a
+CPU ``torch.Generator`` seeded from (seed, floor t): the draws differ,
+their distribution is the same. The plateau schedule's base is constant;
+the train loop applies its decay on the host (``train/loop.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,13 +47,43 @@ class SchedConfig:
     seed: int = 42
 
 
+def noise_seed(seed: int, ti: int) -> int:
+    """The generator seed of the noise at floor(t) = ti."""
+    return (int(seed) * 1_000_003 + int(ti)) % (2 ** 63)
+
+
+@functools.lru_cache(maxsize=4096)
+def _truncated_normal(seed: int, ti: int, bound: float) -> float:
+    """One standard normal truncated to (-bound, bound), drawn by the
+    inverse CDF from a CPU generator seeded from (seed, ti)."""
+    out = torch.empty(1, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(
+        out, 0.0, 1.0, -bound, bound,
+        generator=torch.Generator().manual_seed(noise_seed(seed, ti)))
+    return float(out[0])
+
+
+def lr_noise_factor(cfg: SchedConfig, t) -> float:
+    """The multiplicative (1 + noise) lr factor at schedule time t (JAX
+    ``lr_noise_factor``): 1 outside the noise range, which is
+    [start * T, end * T) for two fractions and t >= start * T for one,
+    T the run's epochs (or steps with ``sched_in_steps``)."""
+    if cfg.lr_noise is None:
+        return 1.0
+    mult = cfg.steps_per_epoch if cfg.sched_in_steps else 1
+    rng = [float(n) * cfg.epochs * mult for n in cfg.lr_noise]
+    ti = math.floor(np.float32(t))
+    active = rng[0] <= ti < rng[1] if len(rng) >= 2 else ti >= rng[0]
+    if not active:
+        return 1.0
+    std = max(cfg.lr_noise_std, 1e-12)
+    noise = _truncated_normal(cfg.seed, ti, cfg.lr_noise_pct / std) * std
+    return float(np.float32(1.0) + np.float32(noise))
+
+
 def make_schedule(cfg: SchedConfig) -> Callable[[float], float]:
     """Returns lr(t) where t is the epoch (or step if sched_in_steps,
-    pre-scaled by the caller via `t_of_step`)."""
-    if cfg.lr_noise is not None:
-        raise NotImplementedError(
-            "lr_noise is not ported yet (ROADMAP.md Queue 1 item 4b, \"Full "
-            "training loop and CLI\": the rest of the flags)")
+    pre-scaled by the caller via `t_of_step`), times the lr noise."""
     mult = cfg.steps_per_epoch if cfg.sched_in_steps else 1
     t_initial = (cfg.epochs - cfg.cooldown_epochs) * mult
     warmup_t = cfg.warmup_epochs * mult
@@ -77,12 +117,15 @@ def make_schedule(cfg: SchedConfig) -> Callable[[float], float]:
 
     table = {"cosine": cosine, "tanh": tanh, "step": step,
              "constant": lambda t: cfg.lr,
-             # plateau: constant base; the metric-driven decay is applied
-             # host-side by the train loop (rebuilds the optimizer)
+             # plateau: constant base; the train loop scales the
+             # optimizer's learning rates on the eval metric
              "plateau": lambda t: cfg.lr}
     if cfg.sched not in table:
         raise ValueError(f"unknown sched {cfg.sched}")
-    return table[cfg.sched]
+    base = table[cfg.sched]
+    if cfg.lr_noise is None:
+        return base
+    return lambda t: base(t) * lr_noise_factor(cfg, t)
 
 
 def t_of_step(cfg: SchedConfig, total_step: int, epoch: int) -> float:

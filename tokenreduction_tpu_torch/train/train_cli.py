@@ -8,12 +8,11 @@ is ``train/loop.py::run_training``, on the card unless ``--device cpu``
 (or ``--platform cpu``) is given; without a card and without either it
 raises. ``--device`` is the port's device flag, as in the port's
 ``validate``. What the port does not have yet raises when the flags are
-parsed, naming its ``ROADMAP.md`` item: ``--fsdp`` (Queue 1 item 5),
-``--device_aug``, an ``--opt`` other than adamw, ``--sched plateau``,
-``--lr-noise`` and ``--wandb_watch`` (item 4b); ``--model-ema-force-cpu``
-raises as in JAX, and so do ``--pretrained`` and an ``http``
-``--teacher-path``, which would download weights (pass a local .pth). The reference's CUDA/DataLoader plumbing flags parse,
-each with a notice that it has no effect.
+parsed, naming its ``ROADMAP.md`` item: ``--fsdp`` (Queue 1 item 5);
+``--model-ema-force-cpu`` raises as in JAX, and so do ``--pretrained``
+and an ``http`` ``--teacher-path``, which would download weights (pass a
+local .pth). The reference's CUDA/DataLoader plumbing flags parse, each
+with a notice that it has no effect.
 
 Usage:
   python -m tokenreduction_tpu_torch.train.train_cli \\
@@ -27,7 +26,6 @@ import argparse
 
 from tokenreduction_tpu_torch.models.convert import refuse_download
 from tokenreduction_tpu_torch.train.loop import run_training
-from tokenreduction_tpu_torch.train.optim import ITEM_4B
 
 
 def get_args_parser():
@@ -133,7 +131,8 @@ def get_args_parser():
 
     # finetune
     parser.add_argument("--finetune", default="",
-                        help="torch .pth DeiT checkpoint to convert+load")
+                        help="timm .pth or Brain-Flax ViT .npz checkpoint "
+                        "to convert and load")
     parser.add_argument("--pretrained", action="store_true",
                         help="bootstrap from the FB DeiT release weights "
                              "(downloaded+cached; reference "
@@ -195,8 +194,8 @@ def get_args_parser():
                         help="not ported yet (ROADMAP.md Queue 1 item 5); "
                         "raises")
     parser.add_argument("--device_aug", action="store_true",
-                        help="not ported yet (ROADMAP.md Queue 1 item 4b); "
-                        "raises")
+                        help="augment on the card: the host copies uint8 "
+                        "squares (data/device_aug.py)")
     parser.add_argument("--lr_batch_normalizer", default=512, type=float)
     parser.add_argument("--save_more_than_best", action="store_true")
 
@@ -263,26 +262,14 @@ def parse_args(argv=None):
 def check_ported(args):
     """Raise on a flag whose feature the port does not have yet, naming
     its ROADMAP.md item; nothing is ignored silently."""
-    refused = []
     if args.fsdp:
-        refused.append(("--fsdp", "ROADMAP.md Queue 1 item 5, parallelism"))
-    if args.device_aug:
-        refused.append(("--device_aug", ITEM_4B))
-    if args.opt.lower() != "adamw":
-        refused.append((f"--opt {args.opt}", ITEM_4B))
-    if args.sched == "plateau":
-        refused.append(("--sched plateau", ITEM_4B))
-    if args.lr_noise:
-        refused.append(("--lr-noise", ITEM_4B))
-    if args.wandb_watch:
-        refused.append(("--wandb_watch", ITEM_4B))
+        raise NotImplementedError(
+            "--fsdp is not ported yet (ROADMAP.md Queue 1 item 5, "
+            "parallelism)")
     if args.pretrained and not args.finetune:
         refuse_download("--pretrained", "--finetune")
     if args.teacher_path.startswith("http"):
         refuse_download("an http --teacher-path", "--teacher-path")
-    if refused:
-        raise NotImplementedError("; ".join(
-            f"{flag} is not ported yet ({item})" for flag, item in refused))
 
 
 # Reference train.py flags with no meaning here (torch.distributed and

@@ -11,10 +11,10 @@ A checkpoint is a directory of two files:
   or None}``. ``params`` and ``ema_params`` are state dicts under the
   model's own names (``model.state_dict()``, or a train state's fp32
   masters), saved on the CPU; ``opt_state`` is the optimizer's state as
-  it is (the port's ``GroupedAdamW`` moments ``{"mu", "nu"}``, or a
-  ``torch.optim`` ``state_dict()``). Only tensors, numbers, strings and
-  containers of them, so that ``torch.load(..., weights_only=True)``
-  reads it.
+  it is (the port's ``GroupedOptimizer`` state {part: {name: tensor}},
+  e.g. AdamW's ``{"mu", "nu"}``, or a ``torch.optim`` ``state_dict()``).
+  Only tensors, numbers, strings and containers of them, so that
+  ``torch.load(..., weights_only=True)`` reads it.
 - ``meta.json``: the JAX package's sidecar, with the same keys (epoch,
   step, ema_best, max_accuracy, model_cfg, run_args), so the run table and
   the eval CLIs read both packages' checkpoints alike.
