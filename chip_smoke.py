@@ -374,6 +374,33 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    (train/loop.py::_load_finetune): every parameter as written, the fp32
    logits within 1e-4 of max|CPU|. Each line prints its seconds.
 
+9. the kernel tools (tokenreduction_tpu_torch/tools/), on no path of the
+   models, bf16 at B=256 and DeiT-S width: the joint attention
+   (tune_kernels.attn_joint, csrc/attn_joint.cu: each (image, head)'s
+   qkv product fused into its attention) and the chunked MLP
+   (tune_kernels.mlp_chunked, csrc/mlp_chunked.cu: the hidden tensor on
+   chip) at N = 197, 138, 97, 68, and the residual-fused training
+   attention branch (proto_residual_fuse.attend_block_res: the proj
+   GEMM's scaled variant, the row_scale kernel and the LayerNorm
+   backward's residual variant) forward and backward at N = 197, 138, 97
+   with a drop-path scale that drops some images: each against its plain
+   version within 2e-2 of max|plain| (and each output's branch, out - x,
+   from x scaled by 2^-4, within 2e-2 of its own max; at the residual's
+   full size out's rounding, an ulp of |x|, hides the branch; the joint
+   kernel's launch alone, its
+   merged heads from LN1's rows, likewise; every gradient for random
+   cotangents of both outputs), a second launch bit-equal (and the joint
+   kernel's stages=1 and the chunked MLP's chunks=2 bit-equal to their
+   defaults), each time by CUDA events (one of ten back-to-back calls;
+   the backward as its chain of launches, without autograd's host work)
+   beside its bound, its plain version and the port's current route
+   (fused_block_attention, fused_mlp_residual, attend_branch_train with
+   x + drop_path(branch) in PyTorch). Then each tool's main() once with few calls a timed run
+   (tune_kernels, proto_residual_fuse, profile_kernels,
+   profile_train_kernels, profile_keep025), their counts set to 0 just
+   before and read just after: the four kernels' launches, each once a
+   call of its wrapper.
+
 Phases 4, 5, 6, 7 and 8 are the main path's runs: each counterpart's
 launch count, and those of the bf16 GEMM's two launchers (gemm,
 gemm_wgrad), of the fp32 tensor-core GEMM and attention (gemm_tf32,
@@ -492,6 +519,13 @@ from tokenreduction_tpu_torch.train.step import (
     init_train_state,
     loss_and_grads,
     make_train_step,
+)
+from tokenreduction_tpu_torch.tools import (
+    profile_keep025,
+    profile_kernels,
+    profile_train_kernels,
+    proto_residual_fuse,
+    tune_kernels,
 )
 
 DEVICE = "cuda"
@@ -5841,6 +5875,355 @@ def phase_flags(card: str) -> dict:
     return total
 
 
+# ---- phase 9: the kernel tools (tokenreduction_tpu_torch/tools/)
+# the tools' four kernels: (the wrapper's count, or the backward's, the
+# CUDA sources, the wrapper, the TPU kernel it replaces)
+TOOLS_SRC = "tokenreduction_tpu_torch/tools"
+TOOL_KERNELS = {
+    "attn_joint": (
+        (tune_kernels.attn_joint, "launches"),
+        ["tokenreduction_tpu_torch/csrc/attn_joint.cu", LN_GEMM, GEMM_SOURCE],
+        f"{TOOLS_SRC}/tune_kernels.py", "tools/tune_kernels.py:160"),
+    "mlp_chunked": (
+        (tune_kernels.mlp_chunked, "launches"),
+        ["tokenreduction_tpu_torch/csrc/mlp_chunked.cu"],
+        f"{TOOLS_SRC}/tune_kernels.py", "tools/tune_kernels.py:282"),
+    "attend_block_res": (
+        (proto_residual_fuse.attend_block_res, "launches"),
+        [GEMM_SOURCE, ATTENTION_SM90, LN_GEMM],
+        f"{TOOLS_SRC}/proto_residual_fuse.py",
+        "tools/proto_residual_fuse.py:228"),
+    "attend_block_res_bwd": (
+        (proto_residual_fuse.attend_block_res, "backward_launches"),
+        [LN_GEMM, GEMM_SOURCE, ATTENTION_SM90],
+        f"{TOOLS_SRC}/proto_residual_fuse.py",
+        "tools/proto_residual_fuse.py:263"),
+}
+# the launchers the tools' kernels add (ops/_build.py), each against the
+# wrapper whose every call launches it once
+TOOL_LAUNCHERS = {
+    "attn_joint": (_build.attn_joint, "launches"),
+    "mlp_chunked": (_build.mlp_chunked, "launches"),
+    "attend_block_res": (_build.gemm, "scaled_launches"),
+    "attend_block_res_bwd": (_build.layer_norm_bwd, "res_launches"),
+}
+TOOLS_N = (197, 138, 97, 68)  # topk@0.7's widths
+TOOLS_RES_N = (197, 138, 97)  # proto_residual_fuse's
+# the tools' entry points, each with few calls a timed run: the path that
+# the four kernels' launch counts are read from
+TOOL_RUNS = ((tune_kernels, ["--iters", "3"]),
+             (proto_residual_fuse, ["--iters", "2"]),
+             (profile_kernels, ["--iters", "3"]),
+             (profile_train_kernels, ["--iters", "2"]),
+             (profile_keep025, ["--iters", "2"]))
+
+
+def tool_counts() -> dict:
+    return {name: (getattr(f, attr), getattr(*TOOL_LAUNCHERS[name]))
+            for name, ((f, attr), *_) in TOOL_KERNELS.items()}
+
+
+def reset_tool_counts():
+    for (f, attr), *_ in TOOL_KERNELS.values():
+        setattr(f, attr, 0)
+    for f, attr in TOOL_LAUNCHERS.values():
+        setattr(f, attr, 0)
+    _build.row_scale.launches = 0
+
+
+def tool_weights(gen) -> dict:
+    """block_params under the tools' names (the attention half's and the
+    MLP half's LayerNorm as ls, lb in turn)."""
+    p = block_params(torch.bfloat16, gen)
+    return dict(ls=p["ls1"], lb=p["lb1"], ls2=p["ls2"], lb2=p["lb2"],
+                **{k: p[k] for k in ("wqkv", "bqkv", "wproj", "bproj", "w1",
+                                     "b1", "w2", "b2")})
+
+
+def res_bound(kind: str, B: int, N: int) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of the residual-fused branch,
+    bf16, from its code: forward, the qkv and proj products and the two
+    attention products; x, s, the weights in, out and row0 out. Backward,
+    the products' two gradients each (no recompute); x, dy, drow0, s and
+    the weights in, dx and the weights' gradients out."""
+    M, E = B * N, 2
+    attn_w = 4 * D * D + 6 * D
+    row0, s = 4 * B * HEADS * N, 4 * B
+    if kind == "fwd":
+        flops = 8 * M * D * D + 4 * B * N * N * D
+        nbytes = E * (2 * M * D + attn_w) + row0 + s
+    else:
+        flops = 16 * M * D * D + 8 * B * N * N * D
+        nbytes = E * (3 * M * D + 2 * attn_w) + row0 + s
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def same_bits(first, second) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def tool_check(name, shape, got, want, labels, rec):
+    """Each output against its plain version: within the bf16 BOUND of its
+    own max|plain|."""
+    errs = []
+    for label, g, w in zip(labels, got, want):
+        abs_err, rel = rel_err(g, w)
+        tol = BOUND[torch.bfloat16]
+        require(rel <= tol, f"phase 9 {name} {shape} {label}: error "
+                f"{rel:.3e} of max|plain| > bound {tol:.0e}")
+        errs.append(f"{label} {abs_err:.3e} ({rel:.2e} rel)")
+        if label in ("out", "dx"):
+            rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    return errs
+
+
+def branch_check(name, shape, kernel, plain, x, rec):
+    """The branch alone, out - x, within 2e-2 of its own max|plain|, from
+    x scaled by 2^-4 (LayerNorm makes the branch nearly the same): at the
+    residual's full size out's rounding, an ulp of |x|, hides it."""
+    xs = x * 0.0625
+    return tool_check(name, shape, [kernel(xs).float() - xs.float()],
+                      [plain(xs).float() - xs.float()], ("branch",), rec)
+
+
+def tool_record(rec, shape, ms, plain_ms, bound_, route_ms):
+    if "shape" not in rec:  # the widest shape stands for the kernel
+        rec.update(shape=f"bf16 {shape}", ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_[0], bound_by=bound_[1],
+                   current_route_ms=route_ms)
+
+
+def tool_line(name, shape, errs, ms, plain_ms, bound_, route, route_ms):
+    """ms and route_ms: one of ten back-to-back calls between two CUDA
+    events (per_launch_ms), so that the host's launch costs stay hidden
+    where the card takes longer than the host."""
+    print(f"phase 9 {name} {shape}: max abs err {', '.join(errs)}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_[0]:.4f} ms "
+          f"({bound_[1]}), the port's current route ({route}) "
+          f"{route_ms:.4f} ms; a second launch bit-equal", flush=True)
+
+
+def joint_cases(gen, w, rec):
+    """attn_joint against attn_joint_ref: the block's output, the
+    by-products, the branch (branch_check) and the merged heads of the
+    kernel's launch alone (from LN1's rows), each within 2e-2 of its own
+    max|plain| (q, k and v are rounded inside the kernel from its own
+    fp32 sums, which may round a bf16 ulp apart from the plain
+    version's)."""
+    B = TRAIN_B
+    for N in TOOLS_N:
+        x = torch.randn(B, N, D, generator=gen).to(DEVICE, torch.bfloat16)
+
+        def kernel(stages=2, x=x):
+            out, (row0, colsum) = tune_kernels.attn_joint(
+                x, w, HEADS, SCALE, stages=stages, with_scores=True)
+            return [out, row0, colsum]
+
+        def plain(x=x):
+            return list(tune_kernels.attn_joint_ref(x, w, HEADS, SCALE))
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        shape = f"B={B} N={N}"
+        errs = tool_check("attn_joint", shape, got, want,
+                          ("out", "row0", "colsum"), rec)
+        errs += branch_check(
+            "attn_joint", shape,
+            lambda xs: tune_kernels.attn_joint(xs, w, HEADS, SCALE),
+            lambda xs: tune_kernels.attn_joint_ref(xs, w, HEADS, SCALE)[0],
+            x, rec)
+        require(same_bits(got, kernel()), f"attn_joint {shape}: two "
+                "launches differ")
+        require(same_bits(got, kernel(stages=1)), f"attn_joint {shape}: "
+                "stages=1 differs from stages=2")
+        # the kernel's launch alone: the merged heads from LN1's rows
+        ln = layer_norm_f32(x.float(), w["ls"], w["lb"], EPS) \
+            .to(torch.bfloat16)
+        merged = torch.empty_like(x)
+        _build.attn_joint(ln, w["wqkv"], w["bqkv"], merged, HEADS, SCALE)
+        qkv = linear_f32(ln, w["wqkv"], w["bqkv"]).to(torch.bfloat16)
+        errs += tool_check(
+            "attn_joint", shape, [merged],
+            [tune_kernels.joint_attention_ref(qkv, HEADS, SCALE)[0]],
+            ("merged heads alone",), rec)
+        ms, plain_ms = per_launch_ms(kernel), cuda_ms(plain)
+        ms1 = per_launch_ms(lambda: kernel(stages=1))
+        route_ms = per_launch_ms(
+            lambda x=x: tune_kernels.current_attention(x, w))
+        b = bound("fused_block_attention", B, N)
+        tool_line("attn_joint", shape, errs, ms, plain_ms, b,
+                  "fused_block_attention", route_ms)
+        print(f"phase 9 attn_joint {shape}: stages=1 {ms1:.4f} ms; "
+              f"{_build.attn_joint_smem(N, 2)} bytes of dynamic shared "
+              f"memory a block ({_build.attn_joint_smem(N, 1)} with stages=1)",
+              flush=True)
+        tool_record(rec, shape, ms, plain_ms, b, route_ms)
+
+
+def chunked_cases(gen, w, rec):
+    """mlp_chunked against mlp_chunked_ref: the output within 2e-2 of
+    max|plain| and its branch (branch_check) within 2e-2 of its own max;
+    chunks = 2 and 4 the same bits."""
+    B = TRAIN_B
+    wm = dict(w, ls=w["ls2"], lb=w["lb2"])
+    for N in TOOLS_N:
+        x = torch.randn(B, N, D, generator=gen).to(DEVICE, torch.bfloat16)
+        got = tune_kernels.mlp_chunked(x, wm, 4)
+        want = tune_kernels.mlp_chunked_ref(x, wm)
+        torch.cuda.synchronize()
+        shape = f"B={B} N={N}"
+        errs = tool_check("mlp_chunked", shape, [got], [want], ("out",), rec)
+        errs += branch_check(
+            "mlp_chunked", shape,
+            lambda xs: tune_kernels.mlp_chunked(xs, wm, 4),
+            lambda xs: tune_kernels.mlp_chunked_ref(xs, wm), x, rec)
+        require(torch.equal(got, tune_kernels.mlp_chunked(x, wm, 4)),
+                f"mlp_chunked {shape}: two launches differ")
+        require(torch.equal(got, tune_kernels.mlp_chunked(x, wm, 2)),
+                f"mlp_chunked {shape}: chunks=2 differs from chunks=4")
+        ms = per_launch_ms(lambda x=x: tune_kernels.mlp_chunked(x, wm, 4))
+        plain_ms = cuda_ms(lambda x=x: tune_kernels.mlp_chunked_ref(x, wm))
+        route_ms = per_launch_ms(lambda x=x: tune_kernels.current_mlp(x, wm))
+        b = bound("fused_mlp_residual", B, N)
+        tool_line("mlp_chunked", shape, errs, ms, plain_ms, b,
+                  "fused_mlp_residual", route_ms)
+        tool_record(rec, shape, ms, plain_ms, b, route_ms)
+    cfg = _build.mlp_chunked_config()
+    print(f"phase 9 mlp_chunked: {cfg['BM']} rows a block, {cfg['HC']} "
+          f"hidden units a slice, {cfg['SMEM_BYTES']} bytes of dynamic "
+          "shared memory a block", flush=True)
+
+
+def outside_res(x, s, *ps):
+    """The port's composition of the same half (core/layers.py
+    Block.attend with DropPath): the branch's kernels, then x +
+    where(kept, branch / keep, 0) in PyTorch."""
+    br, row0 = attend_branch_train(x, *ps, HEADS, SCALE, EPS)
+    kept = (s > 0)[:, None, None]
+    return x + torch.where(kept, br / proto_residual_fuse.KEEP,
+                           torch.zeros_like(br)), row0
+
+
+def res_cases(gen, w, recs):
+    """attend_block_res (forward) and its backward against their plain
+    versions, with a drop-path scale that drops images (0) and keeps
+    others (1 / 0.9): out, row0 and the seven gradients for random
+    cotangents (dy, drow0), each within 2e-2 of its own max|plain|."""
+    B = TRAIN_B
+    ps = [w[k] for k in proto_residual_fuse.PARAMS]
+    s = proto_residual_fuse.drop_scale(B, DEVICE)
+    require(bool((s == 0).any()) and bool((s > 0).any()),
+            "the drop-path scale drops no image or keeps none")
+    for N in TOOLS_RES_N:
+        x = torch.randn(B, N, D, generator=gen).to(DEVICE, torch.bfloat16)
+        dy = torch.randn(B, N, D, generator=gen).to(DEVICE, torch.bfloat16)
+        drow0 = torch.randn(B, HEADS, N, generator=gen).to(DEVICE)
+        leaves = [t.detach().requires_grad_() for t in (x, *ps)]
+
+        def run(fn):
+            outs = fn(leaves[0], s, *leaves[1:])
+            return outs, list(torch.autograd.grad(outs, leaves, (dy, drow0)))
+
+        def fused(x_, s_, *p_):
+            return proto_residual_fuse.attend_block_res(
+                x_, *p_, s_, HEADS, SCALE, EPS)
+
+        (out, row0), grads = run(fused)
+        want_fwd = proto_residual_fuse.attend_block_res_ref(
+            x, *ps, s, HEADS, SCALE, EPS)
+        want_bwd = proto_residual_fuse.attend_block_res_bwd_ref(
+            x, *ps[:5], s, dy, drow0, HEADS, SCALE, EPS)
+        torch.cuda.synchronize()
+        shape = f"B={B} N={N}"
+        errs_f = tool_check("attend_block_res", shape, [out, row0],
+                            list(want_fwd), ("out", "row0"),
+                            recs["attend_block_res"])
+        with torch.no_grad():
+            errs_f += branch_check(
+                "attend_block_res", shape, lambda xs: fused(xs, s, *ps)[0],
+                lambda xs: proto_residual_fuse.attend_block_res_ref(
+                    xs, *ps, s, HEADS, SCALE, EPS)[0],
+                x, recs["attend_block_res"])
+        labels = ("dx", "d ln1 scale", "d ln1 bias", "d wqkv", "d bqkv",
+                  "d wproj", "d bproj")
+        errs_b = tool_check("attend_block_res_bwd", shape, grads,
+                            list(want_bwd), labels,
+                            recs["attend_block_res_bwd"])
+        again = run(fused)
+        require(same_bits([out, row0, *grads], [*again[0], *again[1]]),
+                f"attend_block_res {shape}: two launches differ")
+        # times: the forward alone and the backward alone, each beside its
+        # plain version and the port's composition; the backward as its
+        # chain of launches (fused_block_train._bwd_cuda, the same for
+        # both but for the options), without autograd's own host work
+        saved = fused_block_train._fwd_cuda(x, *ps, HEADS, SCALE, EPS)[2]
+        kept = (s > 0)[:, None, None]
+
+        def bwd():
+            return fused_block_train._bwd_cuda(x, ps[0], ps[2], ps[4], saved,
+                                               dy, drow0, HEADS, SCALE, EPS,
+                                               s=s)
+
+        def bwd_route():  # autograd's passes of x + where(kept, br / keep, 0)
+            dyb = torch.where(kept, dy / proto_residual_fuse.KEEP,
+                              torch.zeros_like(dy))
+            dx, *rest = fused_block_train._bwd_cuda(
+                x, ps[0], ps[2], ps[4], saved, dyb, drow0, HEADS, SCALE, EPS)
+            return dx + dy, *rest
+
+        with torch.no_grad():
+            ms_f = per_launch_ms(lambda: fused(x, s, *ps))
+            route_f = per_launch_ms(lambda: outside_res(x, s, *ps))
+        ms_b, route_b = per_launch_ms(bwd), per_launch_ms(bwd_route)
+        plain_f = cuda_ms(lambda: proto_residual_fuse.attend_block_res_ref(
+            x, *ps, s, HEADS, SCALE, EPS))
+        plain_b = cuda_ms(
+            lambda: proto_residual_fuse.attend_block_res_bwd_ref(
+                x, *ps[:5], s, dy, drow0, HEADS, SCALE, EPS))
+        for name, errs, ms, plain_ms, kind, route_ms in (
+                ("attend_block_res", errs_f, ms_f, plain_f, "fwd", route_f),
+                ("attend_block_res_bwd", errs_b, ms_b, plain_b, "bwd",
+                 route_b)):
+            b = res_bound(kind, B, N)
+            tool_line(name, shape, errs, ms, plain_ms, b,
+                      "attend_branch_train + x + drop_path(branch)", route_ms)
+            tool_record(recs[name], shape, ms, plain_ms, b, route_ms)
+
+
+def phase_tools() -> dict:
+    """Phase 9 (see the module docstring). Returns the four kernels'
+    records for the JSON line, their launches those of the tools' runs."""
+    gen = torch.Generator().manual_seed(9)
+    w = tool_weights(gen)
+    recs = {name: dict(max_abs_err=0.0) for name in TOOL_KERNELS}
+    settle()
+    joint_cases(gen, w, recs["attn_joint"])
+    chunked_cases(gen, w, recs["mlp_chunked"])
+    res_cases(gen, w, recs)
+    settle()
+    reset_tool_counts()
+    for module, argv in TOOL_RUNS:
+        t0 = time.perf_counter()
+        module.main(argv)
+        print(f"phase 9 ran {module.__name__.split('.')[-1]} "
+              f"{' '.join(argv)} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    torch.cuda.synchronize()
+    for name, (wrapper, launcher) in tool_counts().items():
+        require(wrapper > 0, f"{name}: no launch in the tools' runs")
+        require(launcher == wrapper, f"{name}: {launcher} kernel launches "
+                f"for {wrapper} calls")
+        recs[name]["launches"] = wrapper
+    require(_build.row_scale.launches == tool_counts()[
+        "attend_block_res_bwd"][0], "row_scale: not once a fused backward")
+    print(f"phase 9 launches in the tools' runs: "
+          f"{ {n: c[0] for n, c in tool_counts().items()} } (row_scale "
+          f"{_build.row_scale.launches})", flush=True)
+    return recs
+
+
 T0 = time.perf_counter()
 
 
@@ -5966,6 +6349,8 @@ def main():
     for name in (*WRAPPERS, *LAUNCHERS):
         launches[name] += trained_flags[name]
     elapsed("8")
+    tools_rec = phase_tools()
+    elapsed("9")
     for name, shape, ms, bound_ms, lib_ms in standalone:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"standalone {name} {shape}: {ms:.4f} ms per launch, bound "
@@ -6027,6 +6412,12 @@ def main():
                     ("layer_norm", LN_GEMM, LN_REPLACES, ln_rec),
                     ("sum_partials", LN_GEMM, SUMS_REPLACES, sums_rec),
                     ("head_mean_keys", ATTENTION, KEYS_REPLACES, keys_rec))]
+    # the kernel tools' four (phase 9): on no path of the models
+    kernels += [dict(name=name, route="cuda", source=sources[0],
+                     cuda_sources=sources, wrapper=wrapper, replaces=replaces,
+                     on_main_path=False, library_ms=None, **tools_rec[name])
+                for name, (_, sources, wrapper, replaces)
+                in TOOL_KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

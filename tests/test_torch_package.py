@@ -138,6 +138,27 @@ _CHILD = textwrap.dedent("""
         assert list(written) == list(got) and len(got) == 6 + 4
         assert sorted(written["synthetic_00000003.JPEG"]) == [
             "Loss", "Predictions", "Stage-1", "Stage-2", "Target"]
+    # the kernel tools, and their plain versions on a tiny block
+    from tokenreduction_tpu_torch.tools import (  # noqa: F401
+        _measure, profile_keep025, profile_kernels, profile_train_kernels,
+        proto_residual_fuse, tune_kernels)
+    blk = {k: v[..., :64] if k in ("ls", "lb", "bproj", "b2") else v
+           for k, v in _measure.weights("cpu", torch.float32).items()}
+    blk.update(wqkv=blk["wqkv"][:192, :64], bqkv=blk["bqkv"][:192],
+               wproj=blk["wproj"][:64, :64], w1=blk["w1"][:256, :64],
+               b1=blk["b1"][:256], w2=blk["w2"][:64, :256])
+    xb = torch.randn(2, 5, 64)
+    assert tune_kernels.attn_joint(xb, blk, 1, 0.125).shape == xb.shape
+    assert tune_kernels.mlp_chunked(xb, blk, 4).shape == xb.shape
+    xg = xb.clone().requires_grad_()
+    out, _ = proto_residual_fuse.attend_block_res(
+        xg, *(blk[k] for k in proto_residual_fuse.PARAMS),
+        torch.ones(2), 1, 0.125)
+    out.sum().backward()
+    assert xg.grad.shape == xb.shape
+    assert (tune_kernels.attn_joint.launches, tune_kernels.mlp_chunked.launches,
+            proto_residual_fuse.attend_block_res.launches,
+            proto_residual_fuse.attend_block_res.backward_launches) == (0,) * 4
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
     assert not bad, bad
@@ -162,8 +183,9 @@ def test_port_imports_and_runs_without_jax():
     (drop_path 0.1), one AdaHessian step on uint8 images augmented by
     data/device_aug.py with the per-module norms, imports the data,
     utils and evaluation subpackages and the train loop, mixup, the train
-    CLI and the asynchronous checkpointer, and validates a ToMe
-    checkpoint in viz mode, on the CPU with no JAX, Flax or optax module
+    CLI and the asynchronous checkpointer, validates a ToMe
+    checkpoint in viz mode, imports the kernel tools and runs their plain
+    versions on a tiny block, on the CPU with no JAX, Flax or optax module
     loaded, no kernel build and no kernel launch."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

@@ -36,6 +36,9 @@ struct GemmArgs {
   float* col_sums;    // [ceil(M / 128)][n_out]: fp32 column sums per 128-row tile, or null
   int k_split;        // K rows per split (a whole number of K steps), or 0 for all of K
   float* a_sums;      // A stored [K, M]: [splits][M] row sums of A over the split, or null
+  const float* row_scale;  // [M / scale_rows] fp32 factor of row m's result before the
+                           // residual (the forward layout of the bf16 GEMM only), or null
+  int scale_rows;          // rows a factor: row m takes row_scale[m / scale_rows]
 };
 
 // Row b * rows_in + idx[m] of a gathered tensor for output row m; an id

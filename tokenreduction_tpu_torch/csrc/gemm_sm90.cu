@@ -9,6 +9,13 @@
 //             optional residual (bf16 or fp32) whose rows may be gathered
 //             through idx; Y bf16 or fp32.
 //   fc1:      the same with GELU'(pre-activation) also written in fp32.
+//   scaled:   the forward with each row's result times an fp32 factor
+//             row_scale[m / scale_rows] before the residual is added: the
+//             drop-path scale of a residual branch (an image's factor over
+//             its N rows), Y = res + s_b (X . W^T + bias), for the
+//             residual-fused attention branch of the kernel tools
+//             (tokenreduction_tpu_torch/tools/proto_residual_fuse.py; the
+//             TPU kernel tools/proto_residual_fuse.py _fwd_kernel_res).
 //   dY . W:   Y = epi(dY[M, n_out] . W[n_out, K]) read untransposed: B is
 //             MN-major. epi: an optional fp32 factor (GELU'), and optional
 //             per-128-row-tile column sums of the fp32 result (a bias
@@ -166,8 +173,9 @@ __device__ __forceinline__ void wgmma_192(float* d, uint64_t da, uint64_t db) {
 // thread's fp32 results (before Y's rounding) to cs. MUL: the layout
 // whose launches may carry the fp32 factor and the column sums (dY . W);
 // GRAD: the variant that writes GELU'. Each is compiled only where it is
-// used, so the eval launches keep the smallest epilogue.
-template <bool MUL, bool GRAD>
+// used, so the eval launches keep the smallest epilogue. SCALE: the
+// variant with the per-row factor.
+template <bool MUL, bool GRAD, bool SCALE>
 __device__ __forceinline__ void epilogue_rows(const GemmArgs& a, float* y32, const float* staged,
                                               int row0, int col, int lane_row, float* cs) {
   if (col >= a.n_out) return;
@@ -176,13 +184,14 @@ __device__ __forceinline__ void epilogue_rows(const GemmArgs& a, float* y32, con
   const int c8 = col & (EPI_COLS - 1);
 #pragma unroll
   for (int g = 0; g < 4; g += 2) {  // four steps of 16 rows, two at a time
-    float v[2][8], m[2][8] = {}, r[2][8] = {};
+    float v[2][8], m[2][8] = {}, r[2][8] = {}, sc[2] = {1.f, 1.f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int lr = (g + i) * 16 + lane_row, row = row0 + lr;
       load8(staged + lr * EPI_LD + c8, v[i]);
       if (row >= a.M) continue;
       if (MUL && a.mul) load8(a.mul + static_cast<size_t>(row) * a.n_out + col, m[i]);
+      if (SCALE) sc[i] = a.row_scale[row / a.scale_rows];
       if (a.res) {
         const size_t at = res_row(a, row) * a.n_out + col;
         if (a.res_f32)
@@ -205,6 +214,7 @@ __device__ __forceinline__ void epilogue_rows(const GemmArgs& a, float* y32, con
           x[k] = gelu(x[k]);
         }
         if (MUL && a.mul) x[k] *= m[i][k];
+        if (SCALE) x[k] *= sc[i];
         x[k] += r[i][k];
         if (MUL) cs[k] += x[k];
       }
@@ -222,7 +232,7 @@ __device__ __forceinline__ void epilogue_rows(const GemmArgs& a, float* y32, con
 // g + 8 of its warp's 16, columns 8 j + 2 (lane % 4) and the next), then 8
 // threads a row read them back along the rows, 8 columns a thread. The
 // column sums (BWD) of the warp's rows go to red.
-template <bool BWD, bool GRAD>
+template <bool BWD, bool GRAD, bool SCALE>
 __device__ __forceinline__ void epilogue(const GemmArgs& a, const float* d, float* y32,
                                              float* staged, float* red, int m0, int n0, int cw,
                                              int warp, int lane, int t128) {
@@ -239,8 +249,8 @@ __device__ __forceinline__ void epilogue(const GemmArgs& a, const float* d, floa
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
     float cs[8] = {};
-    epilogue_rows<BWD, GRAD>(a, y32, staged, m0 + cw * 64, n0 + part * EPI_COLS + lane_col,
-                             lane_row, cs);
+    epilogue_rows<BWD, GRAD, SCALE>(a, y32, staged, m0 + cw * 64,
+                                    n0 + part * EPI_COLS + lane_col, lane_row, cs);
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");  // staging free again
     if (BWD && a.col_sums != nullptr) {
       // the warp's four rows of lanes
@@ -274,8 +284,9 @@ struct Tiles {
 // B stored [K][n_out]; GRAD: the GELU epilogue also writes GELU'. The
 // backward's own epilogue steps (the fp32 factor, the column sums) compile
 // only into the layout with B_MN and not A_MN, the row sums of A only into
-// A_MN.
-template <bool A_MN, bool B_MN, bool GRAD>
+// A_MN; SCALE: the forward's per-row factor (a variant of its own, so the
+// other launches keep their epilogue).
+template <bool A_MN, bool B_MN, bool GRAD, bool SCALE>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b, GemmArgs a, int splits) {
@@ -400,10 +411,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (lane == 0) mbar_arrive(empty0 + 8 * prev);
     }
 
-    epilogue<BWD, GRAD>(a, d,
-                        static_cast<float*>(a.y) +
-                            (A_MN ? static_cast<size_t>(z) * a.M * a.n_out : 0),
-                        epi + cw * (EPI_BYTES / 4), red, m0, n0, cw, warp, lane, t128);
+    epilogue<BWD, GRAD, SCALE>(a, d,
+                               static_cast<float*>(a.y) +
+                                   (A_MN ? static_cast<size_t>(z) * a.M * a.n_out : 0),
+                               epi + cw * (EPI_BYTES / 4), red, m0, n0, cw, warp, lane, t128);
     if (BWD && a.col_sums != nullptr) {
       // the 8 consumer warps' column sums, in order
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -448,9 +459,9 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool A_MN, bool B_MN, bool GRAD>
+template <bool A_MN, bool B_MN, bool GRAD, bool SCALE = false>
 int launch(const GemmArgs& a, int splits, cudaStream_t stream) {
-  const auto kernel = gemm_sm90_kernel<A_MN, B_MN, GRAD>;
+  const auto kernel = gemm_sm90_kernel<A_MN, B_MN, GRAD, SCALE>;
   // first: the context the tensor maps need (sm90.cuh encoder)
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -476,12 +487,17 @@ int launch(const GemmArgs& a, int splits, cudaStream_t stream) {
 
 }  // namespace
 
-// The four compiled variants: eval and forward, the training fc1 (GELU'
-// out), the backward's dY . W, and the weight gradient.
+// The five compiled variants: eval and forward, the training fc1 (GELU'
+// out), the backward's dY . W, the weight gradient, and the forward with
+// the per-row factor.
 int launch_gemm_sm90(const GemmArgs& a, bool a_mn, bool b_mn, int splits, cudaStream_t stream) {
   if (a.M == 0 || a.n_out == 0) return 0;
   if ((a.k_split && a.k_split % BK != 0) || (a_mn && !b_mn) || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a.row_scale != nullptr) {
+    if (a_mn || b_mn || a.gelu || a.scale_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<false, false, false, true>(a, splits, stream);
+  }
   if (a_mn) return launch<true, true, false>(a, splits, stream);
   if (b_mn) return launch<false, true, false>(a, splits, stream);
   if (a.gelu_grad != nullptr) return launch<false, false, true>(a, splits, stream);

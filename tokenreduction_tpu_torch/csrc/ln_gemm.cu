@@ -29,6 +29,16 @@
 //                   first column tile.
 //   sum_partials:   out[L] = sum over S fp32 partials, in order, in the
 //                   output type, for up to eight such jobs a launch.
+//   row_scale:      Y[M, K] = round(s[m / rows] * X[M, K]) in X's type.
+//
+// Two options serve the residual-fused attention branch of the kernel
+// tools (tokenreduction_tpu_torch/tools/proto_residual_fuse.py, the
+// counterpart of the TPU kernel tools/proto_residual_fuse.py
+// _bwd_kernel_res): layer_norm_bwd may add a residual's cotangent to dX in
+// fp32 before its rounding (dx_total = dx_branch + dy), and row_scale
+// writes the branch's cotangent round(s_b . dy) once, a launch of its own
+// before the products that read it (dY . Wproj, dWproj, dbproj), rather
+// than a factor folded into their A loads.
 //
 // fp32 operands of the forward layout (W [n_out, K]: every eval product
 // and every training forward's, GELU' out included) go through the sm_90a
@@ -199,12 +209,14 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 
 // Block i takes rows [i * rows, min(M, (i + 1) * rows)); lane chunk c
 // covers columns 4 (lane + 32 c) .. + 3. part: [gridDim.x][2K] fp32, each
-// block's sums of dLN * Xhat and dLN.
-template <typename T, int KC>
+// block's sums of dLN * Xhat and dLN. RES: res [M, K] (X's type) is added
+// to dX in fp32 before its rounding (a variant of its own, so the training
+// branches' launches keep their code).
+template <typename T, int KC, bool RES>
 __global__ void __launch_bounds__(LnBwd<KC>::THREADS, 1)
     layer_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dln, int M, int K,
                           int rows, const T* __restrict__ w, float eps, T* __restrict__ dx,
-                          float* __restrict__ part) {
+                          float* __restrict__ part, const T* __restrict__ res) {
   using C = typename Chunk<T>::type;
   using P = LnBwd<KC>;
   constexpr int CH = P::CH, DEPTH = P::DEPTH;
@@ -280,6 +292,12 @@ __global__ void __launch_bounds__(LnBwd<KC>::THREADS, 1)
       if (in(c)) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) d[c][i] = rs * (d[c][i] - m1 - f[c][i] * m2);
+        if (RES) {
+          float r[4];
+          unpack4(ld_chunk(res + static_cast<size_t>(m) * kk + col(c)), r);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[c][i] += r[i];
+        }
         store4(out + col(c), d[c]);
       }
 #pragma unroll
@@ -425,18 +443,46 @@ int launch_layer_norm(const void* x, const int* idx, int M, int K, int rows_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int KC>
+template <typename T, int KC, bool RES = false>
 int launch_layer_norm_bwd(const void* x, const float* dln, int M, int K, int bands, int rows,
-                          const void* w, float eps, void* dx, float* part, cudaStream_t stream) {
+                          const void* w, float eps, void* dx, float* part, cudaStream_t stream,
+                          const void* res = nullptr) {
   using P = LnBwd<KC>;
-  const auto kernel = layer_norm_bwd_kernel<T, KC>;
+  const auto kernel = layer_norm_bwd_kernel<T, KC, RES>;
   const size_t smem = sizeof(float) * P::WARPS * 2 * K;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<bands, P::THREADS, smem, stream>>>(static_cast<const T*>(x), dln, M, K, rows,
                                                static_cast<const T*>(w), eps, static_cast<T*>(dx),
-                                               part);
+                                               part, static_cast<const T*>(res));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// row_scale: a thread per 8 neighbouring elements of a row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    row_scale_kernel(const T* __restrict__ x, const float* __restrict__ s, int M, int K, int rows,
+                     T* __restrict__ y) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const int per_row = K / 8;
+  if (i >= static_cast<long long>(M) * per_row) return;
+  const int m = static_cast<int>(i / per_row);
+  const size_t at = static_cast<size_t>(m) * K + 8 * (i % per_row);
+  const float f = s[m / rows];
+  float v[8];
+  load8(x + at, v);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] *= f;
+  store8(y + at, v);
+}
+
+template <typename T>
+int launch_row_scale(const void* x, const float* s, int M, int K, int rows, void* y,
+                     cudaStream_t stream) {
+  const long long threads = static_cast<long long>(M) * (K / 8);
+  row_scale_kernel<T><<<static_cast<int>((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(x), s, M, K, rows, static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,13 +517,14 @@ extern "C" int tr_layer_norm(int dtype, int x_dtype, const void* x, const void* 
 }
 
 // Returns the cudaError_t of the launch (0 on success). `dtype` is the
-// type of x, w, dx; dln and part are fp32, part [bands][2][K]: each band's
-// sums, which sum_partials reduces in band order. Block i takes rows
-// [i * rows, min(M, (i + 1) * rows)): bands * rows >= M. K must be a
-// multiple of 8 and at most 1024; the caller checks the rest.
+// type of x, w, dx and res; dln and part are fp32, part [bands][2][K]: each
+// band's sums, which sum_partials reduces in band order. Block i takes
+// rows [i * rows, min(M, (i + 1) * rows)): bands * rows >= M. res [M, K]
+// or null is added to dx before its rounding. K must be a multiple of 8
+// and at most 1024; the caller checks the rest.
 extern "C" int tr_layer_norm_bwd(int dtype, const void* x, const void* dln, int M, int K,
                                  const void* w, float eps, void* dx, void* part, int bands,
-                                 int rows, void* stream) {
+                                 int rows, const void* res, void* stream) {
   using namespace trk;
   if (M == 0) return 0;
   if (K % 8 != 0 || K > LNB_MAX_K || bands < 1 || rows < 1 ||
@@ -486,6 +533,19 @@ extern "C" int tr_layer_norm_bwd(int dtype, const void* x, const void* dln, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* d = static_cast<const float*>(dln);
   float* p = static_cast<float*>(part);
+  if (res != nullptr) {  // the residual-fused branch's variant
+    if (dtype == kFloat32)
+      return K == 384 ? launch_layer_norm_bwd<float, 384, true>(x, d, M, K, bands, rows, w, eps,
+                                                                dx, p, s, res)
+                      : launch_layer_norm_bwd<float, 0, true>(x, d, M, K, bands, rows, w, eps, dx,
+                                                              p, s, res);
+    if (dtype == kBFloat16)
+      return K == 384 ? launch_layer_norm_bwd<__nv_bfloat16, 384, true>(x, d, M, K, bands, rows,
+                                                                        w, eps, dx, p, s, res)
+                      : launch_layer_norm_bwd<__nv_bfloat16, 0, true>(x, d, M, K, bands, rows, w,
+                                                                      eps, dx, p, s, res);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == kFloat32)
     return K == 384 ? launch_layer_norm_bwd<float, 384>(x, d, M, K, bands, rows, w, eps, dx, p, s)
                     : launch_layer_norm_bwd<float, 0>(x, d, M, K, bands, rows, w, eps, dx, p, s);
@@ -501,19 +561,24 @@ extern "C" int tr_layer_norm_bwd(int dtype, const void* x, const void* dln, int 
 // y: `dtype` or, with bf16 operands, float32. w is [n_out, K], or [K,
 // n_out] with w_kn. gelu_grad (with gelu, w not w_kn), mul and col_sums
 // ([ceil(M / 128)][n_out], both with w_kn) are fp32 or null; idx
-// (residual rows) may be null. K and n_out must be multiples of 8; the
-// caller checks shapes, dtypes, contiguity and 16-byte alignment.
+// (residual rows) may be null. row_scale [M / scale_rows] fp32 or null:
+// row m's result times row_scale[m / scale_rows] before the residual, in
+// the bf16 forward layout with no GELU only. K and n_out must be multiples
+// of 8; the caller checks shapes, dtypes, contiguity and 16-byte
+// alignment.
 extern "C" int tr_gemm(int dtype, const void* x, int M, int K, const void* w, int w_kn,
                        const void* bias, int n_out, int gelu, void* gelu_grad, const void* mul,
                        int res_dtype, const void* res, const void* idx, int rows_out,
-                       int rows_in, int y_dtype, void* y, void* col_sums, void* stream) {
+                       int rows_in, int y_dtype, void* y, void* col_sums, const void* row_scale,
+                       int scale_rows, void* stream) {
   using namespace trk;
   if (M == 0) return 0;
   auto takes = [&](int t) { return t == dtype || t == kFloat32; };
   if (K % 8 != 0 || n_out % 8 != 0 || (dtype != kFloat32 && dtype != kBFloat16) ||
       !takes(y_dtype) || (res != nullptr && !takes(res_dtype)) ||
       (gelu_grad != nullptr && (!gelu || w_kn)) || (mul != nullptr && !w_kn) ||
-      (col_sums != nullptr && !w_kn))
+      (col_sums != nullptr && !w_kn) ||
+      (row_scale != nullptr && (dtype != kBFloat16 || w_kn || gelu || scale_rows < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   GemmArgs a{};
   a.x = x, a.M = M, a.K = K, a.w = w, a.bias = bias, a.n_out = n_out, a.gelu = gelu;
@@ -521,6 +586,7 @@ extern "C" int tr_gemm(int dtype, const void* x, int M, int K, const void* w, in
   a.res = res, a.res_f32 = res_dtype == kFloat32, a.idx = static_cast<const int*>(idx);
   a.rows_out = rows_out, a.rows_in = rows_in, a.y = y, a.y_f32 = y_dtype == kFloat32;
   a.col_sums = static_cast<float*>(col_sums);
+  a.row_scale = static_cast<const float*>(row_scale), a.scale_rows = scale_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return w_kn ? launch_gemm_tf32_bwd_sm90(a, false, 1, s) : launch_gemm_tf32_sm90(a, s);
@@ -579,4 +645,19 @@ extern "C" int tr_sum_partials_many(int n, const unsigned long long* ptrs, const
   if (blocks == 0) return 0;
   sum_partials_kernel<<<blocks, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
+}
+
+// y [M, K] = round(s[m / rows] * x [M, K]) in `dtype` (x and y; s fp32);
+// K a multiple of 8, contiguous 16-byte aligned tensors (the caller
+// checks). Returns the cudaError_t of the launch.
+extern "C" int tr_row_scale(int dtype, const void* x, const void* s, int M, int K, int rows,
+                            void* y, void* stream) {
+  using namespace trk;
+  if (M == 0) return 0;
+  if (K % 8 != 0 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float* f = static_cast<const float*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return launch_row_scale<float>(x, f, M, K, rows, y, st);
+  if (dtype == kBFloat16) return launch_row_scale<__nv_bfloat16>(x, f, M, K, rows, y, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -57,9 +57,10 @@ _F = ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)  # strides, in elements
 _SIGNATURES = {
     "tr_layer_norm": (_I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P, _P),
-    "tr_layer_norm_bwd": (_I, _P, _P, _I, _I, _P, _F, _P, _P, _I, _I, _P),
+    "tr_layer_norm_bwd": (_I, _P, _P, _I, _I, _P, _F, _P, _P, _I, _I, _P,
+                          _P),
     "tr_gemm": (_I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I,
-                _I, _I, _P, _P, _P),
+                _I, _I, _P, _P, _P, _I, _P),
     "tr_gemm_wgrad": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "tr_sum_partials_many": (_I, _P, _P, _P),
     "tr_short_attention": (_I, _P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _I, _I,
@@ -76,6 +77,11 @@ _SIGNATURES = {
     "tr_gemm_tf32_config": (_P,),
     "tr_gemm_tf32_bwd_config": (_P,),
     "tr_attention_tf32_plan": (_I, _I, _P),
+    "tr_row_scale": (_I, _P, _P, _I, _I, _I, _P, _P),
+    "tr_mlp_chunked": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P),
+    "tr_mlp_chunked_config": (_P,),
+    "tr_attn_joint": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+    "tr_attn_joint_smem": (_I, _I),
 }
 # what tr_gemm_sm90_config and tr_gemm_tf32_config report, in their order
 _GEMM_CONFIG = ("BM", "BN", "BK", "STAGES", "SMEM_BYTES")
@@ -293,31 +299,55 @@ def ln_bwd_plan(M: int, sms: int) -> tuple[int, int]:
     return _cdiv(M, rows), rows
 
 
-def layer_norm_bwd(x, w, dln, dx, dwb, *, eps):
+def layer_norm_bwd(x, w, dln, dx, dwb, *, eps, res=None):
     """dx [M, K] (x's dtype) and dwb [2, K] = (d gamma, d beta) in dwb's
     dtype, from x [M, K], gamma w [K] and the fp32 dln [M, K]; see
     csrc/ln_gemm.cu. The rows in the bands of ``ln_bwd_plan``; each
     band's fp32 partial sums of the parameter gradients are summed in band
     order by the caller's ``sum_partials_many`` launch, so dwb is written
-    by that launch: returns the [(partials, dwb)] it takes. Contiguous
-    CUDA tensors, checked by the caller. ``layer_norm_bwd.launches``
-    counts the launches of the LayerNorm backward's kernel."""
+    by that launch: returns the [(partials, dwb)] it takes. With res [M, K]
+    (x's dtype) dx is dx + res, added in fp32 before its rounding (the
+    residual-fused branch's variant). Contiguous CUDA tensors, checked by
+    the caller. ``layer_norm_bwd.launches`` counts the launches of the
+    LayerNorm backward's kernel without res, ``layer_norm_bwd.res_launches``
+    those with it."""
     M, K = x.shape
     bands, rows = ln_bwd_plan(M, _sms(x.device))
     part = torch.empty(bands, 2 * K, dtype=torch.float32, device=x.device)
     err = kernels().lib.tr_layer_norm_bwd(
         _DTYPE_CODE[x.dtype], _ptr(x), _ptr(dln), M, K, _ptr(w), eps,
-        _ptr(dx), _ptr(part), bands, rows, _stream(x))
+        _ptr(dx), _ptr(part), bands, rows, _ptr(res), _stream(x))
     _check("tr_layer_norm_bwd", err)
-    layer_norm_bwd.launches += 1
+    if res is None:
+        layer_norm_bwd.launches += 1
+    else:
+        layer_norm_bwd.res_launches += 1
     return [(part, dwb.view(2 * K))]
 
 
 layer_norm_bwd.launches = 0
+layer_norm_bwd.res_launches = 0
+
+
+def row_scale(x, s, y, *, rows):
+    """y [M, K] = round(s[m // rows] * x [M, K]) in x's dtype, s fp32
+    [M // rows]: a residual branch's cotangent under its per-image
+    drop-path scale (csrc/ln_gemm.cu row_scale_kernel). Contiguous CUDA
+    tensors, K a multiple of 8, checked by the caller.
+    ``row_scale.launches`` counts the launches."""
+    M, K = x.shape
+    err = kernels().lib.tr_row_scale(_DTYPE_CODE[x.dtype], _ptr(x), _ptr(s),
+                                     M, K, rows, _ptr(y), _stream(x))
+    _check("tr_row_scale", err)
+    row_scale.launches += 1
+
+
+row_scale.launches = 0
 
 
 def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
-         res=None, idx=None, rows_out=1, rows_in=1, col_sums=None):
+         res=None, idx=None, rows_out=1, rows_in=1, col_sums=None,
+         row_scale=None, scale_rows=1):
     """y[M, n_out] = epi(x @ w.T + bias), or epi(x @ w) with ``w_kn`` (w
     [K, n_out], read untransposed). epi: optional GELU (with its fp32
     derivative at the pre-activation written to ``gelu_grad``), then an
@@ -332,16 +362,22 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
     csrc/gemm_tf32_sm90.cu, counted by ``gemm.tf32_launches``, and the
     layout that only the fp32 backward launches (``w_kn``)
     csrc/gemm_tf32_bwd_sm90.cu, counted by ``gemm.tf32_bwd_launches``
-    (csrc/ln_gemm.cu's tr_gemm picks by the same rule)."""
+    (csrc/ln_gemm.cu's tr_gemm picks by the same rule). ``row_scale``
+    (fp32 [M // scale_rows], bf16 forward layout without GELU only): row
+    m's result times row_scale[m // scale_rows] before the residual is
+    added, a variant of csrc/gemm_sm90.cu counted by
+    ``gemm.scaled_launches``."""
     M, n_out = y.shape
     res_dtype = _DTYPE_CODE[x.dtype if res is None else res.dtype]
     err = kernels().lib.tr_gemm(
         _DTYPE_CODE[x.dtype], _ptr(x), M, x.shape[1], _ptr(w), int(w_kn),
         _ptr(bias), n_out, int(gelu), _ptr(gelu_grad), _ptr(mul), res_dtype,
         _ptr(res), _ptr(idx), rows_out, rows_in, _DTYPE_CODE[y.dtype],
-        _ptr(y), _ptr(col_sums), _stream(x))
+        _ptr(y), _ptr(col_sums), _ptr(row_scale), scale_rows, _stream(x))
     _check("tr_gemm", err)
-    if x.dtype == torch.bfloat16:
+    if row_scale is not None:
+        gemm.scaled_launches += 1
+    elif x.dtype == torch.bfloat16:
         gemm.launches += 1
     elif not w_kn:
         gemm.tf32_launches += 1
@@ -352,6 +388,7 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
 gemm.launches = 0
 gemm.tf32_launches = 0
 gemm.tf32_bwd_launches = 0
+gemm.scaled_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -706,3 +743,57 @@ def head_mean_keys(qkv, keys, num_heads):
 
 
 head_mean_keys.launches = 0
+
+
+def mlp_chunked(x, ls, lb, w1, b1, w2, b2, out, *, eps):
+    """out [M, 384] = x + fc2(gelu(fc1(LN x))) over rows x [M, 384] with
+    the hidden units on chip (csrc/mlp_chunked.cu): w1 [H4, 384], w2
+    [384, H4] (nn.Linear's layout), H4 a multiple of
+    ``mlp_chunked_config()["HC"]``; contiguous bf16 CUDA tensors, checked by
+    the caller. ``mlp_chunked.launches`` counts the launches."""
+    M, K = x.shape
+    err = kernels().lib.tr_mlp_chunked(
+        _ptr(x), M, K, _ptr(ls), _ptr(lb), _ptr(w1), _ptr(b1), _ptr(w2),
+        _ptr(b2), w1.shape[0], eps, _ptr(out), _stream(x))
+    _check("tr_mlp_chunked", err)
+    mlp_chunked.launches += 1
+
+
+mlp_chunked.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_chunked_config() -> dict:
+    """The chunked MLP kernel's rows a block, hidden units a slice and
+    dynamic shared memory a block, as its library reports them:
+    {"BM", "HC", "SMEM_BYTES"}."""
+    out = (ctypes.c_int * 3)()
+    _check("tr_mlp_chunked_config",
+           kernels().lib.tr_mlp_chunked_config(ctypes.addressof(out)))
+    return dict(zip(("BM", "HC", "SMEM_BYTES"), out))
+
+
+def attn_joint(ln, wqkv, bqkv, merged, num_heads, scale, *, stages=2,
+               row0=None, colsum=None):
+    """merged [B, N, D] (bf16) = the attention of each (image, head) over
+    q, k, v = ln . Wqkv^T + bqkv made on chip (csrc/attn_joint.cu) from
+    the LayerNorm'd rows ln [B, N, D] and wqkv [3D, D], bqkv [3D]; row0 and
+    colsum [B, H, N] fp32 when given. Head dim 64, N <= 256, ``stages`` 1
+    or 2 (the staged D chunks a block keeps in flight); contiguous bf16
+    CUDA tensors, checked by the caller. ``attn_joint.launches`` counts
+    the launches."""
+    B, N, D = ln.shape
+    err = kernels().lib.tr_attn_joint(
+        _ptr(ln), _ptr(wqkv), _ptr(bqkv), B, N, D, num_heads, scale, stages,
+        _ptr(merged), _ptr(row0), _ptr(colsum), _stream(ln))
+    _check("tr_attn_joint", err)
+    attn_joint.launches += 1
+
+
+attn_joint.launches = 0
+
+
+def attn_joint_smem(n: int, stages: int = 2) -> int:
+    """The dynamic shared memory a block of ``attn_joint`` takes at n keys,
+    as its library reports it."""
+    return kernels().lib.tr_attn_joint_smem(n, stages)

@@ -77,7 +77,9 @@ What bounds it: at N <= 197 and D = 384 the products are small. The
 attention is held by its elementwise softmax at two warpgroups an SM,
 not by reading qkv nor by tensor-core operations (PERF.md §6); the GEMMs at K = 384 lose a large share to each
 output tile's fill and epilogue (the LN output and qkv each make one
-round trip through device memory). Keeping qkv on chip is later work.
+round trip through device memory). Keeping qkv on chip is the design
+that ``tokenreduction_tpu_torch/tools/tune_kernels.py``'s ``attn_joint``
+(csrc/attn_joint.cu) measures against this route: PERF.md §6, row #12.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (the same
 name with ``_ref``); on a CUDA tensor it launches the kernels or raises.
@@ -379,7 +381,9 @@ def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     [B, N]; idx: None or contiguous int32 [B, K], with no bias and no
     mask). Returns (out, row0, colsum, keys) at width K (N without idx):
     out in ``out_dtype`` (x's by default); the by-products are None
-    without ``with_scores``, the keys without ``want_keys``."""
+    without ``with_scores``, the keys without ``want_keys``. qkv makes a
+    round trip through device memory between steps 1 and 2; the kernel
+    tools' ``attn_joint`` keeps it on chip (PERF.md §6, row #12)."""
     from tokenreduction_tpu_torch.ops import _build
 
     B, N, D = x.shape

@@ -123,11 +123,13 @@ def attend_branch_train_ref(x, ls, lb, wqkv, bqkv, wproj, bproj,
 
 def attend_branch_train_bwd_ref(x, ls, lb, wqkv, bqkv, wproj, dy, drow0,
                                 num_heads: int, scale: float,
-                                eps: float = 1e-6):
+                                eps: float = 1e-6, res=None):
     """Plain hand-written backward of ``attend_branch_train``: the TPU
     kernel's ``_bwd_kernel`` (fused_block_train.py:95-205) with its
     rounding points. Returns (dx, dls, dlb, dwqkv, dbqkv, dwproj, dbproj),
-    weights in nn.Linear's [out, in] layout."""
+    weights in nn.Linear's [out, in] layout. res (x's shape, or None) is
+    added to dx in fp32 before its rounding: a residual's cotangent (the
+    kernel tools' residual-fused branch)."""
     dt = x.dtype
     B, N, D = x.shape
     x_hat, rstd = layer_norm_stats(x.float().reshape(B * N, D), eps)
@@ -140,13 +142,19 @@ def attend_branch_train_bwd_ref(x, ls, lb, wqkv, bqkv, wproj, dy, drow0,
     dqkv = attention_bwd_ref(qkv, dattn.reshape(B, N, D), drow0, num_heads,
                              scale).reshape(B * N, 3 * D).float()
     dx, dls, dlb = layer_norm_bwd_ref(dqkv @ wqkv.float(), x_hat, rstd, ls)
+    if res is not None:
+        dx = dx + res.float().reshape(B * N, D)
     return (dx.to(dt).reshape(B, N, D), dls.to(ls.dtype), dlb.to(lb.dtype),
             (dqkv.T @ ln.float()).to(wqkv.dtype), dqkv.sum(0).to(bqkv.dtype),
             (dy.T @ merged).to(wproj.dtype), dy.sum(0).to(ls.dtype))
 
 
-def _fwd_cuda(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads, scale, eps):
-    """Forward launches; returns (branch, row0, saved intermediates)."""
+def _fwd_cuda(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads, scale, eps,
+              s=None):
+    """Forward launches; returns (branch, row0, saved intermediates). With
+    s (fp32 [B], bf16 only) the proj GEMM's epilogue writes x + s_b *
+    branch instead of the branch (the kernel tools' residual-fused
+    branch)."""
     from tokenreduction_tpu_torch.ops import _build
 
     B, N, D = x.shape
@@ -164,18 +172,31 @@ def _fwd_cuda(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads, scale, eps):
     _build.short_attention(qkv, merged, num_heads, scale, row0=row0,
                            stats=stats, norm_p=True)
     branch = torch.empty_like(x)
-    _build.gemm(merged.view(B * N, D), wproj, bproj, branch.view(B * N, D))
+    if s is None:
+        _build.gemm(merged.view(B * N, D), wproj, bproj, branch.view(B * N, D))
+    else:
+        _build.gemm(merged.view(B * N, D), wproj, bproj, branch.view(B * N, D),
+                    res=rows, row_scale=s, scale_rows=N)
     return branch, row0, (ln, qkv, merged, row0, stats)
 
 
-def _bwd_cuda(x, ls, wqkv, wproj, saved, dy, drow0, num_heads, scale, eps):
-    """Backward launches; returns the seven gradients."""
+def _bwd_cuda(x, ls, wqkv, wproj, saved, dy, drow0, num_heads, scale, eps,
+              s=None):
+    """Backward launches; returns the seven gradients. With s (fp32 [B]),
+    dy is the cotangent of x + s_b * branch: the branch's, round(s_b dy),
+    is written once by ``row_scale``, and dy is added to dx in the
+    LayerNorm backward before its rounding (the kernel tools'
+    residual-fused branch)."""
     from tokenreduction_tpu_torch.ops import _build
 
     ln, qkv, merged, row0, stats = saved
     B, N, D = x.shape
     M = B * N
     dy = dy.view(M, D)
+    res = None
+    if s is not None:
+        res, dy = dy, torch.empty_like(dy)
+        _build.row_scale(res, s, dy, rows=N)
     dattn = torch.empty(B, N, D, dtype=x.dtype, device=x.device)
     _build.gemm(dy, wproj, None, dattn.view(M, D), w_kn=True)
     dwproj = torch.empty_like(wproj)
@@ -194,7 +215,7 @@ def _bwd_cuda(x, ls, wqkv, wproj, saved, dy, drow0, num_heads, scale, eps):
     dx = torch.empty_like(x)
     dlnp = torch.empty(2, D, dtype=ls.dtype, device=x.device)
     sums += _build.layer_norm_bwd(x.view(M, D), ls, dln, dx.view(M, D), dlnp,
-                                  eps=eps)
+                                  eps=eps, res=res)
     _build.sum_partials_many(sums)
     return dx, dlnp[0], dlnp[1], dwqkv, dbqkv, dwproj, dbproj
 

@@ -29,9 +29,11 @@ through device memory.
 
 What bounds it: at K <= 197 rows per image and D = 384 the products are
 small; the hidden tensor's round trip, the GELU and each output tile's
-fill and epilogue weigh more than tensor-core operations. This is a
-simple first version on mma.sync; wgmma, TMA and keeping the hidden
-tensor on chip are later work.
+fill and epilogue weigh more than tensor-core operations. The products
+run on the bf16 GEMM (csrc/gemm_sm90.cu: TMA, wgmma). Keeping the hidden
+tensor on chip is the design that ``tokenreduction_tpu_torch/tools/
+tune_kernels.py``'s ``mlp_chunked`` (csrc/mlp_chunked.cu) measures
+against this route: PERF.md §6, row #13.
 
 On a CPU tensor each wrapper runs its plain version
 (``fused_mlp_residual_ref``, ``fused_mlp_gather_residual_ref``); on a
