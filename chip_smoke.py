@@ -400,6 +400,33 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    profile_train_kernels, profile_keep025), their counts set to 0 just
    before and read just after: the four kernels' launches, each once a
    call of its wrapper.
+10. the last kernel tools (tokenreduction_tpu_torch/tools/), on no path of
+   the models, bf16 at B=256 and DeiT-S width: the attention-core
+   arrangements (proto_attn.proto_attn, csrc/proto_attn.cu: loop, avpair,
+   stacked) at N = 197, 138, 97, 68 against proto_attn_ref (out; the
+   branch out - x with x scaled by 2^-4 and the weights by 2^4 and 2^6,
+   since without a LayerNorm the branch shrinks with x; the merged heads
+   of the kernel's launch alone), and the recomputing branch backward
+   (proto_attn_bwd.proto_attn_bwd, csrc/proto_attn_bwd.cu: loop, pack2) at
+   N = 197, 138, 97, 50 with seeded cotangents and drow0 against
+   proto_attn_bwd_ref (dx, dwqkv, dwproj; merged and dqkv of the launch
+   alone), each within 2e-2 of its own max|plain|, a second launch
+   bit-equal, the arrangements' differences printed, each time one of ten
+   back-to-back calls between two events beside the bound, the plain
+   version and the port's current route (the qkv GEMM, the sm_90a
+   attention and the proj GEMM; #9's forward and backward), each check's
+   counts set to 0 just before and read just after. proto_gelu's variants
+   of #4's route at N = 197 (erf, identity, tanh, no-LN: the bf16 GEMM's
+   epilogue activations, tanh its own variant of the kernel) against
+   mlp_variant_ref: out and the branch within 2e-2 of their own
+   max|plain|, a second call bit-equal, the bf16 GEMM's launches counted,
+   and the fc1 launch alone with fp32 out within 1e-4 of its own max and
+   ten times nearer its own GELU form than the other. Then each new tool's
+   main() once with few calls a timed run (proto_attn, proto_attn_bwd,
+   proto_gelu, proto_opt, profile_eval, profile_train, bench_input,
+   accuracy_gate on a seeded DeiT-S .pth that the phase writes,
+   tpu_parity with a 32-step mini-train), the two kernels' counts set to
+   0 before and read after; the phase prints its seconds.
 
 Phases 4, 5, 6, 7 and 8 are the main path's runs: each counterpart's
 launch count, and those of the bf16 GEMM's two launchers (gemm,
@@ -521,10 +548,20 @@ from tokenreduction_tpu_torch.train.step import (
     make_train_step,
 )
 from tokenreduction_tpu_torch.tools import (
+    _measure,
+    accuracy_gate,
+    bench_input,
+    profile_eval,
     profile_keep025,
     profile_kernels,
+    profile_train,
     profile_train_kernels,
+    proto_attn,
+    proto_attn_bwd,
+    proto_gelu,
+    proto_opt,
     proto_residual_fuse,
+    tpu_parity,
     tune_kernels,
 )
 
@@ -1453,7 +1490,8 @@ def launcher_cases(gen):
 
         h = F.gelu(linear_f32(ln, p["w1"], p["b1"])).to(bf16)
         yield "gemm fc1+GELU", shape, [
-            ("hidden", gemm_case(ln, p["w1"], p["b1"], bf16, gelu=True), h)]
+            ("hidden", gemm_case(ln, p["w1"], p["b1"], bf16,
+                                 gelu=_build.Gelu.ERF), h)]
 
         yield "gemm fc2, fp32 out", shape, [
             ("out", gemm_case(h, p["w2"], p["b2"], torch.float32),
@@ -1523,7 +1561,8 @@ def launcher_cases(gen):
 
         a = torch.empty(M, H4, device=DEVICE, dtype=bf16)
         gp = torch.empty(M, H4, device=DEVICE)
-        _build.gemm(ln, p["w1"], p["b1"], a, gelu=True, gelu_grad=gp)
+        _build.gemm(ln, p["w1"], p["b1"], a, gelu=_build.Gelu.ERF,
+                    gelu_grad=gp)
         pre = linear_f32(ln, p["w1"], p["b1"])
         yield "gemm fc1+GELU, GELU' out", shape, [
             ("hidden", a, F.gelu(pre).to(bf16)), ("GELU'", gp, gelu_grad(pre))]
@@ -1711,9 +1750,11 @@ def gemm_cases(M, gen, gather=None):
     forward = [("qkv", ln, "wqkv", "bqkv", 3 * D, {}, True),
                ("proj + residual", heads, "wproj", "bproj", D, dict(res=res),
                 False),
-               ("fc1 + GELU", ln, "w1", "b1", H4, dict(gelu=True), False),
+               ("fc1 + GELU", ln, "w1", "b1", H4,
+                dict(gelu=_build.Gelu.ERF), False),
                ("fc1 + GELU, GELU' out", ln, "w1", "b1", H4,
-                dict(gelu=True, gelu_grad=empty(M, H4, dtype=f32)), False),
+                dict(gelu=_build.Gelu.ERF,
+                     gelu_grad=empty(M, H4, dtype=f32)), False),
                ("fc2 + residual", h, "w2", "b2", D, dict(res=res), False)]
     if gather:
         K, N = gather
@@ -2153,9 +2194,10 @@ def fp32_gemm_cases(B, N, gen):
     ln, h, res = rn(M, D), rn(M, H4), rn(M, D)
     yield case("qkv", ln, p["wqkv"], p["bqkv"], {})
     yield case("proj + residual", ln, p["wproj"], p["bproj"], dict(res=res))
-    yield case("fc1 + GELU", ln, p["w1"], p["b1"], dict(gelu=True))
+    yield case("fc1 + GELU", ln, p["w1"], p["b1"], dict(gelu=_build.Gelu.ERF))
     yield case("fc1 + GELU, GELU' out", ln, p["w1"], p["b1"],
-               dict(gelu=True, gelu_grad=torch.empty(M, H4, device=DEVICE)))
+               dict(gelu=_build.Gelu.ERF,
+                    gelu_grad=torch.empty(M, H4, device=DEVICE)))
     yield case("fc2 + residual", h, p["w2"], p["b2"], dict(res=res))
     for n_in, K in FP32_GATHER:
         stage = rn(B * n_in, D)
@@ -5964,14 +6006,14 @@ def same_bits(first, second) -> bool:
     return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def tool_check(name, shape, got, want, labels, rec):
+def tool_check(name, shape, got, want, labels, rec, phase="9"):
     """Each output against its plain version: within the bf16 BOUND of its
-    own max|plain|."""
+    own max|plain|; the record's max_abs_err is out's or dx's."""
     errs = []
     for label, g, w in zip(labels, got, want):
         abs_err, rel = rel_err(g, w)
         tol = BOUND[torch.bfloat16]
-        require(rel <= tol, f"phase 9 {name} {shape} {label}: error "
+        require(rel <= tol, f"phase {phase} {name} {shape} {label}: error "
                 f"{rel:.3e} of max|plain| > bound {tol:.0e}")
         errs.append(f"{label} {abs_err:.3e} ({rel:.2e} rel)")
         if label in ("out", "dx"):
@@ -5979,13 +6021,14 @@ def tool_check(name, shape, got, want, labels, rec):
     return errs
 
 
-def branch_check(name, shape, kernel, plain, x, rec):
+def branch_check(name, shape, kernel, plain, x, rec, phase="9"):
     """The branch alone, out - x, within 2e-2 of its own max|plain|, from
     x scaled by 2^-4 (LayerNorm makes the branch nearly the same): at the
     residual's full size out's rounding, an ulp of |x|, hides it."""
     xs = x * 0.0625
     return tool_check(name, shape, [kernel(xs).float() - xs.float()],
-                      [plain(xs).float() - xs.float()], ("branch",), rec)
+                      [plain(xs).float() - xs.float()], ("branch",), rec,
+                      phase=phase)
 
 
 def tool_record(rec, shape, ms, plain_ms, bound_, route_ms):
@@ -6224,6 +6267,295 @@ def phase_tools() -> dict:
     return recs
 
 
+# ---- phase 10: the last kernel tools (tokenreduction_tpu_torch/tools/)
+# the two attention-core prototypes' kernels: (the wrapper's count, the
+# CUDA sources, the wrapper, the TPU kernel it replaces)
+PROTO_TILE = "tokenreduction_tpu_torch/csrc/attn_tile.cuh"
+PROTO_KERNELS = {
+    "proto_attn": (
+        (proto_attn.proto_attn, "launches"),
+        ["tokenreduction_tpu_torch/csrc/proto_attn.cu", PROTO_TILE,
+         GEMM_SOURCE],
+        f"{TOOLS_SRC}/proto_attn.py", "tools/proto_attn.py:137"),
+    "proto_attn_bwd": (
+        (proto_attn_bwd.proto_attn_bwd, "launches"),
+        ["tokenreduction_tpu_torch/csrc/proto_attn_bwd.cu", PROTO_TILE,
+         LN_GEMM, GEMM_SOURCE],
+        f"{TOOLS_SRC}/proto_attn_bwd.py", "tools/proto_attn_bwd.py:190"),
+}
+# each wrapper's kernel launcher (ops/_build.py), once a call
+PROTO_LAUNCHERS = {"proto_attn": (_build.proto_attn, "launches"),
+                   "proto_attn_bwd": (_build.proto_attn_bwd, "launches")}
+PROTO_N = (197, 138, 97, 68)  # proto_attn.py's widths
+PROTO_BWD_N = (197, 138, 97, 50)  # proto_attn_bwd.py's
+# #14's branch check: x scaled by 2^-4 and the weights by powers of two
+# (exact in bf16) so that the branch, not x, sets out's rounding: with no
+# LayerNorm the branch shrinks with x, so scaling x alone hides it still
+BRANCH_SCALE = dict(x=2.0 ** -4, wqkv=2.0 ** 4, wproj=2.0 ** 6)
+
+
+def proto_counts() -> dict:
+    return {name: (getattr(f, attr), getattr(*PROTO_LAUNCHERS[name]))
+            for name, ((f, attr), *_) in PROTO_KERNELS.items()}
+
+
+def reset_proto_counts():
+    for (f, attr), *_ in PROTO_KERNELS.values():
+        setattr(f, attr, 0)
+    for f, attr in PROTO_LAUNCHERS.values():
+        setattr(f, attr, 0)
+
+
+def counted(name: str, calls: int, fn):
+    """fn() with the kernel's counts set to 0 just before and read just
+    after: its wrapper and its launcher each ``calls`` times."""
+    reset_proto_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = proto_counts()[name]
+    require(got == (calls, calls), f"phase 10 {name}: counts {got} for "
+            f"{calls} calls")
+    return out
+
+
+def proto_attn_cases(rec):
+    """#14: every arrangement at B=256 against proto_attn_ref (out, the
+    branch out - x at BRANCH_SCALE, the merged heads of the kernel's launch
+    alone), a second launch bit-equal, the arrangements against each
+    other, and the times."""
+    B = TRAIN_B
+    w = {k: v for k, v in proto_weights().items()
+         if k in ("wqkv", "wproj")}
+    wb = {k: v * BRANCH_SCALE[k] for k, v in w.items()}
+    rec["arrangement_ms"] = {}
+    for N in PROTO_N:
+        x = _measure.inputs(B, N, DEVICE, seed=N)
+        xs = x * BRANCH_SCALE["x"]
+        shape = f"B={B} N={N}"
+        want = proto_attn.proto_attn_ref(x, w)
+        want_b = proto_attn.proto_attn_ref(xs, wb).float() - xs.float()
+        qkv = (x.float() @ w["wqkv"].float().T).to(torch.bfloat16)
+        want_m = tune_kernels.joint_attention_ref(qkv, HEADS, SCALE)[0]
+        outs, times = {}, {}
+        for variant in proto_attn.VARIANTS:
+            got = counted("proto_attn", 2, lambda: [
+                proto_attn.proto_attn(x, w, variant),
+                proto_attn.proto_attn(xs, wb, variant).float() - xs.float()])
+            merged = torch.empty_like(x)
+            _build.proto_attn(qkv, merged, HEADS, SCALE, variant=variant)
+            errs = tool_check("proto_attn", f"{shape} {variant}",
+                              [*got, merged], [want, want_b, want_m],
+                              ("out", "branch", "merged heads alone"), rec,
+                              phase="10")
+            require(torch.equal(got[0], proto_attn.proto_attn(x, w, variant)),
+                    f"proto_attn {shape} {variant}: two launches differ")
+            outs[variant] = got[0]
+            times[variant] = per_launch_ms(
+                lambda: proto_attn.proto_attn(x, w, variant))
+            print(f"phase 10 proto_attn {shape} {variant}: max abs err "
+                  f"{', '.join(errs)}; {times[variant]:.4f} ms; "
+                  f"{_build.proto_attn_smem(N, HEADS, variant)} bytes of "
+                  "dynamic shared memory a block; a second launch bit-equal",
+                  flush=True)
+        for variant in proto_attn.VARIANTS[1:]:
+            same = torch.equal(outs[variant], outs["loop"])
+            d = tune_kernels.max_diff(outs[variant], outs["loop"])
+            print(f"phase 10 proto_attn {shape}: {variant} against loop "
+                  f"max|d| {d:.3e}"
+                  f"{' (the same bits)' if same else ''}", flush=True)
+        plain_ms = cuda_ms(lambda: proto_attn.proto_attn_ref(x, w))
+        route_ms = per_launch_ms(lambda: proto_attn.current_route(x, w))
+        b = _measure.bound_ms(*proto_attn.cost(B, N))
+        print(f"phase 10 proto_attn {shape}: kernel (loop) "
+              f"{times['loop']:.4f} ms, avpair {times['avpair']:.4f}, "
+              f"stacked {times['stacked']:.4f}; plain {plain_ms:.4f} ms, "
+              f"bound {b[0]:.4f} ms ({b[1]}), the port's current route (qkv "
+              f"gemm, short_attention, proj gemm) {route_ms:.4f} ms",
+              flush=True)
+        rec["arrangement_ms"][N] = times
+        tool_record(rec, shape, times["loop"], plain_ms, b, route_ms)
+
+
+def proto_weights() -> dict:
+    """The branch's weights under the tools' names, LN and biases away from
+    1 and 0 (seeded)."""
+    gen = torch.Generator().manual_seed(10)
+    w = tool_weights(gen)
+    return {k: w[k] for k in ("ls", "lb", "wqkv", "bqkv", "wproj")}
+
+
+def proto_bwd_cases(rec):
+    """#15: both arrangements at B=256 with seeded cotangents and drow0
+    against proto_attn_bwd_ref (dx, dwqkv, dwproj) and the kernel's launch
+    alone (merged and dqkv against the plain attention's), a second launch
+    bit-equal, the arrangements against each other, and the times."""
+    B = TRAIN_B
+    w = proto_weights()
+    rec["arrangement_ms"] = {}
+    for N in PROTO_BWD_N:
+        x = _measure.inputs(B, N, DEVICE, seed=N)
+        dy, drow0 = proto_attn_bwd.cotangents(B, N, DEVICE, seed=N + 1)
+        shape = f"B={B} N={N}"
+        want = proto_attn_bwd.proto_attn_bwd_ref(x, w, dy, drow0)
+        ln = layer_norm_f32(x.float(), w["ls"], w["lb"], EPS) \
+            .to(torch.bfloat16)
+        qkv = linear_f32(ln, w["wqkv"], w["bqkv"]).to(torch.bfloat16)
+        dout = (dy.float() @ w["wproj"].float()).to(torch.bfloat16)
+        want_k = [attention_train_ref(qkv, HEADS, SCALE)[0],
+                  attention_bwd_ref(qkv, dout, drow0, HEADS, SCALE)]
+        outs, times = {}, {}
+        for variant in proto_attn_bwd.VARIANTS:
+            got = counted("proto_attn_bwd", 1, lambda:
+                          proto_attn_bwd.proto_attn_bwd(x, w, dy, drow0,
+                                                        variant))
+            merged, dqkv = torch.empty_like(x), torch.empty_like(qkv)
+            _build.proto_attn_bwd(qkv, dout, drow0, merged, dqkv, HEADS,
+                                  SCALE, variant=variant)
+            errs = tool_check("proto_attn_bwd", f"{shape} {variant}",
+                              [*got, merged, dqkv], [*want, *want_k],
+                              ("dx", "dwqkv", "dwproj", "merged alone",
+                               "dqkv alone"), rec, phase="10")
+            again = proto_attn_bwd.proto_attn_bwd(x, w, dy, drow0, variant)
+            require(same_bits(got, again), f"proto_attn_bwd {shape} "
+                    f"{variant}: two launches differ")
+            outs[variant] = got
+            times[variant] = per_launch_ms(
+                lambda: proto_attn_bwd.proto_attn_bwd(x, w, dy, drow0,
+                                                      variant))
+            print(f"phase 10 proto_attn_bwd {shape} {variant}: max abs err "
+                  f"{', '.join(errs)}; {times[variant]:.4f} ms; "
+                  f"{_build.proto_attn_bwd_smem(N)} bytes of dynamic shared "
+                  "memory a block; a second launch bit-equal", flush=True)
+        diffs = [f"{name} {tune_kernels.max_diff(a, b):.3e}"
+                 for name, a, b in zip(proto_attn_bwd.OUTPUTS, outs["pack2"],
+                                       outs["loop"])]
+        print(f"phase 10 proto_attn_bwd {shape}: pack2 against loop max|d| "
+              f"{', '.join(diffs)}", flush=True)
+        plain_ms = cuda_ms(lambda: proto_attn_bwd.proto_attn_bwd_ref(
+            x, w, dy, drow0))
+        route_ms = per_launch_ms(lambda: proto_attn_bwd.current_route(
+            x, w, dy, drow0))
+        b = _measure.bound_ms(*proto_attn_bwd.cost(B, N))
+        print(f"phase 10 proto_attn_bwd {shape}: kernel (loop) "
+              f"{times['loop']:.4f} ms, pack2 {times['pack2']:.4f}; plain "
+              f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), the port's "
+              f"current route (#9's forward + backward) {route_ms:.4f} ms",
+              flush=True)
+        rec["arrangement_ms"][N] = times
+        tool_record(rec, shape, times["loop"], plain_ms, b, route_ms)
+
+
+def proto_gelu_cases():
+    """proto_gelu's variants of #4's route at B=256, N=197 against
+    mlp_variant_ref: out and the branch (branch_check; not for no-LN,
+    whose branch shrinks with x) within 2e-2 of their own max|plain|, two
+    bf16 GEMM launches a call, a second call bit-equal. Then the fc1
+    launch alone in the variant's activation, fp32 out from the same LN
+    rows (the tanh GELU the GEMM's own variant): within 1e-4 of its own
+    max|plain| and nearer its own form than a tenth of its distance to
+    the other GELU form (erf and tanh differ by at most 4.7e-4, under
+    bf16's rounding and under 1e-4 of the max, so a launch in the wrong
+    form would pass the other bounds)."""
+    B, N = TRAIN_B, 197
+    w = tool_weights(torch.Generator().manual_seed(12))
+    x = _measure.inputs(B, N, DEVICE, seed=N + 2)
+    ln = layer_norm_f32(x.float(), w["ls"], w["lb"], EPS).to(torch.bfloat16)
+    rec = dict(max_abs_err=0.0)
+    for variant in proto_gelu.VARIANTS:
+        shape = f"B={B} N={N} {variant}"
+        _build.gemm.launches = 0
+        got = proto_gelu.mlp_variant(x, w, variant)
+        torch.cuda.synchronize()
+        require(_build.gemm.launches == 2, f"phase 10 proto_gelu {shape}: "
+                f"{_build.gemm.launches} bf16 GEMM launches for 2")
+        errs = tool_check("proto_gelu", shape, [got],
+                          [proto_gelu.mlp_variant_ref(x, w, variant)],
+                          ("out",), rec, phase="10")
+        if variant != "no-LN":
+            errs += branch_check(
+                "proto_gelu", shape,
+                lambda xs: proto_gelu.mlp_variant(xs, w, variant),
+                lambda xs: proto_gelu.mlp_variant_ref(xs, w, variant), x, rec,
+                phase="10")
+        require(torch.equal(got, proto_gelu.mlp_variant(x, w, variant)),
+                f"proto_gelu {shape}: two calls differ")
+        rows = (x if variant == "no-LN" else ln).view(B * N, D)
+        act = proto_gelu.GEMM_GELU[variant]
+        hidden = torch.empty(B * N, w["w1"].shape[0], device=DEVICE)
+        _build.gemm(rows, w["w1"], w["b1"], hidden, gelu=_build.Gelu[act])
+        pre = linear_f32(rows, w["w1"], w["b1"])
+        want = proto_gelu.ACTIVATION[variant](pre)
+        other = proto_gelu.ACTIVATION["tanh" if act == "ERF" else "erf"](pre)
+        del pre
+        own = float((hidden - want).abs().max())
+        cross = float((hidden - other).abs().max())
+        top = float(want.abs().max())
+        require(own <= LAUNCH_BOUND[torch.float32] * top and 10 * own <= cross,
+                f"phase 10 proto_gelu {shape}: the fc1 launch alone is "
+                f"{own:.3e} from its own form (max {top:.3e}) and {cross:.3e} "
+                "from the other")
+        ms = per_launch_ms(lambda: proto_gelu.mlp_variant(x, w, variant))
+        print(f"phase 10 proto_gelu {shape}: max abs err {', '.join(errs)}; "
+              f"the fc1 launch alone, fp32 out: {own:.3e} from its own form, "
+              f"{cross:.3e} from the other (max {top:.3e}); {ms:.4f} ms; a "
+              "second call bit-equal", flush=True)
+
+
+def seeded_pth(root: pathlib.Path) -> pathlib.Path:
+    """A seeded DeiT-S state dict in the released .pth's layout (timm's
+    names, under "model"), for accuracy_gate's parity step."""
+    model, _ = create_model("deit_small_patch16_224_local", device="cpu",
+                            generator=torch.Generator().manual_seed(11))
+    path = root / accuracy_gate.WEIGHT_FILE
+    torch.save({"model": model.state_dict()}, path)
+    return path
+
+
+def phase_proto() -> dict:
+    """Phase 10 (see the module docstring). Returns #14's and #15's
+    records for the JSON line, their launches those of the tools' runs."""
+    t0 = time.perf_counter()
+    recs = {name: dict(max_abs_err=0.0) for name in PROTO_KERNELS}
+    settle()
+    proto_attn_cases(recs["proto_attn"])
+    proto_bwd_cases(recs["proto_attn_bwd"])
+    proto_gelu_cases()
+    settle()
+    runs_dir = pathlib.Path(__file__).resolve().parent / "build" / "phase10"
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    runs_dir.mkdir(parents=True)
+    runs = ((proto_attn, ["--iters", "2"]),
+            (proto_attn_bwd, ["--iters", "2"]),
+            (proto_gelu, ["--iters", "2"]),
+            (proto_opt, ["--iters", "2"]),
+            (profile_eval, ["--iters", "1"]),
+            (profile_train, ["--iters", "1"]),
+            (bench_input, ["--host", "--n", "128", "--device", "--iters",
+                           "2"]),
+            (accuracy_gate, ["--weights", str(seeded_pth(runs_dir))]),
+            (tpu_parity, ["--mt-steps", "32", "--mt-batch", "32", "--ref",
+                          str(runs_dir / "parity_ref.pt")]))
+    reset_proto_counts()
+    for module, argv in runs:
+        t1 = time.perf_counter()
+        rc = module.main(argv)
+        require(not rc, f"phase 10 {module.__name__}: exit {rc}")
+        print(f"phase 10 ran {module.__name__.split('.')[-1]} "
+              f"{' '.join(argv)} in {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    torch.cuda.synchronize()
+    for name, (wrapper, launcher) in proto_counts().items():
+        require(wrapper > 0, f"{name}: no launch in the tools' runs")
+        require(launcher == wrapper, f"{name}: {launcher} kernel launches "
+                f"for {wrapper} calls")
+        recs[name]["launches"] = wrapper
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    print(f"phase 10 launches in the tools' runs: "
+          f"{ {n: c[0] for n, c in proto_counts().items()} }; the phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
+
+
 T0 = time.perf_counter()
 
 
@@ -6351,6 +6683,8 @@ def main():
     elapsed("8")
     tools_rec = phase_tools()
     elapsed("9")
+    proto_rec = phase_proto()
+    elapsed("10")
     for name, shape, ms, bound_ms, lib_ms in standalone:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"standalone {name} {shape}: {ms:.4f} ms per launch, bound "
@@ -6418,6 +6752,12 @@ def main():
                      on_main_path=False, library_ms=None, **tools_rec[name])
                 for name, (_, sources, wrapper, replaces)
                 in TOOL_KERNELS.items()]
+    # the attention-core prototypes' two (phase 10): on no path either
+    kernels += [dict(name=name, route="cuda", source=sources[0],
+                     cuda_sources=sources, wrapper=wrapper, replaces=replaces,
+                     on_main_path=False, library_ms=None, **proto_rec[name])
+                for name, (_, sources, wrapper, replaces)
+                in PROTO_KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,8 +140,10 @@ _CHILD = textwrap.dedent("""
             "Loss", "Predictions", "Stage-1", "Stage-2", "Target"]
     # the kernel tools, and their plain versions on a tiny block
     from tokenreduction_tpu_torch.tools import (  # noqa: F401
-        _measure, profile_keep025, profile_kernels, profile_train_kernels,
-        proto_residual_fuse, tune_kernels)
+        _measure, accuracy_gate, bench_input, profile_eval, profile_keep025,
+        profile_kernels, profile_train, profile_train_kernels, proto_attn,
+        proto_attn_bwd, proto_gelu, proto_opt, proto_residual_fuse,
+        tpu_parity, tune_kernels)
     blk = {k: v[..., :64] if k in ("ls", "lb", "bproj", "b2") else v
            for k, v in _measure.weights("cpu", torch.float32).items()}
     blk.update(wqkv=blk["wqkv"][:192, :64], bqkv=blk["bqkv"][:192],
@@ -156,9 +158,18 @@ _CHILD = textwrap.dedent("""
         torch.ones(2), 1, 0.125)
     out.sum().backward()
     assert xg.grad.shape == xb.shape
+    blk2 = {k: v.to(torch.float32) for k, v in blk.items()}
+    assert proto_attn.proto_attn(xb, blk2, "avpair", num_heads=1,
+                                 scale=0.125).shape == xb.shape
+    dx, dwqkv, _ = proto_attn_bwd.proto_attn_bwd(
+        xb, blk2, xb, torch.zeros(2, 1, 5), "pack2", num_heads=1,
+        scale=0.125)
+    assert dx.shape == xb.shape and dwqkv.dtype == torch.float32
     assert (tune_kernels.attn_joint.launches, tune_kernels.mlp_chunked.launches,
             proto_residual_fuse.attend_block_res.launches,
-            proto_residual_fuse.attend_block_res.backward_launches) == (0,) * 4
+            proto_residual_fuse.attend_block_res.backward_launches,
+            proto_attn.proto_attn.launches,
+            proto_attn_bwd.proto_attn_bwd.launches) == (0,) * 6
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
     assert not bad, bad
@@ -184,8 +195,8 @@ def test_port_imports_and_runs_without_jax():
     data/device_aug.py with the per-module norms, imports the data,
     utils and evaluation subpackages and the train loop, mixup, the train
     CLI and the asynchronous checkpointer, validates a ToMe
-    checkpoint in viz mode, imports the kernel tools and runs their plain
-    versions on a tiny block, on the CPU with no JAX, Flax or optax module
+    checkpoint in viz mode, imports every kernel tool and runs the plain
+    versions of those with kernels on a tiny block, on the CPU with no JAX, Flax or optax module
     loaded, no kernel build and no kernel launch."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

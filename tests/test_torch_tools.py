@@ -16,6 +16,7 @@ ulp is 2^-8 of a value: a sum that rounds apart moves a rounded
 intermediate by an ulp)."""
 
 import importlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -117,10 +118,9 @@ def test_attn_joint_matches_jax(dtype, n):
     with pltpu.force_tpu_interpret_mode():
         want = jax_tune.attn_joint(xj, wj, H, SCALE, 2)
     tol = DTYPES[dtype][2]
-    for group in (1, 2):
-        got, (row0, colsum) = port_tune.attn_joint(xt, wt, H, SCALE, group,
-                                                  with_scores=True)
-        close(got, want, tol, f"attn_joint group={group}")
+    got, (row0, colsum) = port_tune.attn_joint(xt, wt, H, SCALE,
+                                              with_scores=True)
+    close(got, want, tol, "attn_joint")
     # the by-products: the port's fused_block_attention_ref's
     _, row0_ref, colsum_ref = fused_block_attention_ref(
         xt, *(wt[k] for k in PARAMS), H, SCALE)
@@ -169,12 +169,10 @@ def test_attend_block_res_matches_jax(dtype, n):
 
 
 def test_tool_arguments_and_counters():
-    """group and chunks must divide as on the TPU, stages is the card's
-    tunable, and the CPU runs launch nothing."""
+    """chunks must divide as on the TPU, stages is the card's tunable, and
+    the CPU runs launch nothing."""
     _, wt = both(weights_np(0), "fp32")
     _, xt = inputs(13, "fp32")
-    with pytest.raises(ValueError, match="group"):
-        port_tune.attn_joint(xt, wt, H, SCALE, 3)
     with pytest.raises(ValueError, match="chunks"):
         port_tune.mlp_chunked(xt, wt, 5)
     a = port_tune.attn_joint(xt, wt, H, SCALE, stages=1)
@@ -213,3 +211,100 @@ def test_tool_runs_on_the_cpu(name, argv, capsys):
     mod.main([*argv, "--device", "cpu", "--batch", "1", "--iters", "1"])
     out = capsys.readouterr().out
     assert "host clock, CPU" in out and "CUDA" not in out
+
+
+# the tools of the attention-core prototypes, the profilers and the gates
+MORE = ("proto_attn", "proto_attn_bwd", "proto_gelu", "proto_opt",
+        "profile_eval", "profile_train", "bench_input", "accuracy_gate",
+        "tpu_parity")
+
+
+@pytest.mark.parametrize("name", MORE)
+def test_more_tool_help(name, capsys):
+    mod = importlib.import_module(f"tokenreduction_tpu_torch.tools.{name}")
+    with pytest.raises(SystemExit) as e:
+        mod.main(["--help"])
+    assert e.value.code == 0
+    assert "--device" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("proto_attn", ["--batch", "1", "--iters", "1"]),
+    ("proto_attn_bwd", ["--batch", "1", "--iters", "1"]),
+    ("proto_gelu", ["--batch", "1", "--iters", "1"]),
+    ("proto_opt", ["--iters", "1", "--model", "topk_tiny_patch16_224"]),
+    ("profile_eval", ["--batch", "1", "--iters", "1", "--size", "tiny"]),
+    ("profile_train", ["--batch", "2", "--iters", "1", "--img-size", "32",
+                       "--size", "tiny"]),
+])
+def test_more_tools_run_on_the_cpu(name, argv, capsys):
+    """Each tool end to end on the CPU at a tiny size: the plain versions,
+    timed by the host's clock."""
+    mod = importlib.import_module(f"tokenreduction_tpu_torch.tools.{name}")
+    mod.main([*argv, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "host clock, CPU" in out and "CUDA" not in out
+
+
+def test_bench_input_runs_on_the_cpu(capsys):
+    from tokenreduction_tpu_torch.tools import bench_input
+
+    bench_input.main(["--host", "--n", "8", "--host-batch", "4", "--device",
+                      "--device-name", "cpu", "--batch", "2", "--iters", "1",
+                      "--src", "64", "--input-size", "48"])
+    out = capsys.readouterr().out
+    assert "cache build" in out and "raw uint8 collate" in out
+    assert "device aug" in out and "host clock, CPU" in out
+
+
+def test_accuracy_gate_fails_loudly_without_weights(tmp_path, monkeypatch):
+    from tokenreduction_tpu_torch.tools import accuracy_gate
+
+    monkeypatch.setenv("TOKENREDUCTION_WEIGHTS_DIR", str(tmp_path))
+    with pytest.raises(SystemExit) as e:
+        accuracy_gate.main(["--device", "cpu"])
+    assert e.value.code == 2
+
+
+def test_accuracy_gate_parity_on_a_tiny_state(tmp_path, capsys,
+                                              monkeypatch):
+    """The parity step on a seeded tiny ViT state dict in the released
+    .pth's layout, against tests/oracles.py's eager forward (loaded from
+    its path, sys.path left as it was); exit 2 without the ImageNet tree
+    or without the tests directory."""
+    from oracles import make_vit_state
+    from tokenreduction_tpu_torch.tools import accuracy_gate
+
+    pth = tmp_path / accuracy_gate.WEIGHT_FILE
+    torch.save({"model": make_vit_state(2, 64, 1, 16, 1000, seed=3,
+                                        n_tokens=196)}, pth)
+    argv = ["--weights", str(pth), "--device", "cpu", "--depth", "2",
+            "--embed-dim", "64", "--num-heads", "1"]
+    path_before = list(sys.path)
+    accuracy_gate.main(argv)
+    assert sys.path == path_before
+    out = capsys.readouterr().out
+    assert "logit parity" in out and "PASS" in out
+    with pytest.raises(SystemExit) as e:
+        accuracy_gate.main([*argv, "--data", str(tmp_path / "nope")])
+    assert e.value.code == 2
+    monkeypatch.setattr(accuracy_gate, "TESTS", tmp_path / "no_tests")
+    with pytest.raises(SystemExit) as e:
+        accuracy_gate.main(argv)
+    assert e.value.code == 2
+
+
+def test_tpu_parity_runs_on_the_cpu(tmp_path, capsys):
+    """Both phases of the gate in this process at DeiT-Ti width: the CPU
+    reference, then every gate (on the CPU every route is the plain one)."""
+    from tokenreduction_tpu_torch.tools import tpu_parity
+
+    ref = str(tmp_path / "ref.pt")
+    common = ["--batch", "1", "--methods", "topk", "--sizes", "tiny",
+              "--img-size", "128", "--ref", ref]
+    assert tpu_parity.main([*common, "--cpu-phase"]) == 0
+    assert tpu_parity.main([*common, "--device", "cpu", "--mt-steps", "16",
+                            "--mt-batch", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "topk-tiny@0.7/train" in out and "minitrain 16 steps" in out
+    assert "all 2 eval + 2 train configs pass" in out

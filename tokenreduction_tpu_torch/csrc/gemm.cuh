@@ -90,6 +90,13 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
 }
 
+// The tanh form, 0.5 v (1 + tanh(sqrt(2 / pi) (v + 0.044715 v^3))): the
+// bf16 forward GEMM's epilogue option (gelu == 2) that the kernel tool
+// proto_gelu times against the erf form.
+__device__ __forceinline__ float gelu_tanh(float v) {
+  return 0.5f * v * (1.0f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+}
+
 // d gelu / dv = Phi(v) + v phi(v), the exact derivative of the erf form.
 __device__ __forceinline__ float gelu_grad(float v) {
   return 0.5f * (1.0f + erff(v * 0.7071067811865476f)) +

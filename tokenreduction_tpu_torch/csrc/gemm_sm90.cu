@@ -16,6 +16,8 @@
 //             residual-fused attention branch of the kernel tools
 //             (tokenreduction_tpu_torch/tools/proto_residual_fuse.py; the
 //             TPU kernel tools/proto_residual_fuse.py _fwd_kernel_res).
+//   tanh:     the forward with GELU's tanh form (gelu == 2), a variant of
+//             its own that only the kernel tool proto_gelu launches.
 //   dY . W:   Y = epi(dY[M, n_out] . W[n_out, K]) read untransposed: B is
 //             MN-major. epi: an optional fp32 factor (GELU'), and optional
 //             per-128-row-tile column sums of the fp32 result (a bias
@@ -174,8 +176,8 @@ __device__ __forceinline__ void wgmma_192(float* d, uint64_t da, uint64_t db) {
 // whose launches may carry the fp32 factor and the column sums (dY . W);
 // GRAD: the variant that writes GELU'. Each is compiled only where it is
 // used, so the eval launches keep the smallest epilogue. SCALE: the
-// variant with the per-row factor.
-template <bool MUL, bool GRAD, bool SCALE>
+// variant with the per-row factor; TANH: the one with GELU's tanh form.
+template <bool MUL, bool GRAD, bool SCALE, bool TANH>
 __device__ __forceinline__ void epilogue_rows(const GemmArgs& a, float* y32, const float* staged,
                                               int row0, int col, int lane_row, float* cs) {
   if (col >= a.n_out) return;
@@ -211,7 +213,7 @@ __device__ __forceinline__ void epilogue_rows(const GemmArgs& a, float* y32, con
         x[k] = v[i][k] + b[k];
         if (a.gelu) {
           if (GRAD) gg[k] = gelu_grad(x[k]);
-          x[k] = gelu(x[k]);
+          x[k] = TANH ? gelu_tanh(x[k]) : gelu(x[k]);
         }
         if (MUL && a.mul) x[k] *= m[i][k];
         if (SCALE) x[k] *= sc[i];
@@ -232,7 +234,7 @@ __device__ __forceinline__ void epilogue_rows(const GemmArgs& a, float* y32, con
 // g + 8 of its warp's 16, columns 8 j + 2 (lane % 4) and the next), then 8
 // threads a row read them back along the rows, 8 columns a thread. The
 // column sums (BWD) of the warp's rows go to red.
-template <bool BWD, bool GRAD, bool SCALE>
+template <bool BWD, bool GRAD, bool SCALE, bool TANH>
 __device__ __forceinline__ void epilogue(const GemmArgs& a, const float* d, float* y32,
                                              float* staged, float* red, int m0, int n0, int cw,
                                              int warp, int lane, int t128) {
@@ -249,8 +251,8 @@ __device__ __forceinline__ void epilogue(const GemmArgs& a, const float* d, floa
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
     float cs[8] = {};
-    epilogue_rows<BWD, GRAD, SCALE>(a, y32, staged, m0 + cw * 64,
-                                    n0 + part * EPI_COLS + lane_col, lane_row, cs);
+    epilogue_rows<BWD, GRAD, SCALE, TANH>(a, y32, staged, m0 + cw * 64,
+                                          n0 + part * EPI_COLS + lane_col, lane_row, cs);
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");  // staging free again
     if (BWD && a.col_sums != nullptr) {
       // the warp's four rows of lanes
@@ -284,9 +286,10 @@ struct Tiles {
 // B stored [K][n_out]; GRAD: the GELU epilogue also writes GELU'. The
 // backward's own epilogue steps (the fp32 factor, the column sums) compile
 // only into the layout with B_MN and not A_MN, the row sums of A only into
-// A_MN; SCALE: the forward's per-row factor (a variant of its own, so the
-// other launches keep their epilogue).
-template <bool A_MN, bool B_MN, bool GRAD, bool SCALE>
+// A_MN; SCALE: the forward's per-row factor and TANH: the forward's tanh
+// GELU (each a variant of its own, so the other launches keep their
+// epilogue).
+template <bool A_MN, bool B_MN, bool GRAD, bool SCALE, bool TANH>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b, GemmArgs a, int splits) {
@@ -411,10 +414,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (lane == 0) mbar_arrive(empty0 + 8 * prev);
     }
 
-    epilogue<BWD, GRAD, SCALE>(a, d,
-                               static_cast<float*>(a.y) +
-                                   (A_MN ? static_cast<size_t>(z) * a.M * a.n_out : 0),
-                               epi + cw * (EPI_BYTES / 4), red, m0, n0, cw, warp, lane, t128);
+    epilogue<BWD, GRAD, SCALE, TANH>(a, d,
+                                     static_cast<float*>(a.y) +
+                                         (A_MN ? static_cast<size_t>(z) * a.M * a.n_out : 0),
+                                     epi + cw * (EPI_BYTES / 4), red, m0, n0, cw, warp, lane,
+                                     t128);
     if (BWD && a.col_sums != nullptr) {
       // the 8 consumer warps' column sums, in order
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -459,9 +463,9 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool A_MN, bool B_MN, bool GRAD, bool SCALE = false>
+template <bool A_MN, bool B_MN, bool GRAD, bool SCALE = false, bool TANH = false>
 int launch(const GemmArgs& a, int splits, cudaStream_t stream) {
-  const auto kernel = gemm_sm90_kernel<A_MN, B_MN, GRAD, SCALE>;
+  const auto kernel = gemm_sm90_kernel<A_MN, B_MN, GRAD, SCALE, TANH>;
   // first: the context the tensor maps need (sm90.cuh encoder)
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -487,9 +491,9 @@ int launch(const GemmArgs& a, int splits, cudaStream_t stream) {
 
 }  // namespace
 
-// The five compiled variants: eval and forward, the training fc1 (GELU'
-// out), the backward's dY . W, the weight gradient, and the forward with
-// the per-row factor.
+// The six compiled variants: eval and forward, the training fc1 (GELU'
+// out), the backward's dY . W, the weight gradient, the forward with the
+// per-row factor, and the forward with the tanh GELU.
 int launch_gemm_sm90(const GemmArgs& a, bool a_mn, bool b_mn, int splits, cudaStream_t stream) {
   if (a.M == 0 || a.n_out == 0) return 0;
   if ((a.k_split && a.k_split % BK != 0) || (a_mn && !b_mn) || splits < 1)
@@ -497,6 +501,10 @@ int launch_gemm_sm90(const GemmArgs& a, bool a_mn, bool b_mn, int splits, cudaSt
   if (a.row_scale != nullptr) {
     if (a_mn || b_mn || a.gelu || a.scale_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
     return launch<false, false, false, true>(a, splits, stream);
+  }
+  if (a.gelu == 2) {
+    if (a_mn || b_mn || a.gelu_grad != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<false, false, false, false, true>(a, splits, stream);
   }
   if (a_mn) return launch<true, true, false>(a, splits, stream);
   if (b_mn) return launch<false, true, false>(a, splits, stream);

@@ -559,7 +559,8 @@ extern "C" int tr_layer_norm_bwd(int dtype, const void* x, const void* dln, int 
 // Returns the cudaError_t of the launch (0 on success). `dtype` is the
 // type of x, w and bias; res_dtype and y_dtype those of the residual and
 // y: `dtype` or, with bf16 operands, float32. w is [n_out, K], or [K,
-// n_out] with w_kn. gelu_grad (with gelu, w not w_kn), mul and col_sums
+// n_out] with w_kn. gelu 1 is the exact-erf GELU, 2 its tanh form (bf16,
+// forward layout, no gelu_grad). gelu_grad (with gelu, w not w_kn), mul and col_sums
 // ([ceil(M / 128)][n_out], both with w_kn) are fp32 or null; idx
 // (residual rows) may be null. row_scale [M / scale_rows] fp32 or null:
 // row m's result times row_scale[m / scale_rows] before the residual, in
@@ -578,7 +579,8 @@ extern "C" int tr_gemm(int dtype, const void* x, int M, int K, const void* w, in
       !takes(y_dtype) || (res != nullptr && !takes(res_dtype)) ||
       (gelu_grad != nullptr && (!gelu || w_kn)) || (mul != nullptr && !w_kn) ||
       (col_sums != nullptr && !w_kn) ||
-      (row_scale != nullptr && (dtype != kBFloat16 || w_kn || gelu || scale_rows < 1)))
+      (row_scale != nullptr && (dtype != kBFloat16 || w_kn || gelu || scale_rows < 1)) ||
+      gelu < 0 || gelu > 2 || (gelu == 2 && (dtype != kBFloat16 || w_kn || gelu_grad != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   GemmArgs a{};
   a.x = x, a.M = M, a.K = K, a.w = w, a.bias = bias, a.n_out = n_out, a.gelu = gelu;

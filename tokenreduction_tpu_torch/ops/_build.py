@@ -20,6 +20,7 @@ from __future__ import annotations
 import array
 import ctypes
 import dataclasses
+import enum
 import functools
 import hashlib
 import os
@@ -82,7 +83,15 @@ _SIGNATURES = {
     "tr_mlp_chunked_config": (_P,),
     "tr_attn_joint": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
     "tr_attn_joint_smem": (_I, _I),
+    "tr_proto_attn": (_P, _I, _I, _I, _F, _I, _P, _P),
+    "tr_proto_attn_smem": (_I, _I, _I),
+    "tr_proto_attn_bwd": (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
+    "tr_proto_attn_bwd_smem": (_I,),
 }
+# the arrangements of csrc/proto_attn.cu and csrc/proto_attn_bwd.cu, by
+# their C codes
+PROTO_ATTN_VARIANTS = {"loop": 0, "avpair": 1, "stacked": 2}
+PROTO_ATTN_BWD_VARIANTS = {"loop": 0, "pack2": 1}
 # what tr_gemm_sm90_config and tr_gemm_tf32_config report, in their order
 _GEMM_CONFIG = ("BM", "BN", "BK", "STAGES", "SMEM_BYTES")
 # and tr_gemm_tf32_bwd_config
@@ -345,14 +354,22 @@ def row_scale(x, s, y, *, rows):
 row_scale.launches = 0
 
 
-def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
-         res=None, idx=None, rows_out=1, rows_in=1, col_sums=None,
+class Gelu(enum.IntEnum):
+    """The GEMM epilogue's activation, as tr_gemm's ``gelu`` code."""
+    NONE = 0
+    ERF = 1  # the exact-erf GELU, the model's
+    TANH = 2  # its tanh form: bf16, forward layout, no GELU' (proto_gelu)
+
+
+def gemm(x, w, bias, y, *, w_kn=False, gelu=Gelu.NONE, gelu_grad=None,
+         mul=None, res=None, idx=None, rows_out=1, rows_in=1, col_sums=None,
          row_scale=None, scale_rows=1):
     """y[M, n_out] = epi(x @ w.T + bias), or epi(x @ w) with ``w_kn`` (w
-    [K, n_out], read untransposed). epi: optional GELU (with its fp32
-    derivative at the pre-activation written to ``gelu_grad``), then an
-    optional fp32 factor ``mul`` [M, n_out], then an optional residual,
-    whose row m is gathered like ``layer_norm``'s rows when idx is given;
+    [K, n_out], read untransposed). epi: the activation ``gelu``
+    (``Gelu``; with ``Gelu.ERF`` its fp32 derivative at the pre-activation
+    may be written to ``gelu_grad``), then an optional fp32 factor ``mul``
+    [M, n_out], then an optional residual, whose row m is gathered like
+    ``layer_norm``'s rows when idx is given;
     ``col_sums`` [ceil(M / 128), n_out] fp32 receives the column sums of
     each 128-row tile of the result before its rounding. x, w and bias
     share one dtype; res and y have it too or, with bf16 operands, float32.
@@ -371,9 +388,10 @@ def gemm(x, w, bias, y, *, w_kn=False, gelu=False, gelu_grad=None, mul=None,
     res_dtype = _DTYPE_CODE[x.dtype if res is None else res.dtype]
     err = kernels().lib.tr_gemm(
         _DTYPE_CODE[x.dtype], _ptr(x), M, x.shape[1], _ptr(w), int(w_kn),
-        _ptr(bias), n_out, int(gelu), _ptr(gelu_grad), _ptr(mul), res_dtype,
-        _ptr(res), _ptr(idx), rows_out, rows_in, _DTYPE_CODE[y.dtype],
-        _ptr(y), _ptr(col_sums), _ptr(row_scale), scale_rows, _stream(x))
+        _ptr(bias), n_out, int(Gelu(gelu)),
+        _ptr(gelu_grad), _ptr(mul), res_dtype, _ptr(res), _ptr(idx),
+        rows_out, rows_in, _DTYPE_CODE[y.dtype], _ptr(y), _ptr(col_sums),
+        _ptr(row_scale), scale_rows, _stream(x))
     _check("tr_gemm", err)
     if row_scale is not None:
         gemm.scaled_launches += 1
@@ -797,3 +815,54 @@ def attn_joint_smem(n: int, stages: int = 2) -> int:
     """The dynamic shared memory a block of ``attn_joint`` takes at n keys,
     as its library reports it."""
     return kernels().lib.tr_attn_joint_smem(n, stages)
+
+
+def proto_attn(qkv, merged, num_heads, scale, *, variant):
+    """merged [B, N, D] (bf16) = each (image, head)'s attention over the
+    packed qkv [B, N, 3D] in the arrangement ``variant`` of
+    csrc/proto_attn.cu ("loop", "avpair": an even head count, "stacked");
+    head dim 64, N <= 256; contiguous bf16 CUDA tensors, checked by the
+    caller. ``proto_attn.launches`` counts the launches."""
+    B, N, _ = qkv.shape
+    err = kernels().lib.tr_proto_attn(
+        _ptr(qkv), B, N, num_heads, scale, PROTO_ATTN_VARIANTS[variant],
+        _ptr(merged), _stream(qkv))
+    _check("tr_proto_attn", err)
+    proto_attn.launches += 1
+
+
+proto_attn.launches = 0
+
+
+def proto_attn_smem(n: int, num_heads: int, variant: str) -> int:
+    """The dynamic shared memory a block of ``proto_attn``'s arrangement
+    takes at n keys and ``num_heads`` heads, as its library reports it."""
+    return kernels().lib.tr_proto_attn_smem(n, num_heads,
+                                            PROTO_ATTN_VARIANTS[variant])
+
+
+def proto_attn_bwd(qkv, dout, drow0, merged, dqkv, num_heads, scale, *,
+                   variant):
+    """merged [B, N, D] and the packed dqkv [B, N, 3D] (bf16) of each
+    (image, head)'s attention recomputed from the packed qkv [B, N, 3D],
+    with the merged heads' cotangent dout [B, N, D] (bf16) and the row0
+    cotangent drow0 [B, H, N] (fp32), in the arrangement ``variant`` of
+    csrc/proto_attn_bwd.cu ("loop" or "pack2"); head dim 64, N <= 256;
+    contiguous CUDA tensors, checked by the caller.
+    ``proto_attn_bwd.launches`` counts the launches."""
+    B, N, _ = qkv.shape
+    err = kernels().lib.tr_proto_attn_bwd(
+        _ptr(qkv), _ptr(dout), _ptr(drow0), B, N, num_heads, scale,
+        PROTO_ATTN_BWD_VARIANTS[variant], _ptr(merged), _ptr(dqkv),
+        _stream(qkv))
+    _check("tr_proto_attn_bwd", err)
+    proto_attn_bwd.launches += 1
+
+
+proto_attn_bwd.launches = 0
+
+
+def proto_attn_bwd_smem(n: int) -> int:
+    """The dynamic shared memory a block of ``proto_attn_bwd`` takes at n
+    keys, as its library reports it."""
+    return kernels().lib.tr_proto_attn_bwd_smem(n)

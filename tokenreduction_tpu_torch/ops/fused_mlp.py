@@ -108,7 +108,7 @@ def mlp_half_cuda(x, idx, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
     _build.layer_norm(rows, ln_scale, ln_bias, ln, eps=eps, idx=idx,
                       rows_out=K, rows_in=N)
     hidden = torch.empty(B * K, H4, dtype=w1.dtype, device=x.device)
-    _build.gemm(ln, w1, b1, hidden, gelu=True)
+    _build.gemm(ln, w1, b1, hidden, gelu=_build.Gelu.ERF)
     out = torch.empty(B, K, D, dtype=out_dtype or x.dtype, device=x.device)
     _build.gemm(hidden, w2, b2, out.view(B * K, D), res=rows, idx=idx,
                 rows_out=K, rows_in=N)

@@ -115,7 +115,7 @@ def _fwd_cuda(x, ls, lb, w1, b1, w2, b2, eps):
     _build.layer_norm(rows, ls, lb, ln, eps=eps)
     a = torch.empty(M, H4, dtype=x.dtype, device=x.device)
     gp = torch.empty(M, H4, dtype=torch.float32, device=x.device)
-    _build.gemm(ln, w1, b1, a, gelu=True, gelu_grad=gp)
+    _build.gemm(ln, w1, b1, a, gelu=_build.Gelu.ERF, gelu_grad=gp)
     out = torch.empty_like(x)
     _build.gemm(a, w2, b2, out.view(M, D))
     return out, (ln, a, gp)

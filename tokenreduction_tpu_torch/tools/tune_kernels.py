@@ -72,9 +72,8 @@ def joint_attention_ref(qkv, num_heads: int, scale: float):
     return merged.transpose(1, 2).reshape(B, N, D3 // 3), p
 
 
-def attn_joint(x, w, num_heads: int, scale: float, group: int = 1,
-               eps: float = 1e-6, *, stages: int = 2,
-               with_scores: bool = False):
+def attn_joint(x, w, num_heads: int, scale: float, *, eps: float = 1e-6,
+               stages: int = 2, with_scores: bool = False):
     """x [B, N, D] -> x + proj(attn(qkv(LN1 x))), and with ``with_scores``
     also (row0, colsum) [B, H, N] fp32. w: the block weights in
     nn.Linear's layout (wqkv [3D, D], wproj [D, D]).
@@ -84,14 +83,11 @@ def attn_joint(x, w, num_heads: int, scale: float, group: int = 1,
     (image, head)'s q, k and v from them on chip and runs the attention,
     writing the merged heads and the by-products (the qkv tensor never
     reaches device memory); the ``gemm`` kernel adds proj, its bias and
-    the residual. ``group``, the TPU kernel's images a grid cell, has no
-    meaning on the card: it must divide B, as there, and changes nothing.
+    the residual. The TPU kernel's images a grid cell (its ``group``) have
+    no counterpart: a block takes one (image, head).
     ``stages`` (1 or 2) is the card kernel's own tunable: the D chunks of
     LN rows and weights a block keeps in flight; the result does not
     depend on it. ``attn_joint.launches`` counts the card's launches."""
-    B = x.shape[0]
-    if group < 1 or B % group:
-        raise ValueError(f"attn_joint: group={group} must divide B={B}")
     if not x.is_cuda:
         out, row0, colsum = attn_joint_ref(x, w, num_heads, scale, eps)
         return (out, (row0, colsum)) if with_scores else out
@@ -108,7 +104,7 @@ def attn_joint(x, w, num_heads: int, scale: float, group: int = 1,
                         f"{x.dtype}")
     if stages not in (1, 2):
         raise ValueError(f"{name}: stages must be 1 or 2, got {stages}")
-    _, N, D = x.shape
+    B, N, D = x.shape
     rows = x.view(B * N, D)
     ln = torch.empty_like(x)
     _build.layer_norm(rows, w["ls"], w["lb"], ln.view(B * N, D), eps=eps)
