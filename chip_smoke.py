@@ -21,7 +21,9 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    shared memory a block for dY . W and the weight gradient, and
    _build.attention_tf32_plan at each main-path width and 256: the square
    forward's and the backward's shared memory, and the rectangular
-   forward's at ATS's (M, N) pairs), and the LayerNorm backward's; and,
+   forward's at ATS's (M, N) pairs), the LayerNorm backward's, and the
+   kernel tools' joint attention's and chunked MLP's (tr_attn_joint_smem,
+   tr_mlp_chunked_config: rows a block, hidden units a slice); and,
    from the built library's SASS (cuobjdump), a TF32 tensor-core
    instruction (HGMMA or HMMA .TF32) in every variant of the fp32 GEMMs
    (forward and backward), the fp32 forward attention (square and
@@ -379,7 +381,10 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    (tune_kernels.attn_joint, csrc/attn_joint.cu: each (image, head)'s
    qkv product fused into its attention) and the chunked MLP
    (tune_kernels.mlp_chunked, csrc/mlp_chunked.cu: the hidden tensor on
-   chip) at N = 197, 138, 97, 68, and the residual-fused training
+   chip) at N = 197, 138, 97, 68 (and, untimed, at the edges of their
+   tiles: the joint attention at B=4, N=256 and B=5, N=13, the chunked
+   MLP at B=3, N=197 and B=1, N=5, rows no multiple of its 128 a block),
+   and the residual-fused training
    attention branch (proto_residual_fuse.attend_block_res: the proj
    GEMM's scaled variant, the row_scale kernel and the LayerNorm
    backward's residual variant) forward and backward at N = 197, 138, 97
@@ -389,14 +394,15 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    full size out's rounding, an ulp of |x|, hides the branch; the joint
    kernel's launch alone, its
    merged heads from LN1's rows, likewise; every gradient for random
-   cotangents of both outputs), a second launch bit-equal (and the joint
-   kernel's stages=1 and the chunked MLP's chunks=2 bit-equal to their
-   defaults), each time by CUDA events (one of ten back-to-back calls;
-   the backward as its chain of launches, without autograd's host work)
-   beside its bound, its plain version and the port's current route
-   (fused_block_attention, fused_mlp_residual, attend_branch_train with
-   x + drop_path(branch) in PyTorch). Then each tool's main() once with few calls a timed run
-   (tune_kernels, proto_residual_fuse, profile_kernels,
+   cotangents of both outputs), a second launch bit-equal (and the
+   chunked MLP's chunks=2 bit-equal to its default), each time by CUDA
+   events (one of ten back-to-back calls; the backward as its chain of
+   launches, without autograd's host work) beside its bound, its plain
+   version and the port's current route (fused_block_attention,
+   fused_mlp_residual, attend_branch_train with x + drop_path(branch) in
+   PyTorch), the joint attention also beside SDPA's attention alone on
+   the same q, k and v. Then each tool's main() once with few calls a
+   timed run (tune_kernels, proto_residual_fuse, profile_kernels,
    profile_train_kernels, profile_keep025), their counts set to 0 just
    before and read just after: the four kernels' launches, each once a
    call of its wrapper.
@@ -6048,84 +6054,120 @@ def tool_line(name, shape, errs, ms, plain_ms, bound_, route, route_ms):
           f"{route_ms:.4f} ms; a second launch bit-equal", flush=True)
 
 
-def joint_cases(gen, w, rec):
-    """attn_joint against attn_joint_ref: the block's output, the
-    by-products, the branch (branch_check) and the merged heads of the
+# untimed widths at the edges of the kernels' tiles: (B, N) of the joint
+# attention (four full key tiles; an image shorter than a 64-row box) and
+# of the chunked MLP (rows no multiple of a block's 128)
+JOINT_EDGES = ((4, 256), (5, 13))
+CHUNKED_EDGES = ((3, 197), (1, 5))
+
+
+def joint_check(gen, w, rec, B, N):
+    """attn_joint against attn_joint_ref at (B, N): the block's output,
+    the by-products, the branch (branch_check) and the merged heads of the
     kernel's launch alone (from LN1's rows), each within 2e-2 of its own
     max|plain| (q, k and v are rounded inside the kernel from its own
     fp32 sums, which may round a bf16 ulp apart from the plain
-    version's)."""
+    version's); a second launch bit-equal. Returns (x, LN1's
+    rows, the max-error labels, the kernel's call, the plain call)."""
+    x = torch.randn(B, N, D, generator=gen).to(DEVICE, torch.bfloat16)
+
+    def kernel(x=x):
+        out, (row0, colsum) = tune_kernels.attn_joint(
+            x, w, HEADS, SCALE, with_scores=True)
+        return [out, row0, colsum]
+
+    def plain(x=x):
+        return list(tune_kernels.attn_joint_ref(x, w, HEADS, SCALE))
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    shape = f"B={B} N={N}"
+    errs = tool_check("attn_joint", shape, got, want,
+                      ("out", "row0", "colsum"), rec)
+    errs += branch_check(
+        "attn_joint", shape,
+        lambda xs: tune_kernels.attn_joint(xs, w, HEADS, SCALE),
+        lambda xs: tune_kernels.attn_joint_ref(xs, w, HEADS, SCALE)[0],
+        x, rec)
+    require(same_bits(got, kernel()), f"attn_joint {shape}: two "
+            "launches differ")
+    # the kernel's launch alone: the merged heads from LN1's rows
+    ln = layer_norm_f32(x.float(), w["ls"], w["lb"], EPS).to(torch.bfloat16)
+    merged = torch.empty_like(x)
+    _build.attn_joint(ln, w["wqkv"], w["bqkv"], merged, HEADS, SCALE)
+    qkv = linear_f32(ln, w["wqkv"], w["bqkv"]).to(torch.bfloat16)
+    errs += tool_check(
+        "attn_joint", shape, [merged],
+        [tune_kernels.joint_attention_ref(qkv, HEADS, SCALE)[0]],
+        ("merged heads alone",), rec)
+    return x, ln, errs, kernel, plain
+
+
+def joint_cases(gen, w, rec):
+    """joint_check at JOINT_EDGES (untimed) and at TOOLS_N, B=256; at
+    TOOLS_N each time by CUDA events beside the bound, the plain version,
+    the port's current route and SDPA's attention alone on the same q, k
+    and v (the library time of the attention core)."""
+    for B, N in JOINT_EDGES:
+        errs = joint_check(gen, w, rec, B, N)[2]
+        print(f"phase 9 attn_joint B={B} N={N} (untimed): max abs err "
+              f"{', '.join(errs)}; a second launch bit-equal", flush=True)
     B = TRAIN_B
     for N in TOOLS_N:
-        x = torch.randn(B, N, D, generator=gen).to(DEVICE, torch.bfloat16)
-
-        def kernel(stages=2, x=x):
-            out, (row0, colsum) = tune_kernels.attn_joint(
-                x, w, HEADS, SCALE, stages=stages, with_scores=True)
-            return [out, row0, colsum]
-
-        def plain(x=x):
-            return list(tune_kernels.attn_joint_ref(x, w, HEADS, SCALE))
-
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
+        x, ln, errs, kernel, plain = joint_check(gen, w, rec, B, N)
         shape = f"B={B} N={N}"
-        errs = tool_check("attn_joint", shape, got, want,
-                          ("out", "row0", "colsum"), rec)
-        errs += branch_check(
-            "attn_joint", shape,
-            lambda xs: tune_kernels.attn_joint(xs, w, HEADS, SCALE),
-            lambda xs: tune_kernels.attn_joint_ref(xs, w, HEADS, SCALE)[0],
-            x, rec)
-        require(same_bits(got, kernel()), f"attn_joint {shape}: two "
-                "launches differ")
-        require(same_bits(got, kernel(stages=1)), f"attn_joint {shape}: "
-                "stages=1 differs from stages=2")
-        # the kernel's launch alone: the merged heads from LN1's rows
-        ln = layer_norm_f32(x.float(), w["ls"], w["lb"], EPS) \
-            .to(torch.bfloat16)
-        merged = torch.empty_like(x)
-        _build.attn_joint(ln, w["wqkv"], w["bqkv"], merged, HEADS, SCALE)
-        qkv = linear_f32(ln, w["wqkv"], w["bqkv"]).to(torch.bfloat16)
-        errs += tool_check(
-            "attn_joint", shape, [merged],
-            [tune_kernels.joint_attention_ref(qkv, HEADS, SCALE)[0]],
-            ("merged heads alone",), rec)
         ms, plain_ms = per_launch_ms(kernel), cuda_ms(plain)
-        ms1 = per_launch_ms(lambda: kernel(stages=1))
         route_ms = per_launch_ms(
             lambda x=x: tune_kernels.current_attention(x, w))
+        q, k, v = packed_heads(
+            linear_f32(ln, w["wqkv"], w["bqkv"]).to(torch.bfloat16), HEADS)
+        sdpa_ms = per_launch_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))
         b = bound("fused_block_attention", B, N)
         tool_line("attn_joint", shape, errs, ms, plain_ms, b,
                   "fused_block_attention", route_ms)
-        print(f"phase 9 attn_joint {shape}: stages=1 {ms1:.4f} ms; "
-              f"{_build.attn_joint_smem(N, 2)} bytes of dynamic shared "
-              f"memory a block ({_build.attn_joint_smem(N, 1)} with stages=1)",
-              flush=True)
+        print(f"phase 9 attn_joint {shape}: SDPA on the same q, k, v (the "
+              f"attention output alone) {sdpa_ms:.4f} ms", flush=True)
+        if "shape" not in rec:
+            rec["sdpa_ms"] = sdpa_ms
         tool_record(rec, shape, ms, plain_ms, b, route_ms)
 
 
+def chunked_check(gen, wm, rec, B, N):
+    """mlp_chunked against mlp_chunked_ref at (B, N): the output within
+    2e-2 of max|plain| and its branch (branch_check) within 2e-2 of its
+    own max; a second launch and chunks = 2 the same bits as chunks = 4.
+    Returns (x, the max-error labels)."""
+    x = torch.randn(B, N, D, generator=gen).to(DEVICE, torch.bfloat16)
+    got = tune_kernels.mlp_chunked(x, wm, 4)
+    want = tune_kernels.mlp_chunked_ref(x, wm)
+    torch.cuda.synchronize()
+    shape = f"B={B} N={N}"
+    errs = tool_check("mlp_chunked", shape, [got], [want], ("out",), rec)
+    errs += branch_check(
+        "mlp_chunked", shape,
+        lambda xs: tune_kernels.mlp_chunked(xs, wm, 4),
+        lambda xs: tune_kernels.mlp_chunked_ref(xs, wm), x, rec)
+    require(torch.equal(got, tune_kernels.mlp_chunked(x, wm, 4)),
+            f"mlp_chunked {shape}: two launches differ")
+    require(torch.equal(got, tune_kernels.mlp_chunked(x, wm, 2)),
+            f"mlp_chunked {shape}: chunks=2 differs from chunks=4")
+    return x, errs
+
+
 def chunked_cases(gen, w, rec):
-    """mlp_chunked against mlp_chunked_ref: the output within 2e-2 of
-    max|plain| and its branch (branch_check) within 2e-2 of its own max;
-    chunks = 2 and 4 the same bits."""
-    B = TRAIN_B
+    """chunked_check at CHUNKED_EDGES (untimed) and at TOOLS_N, B=256,
+    there timed beside the bound, the plain version and the route."""
     wm = dict(w, ls=w["ls2"], lb=w["lb2"])
+    for B, N in CHUNKED_EDGES:
+        errs = chunked_check(gen, wm, rec, B, N)[1]
+        print(f"phase 9 mlp_chunked B={B} N={N} (untimed, {B * N} rows): "
+              f"max abs err {', '.join(errs)}; a second launch and "
+              "chunks=2 bit-equal", flush=True)
+    B = TRAIN_B
     for N in TOOLS_N:
-        x = torch.randn(B, N, D, generator=gen).to(DEVICE, torch.bfloat16)
-        got = tune_kernels.mlp_chunked(x, wm, 4)
-        want = tune_kernels.mlp_chunked_ref(x, wm)
-        torch.cuda.synchronize()
+        x, errs = chunked_check(gen, wm, rec, B, N)
         shape = f"B={B} N={N}"
-        errs = tool_check("mlp_chunked", shape, [got], [want], ("out",), rec)
-        errs += branch_check(
-            "mlp_chunked", shape,
-            lambda xs: tune_kernels.mlp_chunked(xs, wm, 4),
-            lambda xs: tune_kernels.mlp_chunked_ref(xs, wm), x, rec)
-        require(torch.equal(got, tune_kernels.mlp_chunked(x, wm, 4)),
-                f"mlp_chunked {shape}: two launches differ")
-        require(torch.equal(got, tune_kernels.mlp_chunked(x, wm, 2)),
-                f"mlp_chunked {shape}: chunks=2 differs from chunks=4")
         ms = per_launch_ms(lambda x=x: tune_kernels.mlp_chunked(x, wm, 4))
         plain_ms = cuda_ms(lambda x=x: tune_kernels.mlp_chunked_ref(x, wm))
         route_ms = per_launch_ms(lambda x=x: tune_kernels.current_mlp(x, wm))
@@ -6133,10 +6175,6 @@ def chunked_cases(gen, w, rec):
         tool_line("mlp_chunked", shape, errs, ms, plain_ms, b,
                   "fused_mlp_residual", route_ms)
         tool_record(rec, shape, ms, plain_ms, b, route_ms)
-    cfg = _build.mlp_chunked_config()
-    print(f"phase 9 mlp_chunked: {cfg['BM']} rows a block, {cfg['HC']} "
-          f"hidden units a slice, {cfg['SMEM_BYTES']} bytes of dynamic "
-          "shared memory a block", flush=True)
 
 
 def outside_res(x, s, *ps):
@@ -6621,6 +6659,12 @@ def main():
           f"the weight gradient {bwd['RAW_STAGES_WGRAD']} raw stages, "
           f"{bwd['SMEM_BYTES_WGRAD']} bytes of dynamic shared memory a block",
           flush=True)
+    cfg = _build.mlp_chunked_config()
+    print(f"phase 1 attn_joint_kernel: {_build.attn_joint_smem()} bytes of "
+          "dynamic shared memory a block (128 threads, the same at every N); "
+          f"mlp_chunked_kernel: {cfg['BM']} rows a block, {cfg['HC']} hidden "
+          f"units a slice, {cfg['SMEM_BYTES']} bytes of dynamic shared "
+          "memory a block (256 threads)", flush=True)
     for n in (*FULL_BLOCK_N, 256):
         plan = _build.attention_tf32_plan(n)
         print(f"phase 1 short_attention_tf32_kernel N={n}: {plan['smem']} "

@@ -169,14 +169,11 @@ def test_attend_block_res_matches_jax(dtype, n):
 
 
 def test_tool_arguments_and_counters():
-    """chunks must divide as on the TPU, stages is the card's tunable, and
-    the CPU runs launch nothing."""
+    """chunks must divide as on the TPU, and the CPU runs launch nothing."""
     _, wt = both(weights_np(0), "fp32")
     _, xt = inputs(13, "fp32")
     with pytest.raises(ValueError, match="chunks"):
         port_tune.mlp_chunked(xt, wt, 5)
-    a = port_tune.attn_joint(xt, wt, H, SCALE, stages=1)
-    assert torch.equal(a, port_tune.attn_joint(xt, wt, H, SCALE, stages=2))
     assert port_tune.attn_joint.launches == port_tune.mlp_chunked.launches \
         == port_res.attend_block_res.launches == 0
     back = _measure.from_jax_layout(weights_np(0))

@@ -10,9 +10,9 @@
 // __fmul_rn / __fsub_rn / __fdiv_rn, so that a pass that recomputes a chunk
 // of them from the saved row statistics gets the same bits as the pass that
 // made the statistics (no contraction into an FMA in one and not the other).
-// attn_joint.cu (the joint qkv + attention kernel tool) keeps its own copy
-// of the same steps: moved onto these, it spilled at N > 192 and ran
-// slower.
+// The joint qkv + attention kernel tool (attn_joint.cu) runs the main
+// path's wgmma steps instead (attention_sm90.cuh); the two prototypes
+// here are the next to move onto them.
 #pragma once
 
 #include <math.h>

@@ -3,223 +3,404 @@
 // _mlp_chunk_kernel), for Hopper (sm_90a), in bf16:
 //
 //   out = x + fc2(gelu(fc1(LN2 x))),   x, out [M, 384]; W1 [H4, 384] and
-//   W2 [384, H4] in nn.Linear's [out, in] layout; H4 a multiple of 32.
+//   W2 [384, H4] in nn.Linear's [out, in] layout; H4 a multiple of 32 up to 1536.
 //
 // Numerics as the TPU kernel's: LayerNorm in fp32 (two-pass statistics),
 // its output rounded to bf16; fc1 accumulated in fp32, plus b1, the exact
 // GELU in fp32 (erff, where the TPU kernel has a rational erf within
 // 1.5e-7), the hidden rounded to bf16; fc2 accumulated in fp32 over all
-// hidden units; x + acc + b2 in fp32, rounded once.
+// hidden units, in the kernel's own order whatever the caller's chunks;
+// x + acc + b2 in fp32, rounded once.
 //
-// Design. A block takes BM = 64 rows and keeps them to the end: LN2 of its
-// rows into shared memory once, then the hidden width in slices of HC = 32
-// units: fc1's [64, 32] slice on the tensor cores (mma.sync m16n8k16), its
-// bias and GELU, rounded into shared memory, and at once fc2's products of
-// that slice added to the block's fp32 accumulator [64, 384], which lives
-// in registers (96 a thread over 8 warps) for the whole run. The hidden
-// tensor [M, H4] never reaches device memory: that is what the three
-// launches of ops/fused_mlp.py write and read back (2 x 310 MB at B = 256,
-// N = 197). The two weight slices of the next HC units are copied
-// (cp.async) while this slice's products run.
+// Design. A block takes BM = 128 rows: two warpgroups of 64 rows each.
+// Warp 0 (its lane 0) issues every TMA load: first the block's x rows
+// (64-row boxes with the 128-byte swizzle) into the warpgroups' shared
+// memory, then the weights in slices of HC = 32 hidden units, W1's
+// [32, 384] (128-byte swizzle) and W2's [384, 32] (64-byte swizzle), each
+// into a ring of its own (2 and 3 stages) under full and empty mbarriers,
+// two slices ahead of the products. A warpgroup turns its x rows into
+// LN2's rounded rows in place, then keeps [64, 384] fp32 of fc2 in
+// registers (two m64n192 wgmma accumulators, 192 a thread) for the whole
+// hidden width. For each slice: fc1's [64, 32] on wgmma m64n32k16 from the
+// LN rows and W1's slice in shared memory; b1 (staged in shared memory)
+// and the GELU in fp32 in registers; the hidden rounded to bf16 straight
+// into the A fragments of fc2's wgmma m64n192k16 (A from registers: the
+// hidden never goes through shared memory nor reaches device memory). The
+// next slice's fc1 is issued before this slice's fc2, and the GELU of that
+// next slice runs while this slice's fc2 products are in flight
+// (wgmma.wait 1); the two warpgroups' products and GELUs interleave as
+// well. At the end out = x + acc + b2 goes, rounded, through the LN rows'
+// shared memory and out by TMA stores (rows past M dropped).
 //
-// What bounds it. Operations: 16 M D^2 = 119 GFLOP at M = 50,432, 0.121 ms
-// at the bf16 rate. The design's tension on this card: the accumulator of
-// a 64-row tile is the most the registers hold, so each of the M / 64
-// blocks reads both weight matrices whole (2.36 MB of bf16) from L2: 1.86
-// GB at M = 50,432, more than the 0.62 GB of the hidden round trip it
-// saves, though from L2 and not from device memory. mma.sync reaches only
-// part of the tensor cores' rate (wgmma is the only way to all of it), and
-// each slice's two products wait on each other through shared memory.
+// What bounds it. Operations: 16 M D^2 = 119 GFLOP at M = 50,432, the least
+// time at the bf16 rate. L2 bytes: each block reads W1 and W2 whole (2.36 MB)
+// once for its 128 rows, 0.93 GB a call at M = 50,432 (half of what 64 rows a
+// block read). Registers: the fc2 accumulator takes 192 of a thread's 255,
+// which caps a warpgroup at 64 rows and a block at two of them, and leaves the
+// GELU few registers: its sixteen erff a thread a slice run nearly one after
+// another, and they, not the tensor cores, set the pace of a slice. With a
+// producer warpgroup of its own (384 threads, setmaxnreg 24 and 240) ptxas
+// reported 168 registers a thread and spilled; two warpgroups of 128 threads
+// have 255 registers a thread and no spill. Shared memory: the LN rows (96 KB,
+// later the output tile), the two rings (48 + 72 KB) and b1 (6 KB) take 223
+// KB, one block an SM, 394 blocks at M = 50,432 (three waves; at M = 256 x 68,
+// 136 blocks, two waves, the second nearly empty). Each fence sits beside its
+// products, after every wait and branch: a fence before a loop or a branch
+// left the compiler fencing and waiting on every product alone, and loop-
+// invariant descriptors are rebuilt each slice (opaque), or the compiler kept
+// them all in registers.
 #include <stdint.h>
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
 #include "common.cuh"
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace trk {
 namespace {
 
-constexpr int MD = 384;              // the model width the kernel is compiled for
-constexpr int MBM = 64;              // rows a block
-constexpr int HC = 32;               // hidden units a slice
-constexpr int MTHREADS = 256;        // 8 warps
-constexpr int LDX = MD + 8;          // row stride (elements) of LN and W1 slices: 784 bytes
-constexpr int LDH = HC + 8;          // row stride of W2 slices and the hidden slice: 80 bytes
-constexpr int LN_ELEMS = MBM * LDX;
-constexpr int W1_ELEMS = HC * LDX;
-constexpr int W2_ELEMS = MD * LDH;
-constexpr int STAGE_ELEMS = W1_ELEMS + W2_ELEMS;
-constexpr int H_ELEMS = MBM * LDH;
-constexpr int MLP_SMEM = 2 * (LN_ELEMS + 2 * STAGE_ELEMS + H_ELEMS);
+using bf16 = __nv_bfloat16;
+
+constexpr int MD = 384;                    // the model width the kernel is compiled for
+constexpr int MBM = 128;                   // rows a block
+constexpr int HC = 32;                     // hidden units a slice
+constexpr int MTHREADS = 256;              // two warpgroups of 64 rows
+constexpr int KBOX = 64 * 64 * 2;          // a 64-row box of 64 columns, 8 KB
+constexpr int LN_BYTES = 64 * MD * 2;      // a consumer's LN rows, 6 boxes, 48 KB
+constexpr int W1_BYTES = HC * MD * 2;      // a W1 slice, 6 boxes of 32 rows, 24 KB
+constexpr int W2_HALF = (MD / 2) * HC * 2; // a W2 slice's 192 rows, 12 KB
+constexpr int W1_STAGES = 2;
+constexpr int W2_STAGES = 3;
+constexpr int MAX_H4 = 1536;               // b1's room in shared memory
+constexpr int MLP_SMEM = 1024 + 2 * LN_BYTES + W1_STAGES * W1_BYTES +
+                         W2_STAGES * 2 * W2_HALF + (2 + 2 * W1_STAGES + 2 * W2_STAGES) * 8 +
+                         MAX_H4 * 4;
 static_assert(MLP_SMEM <= 232448, "over the H100's 227 KB of shared memory a block");
-
-// The two weight slices of hidden units [c * HC, (c + 1) * HC): W1's HC
-// rows of 384 and W2's 384 rows of HC, 16 bytes a copy.
-__device__ __forceinline__ void load_slice(__nv_bfloat16* stage, const __nv_bfloat16* w1,
-                                           const __nv_bfloat16* w2, int H4, int c) {
-  __nv_bfloat16* s1 = stage;
-  __nv_bfloat16* s2 = stage + W1_ELEMS;
-  constexpr int V1 = MD / 8, V2 = HC / 8;  // 16-byte vectors a row
-  for (int i = threadIdx.x; i < HC * V1; i += MTHREADS) {
-    const int r = i / V1, v = i % V1;
-    cp_async16(s1 + r * LDX + 8 * v, w1 + static_cast<size_t>(c * HC + r) * MD + 8 * v, true);
-  }
-  for (int i = threadIdx.x; i < MD * V2; i += MTHREADS) {
-    const int r = i / V2, v = i % V2;
-    cp_async16(s2 + r * LDH + 8 * v, w2 + static_cast<size_t>(r) * H4 + c * HC + 8 * v, true);
-  }
-}
-
-__device__ __forceinline__ void unpack4_bf16(uint2 r, float* f) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  f[0] = a.x, f[1] = a.y, f[2] = b.x, f[3] = b.y;
-}
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
 }
 
-__global__ void __launch_bounds__(MTHREADS, 1)
-    mlp_chunked_kernel(const __nv_bfloat16* __restrict__ x, int M,
-                       const __nv_bfloat16* __restrict__ ls, const __nv_bfloat16* __restrict__ lb,
-                       const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ b1,
-                       const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ b2,
-                       int H4, float eps, __nv_bfloat16* __restrict__ out) {
-  extern __shared__ __align__(16) __nv_bfloat16 msmem[];
-  __nv_bfloat16* s_ln = msmem;
-  __nv_bfloat16* s_stage = s_ln + LN_ELEMS;  // two stages
-  __nv_bfloat16* s_h = s_stage + 2 * STAGE_ELEMS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * MBM;
-  const int slices = H4 / HC;
+// The byte offset in a 128-byte-swizzled box of row r, columns 8 j + 2 t
+// (+1) of a bf16 pair: 16-byte chunk j stored at j ^ (r % 8).
+__device__ __forceinline__ uint32_t pair_at(int r, int j, int t) {
+  return r * 128 + ((j ^ (r & 7)) << 4) + 4 * t;
+}
 
-  load_slice(s_stage, w1, w2, H4, 0);
-  cp_async_commit();
+__device__ __forceinline__ void consumer_arrive(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
 
-  // LN2 of the block's rows, a warp a row at a time, 12 elements a lane
-  for (int r = warp; r < MBM; r += MTHREADS / 32) {
-    const int row = m0 + r;
-    float f[3][4];
-    if (row < M) {
+// x, as a value the compiler cannot see through: a descriptor built from it
+// each slice, plus constant offsets, is not hoisted out of the slice loop
+// (the 48 descriptors of fc1's two W1 stages and the LN rows would
+// otherwise stay in registers across the loop and push the fc2
+// accumulator out of them).
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  uint64_t y;
+  asm volatile("mov.b64 %0, %1;\n" : "=l"(y) : "l"(x));
+  return y;
+}
+
+// Registers the compiler may not move across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void pin(float* d) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        unpack4_bf16(*reinterpret_cast<const uint2*>(x + static_cast<size_t>(row) * MD +
-                                                     4 * (lane + 32 * c)),
-                     f[c]);
-    } else {
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A warpgroup's walk over the hidden slices: the rings' shared memory
+// and barriers, and warp 0's producer role.
+struct Walk {
+  const CUtensorMap* map_w1;
+  const CUtensorMap* map_w2;
+  const float* b1;  // in shared memory, fp32
+  uint32_t ln, w1, w2, full1, empty1, full2, empty2;
+  int slices, lane, t;
+  bool producer;  // warp 0 (lane 0 issues)
+};
+
+// Warp 0: W1's slice c into its stage once both warpgroups have released
+// the stage's slice before (none past the last slice). The whole warp
+// waits and lane 0 issues, so that no lane runs a loop of its own between
+// the warpgroup's products: the compiler then waited on every product
+// alone.
+__device__ __forceinline__ void load_w1(const Walk& m, int c) {
+  if (c >= m.slices) return;
+  const int s = c % W1_STAGES;
+  if (c >= W1_STAGES) mbar_wait(m.empty1 + 8 * s, (c / W1_STAGES - 1) & 1);
+  if (m.lane == 0) {
+    mbar_expect_tx(m.full1 + 8 * s, W1_BYTES);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) f[c][0] = f[c][1] = f[c][2] = f[c][3] = 0.f;
+    for (int kc = 0; kc < MD / 64; ++kc)
+      tma_load(m.w1 + s * W1_BYTES + kc * (W1_BYTES / 6), m.map_w1, m.full1 + 8 * s, kc * 64,
+               c * HC);
+  }
+  __syncwarp();
+}
+
+// The same for W2's slice c.
+__device__ __forceinline__ void load_w2(const Walk& m, int c) {
+  if (c >= m.slices) return;
+  const int s = c % W2_STAGES;
+  if (c >= W2_STAGES) mbar_wait(m.empty2 + 8 * s, (c / W2_STAGES - 1) & 1);
+  if (m.lane == 0) {
+    mbar_expect_tx(m.full2 + 8 * s, 2 * W2_HALF);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      tma_load(m.w2 + s * 2 * W2_HALF + hh * W2_HALF, m.map_w2, m.full2 + 8 * s, c * HC,
+               hh * (MD / 2));
+  }
+  __syncwarp();
+}
+
+// fc1 of slice c into acc1: issued and committed, not waited on.
+__device__ __forceinline__ void fc1(const Walk& m, float* acc1, int c) {
+  const int s = c % W1_STAGES;
+  mbar_wait(m.full1 + 8 * s, (c / W1_STAGES) & 1);
+  // a descriptor's start address is its low 14 bits, in 16-byte units
+  const uint64_t da = opaque(smem_desc(m.ln, 16, 1024));
+  const uint64_t db = opaque(smem_desc(m.w1 + s * W1_BYTES, 16, 1024));
+  // the fence after the wait, beside its products: one before a loop or a
+  // branch leaves the compiler fencing each product itself, and waiting
+  // on each product alone
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < MD / 64; ++kc)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss32(acc1, da + (kc * KBOX + kk * 32) / 16, db + (kc * (W1_BYTES / 6) + kk * 32) / 16,
+                 kc > 0 || kk > 0);
+  wgmma_commit();
+}
+
+// b1 and the GELU of slice c, rounded into the A fragments a[8]: the pair
+// (d[2 i], d[2 i + 1]) of the accumulator is register i of the fragments
+// (a thread's rows g, g + 8, columns 8 j + 2 t, + 1).
+__device__ __forceinline__ void gelu(const Walk& m, const float* acc1, uint32_t* a, int c) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 bb = *reinterpret_cast<const float2*>(m.b1 + c * HC + 8 * j + 2 * m.t);
+    const __nv_bfloat162 lo =
+        __floats2bfloat162_rn(gelu_erf(acc1[4 * j] + bb.x), gelu_erf(acc1[4 * j + 1] + bb.y));
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(gelu_erf(acc1[4 * j + 2] + bb.x),
+                                                    gelu_erf(acc1[4 * j + 3] + bb.y));
+    a[2 * j] = *reinterpret_cast<const uint32_t*>(&lo);
+    a[2 * j + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+  }
+}
+
+// Slice c: fc1 of slice c + 1 issued (MORE), then slice c's fc2 from its
+// hidden fragments cur; the GELU of slice c + 1 into next runs while this
+// fc2 is in flight. No branch holds a product: the compiler would wait on
+// each product alone.
+template <bool MORE>
+__device__ __forceinline__ void step(const Walk& m, float (&acc2)[2][96], float* acc1,
+                                     const uint32_t* cur, uint32_t* next, int c) {
+  if constexpr (MORE) fc1(m, acc1, c + 1);
+  const int s = c % W2_STAGES;
+  mbar_wait(m.full2 + 8 * s, (c / W2_STAGES) & 1);
+  const uint64_t db = opaque(smem_desc_sw64(m.w2 + s * 2 * W2_HALF));
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HC / 16; ++kk)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      wgmma_rs192(acc2[hh], cur + 4 * kk, db + (hh * W2_HALF + kk * 32) / 16);
+  wgmma_commit();
+  if constexpr (MORE) {
+    wgmma_wait<1>();  // the next fc1 and the slice before's fc2 are done
+    pin<16>(acc1);
+    consumer_arrive(m.empty1 + 8 * ((c + 1) % W1_STAGES), m.lane);
+    if (c > 0) consumer_arrive(m.empty2 + 8 * ((c - 1) % W2_STAGES), m.lane);
+    if (m.producer) {  // two slices ahead, into the stages just released
+      load_w1(m, c + 3);
+      load_w2(m, c + 2);
     }
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s += (f[c][0] + f[c][1]) + (f[c][2] + f[c][3]);
-    const float mu = warp_sum(s) / MD;
-    float q = 0.f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) q += (f[c][i] - mu) * (f[c][i] - mu);
-    const float rs = 1.0f / sqrtf(warp_sum(q) / MD + eps);
+    gelu(m, acc1, next, c + 1);
+  } else {
+    wgmma_wait<0>();
+  }
+}
+
+__global__ void __launch_bounds__(MTHREADS, 1)
+    mlp_chunked_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w1,
+                       const __grid_constant__ CUtensorMap map_w2,
+                       const __grid_constant__ CUtensorMap map_out, const bf16* __restrict__ x,
+                       int M, const bf16* __restrict__ ls, const bf16* __restrict__ lb,
+                       const bf16* __restrict__ b1, const bf16* __restrict__ b2, int H4,
+                       float eps) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* lnp0 = smem_raw + (base - raw);
+  const int cw = threadIdx.x >> 7, t128 = threadIdx.x & 127;
+  const int warp = t128 >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  Walk m;
+  m.map_w1 = &map_w1;
+  m.map_w2 = &map_w2;
+  m.ln = base + cw * LN_BYTES;
+  m.w1 = base + 2 * LN_BYTES;
+  m.w2 = m.w1 + W1_STAGES * W1_BYTES;
+  const uint32_t xfull = m.w2 + W2_STAGES * 2 * W2_HALF;  // one per warpgroup
+  m.full1 = xfull + 2 * 8;
+  m.empty1 = m.full1 + W1_STAGES * 8;
+  m.full2 = m.empty1 + W1_STAGES * 8;
+  m.empty2 = m.full2 + W2_STAGES * 8;
+  float* b1s = reinterpret_cast<float*>(lnp0 + (m.empty2 + W2_STAGES * 8 - base));
+  m.b1 = b1s;
+  m.slices = H4 / HC;
+  m.lane = lane;
+  m.t = t;
+  m.producer = threadIdx.x < 32;
+  const int m0 = blockIdx.x * MBM;
+  uint8_t* lnp = lnp0 + cw * LN_BYTES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) mbar_init(xfull + 8 * i, 1);
+    for (int s = 0; s < W1_STAGES; ++s) {
+      mbar_init(m.full1 + 8 * s, 1);
+      mbar_init(m.empty1 + 8 * s, 8);  // one arrival per warp
+    }
+    for (int s = 0; s < W2_STAGES; ++s) {
+      mbar_init(m.full2 + 8 * s, 1);
+      mbar_init(m.empty2 + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < H4; i += MTHREADS) b1s[i] = __bfloat162float(b1[i]);
+  __syncthreads();
+  if (m.producer) {
+    // each warpgroup's x rows, then the weights' first slices
+    if (lane == 0)
+      for (int w = 0; w < 2; ++w) {
+        mbar_expect_tx(xfull + 8 * w, LN_BYTES);
+        for (int kc = 0; kc < MD / 64; ++kc)
+          tma_load(base + w * LN_BYTES + kc * KBOX, &map_x, xfull + 8 * w, kc * 64, m0 + w * 64);
+      }
+    __syncwarp();
+    load_w1(m, 0);
+    load_w1(m, 1);
+    load_w2(m, 0);
+    load_w2(m, 1);
+  }
+
+  // LN2 of the warpgroup's rows in place: a warp a row at a time, 12
+  // elements a lane (4 at column 4 (lane + 32 c)); rows past M are zeros
+  {
+    float gm[3][4], bt[3][4];
+    uint32_t at[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const int col = 4 * (lane + 32 * c);
-      float gm[4], bt[4], y[4];
-      unpack4_bf16(*reinterpret_cast<const uint2*>(ls + col), gm);
-      unpack4_bf16(*reinterpret_cast<const uint2*>(lb + col), bt);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) y[i] = (f[c][i] - mu) * rs * gm[i] + bt[i];
-      uint2 packed;
-      packed.x = pack_bf16(y[0], y[1]);
-      packed.y = pack_bf16(y[2], y[3]);
-      *reinterpret_cast<uint2*>(s_ln + r * LDX + col) = packed;
+      const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ls + col));
+      const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ls + col + 2));
+      const float2 b01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(lb + col));
+      const float2 b23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(lb + col + 2));
+      gm[c][0] = g01.x, gm[c][1] = g01.y, gm[c][2] = g23.x, gm[c][3] = g23.y;
+      bt[c][0] = b01.x, bt[c][1] = b01.y, bt[c][2] = b23.x, bt[c][3] = b23.y;
+      // box col / 64, 16-byte chunk (col % 64) / 8, its half (col / 4) % 2
+      at[c] = (col >> 6) * KBOX + ((((col & 63) >> 3)) << 4) + ((col >> 2) & 1) * 8;
     }
-  }
-
-  // fc1 of a slice: warp (wm1, wn1) takes rows 16 wm1 .. + 15 and hidden
-  // units 16 wn1 .. + 15 of the slice; fc2: warp (wm2, wn2) takes rows
-  // 32 wm2 .. + 31 and output columns 96 wn2 .. + 95 (2 x 12 tiles)
-  const int wm1 = warp & 3, wn1 = warp >> 2;
-  const int wm2 = warp & 1, wn2 = warp >> 1;
-  float acc[2][12][4];
+    mbar_wait(xfull + 8 * cw, 0);
+    for (int row = warp * 16; row < warp * 16 + 16; ++row) {
+      float f[3][4];
+      uint2* p[3];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+      for (int c = 0; c < 3; ++c) {
+        // the chunk's swizzled place in the row: chunk ^ (row % 8)
+        p[c] = reinterpret_cast<uint2*>(lnp + row * 128 + (at[c] ^ ((row & 7) << 4)));
+        const uint2 v = *p[c];
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+        f[c][0] = a.x, f[c][1] = a.y, f[c][2] = b.x, f[c][3] = b.y;
+      }
+      float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 12; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int c = 0; c < slices; ++c) {
-    if (c + 1 < slices) {
-      load_slice(s_stage + ((c + 1) & 1) * STAGE_ELEMS, w1, w2, H4, c + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // slice c's weights (and, at c = 0, LN) are in
-    const __nv_bfloat16* s_w1 = s_stage + (c & 1) * STAGE_ELEMS;
-    const __nv_bfloat16* s_w2 = s_w1 + W1_ELEMS;
-
-    float h[2][4] = {};
-#pragma unroll 4
-    for (int k = 0; k < MD; k += 16) {
-      uint32_t a[4], b[4];
-      load_a(a, s_ln, LDX, 16 * wm1, k, lane);
-      load_b2(b, s_w1, LDX, 16 * wn1, k, lane);
-      mma_bf16(h[0], a, b[0], b[1]);
-      mma_bf16(h[1], a, b[2], b[3]);
-    }
+      for (int c = 0; c < 3; ++c) sum += (f[c][0] + f[c][1]) + (f[c][2] + f[c][3]);
+      const float mu = warp_sum(sum) / MD;
+      float q = 0.f;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = 16 * wn1 + 8 * j + 2 * t;
-      const float2 bb = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(b1 + c * HC + col));
-      const int r = 16 * wm1 + g;
-      *reinterpret_cast<uint32_t*>(s_h + r * LDH + col) =
-          pack_bf16(gelu_erf(h[j][0] + bb.x), gelu_erf(h[j][1] + bb.y));
-      *reinterpret_cast<uint32_t*>(s_h + (r + 8) * LDH + col) =
-          pack_bf16(gelu_erf(h[j][2] + bb.x), gelu_erf(h[j][3] + bb.y));
-    }
-    __syncthreads();  // the hidden slice is in
-
+      for (int c = 0; c < 3; ++c)
 #pragma unroll
-    for (int k = 0; k < HC; k += 16) {
-      uint32_t a[2][4];
-      load_a(a[0], s_h, LDH, 32 * wm2, k, lane);
-      load_a(a[1], s_h, LDH, 32 * wm2 + 16, k, lane);
+        for (int i = 0; i < 4; ++i) q += (f[c][i] - mu) * (f[c][i] - mu);
+      const float rs = 1.0f / sqrtf(warp_sum(q) / MD + eps);
 #pragma unroll
-      for (int p = 0; p < 6; ++p) {
-        uint32_t b[4];
-        load_b2(b, s_w2, LDH, 96 * wn2 + 16 * p, k, lane);
+      for (int c = 0; c < 3; ++c) {
+        float y[4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * p], a[i], b[0], b[1]);
-          mma_bf16(acc[i][2 * p + 1], a[i], b[2], b[3]);
-        }
+        for (int i = 0; i < 4; ++i) y[i] = (f[c][i] - mu) * rs * gm[c][i] + bt[c][i];
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
+        *p[c] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                           *reinterpret_cast<const uint32_t*>(&hi));
       }
     }
-    __syncthreads();  // the stage and the hidden slice may be written again
   }
+  fence_async_smem();  // the LN rows into the async proxy, for the wgmmas
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
 
-  // out = x + acc + b2, rounded once
+  float acc2[2][96];   // fc2: columns 0 .. 191 and 192 .. 383
+  float acc1[16];      // fc1 of one slice: [64, 32]
+  uint32_t hid[2][8];  // the rounded hidden of two slices, as fc2's A fragments
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 96; ++i) acc2[0][i] = acc2[1][i] = 0.f;
+  fc1(m, acc1, 0);
+  wgmma_wait<0>();
+  pin<16>(acc1);
+  consumer_arrive(m.empty1, lane);
+  if (m.producer) load_w1(m, 2);
+  gelu(m, acc1, hid[0], 0);
+  // two slices an iteration, so that each slice's fragments have their
+  // registers; the last one or two slices after the loop
+  int c = 0;
+  for (; c + 2 < m.slices; c += 2) {
+    step<true>(m, acc2, acc1, hid[0], hid[1], c);
+    step<true>(m, acc2, acc1, hid[1], hid[0], c + 1);
+  }
+  if (c + 1 < m.slices) {
+    step<true>(m, acc2, acc1, hid[0], hid[1], c);
+    step<false>(m, acc2, acc1, hid[1], hid[0], c + 1);
+  } else {
+    step<false>(m, acc2, acc1, hid[0], hid[1], c);
+  }
+  pin<96>(acc2[0]);
+  pin<96>(acc2[1]);
+
+  // out = x + acc + b2, rounded once, into the LN rows' shared memory
+  // (every fc1 has read them), then TMA stores
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+  const int lr = warp * 16 + g;
+  const int row = m0 + cw * 64 + lr;
 #pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      const int col = 96 * wn2 + 8 * j + 2 * t;
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int jn = 0; jn < 24; ++jn) {
+      const int col = hh * (MD / 2) + 8 * jn + 2 * t;
       const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b2 + col));
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int row = m0 + 32 * wm2 + 16 * i + g + 8 * e;
-        if (row >= M) continue;
-        const size_t at = static_cast<size_t>(row) * MD + col;
-        const float2 xx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + at));
-        *reinterpret_cast<uint32_t*>(out + at) =
-            pack_bf16((xx.x + acc[i][j][2 * e]) + bb.x, (xx.y + acc[i][j][2 * e + 1]) + bb.y);
-      }
+      const float* d = acc2[hh] + 4 * jn;
+      float2 x0 = make_float2(0.f, 0.f), x1 = x0;
+      if (row < M)
+        x0 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(x + static_cast<size_t>(row) * MD + col));
+      if (row + 8 < M)
+        x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            x + static_cast<size_t>(row + 8) * MD + col));
+      const __nv_bfloat162 o0 = __floats2bfloat162_rn((x0.x + d[0]) + bb.x, (x0.y + d[1]) + bb.y);
+      const __nv_bfloat162 o1 = __floats2bfloat162_rn((x1.x + d[2]) + bb.x, (x1.y + d[3]) + bb.y);
+      uint8_t* box = lnp + (col >> 6) * KBOX;
+      const int j = (col & 63) >> 3;
+      *reinterpret_cast<__nv_bfloat162*>(box + pair_at(lr, j, t)) = o0;
+      *reinterpret_cast<__nv_bfloat162*>(box + pair_at(lr + 8, j, t)) = o1;
     }
+  fence_async_smem();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+  if (t128 == 0) {
+    for (int kc = 0; kc < MD / 64; ++kc)
+      tma_store_2d(&map_out, m.ln + kc * KBOX, kc * 64, m0 + cw * 64);
+    tma_store_wait();
+  }
 }
 
 }  // namespace
@@ -228,22 +409,39 @@ __global__ void __launch_bounds__(MTHREADS, 1)
 // out [M, 384] = x + fc2(gelu(fc1(LN x))) in bf16 (see above): x, out
 // [M, 384]; ls, lb, b2 [384]; w1 [H4, 384]; b1 [H4]; w2 [384, H4]; all
 // bf16, contiguous, 16-byte aligned (the caller checks). K must be 384 and
-// H4 a multiple of 32. Returns the cudaError_t of the launch.
+// H4 a multiple of 32 up to 1536. Returns the cudaError_t of the launch.
 extern "C" int tr_mlp_chunked(const void* x, int M, int K, const void* ls, const void* lb,
                               const void* w1, const void* b1, const void* w2, const void* b2,
                               int H4, float eps, void* out, void* stream) {
   using namespace trk;
   if (M == 0) return 0;
-  if (K != MD || H4 < HC || H4 % HC != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (K != MD || H4 < HC || H4 % HC != 0 || H4 > MAX_H4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // first: the context the tensor maps need (sm90.cuh encoder)
   cudaError_t err = cudaFuncSetAttribute(mlp_chunked_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, MLP_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_x, map_w1, map_w2, map_out;
+  const cuuint64_t row = MD * 2, hrow = static_cast<cuuint64_t>(H4) * 2;
+  const cuuint64_t x_dims[2] = {MD, static_cast<cuuint64_t>(M)};
+  const cuuint32_t x_box[2] = {64, 64};
+  err = bf16_map(&map_x, x, 2, x_dims, &row, x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = bf16_map(&map_out, out, 2, x_dims, &row, x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint64_t w1_dims[2] = {MD, static_cast<cuuint64_t>(H4)};
+  const cuuint32_t w1_box[2] = {64, HC};
+  if (err == cudaSuccess)
+    err = bf16_map(&map_w1, w1, 2, w1_dims, &row, w1_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint64_t w2_dims[2] = {static_cast<cuuint64_t>(H4), MD};
+  const cuuint32_t w2_box[2] = {HC, MD / 2};
+  if (err == cudaSuccess)
+    err = bf16_map(&map_w2, w2, 2, w2_dims, &hrow, w2_box, CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != cudaSuccess) return static_cast<int>(err);
   using B = __nv_bfloat16;
   const int blocks = (M + MBM - 1) / MBM;
   mlp_chunked_kernel<<<blocks, MTHREADS, MLP_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const B*>(x), M, static_cast<const B*>(ls), static_cast<const B*>(lb),
-      static_cast<const B*>(w1), static_cast<const B*>(b1), static_cast<const B*>(w2),
-      static_cast<const B*>(b2), H4, eps, static_cast<B*>(out));
+      map_x, map_w1, map_w2, map_out, static_cast<const B*>(x), M, static_cast<const B*>(ls),
+      static_cast<const B*>(lb), static_cast<const B*>(b1), static_cast<const B*>(b2), H4, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

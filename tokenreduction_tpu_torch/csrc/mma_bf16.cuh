@@ -1,6 +1,7 @@
-// The bf16 tensor-core building blocks of the kernel tools' kernels
-// (mlp_chunked.cu, attn_joint.cu): mma.sync m16n8k16 with fp32
-// accumulators and ldmatrix loads of its fragments from shared memory.
+// The bf16 tensor-core building blocks of the kernel tools' attention
+// prototypes (proto_attn.cu, proto_attn_bwd.cu, through attn_tile.cuh):
+// mma.sync m16n8k16 with fp32 accumulators and ldmatrix loads of its
+// fragments from shared memory.
 //
 // Fragments (lane = 4 g + t): A, 16 x 16 row-major, a0 (row g, k 2t..2t+1),
 // a1 (row g + 8), a2 (row g, k 8 + 2t), a3 (row g + 8, k 8 + 2t); B, 16 x 8

@@ -81,8 +81,8 @@ _SIGNATURES = {
     "tr_row_scale": (_I, _P, _P, _I, _I, _I, _P, _P),
     "tr_mlp_chunked": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P),
     "tr_mlp_chunked_config": (_P,),
-    "tr_attn_joint": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
-    "tr_attn_joint_smem": (_I, _I),
+    "tr_attn_joint": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    "tr_attn_joint_smem": (),
     "tr_proto_attn": (_P, _I, _I, _I, _F, _I, _P, _P),
     "tr_proto_attn_smem": (_I, _I, _I),
     "tr_proto_attn_bwd": (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
@@ -791,18 +791,17 @@ def mlp_chunked_config() -> dict:
     return dict(zip(("BM", "HC", "SMEM_BYTES"), out))
 
 
-def attn_joint(ln, wqkv, bqkv, merged, num_heads, scale, *, stages=2,
-               row0=None, colsum=None):
+def attn_joint(ln, wqkv, bqkv, merged, num_heads, scale, *, row0=None,
+               colsum=None):
     """merged [B, N, D] (bf16) = the attention of each (image, head) over
     q, k, v = ln . Wqkv^T + bqkv made on chip (csrc/attn_joint.cu) from
     the LayerNorm'd rows ln [B, N, D] and wqkv [3D, D], bqkv [3D]; row0 and
-    colsum [B, H, N] fp32 when given. Head dim 64, N <= 256, ``stages`` 1
-    or 2 (the staged D chunks a block keeps in flight); contiguous bf16
-    CUDA tensors, checked by the caller. ``attn_joint.launches`` counts
-    the launches."""
+    colsum [B, H, N] fp32 when given. Head dim 64, N <= 256; contiguous
+    bf16 CUDA tensors, checked by the caller. ``attn_joint.launches``
+    counts the launches."""
     B, N, D = ln.shape
     err = kernels().lib.tr_attn_joint(
-        _ptr(ln), _ptr(wqkv), _ptr(bqkv), B, N, D, num_heads, scale, stages,
+        _ptr(ln), _ptr(wqkv), _ptr(bqkv), B, N, D, num_heads, scale,
         _ptr(merged), _ptr(row0), _ptr(colsum), _stream(ln))
     _check("tr_attn_joint", err)
     attn_joint.launches += 1
@@ -811,10 +810,10 @@ def attn_joint(ln, wqkv, bqkv, merged, num_heads, scale, *, stages=2,
 attn_joint.launches = 0
 
 
-def attn_joint_smem(n: int, stages: int = 2) -> int:
-    """The dynamic shared memory a block of ``attn_joint`` takes at n keys,
-    as its library reports it."""
-    return kernels().lib.tr_attn_joint_smem(n, stages)
+def attn_joint_smem() -> int:
+    """The dynamic shared memory a block of ``attn_joint`` takes (the same
+    at every N), as its library reports it."""
+    return kernels().lib.tr_attn_joint_smem()
 
 
 def proto_attn(qkv, merged, num_heads, scale, *, variant):

@@ -73,21 +73,20 @@ def joint_attention_ref(qkv, num_heads: int, scale: float):
 
 
 def attn_joint(x, w, num_heads: int, scale: float, *, eps: float = 1e-6,
-               stages: int = 2, with_scores: bool = False):
+               with_scores: bool = False):
     """x [B, N, D] -> x + proj(attn(qkv(LN1 x))), and with ``with_scores``
     also (row0, colsum) [B, H, N] fp32. w: the block weights in
     nn.Linear's layout (wqkv [3D, D], wproj [D, D]).
 
     On the card (bf16, head dim 64, N <= 256) three launches: the
     ``layer_norm`` kernel writes LN1's rows; csrc/attn_joint.cu makes each
-    (image, head)'s q, k and v from them on chip and runs the attention,
-    writing the merged heads and the by-products (the qkv tensor never
-    reaches device memory); the ``gemm`` kernel adds proj, its bias and
-    the residual. The TPU kernel's images a grid cell (its ``group``) have
-    no counterpart: a block takes one (image, head).
-    ``stages`` (1 or 2) is the card kernel's own tunable: the D chunks of
-    LN rows and weights a block keeps in flight; the result does not
-    depend on it. ``attn_joint.launches`` counts the card's launches."""
+    (image, head)'s q, k and v from them on chip (wgmma over TMA tiles)
+    and runs the main path's sm_90a attention steps on them, writing the
+    merged heads and the by-products (the qkv tensor never reaches device
+    memory); the ``gemm`` kernel adds proj, its bias and the residual. The
+    TPU kernel's images a grid cell (its ``group``) have no counterpart: a
+    block takes one (image, head). ``attn_joint.launches`` counts the
+    card's launches."""
     if not x.is_cuda:
         out, row0, colsum = attn_joint_ref(x, w, num_heads, scale, eps)
         return (out, (row0, colsum)) if with_scores else out
@@ -102,8 +101,6 @@ def attn_joint(x, w, num_heads: int, scale: float, *, eps: float = 1e-6,
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the card's kernel takes bf16, got "
                         f"{x.dtype}")
-    if stages not in (1, 2):
-        raise ValueError(f"{name}: stages must be 1 or 2, got {stages}")
     B, N, D = x.shape
     rows = x.view(B * N, D)
     ln = torch.empty_like(x)
@@ -115,7 +112,7 @@ def attn_joint(x, w, num_heads: int, scale: float, *, eps: float = 1e-6,
                            device=x.device)
         colsum = torch.empty_like(row0)
     _build.attn_joint(ln, w["wqkv"], w["bqkv"], merged, num_heads, scale,
-                      stages=stages, row0=row0, colsum=colsum)
+                      row0=row0, colsum=colsum)
     out = torch.empty_like(x)
     _build.gemm(merged.view(B * N, D), w["wproj"], w["bproj"],
                 out.view(B * N, D), res=rows)
@@ -151,12 +148,12 @@ def mlp_chunked(x, w, chunks: int, tile: int = 512, eps: float = 1e-6):
     block weights in nn.Linear's layout (w1 [4D, D], w2 [D, 4D]).
 
     On the card (bf16, D = 384) one launch of csrc/mlp_chunked.cu: a block
-    keeps 64 rows and walks the hidden units in slices, so the hidden
-    tensor never reaches device memory. ``chunks``, the TPU kernel's cut
-    of the hidden width, must divide it, as there; the card's kernel
-    walks the hidden units in its own slices (``_build.mlp_chunked_config``)
-    and adds fc2's products in the same order whatever ``chunks`` is, so
-    the result does not depend on it. ``tile``, the TPU kernel's rows a
+    keeps 128 rows and walks the hidden units in slices on wgmma, so the
+    hidden tensor never reaches device memory. ``chunks``, the TPU
+    kernel's cut of the hidden width, must divide it, as there; the card's
+    kernel walks the hidden units in its own slices
+    (``_build.mlp_chunked_config``) and adds fc2's products in the same
+    order whatever ``chunks`` is, so the result does not depend on it. ``tile``, the TPU kernel's rows a
     grid step, changes nothing. ``mlp_chunked.launches`` counts the card's
     launches."""
     h4 = w["w1"].shape[0]
@@ -249,12 +246,9 @@ def attn_variants(device, iters: int, B: int):
         base = M.timeit(lambda: current_attention(x0, w), device, iters)
         print(_line(f"attn/current        N={n:3d}", base, cost, device),
               flush=True)
-        for stages in (1, 2):
-            ms = M.timeit(lambda: attn_joint(x0, w, M.H, M.SCALE,
-                                             stages=stages),
-                          device, iters)
-            print(_line(f"attn/joint stages={stages} N={n:3d}", ms, cost,
-                        device), flush=True)
+        ms = M.timeit(lambda: attn_joint(x0, w, M.H, M.SCALE), device, iters)
+        print(_line(f"attn/joint          N={n:3d}", ms, cost, device),
+              flush=True)
         print("  max|diff|:", max_diff(attn_joint(x0, w, M.H, M.SCALE),
                                        current_attention(x0, w)[0]),
               flush=True)

@@ -78,6 +78,14 @@ the eight GEMM layouts of a block's backward (dY . W, weight gradients)
 beside cuBLAS SGEMM; and the fp32 topk@0.7 train step (no amp, median of
 steps 3-6) and the ATS@0.7 fp32 forward (median of 5) at b256.
 ``--once DIR`` runs the child once in one checkout and prints its line.
+``--attention`` times, per launch as above, the bf16 attention forwards
+alone (``attention_x10``, ``attention_times``, ``rect_times``): the
+kernels of ``csrc/attention_sm90.cu``'s forward, in minutes rather than
+the full run's. ``--tools`` times, per launch as above, the kernel tools'
+``tune_kernels.attn_joint`` (with row0 and colsum) and
+``tune_kernels.mlp_chunked`` beside their routes
+(``current_attention``, ``current_mlp``) at ``chip_smoke.TOOLS_N``, B=256,
+with ``chip_smoke.tool_weights``.
 The first line is the card's name and power limit (nvidia-smi); the last
 lines give each checkout's medians over its runs. Needs one CUDA card;
 numbers from separate calls are not compared.
@@ -94,7 +102,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import functools, inspect, itertools, json, re, statistics, time, torch
+import functools, inspect, itertools, json, os, re, statistics, time, torch
 from chip_smoke import D, H4, HEADS, SCALE, block_params, cuda_ms, train_run
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.ops import _build
@@ -467,9 +475,9 @@ def attention_registers():
             name = line.split("'")[1]
         elif name and any(k in name for k in (
                 "attention", "layer_norm_bwd", "sum_partials",
-                "head_mean_keys")) and "registers" in line:
-            regs[name[-70:]] = int(re.search(r"Used (\d+) registers",
-                                             line)[1])
+                "head_mean_keys")) and (
+                    used := re.search(r"Used (\d+) registers", line)):
+            regs[name[-70:]] = int(used[1])
     return regs
 
 def gemm_times():
@@ -695,6 +703,38 @@ def distill_ms():
     return dict(train_dyvit_distill=1e3 * statistics.median(seconds[2:]),
                 dyvit_teacher=extra["teacher_ms"])
 
+if os.environ.get("PORT_AB_TOOLS"):
+    # --tools: the kernel tools' joint attention and chunked MLP, each
+    # beside the port's route for the same half, per launch
+    from chip_smoke import TOOLS_N, tool_weights
+    from tokenreduction_tpu_torch.tools import tune_kernels
+    tw = tool_weights(torch.Generator().manual_seed(9))
+    twm = dict(tw, ls=tw["ls2"], lb=tw["lb2"])
+    times = {}
+    with torch.no_grad():
+        for n in TOOLS_N:
+            xt = torch.randn(B, n, D, generator=g).to("cuda", bf16)
+            times[f"attn_joint_{n}_x10"] = ten(
+                lambda: tune_kernels.attn_joint(xt, tw, HEADS, SCALE,
+                                                with_scores=True))
+            times[f"attn_route_{n}_x10"] = ten(
+                lambda: tune_kernels.current_attention(xt, tw))
+            times[f"mlp_chunked_{n}_x10"] = ten(
+                lambda: tune_kernels.mlp_chunked(xt, twm, 4))
+            times[f"mlp_route_{n}_x10"] = ten(
+                lambda: tune_kernels.current_mlp(xt, twm))
+    print(json.dumps(times))
+    print(json.dumps(dict(attention_registers=attention_registers())))
+    raise SystemExit(0)
+if os.environ.get("PORT_AB_ATTENTION"):
+    # --attention: the bf16 attention forwards alone, per launch
+    with torch.no_grad():
+        print(json.dumps(dict(
+            attention_x10=ten(lambda: _build.short_attention(
+                qkv, merged, HEADS, SCALE)),
+            **attention_times(), **rect_times())))
+    print(json.dumps(dict(attention_registers=attention_registers())))
+    raise SystemExit(0)
 steps = dict(train_topk=train_ms("topk@0.7"), train_dense=train_ms("dense"),
              train_tome=train_ms("tome@0.7"),
              train_heuristic=train_ms("heuristic"), **distill_ms())
@@ -721,8 +761,10 @@ print(json.dumps(dict(attention_registers=attention_registers())))
 """
 
 
-def run(checkout: pathlib.Path) -> dict:
+def run(checkout: pathlib.Path, part: str | None = None) -> dict:
     env = dict(os.environ, PYTHONPATH=str(checkout))
+    if part:
+        env[f"PORT_AB_{part.upper()}"] = "1"
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=checkout,
                           env=env, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
@@ -739,20 +781,28 @@ def main():
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--once", type=pathlib.Path,
                     help="run the child once in this checkout alone")
+    part = ap.add_mutually_exclusive_group()
+    part.add_argument("--attention", action="store_const",
+                      const="attention", dest="part",
+                      help="time the bf16 attention forwards alone")
+    part.add_argument("--tools", action="store_const", const="tools",
+                      dest="part", help="time the kernel tools' joint "
+                      "attention and chunked MLP beside their routes")
     args = ap.parse_args()
     # the card and its power limit, beside which every time stands
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     if args.once:
-        print("once", json.dumps(run(args.once.resolve())), flush=True)
+        print("once", json.dumps(run(args.once.resolve(), args.part)),
+              flush=True)
         return
     if args.parent is None or args.change is None:
         ap.error("PARENT_DIR and CHANGE_DIR, or --once DIR")
     results = {"parent": [], "change": []}
     for _ in range(args.pairs):
         for label in ("parent", "change", "change", "parent"):
-            out = run(getattr(args, label).resolve())
+            out = run(getattr(args, label).resolve(), args.part)
             results[label].append(out)
             print(label, json.dumps(out), flush=True)
     for label, runs in results.items():
