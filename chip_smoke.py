@@ -23,7 +23,9 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    forward's and the backward's shared memory, and the rectangular
    forward's at ATS's (M, N) pairs), the LayerNorm backward's, and the
    kernel tools' joint attention's and chunked MLP's (tr_attn_joint_smem,
-   tr_mlp_chunked_config: rows a block, hidden units a slice); and,
+   tr_mlp_chunked_config: rows a block, hidden units a slice) and the
+   attention prototypes' (tr_proto_attn_smem for each arrangement,
+   tr_proto_attn_bwd_smem, at phase 10's widths); and,
    from the built library's SASS (cuobjdump), a TF32 tensor-core
    instruction (HGMMA or HMMA .TF32) in every variant of the fp32 GEMMs
    (forward and backward), the fp32 forward attention (square and
@@ -409,12 +411,15 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
 10. the last kernel tools (tokenreduction_tpu_torch/tools/), on no path of
    the models, bf16 at B=256 and DeiT-S width: the attention-core
    arrangements (proto_attn.proto_attn, csrc/proto_attn.cu: loop, avpair,
-   stacked) at N = 197, 138, 97, 68 against proto_attn_ref (out; the
+   stacked, on wgmma and TMA) at N = 197, 138, 97, 68 and, untimed, at
+   (B, N) = (4, 256) and (5, 13) against proto_attn_ref (out; the
    branch out - x with x scaled by 2^-4 and the weights by 2^4 and 2^6,
    since without a LayerNorm the branch shrinks with x; the merged heads
    of the kernel's launch alone), and the recomputing branch backward
    (proto_attn_bwd.proto_attn_bwd, csrc/proto_attn_bwd.cu: loop, pack2) at
-   N = 197, 138, 97, 50 with seeded cotangents and drow0 against
+   N = 197, 138, 97, 50 and, untimed, at (4, 256), (5, 13) and (4, 65)
+   (the last query and key tiles partial) with seeded cotangents and
+   drow0 against
    proto_attn_bwd_ref (dx, dwqkv, dwproj; merged and dqkv of the launch
    alone), each within 2e-2 of its own max|plain|, a second launch
    bit-equal, the arrangements' differences printed, each time one of ten
@@ -6308,16 +6313,16 @@ def phase_tools() -> dict:
 # ---- phase 10: the last kernel tools (tokenreduction_tpu_torch/tools/)
 # the two attention-core prototypes' kernels: (the wrapper's count, the
 # CUDA sources, the wrapper, the TPU kernel it replaces)
-PROTO_TILE = "tokenreduction_tpu_torch/csrc/attn_tile.cuh"
+ATTN_HEADER = "tokenreduction_tpu_torch/csrc/attention_sm90.cuh"
 PROTO_KERNELS = {
     "proto_attn": (
         (proto_attn.proto_attn, "launches"),
-        ["tokenreduction_tpu_torch/csrc/proto_attn.cu", PROTO_TILE,
+        ["tokenreduction_tpu_torch/csrc/proto_attn.cu", ATTN_HEADER,
          GEMM_SOURCE],
         f"{TOOLS_SRC}/proto_attn.py", "tools/proto_attn.py:137"),
     "proto_attn_bwd": (
         (proto_attn_bwd.proto_attn_bwd, "launches"),
-        ["tokenreduction_tpu_torch/csrc/proto_attn_bwd.cu", PROTO_TILE,
+        ["tokenreduction_tpu_torch/csrc/proto_attn_bwd.cu", ATTN_HEADER,
          LN_GEMM, GEMM_SOURCE],
         f"{TOOLS_SRC}/proto_attn_bwd.py", "tools/proto_attn_bwd.py:190"),
 }
@@ -6356,42 +6361,66 @@ def counted(name: str, calls: int, fn):
     return out
 
 
+# untimed (B, N) at the edges of the new tiling: four full key tiles (the
+# stacked buffer at its largest), an image shorter than a 16-row box;
+# #15's last query and key tiles partial (65)
+PROTO_EDGES = ((4, 256), (5, 13))
+PROTO_BWD_EDGES = ((4, 256), (5, 13), (4, 65))
+
+
+def proto_attn_check(w, wb, rec, B, N):
+    """#14's arrangements at (B, N) against proto_attn_ref (out, the branch
+    out - x at BRANCH_SCALE, the merged heads of the kernel's launch
+    alone), each call counted, a second launch bit-equal. Returns ({variant:
+    out}, {variant: the max-error labels}, x)."""
+    x = _measure.inputs(B, N, DEVICE, seed=N)
+    xs = x * BRANCH_SCALE["x"]
+    shape = f"B={B} N={N}"
+    want = proto_attn.proto_attn_ref(x, w)
+    want_b = proto_attn.proto_attn_ref(xs, wb).float() - xs.float()
+    qkv = (x.float() @ w["wqkv"].float().T).to(torch.bfloat16)
+    want_m = tune_kernels.joint_attention_ref(qkv, HEADS, SCALE)[0]
+    outs, errs = {}, {}
+    for variant in proto_attn.VARIANTS:
+        got = counted("proto_attn", 2, lambda: [
+            proto_attn.proto_attn(x, w, variant),
+            proto_attn.proto_attn(xs, wb, variant).float() - xs.float()])
+        merged = torch.empty_like(x)
+        _build.proto_attn(qkv, merged, HEADS, SCALE, variant=variant)
+        errs[variant] = tool_check(
+            "proto_attn", f"{shape} {variant}", [*got, merged],
+            [want, want_b, want_m], ("out", "branch", "merged heads alone"),
+            rec, phase="10")
+        require(torch.equal(got[0], proto_attn.proto_attn(x, w, variant)),
+                f"proto_attn {shape} {variant}: two launches differ")
+        outs[variant] = got[0]
+    return outs, errs, x
+
+
 def proto_attn_cases(rec):
-    """#14: every arrangement at B=256 against proto_attn_ref (out, the
-    branch out - x at BRANCH_SCALE, the merged heads of the kernel's launch
-    alone), a second launch bit-equal, the arrangements against each
-    other, and the times."""
-    B = TRAIN_B
+    """#14: every arrangement at PROTO_EDGES (untimed) and at PROTO_N,
+    B=256, against proto_attn_ref (proto_attn_check), the arrangements
+    against each other, and at PROTO_N the times."""
     w = {k: v for k, v in proto_weights().items()
          if k in ("wqkv", "wproj")}
     wb = {k: v * BRANCH_SCALE[k] for k, v in w.items()}
+    for B, N in PROTO_EDGES:
+        errs = proto_attn_check(w, wb, rec, B, N)[1]
+        for variant in proto_attn.VARIANTS:
+            print(f"phase 10 proto_attn B={B} N={N} {variant} (untimed): max "
+                  f"abs err {', '.join(errs[variant])}; a second launch "
+                  "bit-equal", flush=True)
+    B = TRAIN_B
     rec["arrangement_ms"] = {}
     for N in PROTO_N:
-        x = _measure.inputs(B, N, DEVICE, seed=N)
-        xs = x * BRANCH_SCALE["x"]
         shape = f"B={B} N={N}"
-        want = proto_attn.proto_attn_ref(x, w)
-        want_b = proto_attn.proto_attn_ref(xs, wb).float() - xs.float()
-        qkv = (x.float() @ w["wqkv"].float().T).to(torch.bfloat16)
-        want_m = tune_kernels.joint_attention_ref(qkv, HEADS, SCALE)[0]
-        outs, times = {}, {}
+        outs, errs, x = proto_attn_check(w, wb, rec, B, N)
+        times = {}
         for variant in proto_attn.VARIANTS:
-            got = counted("proto_attn", 2, lambda: [
-                proto_attn.proto_attn(x, w, variant),
-                proto_attn.proto_attn(xs, wb, variant).float() - xs.float()])
-            merged = torch.empty_like(x)
-            _build.proto_attn(qkv, merged, HEADS, SCALE, variant=variant)
-            errs = tool_check("proto_attn", f"{shape} {variant}",
-                              [*got, merged], [want, want_b, want_m],
-                              ("out", "branch", "merged heads alone"), rec,
-                              phase="10")
-            require(torch.equal(got[0], proto_attn.proto_attn(x, w, variant)),
-                    f"proto_attn {shape} {variant}: two launches differ")
-            outs[variant] = got[0]
             times[variant] = per_launch_ms(
                 lambda: proto_attn.proto_attn(x, w, variant))
             print(f"phase 10 proto_attn {shape} {variant}: max abs err "
-                  f"{', '.join(errs)}; {times[variant]:.4f} ms; "
+                  f"{', '.join(errs[variant])}; {times[variant]:.4f} ms; "
                   f"{_build.proto_attn_smem(N, HEADS, variant)} bytes of "
                   "dynamic shared memory a block; a second launch bit-equal",
                   flush=True)
@@ -6422,46 +6451,62 @@ def proto_weights() -> dict:
     return {k: w[k] for k in ("ls", "lb", "wqkv", "bqkv", "wproj")}
 
 
-def proto_bwd_cases(rec):
-    """#15: both arrangements at B=256 with seeded cotangents and drow0
+def proto_bwd_check(w, rec, B, N):
+    """#15's arrangements at (B, N) with seeded cotangents and drow0
     against proto_attn_bwd_ref (dx, dwqkv, dwproj) and the kernel's launch
-    alone (merged and dqkv against the plain attention's), a second launch
-    bit-equal, the arrangements against each other, and the times."""
-    B = TRAIN_B
+    alone (merged and dqkv against the plain attention's), each call
+    counted, a second launch bit-equal. Returns ({variant: outputs},
+    {variant: the max-error labels}, x, dy, drow0)."""
+    x = _measure.inputs(B, N, DEVICE, seed=N)
+    dy, drow0 = proto_attn_bwd.cotangents(B, N, DEVICE, seed=N + 1)
+    shape = f"B={B} N={N}"
+    want = proto_attn_bwd.proto_attn_bwd_ref(x, w, dy, drow0)
+    ln = layer_norm_f32(x.float(), w["ls"], w["lb"], EPS).to(torch.bfloat16)
+    qkv = linear_f32(ln, w["wqkv"], w["bqkv"]).to(torch.bfloat16)
+    dout = (dy.float() @ w["wproj"].float()).to(torch.bfloat16)
+    want_k = [attention_train_ref(qkv, HEADS, SCALE)[0],
+              attention_bwd_ref(qkv, dout, drow0, HEADS, SCALE)]
+    outs, errs = {}, {}
+    for variant in proto_attn_bwd.VARIANTS:
+        got = counted("proto_attn_bwd", 1, lambda:
+                      proto_attn_bwd.proto_attn_bwd(x, w, dy, drow0, variant))
+        merged, dqkv = torch.empty_like(x), torch.empty_like(qkv)
+        _build.proto_attn_bwd(qkv, dout, drow0, merged, dqkv, HEADS, SCALE,
+                              variant=variant)
+        errs[variant] = tool_check(
+            "proto_attn_bwd", f"{shape} {variant}", [*got, merged, dqkv],
+            [*want, *want_k], ("dx", "dwqkv", "dwproj", "merged alone",
+                               "dqkv alone"), rec, phase="10")
+        again = proto_attn_bwd.proto_attn_bwd(x, w, dy, drow0, variant)
+        require(same_bits(got, again), f"proto_attn_bwd {shape} {variant}: "
+                "two launches differ")
+        outs[variant] = got
+    return outs, errs, x, dy, drow0
+
+
+def proto_bwd_cases(rec):
+    """#15: both arrangements at PROTO_BWD_EDGES (untimed) and at
+    PROTO_BWD_N, B=256 (proto_bwd_check), the arrangements against each
+    other, and at PROTO_BWD_N the times."""
     w = proto_weights()
+    for B, N in PROTO_BWD_EDGES:
+        errs = proto_bwd_check(w, rec, B, N)[1]
+        for variant in proto_attn_bwd.VARIANTS:
+            print(f"phase 10 proto_attn_bwd B={B} N={N} {variant} (untimed): "
+                  f"max abs err {', '.join(errs[variant])}; a second launch "
+                  "bit-equal", flush=True)
+    B = TRAIN_B
     rec["arrangement_ms"] = {}
     for N in PROTO_BWD_N:
-        x = _measure.inputs(B, N, DEVICE, seed=N)
-        dy, drow0 = proto_attn_bwd.cotangents(B, N, DEVICE, seed=N + 1)
         shape = f"B={B} N={N}"
-        want = proto_attn_bwd.proto_attn_bwd_ref(x, w, dy, drow0)
-        ln = layer_norm_f32(x.float(), w["ls"], w["lb"], EPS) \
-            .to(torch.bfloat16)
-        qkv = linear_f32(ln, w["wqkv"], w["bqkv"]).to(torch.bfloat16)
-        dout = (dy.float() @ w["wproj"].float()).to(torch.bfloat16)
-        want_k = [attention_train_ref(qkv, HEADS, SCALE)[0],
-                  attention_bwd_ref(qkv, dout, drow0, HEADS, SCALE)]
-        outs, times = {}, {}
+        outs, errs, x, dy, drow0 = proto_bwd_check(w, rec, B, N)
+        times = {}
         for variant in proto_attn_bwd.VARIANTS:
-            got = counted("proto_attn_bwd", 1, lambda:
-                          proto_attn_bwd.proto_attn_bwd(x, w, dy, drow0,
-                                                        variant))
-            merged, dqkv = torch.empty_like(x), torch.empty_like(qkv)
-            _build.proto_attn_bwd(qkv, dout, drow0, merged, dqkv, HEADS,
-                                  SCALE, variant=variant)
-            errs = tool_check("proto_attn_bwd", f"{shape} {variant}",
-                              [*got, merged, dqkv], [*want, *want_k],
-                              ("dx", "dwqkv", "dwproj", "merged alone",
-                               "dqkv alone"), rec, phase="10")
-            again = proto_attn_bwd.proto_attn_bwd(x, w, dy, drow0, variant)
-            require(same_bits(got, again), f"proto_attn_bwd {shape} "
-                    f"{variant}: two launches differ")
-            outs[variant] = got
             times[variant] = per_launch_ms(
                 lambda: proto_attn_bwd.proto_attn_bwd(x, w, dy, drow0,
                                                       variant))
             print(f"phase 10 proto_attn_bwd {shape} {variant}: max abs err "
-                  f"{', '.join(errs)}; {times[variant]:.4f} ms; "
+                  f"{', '.join(errs[variant])}; {times[variant]:.4f} ms; "
                   f"{_build.proto_attn_bwd_smem(N)} bytes of dynamic shared "
                   "memory a block; a second launch bit-equal", flush=True)
         diffs = [f"{name} {tune_kernels.max_diff(a, b):.3e}"
@@ -6665,6 +6710,12 @@ def main():
           f"mlp_chunked_kernel: {cfg['BM']} rows a block, {cfg['HC']} hidden "
           f"units a slice, {cfg['SMEM_BYTES']} bytes of dynamic shared "
           "memory a block (256 threads)", flush=True)
+    for n in sorted({*PROTO_N, *PROTO_BWD_N, 256, 65, 13}, reverse=True):
+        print(f"phase 1 proto_attn N={n}: " + ", ".join(
+            f"{v} {_build.proto_attn_smem(n, HEADS, v)}"
+            for v in proto_attn.VARIANTS) + " bytes of dynamic shared memory "
+              f"a block (128 threads); proto_attn_bwd_kernel "
+              f"{_build.proto_attn_bwd_smem(n)} (256 threads)", flush=True)
     for n in (*FULL_BLOCK_N, 256):
         plan = _build.attention_tf32_plan(n)
         print(f"phase 1 short_attention_tf32_kernel N={n}: {plan['smem']} "

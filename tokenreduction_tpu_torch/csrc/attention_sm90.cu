@@ -32,9 +32,10 @@
 // the training forwards also write the row statistics, fp32 [B, H, N, 2]:
 // the row max of the logits and 1/sum, which the backward reads.
 //
-// The forward's walk over the query tiles and the wgmma and swizzle helpers
-// live in attention_sm90.cuh, which the kernel tools' joint attention
-// (attn_joint.cu) includes too.
+// The forward's walk over the query tiles, the backward's walk over the
+// key tiles and the wgmma and swizzle helpers live in attention_sm90.cuh,
+// which the kernel tools' joint attention (attn_joint.cu) and attention
+// prototypes (proto_attn.cu, proto_attn_bwd.cu) include too.
 //
 // Design. One block of one warpgroup per (image, head): thread 0 issues
 // TMA loads of the head's q, k and v tiles (N <= 256: at most 4 tiles
@@ -250,49 +251,6 @@ __global__ void __launch_bounds__(THREADS, KT == MAXT ? 2 : 4)
 }
 
 // ------------------------------------------------------------ backward
-// P^T of key rows (this thread's j0 = g and j1 = g + 8 of its warp's 16)
-// against the query columns q0 + 8 jj + 2 t (+1), in place of the raw
-// S^T = K Q^T: exp2 of the base-2 logits (kb: the key's bias2, kc: its cap)
-// less the column's base-2 row max m2, times its 1/sum r. Query columns in
-// a group of 8 at or past N are 0.
-template <bool MASK>
-__device__ __forceinline__ void probs_t(float* st, int q0, int N, float c2, float kb0, float kb1,
-                                        float kc0, float kc1, const float* m2, const float* r,
-                                        const float* cap, int t) {
-#pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
-    float* x = st + 4 * jj;
-    if (q0 + 8 * jj < N) {
-      const int c = q0 + 8 * jj + 2 * t;
-      const float2 m = *reinterpret_cast<const float2*>(m2 + c);
-      const float2 rr = *reinterpret_cast<const float2*>(r + c);
-      float x0 = fmaf(x[0], c2, kb0), x1 = fmaf(x[1], c2, kb0);
-      float x2 = fmaf(x[2], c2, kb1), x3 = fmaf(x[3], c2, kb1);
-      if constexpr (MASK) {
-        const float2 qc = *reinterpret_cast<const float2*>(cap + c);
-        x0 = fminf(fminf(x0, kc0), qc.x);
-        x1 = fminf(fminf(x1, kc0), qc.y);
-        x2 = fminf(fminf(x2, kc1), qc.x);
-        x3 = fminf(fminf(x3, kc1), qc.y);
-      }
-      x[0] = ex2(x0 - m.x) * rr.x;
-      x[1] = ex2(x1 - m.y) * rr.y;
-      x[2] = ex2(x2 - m.x) * rr.x;
-      x[3] = ex2(x3 - m.y) * rr.y;
-    } else {
-      x[0] = x[1] = x[2] = x[3] = 0.f;
-    }
-  }
-}
-
-constexpr int BWD_THREADS = 2 * THREADS;  // two warpgroups
-
-// A named barrier of the 128 threads of warpgroup wg (barrier 0 is
-// __syncthreads).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
 // MASK: the validity mask's caps on the logits and dS zeroed at every
 // masked pair. EXACT: delta in full, sum_j P_ij dP_ij, from a first pass
 // of S^T and dP^T (the variant that takes the colsum cotangent dcs or
@@ -457,173 +415,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       sd[i] = acc;
     }
   }
-  // the fp32 dQ starts at zero (O's tiles are read)
-  for (int i = tid; i < nt * ROWS * HD / 4; i += BWD_THREADS)
-    reinterpret_cast<float4*>(dq32)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
-
-  const uint32_t sds = sds0 + wg * TILE;
-  uint8_t* ds_tile = tiles + (sds - base);
-  const int lr = warp * 16 + g;
-  for (int round = 0; 2 * round < nt; ++round) {
-    const int jt = 2 * round + wg;
-    const bool active = jt < nt;
-    const int j0 = jt * ROWS + lr, j1 = j0 + 8;
-    const bool live = active && jt * ROWS + warp * 16 < N;  // the warp has a key < N
-    const float kb0 = active ? bias2[j0] : 0.f, kb1 = active ? bias2[j1] : 0.f;
-    const float kc0 = MASK && active ? cap[j0] : INFINITY, kc1 = MASK && active ? cap[j1] : INFINITY;
-    const float w0 = active ? sw[j0] : 0.f, w1 = active ? sw[j1] : 0.f;
-    const float dc0 = active ? sc[j0] : 0.f, dc1 = active ? sc[j1] : 0.f;
-    float dk[32], dv[32], db0 = 0.f, db1 = 0.f;
-    for (int step = 0; step < nt; ++step) {
-      const int it = step + wg < nt ? step + wg : step + wg - nt;
-      if (active) {
-        float st[32], dpt[32];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {  // S^T = K Q^T, dP^T = V dO^T
-          wgmma_ss<0, 0>(st, desc_k(sk + jt * TILE, kk), desc_k(sq + it * TILE, kk), kk);
-          wgmma_ss<0, 0>(dpt, desc_k(sv + jt * TILE, kk), desc_k(sdo + it * TILE, kk), kk);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence32(st);
-        fence32(dpt);
-        if (live) {
-          probs_t<MASK>(st, it * ROWS, N, c2, kb0, kb1, kc0, kc1, sm2, sr, cap, t);
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
-            if (it * ROWS + 8 * jj < N) {
-              const int c = it * ROWS + 8 * jj + 2 * t;
-              const float2 d = *reinterpret_cast<const float2*>(sd + c);
-              float dp[4] = {dpt[4 * jj], dpt[4 * jj + 1], dpt[4 * jj + 2], dpt[4 * jj + 3]};
-              if (c == 0) dp[0] += w0, dp[2] += w1;  // the row0 cotangent, query 0
-              if constexpr (EXACT) {  // the colsum cotangent on valid query rows
-                if (c < N) dp[0] += dc0, dp[2] += dc1;
-                if (c + 1 < N) dp[1] += dc0, dp[3] += dc1;
-              }
-              float u[4];
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                u[e] = st[4 * jj + e] * (dp[e] - ((e & 1) ? d.y : d.x));
-              if constexpr (MASK) {  // dS is zero at a masked pair
-                const float2 qc = *reinterpret_cast<const float2*>(cap + c);
-                if (!(kc0 > 0.f && qc.x > 0.f)) u[0] = 0.f;
-                if (!(kc0 > 0.f && qc.y > 0.f)) u[1] = 0.f;
-                if (!(kc1 > 0.f && qc.x > 0.f)) u[2] = 0.f;
-                if (!(kc1 > 0.f && qc.y > 0.f)) u[3] = 0.f;
-              }
-              db0 += u[0] + u[1];
-              db1 += u[2] + u[3];
-#pragma unroll
-              for (int e = 0; e < 4; ++e) dpt[4 * jj + e] = u[e] * scale;
-            } else {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) dpt[4 * jj + e] = 0.f;
-            }
-          }
-        } else {
-          zero32(st);
-          zero32(dpt);
-        }
-        // dV += round(P)^T dO and dK += round(dS)^T Q, A from registers
-        uint32_t pa[16], da[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          pa[i] = pack_bf16(st[2 * i], st[2 * i + 1]);
-          da[i] = pack_bf16(dpt[2 * i], dpt[2 * i + 1]);
-        }
-        fence16(pa);
-        fence16(da);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {  // (rows past N: P, dS and dO are 0)
-          const int acc = step > 0 || kk > 0;
-          wgmma_rs<1>(dv, pa + 4 * kk, desc_mn(sdo + it * TILE, kk), acc);
-          wgmma_rs<1>(dk, da + 4 * kk, desc_mn(sq + it * TILE, kk), acc);
-        }
-        wgmma_commit();
-        // dS^T into this warpgroup's staging tile: rows keys, columns queries
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          *reinterpret_cast<uint32_t*>(ds_tile + pair_offset(lr, jj, t)) = da[2 * jj];
-          *reinterpret_cast<uint32_t*>(ds_tile + pair_offset(lr + 8, jj, t)) = da[2 * jj + 1];
-        }
-        fence_async_smem();
-        wg_sync(wg);
-        // this key tile's part of dQ = dS K: A = dS^T read transposed, B = K
-        // read MN-major
-        float dq[32];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // (keys past N: dS and K are 0)
-          wgmma_ss<1, 1>(dq, desc_mn(sds, kk), desc_mn(sk + jt * TILE, kk), kk);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence32(dv);
-        fence32(dk);
-        fence32(dq);
-        // added to the fp32 dQ; a thread owns its elements
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int row = it * ROWS + lr + 8 * half;
-            float2* at = reinterpret_cast<float2*>(dq32 + row * HD + ((8 * jj) ^ (g << 3)) + 2 * t);
-            const float2 was = *at;
-            *at = make_float2(was.x + dq[4 * jj + 2 * half], was.y + dq[4 * jj + 2 * half + 1]);
-          }
-      }
-      __syncthreads();  // the step's additions into dQ are done
-    }
-    if (!active) continue;
-    if (dbias != nullptr) {
-      db0 = quad_sum(db0);
-      db1 = quad_sum(db1);
-      if (t == 0) {
-        if (j0 < N) dbias[vec + j0] = db0;
-        if (j1 < N) dbias[vec + j1] = db1;
-      }
-    }
-    // dK and dV of this key tile, rounded, into its K and V tiles (read by
-    // no product any more), then TMA stores (rows past N dropped)
-    uint8_t* ktile = tiles + (nt + jt) * TILE;
-    uint8_t* vtile = tiles + (2 * nt + jt) * TILE;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      *reinterpret_cast<uint32_t*>(ktile + pair_offset(lr, jj, t)) = pack_bf16(dk[4 * jj], dk[4 * jj + 1]);
-      *reinterpret_cast<uint32_t*>(ktile + pair_offset(lr + 8, jj, t)) =
-          pack_bf16(dk[4 * jj + 2], dk[4 * jj + 3]);
-      *reinterpret_cast<uint32_t*>(vtile + pair_offset(lr, jj, t)) = pack_bf16(dv[4 * jj], dv[4 * jj + 1]);
-      *reinterpret_cast<uint32_t*>(vtile + pair_offset(lr + 8, jj, t)) =
-          pack_bf16(dv[4 * jj + 2], dv[4 * jj + 3]);
-    }
-    fence_async_smem();
-    wg_sync(wg);
-    if (wt == 0) {
-      store_tile(&map_dk, h_first & 64, sk + jt * TILE, jt * ROWS, h, b);
-      store_tile(&map_dv, h_first & 128, sv + jt * TILE, jt * ROWS, h, b);
-    }
-  }
-
-  // dQ, rounded, into the query tiles (read by no product any more): 8
-  // threads a row, 8 columns a thread; then TMA stores
-  __syncthreads();
-  for (int i = tid >> 3; i < nt * ROWS; i += BWD_THREADS / 8) {
-    const int c = tid & 7;
-    const float* src = dq32 + i * HD + ((8 * c) ^ ((i & 7) << 3));
-    const float4 lo = *reinterpret_cast<const float4*>(src);
-    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-    const uint4 packed = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
-                                    pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
-    *reinterpret_cast<uint4*>(tiles + (i >> 6) * TILE + (i & 63) * 128 + ((c ^ (i & 7)) << 4)) =
-        packed;
-  }
-  fence_async_smem();
-  __syncthreads();
-  if (tid == 0)
-    for (int it = 0; it < nt; ++it) store_tile(&map_dq, h_first & 32, sq + it * TILE, it * ROWS, h, b);
-  if (wt == 0) tma_store_wait();
+  attention_bwd_keys<MASK, EXACT, false>(sq, sk, sv, sdo, sds0, dq32, bias2, cap, sm2, sr, sd, sc,
+                                         sw, &map_dq, &map_dk, &map_dv, h_first, dbias, vec, N,
+                                         nt, h, b, tid, wg, wt, warp, g, t, scale);
 }
 
 

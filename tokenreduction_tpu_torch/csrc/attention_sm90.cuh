@@ -1,14 +1,18 @@
 // The sm_90a attention's shared steps: the forward's walk over the query
 // tiles of one (image, head) (S = Q K^T on wgmma m64, the whole row of at
-// most 256 keys in registers, the exact softmax, P rounded in registers as
-// the A operand of O = P V on wgmma, V read MN-major through the transpose
-// bit, the output tile out by a TMA store, row0 and colsum), its wgmma and
-// swizzle helpers, and the host's [B, H, N, 64] tensor maps. Two kernels
-// include it: attention_sm90.cu (every bf16 attention of the main path,
-// which loads q, k and v by TMA) and attn_joint.cu (the kernel tools' joint
-// attention, which makes q, k and v on chip from LayerNorm'd rows first).
-// What each step computes, and why it is laid out so, is set out at the top
-// of attention_sm90.cu.
+// most 256 keys in registers, the exact softmax (row_exp), P rounded in
+// registers as the A operand of O = P V on wgmma, V read MN-major through
+// the transpose bit, the output tile out by a TMA store, row0 and colsum),
+// the backward's walk over the key tiles (attention_bwd_keys: P^T and dS^T
+// in registers, dV and dK on wgmma with A from registers, dQ summed in
+// shared memory in a fixed order), their wgmma and swizzle helpers, and the
+// host's [B, H, N, 64] tensor maps. attention_sm90.cu includes it (every
+// bf16 attention of the main path, which loads q, k and v by TMA), and so
+// do the kernel tools' attn_joint.cu (the joint attention, which makes q, k
+// and v on chip from LayerNorm'd rows first), proto_attn.cu and
+// proto_attn_bwd.cu (the attention-core arrangements and the recomputing
+// branch backward). What each step computes, and why it is laid out so, is
+// set out at the top of attention_sm90.cu.
 #pragma once
 
 #include <float.h>
@@ -119,6 +123,39 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
       : TRK_ACC32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(acc));
 }
+
+// The same 128 columns wide, [lo | hi] = A[64 x 16] . B[16 x 128] (+ [lo |
+// hi] when acc is non-zero): lo takes columns 0 .. 63, hi 64 .. 127 (each
+// in the 64-column accumulator layout). B is two 64-column tiles, the
+// second the descriptor's leading byte offset after the first (desc_pair):
+// the kernel tools' products of two heads' or two operands' tiles at once.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs128(float* lo, float* hi, const uint32_t* a, uint64_t db,
+                                            int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n"
+      "}\n"
+      : "+f"(lo[0]), "+f"(lo[1]), "+f"(lo[2]), "+f"(lo[3]), "+f"(lo[4]), "+f"(lo[5]),
+        "+f"(lo[6]), "+f"(lo[7]), "+f"(lo[8]), "+f"(lo[9]), "+f"(lo[10]), "+f"(lo[11]),
+        "+f"(lo[12]), "+f"(lo[13]), "+f"(lo[14]), "+f"(lo[15]), "+f"(lo[16]), "+f"(lo[17]),
+        "+f"(lo[18]), "+f"(lo[19]), "+f"(lo[20]), "+f"(lo[21]), "+f"(lo[22]), "+f"(lo[23]),
+        "+f"(lo[24]), "+f"(lo[25]), "+f"(lo[26]), "+f"(lo[27]), "+f"(lo[28]), "+f"(lo[29]),
+        "+f"(lo[30]), "+f"(lo[31]), "+f"(hi[0]), "+f"(hi[1]), "+f"(hi[2]), "+f"(hi[3]),
+        "+f"(hi[4]), "+f"(hi[5]), "+f"(hi[6]), "+f"(hi[7]), "+f"(hi[8]), "+f"(hi[9]),
+        "+f"(hi[10]), "+f"(hi[11]), "+f"(hi[12]), "+f"(hi[13]), "+f"(hi[14]), "+f"(hi[15]),
+        "+f"(hi[16]), "+f"(hi[17]), "+f"(hi[18]), "+f"(hi[19]), "+f"(hi[20]), "+f"(hi[21]),
+        "+f"(hi[22]), "+f"(hi[23]), "+f"(hi[24]), "+f"(hi[25]), "+f"(hi[26]), "+f"(hi[27]),
+        "+f"(hi[28]), "+f"(hi[29]), "+f"(hi[30]), "+f"(hi[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(acc));
+}
 #undef TRK_ACC32
 
 // Descriptors of a swizzled 64-row tile at `tile`: its k16 slice kk read
@@ -129,6 +166,12 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
 }
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return smem_desc(tile + kk * 2048, TILE, 1024);
+}
+// The MN-major slice kk of two tiles read as one 128-column operand:
+// columns 0 .. 63 from tile `first`, 64 .. 127 from tile `second`, which
+// lies after it (the leading byte offset, under 256 KB).
+__device__ __forceinline__ uint64_t desc_pair(uint32_t first, uint32_t second, int kk) {
+  return smem_desc(first + kk * 2048, second - first, 1024);
 }
 
 // The byte offset in a swizzled tile of row r, columns 8 j + 2 t (+1) of a
@@ -203,6 +246,68 @@ __device__ __forceinline__ void key_vectors(float* bias2, float* cap, const floa
   }
 }
 
+// The exact softmax's exponentials of a 64-row tile's logits, the whole
+// row in registers: s[kt] holds the raw q.k of a thread's rows r0 = g and
+// r1 = g + 8 of its warp's 16 against key columns 64 kt + 8 j + 2 t (+1)
+// (the accumulator layout of S = Q K^T). In base-2 units, x = s * c2 +
+// bias2[key] (with MASK capped at the key's cap and the row's qc0, qc1);
+// mx0, mx1: the rows' max over keys < N, in two running values each
+// (shorter chains), then over the lane quad; s becomes ex2(x - max), 0 in
+// the groups of 8 key columns at or past N; sum0, sum1: the rows' sums, in
+// the same order.
+template <bool MASK, int KT>
+__device__ __forceinline__ void row_exp(float (&s)[KT][32], const float* bias2, const float* cap,
+                                        float qc0, float qc1, int N, int nt, int t, float c2,
+                                        float& mx0, float& mx1, float& sum0, float& sum1) {
+  float m0[2] = {-INFINITY, -INFINITY}, m1[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (kt < nt && kt * ROWS + 8 * j < N) {
+        const int c = kt * ROWS + 8 * j + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(bias2 + c);
+        float* x = s[kt] + 4 * j;
+        x[0] = fmaf(x[0], c2, bb.x);
+        x[1] = fmaf(x[1], c2, bb.y);
+        x[2] = fmaf(x[2], c2, bb.x);
+        x[3] = fmaf(x[3], c2, bb.y);
+        if constexpr (MASK) {
+          const float2 kc = *reinterpret_cast<const float2*>(cap + c);
+          x[0] = fminf(fminf(x[0], kc.x), qc0);
+          x[1] = fminf(fminf(x[1], kc.y), qc0);
+          x[2] = fminf(fminf(x[2], kc.x), qc1);
+          x[3] = fminf(fminf(x[3], kc.y), qc1);
+        }
+        m0[j & 1] = fmaxf(m0[j & 1], fmaxf(x[0], x[1]));
+        m1[j & 1] = fmaxf(m1[j & 1], fmaxf(x[2], x[3]));
+      }
+    }
+  }
+  mx0 = quad_max(fmaxf(m0[0], m0[1]));
+  mx1 = quad_max(fmaxf(m1[0], m1[1]));
+  float l0[2] = {0.f, 0.f}, l1[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* x = s[kt] + 4 * j;
+      if (kt < nt && kt * ROWS + 8 * j < N) {
+        x[0] = ex2(x[0] - mx0);
+        x[1] = ex2(x[1] - mx0);
+        x[2] = ex2(x[2] - mx1);
+        x[3] = ex2(x[3] - mx1);
+        l0[j & 1] += x[0] + x[1];
+        l1[j & 1] += x[2] + x[3];
+      } else {
+        x[0] = x[1] = x[2] = x[3] = 0.f;
+      }
+    }
+  }
+  sum0 = quad_sum(l0[0] + l0[1]);
+  sum1 = quad_sum(l1[0] + l1[1]);
+}
+
 // The forward's walk over the query tiles (see attention_sm90.cu): q's
 // tiles at sq, the first 1024-aligned byte of the dynamic shared memory,
 // k's at sk and v's at sv,
@@ -256,52 +361,8 @@ __device__ __forceinline__ void attention_fwd_tiles(
     if (qi * ROWS + warp * 16 < nq) {  // the warp has a query row
       const float* qc = RECT ? qcap : cap;
       const float qc0 = MASK ? qc[r0] : INFINITY, qc1 = MASK ? qc[r1] : INFINITY;
-      // the row max and sum in two running values each (shorter chains)
-      float m0[2] = {-INFINITY, -INFINITY}, m1[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (kt < nt && kt * ROWS + 8 * j < N) {
-            const int c = kt * ROWS + 8 * j + 2 * t;
-            const float2 bb = *reinterpret_cast<const float2*>(bias2 + c);
-            float* x = s[kt] + 4 * j;
-            x[0] = fmaf(x[0], c2, bb.x);
-            x[1] = fmaf(x[1], c2, bb.y);
-            x[2] = fmaf(x[2], c2, bb.x);
-            x[3] = fmaf(x[3], c2, bb.y);
-            if constexpr (MASK) {
-              const float2 kc = *reinterpret_cast<const float2*>(cap + c);
-              x[0] = fminf(fminf(x[0], kc.x), qc0);
-              x[1] = fminf(fminf(x[1], kc.y), qc0);
-              x[2] = fminf(fminf(x[2], kc.x), qc1);
-              x[3] = fminf(fminf(x[3], kc.y), qc1);
-            }
-            m0[j & 1] = fmaxf(m0[j & 1], fmaxf(x[0], x[1]));
-            m1[j & 1] = fmaxf(m1[j & 1], fmaxf(x[2], x[3]));
-          }
-        }
-      }
-      const float mx0 = quad_max(fmaxf(m0[0], m0[1])), mx1 = quad_max(fmaxf(m1[0], m1[1]));
-      float l0[2] = {0.f, 0.f}, l1[2] = {0.f, 0.f};
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float* x = s[kt] + 4 * j;
-          if (kt < nt && kt * ROWS + 8 * j < N) {
-            x[0] = ex2(x[0] - mx0);
-            x[1] = ex2(x[1] - mx0);
-            x[2] = ex2(x[2] - mx1);
-            x[3] = ex2(x[3] - mx1);
-            l0[j & 1] += x[0] + x[1];
-            l1[j & 1] += x[2] + x[3];
-          } else {
-            x[0] = x[1] = x[2] = x[3] = 0.f;
-          }
-        }
-      }
-      const float sum0 = quad_sum(l0[0] + l0[1]), sum1 = quad_sum(l1[0] + l1[1]);
+      float mx0, mx1, sum0, sum1;
+      row_exp<MASK, KT>(s, bias2, cap, qc0, qc1, N, nt, t, c2, mx0, mx1, sum0, sum1);
       rr0 = r0 < nq ? 1.f / sum0 : 0.f;  // rows past the last take no part
       rr1 = r1 < nq ? 1.f / sum1 : 0.f;
       if constexpr (NORM_P) {
@@ -414,16 +475,295 @@ __device__ __forceinline__ void attention_fwd_tiles(
   if (tid == 0) tma_store_wait();
 }
 
+// ------------------------------------------------------------ backward
+// P^T of key rows (this thread's j0 = g and j1 = g + 8 of its warp's 16)
+// against the query columns q0 + 8 jj + 2 t (+1), in place of the raw
+// S^T = K Q^T: exp2 of the base-2 logits (kb: the key's bias2, kc: its cap)
+// less the column's base-2 row max m2, times its 1/sum r. Query columns in
+// a group of 8 at or past N are 0.
+template <bool MASK>
+__device__ __forceinline__ void probs_t(float* st, int q0, int N, float c2, float kb0, float kb1,
+                                        float kc0, float kc1, const float* m2, const float* r,
+                                        const float* cap, int t) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    float* x = st + 4 * jj;
+    if (q0 + 8 * jj < N) {
+      const int c = q0 + 8 * jj + 2 * t;
+      const float2 m = *reinterpret_cast<const float2*>(m2 + c);
+      const float2 rr = *reinterpret_cast<const float2*>(r + c);
+      float x0 = fmaf(x[0], c2, kb0), x1 = fmaf(x[1], c2, kb0);
+      float x2 = fmaf(x[2], c2, kb1), x3 = fmaf(x[3], c2, kb1);
+      if constexpr (MASK) {
+        const float2 qc = *reinterpret_cast<const float2*>(cap + c);
+        x0 = fminf(fminf(x0, kc0), qc.x);
+        x1 = fminf(fminf(x1, kc0), qc.y);
+        x2 = fminf(fminf(x2, kc1), qc.x);
+        x3 = fminf(fminf(x3, kc1), qc.y);
+      }
+      x[0] = ex2(x0 - m.x) * rr.x;
+      x[1] = ex2(x1 - m.y) * rr.y;
+      x[2] = ex2(x2 - m.x) * rr.x;
+      x[3] = ex2(x3 - m.y) * rr.y;
+    } else {
+      x[0] = x[1] = x[2] = x[3] = 0.f;
+    }
+  }
+}
+
+constexpr int BWD_THREADS = 2 * THREADS;  // two warpgroups
+
+// A named barrier of the 128 threads of warpgroup wg (barrier 0 is
+// __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// The backward's walk over the key tiles (see attention_sm90.cu), from the
+// head's q, k, v and dO tiles at sq, sk, sv and sdo, in that order from the
+// first 1024-aligned byte of the dynamic shared memory (each nt 64-row
+// tiles of 8 KB with the 128-byte swizzle, rows past N zeros), and the per-row
+// vectors [MAXN]: bias2 and cap (key_vectors'), the base-2 row max sm2
+// (+inf past N), 1/sum sr (0 past N), delta sd, the colsum cotangent sc and
+// the row0 cotangent sw (0 past N). In round r warpgroup w takes key tile
+// 2 r + w and walks the query tiles from tile w on (rotated): S^T = K Q^T
+// and dP^T = V dO^T on wgmma, P^T (probs_t) and dS^T = P^T (dP^T - delta)
+// * scale in registers (EXACT: the colsum cotangent added to dP on every
+// valid query row; MASK: dS zero at every masked pair), then
+// - not PACK2 (every attention backward of the main path): dV += P^T dO
+//   and dK += dS^T Q on wgmma with A from registers; dS^T staged as bf16
+//   in the warpgroup's tile at sds0 + wg TILE, and this key tile's part of
+//   dQ, dS K, run on wgmma (A read transposed) and added to the fp32 dQ at
+//   dq32 [nt * 64][64] in a fixed order: the warpgroups step in lockstep
+//   (a block barrier a step), each on another query tile, so the additions
+//   into each tile come in one order, with no atomics. At the end dQ,
+//   rounded, leaves by TMA stores from the query tiles on map_dq.
+// - PACK2 (the kernel tool proto_attn_bwd.cu's pack2): [dS | P]^T . [Q |
+//   dO] as two m64n128 products, dS^T [Q | dO] and P^T [Q | dO], both from
+//   one 128-column B operand (a query tile and its dO tile); dK and dV are
+//   the wanted quadrants, the other two are summed into one discarded
+//   accumulator, live only across the products. dQ is not made here (the
+//   caller's pass over the query tiles makes it), so dq32 and the staging
+//   tiles are not touched.
+// dbias (may be null) gets each key's unscaled dS summed over the query
+// rows. dK and dV of each key tile leave, rounded, by TMA stores from its
+// K and V tiles on map_dk and map_dv. h_first: bit 5 dQ's map head dim
+// first, bit 6 dK's, bit 7 dV's; vec = (b H + h) N.
+template <bool MASK, bool EXACT, bool PACK2>
+__device__ __forceinline__ void attention_bwd_keys(
+    uint32_t sq, uint32_t sk, uint32_t sv, uint32_t sdo, uint32_t sds0, float* dq32,
+    const float* bias2, const float* cap, const float* sm2, const float* sr, const float* sd,
+    const float* sc, const float* sw, const CUtensorMap* map_dq, const CUtensorMap* map_dk,
+    const CUtensorMap* map_dv, int h_first, float* dbias, size_t vec, int N, int nt, int h,
+    int b, int tid, int wg, int wt, int warp, int g, int t, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* tiles = smem_raw + (base - raw);
+  const float c2 = scale * LOG2E;
+  if constexpr (!PACK2) {
+    // the fp32 dQ starts at zero (O's tiles are read)
+    for (int i = tid; i < nt * ROWS * HD / 4; i += BWD_THREADS)
+      reinterpret_cast<float4*>(dq32)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+  }
+
+  const uint32_t sds = sds0 + wg * TILE;
+  uint8_t* ds_tile = tiles + (sds - base);
+  const int lr = warp * 16 + g;
+  for (int round = 0; 2 * round < nt; ++round) {
+    const int jt = 2 * round + wg;
+    const bool active = jt < nt;
+    const int j0 = jt * ROWS + lr, j1 = j0 + 8;
+    const bool live = active && jt * ROWS + warp * 16 < N;  // the warp has a key < N
+    const float kb0 = active ? bias2[j0] : 0.f, kb1 = active ? bias2[j1] : 0.f;
+    const float kc0 = MASK && active ? cap[j0] : INFINITY, kc1 = MASK && active ? cap[j1] : INFINITY;
+    const float w0 = active ? sw[j0] : 0.f, w1 = active ? sw[j1] : 0.f;
+    const float dc0 = active ? sc[j0] : 0.f, dc1 = active ? sc[j1] : 0.f;
+    float dk[32], dv[32], db0 = 0.f, db1 = 0.f;
+    for (int step = 0; step < nt; ++step) {
+      const int it = step + wg < nt ? step + wg : step + wg - nt;
+      if (active) {
+        float st[32], dpt[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {  // S^T = K Q^T, dP^T = V dO^T
+          wgmma_ss<0, 0>(st, desc_k(sk + jt * TILE, kk), desc_k(sq + it * TILE, kk), kk);
+          wgmma_ss<0, 0>(dpt, desc_k(sv + jt * TILE, kk), desc_k(sdo + it * TILE, kk), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence32(st);
+        fence32(dpt);
+        if (live) {
+          probs_t<MASK>(st, it * ROWS, N, c2, kb0, kb1, kc0, kc1, sm2, sr, cap, t);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            if (it * ROWS + 8 * jj < N) {
+              const int c = it * ROWS + 8 * jj + 2 * t;
+              const float2 d = *reinterpret_cast<const float2*>(sd + c);
+              float dp[4] = {dpt[4 * jj], dpt[4 * jj + 1], dpt[4 * jj + 2], dpt[4 * jj + 3]};
+              if (c == 0) dp[0] += w0, dp[2] += w1;  // the row0 cotangent, query 0
+              if constexpr (EXACT) {  // the colsum cotangent on valid query rows
+                if (c < N) dp[0] += dc0, dp[2] += dc1;
+                if (c + 1 < N) dp[1] += dc0, dp[3] += dc1;
+              }
+              float u[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                u[e] = st[4 * jj + e] * (dp[e] - ((e & 1) ? d.y : d.x));
+              if constexpr (MASK) {  // dS is zero at a masked pair
+                const float2 qc = *reinterpret_cast<const float2*>(cap + c);
+                if (!(kc0 > 0.f && qc.x > 0.f)) u[0] = 0.f;
+                if (!(kc0 > 0.f && qc.y > 0.f)) u[1] = 0.f;
+                if (!(kc1 > 0.f && qc.x > 0.f)) u[2] = 0.f;
+                if (!(kc1 > 0.f && qc.y > 0.f)) u[3] = 0.f;
+              }
+              db0 += u[0] + u[1];
+              db1 += u[2] + u[3];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) dpt[4 * jj + e] = u[e] * scale;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) dpt[4 * jj + e] = 0.f;
+            }
+          }
+        } else {
+          zero32(st);
+          zero32(dpt);
+        }
+        // dV += round(P)^T dO and dK += round(dS)^T Q, A from registers
+        uint32_t pa[16], da[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          pa[i] = pack_bf16(st[2 * i], st[2 * i + 1]);
+          da[i] = pack_bf16(dpt[2 * i], dpt[2 * i + 1]);
+        }
+        fence16(pa);
+        fence16(da);
+        wgmma_fence();
+        if constexpr (PACK2) {
+          // [dK | dS^T dO] and [P^T Q | dV] from one B = [Q | dO] (rows past
+          // N: P, dS, Q and dO are 0); the discarded quadrants summed into
+          // drop, live only across these products
+          float drop[32];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int acc = step > 0 || kk > 0;
+            const uint64_t qdo = desc_pair(sq + it * TILE, sdo + it * TILE, kk);
+            wgmma_rs128<1>(dk, drop, da + 4 * kk, qdo, acc);
+            wgmma_rs128<1>(drop, dv, pa + 4 * kk, qdo, acc);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence32(dv);
+          fence32(dk);
+          fence32(drop);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {  // (rows past N: P, dS and dO are 0)
+            const int acc = step > 0 || kk > 0;
+            wgmma_rs<1>(dv, pa + 4 * kk, desc_mn(sdo + it * TILE, kk), acc);
+            wgmma_rs<1>(dk, da + 4 * kk, desc_mn(sq + it * TILE, kk), acc);
+          }
+          wgmma_commit();
+          // dS^T into this warpgroup's staging tile: rows keys, columns queries
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            *reinterpret_cast<uint32_t*>(ds_tile + pair_offset(lr, jj, t)) = da[2 * jj];
+            *reinterpret_cast<uint32_t*>(ds_tile + pair_offset(lr + 8, jj, t)) = da[2 * jj + 1];
+          }
+          fence_async_smem();
+          wg_sync(wg);
+          // this key tile's part of dQ = dS K: A = dS^T read transposed, B = K
+          // read MN-major
+          float dq[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)  // (keys past N: dS and K are 0)
+            wgmma_ss<1, 1>(dq, desc_mn(sds, kk), desc_mn(sk + jt * TILE, kk), kk);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence32(dv);
+          fence32(dk);
+          fence32(dq);
+          // added to the fp32 dQ; a thread owns its elements
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int row = it * ROWS + lr + 8 * half;
+              float2* at = reinterpret_cast<float2*>(dq32 + row * HD + ((8 * jj) ^ (g << 3)) + 2 * t);
+              const float2 was = *at;
+              *at = make_float2(was.x + dq[4 * jj + 2 * half], was.y + dq[4 * jj + 2 * half + 1]);
+            }
+        }
+      }
+      if constexpr (!PACK2) __syncthreads();  // the step's additions into dQ are done
+    }
+    if (!active) continue;
+    if (dbias != nullptr) {
+      db0 = quad_sum(db0);
+      db1 = quad_sum(db1);
+      if (t == 0) {
+        if (j0 < N) dbias[vec + j0] = db0;
+        if (j1 < N) dbias[vec + j1] = db1;
+      }
+    }
+    // dK and dV of this key tile, rounded, into its K and V tiles (read by
+    // no product any more), then TMA stores (rows past N dropped)
+    uint8_t* ktile = tiles + (nt + jt) * TILE;
+    uint8_t* vtile = tiles + (2 * nt + jt) * TILE;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      *reinterpret_cast<uint32_t*>(ktile + pair_offset(lr, jj, t)) = pack_bf16(dk[4 * jj], dk[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(ktile + pair_offset(lr + 8, jj, t)) =
+          pack_bf16(dk[4 * jj + 2], dk[4 * jj + 3]);
+      *reinterpret_cast<uint32_t*>(vtile + pair_offset(lr, jj, t)) = pack_bf16(dv[4 * jj], dv[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(vtile + pair_offset(lr + 8, jj, t)) =
+          pack_bf16(dv[4 * jj + 2], dv[4 * jj + 3]);
+    }
+    fence_async_smem();
+    wg_sync(wg);
+    if (wt == 0) {
+      store_tile(map_dk, h_first & 64, sk + jt * TILE, jt * ROWS, h, b);
+      store_tile(map_dv, h_first & 128, sv + jt * TILE, jt * ROWS, h, b);
+    }
+  }
+
+  if constexpr (!PACK2) {
+    // dQ, rounded, into the query tiles (read by no product any more): 8
+    // threads a row, 8 columns a thread; then TMA stores
+    __syncthreads();
+    for (int i = tid >> 3; i < nt * ROWS; i += BWD_THREADS / 8) {
+      const int c = tid & 7;
+      const float* src = dq32 + i * HD + ((8 * c) ^ ((i & 7) << 3));
+      const float4 lo = *reinterpret_cast<const float4*>(src);
+      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+      const uint4 packed = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                                      pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+      *reinterpret_cast<uint4*>(tiles + (i >> 6) * TILE + (i & 63) * 128 + ((c ^ (i & 7)) << 4)) =
+          packed;
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0)
+      for (int it = 0; it < nt; ++it) store_tile(map_dq, h_first & 32, sq + it * TILE, it * ROWS, h, b);
+  }
+  if (wt == 0) tma_store_wait();
+}
+
 // ---------------------------------------------------------------- host
 // The map of one [B, H, N, 64] bf16 operand with element strides
 // st = (batch, head, row), in boxes of one 64-row tile of one (image,
-// head) with the 128-byte swizzle; rows past N read as zeros and are not
+// head) with the 128-byte swizzle (box_rows rows: 16 for the stacked
+// prototype's query rows); rows past N read as zeros and are not
 // written. The head and row dims go in the order of their strides (so the
 // strides grow, as cuTensorMapEncodeTiled expects); *h_first tells which
 // came first. A stride of a dim of size 1 is not read: it is set to keep
 // that order.
 cudaError_t heads_map(CUtensorMap* map, const void* ptr, const long long* st, int B, int H, int N,
-                      bool* h_first) {
+                      bool* h_first, int box_rows = ROWS) {
   EncodeTiled encode;
   const cudaError_t err = encoder(&encode);
   if (err != cudaSuccess) return err;
@@ -437,8 +777,8 @@ cudaError_t heads_map(CUtensorMap* map, const void* ptr, const long long* st, in
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hf ? sh : sn) * 2,
                                  static_cast<cuuint64_t>(hf ? sn : sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {HD, hf ? 1u : static_cast<cuuint32_t>(ROWS),
-                             hf ? static_cast<cuuint32_t>(ROWS) : 1u, 1};
+  const cuuint32_t box[4] = {HD, hf ? 1u : static_cast<cuuint32_t>(box_rows),
+                             hf ? static_cast<cuuint32_t>(box_rows) : 1u, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   *h_first = hf;
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,

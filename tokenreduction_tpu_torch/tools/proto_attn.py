@@ -11,9 +11,10 @@ head's logits, softmax and value product at a time), ``avpair`` (each
 head pair's value product as one 128-wide product [P_h | P_h+1] .
 blockdiag(V_h, V_h+1), the zero blocks multiplied) and ``stacked`` (the
 logits of all heads in one buffer, one softmax pass over it). On the card
-the question is whether packing two heads into one product, or stacking
-all heads' softmax, changes the time on mma.sync, whose n-granularity is
-8 (csrc/proto_attn.cu says how each is laid out).
+the question is whether packing two heads into one 128-wide wgmma, or
+stacking all heads' softmax, changes the time against the main path's
+forward steps, which ``loop`` runs (csrc/proto_attn.cu says how each is
+laid out).
 
 ``main()`` times each arrangement at N = 138, 197, 97, 68 (the JAX tool's
 widths) beside its bound, its plain version and the port's current route

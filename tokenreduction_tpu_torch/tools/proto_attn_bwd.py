@@ -10,9 +10,9 @@ gradients dwqkv and dwproj summed over the batch. Its two arrangements of
 the four attention products that contract over N: ``loop`` (each at
 width 64) and ``pack2`` (two at width 128: [ds; p] . [k | v] and
 [ds | p]^T . [q | do], the unwanted quadrants computed and dropped). On
-the card the question is whether two 128-wide products with shared
-operand loads beat four 64-wide ones on mma.sync; ``pack2`` runs at every
-width here (csrc/proto_attn_bwd.cu).
+the card the question is whether two 128-wide wgmma products on one B
+operand beat four 64-wide ones; ``pack2`` runs at every width here
+(csrc/proto_attn_bwd.cu).
 
 On the card (bf16) the backward is a chain of the port's kernels, as the
 training branch's (``ops/fused_block_train.py`` ``_bwd_cuda``) but with

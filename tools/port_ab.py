@@ -79,13 +79,17 @@ beside cuBLAS SGEMM; and the fp32 topk@0.7 train step (no amp, median of
 steps 3-6) and the ATS@0.7 fp32 forward (median of 5) at b256.
 ``--once DIR`` runs the child once in one checkout and prints its line.
 ``--attention`` times, per launch as above, the bf16 attention forwards
-alone (``attention_x10``, ``attention_times``, ``rect_times``): the
-kernels of ``csrc/attention_sm90.cu``'s forward, in minutes rather than
-the full run's. ``--tools`` times, per launch as above, the kernel tools'
+and backwards alone (``attention_x10``, ``attention_times``,
+``rect_times``, ``bwd_times``): the kernels of
+``csrc/attention_sm90.cu``, in minutes rather than the full run's.
+``--tools`` times, per launch as above, the kernel tools'
 ``tune_kernels.attn_joint`` (with row0 and colsum) and
 ``tune_kernels.mlp_chunked`` beside their routes
 (``current_attention``, ``current_mlp``) at ``chip_smoke.TOOLS_N``, B=256,
-with ``chip_smoke.tool_weights``.
+with ``chip_smoke.tool_weights``, and every arrangement of
+``proto_attn.proto_attn`` and ``proto_attn_bwd.proto_attn_bwd`` beside
+their routes (``current_route``) at their tools' widths, B=256, with
+``chip_smoke.proto_weights``.
 The first line is the card's name and power limit (nvidia-smi); the last
 lines give each checkout's medians over its runs. Needs one CUDA card;
 numbers from separate calls are not compared.
@@ -723,16 +727,43 @@ if os.environ.get("PORT_AB_TOOLS"):
                 lambda: tune_kernels.mlp_chunked(xt, twm, 4))
             times[f"mlp_route_{n}_x10"] = ten(
                 lambda: tune_kernels.current_mlp(xt, twm))
+    # the attention-core arrangements (#14) and the recomputing branch
+    # backward (#15) at their tools' widths, each beside the port's route
+    # for the same function (proto_attn.current_route: the qkv GEMM,
+    # short_attention, the proj GEMM; proto_attn_bwd.current_route: #9's
+    # forward and backward)
+    from chip_smoke import proto_weights
+    from tokenreduction_tpu_torch.tools import _measure
+    from tokenreduction_tpu_torch.tools import proto_attn, proto_attn_bwd
+    pw = proto_weights()
+    pwa = {k: pw[k] for k in ("wqkv", "wproj")}
+    with torch.no_grad():
+        for n in proto_attn.WIDTHS:
+            xt = _measure.inputs(B, n, "cuda", seed=n)
+            for variant in proto_attn.VARIANTS:
+                times[f"proto_attn_{variant}_{n}_x10"] = ten(
+                    lambda: proto_attn.proto_attn(xt, pwa, variant))
+            times[f"proto_attn_route_{n}_x10"] = ten(
+                lambda: proto_attn.current_route(xt, pwa))
+    for n in proto_attn_bwd.WIDTHS:
+        xt = _measure.inputs(B, n, "cuda", seed=n)
+        dy, drow0 = proto_attn_bwd.cotangents(B, n, "cuda", seed=n + 1)
+        for variant in proto_attn_bwd.VARIANTS:
+            times[f"proto_attn_bwd_{variant}_{n}_x10"] = ten(
+                lambda: proto_attn_bwd.proto_attn_bwd(xt, pw, dy, drow0,
+                                                      variant))
+        times[f"proto_attn_bwd_route_{n}_x10"] = ten(
+            lambda: proto_attn_bwd.current_route(xt, pw, dy, drow0))
     print(json.dumps(times))
     print(json.dumps(dict(attention_registers=attention_registers())))
     raise SystemExit(0)
 if os.environ.get("PORT_AB_ATTENTION"):
-    # --attention: the bf16 attention forwards alone, per launch
+    # --attention: the bf16 attention forwards and backwards alone, per
+    # launch
     with torch.no_grad():
-        print(json.dumps(dict(
-            attention_x10=ten(lambda: _build.short_attention(
-                qkv, merged, HEADS, SCALE)),
-            **attention_times(), **rect_times())))
+        fwd = dict(attention_x10=ten(lambda: _build.short_attention(
+            qkv, merged, HEADS, SCALE)), **attention_times(), **rect_times())
+    print(json.dumps(dict(**fwd, **bwd_times())))
     print(json.dumps(dict(attention_registers=attention_registers())))
     raise SystemExit(0)
 steps = dict(train_topk=train_ms("topk@0.7"), train_dense=train_ms("dense"),
@@ -784,10 +815,12 @@ def main():
     part = ap.add_mutually_exclusive_group()
     part.add_argument("--attention", action="store_const",
                       const="attention", dest="part",
-                      help="time the bf16 attention forwards alone")
+                      help="time the bf16 attention forwards and "
+                      "backwards alone")
     part.add_argument("--tools", action="store_const", const="tools",
                       dest="part", help="time the kernel tools' joint "
-                      "attention and chunked MLP beside their routes")
+                      "attention, chunked MLP and attention prototypes "
+                      "beside their routes")
     args = ap.parse_args()
     # the card and its power limit, beside which every time stands
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
