@@ -438,8 +438,26 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    accuracy_gate on a seeded DeiT-S .pth that the phase writes,
    tpu_parity with a 32-step mini-train), the two kernels' counts set to
    0 before and read after; the phase prints its seconds.
+11. parallel: data parallel and FSDP (tokenreduction_tpu_torch/parallel/)
+   in child processes (``python3 chip_smoke.py --phase11 JOB DIR CARD``,
+   started as torchrun starts ranks), so that no process group outlives
+   the phase in this process. DeiT-S topk@0.7 in amp from one seeded
+   init, phase 5's recipe, three steps of b256: on one rank over NCCL the
+   plain step, DDP and FSDP, whose losses, gradient norms, masters, EMA
+   and moments must be bit-equal to the plain step's, each with its ms a
+   step (host clock around synchronised steps) and peak memory; the train
+   CLI with ``--fsdp --world_size 1`` in that process group (one epoch of
+   512 synthetic images at b256), its checkpoint read back by validate.
+   Then two ranks on the one card over gloo: a probe of each collective
+   of the path on CUDA tensors, printed (point to point, mixup's partner
+   exchange, is not in this recipe); when the step's four work, DDP and
+   FSDP at 2 x b128 against the one-rank b256 step (losses within a
+   bf16 ulp, 2^-7, and gradient norms within 2e-2 relative, every param
+   within AdamW's update range and all but 1% within 1e-3 of its leaf's
+   max). Each run's counts set to 0 just before and read just after, the
+   training kernels' per step as phase 5 counts them.
 
-Phases 4, 5, 6, 7 and 8 are the main path's runs: each counterpart's
+Phases 4, 5, 6, 7, 8 and 11 are the main path's runs: each counterpart's
 launch count, and those of the bf16 GEMM's two launchers (gemm,
 gemm_wgrad), of the fp32 tensor-core GEMM and attention (gemm_tf32,
 attention_tf32: the DyViT teacher's 4 and 1 a block in phase 5, none
@@ -452,7 +470,7 @@ rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
 backward and of the partial sums (once each in each training branch's
 backward), of head_mean_keys (once in each of ToMe@0.7's three merging
 blocks) and of layer_norm, is set to 0 just before and read just after
-(phase 6's, 7's and 8's launches add to phases 4 and 5's in the
+(phase 6's, 7's, 8's and 11's launches add to phases 4 and 5's in the
 kernels' record). fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
@@ -6642,6 +6660,360 @@ def phase_proto() -> dict:
 T0 = time.perf_counter()
 
 
+# ---- phase 11: data parallel and FSDP (tokenreduction_tpu_torch/parallel/)
+# DeiT-S topk@0.7 in amp from one seeded init, phase 5's recipe (AdamW,
+# clip 1.0, EMA, drop-path 0.1, label smoothing), PAR_STEPS steps of PAR_B
+# (two ranks: PAR_B / 2 each), run in child processes (python3
+# chip_smoke.py --phase11 JOB DIR CARD), so that no process group outlives
+# the phase in this process
+PAR_B, PAR_STEPS, PAR_LR = 256, 3, 1e-3
+# the train CLI with --fsdp --world_size 1: one epoch of PAR_CLI_N
+# synthetic images at PAR_B (2 steps), then validate on its checkpoint
+PAR_CLI_N = 512
+# the collectives of the parallel path, each probed on a CUDA tensor over
+# gloo (NCCL refuses two ranks on one device); the step of this recipe
+# needs the first four, the last is mixup's partner exchange
+PAR_COLLECTIVES = ("broadcast", "all_reduce", "all_gather_into_tensor",
+                   "reduce_scatter", "batch_isend_irecv")
+PAR_STEP_COLLECTIVES = PAR_COLLECTIVES[:4]
+# two ranks of PAR_B / 2 against one of PAR_B: each rank's amp loss is a
+# bf16 scalar (the logits' dtype), so the losses agree to a bf16 ulp,
+# 2^-7 relative; the bf16 weight gradients of other batch splits are
+# summed in other orders and rounded to bf16, so the norms agree to
+# PAR_NORM_BOUND, and each param to PAR_PARAM_BOUND of its leaf's max but
+# for at most PAR_PARAM_SHARE of them (AdamW's g / (|g| + eps) where g is
+# near 0), every param within AdamW's update range 2 lr a step
+PAR_LOSS_BOUND, PAR_NORM_BOUND = 2.0 ** -7, 2e-2
+PAR_PARAM_BOUND, PAR_PARAM_SHARE = 1e-3, 1e-2
+# one rank's process group (NCCL on the card) and the CLI's device flags
+PAR_BACKEND, PAR_DEVICE_ARGS = "nccl", []
+
+
+def par_train(dp, rows, say) -> dict:
+    """PAR_STEPS steps on ``rows`` of each global batch (None: all) over
+    the data axis ``dp`` (None: the plain step); the losses, gradient
+    norms, seconds a step (host clock around synchronised steps), the
+    peak memory allocated and the whole params, EMA and moments."""
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    name, kw = MODELS["topk@0.7"]
+    model, _ = create_model(name, device=DEVICE, drop_path_rate=0.1,
+                            generator=torch.Generator().manual_seed(1), **kw)
+    opt, _ = create_optimizer(dict(model.named_parameters()),
+                              OptimConfig(lr=PAR_LR, clip_grad=1.0,
+                                          backbone_lr_scale=0.01),
+                              lambda s: PAR_LR, [])
+    state = init_train_state(model, opt, ema=True, device=DEVICE, dp=dp)
+    step = make_train_step(
+        model, label_smoothing_loss, opt,
+        StepConfig(ema_decay=0.99996, amp=True),
+        torch.Generator(device=DEVICE).manual_seed(5), dp=dp)
+    data = torch.Generator(device=DEVICE).manual_seed(3)
+    xs = torch.randn(PAR_STEPS, PAR_B, 3, 224, 224, generator=data,
+                     device=DEVICE)
+    ys = torch.randint(0, 1000, (PAR_STEPS, PAR_B), generator=data,
+                       device=DEVICE)
+    if rows is not None:
+        xs, ys = xs[:, rows].contiguous(), ys[:, rows].contiguous()
+    seconds, metrics = [], []
+    for i in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, {"image": xs[i], "label": ys[i]})
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append(torch.stack([m["loss"], m["grad_norm"]]))
+    peak = torch.cuda.max_memory_allocated()
+    whole = (dp.full_state(state, opt) if dp is not None and dp.fsdp else
+             dict(params=state.params, ema_params=state.ema_params,
+                  opt_state=state.opt_state))
+    metrics = torch.stack(metrics).cpu()
+    require(bool(torch.isfinite(metrics).all()),
+            f"phase 11: non-finite metrics {metrics.tolist()}")
+    return dict(metrics=metrics, seconds=seconds, peak=peak,
+                split=len(dp.split()) if dp is not None else 0,
+                **{k: v for k, v in whole.items()})
+
+
+def par_line(label: str, run: dict, card: str) -> str:
+    timed = run["seconds"][1:]
+    ms = 1e3 * sum(timed) / len(timed)
+    return (f"phase 11 {label}: {ms:.2f} ms/step over steps 2-{PAR_STEPS} "
+            f"(first {1e3 * run['seconds'][0]:.1f} ms), peak memory "
+            f"allocated {run['peak'] / 2**30:.2f} GiB, {run['split']} "
+            f"leaves split; losses "
+            f"{[round(v, 5) for v in run['metrics'][:, 0].tolist()]}, grad "
+            f"norms {[round(v, 4) for v in run['metrics'][:, 1].tolist()]} on "
+            f"{card}")
+
+
+def same_state(a: dict, b: dict) -> list:
+    """The names of the tensors where two runs' states differ in a bit."""
+    bad = [] if torch.equal(a["metrics"], b["metrics"]) else ["metrics"]
+    for key in ("params", "ema_params"):
+        bad += [f"{key} {n}" for n, t in a[key].items()
+                if not torch.equal(t, b[key][n])]
+    for part, tensors in a["opt_state"].items():
+        bad += [f"{part} {n}" for n, t in tensors.items()
+                if not torch.equal(t, b["opt_state"][part][n])]
+    return bad
+
+
+def to_host(run: dict) -> dict:
+    return {k: ({n: t.detach().cpu() for n, t in v.items()}
+                if k in ("params", "ema_params") else v)
+            for k, v in run.items() if k != "opt_state"}
+
+
+def par_world1(root: pathlib.Path, card: str, say) -> dict:
+    """One rank on NCCL: the plain step, DDP and FSDP from one init, bit
+    for bit; then the train CLI with --fsdp --world_size 1 in the same
+    process group and validate on its checkpoint."""
+    import torch.distributed as dist
+
+    from tokenreduction_tpu_torch.parallel import DataParallel
+
+    dist.init_process_group(PAR_BACKEND, init_method="env://",
+                            world_size=1, rank=0)
+    total = dict.fromkeys([*WRAPPERS, *LAUNCHERS], 0)
+    plain = par_train(None, None, say)
+    say(par_line(f"world 1 plain step b{PAR_B}", plain, card))
+    want = {k: PAR_STEPS * n for k, n in PER_TRAIN_STEP["topk@0.7"].items()}
+    for label, fsdp in (("ddp", False), ("fsdp", True)):
+        reset_counts()
+        run = par_train(DataParallel(fsdp=fsdp), None, say)
+        got = {**counts(), **launcher_counts()}
+        require({k: got[k] for k in want} == want,
+                f"phase 11 world 1 {label}: launches {got}, not {want}")
+        for k, n in got.items():
+            total[k] += n
+        bad = same_state(plain, run)
+        require(not bad, f"phase 11 world 1 {label}: differs from the plain "
+                f"step in {len(bad)} tensors, e.g. {bad[:5]}")
+        say(par_line(f"world 1 nccl {label} b{PAR_B}", run, card)
+            + "; losses, gradient norms, masters, EMA and moments bit-equal "
+            "to the plain step's; launches "
+            f"{ {k: n for k, n in got.items() if n} }")
+        del run
+    torch.save(to_host(plain), root / "plain.pt")
+    del plain
+
+    run = root / "cli"
+    t0 = time.perf_counter()
+    rec = cli_run(CLI_MODEL + [
+        "--batch-size", str(PAR_B), "--synthetic-n", str(PAR_CLI_N),
+        "--epochs", "1", "--fsdp", "--world_size", "1", "--use_amp",
+        "--num-workers", str(cli_workers()), "--output_dir", str(run)]
+        + PAR_DEVICE_ARGS)
+    seconds = time.perf_counter() - t0
+    rows = read_log(run)
+    require([r["epoch"] for r in rows] == [0] and all(
+        math.isfinite(r[k]) for r in rows for k in ("train_loss", "test_loss"))
+        and (run / "best_checkpoint" / "tree.pt").is_file(),
+        f"phase 11 train CLI --fsdp: rows {rows}")
+    got = cli_train_launches("train CLI --fsdp", rec, PAR_CLI_N // PAR_B,
+                             2 * -(-PAR_CLI_N // PAR_B), True, phase="11")
+    for k, n in rec.counts.items():
+        total[k] += n
+    say(f"phase 11 train CLI --fsdp --world_size 1 (NCCL) b{PAR_B} over "
+        f"{PAR_CLI_N} images: {seconds:.1f} s the run, train img/s "
+        f"{[round(r['images_per_sec'], 1) for r in rows]}, losses "
+        f"{[round(v, 4) for v in torch.stack(rec.losses).tolist()]}, acc1 "
+        f"{[r['test_acc1'] for r in rows]}; launches {got} on {card}")
+    reset_counts()
+    from tokenreduction_tpu_torch.evaluation import validate
+
+    data = validate.main(["--checkpoint", str(run), "--dataset", "synthetic",
+                          "--synthetic-n", str(CLI_VALIDATE_N), "-b",
+                          str(PAR_B), "--input-size", "224"]
+                         + PAR_DEVICE_ARGS)
+    torch.cuda.synchronize()
+    got = {**counts(), **launcher_counts()}
+    for k, n in got.items():
+        total[k] += n
+    n_img = len([k for k in data if k.startswith("synthetic_")])
+    require(n_img == CLI_VALIDATE_N and got["gemm_tf32"] > 0,
+            f"phase 11 validate: {n_img} images, launches {got}")
+    say(f"phase 11 validate on the --fsdp checkpoint: Acc@1 "
+        f"{data['Top1-Acc']} over {n_img} images; launches "
+        f"{ {k: n for k, n in got.items() if n} }")
+    dist.destroy_process_group()
+    return {"counts": total}
+
+
+# one collective of PAR_COLLECTIVES on a CUDA tensor over gloo, two ranks
+# on the card; a rank prints RESULT when its collective returned. A gloo
+# collective that is not CUDA-aware can abort its process (writev from a
+# device pointer), so each runs in processes of its own
+PAR_PROBE = """
+import datetime, json, os, sys
+import torch
+import torch.distributed as dist
+name, rank = sys.argv[1], int(os.environ["RANK"])
+dist.init_process_group("gloo", init_method="env://", world_size=2,
+                        rank=rank, timeout=datetime.timedelta(seconds=30))
+x = torch.arange(4.0, device="cuda") + rank
+if name == "broadcast":
+    dist.broadcast(x, 0)
+elif name == "all_reduce":
+    dist.all_reduce(x)
+elif name == "all_gather_into_tensor":
+    dist.all_gather_into_tensor(x.new_empty(8), x)
+elif name == "reduce_scatter":
+    fn = getattr(dist, "reduce_scatter_single", None) or \\
+        dist.reduce_scatter_tensor
+    fn(x.new_empty(2), x)
+else:
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x.clone(), 1 - rank),
+            dist.P2POp(dist.irecv, x.new_empty(4), 1 - rank)]):
+        req.wait()
+torch.cuda.synchronize()
+dist.destroy_process_group()
+print("RESULT " + json.dumps({"ok": True}), flush=True)
+"""
+
+
+def par_probe() -> dict:
+    """Each collective of the parallel path on CUDA tensors over gloo, two
+    ranks on the one card, all probes at once: "ok", or how the ranks
+    failed (the last error line of their output)."""
+    import concurrent.futures
+    import sys
+
+    from tokenreduction_tpu_torch.parallel.launch import spawn
+
+    def one(name):
+        try:
+            spawn(2, [sys.executable, "-c", PAR_PROBE, name], timeout=120)
+            return "ok"
+        except RuntimeError as e:  # the probe's answer, printed
+            err = [ln.strip() for ln in str(e).splitlines()
+                   if "Error" in ln or "what()" in ln or "exit" in ln]
+            return "refused: " + " | ".join(err[-2:])[:300]
+
+    with concurrent.futures.ThreadPoolExecutor(len(PAR_COLLECTIVES)) as ex:
+        return dict(zip(PAR_COLLECTIVES, ex.map(one, PAR_COLLECTIVES)))
+
+
+def par_pair(root: pathlib.Path, card: str, say) -> dict:
+    """Two ranks on the one card over gloo (run when gloo took CUDA
+    tensors for every collective): DDP and FSDP at two b128 ranks."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from tokenreduction_tpu_torch.parallel import DataParallel, global_order
+
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", init_method="env://", world_size=2,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {"counts": {}}
+    rows = torch.as_tensor(global_order(2, 1, PAR_B // 2)[
+        rank * PAR_B // 2:(rank + 1) * PAR_B // 2], device=DEVICE)
+    want = {k: PAR_STEPS * n
+            for k, n in PER_TRAIN_STEP["topk@0.7"].items()}
+    for label, fsdp in (("ddp", False), ("fsdp", True)):
+        reset_counts()
+        run = par_train(DataParallel(fsdp=fsdp), rows, say)
+        got = {**counts(), **launcher_counts()}
+        require({k: got[k] for k in want} == want,
+                f"phase 11 two ranks {label} rank {rank}: launches "
+                f"{got}, not {want}")
+        out["counts"][label] = got
+        if rank == 0:
+            torch.save(to_host(run), root / f"pair_{label}.pt")
+            say(par_line(f"two ranks (gloo, one card) {label} "
+                         f"2 x b{PAR_B // 2}", run, card))
+        del run
+    dist.destroy_process_group()
+    return out
+
+
+def par_against_one(label: str, got: dict, want: dict):
+    """The two-rank run against the one-rank plain run (PAR_*_BOUND)."""
+    m, w = got["metrics"], want["metrics"]
+    rel = ((m - w).abs() / w.abs()).amax(0).tolist()
+    require(rel[0] <= PAR_LOSS_BOUND and rel[1] <= PAR_NORM_BOUND,
+            f"phase 11 two ranks {label}: losses or norms {m.tolist()} "
+            f"against {w.tolist()}")
+    worst, far, n = 0.0, 0, 0
+    for key in ("params", "ema_params"):
+        for name, t in want[key].items():
+            gap = (got[key][name] - t).abs()
+            worst = max(worst, float(gap.max()))
+            far += int((gap > PAR_PARAM_BOUND * float(t.abs().max())).sum())
+            n += t.numel()
+    require(worst <= 2.01 * PAR_LR * PAR_STEPS and far <= PAR_PARAM_SHARE * n,
+            f"phase 11 two ranks {label}: {far} of {n} params beyond "
+            f"{PAR_PARAM_BOUND} of their leaf's max, the worst {worst}")
+    return (f"losses and grad norms within {rel[0]:.2e} and {rel[1]:.2e} "
+            f"relative of the one-rank b{PAR_B} step's, {far} of {n} params "
+            f"and EMA beyond {PAR_PARAM_BOUND} of their leaf's max, the "
+            f"largest gap {worst:.3e}")
+
+
+def phase_parallel(card: str) -> dict:
+    """Phase 11 (see the module docstring). Returns the launch counts of
+    its runs, summed over the child processes."""
+    import sys
+
+    from tokenreduction_tpu_torch.parallel.launch import spawn
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase11"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    total = dict.fromkeys([*WRAPPERS, *LAUNCHERS], 0)
+    for job, world in (("world1", 1), ("pair", 2)):
+        if job == "pair":
+            probe = par_probe()
+            print(f"phase 11 probe: gloo on CUDA tensors, two ranks on the "
+                  f"card (torch {torch.__version__}): " + "; ".join(
+                      f"{k} {v}" for k, v in probe.items()), flush=True)
+            if any(probe[k] != "ok" for k in PAR_STEP_COLLECTIVES):
+                print("phase 11 two ranks on one card: not run (gloo "
+                      "refuses a collective of the step on CUDA tensors, "
+                      "above); the cross-rank evidence is the CPU tests' "
+                      "(tests/test_torch_parallel.py)", flush=True)
+                break
+        results = spawn(world, [sys.executable, str(pathlib.Path(
+            __file__).resolve()), "--phase11", job, str(root), card],
+            timeout=600)
+        for res in results:
+            require(res is not None, f"phase 11 {job}: a rank printed no "
+                    "result")
+            for line in res["lines"]:
+                print(line, flush=True)
+        if job == "world1":
+            for k, n in results[0]["counts"].items():
+                total[k] += n
+            continue
+        want = torch.load(root / "plain.pt", weights_only=False)
+        for label in ("ddp", "fsdp"):
+            got = torch.load(root / f"pair_{label}.pt", weights_only=False)
+            print(f"phase 11 two ranks {label} against one rank: "
+                  + par_against_one(label, got, want), flush=True)
+            for r in results:
+                for k, n in r["counts"][label].items():
+                    total[k] += n
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def par_child(job: str, root: str, card: str):
+    """A child of phase 11: prints ``RESULT {json}`` with its lines;
+    ``card``: the parent's name and power limit of the card."""
+    lines = []
+
+    def say(msg):
+        lines.append(msg)
+
+    root = pathlib.Path(root)
+    out = (par_world1 if job == "world1" else par_pair)(root, card, say)
+    print("RESULT " + json.dumps({"lines": lines, **out}), flush=True)
+
+
 def elapsed(phase: str):
     print(f"phase {phase} done at {time.perf_counter() - T0:.1f} s",
           flush=True)
@@ -6780,6 +7152,10 @@ def main():
     elapsed("9")
     proto_rec = phase_proto()
     elapsed("10")
+    trained_parallel = phase_parallel(card)
+    for name in (*WRAPPERS, *LAUNCHERS):
+        launches[name] += trained_parallel[name]
+    elapsed("11")
     for name, shape, ms, bound_ms, lib_ms in standalone:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"standalone {name} {shape}: {ms:.4f} ms per launch, bound "
@@ -6860,4 +7236,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--phase11"]:
+        par_child(*sys.argv[2:5])
+    else:
+        main()

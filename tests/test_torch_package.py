@@ -170,6 +170,12 @@ _CHILD = textwrap.dedent("""
             proto_residual_fuse.attend_block_res.backward_launches,
             proto_attn.proto_attn.launches,
             proto_attn_bwd.proto_attn_bwd.launches) == (0,) * 6
+    from tokenreduction_tpu_torch.parallel import (
+        DataParallel, dryrun_multichip, fsdp_shardings, init_distributed)
+    from tokenreduction_tpu_torch.parallel import launch
+    assert init_distributed("cpu")["process_count"] == 1
+    dims = fsdp_shardings(dict(tome.named_parameters()), 2, min_size=64)
+    assert dims["blocks.0.mlp.fc1.weight"] == 0, dims
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
     assert not bad, bad
@@ -196,7 +202,9 @@ def test_port_imports_and_runs_without_jax():
     utils and evaluation subpackages and the train loop, mixup, the train
     CLI and the asynchronous checkpointer, validates a ToMe
     checkpoint in viz mode, imports every kernel tool and runs the plain
-    versions of those with kernels on a tiny block, on the CPU with no JAX, Flax or optax module
+    versions of those with kernels on a tiny block, imports the
+    parallel subpackage (init_distributed a no-op for one process, the
+    FSDP placement), on the CPU with no JAX, Flax or optax module
     loaded, no kernel build and no kernel launch."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

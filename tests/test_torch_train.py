@@ -10,9 +10,12 @@ the same seeded numpy batches. On the JAX side the CPU runs the XLA
 composition; on the port's the training branches' plain forward and
 hand-written backward.
 
-Bounds: loss and grad norm per step within 1e-5 relative; params and EMA
-params after step 3 within 1e-5 of each leaf's max (fp32 sums in other
-orders, and the port's exact erf against the JAX CPU path's).
+Bounds: loss and grad norm per step within 1e-5 relative; the step-1
+gradients, and the params and EMA params after step 3, with the bounds of
+tests/torch_trajectory.py: within 1e-5 of each leaf's max (fp32 sums in
+other orders, and the port's exact erf against the JAX CPU path's), and
+AdamW's update range where the clipped step-1 gradient is within 100 eps
+of zero.
 """
 
 import jax
@@ -33,6 +36,7 @@ from tokenreduction_tpu_torch.models.convert import (
     torch_names_from_flax,
 )
 from tokenreduction_tpu_torch.train import losses, optim, scheduler, step
+from torch_trajectory import assert_params_close, assert_step1_grads_close
 
 DIMS = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)
@@ -144,8 +148,30 @@ def _jax_trajectory(flax_params, accum):
     return state, metrics
 
 
+@pytest.fixture(scope="module")
+def step1_grads(start_params):
+    """Both sides' gradients of the first batch's loss at the start, as
+    {torch name: array}: the gradient function alone (with accumulation
+    the step's gradient is the mean of the halves' instead)."""
+    module, _ = jax_create_model("topk_small_patch16_224", **DIMS, **TOPK)
+    x, y = _batches()[0]
+    want = jax.jit(jax.grad(lambda p: jax_losses.label_smoothing_ce(
+        module.apply({"params": p}, jnp.asarray(x.transpose(0, 2, 3, 1)),
+                     train=True, rngs={}), jnp.asarray(y), 0.1)))(
+        jax.tree_util.tree_map(jnp.asarray, start_params))
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, want))
+    model = port_model(start_params).train()
+    params = {n: p.detach().clone().requires_grad_()
+              for n, p in model.named_parameters()}
+    _, got = step.loss_and_grads(
+        model, lambda out, t, i, p: losses.label_smoothing_ce(out, t, 0.1),
+        params, torch.from_numpy(x), torch.from_numpy(y), step.StepConfig())
+    return ({n: g.numpy() for n, g in want.items()},
+            {n: g.numpy() for n, g in got.items()})
+
+
 @pytest.mark.parametrize("accum", [1, 2])
-def test_train_trajectory_matches_jax(start_params, accum):
+def test_train_trajectory_matches_jax(start_params, step1_grads, accum):
     jstate, jmetrics = _jax_trajectory(start_params, accum)
     model = port_model(start_params)
     opt, _ = optim.create_optimizer(dict(model.named_parameters()),
@@ -155,6 +181,8 @@ def test_train_trajectory_matches_jax(start_params, accum):
     train_step = step.make_train_step(
         model, lambda out, t, i, p: losses.label_smoothing_ce(out, t, 0.1),
         opt, step.StepConfig(grad_accum_steps=accum, ema_decay=EMA))
+    jgrads, grads = step1_grads
+    assert_step1_grads_close(grads, jgrads)
     for (x, y), want in zip(_batches(), jmetrics):
         state, m = train_step(state, {"image": torch.from_numpy(x),
                                       "label": torch.from_numpy(y)})
@@ -165,11 +193,11 @@ def test_train_trajectory_matches_jax(start_params, accum):
     for got, tree in ((state.params, jstate.params),
                       (state.ema_params, jstate.ema_params)):
         want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, tree))
-        assert sorted(got) == sorted(want)
-        for n, w in want.items():
-            tol = 1e-5 * float(w.abs().max())
-            np.testing.assert_allclose(got[n].detach().numpy(), w.numpy(),
-                                       rtol=0, atol=tol, err_msg=n)
+        assert_params_close(
+            {n: t.detach().numpy() for n, t in got.items()},
+            {n: t.numpy() for n, t in want.items()}, jgrads,
+            jmetrics[0]["grad_norm"], RECIPE["clip_grad"], RECIPE["lr"],
+            STEPS)
 
 
 def test_drop_path_step_follows_its_generator(flax_params):

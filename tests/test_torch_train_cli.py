@@ -13,8 +13,9 @@ within 1e-6, the accuracies equal), and so does the best checkpoint's
 ``meta.json``. The port alone: a resumed third epoch equals an
 uninterrupted run's, its default recipe (mixup, cutmix, drop-path 0.1,
 EMA) trains and its checkpoint validates, the ``--constant_cls`` alias,
-the refusals (``--fsdp``, downloads) and the flags that no longer raise
-(tests/test_torch_train_cli_flags.py runs them), the asynchronous
+the refusals (downloads) and the flags that no longer raise (``--fsdp``
+among them; tests/test_torch_train_cli_flags.py and
+tests/test_torch_parallel.py run them), the asynchronous
 checkpointer.
 """
 
@@ -189,7 +190,6 @@ def test_constant_pos_alias(tmp_path, pth, flag, frozen):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--fsdp"], NotImplementedError, "Queue 1 item 5"),
     (["--model-ema-force-cpu"], ValueError, "unsupported"),
     (["--pretrained"], ValueError, "local --finetune"),
     (["--teacher-path", "https://example.invalid/t.pth"], ValueError,
@@ -205,10 +205,11 @@ def test_unported_flags_raise_at_parse_time(argv, error, match):
     (["--opt", "sgd"], "opt", "sgd"),
     (["--sched", "plateau"], "sched", "plateau"),
     (["--lr-noise", "0.5"], "lr_noise", [0.5]),
-    (["--wandb_watch"], "wandb_watch", True)])
+    (["--wandb_watch"], "wandb_watch", True),
+    (["--fsdp"], "fsdp", True)])
 def test_formerly_refused_flags_parse(argv, field, value):
-    """The flags of ROADMAP.md Queue 1 item 4b parse into the run's args
-    (they raised until the port had them)."""
+    """The flags of ROADMAP.md Queue 1 items 4b and 5 parse into the run's
+    args (they raised until the port had them)."""
     args = train_cli.parse_args(TOPK + argv + ["--device", "cpu"])
     assert getattr(args, field) == value
 

@@ -93,6 +93,7 @@ from tokenreduction_tpu_torch.ops.fused_mlp import (
 )
 from tokenreduction_tpu_torch.ops.fused_mlp_train import mlp_branch
 from tokenreduction_tpu_torch.ops.gather import take_tokens
+from tokenreduction_tpu_torch.parallel.mesh import draw_rows
 
 # The attention kernels' width limit (they hold one head's K and V in
 # shared memory), JAX's FULL_BLOCK_MAX_N: a wider attention half runs the
@@ -134,7 +135,8 @@ def _drop(x, rate: float, shape, generator, layer: str):
             f"{layer} in training draws its masks from an explicit "
             "torch.Generator: pass generator= to the model's forward")
     keep = 1.0 - rate
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = draw_rows(torch.rand, shape, generator=generator,
+                     device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

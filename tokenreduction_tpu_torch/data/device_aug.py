@@ -46,6 +46,12 @@ from typing import Optional
 
 import torch
 
+from tokenreduction_tpu_torch.parallel.mesh import (
+    draw_rows,
+    global_count,
+    microbatch_rows,
+)
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 MAX_LEVEL = 10.0
@@ -119,7 +125,7 @@ def rrc_boxes(gen, B: int, in_size: int, scale, ratio, device):
     whole image. Returns (top, left, h, w), each fp32 [B]."""
     H = W = in_size
     area = float(H * W)
-    u = torch.rand(B, 22, generator=gen, device=device)
+    u = draw_rows(torch.rand, (B, 22), generator=gen, device=device)
     ta = area * (scale[0] + (scale[1] - scale[0]) * u[:, :10])
     lo, hi = math.log(ratio[0]), math.log(ratio[1])
     aspect = torch.exp(lo + (hi - lo) * u[:, 10:20])
@@ -466,21 +472,26 @@ def rand_augment(imgs, gen, num_ops: int, magnitude: float, mstd: float,
     uniform in [0, magnitude] when mstd is inf), the sign and the
     prob gate per image."""
     B = imgs.shape[0]
-    gs = group_size(B, ra_group_size)
+    gs = group_size(global_count(B), ra_group_size)
+    if microbatch_rows(B) % gs:
+        raise ValueError(
+            f"RandAugment's groups of {gs} images straddle the ranks' "
+            f"microbatches of {microbatch_rows(B)}: pick a batch size that "
+            "--ra_group_size divides")
     ops = ra_op_table(inc)
     dev = imgs.device
     for _ in range(num_ops):
-        op_idx = torch.randint(0, len(ops), (B // gs,), generator=gen,
-                               device=dev)
-        u = torch.rand(B, 3, generator=gen, device=dev)
+        op_idx = draw_rows(torch.randint, 0, len(ops), (B // gs,),
+                           generator=gen, device=dev)
+        u = draw_rows(torch.rand, (B, 3), generator=gen, device=dev)
         if math.isinf(mstd):
             mags = magnitude * u[:, 0]
         else:
             mags = torch.full((B,), magnitude, dtype=torch.float32,
                               device=dev)
             if mstd > 0:
-                mags = mags + mstd * torch.randn(B, generator=gen,
-                                                 device=dev)
+                mags = mags + mstd * draw_rows(torch.randn, (B,),
+                                               generator=gen, device=dev)
         mags = torch.clamp(mags, 0.0, MAX_LEVEL)
         signs = torch.where(u[:, 1] < 0.5, -1.0, 1.0)
         apply = u[:, 2] < prob if prob < 1.0 else None
@@ -496,10 +507,10 @@ def erase_boxes(gen, B: int, H: int, W: int, prob: float, count: int,
     """RandomErasing's boxes (timm, JAX ``_random_erasing``): count boxes
     an image, 10 tries each, the first valid kept, all of an image's gated
     by one draw < prob. Returns [(top, left, h, w, ok)] a box, each [B]."""
-    gate = torch.rand(B, generator=gen, device=device) < prob
+    gate = draw_rows(torch.rand, (B,), generator=gen, device=device) < prob
     boxes = []
     for _ in range(count):
-        u = torch.rand(B, 22, generator=gen, device=device)
+        u = draw_rows(torch.rand, (B, 22), generator=gen, device=device)
         a = (area[0] + (area[1] - area[0]) * u[:, :10]) * H * W / count
         lo, hi = math.log(ratio), math.log(1 / ratio)
         r = torch.exp(lo + (hi - lo) * u[:, 10:20])
@@ -533,8 +544,8 @@ def random_erasing(arr, gen, prob: float, count: int):
     B, H, W, C = arr.shape
     for top, left, h, w, ok in erase_boxes(gen, B, H, W, prob, count,
                                            arr.device):
-        noise = torch.randn(arr.shape, generator=gen, device=arr.device,
-                            dtype=arr.dtype)
+        noise = draw_rows(torch.randn, arr.shape, generator=gen,
+                          device=arr.device, dtype=arr.dtype)
         arr = torch.where(box_mask(H, W, top, left, h, w, ok, arr.device),
                           noise, arr)
     return arr
@@ -616,28 +627,28 @@ def make_device_augment(cfg: DeviceAugConfig):
             zero = torch.zeros(B, device=dev)
             full = torch.full((B,), float(S), device=dev)
             imgs = crop_resize(imgs, zero, zero, full, full, size)
-            yx = torch.randint(0, size, (B, 2), generator=generator,
-                               device=dev)
-            rgb = torch.randint(0, 256, (B, 3), generator=generator,
-                                device=dev)
+            yx = draw_rows(torch.randint, 0, size, (B, 2),
+                           generator=generator, device=dev)
+            rgb = draw_rows(torch.randint, 0, 256, (B, 3),
+                            generator=generator, device=dev)
             imgs = cutout(imgs, yx[:, 0], yx[:, 1], rgb)
         else:
             top, left, h, w = rrc_boxes(generator, B, S, cfg.scale,
                                         cfg.ratio, dev)
             imgs = crop_resize(imgs, top, left, h, w, size)
             if cfg.hflip > 0:
-                flip = torch.rand(B, generator=generator,
-                                  device=dev) < cfg.hflip
+                flip = draw_rows(torch.rand, (B,), generator=generator,
+                                 device=dev) < cfg.hflip
                 imgs = hflip(imgs, flip)
         if num_ops > 0:
             imgs = rand_augment(imgs, generator, num_ops, magnitude, mstd,
                                 cfg.ra_group_size, inc=inc, prob=ra_prob)
         elif not asl and cfg.color_jitter > 0:
-            order = torch.rand(B, 3, generator=generator,
-                               device=dev).argsort(1)
+            order = draw_rows(torch.rand, (B, 3), generator=generator,
+                              device=dev).argsort(1)
             lo = max(0.0, 1.0 - cfg.color_jitter)
-            factors = lo + (1.0 + cfg.color_jitter - lo) * torch.rand(
-                B, 3, generator=generator, device=dev)
+            factors = lo + (1.0 + cfg.color_jitter - lo) * draw_rows(
+                torch.rand, (B, 3), generator=generator, device=dev)
             imgs = color_jitter_apply(imgs, order, factors)
         arr = normalize_01(imgs)
         if not asl:

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from tokenreduction_tpu_torch.parallel.mesh import draw_rows
+
 
 def softmax_with_policy(attn, policy, eps: float = 1e-6):
     """The policy-masked softmax over the last axis, differentiable in the
@@ -37,7 +39,8 @@ def softmax_with_policy(attn, policy, eps: float = 1e-6):
 def gumbel_uniform(shape, dtype, device, generator: torch.Generator):
     """Uniforms in ``dtype`` on [finfo(dtype).tiny, 1) from ``generator``,
     the range of JAX's ``uniform(minval=tiny, maxval=1)``."""
-    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    u = draw_rows(torch.rand, shape, generator=generator, dtype=dtype,
+                  device=device)
     return u.clamp_min(torch.finfo(dtype).tiny)
 
 

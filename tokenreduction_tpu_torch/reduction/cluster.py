@@ -34,6 +34,7 @@ from tokenreduction_tpu_torch.ops.dpc_knn import (
 from tokenreduction_tpu_torch.ops.gather import take_tokens
 from tokenreduction_tpu_torch.ops.kmedoids import k_medoids_fit
 from tokenreduction_tpu_torch.ops.sinkhorn import log_optimal_transport
+from tokenreduction_tpu_torch.parallel.mesh import draw_rows
 
 
 def _weighted_sum(w, x):
@@ -253,8 +254,9 @@ class DPCKNNVisionTransformer(_ClusterViT):
                 rest = x[:, p:]
                 noise = None
                 if generator is not None:
-                    noise = torch.rand(rest.shape[:2], generator=generator,
-                                       device=x.device).to(rest.dtype)
+                    noise = draw_rows(torch.rand, rest.shape[:2],
+                                      generator=generator,
+                                      device=x.device).to(rest.dtype)
                 rest, idx_token, agg_weight, idx_centers, idx_cluster, \
                     centers = self.cluster_layers[stage](
                         rest, idx_token, agg_weight, noise)

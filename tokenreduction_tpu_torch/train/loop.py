@@ -14,7 +14,20 @@ of the logits. ``make_teacher_apply`` runs a teacher as JAX's
 fp32 parameters, on the images the step was given before any amp cast.
 
 ``run_training`` is the epoch loop of the train CLI
-(``train/train_cli.py``) on one device: the data pipeline's Loader
+(``train/train_cli.py``), on one device or on several processes
+(``parallel/mesh.py``: torchrun's environment, or ``--world_size`` and
+``--dist_url``; data parallel, or FSDP with ``--fsdp``): the samplers take
+the rank's stride, each rank's host batch is ``--batch-size`` x
+``--grad_accum_steps`` and the learning rate scales with the global batch
+(JAX loop.py:266, :484); ``--dist-eval`` splits the val set over the
+ranks (``DistributedEvalSampler``, its sums all-reduced and the
+multilabel predictions all-gathered, JAX loop.py:165-200, :325-336),
+without it every rank evaluates the whole set; the checkpoint is gathered
+on every rank's main thread in one order and written by rank 0, the same
+single-device checkpoint (JAX saves synchronously for the same reason,
+utils/checkpoint.py:98-110 there), which ``--resume`` re-shards into any
+world; ``log.txt`` and the prints come from rank 0 alone. On one device:
+the data pipeline's Loader
 (``RASampler``, or ``ShardedSampler`` under ``--no-repeated-aug``), with
 ``--device_aug`` the uint8 squares that the augmentation on the card takes
 (``data/device_aug.py``, JAX loop.py:273-319; ThreeAugment and ``--src``
@@ -43,6 +56,7 @@ after each step.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -59,6 +73,10 @@ from tokenreduction_tpu_torch.evaluation.validate import (
 )
 from tokenreduction_tpu_torch.models import convert as C
 from tokenreduction_tpu_torch.models.registry import create_model
+from tokenreduction_tpu_torch.parallel.mesh import (
+    DataParallel,
+    init_distributed,
+)
 from tokenreduction_tpu_torch.train import losses as L
 from tokenreduction_tpu_torch.train.mixup import (
     MixupConfig,
@@ -200,11 +218,22 @@ def labels_to_device(label: np.ndarray, device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def evaluate(eval_step, params, loader, device, multilabel: bool):
-    """engine.py:119-205 equivalent on one device: top-1/top-5 and the
-    mean cross-entropy over the real rows (the Loader's pads carry weight
-    0), or the multilabel mAP in both accuracies. The sums stay on the
-    device until the last batch (float64), then one read."""
+def evaluate(eval_step, params, loader, device, multilabel: bool,
+             dist_eval: bool = False):
+    """engine.py:119-205 equivalent: top-1/top-5 and the mean
+    cross-entropy over the real rows (the Loader's pads carry weight 0),
+    or the multilabel mAP in both accuracies. The sums stay on the device
+    until the last batch (float64), then one read.
+
+    ``dist_eval``: the loader's sampler is this rank's split
+    (``DistributedEvalSampler``): the sums are all-reduced, and the
+    multilabel predictions all-gathered before the mAP, with the
+    sampler's duplicate padding (reference train.py:284-290 caveat).
+    Without it every rank iterates the whole set, and gathering would feed
+    the mAP world copies of each image, which is not mAP-invariant (JAX
+    loop.py:165-200)."""
+    import torch.distributed as dist
+
     if multilabel:
         preds, targs = [], []
         for batch in loader:
@@ -217,8 +246,10 @@ def evaluate(eval_step, params, loader, device, multilabel: bool):
                 "label": labels_to_device(t, device)})
             preds.append(p[:valid])
             targs.append(tt[:valid])
-        score = mAP(torch.cat(targs).cpu().numpy(),
-                    torch.cat(preds).cpu().numpy())
+        P, T = torch.cat(preds), torch.cat(targs)
+        if dist_eval:
+            P, T = _all_gather_rows(P), _all_gather_rows(T)
+        score = mAP(T.cpu().numpy(), P.cpu().numpy())
         return {"acc1": score, "acc5": score, "loss": 0.0}
     tot = None
     for batch in loader:
@@ -231,12 +262,29 @@ def evaluate(eval_step, params, loader, device, multilabel: bool):
             "weight": torch.from_numpy(w).to(device, non_blocking=True)})
         m = {k: v.double() for k, v in m.items()}
         tot = m if tot is None else {k: tot[k] + m[k] for k in tot}
+    keys = ("correct1", "correct5", "loss_sum", "count")
+    if dist_eval:
+        sums = (torch.stack([tot[k] for k in keys]) if tot else
+                torch.zeros(4, dtype=torch.float64, device=device))
+        dist.all_reduce(sums)
+        tot = dict(zip(keys, sums))
     tot = {k: float(v) for k, v in tot.items()} if tot else \
-        dict.fromkeys(("correct1", "correct5", "loss_sum", "count"), 0.0)
+        dict.fromkeys(keys, 0.0)
     n = max(tot["count"], 1)
     return {"acc1": 100.0 * tot["correct1"] / n,
             "acc5": 100.0 * tot["correct5"] / n,
             "loss": tot["loss_sum"] / n}
+
+
+def _all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows, rank-major (the same count on every rank, as
+    DistributedEvalSampler pads to)."""
+    import torch.distributed as dist
+
+    out = t.new_empty((dist.get_world_size() * t.shape[0],)
+                      + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t.contiguous())
+    return out
 
 
 def _load_finetune(args, model, model_cfg):
@@ -344,10 +392,35 @@ def device_aug_setup(args, tcfg, ds_train, ds_val, multilabel: bool):
 
 def run_training(args):
     """The train CLI's run (see the module docstring); returns
-    {"max_accuracy"} (with --eval, the eval's stats)."""
+    {"max_accuracy"} (with --eval, the eval's stats). Joins the process
+    group when the environment or ``--world_size`` asks for several
+    processes, and leaves it at the end (a group its caller joined
+    stays)."""
+    import torch.distributed as dist
+
+    device = eval_device(args)
+    owned = not dist.is_initialized()
+    info = init_distributed(device, getattr(args, "world_size", None),
+                            getattr(args, "dist_url", None))
+    if info["initialized"]:
+        device = info["device"]
+    try:
+        with contextlib.ExitStack() as stack:
+            if info["process_index"] != 0:  # rank 0 alone prints
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _run_training(args, device, info["process_count"],
+                                 info["process_index"])
+    finally:
+        if owned and info["initialized"]:
+            dist.destroy_process_group()
+
+
+def _run_training(args, device, world: int, rank: int):
     # imported here: the data path needs Pillow, which the rest of the
     # port (and chip_smoke.py's runs without it) does not
     from tokenreduction_tpu_torch.data import (
+        DistributedEvalSampler,
         Loader,
         RASampler,
         ShardedSampler,
@@ -355,7 +428,7 @@ def run_training(args):
         build_dataset,
     )
 
-    device = eval_device(args)
+    is_main = rank == 0
     set_fp32_products(args.use_amp)
 
     # ----- data
@@ -374,7 +447,7 @@ def run_training(args):
     multilabel = getattr(ds_train, "multilabel", False)
     host_batch = args.batch_size * args.grad_accum_steps
     sampler = (RASampler if args.repeated_aug else ShardedSampler)(
-        len(ds_train), 1, 0, seed=args.seed)
+        len(ds_train), world, rank, seed=args.seed)
     aug_fn, train_transform, eval_tf, val_transform = device_aug_setup(
         args, tcfg, ds_train, ds_val, multilabel)
     train_loader = Loader(
@@ -389,9 +462,20 @@ def run_training(args):
               f"repeated_aug={bool(args.repeated_aug)}); every epoch "
               "will train 0 steps. Use --no-repeated-aug and/or a "
               "smaller --batch-size for tiny datasets.")
+    dist_eval = bool(getattr(args, "dist_eval", False)) and world > 1
+    if dist_eval:
+        # reference train.py:284-290 semantics, including the caveat
+        if len(ds_val) % world:
+            print("Warning: Enabling distributed evaluation with an eval "
+                  "dataset not divisible by process number. This will "
+                  "slightly alter validation results as extra duplicate "
+                  "entries are added to achieve equal num of samples "
+                  "per-process.")
+        val_sampler = DistributedEvalSampler(len(ds_val), world, rank)
+    else:
+        val_sampler = ShardedSampler(len(ds_val), 1, 0, shuffle=False)
     val_loader = Loader(
-        ds_val, ShardedSampler(len(ds_val), 1, 0, shuffle=False),
-        args.batch_size, val_transform,
+        ds_val, val_sampler, args.batch_size, val_transform,
         seed=args.seed, pad_partial=True, num_workers=args.num_workers)
     steps_per_epoch = max(len(train_loader), 1)
 
@@ -442,7 +526,7 @@ def run_training(args):
 
     # ----- optimizer (linear LR scaling, reference train.py:416-419)
     if not args.unscale_lr:
-        args.lr = args.lr * host_batch / args.lr_batch_normalizer
+        args.lr = args.lr * host_batch * world / args.lr_batch_normalizer
     scfg = SchedConfig(
         sched=args.sched, lr=args.lr, min_lr=args.min_lr,
         warmup_lr=args.warmup_lr, warmup_epochs=args.warmup_epochs,
@@ -501,6 +585,7 @@ def run_training(args):
               "into one XLA call in JAX; here the steps run one by one "
               "(the same arithmetic)")
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    dp = DataParallel(fsdp=args.fsdp) if world > 1 or args.fsdp else None
     train_step = make_train_step(
         model, loss_fn, optimizer,
         StepConfig(grad_accum_steps=args.grad_accum_steps,
@@ -508,7 +593,7 @@ def run_training(args):
                    amp=args.use_amp, train_mode=args.train_mode,
                    project_sinkhorn=model_cfg.method == "sinkhorn",
                    watch_norms=args.wandb_watch, hutchinson=hutchinson),
-        generator, mixup_fn, aug_fn)
+        generator, mixup_fn, aug_fn, dp)
     # equal-weight k-medoids draws its first medoids in eval too
     eval_gen = (torch.Generator(device=device)
                 if model_cfg.method == "kmedoids" and model_cfg.equal_weight
@@ -518,10 +603,13 @@ def run_training(args):
     def run_eval(params):
         if eval_gen is not None:
             eval_gen.manual_seed(args.seed)
-        return evaluate(eval_step, params, val_loader, device, multilabel)
+        if dp is not None:
+            params = dp.gather(params)  # the whole weights under FSDP
+        return evaluate(eval_step, params, val_loader, device, multilabel,
+                        dist_eval)
 
     state = init_train_state(model, optimizer, ema=args.model_ema,
-                             device=device)
+                             device=device, dp=dp)
 
     start_epoch = args.start_epoch
     if args.resume:
@@ -530,10 +618,11 @@ def run_training(args):
         start_epoch = meta["epoch"] + 1
 
     logger = JSONLLogger(
-        os.path.join(args.output_dir, "log.txt") if args.output_dir
-        else None, use_wandb=args.wandb,
+        os.path.join(args.output_dir, "log.txt")
+        if args.output_dir and is_main else None,
+        use_wandb=args.wandb and is_main,
         wandb_kwargs=dict(project=args.wandb_project, group=args.wandb_group))
-    if args.output_dir:
+    if args.output_dir and is_main:
         os.makedirs(args.output_dir, exist_ok=True)
 
     if args.eval:
@@ -558,7 +647,7 @@ def run_training(args):
         t_ep = time.time()
         n_img = 0
         prof = None
-        if args.profile_dir and epoch == start_epoch:
+        if args.profile_dir and epoch == start_epoch and is_main:
             prof = _start_profile(device)
         pending = []
         for i, batch in enumerate(meter.log_every(train_loader,
@@ -568,7 +657,7 @@ def run_training(args):
                  "label": labels_to_device(batch["label"], device)}
             state, metrics = train_step(state, b)
             total_step += 1
-            n_img += len(batch["image"])
+            n_img += len(batch["image"]) * world
             pending.append(metrics["loss"])
             if args.print_freq and i % args.print_freq == 0:
                 for loss in pending:  # the host reads the losses here
@@ -587,17 +676,24 @@ def run_training(args):
             ema_stats = run_eval(state.ema_params)
             if ema_stats["acc1"] > cur:
                 cur, cur_is_ema = ema_stats["acc1"], True
-        save = dict(params=state.params, ema_params=state.ema_params,
-                    opt_state=state.opt_state, epoch=epoch,
-                    step=total_step, model_cfg=model_cfg, run_args=run_args)
-        if cur > max_accuracy:
+        best = cur > max_accuracy
+        save = None
+        if args.output_dir and (best or args.save_more_than_best):
+            # every rank gathers, in one order; rank 0 writes
+            whole = (dict(params=state.params, ema_params=state.ema_params,
+                          opt_state=state.opt_state)
+                     if dp is None or world == 1
+                     else dp.full_state(state, optimizer))
+            save = dict(whole, epoch=epoch, step=total_step,
+                        model_cfg=model_cfg, run_args=run_args)
+        if best:
             max_accuracy = max(cur, 0.0)
             ema_best = cur_is_ema
-            if args.output_dir:
+            if save is not None and is_main:
                 ckptr.save(os.path.join(args.output_dir, "best_checkpoint"),
                            ema_best=ema_best, max_accuracy=max_accuracy,
                            **save)
-        if args.save_more_than_best and args.output_dir:
+        if args.save_more_than_best and save is not None and is_main:
             ckptr.save(os.path.join(args.output_dir, "checkpoint"),
                        ema_best=ema_best, max_accuracy=max_accuracy, **save)
         if args.sched == "plateau":

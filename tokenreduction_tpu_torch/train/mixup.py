@@ -12,6 +12,11 @@ JAX draws them from ``jax.random`` inside its step, so the draws differ
 from JAX's, but given the same draws ``mix`` makes JAX's images and soft
 targets. Images are NCHW here (JAX's NHWC): the box covers rows and
 columns of every channel.
+
+Over several ranks (``parallel/mesh.py::global_rows``) the parameters are
+drawn for the global batch, the same on every rank, each rank takes its
+rows of the per-element ones, and the flip's partner rows come from the
+partner rank (``mirror_rows``), as JAX mixes its global batch once.
 """
 
 from __future__ import annotations
@@ -22,6 +27,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tokenreduction_tpu_torch.parallel.mesh import (
+    global_count,
+    local_rows,
+    mirror_rows,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,29 +153,40 @@ def _paired(draw: MixupDraw) -> MixupDraw:
                      sym(draw.use_cutmix), sym(draw.lam_mix), sym(draw.box))
 
 
+def _local(draw: MixupDraw, rows) -> MixupDraw:
+    """This rank's rows of a per-element draw over the global batch."""
+    if rows is None:
+        return draw
+    return MixupDraw(draw.apply[rows], draw.use_cutmix[rows],
+                     draw.lam_mix[rows], draw.box[rows])
+
+
 def mix(images: torch.Tensor, labels: torch.Tensor, cfg: MixupConfig,
         draw: Optional[MixupDraw]):
     """(mixed images, soft targets [B, num_classes]) of NCHW ``images``
     and int ``labels`` [B] under ``draw``: each image mixed with its
     mirror (element B-1-i), the targets likewise with the smoothed one-hot
     labels; an element that is not applied keeps its image and its
-    smoothed one-hot target."""
+    smoothed one-hot target. Inside ``global_rows`` the draw is the
+    global batch's and the mirror the partner rank's rows."""
     y1h = one_hot_smooth(labels, cfg.num_classes, cfg.label_smoothing)
     if not cfg.enabled:
         return images, y1h
     if cfg.mode == "pair":
         draw = _paired(draw)
+    if cfg.mode != "batch":
+        draw = _local(draw, local_rows(images.shape[0]))
+    if cfg.mode == "batch" and not draw.apply[0]:
+        return images, y1h
     H, W = images.shape[-2:]
-    flipped = images.flip(0)
-    y2h = y1h.flip(0)
+    flipped, labels2 = mirror_rows(images, labels)
+    y2h = one_hot_smooth(labels2, cfg.num_classes, cfg.label_smoothing)
     area = (draw.box[:, 1] - draw.box[:, 0]) * (draw.box[:, 3] -
                                                 draw.box[:, 2])
     lam_cut = (np.float32(1.0) - area / np.float32(H * W)).astype(np.float32)
     lam = np.where(draw.use_cutmix, lam_cut, draw.lam_mix)
     lam = np.where(draw.apply, lam, np.float32(1.0)).astype(np.float32)
     if cfg.mode == "batch":
-        if not draw.apply[0]:
-            return images, y1h
         lam0 = float(lam[0])
         if draw.use_cutmix[0]:
             y1, y2, x1, x2 = (int(v) for v in draw.box[0])
@@ -207,7 +229,8 @@ def make_mixup_fn(cfg: MixupConfig, seed: int) -> Callable:
 
     def mixup_fn(images, labels):
         B, _, H, W = images.shape
-        return mix(images, labels, cfg, draw_mixup(rng, B, H, W, cfg))
+        return mix(images, labels, cfg,
+                   draw_mixup(rng, global_count(B), H, W, cfg))
 
     return mixup_fn
 

@@ -45,6 +45,15 @@ place on the fp32 masters and the state, which is {part: {name: tensor}}
 back), and never synchronises with the host: the learning rates, bias
 corrections and lookahead's sync are host values of the step count, the
 clip factor and AdamP's data-dependent projection stay on the device.
+
+Under FSDP (``parallel/mesh.py``) each rank updates its shards: the
+update takes ``shards`` ({name: LeafShard} of the leaves split over the
+ranks), and every reduction over a whole tensor sums its partial sums
+over the ranks explicitly (``complete_sums``, ``LeafShard.sum_``): the
+global norm, NovoGrad's layer norms, AdamP's and SGDP's channel and layer
+projections, Adafactor's factored moments and RMS, the Sinkhorn
+projection. A leaf held whole takes the single-device arithmetic as it
+is, so a world of one is bit-equal to it.
 """
 
 from __future__ import annotations
@@ -54,6 +63,8 @@ from typing import Callable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+
+from tokenreduction_tpu_torch.parallel.mesh import complete_sums
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,11 +129,17 @@ def group_lr_fn(base_schedule: Callable[[int], float], scale: float,
     return lr
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, shards: Optional[list] = None) -> torch.Tensor:
     """sqrt(sum of squares) over every element of every tensor, on the
-    device."""
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(list(tensors))))
+    device. ``shards``: each tensor's LeafShard when it is a shard of a
+    split leaf (None when whole); the shards' norms are completed over the
+    ranks (sqrt of the summed squares) before the global one."""
+    norms = torch._foreach_norm(list(tensors))
+    if shards is not None and any(s is not None for s in shards):
+        sq = complete_sums([n * n for n in norms], shards)
+        norms = [torch.sqrt(q) if sh is not None else n
+                 for n, q, sh in zip(norms, sq, shards)]
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def flax_axes(name: str, ndim: int) -> tuple:
@@ -152,8 +169,10 @@ class Leaves:
     """What a rule sees of one group: the names, params, grads, state
     lists and each leaf's Flax axes."""
 
-    def __init__(self, names, params, grads, state, axes):
+    def __init__(self, names, params, grads, state, axes, shards=None):
         self.names = names
+        shards = shards or {}
+        self.shards = [shards.get(n) for n in names]
         self.p = [params[n] for n in names]
         self.g = grads
         self.state = {part: [d[n] for n in names]
@@ -350,7 +369,8 @@ class NovoGrad:
 
     def update(self, lv, t, lr, wd):
         mu, nu = lv.state["mu"], lv.state["nu"]
-        sq = [n * n for n in torch._foreach_norm(lv.g)]
+        sq = complete_sums([n * n for n in torch._foreach_norm(lv.g)],
+                           lv.shards)
         if t == 1:
             for n, s in zip(nu, sq):
                 n.copy_(s)
@@ -388,13 +408,16 @@ class Adafactor:
     1 - (t)^-0.8, eps 1e-30, factored over the two largest Flax axes of
     at least 128, else a full one), the update clipped to block RMS 1,
     times the learning rate, times the param's RMS (at least 1e-3),
-    negated. JAX's chain passes no weight decay."""
+    negated. JAX's chain passes no weight decay. Under FSDP the factoring
+    follows the full shape; a factored moment keeps the shard's block
+    along the split dim unless it averages over that dim, and then it is
+    whole on every rank (``state_dims``)."""
     parts = ("v_row", "v_col", "v")
     decay_rate, eps = 0.8, 1e-30
 
-    def init(self, p, axes):
+    def init(self, p, axes, full=None):
         one = torch.zeros(1, dtype=p.dtype, device=p.device)
-        dims = _factored_dims(p.shape, axes)
+        dims = _factored_dims(full or p.shape, axes)
         if dims is None:
             return {"v_row": one, "v_col": one.clone(),
                     "v": torch.zeros_like(p)}
@@ -407,27 +430,57 @@ class Adafactor:
         rho = _f32(1.0 - np.float32(t) ** np.float32(-self.decay_rate))
         out = []
         for i, (p, g) in enumerate(zip(lv.p, lv.g)):
+            sh = lv.shards[i]
+            split = None if sh is None else sh.dim
+
+            def mean(x, d, keepdim=False, split_at=split):
+                # the mean over torch dim d of the full tensor
+                if d != split_at:
+                    return x.mean(d, keepdim=keepdim)
+                return sh.sum_(x.sum(d, keepdim=keepdim)) / sh.full[split]
+
+            def mean_all(x):
+                if sh is None:
+                    return x.mean()
+                return sh.sum_(x.sum()) / sh.numel
+
             sq = g * g + self.eps
-            dims = _factored_dims(p.shape, lv.axes[i])
+            dims = _factored_dims(p.shape if sh is None else sh.full,
+                                  lv.axes[i])
             if dims is not None:
                 d1, d0 = dims
                 vr, vc = lv.state["v_row"][i], lv.state["v_col"][i]
-                vr.mul_(rho).add_(sq.mean(d0), alpha=1.0 - rho)
-                vc.mul_(rho).add_(sq.mean(d1), alpha=1.0 - rho)
+                vr.mul_(rho).add_(mean(sq, d0), alpha=1.0 - rho)
+                vc.mul_(rho).add_(mean(sq, d1), alpha=1.0 - rho)
                 r1 = d1 - 1 if d1 > d0 else d1
-                row = (vr / vr.mean(r1, keepdim=True)) ** -0.5
+                row = (vr / mean(vr, r1, True, r1 if split == d1 else None)
+                       ) ** -0.5
                 u = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
             else:
                 v = lv.state["v"][i]
                 v.mul_(rho).add_(sq, alpha=1.0 - rho)
                 u = g * v ** -0.5
-            u = u / torch.clamp(torch.sqrt((u * u).mean()), min=1.0)
+            u = u / torch.clamp(torch.sqrt(mean_all(u * u)), min=1.0)
             u = u * lr
-            rms = torch.sqrt((p * p).mean())
+            rms = torch.sqrt(mean_all(p * p))
             small = rms <= 1e-3
             scale = torch.where(small, torch.full_like(rms, 1e-3), rms)
             out.append(-(u * scale))
         return out
+
+    def state_dims(self, full, axes, split: int) -> dict:
+        """The split dim of each state part of a leaf split along
+        ``split`` (None: whole on every rank)."""
+        dims = _factored_dims(full, axes)
+        if dims is None:
+            return {"v_row": None, "v_col": None, "v": split}
+        d1, d0 = dims
+
+        def after_select(d):
+            return None if split == d else split - (split > d)
+
+        return {"v_row": after_select(d0), "v_col": after_select(d1),
+                "v": None}
 
 
 def _rows(x, axis: int):
@@ -442,14 +495,18 @@ def _project(view_p, view_u):
 
 
 def project_perturb(p, g, perturb, axes, delta: float = 0.1,
-                    wd_ratio: float = 0.01):
+                    wd_ratio: float = 0.01, shard=None):
     """AdamP's tangent-space projection (JAX ``_project_perturb``): where
     the gradient is near orthogonal to the weight, by channel (Flax's last
     axis) or by the whole tensor, the update's radial part is removed and
     the weight decay scaled by wd_ratio. Returns (perturb, decay factor),
-    the branch taken on the device."""
+    the branch taken on the device. ``shard``: the LeafShard when p, g
+    and perturb are blocks of a split leaf (``_project_perturb_split``)."""
     if p.dim() <= 1:
         return perturb, 1.0
+    if shard is not None:
+        return _project_perturb_split(p, g, perturb, axes, delta, wd_ratio,
+                                      shard)
     ch = axes[-1]
     pv, gv, uv = _rows(p, ch), _rows(g, ch), _rows(perturb, ch)
     cos_ch = ((pv * gv).sum(1) / (
@@ -464,6 +521,52 @@ def project_perturb(p, g, perturb, axes, delta: float = 0.1,
         torch.linalg.vector_norm(pl) * torch.linalg.vector_norm(gl) + 1e-8)
     ly_proj = _project(pl, perturb.reshape(1, -1)).reshape(p.shape)
     ly_hit = cos_ly < delta / np.sqrt(np.float32(p.numel()))
+    out = torch.where(ch_hit, ch_proj, torch.where(ly_hit, ly_proj, perturb))
+    wd = torch.where(ch_hit | ly_hit, wd_ratio, 1.0).to(p.dtype)
+    return out, wd
+
+
+def _project_perturb_split(p, g, perturb, axes, delta, wd_ratio, shard):
+    """``project_perturb`` on this rank's blocks of a split leaf: the
+    channel rows' sums are completed over the ranks when the split dim is
+    not the channel's (else the rows are whole here and only the largest
+    cosine is), the layer's sums always; two all-reduces of the sums and,
+    split along the channels, one of the largest cosine."""
+    ch = axes[-1]
+    pv, gv, uv = _rows(p, ch), _rows(g, ch), _rows(perturb, ch)
+    rows_split = shard.dim != ch
+    first = torch.cat([
+        torch.stack([(pv * gv).sum(1), (pv * pv).sum(1), (gv * gv).sum(1)])
+        .reshape(-1) if rows_split else pv.new_zeros(0),
+        torch.stack([(p * g).sum(), (p * p).sum(), (g * g).sum()])])
+    shard.sum_(first)
+    if rows_split:
+        dot_c, pp_c, gg_c = first[:-3].view(3, -1)
+    else:
+        dot_c, pp_c, gg_c = (pv * gv).sum(1), (pv * pv).sum(1), \
+            (gv * gv).sum(1)
+    dot_l, pp_l, gg_l = first[-3:]
+    cos_ch = (dot_c / (torch.sqrt(pp_c) * torch.sqrt(gg_c) + 1e-8)).abs() \
+        .max()
+    if not rows_split:
+        cos_ch = shard.max_(cos_ch)
+    pn_c = pv / (torch.sqrt(pp_c)[:, None] + 1e-8)
+    pl = p.reshape(-1)
+    pn_l = pl / (torch.sqrt(pp_l) + 1e-8)
+    second = torch.cat([(pn_c * uv).sum(1), (pn_l * perturb.reshape(-1))
+                        .sum()[None]])
+    if rows_split:
+        shard.sum_(second)
+    else:
+        second[-1:] = shard.sum_(second[-1:].clone())
+    ch_proj = (uv - pn_c * second[:-1, None]).reshape(
+        (p.shape[ch],) + tuple(s for i, s in enumerate(p.shape) if i != ch)
+    ).movedim(0, ch)
+    rest = shard.numel // shard.full[ch]
+    ch_hit = cos_ch < delta / np.sqrt(np.float32(rest))
+    cos_ly = dot_l.abs() / (torch.sqrt(pp_l) * torch.sqrt(gg_l) + 1e-8)
+    ly_proj = (perturb.reshape(-1) - pn_l * second[-1]).reshape(p.shape)
+    ly_hit = cos_ly < delta / np.sqrt(np.float32(shard.numel))
     out = torch.where(ch_hit, ch_proj, torch.where(ly_hit, ly_proj, perturb))
     wd = torch.where(ch_hit | ly_hit, wd_ratio, 1.0).to(p.dtype)
     return out, wd
@@ -492,7 +595,8 @@ class AdamP:
             g = lv.g[i]
             den = torch.sqrt(nu[i] / bc2) + self.eps
             perturb = (b1 * mu[i] + (1 - b1) * g) / den
-            perturb, wdr = project_perturb(p, g, perturb, lv.axes[i])
+            perturb, wdr = project_perturb(p, g, perturb, lv.axes[i],
+                                           shard=lv.shards[i])
             upd = -(lr / bc1) * perturb
             if wd:
                 upd = upd - lr * wd * wdr * p
@@ -518,7 +622,8 @@ class SgdP:
         out = []
         for i, p in enumerate(lv.p):
             g = lv.g[i]
-            d_p, wdr = project_perturb(p, g, g + m * buf[i], lv.axes[i])
+            d_p, wdr = project_perturb(p, g, g + m * buf[i], lv.axes[i],
+                                       shard=lv.shards[i])
             upd = -lr * d_p
             if wd:
                 upd = upd - lr * wd * wdr * p / (1.0 - m)
@@ -611,25 +716,53 @@ class GroupedOptimizer:
     def needs_diag(self) -> bool:
         return getattr(self.rule, "needs_diag", False)
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
+    def init(self, params: Mapping[str, torch.Tensor],
+             shards: Optional[dict] = None) -> dict:
+        """The state of ``params``; under FSDP of this rank's blocks, with
+        ``shards`` ({name: LeafShard}) giving the split leaves' full
+        shapes."""
         live = [n for n in params if self.labels[n] != "frozen"]
         state = {part: {} for part in self.rule.parts}
+        shards = shards or {}
         for n in live:
+            kw = {}
+            if isinstance(self.rule, Adafactor) and n in shards:
+                kw["full"] = shards[n].full
             for part, t in self.rule.init(params[n].detach(),
-                                          self.axes[n]).items():
+                                          self.axes[n], **kw).items():
                 state[part][n] = t
         if self.lookahead:
             state["slow"] = {n: params[n].detach().clone() for n in live}
         return state
 
+    def state_dims(self, name: str, full, split: Optional[int]) -> dict:
+        """{part: the dim along which the state of ``name``, a leaf of
+        ``full`` shape split along ``split``, is split (None: whole)}."""
+        if split is None:
+            return dict.fromkeys(self.state_parts())
+        if isinstance(self.rule, Adafactor):
+            dims = self.rule.state_dims(full, self.axes[name], split)
+        else:  # every other part has the param's shape or is a scalar
+            dims = {part: split for part in self.rule.parts}
+            if isinstance(self.rule, NovoGrad):
+                dims["nu"] = None
+        if self.lookahead:
+            dims["slow"] = split
+        return dims
+
+    def state_parts(self):
+        return self.rule.parts + (("slow",) if self.lookahead else ())
+
     @torch.no_grad()
     def update(self, params, grads, state, count: int,
                grad_norm: Optional[torch.Tensor] = None,
-               hessian_diag: Optional[dict] = None):
+               hessian_diag: Optional[dict] = None,
+               shards: Optional[dict] = None):
         """Apply update number ``count`` (0 for the first) in place on
         params and state. grad_norm: the global norm of grads, if the
         caller has it; hessian_diag: {name: z * (H z)} (AdaHessian only,
-        not clipped)."""
+        not clipped); shards: {name: LeafShard} of the split leaves whose
+        blocks params, grads and state hold (FSDP)."""
         if self.needs_diag and hessian_diag is None:
             raise ValueError(
                 "adahessian needs the Hutchinson diagonal: call "
@@ -639,7 +772,8 @@ class GroupedOptimizer:
         g = [grads[n] for n in names]
         if self.clip_grad is not None:
             if grad_norm is None:
-                grad_norm = global_norm(grads.values())
+                grad_norm = global_norm(
+                    grads.values(), [(shards or {}).get(n) for n in grads])
             factor = torch.where(grad_norm < self.clip_grad,
                                  torch.ones_like(grad_norm),
                                  self.clip_grad / grad_norm)
@@ -652,7 +786,8 @@ class GroupedOptimizer:
             idx = [n for n in names if self.labels[n] == group]
             if not idx:
                 continue
-            lv = Leaves(idx, params, [g[n] for n in idx], parts, self.axes)
+            lv = Leaves(idx, params, [g[n] for n in idx], parts, self.axes,
+                        shards)
             lr = self.lr_fns[group](count) * self.lr_scale
             wd = self.weight_decay[group]
             if self.needs_diag:
@@ -702,14 +837,22 @@ def create_optimizer(params: Mapping[str, torch.Tensor], cfg: OptimConfig,
 
 
 @torch.no_grad()
-def project_params(params: Mapping[str, torch.Tensor]):
+def project_params(params: Mapping[str, torch.Tensor],
+                   shards: Optional[dict] = None):
     """The projection the reference makes inside its forward
     (models/sinkhorn.py:73-76), after the update and in place (JAX
     train/optim.py:391-402): every Sinkhorn cluster vector
-    ``cluster_layers.{k}.v`` renormalised onto the unit sphere."""
+    ``cluster_layers.{k}.v`` renormalised onto the unit sphere. A block
+    split along the vectors' last dim (FSDP) sums its squares over the
+    ranks."""
+    shards = shards or {}
     for name, p in params.items():
         if name.split(".")[-1] == "v" and "cluster_layers" in name:
-            p.div_(torch.linalg.vector_norm(p, dim=-1, keepdim=True))
+            sh = shards.get(name)
+            if sh is not None and sh.dim == p.dim() - 1:
+                p.div_(torch.sqrt(sh.sum_((p * p).sum(-1, keepdim=True))))
+            else:
+                p.div_(torch.linalg.vector_norm(p, dim=-1, keepdim=True))
 
 
 @torch.no_grad()

@@ -32,10 +32,22 @@ of ``model.named_parameters()``. JAX's arrays are immutable; here the
 step updates the masters, the optimizer moments and the EMA in place,
 which saves one copy of each, and returns the state with its step
 counted up.
+
+Over several ranks (``dp=``, ``parallel/mesh.py::DataParallel``) each rank
+steps on its rows of the global batch: its augmentation, mixup and
+forwards draw over the global batch (``global_rows``; mixup's partners
+from the partner rank), the full weights are gathered before the
+microbatches under FSDP, and after them the gradients are averaged over
+the ranks (all-reduce, or reduce-scatter to this rank's blocks), ahead
+of ``global_norm``: clipping and every optimizer see the global gradient,
+the update runs on this rank's blocks, and the loss metric is averaged
+too. The result is the single-process step on the global batch in the
+order of ``parallel/mesh.py::global_order``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -43,6 +55,7 @@ import torch
 from torch.func import functional_call
 
 from tokenreduction_tpu_torch.core.device import resolve_device
+from tokenreduction_tpu_torch.parallel.mesh import DataParallel
 from tokenreduction_tpu_torch.train.optim import (
     ema_update,
     global_norm,
@@ -78,16 +91,24 @@ class TrainState:
 
 
 def init_train_state(model: torch.nn.Module, optimizer, *, ema: bool = False,
-                     device=None) -> TrainState:
+                     device=None, dp: Optional[DataParallel] = None
+                     ) -> TrainState:
     """fp32 masters copied from the model's parameters onto ``device``
     (the card unless the caller passes ``device="cpu"``), the optimizer's
-    moments and, with ``ema``, a copy of the masters."""
+    moments and, with ``ema``, a copy of the masters. With ``dp``, rank
+    0's masters on every rank, and under FSDP this rank's blocks of the
+    masters, moments and EMA."""
     device = resolve_device(device)
     params = {n: p.detach().to(device=device, dtype=torch.float32).clone()
-              .requires_grad_(True) for n, p in model.named_parameters()}
+              for n, p in model.named_parameters()}
+    if dp is not None:
+        params = dp.place(params)
+    params = {n: p.requires_grad_(True) for n, p in params.items()}
     ema_params = ({n: p.detach().clone() for n, p in params.items()}
                   if ema else None)
-    return TrainState(0, params, optimizer.init(params), ema_params)
+    opt_state = (optimizer.init(params) if dp is None else
+                 optimizer.init(params, dp.shards()))
+    return TrainState(0, params, opt_state, ema_params)
 
 
 def loss_and_grads(model: torch.nn.Module, loss_fn: Callable, params: dict,
@@ -118,16 +139,21 @@ def module_of(name: str) -> str:
 
 
 @torch.no_grad()
-def watch_metrics(params: dict, grads: dict) -> dict:
+def watch_metrics(params: dict, grads: dict,
+                  shards: Optional[dict] = None) -> dict:
     """{"param_norm/<module>", "grad_norm/<module>"}: the L2 norms of each
-    top-level module's params and gradients, device scalars."""
+    top-level module's params and gradients, device scalars; ``shards``
+    (FSDP): the split leaves, whose norms are completed over the ranks."""
     groups = {}
     for n in params:
         groups.setdefault(module_of(n), []).append(n)
     out = {}
+    shards = shards or {}
     for key, names in groups.items():
-        out[f"param_norm/{key}"] = global_norm(params[n] for n in names)
-        out[f"grad_norm/{key}"] = global_norm(grads[n] for n in names)
+        sh = [shards.get(n) for n in names]
+        out[f"param_norm/{key}"] = global_norm([params[n] for n in names],
+                                               sh)
+        out[f"grad_norm/{key}"] = global_norm([grads[n] for n in names], sh)
     return out
 
 
@@ -179,7 +205,8 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
                     cfg: StepConfig,
                     generator: Optional[torch.Generator] = None,
                     mixup_fn: Optional[Callable] = None,
-                    aug_fn: Optional[Callable] = None):
+                    aug_fn: Optional[Callable] = None,
+                    dp: Optional[DataParallel] = None):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     loss_fn(output, targets, images, params) -> scalar loss; output is
@@ -197,6 +224,9 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
     Batch: dict(image=[A*M, C, H, W], label=[A*M, ...]) where A =
     grad_accum_steps (with aug_fn, image is the uint8 [A*M, S, S, 3]);
     microbatches are the leading-axis splits.
+    dp: the data axis over several ranks (see the module docstring); the
+      batch is this rank's rows and the state ``init_train_state(...,
+      dp=dp)``'s.
     Metrics: {"loss", "grad_norm"} as device scalars, with
     ``watch_norms`` also "param_norm/<module>" and "grad_norm/<module>"."""
     accum = cfg.grad_accum_steps
@@ -206,48 +236,68 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
                              "torch.Generator: pass generator=")
         pin_plain_composition(model)
 
+    def over_rows(groups: int):
+        return dp.rows(groups) if dp is not None else contextlib.nullcontext()
+
     def train_step(state: TrainState, batch):
         model.train(cfg.train_mode)
         images, labels = batch["image"], batch["label"]
-        if aug_fn is not None:
-            images = aug_fn(images, generator)
-        if mixup_fn is not None:
-            images, labels = mixup_fn(images, labels)
+        with over_rows(accum):
+            if aug_fn is not None:
+                images = aug_fn(images, generator)
+            if mixup_fn is not None:
+                images, labels = mixup_fn(images, labels)
         micro = images.shape[0] // accum
+        params = state.params if dp is None else \
+            dp.gather(state.params, grad=True)
         grads, loss_sum, hdiag = None, None, None
         for i in range(accum):
             rows = slice(i * micro, (i + 1) * micro)
             if cfg.hutchinson:
-                z = rademacher_like(state.params, generator)
-                loss, g, h = hutchinson_grads_and_diag(
-                    model, loss_fn, state.params, images[rows],
-                    labels[rows], cfg, z, generator)
+                z = rademacher_like(params, generator)
+                with over_rows(1):
+                    loss, g, h = hutchinson_grads_and_diag(
+                        model, loss_fn, params, images[rows],
+                        labels[rows], cfg, z, generator)
                 hdiag = h if hdiag is None else \
                     {n: hdiag[n] + h[n] for n in h}
             else:
-                loss, g = loss_and_grads(model, loss_fn, state.params,
-                                         images[rows], labels[rows], cfg,
-                                         generator)
+                with over_rows(1):
+                    loss, g = loss_and_grads(model, loss_fn, params,
+                                             images[rows], labels[rows],
+                                             cfg, generator)
             if grads is None:
                 grads, loss_sum = g, loss
             else:
                 for n in grads:
                     grads[n] = grads[n] + g[n]
                 loss_sum = loss_sum + loss
+        del params
         grads = {n: g / accum for n, g in grads.items()}
-        grad_norm = global_norm(grads.values())
-        extra = ({"hessian_diag": {n: h / accum for n, h in hdiag.items()}}
-                 if cfg.hutchinson else {})
+        if cfg.hutchinson:
+            hdiag = {n: h / accum for n, h in hdiag.items()}
+        shards = None
+        if dp is not None:
+            grads = dp.reduce_grads(grads)
+            if cfg.hutchinson:
+                hdiag = dp.reduce_grads(hdiag)
+            shards = dp.shards()
+        grad_norm = global_norm(grads.values(),
+                                [shards.get(n) for n in grads]
+                                if shards else None)
+        extra = {"hessian_diag": hdiag} if cfg.hutchinson else {}
         optimizer.update(state.params, grads, state.opt_state, state.step,
-                         grad_norm, **extra)
+                         grad_norm, shards=shards, **extra)
         if cfg.project_sinkhorn:
-            project_params(state.params)
+            project_params(state.params, shards)
         if cfg.ema_decay > 0 and state.ema_params is not None:
             ema_update(state.ema_params, state.params, cfg.ema_decay)
         state = dataclasses.replace(state, step=state.step + 1)
-        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm}
+        loss = loss_sum / accum
+        metrics = {"loss": loss if dp is None else dp.mean(loss),
+                   "grad_norm": grad_norm}
         if cfg.watch_norms:
-            metrics.update(watch_metrics(state.params, grads))
+            metrics.update(watch_metrics(state.params, grads, shards))
         return state, metrics
 
     return train_step

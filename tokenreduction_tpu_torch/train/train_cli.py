@@ -7,17 +7,22 @@ method-specific flags on ``--model`` (reference train.py:203-236). The run
 is ``train/loop.py::run_training``, on the card unless ``--device cpu``
 (or ``--platform cpu``) is given; without a card and without either it
 raises. ``--device`` is the port's device flag, as in the port's
-``validate``. What the port does not have yet raises when the flags are
-parsed, naming its ``ROADMAP.md`` item: ``--fsdp`` (Queue 1 item 5);
-``--model-ema-force-cpu`` raises as in JAX, and so do ``--pretrained``
-and an ``http`` ``--teacher-path``, which would download weights (pass a
-local .pth). The reference's CUDA/DataLoader plumbing flags parse, each
-with a notice that it has no effect.
+``validate``. Several processes train together (``parallel/mesh.py``)
+when torchrun starts them, or with the reference's ``--world_size`` and
+``--dist_url`` and each process's ``RANK`` (and ``LOCAL_RANK``) in its
+environment: data parallel, or FSDP with ``--fsdp``; NCCL with a card a
+process, gloo with ``--device cpu``. ``--model-ema-force-cpu`` raises as
+in JAX, and so do ``--pretrained`` and an ``http`` ``--teacher-path``,
+which would download weights (pass a local .pth). The reference's
+DataLoader plumbing flags parse, each with a notice that it has no
+effect.
 
 Usage:
   python -m tokenreduction_tpu_torch.train.train_cli \\
       --model topk_small_patch16_224 --dataset imagenet --data /path \\
       --reduction_loc 3 6 9 --keep_rate 0.7 --epochs 30 ...
+  torchrun --nproc_per_node 4 -m tokenreduction_tpu_torch.train.train_cli \\
+      --fsdp ...
 """
 
 from __future__ import annotations
@@ -191,8 +196,8 @@ def get_args_parser():
                         help="JAX fuses this many steps into one call; the "
                         "port prints a NOTE and runs them one by one")
     parser.add_argument("--fsdp", action="store_true",
-                        help="not ported yet (ROADMAP.md Queue 1 item 5); "
-                        "raises")
+                        help="hold the masters, moments and EMA as shards "
+                        "over the processes (parallel/mesh.py)")
     parser.add_argument("--device_aug", action="store_true",
                         help="augment on the card: the host copies uint8 "
                         "squares (data/device_aug.py)")
@@ -260,29 +265,20 @@ def parse_args(argv=None):
 
 
 def check_ported(args):
-    """Raise on a flag whose feature the port does not have yet, naming
-    its ROADMAP.md item; nothing is ignored silently."""
-    if args.fsdp:
-        raise NotImplementedError(
-            "--fsdp is not ported yet (ROADMAP.md Queue 1 item 5, "
-            "parallelism)")
+    """Raise on a flag that would download weights; nothing is ignored
+    silently."""
     if args.pretrained and not args.finetune:
         refuse_download("--pretrained", "--finetune")
     if args.teacher_path.startswith("http"):
         refuse_download("an http --teacher-path", "--teacher-path")
 
 
-# Reference train.py flags with no meaning here (torch.distributed and
-# DataLoader plumbing) or dead in the reference itself. Accepted so
-# verbatim reference commands parse, but never silently: using one prints
-# a notice. --device is the port's device flag (get_args_parser).
+# Reference train.py flags with no meaning here (DataLoader plumbing) or
+# dead in the reference itself. Accepted so verbatim reference commands
+# parse, but never silently: using one prints a notice. --device is the
+# port's device flag (get_args_parser); --world_size and --dist_url are
+# the reference's torch.distributed flags (parallel/mesh.py).
 _COMPAT_NOTICE = {
-    "world_size": ("--world_size",
-                   "the port trains on one device (ROADMAP.md Queue 1 "
-                   "item 5 brings torch.distributed)"),
-    "dist_url": ("--dist_url",
-                 "the port trains on one device (ROADMAP.md Queue 1 "
-                 "item 5 brings torch.distributed)"),
     "pin_mem": ("--pin-mem", "the Loader has no DataLoader pin_memory knob"),
     "inat_category": ("--inat-category",
                       "parsed but never read by the reference (dead flag)"),
@@ -296,9 +292,12 @@ def add_reference_compat_args(parser):
                         help="the device the run uses (default: the card; "
                              "cpu for the CPU)")
     parser.add_argument("--world_size", default=None, type=int,
-                        help="no-op (reference compat; warns if set)")
+                        help="processes in the run (the WORLD_SIZE "
+                        "environment variable wins, as in the reference)")
     parser.add_argument("--dist_url", default=None,
-                        help="no-op (reference compat; warns if set)")
+                        help="the process group's rendezvous, e.g. "
+                        "tcp://host:port (default env://: MASTER_ADDR and "
+                        "MASTER_PORT)")
     parser.add_argument("--pin-mem", action="store_true", default=None,
                         dest="pin_mem",
                         help="no-op (reference compat; warns if set)")

@@ -21,7 +21,11 @@ A checkpoint is a directory of two files:
 
 ``AsyncCheckpointer`` (JAX ``utils/checkpoint.py:77-137``) writes them
 without stalling the train loop, and ``restore_train_state`` puts a
-checkpoint back into a live train state (``--resume``).
+checkpoint back into a live train state (``--resume``). Over several
+processes the loop gathers the whole state on every rank's main thread,
+in one order, and rank 0 alone saves it (``train/loop.py``); the file is
+the single-device checkpoint, and a live FSDP shard takes its block of
+it on restore.
 
 The JAX package's checkpoints are Orbax directories (``tree/``), which
 need JAX to read; this module does not read them. A JAX checkpoint's
@@ -154,6 +158,20 @@ class AsyncCheckpointer:
             raise err
 
 
+def _block_of(live: torch.Tensor, saved: torch.Tensor) -> torch.Tensor:
+    """The block of a whole saved tensor that a live shard holds (FSDP):
+    split along the one dim where their shapes differ, this rank's block
+    of it; the saved tensor itself when the shapes agree."""
+    if live.shape == saved.shape:
+        return saved
+    import torch.distributed as dist
+
+    (dim,) = [d for d, (a, b) in enumerate(zip(live.shape, saved.shape))
+              if a != b]
+    world = saved.shape[dim] // live.shape[dim]
+    return saved.chunk(world, dim)[dist.get_rank() if world > 1 else 0]
+
+
 def restore_train_state(state, tree: dict, meta: dict):
     """``state`` (a ``train/step.py`` TrainState) with a checkpoint's
     params, EMA params and optimizer moments copied into its tensors in
@@ -161,11 +179,13 @@ def restore_train_state(state, tree: dict, meta: dict):
     checkpoint's optimizer state does not match the live one (another
     optimizer, other names), it restores the params and the EMA only and
     keeps the fresh moments, as JAX's resume does (train/loop.py:634-642
-    there)."""
+    there). The checkpoint holds whole tensors whatever world wrote it; a
+    live FSDP shard takes its rank's block of its tensor (JAX's resume
+    into another layout, train/loop.py:640-651 there)."""
     def copy_into(live, saved):
         with torch.no_grad():
             for name, t in live.items():
-                t.copy_(saved[name])
+                t.copy_(_block_of(t, saved[name]))
 
     copy_into(state.params, tree["params"])
     if state.ema_params is not None:
