@@ -214,10 +214,10 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    Then, fp32 B=8, each reducing model in viz mode on the card against the
    same on the CPU: no kernel may launch (the viz pin), and the logits and
    the artifacts' ids equal in place are reported; and dense DeiT-S on a
-   272-pixel input (N = 290, wider than the attention kernels): the
-   attention halves run the plain composition, the MLP halves their kernel
-   (12 fused_mlp_residual launches, nothing else), and the logits are held
-   like dense's.
+   272-pixel input (N = 290, wider than the fused full block and the
+   single-pass attention): 12 fused_block_attention launches on the wide
+   fp32 attention (12 attention_wide_tf32) and 12 fused_mlp_residual,
+   nothing else, and the logits held like dense's.
    Training, drop_path 0: the loss and every gradient of dense, topk@0.7,
    ToMe@0.7 and heuristic on the card against the CPU, fp32 at B=8 (1e-4
    of each leaf's max|CPU|, the same kept ids and merges) and bf16 amp at
@@ -327,8 +327,8 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    1e-4 of max|CPU|, and the same forward under torch.no_grad() takes the
    kernels (phase 4's count). Then the JAX CLI's default recipe (mixup
    0.8, cutmix 1.0, label smoothing 0.1, drop-path 0.1, EMA, the grouped
-   AdamW and the cosine schedule), in amp and in fp32: b256 over 1024
-   images (RASampler: 4 steps an epoch), Loader worker processes as the
+   AdamW and the cosine schedule), in amp and in fp32: b256 over 512
+   images (RASampler: 2 steps an epoch), Loader worker processes as the
    cores allow, two epochs, then --resume from the checkpoint dir for a
    third, each run a path of its own (counts set to 0 just before, read
    just after): finite losses; attend_branch_train and mlp_branch
@@ -351,7 +351,7 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
 8. the rest of the train CLI's flags, at DeiT-S's full width. (a) The
    train CLI with --device_aug (data/device_aug.py: the Loader copies
    uint8 squares of 256 px, the step crops, flips, RandAugments,
-   normalises and erases them on the card): topk@0.7, b256 over 1024
+   normalises and erases them on the card): topk@0.7, b256 over 512
    synthetic images, amp and fp32, two epochs each with the eval in the
    loop, each run a path of its own with phase 7's launch checks; each
    prints its img/s an epoch beside phase 7's host path in the same call
@@ -456,8 +456,40 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    within AdamW's update range and all but 1% within 1e-3 of its leaf's
    max). Each run's counts set to 0 just before and read just after, the
    training kernels' per step as phase 5 counts them.
+12. wide: the attention above 256 tokens (csrc/attention_wide_sm90.cu,
+   bf16; csrc/attention_wide_tf32.cu, fp32), also callable alone
+   (``python3 -c 'import chip_smoke; chip_smoke.phase_wide()'``, which
+   builds the kernels and prints their ptxas lines and shared memory
+   first; phase 1 prints their shared memory at N = 290, 577 and 1025).
+   Each wide launch alone against its plain version (computed in chunks
+   of 16 images) at N = 257, 290, 577 and 1025, 6 heads (DeiT-S) and at
+   577 and 1025 with 12 (DeiT-B): bf16 B=256, fp32 B=32; the eval
+   forward with row0 and colsum, with ToMe's bias, with a mask that has
+   fully masked rows, the normalised-P forward with its statistics, the
+   backward of the branch (row0 cotangent), of ToMe's core (bias, both
+   cotangents, dbias) and of a masked core; the rectangular variant at
+   M x N = 405 x 577, 300 x 577, 13 x 290 (and 405 x 577 at 12 heads),
+   its padded slots equal to CLS and its dead slot uniform. Each output
+   within 1e-2 (bf16) or 1e-4 (fp32) of its own max, a second launch
+   bit-equal, its ms per launch (CUDA events) beside its bound, SDPA's
+   ms (the output alone) and at B=256, N=577, 6 heads the plain
+   version's. Then #2 with the bias and keys and with the idx prologue
+   577 -> 404 and #8 at 405 x 577 as whole blocks (2e-2 bf16 B=256,
+   1e-4 fp32 B=32). Then the 384-px path (N = 577): bf16 b256 eval of
+   dense, topk@0.7 (577 -> 404 -> 283 -> 198, crossing to the
+   single-pass kernels), ToMe@0.7, ATS@0.7, heuristic, EViT@0.7 and
+   DyViT@0.7 with their launches and no plain attention, img/s beside the
+   attention halves as eager library calls (dense, topk@0.7) and the
+   plain attention above 256 (PR 22's gate, dense); fp32 eval of dense,
+   topk@0.7 and ATS@0.7 at B=4 against the CPU (logits 1e-4, decisions
+   under phase 3's rule); the amp topk@0.7 step at b256 (ms/step, peak
+   memory, launches) beside PR 22's gate, and one step's loss and
+   gradients of dense and topk@0.7 at B=2 against the CPU's fp32;
+   ``validate --input-size 384`` (fp32 and amp) over 128 synthetic images
+   from a seeded 384-px DeiT-S checkpoint. Each path's counts set to 0
+   just before and read just after; every wide kernel must launch there.
 
-Phases 4, 5, 6, 7, 8 and 11 are the main path's runs: each counterpart's
+Phases 4, 5, 6, 7, 8, 11 and 12 are the main path's runs: each counterpart's
 launch count, and those of the bf16 GEMM's two launchers (gemm,
 gemm_wgrad), of the fp32 tensor-core GEMM and attention (gemm_tf32,
 attention_tf32: the DyViT teacher's 4 and 1 a block in phase 5, none
@@ -469,9 +501,9 @@ the sm_90a attention's three (short_attention, short_attention_bwd,
 rect_attention: once in each of ATS's sampling blocks), of the LayerNorm
 backward and of the partial sums (once each in each training branch's
 backward), of head_mean_keys (once in each of ToMe@0.7's three merging
-blocks) and of layer_norm, is set to 0 just before and read just after
-(phase 6's, 7's, 8's and 11's launches add to phases 4 and 5's in the
-kernels' record). fused_attention,
+blocks), of layer_norm and of the wide kernels (phase 12), is set to 0
+just before and read just after (phase 6's, 7's, 8's, 11's and 12's
+launches add to phases 4 and 5's in the kernels' record). fused_attention,
 fused_attention_qkv and fused_rect_attention run on no model's path
 (the first is the training core's forward, counted there; the last is
 fused_rect_block's attention stage): they must launch 0 times there, and
@@ -486,6 +518,7 @@ kernels' JSON record and the result JSON.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import functools
 import gc
@@ -514,6 +547,7 @@ from tokenreduction_tpu_torch.ops import (
     fused_mlp_train,
 )
 from tokenreduction_tpu_torch.ops.flash_attention import (
+    SHORT_ATTENTION_MAX_N,
     attention_ref,
     fused_attention,
     fused_attention_qkv,
@@ -531,6 +565,7 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     layer_norm_stats,
     MASK_VALUE,
     linear_f32,
+    ln_qkv,
     merged_heads,
     packed_heads,
     rect_attention_ref,
@@ -564,6 +599,7 @@ from tokenreduction_tpu_torch.ops.fused_mlp_train import (
 )
 from tokenreduction_tpu_torch.core.config import reduction_schedule
 from tokenreduction_tpu_torch.ops.gather import complement_idx, take_tokens
+from tokenreduction_tpu_torch.reduction import ats as ats_model
 from tokenreduction_tpu_torch.reduction import cluster as cluster_model
 from tokenreduction_tpu_torch.reduction import tome as tome_model
 from tokenreduction_tpu_torch.reduction.heuristic import heuristic_masks
@@ -928,7 +964,18 @@ LAUNCHERS = {
     "gemm_wgrad_tf32": (_build.gemm_wgrad, "tf32_launches"),
     **{name: (getattr(_build, name), "launches")
        for name in ("layer_norm_bwd", "layer_norm", "head_mean_keys")},
-    "sum_partials": (_build.sum_partials_many, "launches")}
+    "sum_partials": (_build.sum_partials_many, "launches"),
+    # the wide kernels above 256 tokens (csrc/attention_wide_sm90.cu, bf16;
+    # csrc/attention_wide_tf32.cu, fp32; phase 12)
+    "attention_wide": (_build.short_attention_heads, "wide_launches"),
+    "rect_attention_wide": (_build.short_attention_heads,
+                            "wide_rect_launches"),
+    "attention_wide_bwd": (_build.short_attention_bwd_heads,
+                           "wide_launches"),
+    "attention_wide_tf32": (_build.short_attention_heads,
+                            "wide_tf32_launches"),
+    "rect_attention_wide_tf32": (_build.short_attention_heads,
+                                 "wide_tf32_rect_launches")}
 
 
 # the fp32 launchers, none of which a bf16 run launches
@@ -3108,7 +3155,8 @@ def images(B, gen, dtype=torch.float32):
 
 REDUCING = ("topk", "tome", "ats", "heuristic", "dyvit", "evit", "kmedoids",
             "dpcknn", "sinkhorn", "patchmerger", "sit")
-# an input wider than the kernels take: 272 px, N = 290 tokens
+# an input wider than the fused full block and the single-pass attention
+# take: 272 px, N = 290 tokens
 WIDE_IMG = 272
 
 
@@ -3273,7 +3321,8 @@ def phase_models(dtype):
     decisions recorded through hooks with viz mode off; then, in fp32,
     each reducing model in viz mode (its blocks pinned to the plain
     composition: no kernel may launch), and a dense model on a 272-pixel
-    input, N = 290 (the plain attention: wider than its kernels)."""
+    input, N = 290 (the wide attention kernels: wider than the
+    single-pass ones)."""
     tag = "fp32" if dtype == torch.float32 else "bf16"
     B, bound_ = MODEL_BATCH[dtype], MODEL_BOUND[dtype]
     tome_model.bipartite_soft_matching = recorded_assignment
@@ -3546,10 +3595,11 @@ def viz_check(label, name, kw, B):
 
 
 def wide_check(B, bound_):
-    """Dense DeiT-S on a WIDE_IMG-pixel input (N = 290), fp32: every
-    attention half wider than the kernels runs the plain composition on
-    the card, every MLP half its kernel (fused_mlp_residual, no width
-    limit), and the logits are held like the dense model's."""
+    """Dense DeiT-S on a WIDE_IMG-pixel input (N = 290), fp32: a block
+    wider than the fused full block's 256 tokens runs its two halves,
+    every attention half fused_block_attention on the wide fp32 kernel
+    (csrc/attention_wide_tf32.cu), every MLP half fused_mlp_residual, and
+    the logits are held like the dense model's."""
     dtype, tag = torch.float32, "fp32"
     model, cfg = create_model("deit_small_patch16_224_local", device=DEVICE,
                               img_size=WIDE_IMG,
@@ -3563,9 +3613,12 @@ def wide_check(B, bound_):
     with torch.no_grad():
         out = model(x)
     torch.cuda.synchronize()
-    want = {**NONE, "fused_mlp_residual": cfg.depth}
-    require(counts() == want, f"dense N=290 {tag}: launches {counts()}, "
-            f"expected {want}")
+    want = {**NONE, "fused_block_attention": cfg.depth,
+            "fused_mlp_residual": cfg.depth}
+    require(counts() == want and _build.short_attention_heads
+            .wide_tf32_launches == cfg.depth, f"dense N=290 {tag}: launches "
+            f"{counts()}, wide {wide_counts()}, expected {want} and "
+            f"{cfg.depth} attention_wide_tf32")
     with torch.no_grad():
         ref = cpu_model(x.cpu())
     out = out.cpu()
@@ -3578,8 +3631,9 @@ def wide_check(B, bound_):
     require(top1 >= MODEL_TOP1[dtype], f"dense N=290 {tag}: top-1 "
             f"agreement {top1:.3f} < {MODEL_TOP1[dtype]}")
     print(f"phase 3 wide dense {WIDE_IMG} px, N="
-          f"{cfg.num_patches + 1} {tag} B={B}: the attention plain, "
-          f"fused_mlp_residual launches {cfg.depth}; logits max abs err "
+          f"{cfg.num_patches + 1} {tag} B={B}: fused_block_attention and "
+          f"fused_mlp_residual launches {cfg.depth} each, attention_wide_tf32 "
+          f"{cfg.depth}; logits max abs err "
           f"{err:.3e} ({rel:.2e} of "
           f"max|CPU|, bound {bound_:.0e}); top-1 agreement {top1:.3f}",
           flush=True)
@@ -4362,9 +4416,9 @@ def eval_profile(label: str, card: str, profile: bool = True):
 
 
 def train_run(label: str, steps: int, profile: bool = False,
-              amp: bool = True):
+              amp: bool = True, img_size: int = 224):
     """bench.py's train recipe for `steps` steps of TRAIN_B (``amp`` false:
-    in fp32, the JAX CLI's default); returns
+    in fp32, the JAX CLI's default) at ``img_size`` pixels; returns
     (seconds per step, losses, profile, extra) where profile, after two
     more steps under torch.profiler, is (the device's busy share of their
     wall time, {kernel: device microseconds}), else None; extra holds the
@@ -4383,7 +4437,7 @@ def train_run(label: str, steps: int, profile: bool = False,
         name, kw = MODELS[label]
         model, _ = create_model(name, device=DEVICE, drop_path_rate=0.1,
                                 generator=torch.Generator().manual_seed(1),
-                                **kw)
+                                img_size=img_size, **kw)
         loss_fn, new_names = label_smoothing_loss, []
     opt, _ = create_optimizer(dict(model.named_parameters()),
                               OptimConfig(lr=1e-3, clip_grad=1.0,
@@ -4394,7 +4448,7 @@ def train_run(label: str, steps: int, profile: bool = False,
                            StepConfig(ema_decay=0.99996, amp=amp),
                            torch.Generator(device=DEVICE).manual_seed(5))
     data = torch.Generator(device=DEVICE).manual_seed(3)
-    xs = torch.randn(steps, TRAIN_B, 3, 224, 224, generator=data,
+    xs = torch.randn(steps, TRAIN_B, 3, img_size, img_size, generator=data,
                      device=DEVICE)
     ys = torch.randint(0, 1000, (steps, TRAIN_B), generator=data,
                        device=DEVICE)
@@ -5210,12 +5264,13 @@ def phase_eval(card: str) -> dict:
 # phase 7: the train CLI at DeiT-S's full width (topk@0.7 at loc 3 6 9,
 # 224 px, the synthetic set): the default recipe (mixup 0.8, cutmix 1.0,
 # label smoothing 0.1, drop-path 0.1, EMA) in amp and in fp32 (the JAX
-# CLI's default), b256 over 1024 images (RASampler: 4 steps an epoch),
-# two epochs, then --resume for a third
+# CLI's default), b256 over 512 images (RASampler: 2 steps an epoch: few
+# enough for the script's time limit with phase 12), two epochs, then
+# --resume for a third
 CLI_MODEL = ["--model", "topk_small_patch16_224", "--reduction_loc", "3",
              "6", "9", "--keep_rate", "0.7", "--input-size", "224",
              "--dataset", "synthetic", "--print-freq", "100"]
-CLI_N, CLI_B, CLI_EPOCHS = 1024, 256, 2
+CLI_N, CLI_B, CLI_EPOCHS = 512, 256, 2
 # the card against the CPU: b16 over 32 images (--no-repeated-aug: 2
 # steps), fp32, drop-path 0, mixup and cutmix on, one epoch, from one
 # .pth; the first step's loss and the epoch's test loss within this
@@ -7014,6 +7069,684 @@ def par_child(job: str, root: str, card: str):
     print("RESULT " + json.dumps({"lines": lines, **out}), flush=True)
 
 
+# ---- phase 12: the attention above 256 tokens (the wide kernels)
+# DeiT's 384-px finetunes: 24 x 24 patches and CLS, N = 577
+WIDE_PX = 384
+# (heads, N) of the launches held alone: DeiT-S's and DeiT-B's heads at
+# 272 px (290), 384 px (577), 512 px (1025) and one token past the
+# single-pass kernels (257)
+WIDE_SHAPES = ((6, 257), (6, 290), (6, 577), (6, 1025), (12, 577),
+               (12, 1025))
+# the rectangular attention's (heads, kept rows M, keys N): ATS@0.7's first
+# sampling block at 384 px (404 samples and CLS), a smaller sample, and
+# more keys than rows at 272 px
+WIDE_RECT = ((6, 405, 577), (6, 300, 577), (6, 13, 290), (12, 405, 577))
+# the record shapes (B = 256, H = 6): the kernels line's ms, bound, plain
+# and SDPA
+WIDE_RECORD = (6, 577)
+WIDE_B = {torch.float32: 32, torch.bfloat16: 256}
+# images a chunk of the plain versions (their [B, H, N, N] fp32 tensors)
+WIDE_CHUNK = 16
+# the wide kernels' launchers (in LAUNCHERS)
+WIDE_LAUNCHERS = ("attention_wide", "rect_attention_wide",
+                  "attention_wide_bwd", "attention_wide_tf32",
+                  "rect_attention_wide_tf32")
+ATTENTION_WIDE = "tokenreduction_tpu_torch/csrc/attention_wide_sm90.cu"
+ATTENTION_WIDE_TF32 = "tokenreduction_tpu_torch/csrc/attention_wide_tf32.cu"
+# each wide kernel's source and the TPU kernel its record names
+WIDE_SOURCES = {
+    "attention_wide": (ATTENTION_WIDE, ATTENTION_REPLACES["short_attention"]),
+    "rect_attention_wide": (ATTENTION_WIDE,
+                            ATTENTION_REPLACES["rect_attention"]),
+    "attention_wide_bwd": (ATTENTION_WIDE,
+                           ATTENTION_REPLACES["short_attention_bwd"]),
+    "attention_wide_tf32": (ATTENTION_WIDE_TF32,
+                            ATTENTION_REPLACES["short_attention"]),
+    "rect_attention_wide_tf32": (ATTENTION_WIDE_TF32,
+                                 ATTENTION_REPLACES["rect_attention"]),
+}
+# phase 12's 384-px eval cells (bf16 b256) and their reductions
+WIDE_EVAL = ("dense", "topk@0.7", "tome@0.7", "ats@0.7", "heuristic",
+             "evit@0.7", "dyvit@0.7")
+WIDE_FP32 = ("dense", "topk@0.7", "ats@0.7")
+WIDE_FP32_B = 4
+WIDE_TRAIN = "topk@0.7"
+WIDE_TRAIN_STEPS = 4
+WIDE_GRAD_B = 2
+
+
+def wide_counts() -> dict:
+    return {name: n for name, n in launcher_counts().items()
+            if name in WIDE_LAUNCHERS}
+
+
+def wide_smem_lines(prefix: str):
+    for n in (290, 577, 1025):
+        smem = _build.attention_wide_smem(n)
+        print(f"{prefix} attention_wide N={n}: dynamic shared memory a block "
+              f"(128 threads): bf16 forward {smem['forward']} bytes, backward "
+              f"dQ {smem['dq']}, dK dV {smem['dkv']}; fp32 forward "
+              f"{smem['tf32']}", flush=True)
+
+
+def chunked(fn, B: int):
+    """fn over batch slices of WIDE_CHUNK images, each output concatenated
+    along dim 0 (so that the plain versions' [B, H, N, N] tensors stay a
+    chunk's size)."""
+    parts = [as_list(fn(slice(i, i + WIDE_CHUNK)))
+             for i in range(0, B, WIDE_CHUNK)]
+    return [torch.cat(outs) for outs in zip(*parts)]
+
+
+def wide_ms(fn, runs: int = 5) -> float:
+    """CUDA-event time of one of ten back-to-back launches of fn (median
+    of ``runs`` runs), in ms."""
+    def ten():
+        for _ in range(10):
+            fn()
+    return cuda_ms(ten, runs=runs, warmup=1) / 10
+
+
+def wide_cases(dtype, H: int, N: int, gen):
+    """(launcher, label, run, [(output, got or a call that reads it, want
+    call over a batch slice)], flops, bytes, SDPA call) of each wide
+    variant at B images (WIDE_B) of N tokens and H heads of 64: the eval
+    forward with row0 and colsum (also with ToMe's bias, and with a mask
+    that has fully masked rows), in bf16 the training branch's normalised-P
+    forward with its statistics, and the backward of the branch (row0
+    cotangent), of ToMe's core (bias, both cotangents, dbias) and of a
+    masked core. bytes: each input read once, each output written once."""
+    B, Dh = WIDE_B[dtype], 64 * H
+    dev_gen = torch.Generator(device=DEVICE).manual_seed(H * 10000 + N)
+    bf16 = dtype == torch.bfloat16
+
+    def rn(*shape, dt=dtype):
+        return torch.randn(*shape, generator=dev_gen, device=DEVICE).to(dt)
+
+    qkv = rn(B, N, 3 * Dh)
+    q, k, v = packed_heads(qkv, H)
+    bias = log_sizes(B, N, gen, torch.float32)
+    mask = token_mask(B, N, gen)
+    merged = torch.empty(B, N, Dh, device=DEVICE, dtype=dtype)
+    row0 = torch.empty(B, H, N, device=DEVICE)
+    colsum = torch.empty_like(row0)
+    stats = torch.empty(B, H, N, 2, device=DEVICE)
+    E, vec = (2 if bf16 else 4), 4 * B * H * N
+    io = E * 4 * B * N * Dh
+    fwd_flops = 4 * B * N * N * Dh
+    outs3 = ("merged heads", "row0", "colsum"), (merged, row0, colsum)
+    launcher = "attention_wide" if bf16 else "attention_wide_tf32"
+    forwards = [
+        ("forward, row0 + colsum", {}, outs3,
+         lambda sl: attention_ref(qkv[sl], H, SCALE), 2 * vec, None),
+        ("forward, bias, row0 + colsum", dict(bias=bias), outs3,
+         lambda sl: attention_ref(qkv[sl], H, SCALE, bias[sl]),
+         2 * vec + 4 * B * N, float_mask(dtype, bias)),
+        ("forward, mask, row0 + colsum", dict(mask=mask), outs3,
+         lambda sl: attention_ref(qkv[sl], H, SCALE, mask=mask[sl]),
+         2 * vec + B * N, float_mask(dtype, None, mask, mask))]
+    for label, kw, (names, outs), want, extra, lib_mask in forwards:
+        yield (launcher, label,
+               lambda kw=kw: _build.short_attention(
+                   qkv, merged, H, SCALE, row0=row0, colsum=colsum, **kw),
+               list(zip(names, outs, range(3))), want, fwd_flops,
+               io + extra,
+               lambda m=lib_mask: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=m, scale=SCALE))
+    if not bf16:
+        return
+    yield (launcher, "forward, normalised P, row0, stats",
+           lambda: _build.short_attention(qkv, merged, H, SCALE, row0=row0,
+                                          stats=stats, norm_p=True),
+           list(zip(("merged heads", "row0", "row max", "1/sum"),
+                    (merged, row0, lambda: stats[..., 0],
+                     lambda: stats[..., 1]), range(4))),
+           lambda sl: (*attention_train_ref(qkv[sl], H, SCALE),
+                       *stats_ref(q[sl], k[sl]).unbind(-1)),
+           fwd_flops, io + vec, lambda: F.scaled_dot_product_attention(
+               q, k, v, scale=SCALE))
+    # the backward: the branch's (packed qkv, the row0 cotangent)
+    _build.short_attention(qkv, merged, H, SCALE, row0=row0, stats=stats,
+                           norm_p=True)
+    dout, drow0 = rn(B, N, Dh), rn(B, H, N, dt=torch.float32)
+    dcs = rn(B, H, N, dt=torch.float32)
+    dqkv = torch.empty_like(qkv)
+    bwd_flops = 10 * B * N * N * Dh  # S, dP, dV, dK, dQ
+    bwd_io = E * 7 * B * N * Dh  # q, k, v, dout in; dq, dk, dv out
+    yield ("attention_wide_bwd", "backward, row0 cotangent",
+           lambda: _build.short_attention_bwd(qkv, merged, dout, drow0, dqkv,
+                                              H, SCALE, stats=stats,
+                                              row0=row0),
+           [(n, lambda i=i: dqkv[..., i * Dh:(i + 1) * Dh], i)
+            for i, n in enumerate(("dq", "dk", "dv"))],
+           lambda sl: [attention_bwd_ref(qkv[sl], dout[sl], drow0[sl], H,
+                                         SCALE)[..., i * Dh:(i + 1) * Dh]
+                       for i in range(3)],
+           bwd_flops, bwd_io + vec,
+           sdpa_backward(q, k, v, merged_heads(dout, H)))
+    # the core's, over [B, H, N, hd] views: ToMe's (bias, both cotangents,
+    # dbias) and a masked one (no cotangents)
+    dout_h = rn(B, N, H, 64).transpose(1, 2)
+    grads = torch.empty(3, B, H, N, 64, device=DEVICE, dtype=dtype).unbind(0)
+    dbias = torch.empty(B, H, N, device=DEVICE)
+    for label, fw, kw, extra, lib_mask in (
+            ("backward, bias, colsum cotangent, dbias", dict(bias=bias),
+             dict(bias=bias, drow0=drow0, dcs=dcs, dbias=dbias),
+             3 * vec + 4 * B * N, float_mask(dtype, bias)),
+            ("backward, mask", dict(mask=mask), dict(mask=mask), B * N,
+             float_mask(dtype, None, mask, mask))):
+        out, r0, _, st = core_forward(q, k, v, **fw)
+        names = ("dq", "dk", "dv", "dbias")[:4 if "dbias" in kw else 3]
+
+        def want(sl, kw=kw, n=len(names)):
+            return attention_core_train_bwd_ref(
+                q[sl], k[sl], v[sl], None if "bias" not in kw else bias[sl],
+                dout_h[sl], None if "drow0" not in kw else drow0[sl],
+                None if "dcs" not in kw else dcs[sl], SCALE,
+                None if "mask" not in kw else mask[sl])[:n]
+
+        yield ("attention_wide_bwd", label,
+               lambda out=out, r0=r0, st=st, kw=kw:
+               _build.short_attention_bwd_heads(q, k, v, out, dout_h, *grads,
+                                                SCALE, stats=st, row0=r0,
+                                                **kw),
+               list(zip(names, (*grads, dbias), range(4))), want, bwd_flops,
+               bwd_io + extra, sdpa_backward(q, k, v, dout_h, lib_mask))
+
+
+def wide_rect_cases(dtype, gen):
+    """(case, H, N) of the rectangular variant at WIDE_RECT, each case in
+    the form of wide_cases; the padded slots equal to the CLS slot and the
+    dead slot uniform (check_rect_rows) first."""
+    B = WIDE_B[dtype]
+    launcher = ("rect_attention_wide" if dtype == torch.bfloat16
+                else "rect_attention_wide_tf32")
+    for H, M, N in WIDE_RECT:
+        Dh = 64 * H
+        dev_gen = torch.Generator(device=DEVICE).manual_seed(M * 1000 + N)
+        qkv = torch.randn(B, N, 3 * Dh, generator=dev_gen,
+                          device=DEVICE).to(dtype)
+        mask = token_mask(B, N, gen)
+        idx = kept_ids(B, N, M, mask, gen)
+        ids = idx.to(torch.int32)
+        merged = torch.empty(B, M, Dh, device=DEVICE, dtype=dtype)
+        _build.short_attention(qkv, merged, H, SCALE, mask=mask, ids=ids)
+        torch.cuda.synchronize()
+        if H == HEADS:  # check_rect_rows reads DeiT-S's heads
+            pads, dead = check_rect_rows(merged, qkv, idx, mask,
+                                         f"M={M} N={N}")
+            print(f"phase 12 rect M={M} N={N} {dtype}: {pads} padded slots "
+                  f"equal to CLS, {dead} fully masked rows uniform",
+                  flush=True)
+        q, k, v = packed_heads(qkv, H)
+        qg = torch.gather(q, 2, idx[:, None, :, None].expand(B, H, M, 64))
+        yield (launcher, f"rect M={M}",
+               lambda qkv=qkv, merged=merged, mask=mask, ids=ids, H=H:
+               _build.short_attention(qkv, merged, H, SCALE, mask=mask,
+                                      ids=ids),
+               [("merged heads", merged, 0)],
+               lambda sl, qkv=qkv, idx=idx, mask=mask, H=H: rect_attention_ref(
+                   qkv[sl], idx[sl], mask[sl], H, SCALE),
+               4 * B * M * N * Dh,
+               (2 if dtype == torch.bfloat16 else 4)
+               * (2 * B * N * Dh + 2 * B * M * Dh) + 4 * B * M + B * N,
+               lambda qg=qg, k=k, v=v, m=float_mask(
+                   dtype, None, torch.gather(mask, 1, idx), mask):
+               F.scaled_dot_product_attention(qg, k, v, attn_mask=m,
+                                              scale=SCALE)), H, N
+
+
+def wide_kernel_checks(card: str) -> dict:
+    """Each wide launch alone against its plain version (each output within
+    LAUNCH_BOUND of its own max: 1e-2 bf16, 1e-4 fp32), bit-equal on a
+    second launch, with its ms per launch, bound and SDPA's ms; the plain
+    composition's ms at WIDE_RECORD. Returns the kernels' records."""
+    gen = torch.Generator().manual_seed(12)
+    rec = {}
+
+    def cases():  # one shape's tensors at a time, in the cases' order
+        for dtype in (torch.bfloat16, torch.float32):
+            for H, N in WIDE_SHAPES:
+                for case in wide_cases(dtype, H, N, gen):
+                    yield case, H, N
+            yield from wide_rect_cases(dtype, gen)
+
+    for (launch, label, run, outs, want_fn, flops, nbytes, library), H, N in \
+            cases():
+        run()
+        torch.cuda.synchronize()
+        got = [(name, g() if callable(g) else g, i) for name, g, i in outs]
+        first = [t.clone() for _, t, _ in got]
+        B = got[0][1].shape[0]
+        want = chunked(want_fn, B)
+        errs, worst = [], 0.0
+        for name, g, i in got:
+            abs_err, rel = rel_err(g, want[i])
+            bound_ = LAUNCH_BOUND[g.dtype]
+            require(rel <= bound_, f"{launch} {label} H={H} N={N} {name}: "
+                    f"error {rel:.3e} of its max|plain| > bound {bound_:.0e}")
+            errs.append(f"{name} {abs_err:.3e} ({rel:.2e})")
+            worst = max(worst, abs_err)
+        del want
+        run()
+        torch.cuda.synchronize()
+        again = [g() if callable(g) else g for _, g, _ in outs]
+        require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                f"{launch} {label} H={H} N={N}: a second launch differs")
+        dtype = got[0][1].dtype
+        ms, lib_ms = wide_ms(run), wide_ms(library)
+        peak = PEAK_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        tag = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} B={B} H={H} N={N}"
+        plain_ms = None
+        if (H, N) == WIDE_RECORD and launch not in rec and label in (
+                "forward, row0 + colsum", "backward, row0 cotangent",
+                "rect M=405"):
+            plain_ms = wide_ms(lambda: chunked(want_fn, B), runs=3)
+            rec[launch] = dict(shape=f"{tag} {label}", ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=lib_ms,
+                               max_abs_err=worst)
+        plain = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+        print(f"phase 12 {launch} {label} {tag}: {', '.join(errs)} of max; a "
+              f"second launch bit-equal; kernel {ms:.4f} ms per launch "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+              f"({bound_by}), SDPA {lib_ms:.4f} ms{plain} on {card}",
+              flush=True)
+    return rec
+
+
+def wide_block_checks(card: str):
+    """The wrappers above 256 tokens, whole blocks against their plain
+    versions (bf16 B=256 within 2e-2 of max|plain|, fp32 B=32 1e-4): #2
+    with ToMe's bias and the head-mean keys at N=577, and with DyViT's idx
+    prologue 577 -> 404; #8 at ATS@0.7's 405 x 577."""
+    gen = torch.Generator().manual_seed(13)
+    for dtype in (torch.bfloat16, torch.float32):
+        B, N = WIDE_B[dtype], 577
+        p = block_params(dtype, gen)
+        x = torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
+        bias = log_sizes(B, N, gen, torch.float32)
+        idx = torch.stack([torch.cat([torch.zeros(1, dtype=torch.long),
+                                      1 + torch.randperm(N - 1, generator=gen)[
+                                          :403]]) for _ in range(B)]).to(DEVICE)
+        mask = token_mask(B, N, gen)
+        kept = kept_ids(B, N, 405, mask, gen)
+        qkv = ln_qkv(x, *(p[n] for n in ATTN[:4]), eps=EPS)
+        cases = (
+            ("fused_block_attention bias + keys",
+             lambda: fused_block_attention(x, *(p[n] for n in ATTN), HEADS,
+                                           SCALE, bias=bias, want_keys=True),
+             lambda: fused_block_attention_ref(x, *(p[n] for n in ATTN),
+                                               HEADS, SCALE, bias=bias,
+                                               want_keys=True)),
+            ("fused_block_attention idx 577->404",
+             lambda: fused_block_attention(x, *(p[n] for n in ATTN), HEADS,
+                                           SCALE, idx=idx),
+             lambda: fused_block_attention_ref(take_tokens(x, idx),
+                                               *(p[n] for n in ATTN), HEADS,
+                                               SCALE)),
+            ("fused_rect_block 405x577",
+             lambda: fused_rect_block(qkv, x, kept, mask, p["wproj"],
+                                      p["bproj"], HEADS, SCALE),
+             lambda: fused_rect_block_ref(qkv, x, kept, mask, p["wproj"],
+                                          p["bproj"], HEADS, SCALE)))
+        for label, run, plain in cases:
+            got, want = as_list(run()), as_list(plain())
+            errs = []
+            for g, w in zip(got, want):
+                _, rel = rel_err(g, w)
+                require(rel <= BOUND[dtype], f"phase 12 {label} {dtype}: "
+                        f"{rel:.3e} of max|plain| > {BOUND[dtype]:.0e}")
+                errs.append(f"{rel:.2e}")
+            print(f"phase 12 block {label} {dtype} B={B}: outputs within "
+                  f"{', '.join(errs)} of max|plain| (bound "
+                  f"{BOUND[dtype]:.0e}); {cuda_ms(run, runs=5, warmup=1):.4f} "
+                  f"ms on {card}", flush=True)
+        del p, x, qkv
+        settle()
+
+
+class PlainAttentionCount:
+    """Counts the plain attention's calls (attention_probs_ref, by the
+    modules of the blocks) while it is entered."""
+
+    def __enter__(self):
+        self.calls = 0
+        self.orig = (layers.attention_probs_ref, ats_model.attention_probs_ref)
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.orig[0](*a, **kw)
+
+        layers.attention_probs_ref = counted
+        ats_model.attention_probs_ref = counted
+        return self
+
+    def __exit__(self, *exc):
+        layers.attention_probs_ref, ats_model.attention_probs_ref = self.orig
+
+
+class SingleWidthGate:
+    """PR 22's gate while entered: every attention half above 256 tokens,
+    eval or training, on the plain composition (the blocks' width limits
+    set to SHORT_ATTENTION_MAX_N)."""
+
+    def __enter__(self):
+        self.orig = (layers.ATTENTION_MAX_N, layers.backward_max_n)
+        layers.ATTENTION_MAX_N = SHORT_ATTENTION_MAX_N
+        layers.backward_max_n = lambda dtype: SHORT_ATTENTION_MAX_N
+        return self
+
+    def __exit__(self, *exc):
+        layers.ATTENTION_MAX_N, layers.backward_max_n = self.orig
+
+
+def library_block_attention(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads,
+                            scale, *, eps=EPS, bias=None, mask=None, idx=None,
+                            want_keys=False):
+    """fused_block_attention as eager library calls (LayerNorm, linear,
+    SDPA): x + the branch, the fp32 CLS row, no column mass."""
+    if idx is not None:
+        x = take_tokens(x, idx)
+    out = library_attention(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads,
+                            scale, eps, bias, want_keys, mask)
+    return (x + out[0], out[1], None) + tuple(out[2:])
+
+
+def wide_serve(label: str, batches: int = 3) -> tuple[float, dict, int]:
+    """(img/s over batches 2-`batches` of SERVE_B bf16 images at WIDE_PX,
+    the launches of the run, plain attention calls)."""
+    settle()
+    name, kw = MODELS[label]
+    model, _ = create_model(name, device=DEVICE, img_size=WIDE_PX,
+                            generator=torch.Generator().manual_seed(1), **kw)
+    model = model.to(torch.bfloat16).eval()
+    xs = torch.randn(batches, SERVE_B, 3, WIDE_PX, WIDE_PX,
+                     generator=torch.Generator(device=DEVICE).manual_seed(3),
+                     device=DEVICE).to(torch.bfloat16)
+    seconds = []
+    reset_counts()
+    with torch.no_grad(), PlainAttentionCount() as plain:
+        for x in xs:
+            t0 = time.perf_counter()
+            out = model(x)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            require(out.shape == (SERVE_B, 1000) and
+                    bool(torch.isfinite(out).all()),
+                    f"{label} {WIDE_PX} px: non-finite or misshapen logits")
+    got = {**counts(), **launcher_counts()}
+    return SERVE_B * (batches - 1) / sum(seconds[1:]), got, plain.calls
+
+
+def wide_eval(card: str) -> dict:
+    """The 384-px bf16 b256 eval cells (WIDE_EVAL): each on the wide
+    kernels above 256 tokens and today's below (topk@0.7 577 -> 404 -> 283
+    -> 198 crosses), no plain attention; img/s beside the attention halves
+    as eager library calls (dense, topk@0.7) and beside the plain
+    attention above 256 (PR 22's gate: dense). Returns the launches."""
+    total = collections.Counter()
+    for label in WIDE_EVAL:
+        ips, got, plain = wide_serve(label)
+        total.update(got)
+        require(plain == 0, f"{label} {WIDE_PX} px: {plain} plain attention "
+                "calls")
+        require(got["fused_full_block"] == 0 or label == "topk@0.7"
+                or label in ("dyvit@0.7", "evit@0.7"),
+                f"{label} {WIDE_PX} px: a full block above 256 tokens")
+        wide_ = got["attention_wide"] + got["rect_attention_wide"]
+        require(wide_ > 0, f"{label} {WIDE_PX} px: no wide launch {got}")
+        if label == "ats@0.7":
+            require(got["rect_attention_wide"] > 0,
+                    f"ATS {WIDE_PX} px: no wide rectangular launch {got}")
+        if label == "topk@0.7":
+            require(got["short_attention"] > 0 and got["fused_full_block"] > 0,
+                    f"topk {WIDE_PX} px: the last stage (198 tokens) ran no "
+                    f"single-pass kernel {got}")
+        FORWARD_IPS[label, f"bf16 {WIDE_PX} px"] = ips
+        print(f"phase 12 serve {label} bf16 b{SERVE_B} {WIDE_PX} px: {ips:.1f} "
+              f"img/s over batches 2-3; launches "
+              f"{ {k: n for k, n in got.items() if n} }; plain attention 0 "
+              f"on {card}", flush=True)
+    orig = layers.fused_block_attention
+    layers.fused_block_attention = library_block_attention
+    try:
+        for label in ("dense", "topk@0.7"):
+            ips, _, _ = wide_serve(label)
+            print(f"phase 12 serve {label} bf16 b{SERVE_B} {WIDE_PX} px, the "
+                  f"attention halves as eager library calls (SDPA): {ips:.1f} "
+                  f"img/s on {card}", flush=True)
+    finally:
+        layers.fused_block_attention = orig
+    with SingleWidthGate():
+        ips, got, plain = wide_serve("dense")
+    print(f"phase 12 serve dense bf16 b{SERVE_B} {WIDE_PX} px, the plain "
+          f"attention above 256 tokens (PR 22's gate): {ips:.1f} img/s, "
+          f"{plain} plain attention calls on {card}", flush=True)
+    return total
+
+
+def wide_fp32(card: str) -> dict:
+    """fp32 eval at 384 px (WIDE_FP32, B=WIDE_FP32_B): logits within 1e-4
+    of the CPU's, decisions equal (record_decisions). Returns the
+    launches."""
+    total = collections.Counter()
+    for label in WIDE_FP32:
+        settle()
+        name, kw = MODELS[label]
+        model, _ = create_model(name, device=DEVICE, img_size=WIDE_PX,
+                                generator=torch.Generator().manual_seed(1),
+                                **kw)
+        model = model.eval()
+        cpu_model = copy.deepcopy(model).cpu()
+        rec, cpu_rec = record_decisions(model), record_decisions(cpu_model)
+        x = torch.randn(WIDE_FP32_B, 3, WIDE_PX, WIDE_PX,
+                        generator=torch.Generator().manual_seed(2))
+        reset_counts()
+        with torch.no_grad(), PlainAttentionCount() as plain:
+            out = model(x.to(DEVICE))
+        torch.cuda.synchronize()
+        got = {**counts(), **launcher_counts()}
+        total.update(got)
+        with torch.no_grad():
+            ref = cpu_model(x)
+        err, rel = rel_err(out.cpu(), ref)
+        require(rel <= 1e-4, f"{label} fp32 {WIDE_PX} px: logits {rel:.3e} "
+                "of max|CPU| > 1e-4")
+        require(plain.calls == 0 and got["attention_wide_tf32"] +
+                got["rect_attention_wide_tf32"] > 0,
+                f"{label} fp32 {WIDE_PX} px: launches {got}, plain "
+                f"{plain.calls}")
+        # phase 3's rule in fp32: topk's kept ids all in the CPU's kept
+        # set, ATS's Kept_Tokens all equal in place
+        kept, ref_kept = rec.get("Kept_Tokens", {}), cpu_rec.get(
+            "Kept_Tokens", {})
+        require(sorted(kept) == sorted(ref_kept), f"{label} fp32 {WIDE_PX} "
+                f"px: decisions at {sorted(kept)}, the CPU's {sorted(ref_kept)}")
+        n_all = sum(k.numel() for k in ref_kept.values())
+        if label.startswith("topk"):
+            n_same = sum(int(torch.isin(a, b).sum()) for i, k in
+                         ref_kept.items() for a, b in zip(kept[i].cpu(), k))
+            limit, what = KEPT_SET[torch.float32], "in the CPU's kept set"
+        else:
+            n_same = sum(int((kept[i].cpu() == k).sum())
+                         for i, k in ref_kept.items())
+            limit, what = ATS_SAME[torch.float32], "equal in place"
+        require(n_same >= limit * n_all, f"{label} fp32 {WIDE_PX} px: only "
+                f"{n_same}/{n_all} kept ids {what}")
+        widths = "->".join(str(k.shape[1] + 1) for k in ref_kept.values())
+        print(f"phase 12 fp32 {label} {WIDE_PX} px B={WIDE_FP32_B}: logits max "
+              f"abs err {err:.3e} ({rel:.2e} of max|CPU|, bound 1e-4); "
+              f"widths 577{'->' + widths if widths else ''}, kept ids "
+              f"{what} {n_same}/{n_all} (bound {limit}); launches "
+              f"{ {k: n for k, n in got.items() if n} } on {card}",
+              flush=True)
+    return total
+
+
+def wide_train(card: str) -> dict:
+    """The amp topk@0.7 step at b256, 384 px: ms/step and peak memory on
+    the kernels (its launches counted) and with the plain attention above
+    256 tokens (PR 22's gate); then one step's loss and gradients of dense
+    and topk@0.7 at B=WIDE_GRAD_B against the CPU's fp32 ones. Returns the
+    launches."""
+    reset_counts()
+    with PlainAttentionCount() as plain:
+        seconds, losses_, _, extra = train_run(
+            WIDE_TRAIN, WIDE_TRAIN_STEPS, img_size=WIDE_PX)
+    got = {**counts(), **launcher_counts()}
+    require(plain.calls == 0 and got["attention_wide_bwd"] > 0
+            and got["attention_wide"] > 0 and got["short_attention_bwd"] > 0,
+            f"train {WIDE_TRAIN} {WIDE_PX} px: launches {got}, plain "
+            f"attention {plain.calls}")
+    ms = 1e3 * statistics.mean(seconds[2:])
+    print(f"phase 12 train {WIDE_TRAIN} bf16 amp b{TRAIN_B} {WIDE_PX} px: "
+          f"{ms:.2f} ms/step over steps 3-{WIDE_TRAIN_STEPS} (first "
+          f"{seconds[0] * 1e3:.1f} ms), peak memory allocated "
+          f"{extra['peak'] / 2**30:.2f} GiB; losses "
+          f"{[round(v, 4) for v in losses_.tolist()]}; launches "
+          f"{ {k: n for k, n in got.items() if n} } on {card}", flush=True)
+    with SingleWidthGate(), PlainAttentionCount() as plain:
+        seconds, _, _, extra = train_run(WIDE_TRAIN, WIDE_TRAIN_STEPS,
+                                         img_size=WIDE_PX)
+    require(plain.calls > 0, "PR 22's gate: no plain attention ran")
+    print(f"phase 12 train {WIDE_TRAIN} bf16 amp b{TRAIN_B} {WIDE_PX} px, "
+          f"the plain attention above 256 tokens (PR 22's gate): "
+          f"{1e3 * statistics.mean(seconds[2:]):.2f} ms/step, peak "
+          f"memory allocated {extra['peak'] / 2**30:.2f} GiB, "
+          f"{plain.calls} plain attention calls on {card}", flush=True)
+    bound_ = TRAIN_BOUND[torch.bfloat16]
+    for label in ("dense", WIDE_TRAIN):
+        settle()
+        name, kw = MODELS[label]
+        model, _ = create_model(name, device=DEVICE, img_size=WIDE_PX,
+                                generator=torch.Generator().manual_seed(1),
+                                **kw)
+        cpu_model = copy.deepcopy(model).cpu()
+        kept, cpu_kept = record_kept(model), record_kept(cpu_model)
+        gen = torch.Generator().manual_seed(2)
+        x = torch.randn(WIDE_GRAD_B, 3, WIDE_PX, WIDE_PX, generator=gen)
+        y = torch.randint(0, 1000, (WIDE_GRAD_B,), generator=gen)
+        opt, _ = create_optimizer(dict(model.named_parameters()),
+                                  OptimConfig(lr=1e-3), lambda s: 1e-3, [])
+        state = init_train_state(model, opt, device=DEVICE)
+        cpu_state = init_train_state(cpu_model, opt, device="cpu")
+        model.train()
+        cpu_model.train()
+        loss, grads = loss_and_grads(model, label_smoothing_loss,
+                                     state.params, x.to(DEVICE), y.to(DEVICE),
+                                     StepConfig(amp=True))
+        cpu_loss, cpu_grads = loss_and_grads(cpu_model, label_smoothing_loss,
+                                             cpu_state.params, x, y,
+                                             StepConfig())
+        _, loss_rel = rel_err(loss.cpu().reshape(1), cpu_loss.reshape(1))
+        require(loss_rel <= bound_["loss"], f"{label} {WIDE_PX} px amp: loss "
+                f"{loss_rel:.3e} of the CPU's > {bound_['loss']:.0e}")
+        same = all(torch.equal(kept[i].cpu(), cpu_kept[i]) for i in cpu_kept)
+        worst_name, worst = max(((n, rel_err(g.cpu(), cpu_grads[n])[1])
+                                 for n, g in grads.items()),
+                                key=lambda t: t[1])
+        if same:  # gradients held where the selections are the same
+            require(worst <= bound_["grads"], f"{label} {WIDE_PX} px amp: "
+                    f"gradient {worst_name} {worst:.3e} of max|CPU fp32| > "
+                    f"{bound_['grads']:.0e}")
+        print(f"phase 12 train {label} bf16 amp B={WIDE_GRAD_B} {WIDE_PX} px "
+              f"against the CPU's fp32: loss {loss.item():.6f} vs "
+              f"{cpu_loss.item():.6f} ({loss_rel:.2e}, bound "
+              f"{bound_['loss']:.0e}); worst gradient leaf {worst_name} "
+              f"{worst:.2e} of its max|CPU| ("
+              + (f"bound {bound_['grads']:.0e}" if same else
+                 "reported: the kept tokens differ") + ")", flush=True)
+    return got
+
+
+def wide_validate(card: str) -> dict:
+    """validate --input-size 384 over the synthetic set, fp32 (its default)
+    and amp, from a seeded 384-px DeiT-S checkpoint. Returns the
+    launches."""
+    from tokenreduction_tpu_torch.evaluation import validate
+    from tokenreduction_tpu_torch.utils.checkpoint import save_checkpoint
+
+    run = pathlib.Path(__file__).resolve().parent / "build" / "phase12_runs" \
+        / "deit_s_384"
+    shutil.rmtree(run, ignore_errors=True)
+    name, kw = MODELS["dense"]
+    model, cfg = create_model(name, device="cpu", img_size=WIDE_PX,
+                              generator=torch.Generator().manual_seed(20),
+                              **kw)
+    save_checkpoint(str(run / "best_checkpoint"), params=model.state_dict(),
+                    model_cfg=cfg, run_args={"model": name})
+    total = collections.Counter()
+    for amp in (False, True):
+        reset_counts()
+        t0 = time.perf_counter()
+        data = validate.main(["--checkpoint", str(run), "--dataset",
+                              "synthetic", "--synthetic-n", "128", "-b", "64",
+                              "--input-size", str(WIDE_PX)]
+                             + (["--use_amp"] if amp else []))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {**counts(), **launcher_counts()}
+        total.update(got)
+        losses_ = [v["Loss"] for k, v in data.items()
+                   if k.startswith("synthetic_")]
+        wide_ = got["attention_wide"] if amp else got["attention_wide_tf32"]
+        require(len(losses_) == 128 and all(math.isfinite(v) for v in losses_)
+                and wide_ == 12 * 2, f"phase 12 validate {WIDE_PX} px "
+                f"{'amp' if amp else 'fp32'}: {len(losses_)} images, "
+                f"launches {got}")
+        print(f"phase 12 validate --input-size {WIDE_PX} "
+              f"{'--use_amp' if amp else '(fp32)'}: Acc@1 {data['Top1-Acc']}, "
+              f"128 images at b64, {128 / seconds:.1f} img/s end to end; "
+              f"launches { {k: n for k, n in got.items() if n} } on {card}",
+              flush=True)
+    return total
+
+
+def phase_wide(card: str | None = None) -> tuple[dict, dict]:
+    """Phase 12: the attention above 256 tokens. Also callable alone
+    (``python3 -c 'import chip_smoke; chip_smoke.phase_wide()'``): it then
+    builds the kernels and prints the wide kernels' registers and shared
+    memory first. Returns (the wide kernels' records, the launches of the
+    384-px path's runs)."""
+    t0 = time.perf_counter()
+    if card is None:
+        require(torch.cuda.is_available(),
+                "no CUDA device: chip_smoke.py runs on the GPU only")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        print(smi, flush=True)
+        card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()})"
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kern = _build.kernels()
+        print(f"phase 12 build: {kern.path} in {kern.build_seconds:.1f} s",
+              flush=True)
+        for name, line in ptxas_lines(kern.build_log):
+            if "wide" in name:
+                print(f"phase 12 ptxas: {name}: {line}", flush=True)
+        wide_smem_lines("phase 12")
+    rec = wide_kernel_checks(card)
+    settle()
+    wide_block_checks(card)
+    launches = collections.Counter()
+    launches.update(wide_eval(card))
+    launches.update(wide_fp32(card))
+    launches.update(wide_train(card))
+    launches.update(wide_validate(card))
+    for name in WIDE_LAUNCHERS:
+        require(launches[name] > 0, f"phase 12: {name} never launched on "
+                "the 384-px path")
+    print(f"phase 12 wide done in {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: launches[k] for k in WIDE_LAUNCHERS} }", flush=True)
+    return rec, launches
+
+
 def elapsed(phase: str):
     print(f"phase {phase} done at {time.perf_counter() - T0:.1f} s",
           flush=True)
@@ -7101,6 +7834,7 @@ def main():
               "dynamic shared memory a block", flush=True)
     for fn, line in tf32_sass(kern.path).items():
         print(f"phase 1 sass: {fn}: {line}", flush=True)
+    wide_smem_lines("phase 1")
     for K in (D, 192):
         warps = _build.LN_BWD_WARPS if K == D else 8
         print(f"phase 1 layer_norm_bwd K={K}: {warps * 2 * K * 4} bytes of "
@@ -7156,6 +7890,10 @@ def main():
     for name in (*WRAPPERS, *LAUNCHERS):
         launches[name] += trained_parallel[name]
     elapsed("11")
+    wide_rec, wide_path = phase_wide(card)
+    for name in (*WRAPPERS, *LAUNCHERS):
+        launches[name] += wide_path[name]
+    elapsed("12")
     for name, shape, ms, bound_ms, lib_ms in standalone:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"standalone {name} {shape}: {ms:.4f} ms per launch, bound "
@@ -7217,6 +7955,13 @@ def main():
                     ("layer_norm", LN_GEMM, LN_REPLACES, ln_rec),
                     ("sum_partials", LN_GEMM, SUMS_REPLACES, sums_rec),
                     ("head_mean_keys", ATTENTION, KEYS_REPLACES, keys_rec))]
+    # the wide kernels above 256 tokens (phase 12): their launches are the
+    # 384-px path's
+    kernels += [dict(name=name, route="cuda", source=WIDE_SOURCES[name][0],
+                     wrapper="tokenreduction_tpu_torch/ops/_build.py",
+                     replaces=WIDE_SOURCES[name][1], launches=launches[name],
+                     on_main_path=True, **wide_rec[name])
+                for name in WIDE_LAUNCHERS]
     # the kernel tools' four (phase 9): on no path of the models
     kernels += [dict(name=name, route="cuda", source=sources[0],
                      cuda_sources=sources, wrapper=wrapper, replaces=replaces,

@@ -1,13 +1,16 @@
-"""The port's two block gates, fp32 on the CPU: the width gate and the viz
-pin.
+"""The port's block gates, on the CPU: the width gates and the viz pin.
 
-The attention kernels take at most ``FULL_BLOCK_MAX_N`` (256) tokens at head
-dim 64. An attention half beyond that runs the plain ``Attention`` on every
-device (JAX gates its full block at the same width,
-``core/layers.py:574-582``), while the MLP half keeps its kernel at any
-width, as JAX's ``ffn`` does. With ``cfg.viz_mode`` every block is pinned
-to the plain composition, as JAX pins its XLA composition
-(``force_xla=c.viz_mode``, ``models/deit.py:76``).
+The fused full block takes at most ``FULL_BLOCK_MAX_N`` (256) tokens (JAX
+gates its full block at the same width, ``core/layers.py:574-582``); a
+wider score-less block runs its attention half and its MLP half apart. The
+attention halves take head dim 64 and, in eval and in bf16 training, any
+width up to ``ATTENTION_MAX_N`` (the wide kernels above 256), as JAX pads
+its attention kernels to any width; an fp32 training attention half above
+256 tokens, and any half at another head dim, runs the plain
+``Attention`` (there is no fp32 attention backward above 256). The MLP
+half keeps its kernel at any width, as JAX's ``ffn`` does. With
+``cfg.viz_mode`` every block is pinned to the plain composition, as JAX
+pins its XLA composition (``force_xla=c.viz_mode``, ``models/deit.py:76``).
 
 Which route a block takes is shown by counting the calls of each kernel
 wrapper (each runs its plain version on a CPU tensor) and of the plain
@@ -16,10 +19,10 @@ run under ``torch.no_grad()``, as the port's eval entry points run them:
 an eval forward that autograd records takes the plain composition
 (``Block.eval_kernels``), since the eval kernels have no backward. The models have one
 head of 64 (the kernels' head dim), 4x4 patches: a 64-pixel image gives
-N = 257 tokens, one past the limit, a 32-pixel image 65. Beyond the limit
-the port's logits are held against the JAX model's (one Flax init through
-the weight bridge, the same seeded numpy images) at rtol = atol = 1e-4,
-and topk's kept tokens exactly.
+N = 257 tokens, one past the full block's limit, a 32-pixel image 65.
+Beyond the limit the port's logits are held against the JAX model's (one
+Flax init through the weight bridge, the same seeded numpy images) at
+rtol = atol = 1e-4, and topk's kept tokens exactly.
 """
 
 import collections
@@ -94,8 +97,9 @@ def images(img_size, b=2, seed=7):
 def test_width_gate_routes_each_block(monkeypatch, img_size, tokens, train):
     """Within the limit every half of a dense block goes through a kernel
     wrapper (one ``fused_full_block`` per block in eval; the attention and
-    MLP branches in training); one token past it the attention halves run
-    the plain ``Attention`` and the MLP halves keep their kernels."""
+    MLP branches in training); one token past it an eval block runs
+    ``fused_block_attention`` and ``fused_mlp_residual``, and an fp32
+    training block the plain ``Attention`` and ``mlp_branch``."""
     calls = count_calls(monkeypatch)
     model, _ = create_model("deit_small_patch16_224_local", device="cpu",
                             img_size=img_size, **WIDE)
@@ -111,7 +115,34 @@ def test_width_gate_routes_each_block(monkeypatch, img_size, tokens, train):
         want = ({"attend_branch_train": depth, **mlp} if train
                 else {"fused_full_block": depth})
     else:
-        want = {"plain_attention": depth, **mlp}
+        want = {("plain_attention" if train else "fused_block_attention"):
+                depth, **mlp}
+    assert calls == want
+
+
+@pytest.mark.parametrize("name,tokens,want", [
+    ("deit_small_patch16_224_local", 257,
+     {"attend_branch_train": 2, "mlp_branch": 2}),
+    ("tome_small_patch16_224", 257,
+     {"attend_branch_train": 1, "attention_core_train": 1,
+      "mlp_branch": 2}),
+])
+def test_bf16_training_halves_take_the_kernels_past_256(monkeypatch, name,
+                                                        tokens, want):
+    """In bf16 (the amp step's dtype) a training attention half above 256
+    tokens goes through the kernel wrappers, as within the limit: the
+    branch, or with ToMe's size bias after its first merge the attention
+    core (both with a bf16 backward at any width); on a CPU tensor each
+    runs its plain version."""
+    calls = count_calls(monkeypatch)
+    kw = ({} if name.startswith("deit")
+          else dict(reduction_loc=(0,), keep_rate=(0.9,)))
+    model, _ = create_model(name, device="cpu", img_size=64, **WIDE, **kw)
+    model = model.to(torch.bfloat16).train()
+    x = torch.from_numpy(images(64)[0]).to(torch.bfloat16)
+    out = model(x, generator=torch.Generator().manual_seed(0))
+    assert model.embed(x).shape[1] == tokens
+    out.float().sum().backward()
     assert calls == want
 
 
@@ -144,10 +175,16 @@ def wide_params(name):
     ("deit_small_patch16_224_local", {}),
     ("topk_small_patch16_224",
      dict(reduction_loc=(0,), keep_rate=(0.7,), viz_mode=True)),
+    ("topk_small_patch16_224", dict(reduction_loc=(0,), keep_rate=(0.7,))),
+    ("tome_small_patch16_224", dict(reduction_loc=(0,), keep_rate=(0.7,))),
+    ("ats_small_patch16_224", dict(reduction_loc=(0,), keep_rate=(0.7,))),
+    ("evit_small_patch16_224", dict(reduction_loc=(0,), keep_rate=(0.7,))),
 ])
 def test_wide_model_matches_jax(name, kw):
-    """N = 257: the port's plain blocks give JAX's logits, and topk's kept
-    tokens (block 0 at 257 tokens keeps 179 patches, block 1 runs at 180)."""
+    """N = 257: the port's blocks (the kernel wrappers' plain versions, or
+    with viz mode the plain composition) give JAX's logits, and topk's
+    kept tokens (block 0 at 257 tokens keeps 179 patches, block 1 runs at
+    180)."""
     params = wide_params(name)
     jmodel, _ = jax_create_model(name, img_size=64, **WIDE, **kw)
     model, _ = create_model(name, device="cpu", img_size=64, **WIDE, **kw)
@@ -201,18 +238,20 @@ def test_viz_pin_launches_no_kernel(monkeypatch, name, train):
 
 @pytest.mark.parametrize("name,want", [
     ("topk_small_patch16_224",
-     {"plain_attention": 1, "fused_mlp_gather_residual": 1,
+     {"fused_block_attention": 1, "fused_mlp_gather_residual": 1,
       "fused_full_block": 1}),
     ("ats_small_patch16_224",
-     {"plain_attention": 1, "fused_mlp_residual": 2,
+     {"ln_qkv": 1, "fused_rect_block": 1, "fused_mlp_residual": 2,
       "fused_block_attention": 1}),
 ])
 def test_mlp_halves_keep_their_kernels_past_the_limit(monkeypatch, name,
                                                       want):
-    """A reducing block 0 at N = 257: its attention half runs the plain
-    composition, its MLP half (topk's gathered one, ATS's) still its
-    kernel wrapper, as JAX's ``ffn_gather`` and ``ffn`` have no width
-    gate; block 1, at the 180 kept tokens, is back on the kernels."""
+    """A reducing block 0 at N = 257: its attention half runs its kernel
+    wrapper (topk's with the CLS score, ATS's sampling block's
+    rectangular one), its MLP half (topk's gathered one, ATS's) too, as
+    JAX's ``ffn_gather`` and ``ffn`` have no width gate; block 1, at the
+    180 kept tokens, takes the fused full block (topk) or the masked
+    attention half (ATS)."""
     calls = count_calls(monkeypatch)
     model, _ = create_model(name, device="cpu", img_size=64, **WIDE,
                             reduction_loc=(0,), keep_rate=(0.7,))

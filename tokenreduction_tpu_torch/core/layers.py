@@ -33,17 +33,21 @@ tensor and its hand-written kernels on a CUDA tensor.
 
 Two gates send a block, or its attention half, to the plain composition
 (``Attention`` with ``attention_probs_ref`` in eval, its plain training
-composition, and ``Mlp``) on every device, eval and training alike:
+composition, and ``Mlp``) on every device:
 
-- the width gate, on the attention halves only: the attention kernels take
-  at most ``FULL_BLOCK_MAX_N`` tokens at head dim 64 (they hold one head's
-  keys and values in shared memory). JAX gates its full block at the same
-  width (``core/layers.py:574-582`` there) and pads its attention kernels
-  to any width; here a wider attention half, or another head dim, runs the
-  plain ``Attention``, and a wrapper called directly with such a shape
-  raises. The MLP halves have no such limit and keep their kernels at any
-  width, as JAX's ``ffn`` and ``ffn_gather`` do (``core/layers.py:497-560``
-  there, gated on ``force_xla`` and ``deterministic`` alone).
+- the width gates. The fused full block takes at most ``FULL_BLOCK_MAX_N``
+  (256) tokens, as JAX gates its full block (``core/layers.py:574-582``
+  there); a wider score-less block runs ``attend`` and ``ffn``. The
+  attention halves take head dim 64 and, in eval and in bf16 training, any
+  width up to ``ATTENTION_MAX_N`` (2048 tokens: above 256 the wide kernels
+  stream the keys), as JAX pads its attention kernels to any width; an
+  fp32 training half above 256 tokens runs the plain ``Attention``, since
+  there is no fp32 attention backward above 256 (``backward_max_n``).
+  Another head dim runs the plain ``Attention`` everywhere, and a wrapper
+  called directly with a shape it does not take raises. The MLP halves
+  have no width limit and keep their kernels at any width, as JAX's
+  ``ffn`` and ``ffn_gather`` do (``core/layers.py:497-560`` there, gated
+  on ``force_xla`` and ``deterministic`` alone).
 - ``force_plain``, the counterpart of JAX's ``force_xla``: set from
   ``cfg.viz_mode`` where the model builds its blocks (JAX
   ``models/deit.py:76``), so extraction artifacts come from the same
@@ -75,9 +79,10 @@ from torch import nn
 
 from tokenreduction_tpu_torch.ops.dyvit import softmax_with_policy
 from tokenreduction_tpu_torch.ops.flash_attention import (
+    ATTENTION_MAX_N,
     HEAD_DIM,
-    SHORT_ATTENTION_MAX_N,
     attention_probs_ref,
+    backward_max_n,
     fused_block_attention,
 )
 from tokenreduction_tpu_torch.ops.flash_attention_train import (
@@ -95,10 +100,9 @@ from tokenreduction_tpu_torch.ops.fused_mlp_train import mlp_branch
 from tokenreduction_tpu_torch.ops.gather import take_tokens
 from tokenreduction_tpu_torch.parallel.mesh import draw_rows
 
-# The attention kernels' width limit (they hold one head's K and V in
-# shared memory), JAX's FULL_BLOCK_MAX_N: a wider attention half runs the
-# plain composition.
-FULL_BLOCK_MAX_N = SHORT_ATTENTION_MAX_N
+# JAX's FULL_BLOCK_MAX_N: the fused full block's gate (a wider block runs
+# its two halves). The attention halves' own limit is ATTENTION_MAX_N.
+FULL_BLOCK_MAX_N = 256
 
 
 def needs_grad(*tensors) -> bool:
@@ -108,13 +112,17 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def kernels_take(N: int, head_dim: int, force_plain: bool = False) -> bool:
-    """Whether an attention half (or a whole fused block) of N tokens at
-    this head dim runs on the kernel counterparts: no ``force_plain`` pin,
-    N <= FULL_BLOCK_MAX_N and head dim 64. Else it takes the plain
-    composition."""
-    return (not force_plain and N <= FULL_BLOCK_MAX_N
-            and head_dim == HEAD_DIM)
+def kernels_take(N: int, head_dim: int, force_plain: bool = False,
+                 train_dtype=None) -> bool:
+    """Whether an attention half of N tokens at this head dim runs on the
+    kernel counterparts: no ``force_plain`` pin, head dim 64, N <=
+    ATTENTION_MAX_N, and for a training half (``train_dtype``: its
+    activations' dtype) N <= ``backward_max_n`` (no fp32 backward above
+    256 tokens). Else it takes the plain composition. (The fused full
+    block also needs N <= FULL_BLOCK_MAX_N.)"""
+    return (not force_plain and head_dim == HEAD_DIM
+            and N <= (ATTENTION_MAX_N if train_dtype is None
+                      else backward_max_n(train_dtype)))
 
 
 _SCORES = (None, "cls", "keys", "colsum")
@@ -320,12 +328,14 @@ class Block(nn.Module):
                 and not needs_grad(x, *self._attn_params(),
                                    *self._mlp_params()))
 
-    def kernels_take(self, N: int) -> bool:
-        """Whether this block runs its attention half (or the whole fused
-        block) at width N on the kernel counterparts (``kernels_take``: the
-        width gate and the viz pin). The MLP halves need only no pin."""
+    def kernels_take(self, N: int, dtype=None) -> bool:
+        """Whether this block runs its attention half at width N on the
+        kernel counterparts (``kernels_take``: the width gates and the viz
+        pin; in training the backward's width in ``dtype``, the
+        activations'). The MLP halves need only no pin."""
         return kernels_take(N, self.attn.qkv.in_features // self.num_heads,
-                            self.force_plain)
+                            self.force_plain,
+                            dtype if self.training else None)
 
     def attend(self, x, *, bias=None, mask=None, policy=None, idx=None,
                score: Optional[str] = None,
@@ -349,7 +359,7 @@ class Block(nn.Module):
         past its gates, core/layers.py:486-490)."""
         _check_score(score)
         N = x.shape[1] if idx is None else idx.shape[1]
-        kernels = self.kernels_take(N) and policy is None
+        kernels = self.kernels_take(N, x.dtype) and policy is None
         if kernels and self.eval_kernels(x):
             res = fused_block_attention(
                 x, *self._attn_params(), self.num_heads, self.attn.scale,
@@ -413,12 +423,14 @@ class Block(nn.Module):
                 score: Optional[str] = None,
                 generator: Optional[torch.Generator] = None):
         """Returns (x, (aux, None)); a score-less eval block without a
-        mask or a policy that the kernels take is one ``fused_full_block``
-        call (JAX core/layers.py:574-616, its width gate included), any
-        other block ``attend`` and ``ffn`` (under a policy the MLP half
+        mask or a policy that the kernels take, at most FULL_BLOCK_MAX_N
+        tokens wide, is one ``fused_full_block`` call (JAX
+        core/layers.py:574-616, its width gate included), any other block
+        ``attend`` and ``ffn`` (under a policy the MLP half
         still takes its kernel, as JAX's ``ffn`` does not look at the
         policy, core/layers.py:497-533)."""
         if (score is None and mask is None and policy is None
+                and x.shape[1] <= FULL_BLOCK_MAX_N
                 and self.kernels_take(x.shape[1]) and self.eval_kernels(x)):
             out = fused_full_block(
                 x, *self._attn_params(), *self._mlp_params(), self.num_heads,

@@ -1,6 +1,8 @@
 // Softmax attention for short sequences (N <= 256) at head dim 64 on Hopper
 // (sm_90a): the bf16 forward and backward of the square attention, with
-// TMA loads into shared memory and wgmma products.
+// TMA loads into shared memory and wgmma products. Above 256 tokens (or
+// kept rows) the host launches attention_wide_sm90.cu's kernels instead,
+// which stream the keys in 64-key tiles through this header's steps.
 //
 // It replaces, in bf16, the attention of the TPU kernels
 // tokenreduction_tpu/ops/flash_attention.py fused_attention (:183, also the

@@ -7,8 +7,10 @@
 // in registers, dV and dK on wgmma with A from registers, dQ summed in
 // shared memory in a fixed order), their wgmma and swizzle helpers, and the
 // host's [B, H, N, 64] tensor maps. attention_sm90.cu includes it (every
-// bf16 attention of the main path, which loads q, k and v by TMA), and so
-// do the kernel tools' attn_joint.cu (the joint attention, which makes q, k
+// bf16 attention of the main path at N <= 256, which loads q, k and v by
+// TMA), attention_wide_sm90.cu (above 256 tokens: its wgmma and swizzle
+// helpers, probs_t and the tensor maps), and so do the kernel tools'
+// attn_joint.cu (the joint attention, which makes q, k
 // and v on chip from LayerNorm'd rows first), proto_attn.cu and
 // proto_attn_bwd.cu (the attention-core arrangements and the recomputing
 // branch backward). What each step computes, and why it is laid out so, is

@@ -24,6 +24,9 @@
 // Every bf16 attention, square and rectangular, and the bf16 backward are
 // attention_sm90.cu's (TMA, cp.async, wgmma); this file keeps the fp32
 // forwards and head_mean_keys, short_attention_bwd.cu the fp32 backward.
+// Above 256 tokens (or kept rows) the host launches
+// attention_wide_tf32.cu's fp32 forward and attention_wide_sm90.cu's bf16
+// kernels instead.
 // Every fp32 kernel runs 3xTF32 on the tensor cores (mma.sync m16n8k8,
 // attention_tf32.cuh): one thread block per (image, head), 8 warps, the
 // head's operands in shared memory, the exact row max in an fp32 softmax,

@@ -32,6 +32,7 @@ import time
 import torch
 
 from tokenreduction_tpu_torch.ops.flash_attention import (
+    SHORT_ATTENTION_MAX_N,
     merged_heads,
     packed_heads,
 )
@@ -75,6 +76,15 @@ _SIGNATURES = {
     "tr_attention_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _S, _P, _P, _P,
                               _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "tr_attention_sm90_smem": (_I, _I, _P),
+    "tr_attention_wide_sm90": (_P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _F, _I, _P),
+    "tr_attention_wide_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _S, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _F, _P),
+    "tr_attention_wide_smem": (_I, _P),
+    "tr_attention_wide_tf32": (_P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _F, _P),
+    "tr_attention_wide_tf32_smem": (_I,),
     "tr_gemm_tf32_config": (_P,),
     "tr_gemm_tf32_bwd_config": (_P,),
     "tr_attention_tf32_plan": (_I, _I, _P),
@@ -593,6 +603,14 @@ def _strides(*heads):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def wide(N: int, M: int | None = None) -> bool:
+    """Whether an attention of N keys (and M query rows) runs the wide
+    kernels (csrc/attention_wide_sm90.cu, csrc/attention_wide_tf32.cu):
+    above SHORT_ATTENTION_MAX_N tokens, where the single-pass kernels
+    stop; every launch at or below it is theirs."""
+    return max(N, N if M is None else M) > SHORT_ATTENTION_MAX_N
+
+
 def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
                           ids=None, row0=None, colsum=None, stats=None,
                           norm_p=False):
@@ -613,38 +631,55 @@ def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
     ones. fp32: csrc/short_attention.cu's short_attention_tf32_kernel (no
     stats), 3xTF32 on the tensor cores, its square variants counted by
     ``short_attention_heads.tf32_launches`` and its rectangular ones (RECT,
-    ATS in fp32) by ``short_attention_heads.tf32_rect_launches``."""
+    ATS in fp32) by ``short_attention_heads.tf32_rect_launches``. Above
+    256 keys or query rows (``wide``) the wide kernels run instead, the
+    same contract up to 2048: bf16 csrc/attention_wide_sm90.cu
+    (``wide_launches``, ``wide_rect_launches``), fp32
+    csrc/attention_wide_tf32.cu (``wide_tf32_launches``,
+    ``wide_tf32_rect_launches``)."""
     B, H, N, _ = q.shape
     M = out.shape[2]
+    rect = "rect_" if ids is not None else ""
     if q.dtype == torch.bfloat16:
-        err = kernels().lib.tr_attention_sm90(
+        fn = "tr_attention_wide_sm90" if wide(N, M) else "tr_attention_sm90"
+        err = getattr(kernels().lib, fn)(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _strides(q, k, v, out),
             _ptr(bias), _ptr(mask), _ptr(ids), _ptr(row0), _ptr(colsum),
             _ptr(stats), B, N, M, H, scale, int(norm_p), _stream(q))
-        _check("tr_attention_sm90", err)
-        if ids is None:
-            short_attention_heads.launches += 1
-        else:
-            short_attention_heads.rect_launches += 1
-        return
-    if stats is not None:
-        raise ValueError("short_attention: the row statistics come from the "
-                         "bf16 attention only")
-    err = kernels().lib.tr_short_attention(
-        _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-        _strides(q, k, v, out), _ptr(bias), _ptr(mask), _ptr(ids),
-        _ptr(row0), _ptr(colsum), B, N, M, H, scale, int(norm_p), _stream(q))
-    _check("tr_short_attention", err)
-    if ids is None:
-        short_attention_heads.tf32_launches += 1
+        _check(fn, err)
+        counter = ("wide_" if wide(N, M) else "") + rect + "launches"
     else:
-        short_attention_heads.tf32_rect_launches += 1
+        if stats is not None:
+            raise ValueError("short_attention: the row statistics come from "
+                             "the bf16 attention only")
+        strides = _strides(q, k, v, out)
+        args = (_ptr(bias), _ptr(mask), _ptr(ids), _ptr(row0), _ptr(colsum),
+                B, N, M, H, scale)
+        if wide(N, M):
+            fn = "tr_attention_wide_tf32"
+            err = kernels().lib.tr_attention_wide_tf32(
+                _ptr(q), _ptr(k), _ptr(v), _ptr(out), strides, *args,
+                _stream(q))
+            counter = "wide_tf32_" + rect + "launches"
+        else:
+            fn = "tr_short_attention"
+            err = kernels().lib.tr_short_attention(
+                _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+                strides, *args, int(norm_p), _stream(q))
+            counter = "tf32_" + rect + "launches"
+        _check(fn, err)
+    setattr(short_attention_heads, counter,
+            getattr(short_attention_heads, counter) + 1)
 
 
 short_attention_heads.launches = 0
 short_attention_heads.rect_launches = 0
 short_attention_heads.tf32_launches = 0
 short_attention_heads.tf32_rect_launches = 0
+short_attention_heads.wide_launches = 0
+short_attention_heads.wide_rect_launches = 0
+short_attention_heads.wide_tf32_launches = 0
+short_attention_heads.wide_tf32_rect_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -695,21 +730,36 @@ def short_attention_bwd_heads(q, k, v, out, dout, dq, dk, dv, scale, *,
     form), counted by ``short_attention_bwd_heads.launches``; fp32:
     csrc/short_attention_bwd.cu's short_attention_bwd_tf32_kernel, 3xTF32 on
     the tensor cores, which recomputes everything from q, k, v, counted by
-    ``short_attention_bwd_heads.tf32_launches``."""
+    ``short_attention_bwd_heads.tf32_launches``. Above 256 keys the bf16
+    backward is csrc/attention_wide_sm90.cu's two launches (dQ and delta,
+    then dK, dV and dbias, with an fp32 [B, H, N] delta between them),
+    counted once by ``short_attention_bwd_heads.wide_launches``; there is
+    no fp32 backward above 256 (it raises)."""
     B, H, N, _ = q.shape
     if q.dtype == torch.bfloat16:
         if stats is None or out is None or (drow0 is not None
                                             and row0 is None):
             raise ValueError("short_attention_bwd: the bf16 backward reads "
                              "the forward's output, stats and row0")
-        err = kernels().lib.tr_attention_bwd_sm90(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(dq),
-            _ptr(dk), _ptr(dv), _strides(q, k, v, out, dout, dq, dk, dv),
-            _ptr(stats), _ptr(row0), _ptr(bias), _ptr(mask), _ptr(drow0),
-            _ptr(dcs), _ptr(dbias), B, N, H, scale, _stream(q))
+        ptrs = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(dq),
+                _ptr(dk), _ptr(dv), _strides(q, k, v, out, dout, dq, dk, dv),
+                _ptr(stats), _ptr(row0), _ptr(bias), _ptr(mask), _ptr(drow0),
+                _ptr(dcs), _ptr(dbias))
+        if wide(N):
+            delta = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
+            err = kernels().lib.tr_attention_wide_bwd_sm90(
+                *ptrs, _ptr(delta), B, N, H, scale, _stream(q))
+            _check("tr_attention_wide_bwd_sm90", err)
+            short_attention_bwd_heads.wide_launches += 1
+            return
+        err = kernels().lib.tr_attention_bwd_sm90(*ptrs, B, N, H, scale,
+                                                  _stream(q))
         _check("tr_attention_bwd_sm90", err)
         short_attention_bwd_heads.launches += 1
         return
+    if wide(N):
+        raise ValueError(f"short_attention_bwd: N={N}: the fp32 backward "
+                         f"takes at most {SHORT_ATTENTION_MAX_N} tokens")
     err = kernels().lib.tr_short_attention_bwd(
         _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq),
         _ptr(dk), _ptr(dv), _strides(q, k, v, dout, dq, dk, dv), _ptr(bias),
@@ -721,6 +771,7 @@ def short_attention_bwd_heads(q, k, v, out, dout, dq, dk, dv, scale, *,
 
 short_attention_bwd_heads.launches = 0
 short_attention_bwd_heads.tf32_launches = 0
+short_attention_bwd_heads.wide_launches = 0
 
 
 def short_attention_bwd(qkv, out, dout, drow0, dqkv, num_heads, scale, *,
@@ -744,6 +795,19 @@ def attention_smem(n: int, m: int | None = None) -> dict:
     _check("tr_attention_sm90_smem", kernels().lib.tr_attention_sm90_smem(
         n, n if m is None else m, ctypes.addressof(out)))
     return dict(zip(("forward", "backward", "rectangular"), out))
+
+
+@functools.lru_cache(maxsize=None)
+def attention_wide_smem(n: int) -> dict:
+    """The dynamic shared memory a block of each wide attention kernel
+    takes at n keys, as its library reports it: {"forward" (bf16, square
+    and rectangular), "dq", "dkv" (the bf16 backward's two launches),
+    "tf32" (the fp32 forward)} bytes."""
+    out = (ctypes.c_int * 3)()
+    _check("tr_attention_wide_smem", kernels().lib.tr_attention_wide_smem(
+        n, ctypes.addressof(out)))
+    return {**dict(zip(("forward", "dq", "dkv"), out)),
+            "tf32": kernels().lib.tr_attention_wide_tf32_smem(n)}
 
 
 def head_mean_keys(qkv, keys, num_heads):

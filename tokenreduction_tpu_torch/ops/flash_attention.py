@@ -54,7 +54,11 @@ hand-written kernels (``csrc/``):
    the [B, H, N, hd] layouts are one kernel), the bias added after the
    scale and the mask after the bias, writing merged heads and the
    by-products; in bf16 ``csrc/attention_sm90.cu`` (TMA loads, QK^T and
-   PV on wgmma);
+   PV on wgmma). Above 256 tokens a head's keys no longer fit a block:
+   ``csrc/attention_wide_sm90.cu`` (bf16) and
+   ``csrc/attention_wide_tf32.cu`` (fp32) walk the query tiles and stream
+   the keys in 64-key tiles, twice (the row statistics online, then P
+   with the final row max), up to ``ATTENTION_MAX_N`` tokens;
 3. with ``want_keys``, ``head_mean_keys`` off the packed qkv;
 4. ``gemm``: the out projection, with its bias and the residual fused
    into the epilogue.
@@ -91,9 +95,14 @@ import torch
 
 from tokenreduction_tpu_torch.ops.gather import take_tokens
 
-# The short-attention kernel holds one head's q, k and v in shared memory
-# (and its fp32 form gives each lane N / 32 keys): N <= 256 at head dim 64.
+# The single-pass attention kernels (csrc/attention_sm90.cu, the fp32
+# csrc/short_attention.cu and short_attention_bwd.cu) hold one head's q, k
+# and v in shared memory and a whole row of S in registers: N <= 256 at head
+# dim 64. Above that the wide kernels (csrc/attention_wide_sm90.cu, the fp32
+# forward csrc/attention_wide_tf32.cu) stream the keys in 64-key tiles, up
+# to ATTENTION_MAX_N tokens; there is no fp32 backward above 256.
 SHORT_ATTENTION_MAX_N = 256
+ATTENTION_MAX_N = 2048
 HEAD_DIM = 64
 
 
@@ -278,13 +287,21 @@ def fused_block_attention_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
     return out + (head_mean_keys_ref(qkv, num_heads),) if want_keys else out
 
 
-def _check_width(name: str, N: int, hd: int):
+def backward_max_n(dtype) -> int:
+    """The widest attention the training kernels take in ``dtype``: the
+    bf16 backward streams its keys (csrc/attention_wide_sm90.cu); the fp32
+    backward (csrc/short_attention_bwd.cu) holds a head in shared memory."""
+    return ATTENTION_MAX_N if dtype == torch.bfloat16 \
+        else SHORT_ATTENTION_MAX_N
+
+
+def _check_width(name: str, N: int, hd: int, limit: int = ATTENTION_MAX_N):
     if hd != HEAD_DIM:
         raise ValueError(f"{name}: the kernel takes head dim {HEAD_DIM}, got "
                          f"{hd}")
-    if not 1 <= N <= SHORT_ATTENTION_MAX_N:
+    if not 1 <= N <= limit:
         raise ValueError(f"{name}: N={N} is outside the kernel's 1.."
-                         f"{SHORT_ATTENTION_MAX_N} tokens")
+                         f"{limit} tokens")
 
 
 def bias_operand(name: str, bias, B: int, N: int, device):
@@ -320,8 +337,10 @@ def mask_operand(name: str, mask, B: int, N: int, device):
 
 
 def check_attention_operands(name: str, x, num_heads: int, ln_scale, ln_bias,
-                             wqkv, bqkv, wproj, bproj):
-    """Raise on anything the attention half's kernels do not take."""
+                             wqkv, bqkv, wproj, bproj,
+                             limit: int = ATTENTION_MAX_N):
+    """Raise on anything the attention half's kernels do not take (N
+    above ``limit`` tokens among it)."""
     from tokenreduction_tpu_torch.ops import _build
 
     if x.dim() != 3:
@@ -330,7 +349,7 @@ def check_attention_operands(name: str, x, num_heads: int, ln_scale, ln_bias,
     if D % num_heads:
         raise ValueError(f"{name}: D={D} is not a multiple of {num_heads} "
                          "heads")
-    _check_width(name, N, D // num_heads)
+    _check_width(name, N, D // num_heads, limit)
     _build.check_shapes(name, (ln_scale, (D,)), (ln_bias, (D,)),
                         (wqkv, (3 * D, D)), (bqkv, (3 * D,)),
                         (wproj, (D, D)), (bproj, (D,)))
@@ -493,7 +512,8 @@ fused_attention.launches = 0
 
 def check_qkv(name: str, qkv, num_heads: int):
     """Raise unless qkv is a contiguous [B, N, 3D] operand of the
-    attention kernels (float32 or bfloat16, head dim 64, N <= 256)."""
+    attention kernels (float32 or bfloat16, head dim 64, N <=
+    ATTENTION_MAX_N)."""
     from tokenreduction_tpu_torch.ops import _build
 
     if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
@@ -540,9 +560,9 @@ def rect_operands(name: str, qkv, idx, mask, num_heads: int):
     check_qkv(name, qkv, num_heads)
     B, N = qkv.shape[:2]
     idx = _build.check_idx(name, idx, qkv)
-    if not 1 <= idx.shape[1] <= SHORT_ATTENTION_MAX_N:
+    if not 1 <= idx.shape[1] <= ATTENTION_MAX_N:
         raise ValueError(f"{name}: M={idx.shape[1]} kept rows is outside "
-                         f"the kernel's 1..{SHORT_ATTENTION_MAX_N}")
+                         f"the kernel's 1..{ATTENTION_MAX_N}")
     if mask is None:
         raise ValueError(f"{name}: the rectangular attention takes a mask")
     return idx, mask_operand(name, mask, B, N, qkv.device)

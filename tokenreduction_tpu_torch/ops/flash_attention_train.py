@@ -58,9 +58,18 @@ elementwise softmax (row max, exponentials, sums and by-products) at two
 warpgroups an SM; the backward, one block an SM, runs its loads, its
 products and its elementwise work one after another (PERF.md §6).
 
+Above 256 tokens the bf16 forward and backward are
+``csrc/attention_wide_sm90.cu``'s: the keys (or the queries) stream
+through the block in 64-key tiles, the forward in two passes (the row
+statistics online, then P from the final row max), the backward in two
+launches (dQ and delta a block per query tile, then dK, dV and dbias a
+block per key tile), up to ``ATTENTION_MAX_N`` tokens. There is no fp32
+backward above 256 tokens: the training blocks keep the plain
+composition there.
+
 On a CPU tensor the core runs ``fused_attention_ref`` forward and
 ``attention_core_train_bwd_ref`` backward; on a CUDA tensor it launches
-the kernels or raises.
+the kernels or raises (N above 2048 in bf16 or 256 in fp32).
 """
 
 from __future__ import annotations
@@ -69,6 +78,8 @@ import torch
 
 from tokenreduction_tpu_torch.ops.flash_attention import (
     MASK_VALUE,
+    _check_width,
+    backward_max_n,
     bias_operand,
     fused_attention_cuda,
     fused_attention_ref,
@@ -143,7 +154,9 @@ class _AttentionCore(torch.autograd.Function):
         ctx.scale = scale
         ctx.set_materialize_grads(False)  # an unused output's cotangent is 0
         if q.is_cuda:
-            B, _, N, _ = q.shape
+            B, _, N, hd = q.shape
+            _check_width("attention_core_train", N, hd,
+                         backward_max_n(q.dtype))
             mask = mask_operand("attention_core_train", mask, B, N, q.device)
             *res, stats = fused_attention_cuda(
                 "attention_core_train", q, k, v, scale, bias, mask,

@@ -49,9 +49,14 @@ tile to its fill and epilogue (csrc/gemm_sm90.cu); the attention
 softmax at two warpgroups an SM, its backward by loads, products and
 elementwise work that run one after another.
 
+Above 256 tokens the bf16 attention is ``csrc/attention_wide_sm90.cu``'s
+(the keys streamed in 64-key tiles, the backward in two launches), up to
+``ATTENTION_MAX_N``; there is no fp32 backward above 256 tokens.
+
 On a CPU tensor the branch runs ``attend_branch_train_ref`` forward and
 ``attend_branch_train_bwd_ref`` backward; on a CUDA tensor it launches
-the kernels or raises (N > 256, head dim other than 64).
+the kernels or raises (N above 2048 in bf16 or 256 in fp32, head dim
+other than 64).
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from __future__ import annotations
 import torch
 
 from tokenreduction_tpu_torch.ops.flash_attention import (
+    backward_max_n,
     check_attention_operands,
     layer_norm_bwd_ref,
     layer_norm_f32,
@@ -263,7 +269,8 @@ def attend_branch_train(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads: int,
     ``backward_launches`` the backwards alone."""
     if x.is_cuda:
         check_attention_operands("attend_branch_train", x, num_heads, ls, lb,
-                                 wqkv, bqkv, wproj, bproj)
+                                 wqkv, bqkv, wproj, bproj,
+                                 backward_max_n(x.dtype))
     return _AttendBranch.apply(x, ls, lb, wqkv, bqkv, wproj, bproj,
                                num_heads, scale, eps)
 

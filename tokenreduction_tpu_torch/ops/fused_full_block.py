@@ -30,8 +30,10 @@ epilogue. The GEMM (``csrc/gemm_sm90.cu``) and the attention
 intermediates on chip is later work.
 
 The TPU's VMEM plans (``full_block_supported``, ``_plan_group``) have no
-counterpart: the limit on the card is the attention kernel's N <= 256,
-and a CUDA tensor beyond it raises.
+counterpart. The models send a block to this wrapper at N <= 256 alone
+(``core/layers.py`` ``FULL_BLOCK_MAX_N``, JAX's gate); called directly,
+it takes what its attention takes (``ATTENTION_MAX_N`` tokens, the wide
+kernels above 256), and a CUDA tensor beyond that raises.
 
 On a CPU tensor the wrapper runs ``fused_full_block_ref``; on a CUDA
 tensor it launches the kernels or raises.

@@ -8,7 +8,7 @@ off. At keep 0.7 on DeiT-S the sample counts are 138, 97, 68 at blocks 3,
 6, 9 and the widths 197 -> 138 -> 97 -> 68.
 
 In eval every attention half that the kernels take (``kernels_take``: at
-most ``FULL_BLOCK_MAX_N`` tokens at head dim 64, and no viz pin), and every
+most ``ATTENTION_MAX_N`` tokens at head dim 64, and no viz pin), and every
 MLP half but under the viz pin, goes through the kernel wrappers, the JAX
 dispatch with its TPU gate removed (``reduction/ats.py:151-225``):
 

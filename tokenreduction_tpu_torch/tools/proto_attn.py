@@ -36,7 +36,10 @@ from __future__ import annotations
 import torch
 
 from tokenreduction_tpu_torch.core.device import resolve_device
-from tokenreduction_tpu_torch.ops.flash_attention import _check_width
+from tokenreduction_tpu_torch.ops.flash_attention import (
+    SHORT_ATTENTION_MAX_N,
+    _check_width,
+)
 from tokenreduction_tpu_torch.tools import _measure as M
 from tokenreduction_tpu_torch.tools.tune_kernels import joint_attention_ref
 
@@ -70,7 +73,7 @@ def check_operands(name: str, x, num_heads: int, *weights):
     if D % num_heads:
         raise ValueError(f"{name}: D={D} is not a multiple of {num_heads} "
                          "heads")
-    _check_width(name, N, D // num_heads)
+    _check_width(name, N, D // num_heads, SHORT_ATTENTION_MAX_N)
     _build.check_operands(name, x, *weights)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the card's kernels take bf16, got "

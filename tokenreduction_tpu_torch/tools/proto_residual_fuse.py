@@ -118,8 +118,9 @@ def attend_block_res(x, ls, lb, wqkv, bqkv, wproj, bproj, s, num_heads: int,
     in x's dtype, row0 [B, H, N] fp32), differentiable in x and the six
     parameters (not in s) and in both outputs. Weights in nn.Linear's
     layout: wqkv [3D, D], wproj [D, D]. On the card bf16 only (the scaled
-    GEMM variant is bf16's), head dim 64, N <= 256; ``launches`` counts the
-    card's forwards and ``backward_launches`` its backwards."""
+    GEMM variant is bf16's), head dim 64, N <= 2048 (the attention
+    kernels' ATTENTION_MAX_N); ``launches`` counts the card's forwards
+    and ``backward_launches`` its backwards."""
     if x.is_cuda:
         name = "attend_block_res"
         check_attention_operands(name, x, num_heads, ls, lb, wqkv, bqkv,

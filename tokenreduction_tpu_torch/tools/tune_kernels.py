@@ -92,12 +92,14 @@ def attn_joint(x, w, num_heads: int, scale: float, *, eps: float = 1e-6,
         return (out, (row0, colsum)) if with_scores else out
     from tokenreduction_tpu_torch.ops import _build
     from tokenreduction_tpu_torch.ops.flash_attention import (
+        SHORT_ATTENTION_MAX_N,
         check_attention_operands,
     )
 
     name = "attn_joint"
     check_attention_operands(name, x, num_heads, w["ls"], w["lb"], w["wqkv"],
-                             w["bqkv"], w["wproj"], w["bproj"])
+                             w["bqkv"], w["wproj"], w["bproj"],
+                             SHORT_ATTENTION_MAX_N)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the card's kernel takes bf16, got "
                         f"{x.dtype}")
