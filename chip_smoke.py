@@ -457,17 +457,22 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    max). Each run's counts set to 0 just before and read just after, the
    training kernels' per step as phase 5 counts them.
 12. wide: the attention above 256 tokens (csrc/attention_wide_sm90.cu,
-   bf16; csrc/attention_wide_tf32.cu, fp32), also callable alone
-   (``python3 -c 'import chip_smoke; chip_smoke.phase_wide()'``, which
-   builds the kernels and prints their ptxas lines and shared memory
-   first; phase 1 prints their shared memory at N = 290, 577 and 1025).
-   Each wide launch alone against its plain version (computed in chunks
-   of 16 images) at N = 257, 290, 577 and 1025, 6 heads (DeiT-S) and at
-   577 and 1025 with 12 (DeiT-B): bf16 B=256, fp32 B=32; the eval
-   forward with row0 and colsum, with ToMe's bias, with a mask that has
-   fully masked rows, the normalised-P forward with its statistics, the
-   backward of the branch (row0 cotangent), of ToMe's core (bias, both
-   cotangents, dbias) and of a masked core; the rectangular variant at
+   bf16; csrc/attention_wide_tf32.cu and attention_wide_tf32_bwd.cu,
+   fp32), also callable alone (``python3 -c 'import chip_smoke;
+   chip_smoke.phase_wide()'``, which builds the kernels and prints their
+   ptxas lines and shared memory first; phase 1 prints their shared
+   memory at N = 290, 577, 1025 and 2048). Each wide launch alone against
+   its plain version (computed in chunks of 16 images) at N = 257, 290,
+   577 and 1025, 6 heads (DeiT-S) and at 577 and 1025 with 12 (DeiT-B):
+   bf16 B=256, fp32 B=32; the eval forward with row0 and colsum, with
+   row0 alone (the one-walk square forward), with ToMe's bias, with a
+   mask that has fully masked rows, in bf16 the normalised-P forward with
+   row0 and colsum and with its statistics, the backward of the branch
+   (row0 cotangent), of ToMe's core (bias, both cotangents, dbias) and of
+   a masked core; in fp32 the backward of the branch (row0 cotangent) and
+   of the core with every option (bias, mask, both cotangents, dbias),
+   and the branch's at B=256, N=577 for the kernels' record; the
+   rectangular variant at
    M x N = 405 x 577, 300 x 577, 13 x 290 (and 405 x 577 at 12 heads),
    its padded slots equal to CLS and its dead slot uniform. Each output
    within 1e-2 (bf16) or 1e-4 (fp32) of its own max, a second launch
@@ -484,7 +489,11 @@ the kernels are built for sm_90a). Phases, each printing its own lines:
    topk@0.7 and ATS@0.7 at B=4 against the CPU (logits 1e-4, decisions
    under phase 3's rule); the amp topk@0.7 step at b256 (ms/step, peak
    memory, launches) beside PR 22's gate, and one step's loss and
-   gradients of dense and topk@0.7 at B=2 against the CPU's fp32;
+   gradients of dense and topk@0.7 at B=2 against the CPU's fp32; the
+   fp32 topk@0.7 step at b256 on the kernels (no plain attention) beside
+   the single-width gate, and one fp32 step's loss and gradients of
+   dense and topk@0.7 at B=2 against the CPU's (1e-4); in both, topk's
+   CPU step gathers the card's kept tokens;
    ``validate --input-size 384`` (fp32 and amp) over 128 synthetic images
    from a seeded 384-px DeiT-S checkpoint. Each path's counts set to 0
    just before and read just after; every wide kernel must launch there.
@@ -975,7 +984,10 @@ LAUNCHERS = {
     "attention_wide_tf32": (_build.short_attention_heads,
                             "wide_tf32_launches"),
     "rect_attention_wide_tf32": (_build.short_attention_heads,
-                                 "wide_tf32_rect_launches")}
+                                 "wide_tf32_rect_launches"),
+    # the fp32 backward above 256 tokens (csrc/attention_wide_tf32_bwd.cu)
+    "attention_wide_bwd_tf32": (_build.short_attention_bwd_heads,
+                                "wide_tf32_launches")}
 
 
 # the fp32 launchers, none of which a bf16 run launches
@@ -3726,14 +3738,18 @@ def label_smoothing_loss(out, targets, images_, params):
     return losses.label_smoothing_ce(out, targets, 0.1)
 
 
-def record_kept(model) -> dict:
-    """Record the top-k ids each reduction block gathers in training."""
+def record_kept(model, follow: dict | None = None) -> dict:
+    """Record the top-k ids each reduction block gathers in training; with
+    ``follow`` (another model's record), gather its ids instead, so that
+    a near tie cannot send the two runs to different tokens."""
     kept = {}
     for i in model.cfg.reduction_loc:
         blk = model.blocks[i]
 
         def gather(x, idx, generator=None, i=i, inner=blk.ffn_gather):
             kept[i] = idx.detach().cpu()
+            if follow is not None:
+                idx = follow[i].to(idx.device)
             return inner(x, idx, generator)
 
         blk.ffn_gather = gather
@@ -4417,8 +4433,9 @@ def eval_profile(label: str, card: str, profile: bool = True):
 
 def train_run(label: str, steps: int, profile: bool = False,
               amp: bool = True, img_size: int = 224):
-    """bench.py's train recipe for `steps` steps of TRAIN_B (``amp`` false:
-    in fp32, the JAX CLI's default) at ``img_size`` pixels; returns
+    """bench.py's train recipe for `steps` steps of TRAIN_B images
+    (``amp`` false: in fp32, the JAX CLI's default) at ``img_size`` pixels;
+    returns
     (seconds per step, losses, profile, extra) where profile, after two
     more steps under torch.profiler, is (the device's busy share of their
     wall time, {kernel: device microseconds}), else None; extra holds the
@@ -4762,7 +4779,9 @@ def ptxas_lines(log: str):
 # the fp32 kernels on the tensor cores, by their names' prefixes
 TF32_KERNELS = ("gemm_tf32_sm90_kernel", "gemm_tf32_bwd_sm90_kernel",
                 "short_attention_tf32_kernel",
-                "short_attention_bwd_tf32_kernel")
+                "short_attention_bwd_tf32_kernel",
+                "attention_wide_tf32_kernel", "attention_wide_tf32_bwd_dq",
+                "attention_wide_tf32_bwd_dkv")
 # a TF32 product on the tensor cores in SASS: wgmma (HGMMA) or mma.sync
 # (HMMA) with TF32 operands
 TF32_MMA = re.compile(r"\bH(?:G)?MMA\.\S*TF32[^;]*")
@@ -7087,12 +7106,18 @@ WIDE_RECORD = (6, 577)
 WIDE_B = {torch.float32: 32, torch.bfloat16: 256}
 # images a chunk of the plain versions (their [B, H, N, N] fp32 tensors)
 WIDE_CHUNK = 16
+# the variants whose plain version is timed at WIDE_RECORD; the first of a
+# launcher's gives its record
+WIDE_PLAIN_TIMED = ("forward, row0 + colsum", "forward, normalised P, row0, "
+                    "stats", "backward, row0 cotangent", "rect M=405")
 # the wide kernels' launchers (in LAUNCHERS)
 WIDE_LAUNCHERS = ("attention_wide", "rect_attention_wide",
                   "attention_wide_bwd", "attention_wide_tf32",
-                  "rect_attention_wide_tf32")
+                  "rect_attention_wide_tf32", "attention_wide_bwd_tf32")
 ATTENTION_WIDE = "tokenreduction_tpu_torch/csrc/attention_wide_sm90.cu"
 ATTENTION_WIDE_TF32 = "tokenreduction_tpu_torch/csrc/attention_wide_tf32.cu"
+ATTENTION_WIDE_TF32_BWD = \
+    "tokenreduction_tpu_torch/csrc/attention_wide_tf32_bwd.cu"
 # each wide kernel's source and the TPU kernel its record names
 WIDE_SOURCES = {
     "attention_wide": (ATTENTION_WIDE, ATTENTION_REPLACES["short_attention"]),
@@ -7104,6 +7129,8 @@ WIDE_SOURCES = {
                             ATTENTION_REPLACES["short_attention"]),
     "rect_attention_wide_tf32": (ATTENTION_WIDE_TF32,
                                  ATTENTION_REPLACES["rect_attention"]),
+    "attention_wide_bwd_tf32": (ATTENTION_WIDE_TF32_BWD,
+                                ATTENTION_REPLACES["short_attention_bwd"]),
 }
 # phase 12's 384-px eval cells (bf16 b256) and their reductions
 WIDE_EVAL = ("dense", "topk@0.7", "tome@0.7", "ats@0.7", "heuristic",
@@ -7121,12 +7148,14 @@ def wide_counts() -> dict:
 
 
 def wide_smem_lines(prefix: str):
-    for n in (290, 577, 1025):
+    for n in (290, 577, 1025, 2048):
         smem = _build.attention_wide_smem(n)
-        print(f"{prefix} attention_wide N={n}: dynamic shared memory a block "
-              f"(128 threads): bf16 forward {smem['forward']} bytes, backward "
-              f"dQ {smem['dq']}, dK dV {smem['dkv']}; fp32 forward "
-              f"{smem['tf32']}", flush=True)
+        print(f"{prefix} attention_wide N={n}: dynamic shared memory a block: "
+              f"bf16 forward {smem['forward']} bytes (384 threads), "
+              f"rectangular {smem['rect']}, backward dQ {smem['dq']}, dK dV "
+              f"{smem['dkv']} (128 threads); fp32 forward {smem['tf32']}, "
+              f"backward {smem['tf32_bwd']} a launch (128 threads)",
+              flush=True)
 
 
 def chunked(fn, B: int):
@@ -7152,7 +7181,8 @@ def wide_cases(dtype, H: int, N: int, gen):
     call over a batch slice)], flops, bytes, SDPA call) of each wide
     variant at B images (WIDE_B) of N tokens and H heads of 64: the eval
     forward with row0 and colsum (also with ToMe's bias, and with a mask
-    that has fully masked rows), in bf16 the training branch's normalised-P
+    that has fully masked rows), with row0 alone and with neither, in
+    bf16 the training branch's normalised-P
     forward with its statistics, and the backward of the branch (row0
     cotangent), of ToMe's core (bias, both cotangents, dbias) and of a
     masked core. bytes: each input read once, each output written once."""
@@ -7179,22 +7209,57 @@ def wide_cases(dtype, H: int, N: int, gen):
     forwards = [
         ("forward, row0 + colsum", {}, outs3,
          lambda sl: attention_ref(qkv[sl], H, SCALE), 2 * vec, None),
+        ("forward, row0", dict(colsum=None), outs3[0][:2], outs3[1][:2],
+         lambda sl: attention_ref(qkv[sl], H, SCALE)[:2], vec, None),
+        # dense's halves and every block that does not reduce
+        ("forward, no by-products", dict(row0=None, colsum=None),
+         outs3[0][:1], outs3[1][:1],
+         lambda sl: attention_ref(qkv[sl], H, SCALE)[:1], 0, None),
         ("forward, bias, row0 + colsum", dict(bias=bias), outs3,
          lambda sl: attention_ref(qkv[sl], H, SCALE, bias[sl]),
          2 * vec + 4 * B * N, float_mask(dtype, bias)),
         ("forward, mask, row0 + colsum", dict(mask=mask), outs3,
          lambda sl: attention_ref(qkv[sl], H, SCALE, mask=mask[sl]),
          2 * vec + B * N, float_mask(dtype, None, mask, mask))]
-    for label, kw, (names, outs), want, extra, lib_mask in forwards:
+    for case in forwards:
+        if len(case) == 6:
+            label, kw, (names, outs), want, extra, lib_mask = case
+        else:
+            label, kw, names, outs, want, extra, lib_mask = case
         yield (launcher, label,
                lambda kw=kw: _build.short_attention(
-                   qkv, merged, H, SCALE, row0=row0, colsum=colsum, **kw),
+                   qkv, merged, H, SCALE,
+                   **{"row0": row0, "colsum": colsum, **kw}),
                list(zip(names, outs, range(3))), want, fwd_flops,
                io + extra,
                lambda m=lib_mask: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=m, scale=SCALE))
+    dout, drow0 = rn(B, N, Dh), rn(B, H, N, dt=torch.float32)
+    dcs = rn(B, H, N, dt=torch.float32)
+    dqkv = torch.empty_like(qkv)
+    bwd_flops = 10 * B * N * N * Dh  # S, dP, dV, dK, dQ
+    bwd_io = E * 7 * B * N * Dh  # q, k, v, dout in; dq, dk, dv out
+    dout_h = rn(B, N, H, 64).transpose(1, 2)
+    grads = torch.empty(3, B, H, N, 64, device=DEVICE, dtype=dtype).unbind(0)
+    dbias = torch.empty(B, H, N, device=DEVICE)
     if not bf16:
+        # the fp32 backward (csrc/attention_wide_tf32_bwd.cu) from the fp32
+        # forward's statistics: the branch's (#9, the row0 cotangent) and
+        # the core's with every option (#11: bias, mask, both cotangents,
+        # dbias)
+        yield from wide_tf32_bwd_cases(qkv, merged, row0, stats, dout, drow0,
+                                       dcs, dqkv, dout_h, grads, dbias, bias,
+                                       mask, H, bwd_flops, bwd_io, vec)
         return
+    yield (launcher, "forward, normalised P, row0 + colsum",
+           lambda: _build.short_attention(qkv, merged, H, SCALE, row0=row0,
+                                          colsum=colsum, norm_p=True),
+           list(zip(("merged heads", "row0", "colsum"),
+                    (merged, row0, colsum), range(3))),
+           lambda sl: (attention_train_ref(qkv[sl], H, SCALE)[0],
+                       *attention_ref(qkv[sl], H, SCALE)[1:]),
+           fwd_flops, io + 2 * vec, lambda: F.scaled_dot_product_attention(
+               q, k, v, scale=SCALE))
     yield (launcher, "forward, normalised P, row0, stats",
            lambda: _build.short_attention(qkv, merged, H, SCALE, row0=row0,
                                           stats=stats, norm_p=True),
@@ -7208,11 +7273,6 @@ def wide_cases(dtype, H: int, N: int, gen):
     # the backward: the branch's (packed qkv, the row0 cotangent)
     _build.short_attention(qkv, merged, H, SCALE, row0=row0, stats=stats,
                            norm_p=True)
-    dout, drow0 = rn(B, N, Dh), rn(B, H, N, dt=torch.float32)
-    dcs = rn(B, H, N, dt=torch.float32)
-    dqkv = torch.empty_like(qkv)
-    bwd_flops = 10 * B * N * N * Dh  # S, dP, dV, dK, dQ
-    bwd_io = E * 7 * B * N * Dh  # q, k, v, dout in; dq, dk, dv out
     yield ("attention_wide_bwd", "backward, row0 cotangent",
            lambda: _build.short_attention_bwd(qkv, merged, dout, drow0, dqkv,
                                               H, SCALE, stats=stats,
@@ -7226,9 +7286,6 @@ def wide_cases(dtype, H: int, N: int, gen):
            sdpa_backward(q, k, v, merged_heads(dout, H)))
     # the core's, over [B, H, N, hd] views: ToMe's (bias, both cotangents,
     # dbias) and a masked one (no cotangents)
-    dout_h = rn(B, N, H, 64).transpose(1, 2)
-    grads = torch.empty(3, B, H, N, 64, device=DEVICE, dtype=dtype).unbind(0)
-    dbias = torch.empty(B, H, N, device=DEVICE)
     for label, fw, kw, extra, lib_mask in (
             ("backward, bias, colsum cotangent, dbias", dict(bias=bias),
              dict(bias=bias, drow0=drow0, dcs=dcs, dbias=dbias),
@@ -7252,6 +7309,41 @@ def wide_cases(dtype, H: int, N: int, gen):
                                                 **kw),
                list(zip(names, (*grads, dbias), range(4))), want, bwd_flops,
                bwd_io + extra, sdpa_backward(q, k, v, dout_h, lib_mask))
+
+
+def wide_tf32_bwd_cases(qkv, merged, row0, stats, dout, drow0, dcs, dqkv,
+                        dout_h, grads, dbias, bias, mask, H, flops, io, vec):
+    """The fp32 backward's cases in the form of wide_cases: #9's (the
+    packed qkv, the row0 cotangent; the statistics of a normalised-P
+    forward) and #11's with every option (bias, mask, both cotangents,
+    dbias; the statistics of the core's forward)."""
+    q, k, v = packed_heads(qkv, H)
+    Dh = 64 * H
+    _build.short_attention(qkv, merged, H, SCALE, row0=row0, stats=stats,
+                           norm_p=True)
+    yield ("attention_wide_bwd_tf32", "backward, row0 cotangent",
+           lambda: _build.short_attention_bwd(qkv, merged, dout, drow0, dqkv,
+                                              H, SCALE, stats=stats,
+                                              row0=row0),
+           [(n, lambda i=i: dqkv[..., i * Dh:(i + 1) * Dh], i)
+            for i, n in enumerate(("dq", "dk", "dv"))],
+           lambda sl: [attention_bwd_ref(qkv[sl], dout[sl], drow0[sl], H,
+                                         SCALE)[..., i * Dh:(i + 1) * Dh]
+                       for i in range(3)],
+           flops, io + vec, sdpa_backward(q, k, v, merged_heads(dout, H)))
+    out, r0, _, st = core_forward(q, k, v, bias=bias, mask=mask)
+    kw = dict(bias=bias, mask=mask, drow0=drow0, dcs=dcs, dbias=dbias)
+    yield ("attention_wide_bwd_tf32",
+           "backward, bias, mask, both cotangents, dbias",
+           lambda: _build.short_attention_bwd_heads(
+               q, k, v, out, dout_h, *grads, SCALE, stats=st, row0=r0, **kw),
+           list(zip(("dq", "dk", "dv", "dbias"), (*grads, dbias), range(4))),
+           lambda sl: attention_core_train_bwd_ref(
+               q[sl], k[sl], v[sl], bias[sl], dout_h[sl], drow0[sl], dcs[sl],
+               SCALE, mask[sl]),
+           flops, io + 3 * vec + 4 * qkv.shape[0] * qkv.shape[1],
+           sdpa_backward(q, k, v, dout_h,
+                         float_mask(torch.float32, bias, mask, mask)))
 
 
 def wide_rect_cases(dtype, gen):
@@ -7341,14 +7433,14 @@ def wide_kernel_checks(card: str) -> dict:
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         tag = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} B={B} H={H} N={N}"
         plain_ms = None
-        if (H, N) == WIDE_RECORD and launch not in rec and label in (
-                "forward, row0 + colsum", "backward, row0 cotangent",
-                "rect M=405"):
+        # the fp32 backward's record comes from wide_tf32_bwd_record
+        if ((H, N) == WIDE_RECORD and label in WIDE_PLAIN_TIMED
+                and launch != "attention_wide_bwd_tf32"):
             plain_ms = wide_ms(lambda: chunked(want_fn, B), runs=3)
-            rec[launch] = dict(shape=f"{tag} {label}", ms=ms,
-                               plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=lib_ms,
-                               max_abs_err=worst)
+            rec.setdefault(launch, dict(
+                shape=f"{tag} {label}", ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                max_abs_err=worst))
         plain = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
         print(f"phase 12 {launch} {label} {tag}: {', '.join(errs)} of max; a "
               f"second launch bit-equal; kernel {ms:.4f} ms per launch "
@@ -7409,6 +7501,82 @@ def wide_block_checks(card: str):
         settle()
 
 
+def wide_compositions(card: str):
+    """The eager library composition of each wide row at H=6, N=577, by
+    CUDA events (bf16 B=256; fp32 the forward at B=32, the backward at
+    B=256): the forward (SDPA and the fp32 CLS row, no column mass:
+    library_core), the backward (autograd through it with the row0
+    cotangent), the rectangular 405 x 577 (the kept rows gathered, then
+    SDPA with the pair mask: library_rect), and in bf16 #2 with the bias
+    and keys and with the idx prologue 577 -> 404 and #8 at 405 x 577 as
+    whole blocks (LayerNorm, linear, SDPA, proj, residual), with the whole
+    blocks' bounds (their products at 989 TFLOP/s, or each input read and
+    each output written once at 3.35 TB/s)."""
+    gen = torch.Generator().manual_seed(14)
+    H, N = WIDE_RECORD
+    Dh = 64 * H
+    for dtype, b_fwd in ((torch.bfloat16, TRAIN_B), (torch.float32,
+                                                     WIDE_B[torch.float32])):
+        qkv = torch.randn(TRAIN_B, N, 3 * Dh, generator=gen).to(DEVICE, dtype)
+        mask = token_mask(TRAIN_B, N, gen)
+        kept = kept_ids(TRAIN_B, N, 405, mask, gen)
+        with torch.no_grad():
+            qf, kf, vf = (t[:b_fwd] for t in packed_heads(qkv, H))
+            fwd = wide_ms(lambda: library_core(qf, kf, vf, SCALE))
+            rect = wide_ms(lambda: library_rect(qkv[:b_fwd], kept[:b_fwd],
+                                                mask[:b_fwd]))
+        leaf = qkv.detach().requires_grad_()
+        q, k, v = packed_heads(leaf, H)
+        with torch.enable_grad():
+            o, row0, _ = library_core(q, k, v, SCALE)
+        dout = torch.randn(o.shape, generator=gen).to(DEVICE, dtype)
+        drow0 = torch.randn(row0.shape, generator=gen).to(DEVICE)
+        bwd = wide_ms(lambda: torch.autograd.grad(
+            (o, row0), (leaf,), (dout, drow0), retain_graph=True), runs=3)
+        print(f"phase 12 composition {dtype} H={H} N={N}: forward (SDPA + "
+              f"the CLS row) B={b_fwd} {fwd:.4f} ms, rectangular 405 x 577 "
+              f"B={b_fwd} {rect:.4f} ms, backward through them with the row0 "
+              f"cotangent B={TRAIN_B} {bwd:.4f} ms on {card}", flush=True)
+        del qkv, leaf, q, k, v, o, row0, dout
+    dtype, B = torch.bfloat16, TRAIN_B
+    p = block_params(dtype, gen)
+    attn = [p[n] for n in ATTN]
+    x = torch.randn(B, N, D, generator=gen).to(DEVICE, dtype)
+    bias = log_sizes(B, N, gen, torch.float32)
+    idx = torch.stack([torch.cat([torch.zeros(1, dtype=torch.long),
+                                  1 + torch.randperm(N - 1, generator=gen)[
+                                      :403]]) for _ in range(B)]).to(DEVICE)
+    mask = token_mask(B, N, gen)
+    kept = kept_ids(B, N, 405, mask, gen)
+    with torch.no_grad():
+        qkv = ln_qkv(x, *attn[:4], eps=EPS)
+        runs = (
+            ("#2 bias + keys", N, N, lambda: library_block_attention(
+                x, *attn, HEADS, SCALE, bias=bias, want_keys=True)),
+            ("#2 idx 577 -> 404", 404, 404, lambda: library_block_attention(
+                x, *attn, HEADS, SCALE, idx=idx)),
+            ("#8 405 x 577", 405, N, lambda: take_tokens(x, kept) + F.linear(
+                library_rect(qkv, kept, mask), p["wproj"], p["bproj"])))
+        for label, M, K, run in runs:
+            ms = wide_ms(run)
+            if label.startswith("#8"):  # qkv in: the attention and proj
+                flops = 4 * B * M * N * D + 2 * B * M * D * D
+                nbytes = 2 * (3 * B * N * D + 2 * B * M * D) + B * N
+            else:  # LN, qkv, attention, proj on K rows; x in, out, by-products
+                flops = 2 * B * K * D * 4 * D + 4 * B * K * K * D
+                nbytes = 2 * (2 * B * K * D) + 8 * B * HEADS * K
+                if "keys" in label:
+                    nbytes += 2 * B * K * 64 + 4 * B * K
+            t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+            print(f"phase 12 composition {label} bf16 B={B}: {ms:.4f} ms "
+                  f"(LayerNorm, linear, SDPA, proj, residual as library "
+                  f"calls); the block's bound {max(t_ops, t_bytes) * 1e3:.4f} "
+                  f"ms ({'operations' if t_ops >= t_bytes else 'bytes'}) on "
+                  f"{card}", flush=True)
+    del p, x, qkv
+    settle()
+
+
 class PlainAttentionCount:
     """Counts the plain attention's calls (attention_probs_ref, by the
     modules of the blocks) while it is entered."""
@@ -7431,29 +7599,29 @@ class PlainAttentionCount:
 
 class SingleWidthGate:
     """PR 22's gate while entered: every attention half above 256 tokens,
-    eval or training, on the plain composition (the blocks' width limits
+    eval or training, on the plain composition (the blocks' width limit
     set to SHORT_ATTENTION_MAX_N)."""
 
     def __enter__(self):
-        self.orig = (layers.ATTENTION_MAX_N, layers.backward_max_n)
+        self.orig = layers.ATTENTION_MAX_N
         layers.ATTENTION_MAX_N = SHORT_ATTENTION_MAX_N
-        layers.backward_max_n = lambda dtype: SHORT_ATTENTION_MAX_N
         return self
 
     def __exit__(self, *exc):
-        layers.ATTENTION_MAX_N, layers.backward_max_n = self.orig
+        layers.ATTENTION_MAX_N = self.orig
 
 
 def library_block_attention(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads,
                             scale, *, eps=EPS, bias=None, mask=None, idx=None,
-                            want_keys=False):
+                            want_keys=False, want_row0=True, want_colsum=True):
     """fused_block_attention as eager library calls (LayerNorm, linear,
-    SDPA): x + the branch, the fp32 CLS row, no column mass."""
+    SDPA): x + the branch, the fp32 CLS row where wanted, no column
+    mass."""
     if idx is not None:
         x = take_tokens(x, idx)
     out = library_attention(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads,
                             scale, eps, bias, want_keys, mask)
-    return (x + out[0], out[1], None) + tuple(out[2:])
+    return (x + out[0], out[1] if want_row0 else None, None) + tuple(out[2:])
 
 
 def wide_serve(label: str, batches: int = 3) -> tuple[float, dict, int]:
@@ -7591,8 +7759,8 @@ def wide_train(card: str) -> dict:
     """The amp topk@0.7 step at b256, 384 px: ms/step and peak memory on
     the kernels (its launches counted) and with the plain attention above
     256 tokens (PR 22's gate); then one step's loss and gradients of dense
-    and topk@0.7 at B=WIDE_GRAD_B against the CPU's fp32 ones. Returns the
-    launches."""
+    and topk@0.7 at B=WIDE_GRAD_B against the CPU's fp32 ones, the CPU's
+    step gathering the card's kept tokens. Returns the launches."""
     reset_counts()
     with PlainAttentionCount() as plain:
         seconds, losses_, _, extra = train_run(
@@ -7626,7 +7794,8 @@ def wide_train(card: str) -> dict:
                                 generator=torch.Generator().manual_seed(1),
                                 **kw)
         cpu_model = copy.deepcopy(model).cpu()
-        kept, cpu_kept = record_kept(model), record_kept(cpu_model)
+        kept = record_kept(model)
+        cpu_kept = record_kept(cpu_model, follow=kept)
         gen = torch.Generator().manual_seed(2)
         x = torch.randn(WIDE_GRAD_B, 3, WIDE_PX, WIDE_PX, generator=gen)
         y = torch.randint(0, 1000, (WIDE_GRAD_B,), generator=gen)
@@ -7645,22 +7814,170 @@ def wide_train(card: str) -> dict:
         _, loss_rel = rel_err(loss.cpu().reshape(1), cpu_loss.reshape(1))
         require(loss_rel <= bound_["loss"], f"{label} {WIDE_PX} px amp: loss "
                 f"{loss_rel:.3e} of the CPU's > {bound_['loss']:.0e}")
-        same = all(torch.equal(kept[i].cpu(), cpu_kept[i]) for i in cpu_kept)
+        # the CPU's own top-k rows that the card's ids replaced
+        ties = sum(int((kept[i] != cpu_kept[i]).any(1).sum()) for i in kept)
         worst_name, worst = max(((n, rel_err(g.cpu(), cpu_grads[n])[1])
                                  for n, g in grads.items()),
                                 key=lambda t: t[1])
-        if same:  # gradients held where the selections are the same
-            require(worst <= bound_["grads"], f"{label} {WIDE_PX} px amp: "
-                    f"gradient {worst_name} {worst:.3e} of max|CPU fp32| > "
-                    f"{bound_['grads']:.0e}")
+        require(worst <= bound_["grads"], f"{label} {WIDE_PX} px amp: "
+                f"gradient {worst_name} {worst:.3e} of max|CPU fp32| > "
+                f"{bound_['grads']:.0e}")
         print(f"phase 12 train {label} bf16 amp B={WIDE_GRAD_B} {WIDE_PX} px "
               f"against the CPU's fp32: loss {loss.item():.6f} vs "
               f"{cpu_loss.item():.6f} ({loss_rel:.2e}, bound "
               f"{bound_['loss']:.0e}); worst gradient leaf {worst_name} "
-              f"{worst:.2e} of its max|CPU| ("
-              + (f"bound {bound_['grads']:.0e}" if same else
-                 "reported: the kept tokens differ") + ")", flush=True)
+              f"{worst:.2e} of its max|CPU| (bound {bound_['grads']:.0e}); "
+              f"the CPU gathered the card's kept tokens ({ties} rows of its "
+              "own top-k differed)", flush=True)
     return got
+
+
+def wide_train_fp32(card: str) -> dict:
+    """The fp32 topk@0.7 step at 384 px, b256 (the JAX CLI's default dtype)
+    on the kernels, every attention half above 256 tokens on the wide fp32
+    forward and backward and no plain attention: ms/step and peak memory,
+    beside the single-width gate (the plain attention above 256); then
+    one fp32 step's loss and gradients at B=WIDE_GRAD_B against the CPU's
+    (1e-4 of max|CPU|), with no plain attention, of dense and of topk@0.7,
+    whose CPU step gathers the card's kept tokens (the rows where its own
+    top-k differs, by a near tie, are reported).
+    Returns the launches of the step on the kernels."""
+    reset_counts()
+    with PlainAttentionCount() as plain:
+        seconds, losses_, _, extra = train_run(
+            WIDE_TRAIN, WIDE_TRAIN_STEPS, amp=False, img_size=WIDE_PX)
+    total = {**counts(), **launcher_counts()}
+    require(plain.calls == 0 and total["attention_wide_bwd_tf32"] > 0
+            and total["attention_wide_tf32"] > 0
+            and total["attention_bwd_tf32"] > 0,
+            f"train {WIDE_TRAIN} fp32 {WIDE_PX} px: launches {total}, plain "
+            f"attention {plain.calls}")
+    kernel_ms, kernel_peak = 1e3 * statistics.mean(seconds[2:]), extra["peak"]
+    print(f"phase 12 train {WIDE_TRAIN} fp32 b{TRAIN_B} {WIDE_PX} px: "
+          f"{kernel_ms:.2f} ms/step over steps 3-{WIDE_TRAIN_STEPS} (first "
+          f"{seconds[0] * 1e3:.1f} ms), peak memory allocated "
+          f"{kernel_peak / 2**30:.2f} GiB; losses "
+          f"{[round(v, 4) for v in losses_.tolist()]}; launches "
+          f"{ {k: n for k, n in total.items() if n} }; plain attention 0 on "
+          f"{card}", flush=True)
+    with SingleWidthGate(), PlainAttentionCount() as plain:
+        seconds, _, _, extra = train_run(WIDE_TRAIN, WIDE_TRAIN_STEPS,
+                                         amp=False, img_size=WIDE_PX)
+    require(plain.calls > 0, "the single-width gate: no plain attention "
+            "ran")
+    ms = 1e3 * statistics.mean(seconds[2:])
+    print(f"phase 12 train {WIDE_TRAIN} fp32 b{TRAIN_B} {WIDE_PX} px, the "
+          f"plain attention above 256 tokens (the single-width gate): "
+          f"{ms:.2f} "
+          f"ms/step, peak memory allocated {extra['peak'] / 2**30:.2f} GiB, "
+          f"{plain.calls} plain attention calls ({ms / kernel_ms:.2f}x the "
+          f"kernels' time, {extra['peak'] / kernel_peak:.2f}x their memory) "
+          f"on {card}", flush=True)
+    bound_ = TRAIN_BOUND[torch.float32]
+    for label in ("dense", WIDE_TRAIN):
+        settle()
+        name, kw = MODELS[label]
+        model, _ = create_model(name, device=DEVICE, img_size=WIDE_PX,
+                                generator=torch.Generator().manual_seed(1),
+                                **kw)
+        cpu_model = copy.deepcopy(model).cpu()
+        kept = record_kept(model)
+        cpu_kept = record_kept(cpu_model, follow=kept)
+        gen = torch.Generator().manual_seed(2)
+        x = torch.randn(WIDE_GRAD_B, 3, WIDE_PX, WIDE_PX, generator=gen)
+        y = torch.randint(0, 1000, (WIDE_GRAD_B,), generator=gen)
+        opt, _ = create_optimizer(dict(model.named_parameters()),
+                                  OptimConfig(lr=1e-3), lambda s: 1e-3, [])
+        state = init_train_state(model, opt, device=DEVICE)
+        cpu_state = init_train_state(cpu_model, opt, device="cpu")
+        model.train()
+        cpu_model.train()
+        reset_counts()
+        with PlainAttentionCount() as plain:
+            loss, grads = loss_and_grads(model, label_smoothing_loss,
+                                         state.params, x.to(DEVICE),
+                                         y.to(DEVICE), StepConfig())
+        torch.cuda.synchronize()
+        got = launcher_counts()
+        require(plain.calls == 0 and got["attention_wide_bwd_tf32"] > 0,
+                f"{label} fp32 {WIDE_PX} px B={WIDE_GRAD_B}: launches {got}, "
+                f"plain attention {plain.calls}")
+        cpu_loss, cpu_grads = loss_and_grads(cpu_model, label_smoothing_loss,
+                                             cpu_state.params, x, y,
+                                             StepConfig())
+        _, loss_rel = rel_err(loss.cpu().reshape(1), cpu_loss.reshape(1))
+        require(sorted(kept) == sorted(cpu_kept), f"{label} fp32: reduction "
+                f"blocks {sorted(kept)} on the card, {sorted(cpu_kept)} on "
+                "the CPU")
+        # the CPU's own top-k rows that the card's ids replaced
+        ties = sum(int((kept[i] != cpu_kept[i]).any(1).sum()) for i in kept)
+        worst_name, worst = max(((n, rel_err(g.cpu(), cpu_grads[n])[1])
+                                 for n, g in grads.items()),
+                                key=lambda t: t[1])
+        require(loss_rel <= bound_["loss"], f"{label} fp32 {WIDE_PX} px: "
+                f"loss {loss_rel:.3e} of the CPU's > {bound_['loss']:.0e}")
+        require(worst <= bound_["grads"], f"{label} fp32 {WIDE_PX} px: "
+                f"gradient {worst_name} {worst:.3e} of max|CPU| > "
+                f"{bound_['grads']:.0e}")
+        print(f"phase 12 train {label} fp32 B={WIDE_GRAD_B} {WIDE_PX} px "
+              f"against the CPU: loss {loss.item():.6f} vs "
+              f"{cpu_loss.item():.6f} ({loss_rel:.2e}); worst gradient leaf "
+              f"{worst_name} {worst:.2e} of its max|CPU| (bounds "
+              f"{bound_['loss']:.0e}, {bound_['grads']:.0e}); the CPU "
+              f"gathered the card's kept tokens ({ties} rows of its own "
+              f"top-k differed); {got['attention_wide_bwd_tf32']} wide fp32 "
+              "backward launches, no plain attention", flush=True)
+    return total
+
+
+def wide_tf32_bwd_record(card: str) -> dict:
+    """The fp32 backward's record at B=256, H=6, N=577 (#9's variant, the
+    row0 cotangent): against its plain version (1e-4 of its own max), ms
+    per launch beside the 3xTF32 bound, the plain version and SDPA's fp32
+    backward."""
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    B, (H, N) = TRAIN_B, WIDE_RECORD
+    Dh = 64 * H
+    qkv = torch.randn(B, N, 3 * Dh, generator=gen, device=DEVICE)
+    merged = torch.empty(B, N, Dh, device=DEVICE)
+    row0 = torch.empty(B, H, N, device=DEVICE)
+    stats = torch.empty(B, H, N, 2, device=DEVICE)
+    dout = torch.randn(B, N, Dh, generator=gen, device=DEVICE)
+    drow0 = torch.randn(B, H, N, generator=gen, device=DEVICE)
+    dqkv = torch.empty_like(qkv)
+    _build.short_attention(qkv, merged, H, SCALE, row0=row0, stats=stats,
+                           norm_p=True)
+
+    def run():
+        _build.short_attention_bwd(qkv, merged, dout, drow0, dqkv, H, SCALE,
+                                   stats=stats, row0=row0)
+
+    def plain(sl):
+        return [attention_bwd_ref(qkv[sl], dout[sl], drow0[sl], H, SCALE)]
+
+    run()
+    torch.cuda.synchronize()
+    want = chunked(plain, B)[0]
+    abs_err, rel = rel_err(dqkv, want)
+    require(rel <= LAUNCH_BOUND[torch.float32], f"attention_wide_bwd_tf32 "
+            f"B={B}: {rel:.3e} of max|plain| > {LAUNCH_BOUND[torch.float32]}")
+    del want
+    q, k, v = packed_heads(qkv, H)
+    ms = wide_ms(run)
+    lib_ms = wide_ms(sdpa_backward(q, k, v, merged_heads(dout, H)))
+    plain_ms = wide_ms(lambda: chunked(plain, B), runs=3)
+    flops, nbytes = 10 * B * N * N * Dh, 4 * 7 * B * N * Dh + 4 * B * H * N
+    t_ops, t_bytes = flops / (PEAK_TF32_FLOPS / 3), nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"phase 12 attention_wide_bwd_tf32 record fp32 B={B} H={H} N={N} "
+          f"backward, row0 cotangent: dqkv {abs_err:.3e} ({rel:.2e}) of max; "
+          f"kernel {ms:.4f} ms per launch, bound {bound_ms:.4f} ms "
+          f"({bound_by}, 3xTF32), SDPA fp32 backward {lib_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms on {card}", flush=True)
+    return dict(shape=f"fp32 B={B} H={H} N={N} backward, row0 cotangent",
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, max_abs_err=abs_err)
 
 
 def wide_validate(card: str) -> dict:
@@ -7733,11 +8050,15 @@ def phase_wide(card: str | None = None) -> tuple[dict, dict]:
         wide_smem_lines("phase 12")
     rec = wide_kernel_checks(card)
     settle()
+    rec["attention_wide_bwd_tf32"] = wide_tf32_bwd_record(card)
+    settle()
     wide_block_checks(card)
+    wide_compositions(card)
     launches = collections.Counter()
     launches.update(wide_eval(card))
     launches.update(wide_fp32(card))
     launches.update(wide_train(card))
+    launches.update(wide_train_fp32(card))
     launches.update(wide_validate(card))
     for name in WIDE_LAUNCHERS:
         require(launches[name] > 0, f"phase 12: {name} never launched on "

@@ -40,6 +40,7 @@ from tokenreduction_tpu_torch.evaluation.extract_cls_features import (
 from tokenreduction_tpu_torch.evaluation.run_table import scan_output_dirs
 from tokenreduction_tpu_torch.evaluation.validate import main as port_validate
 from torch_eval_cases import checkpoint_pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings("ignore")
 

@@ -37,6 +37,7 @@ from tokenreduction_tpu_torch.models.convert import state_dict_from_flax
 from tokenreduction_tpu_torch.ops import ats
 from tokenreduction_tpu_torch.ops import flash_attention as fa
 from tokenreduction_tpu_torch.train import losses, optim, step
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)

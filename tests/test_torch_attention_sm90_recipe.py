@@ -51,6 +51,7 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     linear_f32,
     packed_heads,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, HD, EPS = 2, 2, 64, 1e-6
 WIDTHS = (4, 13, 68, 197)

@@ -5,8 +5,9 @@ Above 256 tokens every eval attention half goes through the kernel
 wrappers (on the card the wide kernels, ``csrc/attention_wide_sm90.cu``
 and ``csrc/attention_wide_tf32.cu``; on a CPU tensor their plain
 versions), the fused full block keeps its 256-token gate, and an fp32
-training attention half keeps the plain composition (no fp32 attention
-backward above 256 tokens). Each model is one Flax init through
+training attention half goes through the training wrappers too (on the
+card the wide fp32 forward and ``csrc/attention_wide_tf32_bwd.cu``). Each
+model is one Flax init through
 ``models/convert.py::state_dict_from_flax`` with a head dim of 64 (the
 kernels'), given the same seeded numpy images on both sides: dense,
 topk, ToMe, ATS, heuristic, EViT, DyViT and PatchMerger at keep 0.7. The
@@ -196,8 +197,8 @@ def test_model_matches_jax_at_290_tokens(monkeypatch, method):
 
 def test_fp32_train_step_matches_jax_at_290_tokens(monkeypatch):
     """topk's gradients through the training wrappers: every MLP half's
-    mlp_branch, the attention halves above 256 tokens plain (fp32), those
-    after the first reduction attend_branch_train."""
+    mlp_branch and every attention half's attend_branch_train, those above
+    256 tokens (fp32) included."""
     name, kw = METHODS["topk"]
     params = flax_params(name, tuple(kw.items()))
     x_nchw, x_nhwc = images(seed=11)
@@ -227,9 +228,9 @@ def test_fp32_train_step_matches_jax_at_290_tokens(monkeypatch):
         model, lambda out, t, i, p: losses.label_smoothing_ce(out, t, 0.1),
         grads, torch.from_numpy(x_nchw), torch.from_numpy(y),
         step.StepConfig())
-    # blocks 0 and 1 at 290 tokens plain, 2 and 3 (203 and 142) on the
-    # branch
-    assert calls == {"mlp_branch": DIMS["depth"], "attention_probs_ref": 2,
-                     "attend_branch_train": 2}
+    # blocks 0 and 1 at 290 tokens, 2 and 3 (203 and 142): all on the
+    # branch, no plain attention
+    assert calls == {"mlp_branch": DIMS["depth"],
+                     "attend_branch_train": DIMS["depth"]}
     assert_step1_grads_close({n: g.numpy() for n, g in got.items()},
                              {n: g.numpy() for n, g in want.items()})

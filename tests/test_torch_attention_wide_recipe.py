@@ -26,16 +26,30 @@ holds it against the JAX package on the CPU:
   launch a query tile), dK, dV and dbias over the query tiles in order (one
   launch a key tile).
 
+The two-pass forward above is the rectangular bf16 variant's and the fp32
+forward's; the square bf16 forward walks the keys once
+(``recipe_forward_one_pass``: a block per 128 query rows; the running max
+and sum, O rescaled by exp2(old max - new max) as the max grows and the
+eval recipe's P rounded against the running max; with colsum or NORM_P a
+second walk from the final statistics, colsum summed per warp of 16 rows,
+a block's 8 warps in order, the blocks in order), and the fp32 backward
+above 256 tokens (``recipe_backward_tf32``, csrc/attention_wide_tf32_bwd.cu)
+takes P from the fp32 forward's statistics, delta in full, and sums over
+keys or queries in partials of 32, in order.
+
 Against JAX's ``fused_attention`` (bias, mask), ``fused_attention_qkv``
 (NORM_P), ``fused_block_attention`` (bias with the head-mean keys, a mask
 with fully masked query rows, the idx prologue), ``fused_rect_attention``,
 ``attention_core_train`` (forward, and ``jax.vjp`` with non-zero row0 and
-colsum cotangents) and ``attend_branch_train``'s ``jax.vjp``, each in
-interpret mode, at N = 257, 290 and 577 (B = 2, H = 2, none a multiple of
-16). Bounds, each over the tensor's max|JAX|: fp32 1e-4, bf16 2e-2; the
-saved statistics within 1e-5 of JAX's logits' row max and 1/sum.
+colsum cotangents, bf16 and fp32) and ``attend_branch_train``'s
+``jax.vjp`` (bf16 and fp32), each in interpret mode, at N = 257, 290 and
+577 (B = 2, H = 2, none a multiple of 16). Each JAX reference runs once
+per module and is shared by the cases that read it. Bounds, each over the
+tensor's max|JAX|: fp32 1e-4, bf16 2e-2; the saved statistics within 1e-5
+of JAX's logits' row max and 1/sum.
 """
 
+import functools
 import math
 
 import jax
@@ -224,6 +238,109 @@ def recipe_backward(q, k, v, out, dout, stats, row0, scale, bias=None,
             dbias[..., :N])
 
 
+WS_ROWS = 128  # query rows of a block of the square bf16 forward
+
+
+def recipe_forward_one_pass(q, k, v, scale, bias=None, mask=None,
+                            norm_p=False, colsum=True):
+    """(out [B, H, N, hd] in q's dtype, row0, colsum or None, stats) in the
+    square bf16 forward's order: walk 1 over the key tiles, the running
+    max and sum (rescaled by exp2(old - new)), and for the eval recipe O +=
+    round(exp2(x - the running max)) V, rescaled first; with colsum or
+    NORM_P walk 2, P from the final statistics: NORM_P's O, row0, and
+    colsum (per warp of 16 rows, a block's 8 warps added in order, the
+    blocks of 128 rows added in order). Without walk 2, row0 from row 0's
+    logits and the final statistics."""
+    dt = q.dtype
+    N = k.shape[2]
+    x = wide_logits(q, k, scale, bias, mask, mask, True)
+    TQ, TK = x.shape[-2:]
+    vp = _pad_rows(v, TK)
+    m = torch.full(x.shape[:-1], -math.inf)
+    s = torch.zeros(x.shape[:-1])
+    o = torch.zeros(*x.shape[:-1], v.shape[-1])
+    for j in range(0, TK, TILE):
+        xt = x[..., j:j + TILE]
+        n = torch.maximum(m, xt.amax(-1))
+        p = torch.exp2(xt - n[..., None])
+        a = torch.exp2(m - n)
+        s = s * a + p.sum(-1)
+        if not norm_p:
+            o = o * a[..., None] + p.to(dt).float() @ vp[:, :, j:j + TILE]
+        m = n
+    r = torch.where(torch.arange(TQ) < N, 1.0 / s, 0.0)
+    mx = torch.where(m == -FLT_MAX, m, m * LN2)
+    stats = torch.stack([mx, r], -1)[:, :, :N]
+    if not (norm_p or colsum):
+        row0 = torch.exp2(x[:, :, 0] - m[:, :, :1]) * r[:, :, :1]
+        return (o * r[..., None])[:, :, :N].to(dt), row0[..., :N], None, stats
+    pn = torch.exp2(x - m[..., None]) * r[..., None]
+    if norm_p:
+        o = torch.zeros_like(o)
+        for j in range(0, TK, TILE):
+            o = o + pn[..., j:j + TILE].to(dt).float() @ vp[:, :, j:j + TILE]
+    else:
+        o = o * r[..., None]
+    cs = None
+    if colsum:
+        rows = -(-TQ // WS_ROWS) * WS_ROWS  # pad rows: P is 0
+        pr = torch.cat([pn, torch.zeros(*pn.shape[:2], rows - TQ, TK)], 2)
+        warps = pr.reshape(*pr.shape[:2], rows // WS_ROWS, 8, 16, TK).sum(-2)
+        block = warps[:, :, :, 0]
+        for w in range(1, 8):
+            block = block + warps[:, :, :, w]
+        cs = block[:, :, 0]
+        for qb in range(1, block.shape[2]):
+            cs = cs + block[:, :, qb]
+        cs = cs[..., :N]
+    return o[:, :, :N].to(dt), pn[:, :, 0, :N], cs, stats
+
+
+def recipe_backward_tf32(q, k, v, dout, stats, scale, bias=None, mask=None,
+                         drow0=None, dcs=None):
+    """(dq, dk, dv, the per-head dbias [B, H, N]) in the fp32 backward's
+    order above 256 tokens: P = exp(x - the row max) / sum from the
+    forward's statistics; dP with the row0 cotangent on row 0 and the
+    colsum cotangent on every row; delta summed over the keys in partials
+    of 32, in order; dS = P (dP - delta), zero at a masked pair; dQ summed
+    in partials of 32 keys in order (the first launch, a block per query
+    tile), then the scale; dK, dV and dbias in partials of 32 queries in
+    order (the second launch, a block per key tile)."""
+    N = q.shape[-2]
+    T = _tiles(N)
+    m = _pad_vec(stats[..., 0], T, math.inf)  # P is 0 on pad rows
+    r = _pad_vec(stats[..., 1], T)
+    x = wide_logits(q, k, scale, bias, mask, mask, False)
+    p = torch.exp(x - m[..., None]) * r[..., None]
+    do = _pad_rows(dout, T)
+    dp = do @ _pad_rows(v, T).transpose(-1, -2)
+    if drow0 is not None:
+        dp[:, :, 0, :N] += drow0.float()
+    if dcs is not None:
+        dp[..., :N] += dcs.float()[:, :, None, :]
+    delta = torch.zeros(p.shape[:-1])
+    for j in range(0, T, 32):
+        delta = delta + (p[..., j:j + 32] * dp[..., j:j + 32]).sum(-1)
+    u = p * (dp - delta[..., None])
+    if mask is not None:
+        ok = torch.zeros(q.shape[0], T, dtype=torch.bool)
+        ok[:, :N] = mask
+        u = u.masked_fill(~(ok[:, None, :, None] & ok[:, None, None, :]),
+                          0.0)
+    qp, kp = _pad_rows(q, T), _pad_rows(k, T)
+    dq = torch.zeros_like(qp)
+    for j in range(0, T, 32):
+        dq = dq + u[..., j:j + 32] @ kp[:, :, j:j + 32]
+    dk, dv = torch.zeros_like(qp), torch.zeros_like(qp)
+    dbias = torch.zeros(u.shape[:2] + u.shape[3:])
+    for i in range(0, T, 32):
+        dv = dv + p[:, :, i:i + 32].transpose(-1, -2) @ do[:, :, i:i + 32]
+        dk = dk + u[:, :, i:i + 32].transpose(-1, -2) @ qp[:, :, i:i + 32]
+        dbias = dbias + u[:, :, i:i + 32].sum(2)
+    return ((dq * scale)[:, :, :N], (dk * scale)[:, :, :N], dv[:, :, :N],
+            dbias[..., :N])
+
+
 # ---- inputs and checks
 def rand(rng, *shape, scale=1.0, shift=0.0):
     return (shift + scale * rng.standard_normal(shape)).astype(np.float32)
@@ -278,12 +395,13 @@ ATTENTION_CASES = [(257, "plain", "fp32"), (257, "bias", "fp32"),
                    (577, "bias", "bf16")]
 
 
-@pytest.mark.parametrize("N,kind,dtype_name", ATTENTION_CASES)
-def test_attention_matches_jax(N, kind, dtype_name):
-    """fused_attention (the eval recipe) and, for "qkv", fused_attention_qkv
-    (NORM_P) with the bias and the mask, and the saved statistics."""
-    dtype = DTYPES[dtype_name]
-    jdt = JAX_DTYPES[dtype]
+@functools.lru_cache(maxsize=None)
+def jax_attention(N, kind, dtype_name):
+    """The inputs of an attention case (q, k, v as JAX arrays, bias and
+    mask numpy or None) and JAX's (out, row0, colsum): fused_attention (the
+    eval recipe) or, for "qkv", fused_attention_qkv (NORM_P), with the bias
+    and the mask; once per module."""
+    jdt = JAX_DTYPES[DTYPES[dtype_name]]
     rng = np.random.default_rng(N)
     qkv = [rand(rng, B, H, N, HD) for _ in range(3)]
     bias = np.log(rng.integers(1, 5, (B, N))).astype(np.float32)
@@ -302,6 +420,17 @@ def test_attention_matches_jax(N, kind, dtype_name):
     else:
         want = jax_fa.fused_attention(jq, jk, jv, SCALE, bias=jbias,
                                       mask=jmask, interpret=True)
+    return (jq, jk, jv), bias, mask, tuple(np.asarray(w, np.float32)
+                                           for w in want)
+
+
+@pytest.mark.parametrize("N,kind,dtype_name", ATTENTION_CASES)
+def test_attention_matches_jax(N, kind, dtype_name):
+    """fused_attention (the eval recipe) and, for "qkv", fused_attention_qkv
+    (NORM_P) with the bias and the mask, and the saved statistics, in the
+    two-pass order."""
+    dtype = DTYPES[dtype_name]
+    (jq, jk, jv), bias, mask, want = jax_attention(N, kind, dtype_name)
     tq, tk, tv = (torch_of(a, dtype) for a in (jq, jk, jv))
     got = recipe_forward(tq, tk, tv, SCALE,
                          None if bias is None else torch.from_numpy(bias),
@@ -309,6 +438,31 @@ def test_attention_matches_jax(N, kind, dtype_name):
                          norm_p=kind == "qkv")
     for label, g, w in zip(("out", "row0", "colsum"), got, want):
         close(g, w, dtype, label)
+    check_stats(got[3], jq, jk, bias, mask)
+
+
+# the bf16 attention cases, each with and without colsum
+ONE_PASS_CASES = [(N, kind, colsum) for N, kind, name in ATTENTION_CASES
+                  if name == "bf16" for colsum in (False, True)]
+
+
+@pytest.mark.parametrize("N,kind,colsum", ONE_PASS_CASES)
+def test_one_pass_forward_matches_jax(N, kind, colsum):
+    """The square bf16 forward's order (one walk; a second for colsum or
+    NORM_P, with colsum's per-block partials added in order) against
+    fused_attention and fused_attention_qkv ("qkv": NORM_P) with the bias
+    and the mask, and its saved statistics."""
+    dtype = torch.bfloat16
+    (jq, jk, jv), bias, mask, want = jax_attention(N, kind, "bf16")
+    tq, tk, tv = (torch_of(a, dtype) for a in (jq, jk, jv))
+    got = recipe_forward_one_pass(
+        tq, tk, tv, SCALE, None if bias is None else torch.from_numpy(bias),
+        None if mask is None else torch.from_numpy(mask),
+        norm_p=kind == "qkv", colsum=colsum)
+    assert (got[2] is None) == (not colsum)
+    for label, g, w in zip(("out", "row0", "colsum"), got[:3], want):
+        if g is not None:
+            close(g, w, dtype, label)
     check_stats(got[3], jq, jk, bias, mask)
 
 
@@ -447,10 +601,44 @@ def test_core_vjp_matches_jax(N, form):
         close(dbias.sum(1), want[3], dtype, "dbias")
 
 
+@pytest.mark.parametrize("N", (257, 577))
+def test_tf32_core_vjp_matches_jax(N):
+    """attention_core_train in fp32 above 256 tokens (ToMe's core after a
+    merge, heuristic's masked core): the two-launch backward's order with
+    the bias, a mask with fully masked rows, both cotangents and dbias,
+    from the fp32 forward's statistics."""
+    dtype = torch.float32
+    rng = np.random.default_rng(4000 + N)
+    qkv = [rand(rng, B, H, N, HD) for _ in range(3)]
+    bias = np.log(rng.integers(1, 5, (B, N))).astype(np.float32)
+    mask = token_mask(rng, N)
+    g, g0, gc = rand(rng, B, H, N, HD), rand(rng, B, H, N), rand(rng, B, H, N)
+    jq, jk, jv = (jnp.asarray(a) for a in qkv)
+    outs, vjp = jax.vjp(
+        lambda q, k, v, b: jax_attention_core(q, k, v, SCALE, b,
+                                              jnp.asarray(mask), True),
+        jq, jk, jv, jnp.asarray(bias))
+    want = vjp((jnp.asarray(g), jnp.asarray(g0), jnp.asarray(gc)))
+    q, k, v = (torch.from_numpy(a) for a in qkv)
+    tbias, tmask = torch.from_numpy(bias), torch.from_numpy(mask)
+    out, row0, colsum, stats = recipe_forward(q, k, v, SCALE, tbias, tmask)
+    for label, got, w in zip(("out", "row0", "colsum"), (out, row0, colsum),
+                             outs):
+        close(got, w, dtype, label)
+    check_stats(stats, jq, jk, bias, mask)
+    dq, dk, dv, dbias = recipe_backward_tf32(
+        q, k, v, torch.from_numpy(g), stats, SCALE, tbias, tmask,
+        torch.from_numpy(g0), torch.from_numpy(gc))
+    for label, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        close(got, w, dtype, label)
+    close(dbias.sum(1), want[3], dtype, "dbias")
+
+
 def branch_recipe(x, ls, lb, wqkv, bqkv, wproj, bproj, dy, drow0):
     """attend_branch_train forward and backward with the attention in the
-    wide kernels' order (the normalised-P forward with its statistics, the
-    shortcut backward); the rest as the port's plain branch."""
+    wide kernels' order (the normalised-P forward with its statistics; in
+    bf16 the shortcut backward, in fp32 the fp32 backward's order); the rest
+    as the port's plain branch."""
     dt = x.dtype
     Bx, N, _ = x.shape
     x_hat, rstd = layer_norm_stats(x.float().reshape(Bx * N, D), EPS)
@@ -463,8 +651,12 @@ def branch_recipe(x, ls, lb, wqkv, bqkv, wproj, bproj, dy, drow0):
     dyf = dy.to(dt).reshape(Bx * N, D).float()
     dattn = (dyf @ wproj.float()).to(dt).reshape(Bx, N, H, HD) \
         .transpose(1, 2)
-    grads = recipe_backward(q, k, v, out, dattn, stats, row0, SCALE,
-                            drow0=drow0)[:3]
+    if dt == torch.float32:
+        grads = recipe_backward_tf32(q, k, v, dattn, stats, SCALE,
+                                     drow0=drow0)[:3]
+    else:
+        grads = recipe_backward(q, k, v, out, dattn, stats, row0, SCALE,
+                                drow0=drow0)[:3]
     dqkv = torch.stack([t.transpose(1, 2).reshape(Bx, N, D) for t in grads],
                        2).reshape(Bx * N, 3 * D).float()
     dx, dls, dlb = layer_norm_bwd_ref(dqkv @ wqkv.float(), x_hat, rstd, ls)
@@ -476,8 +668,19 @@ def branch_recipe(x, ls, lb, wqkv, bqkv, wproj, bproj, dy, drow0):
 @pytest.mark.parametrize("N", (290, 577))
 def test_branch_vjp_matches_jax(N):
     """attend_branch_train in bf16 (the amp step's attention halves)."""
-    dtype, jdt = torch.bfloat16, jnp.bfloat16
-    rng = np.random.default_rng(3000 + N)
+    branch_vjp_case(N, torch.bfloat16, 3000 + N)
+
+
+@pytest.mark.parametrize("N", (257, 577))
+def test_tf32_branch_vjp_matches_jax(N):
+    """attend_branch_train in fp32 (the JAX CLI's default dtype) above 256
+    tokens: the fp32 forward's statistics and the fp32 backward's order."""
+    branch_vjp_case(N, torch.float32, 5000 + N)
+
+
+def branch_vjp_case(N, dtype, seed):
+    jdt = JAX_DTYPES[dtype]
+    rng = np.random.default_rng(seed)
     x = rand(rng, B, N, D)
     params = block_params(rng)
     dy, drow0 = rand(rng, B, N, D), rand(rng, B, H, N)

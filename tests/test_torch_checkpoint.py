@@ -35,6 +35,7 @@ from tokenreduction_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from torch_eval_cases import TINY, checkpoint_pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(TINY, reduction_loc=(1, 3), keep_rate=(0.7,))
 

@@ -48,6 +48,7 @@ from tokenreduction_tpu_torch.models.convert import (
 from tokenreduction_tpu_torch.ops import dpc_knn, kmedoids, sinkhorn
 from tokenreduction_tpu_torch.reduction import cluster
 from tokenreduction_tpu_torch.train import losses, optim, step
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=11, embed_dim=64, num_heads=1, depth=4, patch_size=8,
             img_size=32)

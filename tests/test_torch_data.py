@@ -20,6 +20,7 @@ from tokenreduction_tpu_torch.data import (
     build_dataset,
     make_transform,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

@@ -27,6 +27,7 @@ from scipy import stats
 
 from tokenreduction_tpu.data import device_aug as J
 from tokenreduction_tpu_torch.data import device_aug as P
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S, SIZE = 6, 40, 32
 LEVELS = 1e-4 * 255  # the float ops' bound, in levels of 0..255

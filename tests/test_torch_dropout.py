@@ -25,6 +25,7 @@ from tokenreduction_tpu import create_model as jax_create_model
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.core.layers import Dropout
 from tokenreduction_tpu_torch.models.convert import state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)

@@ -35,6 +35,7 @@ from tokenreduction_tpu_torch.models.convert import (
 )
 from tokenreduction_tpu_torch.ops import flash_attention as fa
 from tokenreduction_tpu_torch.reduction.dyvit import PredictorLG
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)

@@ -39,6 +39,7 @@ from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.models.convert import state_dict_from_flax
 from tokenreduction_tpu_torch.ops import dyvit as dyvit_ops
 from tokenreduction_tpu_torch.train import loop, optim, step
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=11, img_size=32, embed_dim=64, num_heads=1, depth=4,
             patch_size=8)

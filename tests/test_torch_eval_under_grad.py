@@ -24,6 +24,7 @@ from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.reduction import ats as ats_module
 from tokenreduction_tpu_torch.train import losses, optim, step
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(device="cpu", num_classes=7, img_size=32, embed_dim=64,
             num_heads=1, depth=4, patch_size=8, reduction_loc=(1, 2),

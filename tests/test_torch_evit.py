@@ -29,6 +29,7 @@ from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.models.convert import state_dict_from_flax
 from tokenreduction_tpu_torch.ops import gather
 from tokenreduction_tpu_torch.train import losses, step
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=11, embed_dim=64, num_heads=1, depth=4, patch_size=8,
             img_size=32)

@@ -25,6 +25,7 @@ from tokenreduction_tpu_torch.evaluation.validate import (
 )
 from tokenreduction_tpu_torch.evaluation.validate import main as validate
 from torch_eval_cases import DATA, TINY, checkpoint_pair, read_json
+from torch_threads import one_torch_thread  # noqa: F401
 
 RED = dict(reduction_loc=(1, 3), keep_rate=(0.7,))
 # run -> (registry name, model kwargs); depth 5, so blocks 6, 9 and 11

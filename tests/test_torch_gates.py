@@ -3,11 +3,10 @@
 The fused full block takes at most ``FULL_BLOCK_MAX_N`` (256) tokens (JAX
 gates its full block at the same width, ``core/layers.py:574-582``); a
 wider score-less block runs its attention half and its MLP half apart. The
-attention halves take head dim 64 and, in eval and in bf16 training, any
-width up to ``ATTENTION_MAX_N`` (the wide kernels above 256), as JAX pads
-its attention kernels to any width; an fp32 training attention half above
-256 tokens, and any half at another head dim, runs the plain
-``Attention`` (there is no fp32 attention backward above 256). The MLP
+attention halves take head dim 64 and, in eval and in training (bf16 and
+fp32), any width up to ``ATTENTION_MAX_N`` (the wide kernels above 256,
+forward and backward), as JAX pads its attention kernels to any width; any
+half at another head dim runs the plain ``Attention``. The MLP
 half keeps its kernel at any width, as JAX's ``ffn`` does. With
 ``cfg.viz_mode`` every block is pinned to the plain composition, as JAX
 pins its XLA composition (``force_xla=c.viz_mode``, ``models/deit.py:76``).
@@ -39,6 +38,7 @@ from tokenreduction_tpu_torch import create_model, list_models
 from tokenreduction_tpu_torch.core import layers
 from tokenreduction_tpu_torch.models.convert import state_dict_from_flax
 from tokenreduction_tpu_torch.reduction import ats as ats_module
+from torch_threads import one_torch_thread  # noqa: F401
 
 WIDE = dict(num_classes=11, embed_dim=64, num_heads=1, depth=2, patch_size=4)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -99,7 +99,8 @@ def test_width_gate_routes_each_block(monkeypatch, img_size, tokens, train):
     wrapper (one ``fused_full_block`` per block in eval; the attention and
     MLP branches in training); one token past it an eval block runs
     ``fused_block_attention`` and ``fused_mlp_residual``, and an fp32
-    training block the plain ``Attention`` and ``mlp_branch``."""
+    training block ``attend_branch_train`` and ``mlp_branch`` (the wide
+    fp32 backward on the card)."""
     calls = count_calls(monkeypatch)
     model, _ = create_model("deit_small_patch16_224_local", device="cpu",
                             img_size=img_size, **WIDE)
@@ -115,7 +116,7 @@ def test_width_gate_routes_each_block(monkeypatch, img_size, tokens, train):
         want = ({"attend_branch_train": depth, **mlp} if train
                 else {"fused_full_block": depth})
     else:
-        want = {("plain_attention" if train else "fused_block_attention"):
+        want = {("attend_branch_train" if train else "fused_block_attention"):
                 depth, **mlp}
     assert calls == want
 
@@ -259,3 +260,46 @@ def test_mlp_halves_keep_their_kernels_past_the_limit(monkeypatch, name,
         out = model.eval()(torch.from_numpy(images(64)[0]))
     assert out.shape == (2, 11)
     assert calls == want
+
+
+@pytest.mark.parametrize("name,kw,want", [
+    ("deit_small_patch16_224_local", {}, [(False, False, False)] * 2),
+    ("topk_small_patch16_224", dict(reduction_loc=(0,), keep_rate=(0.7,)),
+     [(True, False, False)]),
+    ("kmedoids_small_patch16_224",
+     dict(reduction_loc=(1,), keep_rate=(0.7,)), [(False, True, False)]),
+    ("tome_small_patch16_224", dict(reduction_loc=(0,), keep_rate=(0.9,)),
+     [(False, False, True), (False, False, False)]),
+    ("ats_small_patch16_224", dict(reduction_loc=(0,), keep_rate=(0.7,)),
+     [(False, False, False)]),
+])
+def test_eval_halves_ask_for_what_their_score_reads(monkeypatch, name, kw,
+                                                    want):
+    """An eval attention half asks ``fused_block_attention`` for row0 only
+    where its score is ``"cls"``, for colsum only where it is
+    ``"colsum"``, for the head-mean keys only where it is ``"keys"``
+    (above 256 tokens colsum costs the kernel a second walk over the
+    keys), and gets None for what it did not ask for."""
+    asked = []
+
+    def recorded(fn):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            out = fn(*a, **k)
+            wants = (k.get("want_row0", True), k.get("want_colsum", True),
+                     k.get("want_keys", False))
+            asked.append(wants)
+            # (out, row0, colsum), and the keys where asked for
+            assert [t is not None for t in out[1:]] == \
+                list(wants[:len(out) - 1])
+            return out
+        return run
+
+    for module in (layers, ats_module):
+        monkeypatch.setattr(module, "fused_block_attention",
+                            recorded(module.fused_block_attention))
+    model, _ = create_model(name, device="cpu", img_size=64, **WIDE, **kw)
+    with torch.no_grad():
+        out = model.eval()(torch.from_numpy(images(64)[0]))
+    assert out.shape == (2, 11)
+    assert asked == want

@@ -49,6 +49,7 @@ from tokenreduction_tpu_torch.ops.flash_attention_train import (
 )
 from tokenreduction_tpu_torch.reduction.heuristic import heuristic_masks
 from tokenreduction_tpu_torch.train import losses, optim, step
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=11, embed_dim=64, num_heads=1, depth=4, patch_size=8)
 LOC = (1, 2)

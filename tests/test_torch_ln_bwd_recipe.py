@@ -44,6 +44,7 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     layer_norm_bwd_ref,
     layer_norm_stats,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, EPS = 2, 2, 1e-6
 SMS = 4  # a small card: several bands at these row counts

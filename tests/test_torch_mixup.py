@@ -20,6 +20,7 @@ import torch
 
 from tokenreduction_tpu.train import mixup as jax_mixup
 from tokenreduction_tpu_torch.train import mixup
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 16
 NUM_CLASSES = 10

@@ -20,6 +20,7 @@ from tokenreduction_tpu import create_model as jax_create_model
 from tokenreduction_tpu.models.convert import convert_torch_state_dict
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.models.convert import state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 DEPTH, DIM, HEADS, PATCH, NCLS = 4, 64, 1, 8, 11
 IMG = 32  # 4x4 = 16 patches

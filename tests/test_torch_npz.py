@@ -22,6 +22,7 @@ from tokenreduction_tpu.models import convert as jax_convert
 from tokenreduction_tpu.models.registry import create_model as jax_create
 from tokenreduction_tpu_torch import create_model
 from tokenreduction_tpu_torch.models import convert
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=5, img_size=32, embed_dim=64, num_heads=1, depth=3,
             patch_size=8)

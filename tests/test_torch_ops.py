@@ -47,6 +47,7 @@ from tokenreduction_tpu_torch.ops.fused_mlp import (
     fused_mlp_gather_residual,
     fused_mlp_residual,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B = 2

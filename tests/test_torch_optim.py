@@ -41,6 +41,7 @@ from tokenreduction_tpu_torch.utils.checkpoint import (
     restore_train_state,
     save_checkpoint,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = dict(num_classes=11, img_size=32, embed_dim=128, num_heads=2,
             depth=2, patch_size=8)

@@ -11,6 +11,7 @@ import textwrap
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -206,7 +207,7 @@ def test_port_imports_and_runs_without_jax():
     parallel subpackage (init_distributed a no-op for one process, the
     FSDP placement), on the CPU with no JAX, Flax or optax module
     loaded, no kernel build and no kernel launch."""
-    env = dict(os.environ)
+    env = dict(os.environ, OMP_NUM_THREADS="1")  # one thread (torch_threads)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,

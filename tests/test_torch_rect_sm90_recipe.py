@@ -39,6 +39,7 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     linear_f32,
     packed_heads,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, HD = 2, 2, 64
 D = H * HD

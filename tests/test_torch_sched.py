@@ -20,6 +20,7 @@ from scipy import stats
 
 from tokenreduction_tpu.train import scheduler as jax_sched
 from tokenreduction_tpu_torch.train import optim, scheduler
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(lr=1e-3, min_lr=1e-5, warmup_lr=1e-6, warmup_epochs=3, epochs=20,
           decay_epochs=4, decay_rate=0.5)

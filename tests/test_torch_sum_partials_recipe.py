@@ -65,6 +65,7 @@ from tokenreduction_tpu_torch.ops.fused_block_train import (
     attention_train_ref,
 )
 from tokenreduction_tpu_torch.ops.fused_mlp_train import gelu_grad
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, EPS = 2, 2, 1e-6
 SMS = 132  # the H100's SMs

@@ -61,6 +61,7 @@ from tokenreduction_tpu_torch.ops.fused_block_train import (
     attention_train_ref,
 )
 from tokenreduction_tpu_torch.ops.fused_mlp_train import gelu_grad
+from torch_threads import one_torch_thread  # noqa: F401
 
 BOUND = 1e-5  # of max|JAX|
 EPS = 1e-6

@@ -71,6 +71,7 @@ from tokenreduction_tpu.ops.flash_attention_train import (
 )
 from tokenreduction_tpu.ops.fused_mlp_train import _gelu_and_prime
 from tokenreduction_tpu_torch.ops.fused_mlp_train import gelu_grad
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLT_MAX = float(np.finfo(np.float32).max)
 BOUND = 1e-5  # of max|JAX|

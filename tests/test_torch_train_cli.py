@@ -43,6 +43,7 @@ from torch_train_cases import (
     run_port,
     write_pth,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 # lr 0.064 x 8 / 512 = 1e-3 after the linear scaling; epoch 0 warms up
 RECIPE = ["--lr", "0.064", "--warmup-epochs", "1", "--save_more_than_best"]

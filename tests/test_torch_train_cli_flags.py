@@ -35,6 +35,7 @@ import torch
 from test_npz_loader import _params_to_brain_npz
 from torch_train_cases import DATA, DIMS, QUIET, TOPK, read_log, read_meta, \
     run_port
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLAGS = ["--opt", "sgd", "--sched", "plateau", "--patience-epochs", "1",
          "--wandb_watch", "--lr", "0.064", "--save_more_than_best"]

@@ -27,6 +27,7 @@ from torch_train_cases import (
     run_port,
     write_pth,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 ONE_EPOCH = ["--epochs", "1", "--lr", "0.064", "--warmup-epochs", "0"]
 REGNET = dict(depths=(1, 1), widths=(16, 32), group_width=8, stem_width=8)

@@ -46,6 +46,7 @@ from tokenreduction_tpu_torch.ops.fused_mlp_train import (
     mlp_branch_bwd_ref,
     mlp_branch_ref,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, EPS = 3, 2, 1e-6
 OUT_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -27,6 +27,7 @@ from torch_eval_cases import (
     checkpoint_pair,
     read_json,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 RED = dict(reduction_loc=(1, 3), keep_rate=(0.7,))
 METHODS = ("topk", "evit", "tome", "sit", "patchmerger", "sinkhorn",

@@ -38,11 +38,11 @@ composition, and ``Mlp``) on every device:
 - the width gates. The fused full block takes at most ``FULL_BLOCK_MAX_N``
   (256) tokens, as JAX gates its full block (``core/layers.py:574-582``
   there); a wider score-less block runs ``attend`` and ``ffn``. The
-  attention halves take head dim 64 and, in eval and in bf16 training, any
-  width up to ``ATTENTION_MAX_N`` (2048 tokens: above 256 the wide kernels
-  stream the keys), as JAX pads its attention kernels to any width; an
-  fp32 training half above 256 tokens runs the plain ``Attention``, since
-  there is no fp32 attention backward above 256 (``backward_max_n``).
+  attention halves take head dim 64 and any width up to
+  ``ATTENTION_MAX_N`` (2048 tokens: above 256 the wide kernels stream the
+  keys, forward and backward, bf16 and fp32), in eval and in training, as
+  JAX pads its attention kernels to any width and gates its training
+  kernels on no width (``core/layers.py:272-289`` and ``:405-429`` there).
   Another head dim runs the plain ``Attention`` everywhere, and a wrapper
   called directly with a shape it does not take raises. The MLP halves
   have no width limit and keep their kernels at any width, as JAX's
@@ -82,7 +82,6 @@ from tokenreduction_tpu_torch.ops.flash_attention import (
     ATTENTION_MAX_N,
     HEAD_DIM,
     attention_probs_ref,
-    backward_max_n,
     fused_block_attention,
 )
 from tokenreduction_tpu_torch.ops.flash_attention_train import (
@@ -112,17 +111,14 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def kernels_take(N: int, head_dim: int, force_plain: bool = False,
-                 train_dtype=None) -> bool:
+def kernels_take(N: int, head_dim: int, force_plain: bool = False) -> bool:
     """Whether an attention half of N tokens at this head dim runs on the
-    kernel counterparts: no ``force_plain`` pin, head dim 64, N <=
-    ATTENTION_MAX_N, and for a training half (``train_dtype``: its
-    activations' dtype) N <= ``backward_max_n`` (no fp32 backward above
-    256 tokens). Else it takes the plain composition. (The fused full
-    block also needs N <= FULL_BLOCK_MAX_N.)"""
+    kernel counterparts, in eval and in training, bf16 and fp32: no
+    ``force_plain`` pin, head dim 64, N <= ATTENTION_MAX_N. Else it takes
+    the plain composition. (The fused full block also needs N <=
+    FULL_BLOCK_MAX_N.)"""
     return (not force_plain and head_dim == HEAD_DIM
-            and N <= (ATTENTION_MAX_N if train_dtype is None
-                      else backward_max_n(train_dtype)))
+            and N <= ATTENTION_MAX_N)
 
 
 _SCORES = (None, "cls", "keys", "colsum")
@@ -328,14 +324,12 @@ class Block(nn.Module):
                 and not needs_grad(x, *self._attn_params(),
                                    *self._mlp_params()))
 
-    def kernels_take(self, N: int, dtype=None) -> bool:
+    def kernels_take(self, N: int) -> bool:
         """Whether this block runs its attention half at width N on the
         kernel counterparts (``kernels_take``: the width gates and the viz
-        pin; in training the backward's width in ``dtype``, the
-        activations'). The MLP halves need only no pin."""
+        pin). The MLP halves need only no pin."""
         return kernels_take(N, self.attn.qkv.in_features // self.num_heads,
-                            self.force_plain,
-                            dtype if self.training else None)
+                            self.force_plain)
 
     def attend(self, x, *, bias=None, mask=None, policy=None, idx=None,
                score: Optional[str] = None,
@@ -359,12 +353,13 @@ class Block(nn.Module):
         past its gates, core/layers.py:486-490)."""
         _check_score(score)
         N = x.shape[1] if idx is None else idx.shape[1]
-        kernels = self.kernels_take(N, x.dtype) and policy is None
+        kernels = self.kernels_take(N) and policy is None
         if kernels and self.eval_kernels(x):
             res = fused_block_attention(
                 x, *self._attn_params(), self.num_heads, self.attn.scale,
                 eps=self.eps, bias=bias, mask=mask, idx=idx,
-                want_keys=score == "keys")
+                want_keys=score == "keys", want_row0=score == "cls",
+                want_colsum=score == "colsum")
             aux = None
             if score == "cls":
                 aux = res[1][:, :, 1:].mean(1)

@@ -22,32 +22,55 @@
 // output by 1/sum, NORM_P rounds the normalised P; row0, colsum and the
 // row statistics [B, H, N, 2]; the backward's P from those statistics,
 // delta in the shortcut or the EXACT form, dS rounded after the scale).
-// What differs is the walk over the keys, which no longer fit a block.
+// What differs is the walk over the keys, which no longer fit a block (and,
+// in the square forward, the row max that the eval recipe's P is taken
+// against: see walk 1).
 //
-// Forward. One block of one warpgroup per (image, head) walks the query
-// tiles of 64 rows (TMA loads; the rectangular variant gathers its query
-// rows by cp.async into the same 128-byte swizzle, an id outside 0..N-1
-// traps). For each query tile the 64-key tiles of K (and V) stream through
-// a ring of RING stages by TMA, twice:
-//   pass 1: S = Q K^T on wgmma m64n64k16, and the row statistics online: a
-//     running max in base 2 and the sum of ex2(x - max) rescaled by
-//     ex2(old max - new max) whenever the max grows; a fully masked row
-//     (-FLT_MAX caps, finite) stays uniform over its N keys, and a running
-//     max of -inf (before the first tile) scales a zero sum by ex2(-inf) =
-//     0, not NaN. The row max and 1/sum are the statistics the training
-//     forward writes.
-//   pass 2: S again (the same bits), P = ex2(x - the final max): the P of
-//     a kernel that held the whole row, so NORM_P, row0 and colsum read
-//     normalised probabilities without a third pass. O = P V on wgmma
-//     (A = P rounded in registers, V read MN-major), summed over the key
-//     tiles in fp32 in order; colsum's column sums of each warp's 16 rows
-//     (attention_sm90.cuh's butterfly) added to that warp's row of shared
-//     memory tile after tile, then the 4 warps' rows added in order at the
-//     end: no atomics, two launches give the same bits.
-// The output tile leaves through shared memory by a TMA store. The per-key
-// bias and caps of the image sit in shared memory (2 x 4 bytes a key), so
-// the block's shared memory grows with N: about 65 KB at N = 577, 100 KB
-// at 2048.
+// Forward (square: every variant but RECT). One block per (image, head,
+// 128 query rows): a producer warpgroup (setmaxnreg 24), of which one
+// thread issues every TMA load, and two consumer warpgroups (setmaxnreg
+// 240), each holding 64 query rows. The producer loads the block's two
+// query tiles once, then streams the 64-key tiles of K and V through a
+// ring of WS_STAGES stages (a full barrier each, completed by the loads'
+// bytes, and an empty barrier each, completed when all 8 consumer warps
+// have retired the products that read the stage). Each consumer walks the
+// keys once:
+//   walk 1: S = Q K^T on wgmma m64n64k16; the tile's row max, the running
+//     max m (base 2) and the sum of ex2(x - m) rescaled by ex2(m_old -
+//     m_new) whenever the max grows (a fully masked row, -FLT_MAX caps,
+//     stays uniform; the first tile scales a zero sum by ex2(-inf) = 0);
+//     the eval recipe rounds P = ex2(x - the running max) to bf16 in
+//     registers and adds P V (register-A wgmma, V read MN-major) to O,
+//     which is rescaled by the same factor first. The next tile's S is
+//     issued before this tile's softmax, and this tile's P V is waited on
+//     only when the tile after needs O (wgmma_wait<1>), so a warpgroup's
+//     exponentials run under its own products, and the two warpgroups'
+//     under each other's. The row max and 1/sum are the statistics the
+//     training forward writes. O x 1/sum leaves through the query tile's
+//     shared memory by a TMA store. row0 without colsum: the warp that
+//     holds query row 0 keeps that row's capped base-2 logits in shared
+//     memory during the walk and writes ex2(x - m) / sum at its end, JAX's
+//     exact-max row0 with no second walk.
+//   walk 2 (colsum, NORM_P): S again (the same bits), P = ex2(x - the
+//     final max) / sum, the normalised probabilities of a kernel that held
+//     the whole row: NORM_P rounds them and sums O = P V over the key tiles
+//     (walk 1 then only takes the statistics); row0 reads them; colsum sums
+//     each warp's 16 rows (attention_sm90.cuh's butterfly) into its row of
+//     shared memory, then the block's 8 warps are added in order into a
+//     partial per 128 query rows (fp32 [B, H, N / 128, N], the caller's
+//     scratch), which a second launch (colsum_reduce) adds in query-block
+//     order. This route, rather than a launch per key tile that recomputes
+//     S^T from saved statistics, was chosen because NORM_P needs a second
+//     walk over the keys in the query block anyway (its O is a sum of
+//     rounded normalised probabilities), and colsum then costs that
+//     walk's butterflies alone. No atomics: two launches give the same
+//     bits.
+// What changed in the arithmetic from the two-pass walk (still RECT's,
+// below): the eval output rounds ex2(x - the running max) before PV, not
+// ex2(x - the final max); the same function rounded at other points.
+// RECT (ATS's gathered query rows) keeps the two-pass walk of one block per
+// (image, head) over its query tiles: at ATS@0.7's 405 x 577 it is level
+// with gathering the rows and running SDPA (PERF.md).
 //
 // Backward: two launches, neither with atomics.
 //   attention_wide_bwd_dq: one block per (image, head, query tile) with its
@@ -67,11 +90,13 @@
 //
 // What bounds them at B = 256, H = 6, N = 577 on the H100: the forward's
 // products 130.9 GFLOP (0.132 ms at 989 TFLOP/s) against q, k, v and the
-// output, 454 MB (0.135 ms at 3.35 TB/s); the backward's five products,
-// 327 GFLOP (0.331 ms). This design computes S twice in the forward and
-// three times in the EXACT backward, and runs each block's loads, products
-// and exponentials one after another (overlap comes from the other blocks
-// on the SM): a simple form that is right, for later work to make fast.
+// output, 454 MB (0.135 ms at 3.35 TB/s), and its 511 M exponentials
+// (about 0.13 ms at 16 a clock an SM); the backward's five products, 327 GFLOP
+// (0.331 ms). The square forward computes S once (twice with colsum or
+// NORM_P) and overlaps its products with its exponentials; the RECT
+// forward computes S twice and the backward three times (EXACT), each
+// running a block's loads, products and exponentials one after another
+// (overlap comes from the other blocks on the SM).
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
@@ -90,12 +115,12 @@ constexpr int RING = 2;  // stages of the streamed tiles
 
 __host__ __device__ int keys_of(int n) { return tiles_of(n) * ROWS; }
 
-// forward: the query tile, the output tile, RING stages of a K and a V
-// tile; bias2, cap and 4 warps' column sums [keys]; the rectangular
-// variant's query caps [64]; 1 + RING barriers; 1 KB to align the tiles
-size_t wide_fwd_smem(int n) {
+// rectangular forward: the query tile, the output tile, RING stages of a
+// K and a V tile; bias2 and cap [keys]; the query caps [64]; RING
+// barriers; 1 KB to align the tiles
+size_t wide_rect_smem(int n) {
   return 1024 + static_cast<size_t>(2 + 2 * RING) * TILE +
-         (6 * static_cast<size_t>(keys_of(n)) + ROWS) * 4 + (1 + RING) * 8;
+         (2 * static_cast<size_t>(keys_of(n)) + ROWS) * 4 + RING * 8;
 }
 
 // dQ: the Q, dO and O tiles, RING stages of a K and a V tile; bias2, cap,
@@ -146,68 +171,61 @@ __device__ __forceinline__ void gather_tile(uint8_t* tile, float* qcap, const Ro
 // The base-2 logits of a 64 x 64 tile of S in place: s holds the raw q.k of
 // this thread's rows (qc0, qc1: their caps) against key columns k0 + 8 j +
 // 2 t (+1) (the accumulator layout); x = s c2 + bias2[key], with MASK
-// capped at the key's and the row's cap; -inf in the groups of 8 key
-// columns at or past N (bias2 is -inf past N inside a group).
+// capped at the key's and the row's cap. Keys past N come out -inf with no
+// branch: bias2 is -inf and cap -FLT_MAX there, and K's rows past N are
+// zeros. (A register of a product written on a path that not every thread
+// takes would make ptxas serialise the square forward's overlapped
+// products, C7520.)
 template <bool MASK>
 __device__ __forceinline__ void tile_logits(float* s, const float* bias2, const float* cap,
-                                            float qc0, float qc1, int N, int k0, int t, float c2) {
+                                            float qc0, float qc1, int k0, int t, float c2) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     float* x = s + 4 * j;
-    if (k0 + 8 * j < N) {
-      const int c = k0 + 8 * j + 2 * t;
-      const float2 bb = *reinterpret_cast<const float2*>(bias2 + c);
-      x[0] = fmaf(x[0], c2, bb.x);
-      x[1] = fmaf(x[1], c2, bb.y);
-      x[2] = fmaf(x[2], c2, bb.x);
-      x[3] = fmaf(x[3], c2, bb.y);
-      if constexpr (MASK) {
-        const float2 kc = *reinterpret_cast<const float2*>(cap + c);
-        x[0] = fminf(fminf(x[0], kc.x), qc0);
-        x[1] = fminf(fminf(x[1], kc.y), qc0);
-        x[2] = fminf(fminf(x[2], kc.x), qc1);
-        x[3] = fminf(fminf(x[3], kc.y), qc1);
-      }
-    } else {
-      x[0] = x[1] = x[2] = x[3] = -INFINITY;
+    const int c = k0 + 8 * j + 2 * t;
+    const float2 bb = *reinterpret_cast<const float2*>(bias2 + c);
+    x[0] = fmaf(x[0], c2, bb.x);
+    x[1] = fmaf(x[1], c2, bb.y);
+    x[2] = fmaf(x[2], c2, bb.x);
+    x[3] = fmaf(x[3], c2, bb.y);
+    if constexpr (MASK) {
+      const float2 kc = *reinterpret_cast<const float2*>(cap + c);
+      x[0] = fminf(fminf(x[0], kc.x), qc0);
+      x[1] = fminf(fminf(x[1], kc.y), qc0);
+      x[2] = fminf(fminf(x[2], kc.x), qc1);
+      x[3] = fminf(fminf(x[3], kc.y), qc1);
     }
   }
 }
 
-// ------------------------------------------------------------- forward
-// NORM_P: round the normalised probabilities before PV (the training
-// branch and the packed-qkv attention), else the eval recipe. MASK: the
-// validity mask (one byte per token). RECT: the rectangular variant (with
-// MASK, not NORM_P): the M query rows gathered through ga, out [B, H, M,
-// 64]; bias, row0, colsum and stats null. Otherwise M = N, and bias, row0,
-// colsum and stats may be null.
-template <bool NORM_P, bool MASK, bool RECT>
+// ------------------------------------------- rectangular forward
+// ATS's rectangular attention: the M query rows gathered through ga over
+// all N keys, out [B, H, M, 64], with the validity mask (the JAX pair
+// mask), the eval recipe, no bias and no by-products. One block of one
+// warpgroup per (image, head) walks its query tiles, and for each the key
+// tiles twice (pass 1 the row statistics online, pass 2 P from the final
+// max, P V on wgmma).
 __global__ void __launch_bounds__(THREADS, 2)
-    attention_wide_fwd(const __grid_constant__ CUtensorMap map_q,
-                       const __grid_constant__ CUtensorMap map_k,
-                       const __grid_constant__ CUtensorMap map_v,
-                       const __grid_constant__ CUtensorMap map_o, int h_first,
-                       const float* __restrict__ bias, const unsigned char* __restrict__ mask,
-                       float* __restrict__ row0, float* __restrict__ colsum,
-                       float2* __restrict__ stats, const RowIds ga, int N, int M, int H,
-                       float scale) {
+    attention_wide_rect(const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_o, int h_first,
+                        const unsigned char* __restrict__ mask, const RowIds ga, int N, int M,
+                        int H, float scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* tiles = smem_raw + (base - raw);
-  const int nt = tiles_of(N), keys = nt * ROWS;
-  const int nq = RECT ? M : N, ntq = tiles_of(nq);
+  const int nt = tiles_of(N), keys = nt * ROWS, ntq = tiles_of(M);
   // the query tile, the output tile, then stage i's K tile at sring + 2 i
   // TILE and its V tile after it
-  const uint32_t sq = base, so = sq + TILE, sring = so + TILE;
+  const uint32_t so = base + TILE, sring = so + TILE;
   float* bias2 = reinterpret_cast<float*>(tiles + (2 + 2 * RING) * TILE);
   float* cap = bias2 + keys;
-  float* csw = cap + keys;        // [4][keys]
-  float* qcap = csw + 4 * keys;   // [ROWS] (RECT)
-  const uint32_t qbar = smem_addr(qcap + ROWS), rbar = qbar + 8;
+  float* qcap = cap + keys;  // [ROWS]
+  const uint32_t rbar = smem_addr(qcap + ROWS);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const bool hq = h_first & 1, hk = h_first & 2, hv = h_first & 4, ho = h_first & 8;
+  const bool hk = h_first & 2, hv = h_first & 4, ho = h_first & 8;
   const float c2 = scale * LOG2E;
   // the ring's items: for each query tile, pass 1's key tiles (K), then
   // pass 2's (K and V)
@@ -223,40 +241,30 @@ __global__ void __launch_bounds__(THREADS, 2)
   };
 
   if (tid == 0) {
-    for (int i = 0; i < 1 + RING; ++i) mbar_init(qbar + 8 * i, 1);
+    for (int i = 0; i < RING; ++i) mbar_init(rbar + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (tid == 0)
     for (int i = 0; i < RING; ++i) issue(i);
   for (int j = tid; j < keys; j += THREADS) {
-    bias2[j] = j < N ? (bias != nullptr ? bias[static_cast<size_t>(b) * N + j] * LOG2E : 0.f)
-                     : -INFINITY;
-    if (MASK) cap[j] = j < N && mask[static_cast<size_t>(b) * N + j] ? INFINITY : -FLT_MAX;
+    bias2[j] = j < N ? 0.f : -INFINITY;
+    cap[j] = j < N && mask[static_cast<size_t>(b) * N + j] ? INFINITY : -FLT_MAX;
   }
-  if (!RECT && colsum != nullptr)
-    for (int j = tid; j < 4 * keys; j += THREADS) csw[j] = 0.f;
 
   const int lr = warp * 16 + g;
   int item = 0;  // the ring's next item
   for (int qi = 0; qi < ntq; ++qi) {
     // the query tile (its shared memory read by no product since the last
     // item's barrier)
-    if constexpr (RECT) {
-      gather_tile(tiles, qcap, ga, mask, b, h, N, M, qi * ROWS);
-      cp_async_wait<0>();  // landed: into the async proxy
-      fence_async_smem();
-    } else if (tid == 0) {
-      mbar_expect_tx(qbar, TILE);
-      load_tile(sq, &map_q, hq, qbar, qi * ROWS, h, b);
-    }
+    gather_tile(tiles, qcap, ga, mask, b, h, N, M, qi * ROWS);
+    cp_async_wait<0>();  // landed: into the async proxy
+    fence_async_smem();
     if (tid == 0) tma_store_wait();  // the last output tile has left so
     __syncthreads();
-    if (!RECT) mbar_wait(qbar, qi & 1);
     const int r0 = qi * ROWS + lr, r1 = r0 + 8;
-    const bool rows = qi * ROWS + warp * 16 < nq;  // the warp has a query row
-    const float qc0 = MASK ? (RECT ? qcap[lr] : cap[r0]) : INFINITY;
-    const float qc1 = MASK ? (RECT ? qcap[lr + 8] : cap[r1]) : INFINITY;
+    const bool rows = qi * ROWS + warp * 16 < M;  // the warp has a query row
+    const float qc0 = qcap[lr], qc1 = qcap[lr + 8];
     float mx0 = -INFINITY, mx1 = -INFINITY, sum0 = 0.f, sum1 = 0.f, rr0 = 0.f, rr1 = 0.f;
     float o[32];
     for (int pass = 0; pass < 2; ++pass) {
@@ -267,12 +275,12 @@ __global__ void __launch_bounds__(THREADS, 2)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss<0, 0>(s, desc_k(sq, kk), desc_k(sk, kk), kk);
+          wgmma_ss<0, 0>(s, desc_k(base, kk), desc_k(sk, kk), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence32(s);
         if (rows) {
-          tile_logits<MASK>(s, bias2, cap, qc0, qc1, N, kt * ROWS, t, c2);
+          tile_logits<true>(s, bias2, cap, qc0, qc1, kt * ROWS, t, c2);
           if (pass == 0) {
             // the running statistics: the tile's row max, then the sum
             // rescaled to the new max (every tile has a key < N, so the
@@ -302,35 +310,6 @@ __global__ void __launch_bounds__(THREADS, 2)
               x[1] = ex2(x[1] - mx0);
               x[2] = ex2(x[2] - mx1);
               x[3] = ex2(x[3] - mx1);
-              if constexpr (NORM_P) {
-                x[0] *= rr0;
-                x[1] *= rr0;
-                x[2] *= rr1;
-                x[3] *= rr1;
-              }
-            }
-            // the normalised probabilities: s itself (NORM_P), or s / sum
-            const float n0 = NORM_P ? 1.f : rr0, n1 = NORM_P ? 1.f : rr1;
-            if (!RECT && row0 != nullptr && r0 == 0) {
-#pragma unroll
-              for (int j = 0; j < 8; ++j)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                  const int c = kt * ROWS + 8 * j + 2 * t + e;
-                  if (c < N) row0[static_cast<size_t>(bh) * N + c] = s[4 * j + e] * n0;
-                }
-            }
-            if (!RECT && colsum != nullptr) {
-              float v[16], sums[2];
-#pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                v[2 * j] = s[4 * j] * n0 + s[4 * j + 2] * n1;
-                v[2 * j + 1] = s[4 * j + 1] * n0 + s[4 * j + 3] * n1;
-              }
-              column_butterfly(v, lane, sums);
-              float* at = csw + warp * keys + kt * ROWS + butterfly_col(lane);
-              at[0] += sums[0];
-              at[1] += sums[1];
             }
           }
         } else {
@@ -356,43 +335,424 @@ __global__ void __launch_bounds__(THREADS, 2)
         if (tid == 0) issue(item + RING);
       }
       if (pass == 0 && rows) {
-        rr0 = r0 < nq ? 1.f / sum0 : 0.f;  // rows past the last take no part
-        rr1 = r1 < nq ? 1.f / sum1 : 0.f;
-        if (!RECT && stats != nullptr && t == 0) {
-          // the row max in the logits' own units (-FLT_MAX stays itself)
-          if (r0 < N)
-            stats[static_cast<size_t>(bh) * N + r0] =
-                make_float2(mx0 == -FLT_MAX ? mx0 : mx0 * LN2, rr0);
-          if (r1 < N)
-            stats[static_cast<size_t>(bh) * N + r1] =
-                make_float2(mx1 == -FLT_MAX ? mx1 : mx1 * LN2, rr1);
-        }
+        rr0 = r0 < M ? 1.f / sum0 : 0.f;  // rows past the last take no part
+        rr1 = r1 < M ? 1.f / sum1 : 0.f;
       }
     }
 
-    // the output tile, rounded, into so, then one TMA store (rows past N,
-    // or with RECT past M, dropped)
+    // the output tile, rounded, into so, then one TMA store (rows past M
+    // dropped)
     uint8_t* otile = tiles + TILE;
-    const float f0 = NORM_P ? 1.f : rr0, f1 = NORM_P ? 1.f : rr1;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       *reinterpret_cast<uint32_t*>(otile + pair_offset(lr, j, t)) =
-          pack_bf16(o[4 * j] * f0, o[4 * j + 1] * f0);
+          pack_bf16(o[4 * j] * rr0, o[4 * j + 1] * rr0);
       *reinterpret_cast<uint32_t*>(otile + pair_offset(lr + 8, j, t)) =
-          pack_bf16(o[4 * j + 2] * f1, o[4 * j + 3] * f1);
+          pack_bf16(o[4 * j + 2] * rr1, o[4 * j + 3] * rr1);
     }
     fence_async_smem();
     __syncthreads();
     if (tid == 0) store_tile(&map_o, ho, so, qi * ROWS, h, b);
   }
-
-  if (!RECT && colsum != nullptr) {
-    __syncthreads();
-    for (int c = tid; c < N; c += THREADS)
-      colsum[static_cast<size_t>(bh) * N + c] =
-          ((csw[c] + csw[keys + c]) + csw[2 * keys + c]) + csw[3 * keys + c];
-  }
   if (tid == 0) tma_store_wait();
+}
+
+// ---------------------------------------- forward, warp-specialised
+constexpr int WS_STAGES = 4;                                // stages of the K, V ring
+constexpr int WS_CONSUMERS = 2;                             // warpgroups of 64 query rows
+constexpr int WS_THREADS = (1 + WS_CONSUMERS) * THREADS;    // the producer warpgroup first
+constexpr int WS_ROWS = WS_CONSUMERS * ROWS;                // query rows of a block
+
+__host__ __device__ int ws_blocks(int n) { return (n + WS_ROWS - 1) / WS_ROWS; }
+__host__ __device__ int ws_len(int n) { return ws_blocks(n) * WS_ROWS; }
+
+// the two query tiles (later the output tiles), WS_STAGES stages of a K and
+// a V tile; bias2, cap, row 0's logits and the 8 consumer warps' column
+// sums [ws_len]; 1 + 2 WS_STAGES barriers; 1 KB to align the tiles
+size_t wide_ws_smem(int n) {
+  return 1024 + static_cast<size_t>(2 + 2 * WS_STAGES) * TILE +
+         11 * static_cast<size_t>(ws_len(n)) * 4 + (1 + 2 * WS_STAGES) * 8;
+}
+
+// The pair (a, b) into shared memory at addr when p: a predicated store,
+// no branch (see tile_logits).
+__device__ __forceinline__ void st_pair_if(uint32_t addr, float a, float b, bool p) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %3, 0;\n @q st.shared.v2.f32 [%0], {%1, %2};\n}\n" ::"r"(
+          addr),
+      "f"(a), "f"(b), "r"(static_cast<int>(p))
+      : "memory");
+}
+
+// A consumer row pair's running statistics: the base-2 row max and the sum
+// of ex2(x - max), of this thread's rows r0 and r1.
+struct RowStats {
+  float m0, m1, l0, l1;
+};
+
+// A consumer warpgroup's walk over the ring (see the header): its query
+// tile, the ring, the per-key vectors and this thread's rows' caps.
+struct WsWalk {
+  uint32_t sq, sring, full0, empty0;
+  const float* bias2;
+  const float* cap;
+  int N, t, lane;
+  float qc0, qc1, c2;
+
+  __device__ __forceinline__ uint32_t stage(int i) const {
+    return sring + (i % WS_STAGES) * 2 * TILE;
+  }
+  // this warp has retired every product that read item i's stage
+  __device__ __forceinline__ void release(int i) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * (i % WS_STAGES));
+  }
+  // S = Q K^T of item i into s: issued and committed, not waited on
+  __device__ __forceinline__ void issue_s(float* s, int i) const {
+    mbar_wait(full0 + 8 * (i % WS_STAGES), (i / WS_STAGES) & 1);
+    const uint32_t sk = stage(i);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<0, 0>(s, desc_k(sq, kk), desc_k(sk, kk), kk);
+    wgmma_commit();
+  }
+  // o (+)= P V over item i's V tile, key tile kt, P = p rounded to bf16 in
+  // pa (V's rows past N are zeros, P there 0); the first step of kt = 0
+  // starts o afresh
+  __device__ __forceinline__ void issue_pv(float* o, const float* p, uint32_t* pa, int i,
+                                           int kt) const {
+#pragma unroll
+    for (int x = 0; x < 16; ++x) pa[x] = pack_bf16(p[2 * x], p[2 * x + 1]);
+    fence16(pa);
+    const uint32_t sv = stage(i) + TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(o, pa + 4 * kk, desc_mn(sv, kk), kt + kk);
+    wgmma_commit();
+  }
+  // this thread's 16 values of row 0 at key tile kt into srow0 (at the
+  // shared address row0s) when keep, else nothing
+  __device__ __forceinline__ void keep_row0(uint32_t row0s, const float* x, bool keep,
+                                            int kt) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      st_pair_if(row0s + 4 * (kt * ROWS + 8 * j + 2 * t), x[4 * j], x[4 * j + 1], keep);
+  }
+
+  // Walk 1 at key tile kt (item i), its S in cur (landed). MORE: tile kt +
+  // 1's S is issued into nxt first, and has landed on return. NORM_P takes
+  // the statistics alone; else P V joins O (rescaled first). keep: this
+  // thread's logits of query row 0 go to srow0 (at row0s).
+  template <bool MORE, bool NORM_P, bool MASK>
+  __device__ __forceinline__ void walk1(float* cur, float* nxt, float* o, uint32_t* pa,
+                                        uint32_t row0s, bool keep, RowStats& st, int kt,
+                                        int i) const {
+    if constexpr (MORE) issue_s(nxt, i + 1);
+    tile_logits<MASK>(cur, bias2, cap, qc0, qc1, kt * ROWS, t, c2);
+    keep_row0(row0s, cur, keep, kt);
+    // the new row max (every tile has a key < N: finite), the tile's
+    // exponentials against it and their sums
+    float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      t0 = fmaxf(t0, fmaxf(cur[4 * j], cur[4 * j + 1]));
+      t1 = fmaxf(t1, fmaxf(cur[4 * j + 2], cur[4 * j + 3]));
+    }
+    const float n0 = fmaxf(st.m0, quad_max(t0)), n1 = fmaxf(st.m1, quad_max(t1));
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* x = cur + 4 * j;
+      x[0] = ex2(x[0] - n0);
+      x[1] = ex2(x[1] - n0);
+      x[2] = ex2(x[2] - n1);
+      x[3] = ex2(x[3] - n1);
+      l0 += x[0] + x[1];
+      l1 += x[2] + x[3];
+    }
+    const float a0 = ex2(st.m0 - n0), a1 = ex2(st.m1 - n1);
+    st.l0 = st.l0 * a0 + quad_sum(l0);
+    st.l1 = st.l1 * a1 + quad_sum(l1);
+    st.m0 = n0;
+    st.m1 = n1;
+    if constexpr (NORM_P) {
+      release(i);  // its K was read by S alone, which has landed
+    } else {
+      // the last tile's P V has landed (with MORE the next S is the
+      // younger group; at kt = 0 nothing is older), then O, rescaled to the
+      // new max (at kt = 0 a0 = 0 and O is 0), takes this tile's P V
+      if constexpr (MORE)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence32(o);
+      if (kt > 0) release(i - 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j] *= a0;
+        o[4 * j + 1] *= a0;
+        o[4 * j + 2] *= a1;
+        o[4 * j + 3] *= a1;
+      }
+      issue_pv(o, cur, pa, i, kt);
+    }
+    if constexpr (MORE) {
+      if constexpr (NORM_P)
+        wgmma_wait<0>();
+      else
+        wgmma_wait<1>();  // the next S, not this P V
+      fence32(nxt);
+    }
+  }
+
+  // Walk 2 at key tile kt (item i), its S in cur (landed), MORE as in
+  // walk 1: P = ex2(x - m) * r, the normalised probabilities (r0, r1 the
+  // rows' 1/sum, 0 past N). keep: query row 0's go to srow0 (at row0s);
+  // with COLSUM the warp's column sums of its 16 rows go to csw (its row
+  // of the block's); NORM_P sums O = round(P) V.
+  template <bool MORE, bool NORM_P, bool MASK, bool COLSUM>
+  __device__ __forceinline__ void walk2(float* cur, float* nxt, float* o, uint32_t* pa,
+                                        uint32_t row0s, bool keep, float* csw,
+                                        const RowStats& st, float r0, float r1, int kt,
+                                        int i) const {
+    if constexpr (MORE) issue_s(nxt, i + 1);
+    tile_logits<MASK>(cur, bias2, cap, qc0, qc1, kt * ROWS, t, c2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* x = cur + 4 * j;
+      x[0] = ex2(x[0] - st.m0) * r0;
+      x[1] = ex2(x[1] - st.m0) * r0;
+      x[2] = ex2(x[2] - st.m1) * r1;
+      x[3] = ex2(x[3] - st.m1) * r1;
+    }
+    keep_row0(row0s, cur, keep, kt);
+    if constexpr (COLSUM) {
+      float v[16], sums[2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[2 * j] = cur[4 * j] + cur[4 * j + 2];
+        v[2 * j + 1] = cur[4 * j + 1] + cur[4 * j + 3];
+      }
+      column_butterfly(v, lane, sums);
+      float* at = csw + kt * ROWS + butterfly_col(lane);
+      at[0] = sums[0];
+      at[1] = sums[1];
+    }
+    if constexpr (NORM_P) {
+      if constexpr (MORE)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence32(o);
+      if (kt > 0) release(i - 1);
+      issue_pv(o, cur, pa, i, kt);
+    } else {
+      release(i);
+    }
+    if constexpr (MORE) {
+      if constexpr (NORM_P)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence32(nxt);
+    }
+  }
+};
+
+// NORM_P: round the normalised probabilities before PV (the training
+// branch and the packed-qkv attention), else the eval recipe. MASK: the
+// validity mask (one byte per token). COLSUM: colsum's partial sums into
+// part ([B, H, ws_blocks(N), N]) for colsum_reduce. bias, row0 and stats
+// may be null.
+template <bool NORM_P, bool MASK, bool COLSUM>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    attention_wide_fwd_ws(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_o, int h_first,
+                          const float* __restrict__ bias, const unsigned char* __restrict__ mask,
+                          float* __restrict__ row0, float* __restrict__ part,
+                          float2* __restrict__ stats, int N, int H, float scale) {
+  constexpr bool WALK2 = NORM_P || COLSUM;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* tiles = smem_raw + (base - raw);
+  const int nt = tiles_of(N), L = ws_len(N);
+  const uint32_t sq = base, sring = sq + WS_CONSUMERS * TILE;
+  float* bias2 = reinterpret_cast<float*>(tiles + (WS_CONSUMERS + 2 * WS_STAGES) * TILE);
+  float* cap = bias2 + L;
+  float* srow0 = cap + L;
+  float* csw = srow0 + L;  // [8][L]
+  const uint32_t qbar = smem_addr(csw + 8 * L), full0 = qbar + 8,
+                 empty0 = full0 + 8 * WS_STAGES;
+  const int bh = blockIdx.x, qb = blockIdx.y, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // the consumers with a query row < N: the last block's second may have
+  // none, and then takes no part
+  const int active = min(WS_CONSUMERS, nt - qb * WS_CONSUMERS);
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < WS_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * active);  // one arrival per active consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int j = tid; j < L; j += WS_THREADS) {
+    bias2[j] = j < N ? (bias != nullptr ? bias[static_cast<size_t>(b) * N + j] * LOG2E : 0.f)
+                     : -INFINITY;
+    if (MASK) cap[j] = j < N && mask[static_cast<size_t>(b) * N + j] ? INFINITY : -FLT_MAX;
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid != 0) return;
+    mbar_expect_tx(qbar, active * TILE);
+    for (int c = 0; c < active; ++c)
+      load_tile(sq + c * TILE, &map_q, h_first & 1, qbar, qb * WS_ROWS + c * ROWS, h, b);
+    // walk 1's key tiles, then walk 2's; V where P V reads it
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = 0; i < (WALK2 ? 2 : 1) * nt; ++i) {
+      const bool pv = i < nt ? !NORM_P : NORM_P;
+      const uint32_t full = full0 + 8 * stage, dst = sring + stage * 2 * TILE;
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      mbar_expect_tx(full, (pv ? 2 : 1) * TILE);
+      load_tile(dst, &map_k, h_first & 2, full, (i % nt) * ROWS, h, b);
+      if (pv) load_tile(dst + TILE, &map_v, h_first & 4, full, (i % nt) * ROWS, h, b);
+      if (++stage == WS_STAGES) stage = 0, phase ^= 1;
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw holds query rows qb * 128 + cw * 64 .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1, ct = tid - THREADS * wg, warp = ct >> 5, lane = tid & 31;
+  if (cw >= active) return;
+  const int g = lane >> 2, t = lane & 3, lr = warp * 16 + g;
+  const int r0 = qb * WS_ROWS + cw * ROWS + lr, r1 = r0 + 8;  // < L
+  WsWalk w{sq + cw * TILE, sring, full0, empty0, bias2, cap, N, t, lane,
+           MASK ? cap[r0] : INFINITY, MASK ? cap[r1] : INFINITY, scale * LOG2E};
+  // the threads of query row 0 (a quad: g == 0) keep its logits (one
+  // walk) or probabilities (walk 2) in srow0
+  const bool keep = row0 != nullptr && r0 == 0;
+  const uint32_t row0s = smem_addr(srow0);
+  const size_t vec = static_cast<size_t>(bh) * N;
+  mbar_wait(qbar, 0);
+
+  float o[32], sa[32], sb[32];
+  uint32_t pa[16];
+  zero32(o);
+  RowStats st{-INFINITY, -INFINITY, 0.f, 0.f};
+  int i = 0;  // the ring's next item
+  {
+    const bool keep1 = !WALK2 && keep;
+    w.issue_s(sa, i);
+    wgmma_wait<0>();
+    fence32(sa);
+    int kt = 0;
+    for (; kt + 2 < nt; kt += 2, i += 2) {
+      w.walk1<true, NORM_P, MASK>(sa, sb, o, pa, row0s, keep1, st, kt, i);
+      w.walk1<true, NORM_P, MASK>(sb, sa, o, pa, row0s, keep1, st, kt + 1, i + 1);
+    }
+    if (kt + 1 < nt) {
+      w.walk1<true, NORM_P, MASK>(sa, sb, o, pa, row0s, keep1, st, kt, i);
+      w.walk1<false, NORM_P, MASK>(sb, sa, o, pa, row0s, keep1, st, kt + 1, i + 1);
+      i += 2;
+    } else {
+      w.walk1<false, NORM_P, MASK>(sa, sb, o, pa, row0s, keep1, st, kt, i);
+      i += 1;
+    }
+    if constexpr (!NORM_P) {
+      wgmma_wait<0>();
+      fence32(o);
+      w.release(i - 1);
+    }
+  }
+  const float rr0 = r0 < N ? 1.f / st.l0 : 0.f;  // rows past N take no part
+  const float rr1 = r1 < N ? 1.f / st.l1 : 0.f;
+  if (stats != nullptr && t == 0) {
+    // the row max in the logits' own units (-FLT_MAX stays itself)
+    if (r0 < N) stats[vec + r0] = make_float2(st.m0 == -FLT_MAX ? st.m0 : st.m0 * LN2, rr0);
+    if (r1 < N) stats[vec + r1] = make_float2(st.m1 == -FLT_MAX ? st.m1 : st.m1 * LN2, rr1);
+  }
+  if constexpr (WALK2) {
+    float* cs = csw + (cw * 4 + warp) * L;
+    w.issue_s(sa, i);
+    wgmma_wait<0>();
+    fence32(sa);
+    int kt = 0;
+    for (; kt + 2 < nt; kt += 2, i += 2) {
+      w.walk2<true, NORM_P, MASK, COLSUM>(sa, sb, o, pa, row0s, keep, cs, st, rr0, rr1, kt, i);
+      w.walk2<true, NORM_P, MASK, COLSUM>(sb, sa, o, pa, row0s, keep, cs, st, rr0, rr1, kt + 1, i + 1);
+    }
+    if (kt + 1 < nt) {
+      w.walk2<true, NORM_P, MASK, COLSUM>(sa, sb, o, pa, row0s, keep, cs, st, rr0, rr1, kt, i);
+      w.walk2<false, NORM_P, MASK, COLSUM>(sb, sa, o, pa, row0s, keep, cs, st, rr0, rr1, kt + 1, i + 1);
+      i += 2;
+    } else {
+      w.walk2<false, NORM_P, MASK, COLSUM>(sa, sb, o, pa, row0s, keep, cs, st, rr0, rr1, kt, i);
+      i += 1;
+    }
+    if constexpr (NORM_P) {
+      wgmma_wait<0>();
+      fence32(o);
+      w.release(i - 1);
+    }
+  }
+
+  if (row0 != nullptr && qb == 0 && cw == 0 && warp == 0) {
+    // row 0 from srow0: walk 2's probabilities, or the kept logits against
+    // the final statistics (lane 0's)
+    __syncwarp();
+    const float m = __shfl_sync(0xffffffffu, st.m0, 0);
+    const float r = __shfl_sync(0xffffffffu, rr0, 0);
+    for (int c = lane; c < N; c += 32)
+      row0[vec + c] = WALK2 ? srow0[c] : ex2(srow0[c] - m) * r;
+  }
+
+  // the output tile, rounded, into the warpgroup's query tile (read by no
+  // product any more), then one TMA store (rows past N dropped)
+  wg_sync(cw);
+  uint8_t* otile = tiles + cw * TILE;
+  const float f0 = NORM_P ? 1.f : rr0, f1 = NORM_P ? 1.f : rr1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<uint32_t*>(otile + pair_offset(lr, j, t)) =
+        pack_bf16(o[4 * j] * f0, o[4 * j + 1] * f0);
+    *reinterpret_cast<uint32_t*>(otile + pair_offset(lr + 8, j, t)) =
+        pack_bf16(o[4 * j + 2] * f1, o[4 * j + 3] * f1);
+  }
+  fence_async_smem();
+  wg_sync(cw);
+  if (ct == 0) store_tile(&map_o, h_first & 8, w.sq, qb * WS_ROWS + cw * ROWS, h, b);
+  if constexpr (COLSUM) {
+    // the block's partial: its active warps' column sums added in order
+    asm volatile("bar.sync 3, %0;\n" ::"r"(active * THREADS) : "memory");
+    float* dst = part + (vec * gridDim.y) + static_cast<size_t>(qb) * N;
+    for (int c = tid - THREADS; c < N; c += active * THREADS) {
+      float sum = csw[c];
+      for (int x = 1; x < 4 * active; ++x) sum += csw[x * L + c];
+      dst[c] = sum;
+    }
+  }
+  if (ct == 0) tma_store_wait();
+}
+
+// colsum[b, h, c] = the query blocks' partials part[b, h, 0 .., c] added
+// in order: a thread a column.
+__global__ void colsum_reduce(const float* __restrict__ part, float* __restrict__ colsum, int N,
+                              int blocks, int total) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= total) return;
+  const int bh = x / N, c = x % N;
+  const float* p = part + static_cast<size_t>(bh) * blocks * N + c;
+  float sum = p[0];
+  for (int q = 1; q < blocks; ++q) sum += p[static_cast<size_t>(q) * N];
+  colsum[x] = sum;
 }
 
 // ------------------------------------------------------------ backward
@@ -518,7 +878,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     wgmma_wait<0>();
     fence32(p);
     fence32(dp);
-    tile_logits<MASK>(p, bias2, cap, qc0, qc1, N, k0, t, c2);
+    tile_logits<MASK>(p, bias2, cap, qc0, qc1, k0, t, c2);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = k0 + 8 * j + 2 * t;
@@ -792,32 +1152,39 @@ __global__ void __launch_bounds__(THREADS, 2)
 }  // namespace
 }  // namespace trk
 
-// Returns the cudaError_t of the launch (0 on success). The contract of
+// Returns the cudaError_t of the launches (0 on success). The contract of
 // attention_sm90.cu's tr_attention_sm90 (q, k, v [B, H, N, 64], out
 // [B, H, M, 64], strides, bias, mask, ids, row0, colsum, stats, norm_p),
-// for N and M up to 2048.
+// for N and M up to 2048, with `part` (fp32 [B, H, ceil(N / 128), N],
+// contiguous) the scratch of colsum's partial sums: needed with colsum
+// (then two launches: the forward and colsum_reduce), else null.
 extern "C" int tr_attention_wide_sm90(const void* q, const void* k, const void* v, void* out,
                                       const long long* strides, const void* bias, const void* mask,
                                       const void* ids, void* row0, void* colsum, void* stats,
-                                      int B, int N, int M, int H, float scale, int norm_p,
-                                      void* stream) {
+                                      void* part, int B, int N, int M, int H, float scale,
+                                      int norm_p, void* stream) {
   using namespace trk;
   const bool rect = ids != nullptr;
   if (N < 1 || N > WIDE_MAXN || M < 1 || M > WIDE_MAXN || H < 1 || B < 0 ||
-      (!rect && M != N) ||
+      (!rect && (M != N || (colsum != nullptr) != (part != nullptr))) ||
       (rect && (mask == nullptr || bias != nullptr || row0 != nullptr || colsum != nullptr ||
-                stats != nullptr || norm_p)))
+                stats != nullptr || part != nullptr || norm_p)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  using Kernel = decltype(&attention_wide_fwd<false, false, false>);
-  const Kernel variants[2][2] = {
-      {attention_wide_fwd<false, false, false>, attention_wide_fwd<false, true, false>},
-      {attention_wide_fwd<true, false, false>, attention_wide_fwd<true, true, false>}};
-  const Kernel kernel =
-      rect ? attention_wide_fwd<false, true, true> : variants[norm_p != 0][mask != nullptr];
+  const auto rect_kernel = attention_wide_rect;
+  using WsKernel = decltype(&attention_wide_fwd_ws<false, false, false>);
+  const WsKernel variants[2][2][2] = {
+      {{attention_wide_fwd_ws<false, false, false>, attention_wide_fwd_ws<false, false, true>},
+       {attention_wide_fwd_ws<false, true, false>, attention_wide_fwd_ws<false, true, true>}},
+      {{attention_wide_fwd_ws<true, false, false>, attention_wide_fwd_ws<true, false, true>},
+       {attention_wide_fwd_ws<true, true, false>, attention_wide_fwd_ws<true, true, true>}}};
+  const WsKernel kernel = variants[norm_p != 0][mask != nullptr][colsum != nullptr];
   // first: the context the tensor maps need (sm90.cuh encoder)
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(wide_fwd_smem(WIDE_MAXN)));
+  cudaError_t err =
+      rect ? cudaFuncSetAttribute(rect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(wide_rect_smem(WIDE_MAXN)))
+           : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(wide_ws_smem(WIDE_MAXN)));
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap maps[4];
   const void* ptrs[3] = {q, k, v};
@@ -827,13 +1194,26 @@ extern "C" int tr_attention_wide_sm90(const void* q, const void* k, const void* 
   bool ho;
   err = heads_map(&maps[3], out, strides + 9, B, H, M, &ho);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const RowIds ga{static_cast<const bf16*>(q), strides[0], strides[1], strides[2],
-                  static_cast<const int*>(ids)};
-  kernel<<<B * H, THREADS, wide_fwd_smem(N), static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], (h_first & 7) | static_cast<int>(ho) << 3,
-      static_cast<const float*>(bias), static_cast<const unsigned char*>(mask),
-      static_cast<float*>(row0), static_cast<float*>(colsum), static_cast<float2*>(stats), ga, N,
-      M, H, scale);
+  const int hf = (h_first & 7) | static_cast<int>(ho) << 3;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rect) {
+    const RowIds ga{static_cast<const bf16*>(q), strides[0], strides[1], strides[2],
+                    static_cast<const int*>(ids)};
+    rect_kernel<<<B * H, THREADS, wide_rect_smem(N), s>>>(
+        maps[1], maps[2], maps[3], hf, static_cast<const unsigned char*>(mask), ga, N, M, H,
+        scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  kernel<<<dim3(B * H, ws_blocks(N)), WS_THREADS, wide_ws_smem(N), s>>>(
+      maps[0], maps[1], maps[2], maps[3], hf, static_cast<const float*>(bias),
+      static_cast<const unsigned char*>(mask), static_cast<float*>(row0),
+      static_cast<float*>(part), static_cast<float2*>(stats), N, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || colsum == nullptr) return static_cast<int>(err);
+  const int total = B * H * N;
+  colsum_reduce<<<(total + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part),
+                                                     static_cast<float*>(colsum), N,
+                                                     ws_blocks(N), total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -896,11 +1276,13 @@ extern "C" int tr_attention_wide_bwd_sm90(const void* q, const void* k, const vo
 }
 
 // The dynamic shared memory a block of each wide kernel takes at n keys,
-// for the host: out[3] = {forward (square and rectangular), dQ, dK and dV}.
+// for the host: out[4] = {square forward (384 threads), rectangular forward,
+// dQ, dK and dV (128 threads)}.
 extern "C" int tr_attention_wide_smem(int n, int* out) {
   if (n < 1 || n > trk::WIDE_MAXN) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = static_cast<int>(trk::wide_fwd_smem(n));
-  out[1] = static_cast<int>(trk::wide_dq_smem(n));
-  out[2] = static_cast<int>(trk::wide_dkv_smem(n));
+  out[0] = static_cast<int>(trk::wide_ws_smem(n));
+  out[1] = static_cast<int>(trk::wide_rect_smem(n));
+  out[2] = static_cast<int>(trk::wide_dq_smem(n));
+  out[3] = static_cast<int>(trk::wide_dkv_smem(n));
   return 0;
 }

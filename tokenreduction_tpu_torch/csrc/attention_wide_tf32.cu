@@ -12,9 +12,12 @@
 // tokenreduction_tpu/ops/flash_attention.py fused_attention (:183),
 // fused_attention_qkv (:313), fused_block_attention (:660),
 // fused_rect_attention (:817) and fused_rect_block (:925), whose fp32 dots
-// run on the MXU at the kernels' pinned DEFAULT precision. (No fp32
-// backward above 256 tokens: a training attention half there keeps the
-// plain composition.)
+// run on the MXU at the kernels' pinned DEFAULT precision, and the
+// forward of ops/flash_attention_train.py attention_core_train and of
+// ops/fused_block_train.py attend_branch_train above 256 tokens: in
+// training it also writes the row statistics [B, H, N, 2] (the row max of
+// the logits and 1/sum, from pass 1), which the fp32 backward above 256
+// tokens (attention_wide_tf32_bwd.cu) reads.
 //
 // Arithmetic: short_attention_tf32_kernel's (logits = q.k * scale + bias,
 // -FLT_MAX at a masked pair, -inf past N; exp less the exact row max; O =
@@ -61,15 +64,15 @@ static_assert(wide_tf32_smem(WIDE_MAXN) <= 232448, "over the H100's 227 KB of sh
 
 // MASK: the validity mask (one byte per token, the JAX pair mask). RECT
 // (with MASK): out row m is query row ids[b, m] over all N keys; bias,
-// row0 and colsum null. Otherwise M = N, and bias, row0 and colsum may be
-// null.
+// row0, colsum and stats null. Otherwise M = N, and bias, row0, colsum and
+// stats may be null.
 template <bool MASK, bool RECT>
 __global__ void __launch_bounds__(W_THREADS)
     attention_wide_tf32_kernel(Heads<const float> q, Heads<const float> k, Heads<const float> v,
                                Heads<float> out, const float* __restrict__ bias,
                                const unsigned char* __restrict__ mask, const int* __restrict__ ids,
-                               float* __restrict__ row0, float* __restrict__ colsum, int N, int M,
-                               int H, float scale) {
+                               float* __restrict__ row0, float* __restrict__ colsum,
+                               float2* __restrict__ stats, int N, int M, int H, float scale) {
   static_assert(MASK || !RECT, "the rectangular forward takes a mask");
   extern __shared__ __align__(16) unsigned char smem[];
   const int nt = wide_keys(N) / W_ROWS, keys = nt * W_ROWS;
@@ -257,6 +260,10 @@ __global__ void __launch_bounds__(W_THREADS)
       if (pass == 0) {
         ria = ra < nq ? 1.0f / suma : 0.f;  // rows past the last take no part
         rib = rb < nq ? 1.0f / sumb : 0.f;
+        if (!RECT && stats != nullptr && t == 0) {  // the row max and 1/sum
+          if (ra < nq) stats[static_cast<size_t>(bh) * N + ra] = make_float2(mxa, ria);
+          if (rb < nq) stats[static_cast<size_t>(bh) * N + rb] = make_float2(mxb, rib);
+        }
       }
     }
 #pragma unroll
@@ -280,14 +287,14 @@ __global__ void __launch_bounds__(W_THREADS)
 template <bool MASK, bool RECT>
 int launch_wide_tf32(const Heads<const float>& q, const Heads<const float>& k,
                      const Heads<const float>& v, const Heads<float>& out, const float* bias,
-                     const unsigned char* mask, const int* ids, float* row0, float* colsum, int B,
-                     int N, int M, int H, float scale, cudaStream_t s) {
+                     const unsigned char* mask, const int* ids, float* row0, float* colsum,
+                     float2* stats, int B, int N, int M, int H, float scale, cudaStream_t s) {
   const auto kernel = attention_wide_tf32_kernel<MASK, RECT>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(wide_tf32_smem(WIDE_MAXN)));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<B * H, W_THREADS, wide_tf32_smem(N), s>>>(q, k, v, out, bias, mask, ids, row0, colsum,
-                                                     N, M, H, scale);
+                                                     stats, N, M, H, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,15 +304,17 @@ int launch_wide_tf32(const Heads<const float>& q, const Heads<const float>& k,
 // Returns the cudaError_t of the launch (0 on success): the contract of
 // short_attention.cu's tr_short_attention for fp32 (q, k, v [B, H, N, 64],
 // out [B, H, M, 64], their strides, bias, mask, ids, row0, colsum), for N
-// and M up to 2048.
+// and M up to 2048, and the row statistics `stats` (fp32 [B, H, N, 2]: the
+// row max of the logits and 1/sum; may be null).
 extern "C" int tr_attention_wide_tf32(const void* q, const void* k, const void* v, void* out,
                                       const long long* strides, const void* bias, const void* mask,
-                                      const void* ids, void* row0, void* colsum, int B, int N,
-                                      int M, int H, float scale, void* stream) {
+                                      const void* ids, void* row0, void* colsum, void* stats, int B,
+                                      int N, int M, int H, float scale, void* stream) {
   using namespace trk;
   const bool rect = ids != nullptr, masked = mask != nullptr;
   if (N < 1 || N > WIDE_MAXN || M < 1 || M > WIDE_MAXN || H < 1 || B < 0 || (!rect && M != N) ||
-      (rect && (!masked || bias != nullptr || row0 != nullptr || colsum != nullptr)))
+      (rect && (!masked || bias != nullptr || row0 != nullptr || colsum != nullptr ||
+                stats != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -314,15 +323,17 @@ extern "C" int tr_attention_wide_tf32(const void* q, const void* k, const void* 
   const int* ip = static_cast<const int*>(ids);
   float* r0 = static_cast<float*>(row0);
   float* cs = static_cast<float*>(colsum);
+  float2* st = static_cast<float2*>(stats);
   const auto qh = heads<const float>(q, strides, 0), kh = heads<const float>(k, strides, 1);
   const auto vh = heads<const float>(v, strides, 2);
   const auto oh = heads<float>(out, strides, 3);
   if (rect)
-    return launch_wide_tf32<true, true>(qh, kh, vh, oh, bp, mp, ip, r0, cs, B, N, M, H, scale, s);
-  return masked ? launch_wide_tf32<true, false>(qh, kh, vh, oh, bp, mp, ip, r0, cs, B, N, M, H,
-                                                scale, s)
-                : launch_wide_tf32<false, false>(qh, kh, vh, oh, bp, mp, ip, r0, cs, B, N, M, H,
-                                                 scale, s);
+    return launch_wide_tf32<true, true>(qh, kh, vh, oh, bp, mp, ip, r0, cs, st, B, N, M, H, scale,
+                                        s);
+  return masked ? launch_wide_tf32<true, false>(qh, kh, vh, oh, bp, mp, ip, r0, cs, st, B, N, M,
+                                                H, scale, s)
+                : launch_wide_tf32<false, false>(qh, kh, vh, oh, bp, mp, ip, r0, cs, st, B, N, M,
+                                                 H, scale, s);
 }
 
 // The dynamic shared memory a block of the wide fp32 forward takes at n

@@ -77,14 +77,17 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "tr_attention_sm90_smem": (_I, _I, _P),
     "tr_attention_wide_sm90": (_P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _F, _I, _P),
+                               _P, _I, _I, _I, _I, _F, _I, _P),
     "tr_attention_wide_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _S, _P,
                                    _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _F, _P),
     "tr_attention_wide_smem": (_I, _P),
-    "tr_attention_wide_tf32": (_P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _F, _P),
+    "tr_attention_wide_tf32": (_P, _P, _P, _P, _S, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _F, _P),
     "tr_attention_wide_tf32_smem": (_I,),
+    "tr_attention_wide_tf32_bwd": (_P, _P, _P, _P, _P, _P, _P, _S, _P, _P,
+                                   _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "tr_attention_wide_tf32_bwd_smem": (_I,),
     "tr_gemm_tf32_config": (_P,),
     "tr_gemm_tf32_bwd_config": (_P,),
     "tr_attention_tf32_plan": (_I, _I, _P),
@@ -603,6 +606,12 @@ def _strides(*heads):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+# the query rows of a block of the bf16 wide square forward
+# (csrc/attention_wide_sm90.cu WS_ROWS): colsum's partial sums come a row
+# per block
+WIDE_QUERY_ROWS = 128
+
+
 def wide(N: int, M: int | None = None) -> bool:
     """Whether an attention of N keys (and M query rows) runs the wide
     kernels (csrc/attention_wide_sm90.cu, csrc/attention_wide_tf32.cu):
@@ -633,39 +642,51 @@ def short_attention_heads(q, k, v, out, scale, *, bias=None, mask=None,
     ``short_attention_heads.tf32_launches`` and its rectangular ones (RECT,
     ATS in fp32) by ``short_attention_heads.tf32_rect_launches``. Above
     256 keys or query rows (``wide``) the wide kernels run instead, the
-    same contract up to 2048: bf16 csrc/attention_wide_sm90.cu
-    (``wide_launches``, ``wide_rect_launches``), fp32
+    same contract up to 2048 (the fp32 one with ``stats`` too): bf16
+    csrc/attention_wide_sm90.cu (``wide_launches``,
+    ``wide_rect_launches``; with colsum a second launch, which adds the
+    partial sums of each 128 query rows in order, counted with it), fp32
     csrc/attention_wide_tf32.cu (``wide_tf32_launches``,
     ``wide_tf32_rect_launches``)."""
     B, H, N, _ = q.shape
     M = out.shape[2]
     rect = "rect_" if ids is not None else ""
     if q.dtype == torch.bfloat16:
-        fn = "tr_attention_wide_sm90" if wide(N, M) else "tr_attention_sm90"
-        err = getattr(kernels().lib, fn)(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _strides(q, k, v, out),
-            _ptr(bias), _ptr(mask), _ptr(ids), _ptr(row0), _ptr(colsum),
-            _ptr(stats), B, N, M, H, scale, int(norm_p), _stream(q))
+        args = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _strides(q, k, v, out),
+                _ptr(bias), _ptr(mask), _ptr(ids), _ptr(row0), _ptr(colsum),
+                _ptr(stats))
+        if wide(N, M):
+            fn = "tr_attention_wide_sm90"
+            # colsum's partial sums, a row per 128 query rows
+            part = None if colsum is None else torch.empty(
+                B, H, _cdiv(N, WIDE_QUERY_ROWS), N, dtype=torch.float32,
+                device=q.device)
+            err = kernels().lib.tr_attention_wide_sm90(
+                *args, _ptr(part), B, N, M, H, scale, int(norm_p), _stream(q))
+        else:
+            fn = "tr_attention_sm90"
+            err = kernels().lib.tr_attention_sm90(
+                *args, B, N, M, H, scale, int(norm_p), _stream(q))
         _check(fn, err)
         counter = ("wide_" if wide(N, M) else "") + rect + "launches"
     else:
-        if stats is not None:
-            raise ValueError("short_attention: the row statistics come from "
-                             "the bf16 attention only")
         strides = _strides(q, k, v, out)
-        args = (_ptr(bias), _ptr(mask), _ptr(ids), _ptr(row0), _ptr(colsum),
-                B, N, M, H, scale)
+        args = (_ptr(bias), _ptr(mask), _ptr(ids), _ptr(row0), _ptr(colsum))
         if wide(N, M):
             fn = "tr_attention_wide_tf32"
             err = kernels().lib.tr_attention_wide_tf32(
                 _ptr(q), _ptr(k), _ptr(v), _ptr(out), strides, *args,
-                _stream(q))
+                _ptr(stats), B, N, M, H, scale, _stream(q))
             counter = "wide_tf32_" + rect + "launches"
         else:
+            if stats is not None:
+                raise ValueError("short_attention: the fp32 row statistics "
+                                 "come from the wide kernel only (N > "
+                                 f"{SHORT_ATTENTION_MAX_N})")
             fn = "tr_short_attention"
             err = kernels().lib.tr_short_attention(
                 _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-                strides, *args, int(norm_p), _stream(q))
+                strides, *args, B, N, M, H, scale, int(norm_p), _stream(q))
             counter = "tf32_" + rect + "launches"
         _check(fn, err)
     setattr(short_attention_heads, counter,
@@ -730,11 +751,12 @@ def short_attention_bwd_heads(q, k, v, out, dout, dq, dk, dv, scale, *,
     form), counted by ``short_attention_bwd_heads.launches``; fp32:
     csrc/short_attention_bwd.cu's short_attention_bwd_tf32_kernel, 3xTF32 on
     the tensor cores, which recomputes everything from q, k, v, counted by
-    ``short_attention_bwd_heads.tf32_launches``. Above 256 keys the bf16
-    backward is csrc/attention_wide_sm90.cu's two launches (dQ and delta,
-    then dK, dV and dbias, with an fp32 [B, H, N] delta between them),
-    counted once by ``short_attention_bwd_heads.wide_launches``; there is
-    no fp32 backward above 256 (it raises)."""
+    ``short_attention_bwd_heads.tf32_launches``. Above 256 keys the
+    backward is two launches (dQ and delta, then dK, dV and dbias, with an
+    fp32 [B, H, N] delta between them), counted once: bf16
+    csrc/attention_wide_sm90.cu's (``short_attention_bwd_heads.
+    wide_launches``), fp32 csrc/attention_wide_tf32_bwd.cu's, 3xTF32, which
+    reads the forward's ``stats`` (``wide_tf32_launches``)."""
     B, H, N, _ = q.shape
     if q.dtype == torch.bfloat16:
         if stats is None or out is None or (drow0 is not None
@@ -758,8 +780,19 @@ def short_attention_bwd_heads(q, k, v, out, dout, dq, dk, dv, scale, *,
         short_attention_bwd_heads.launches += 1
         return
     if wide(N):
-        raise ValueError(f"short_attention_bwd: N={N}: the fp32 backward "
-                         f"takes at most {SHORT_ATTENTION_MAX_N} tokens")
+        if stats is None:
+            raise ValueError("short_attention_bwd: the fp32 backward above "
+                             f"{SHORT_ATTENTION_MAX_N} tokens reads the "
+                             "forward's stats")
+        delta = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
+        err = kernels().lib.tr_attention_wide_tf32_bwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq), _ptr(dk),
+            _ptr(dv), _strides(q, k, v, dout, dq, dk, dv), _ptr(stats),
+            _ptr(bias), _ptr(mask), _ptr(drow0), _ptr(dcs), _ptr(dbias),
+            _ptr(delta), B, N, H, scale, _stream(q))
+        _check("tr_attention_wide_tf32_bwd", err)
+        short_attention_bwd_heads.wide_tf32_launches += 1
+        return
     err = kernels().lib.tr_short_attention_bwd(
         _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(dq),
         _ptr(dk), _ptr(dv), _strides(q, k, v, dout, dq, dk, dv), _ptr(bias),
@@ -772,6 +805,7 @@ def short_attention_bwd_heads(q, k, v, out, dout, dq, dk, dv, scale, *,
 short_attention_bwd_heads.launches = 0
 short_attention_bwd_heads.tf32_launches = 0
 short_attention_bwd_heads.wide_launches = 0
+short_attention_bwd_heads.wide_tf32_launches = 0
 
 
 def short_attention_bwd(qkv, out, dout, drow0, dqkv, num_heads, scale, *,
@@ -800,14 +834,16 @@ def attention_smem(n: int, m: int | None = None) -> dict:
 @functools.lru_cache(maxsize=None)
 def attention_wide_smem(n: int) -> dict:
     """The dynamic shared memory a block of each wide attention kernel
-    takes at n keys, as its library reports it: {"forward" (bf16, square
-    and rectangular), "dq", "dkv" (the bf16 backward's two launches),
-    "tf32" (the fp32 forward)} bytes."""
-    out = (ctypes.c_int * 3)()
+    takes at n keys, as its library reports it: {"forward" (bf16 square,
+    384 threads), "rect" (bf16 rectangular), "dq", "dkv" (the bf16
+    backward's two launches), "tf32" (the fp32 forward), "tf32_bwd"
+    (either launch of the fp32 backward)} bytes."""
+    out = (ctypes.c_int * 4)()
     _check("tr_attention_wide_smem", kernels().lib.tr_attention_wide_smem(
         n, ctypes.addressof(out)))
-    return {**dict(zip(("forward", "dq", "dkv"), out)),
-            "tf32": kernels().lib.tr_attention_wide_tf32_smem(n)}
+    return {**dict(zip(("forward", "rect", "dq", "dkv"), out)),
+            "tf32": kernels().lib.tr_attention_wide_tf32_smem(n),
+            "tf32_bwd": kernels().lib.tr_attention_wide_tf32_bwd_smem(n)}
 
 
 def head_mean_keys(qkv, keys, num_heads):

@@ -55,10 +55,13 @@ hand-written kernels (``csrc/``):
    scale and the mask after the bias, writing merged heads and the
    by-products; in bf16 ``csrc/attention_sm90.cu`` (TMA loads, QK^T and
    PV on wgmma). Above 256 tokens a head's keys no longer fit a block:
-   ``csrc/attention_wide_sm90.cu`` (bf16) and
-   ``csrc/attention_wide_tf32.cu`` (fp32) walk the query tiles and stream
-   the keys in 64-key tiles, twice (the row statistics online, then P
-   with the final row max), up to ``ATTENTION_MAX_N`` tokens;
+   the wide kernels stream the keys in 64-key tiles, up to
+   ``ATTENTION_MAX_N`` tokens. ``csrc/attention_wide_sm90.cu`` (bf16) runs
+   a block per 128 query rows and walks the keys once (the row statistics
+   online, the output rescaled as the row max grows), and a second time
+   for colsum or the normalised probabilities; ``csrc/attention_wide_tf32.cu``
+   (fp32) walks each head's query tiles and the keys twice (the row
+   statistics online, then P with the final row max);
 3. with ``want_keys``, ``head_mean_keys`` off the packed qkv;
 4. ``gemm``: the out projection, with its bias and the residual fused
    into the epilogue.
@@ -98,9 +101,9 @@ from tokenreduction_tpu_torch.ops.gather import take_tokens
 # The single-pass attention kernels (csrc/attention_sm90.cu, the fp32
 # csrc/short_attention.cu and short_attention_bwd.cu) hold one head's q, k
 # and v in shared memory and a whole row of S in registers: N <= 256 at head
-# dim 64. Above that the wide kernels (csrc/attention_wide_sm90.cu, the fp32
-# forward csrc/attention_wide_tf32.cu) stream the keys in 64-key tiles, up
-# to ATTENTION_MAX_N tokens; there is no fp32 backward above 256.
+# dim 64. Above that the wide kernels (csrc/attention_wide_sm90.cu; fp32
+# csrc/attention_wide_tf32.cu and attention_wide_tf32_bwd.cu) stream the
+# keys in 64-key tiles, forward and backward, up to ATTENTION_MAX_N tokens.
 SHORT_ATTENTION_MAX_N = 256
 ATTENTION_MAX_N = 2048
 HEAD_DIM = 64
@@ -278,21 +281,15 @@ def attention_residual_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 def fused_block_attention_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                               bproj, num_heads: int, scale: float, *,
                               eps: float = 1e-6, bias=None, mask=None,
-                              want_keys: bool = False):
+                              want_keys: bool = False, want_row0: bool = True,
+                              want_colsum: bool = True):
     """Plain PyTorch version of ``fused_block_attention``, same contract."""
     y32, row0, colsum, qkv = attention_residual_ref(
         x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale, eps,
         bias, mask)
-    out = (y32.to(x.dtype), row0, colsum)
+    out = (y32.to(x.dtype), row0 if want_row0 else None,
+           colsum if want_colsum else None)
     return out + (head_mean_keys_ref(qkv, num_heads),) if want_keys else out
-
-
-def backward_max_n(dtype) -> int:
-    """The widest attention the training kernels take in ``dtype``: the
-    bf16 backward streams its keys (csrc/attention_wide_sm90.cu); the fp32
-    backward (csrc/short_attention_bwd.cu) holds a head in shared memory."""
-    return ATTENTION_MAX_N if dtype == torch.bfloat16 \
-        else SHORT_ATTENTION_MAX_N
 
 
 def _check_width(name: str, N: int, hd: int, limit: int = ATTENTION_MAX_N):
@@ -393,14 +390,16 @@ def ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, *, eps: float = 1e-6):
 
 def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                         num_heads: int, scale: float, eps: float,
-                        with_scores: bool, out_dtype=None, bias=None,
-                        mask=None, idx=None, want_keys: bool = False):
+                        out_dtype=None, bias=None, mask=None, idx=None,
+                        want_keys: bool = False, want_row0: bool = False,
+                        want_colsum: bool = False):
     """Steps 1-4 of the module docstring on checked CUDA operands (bias:
     None or contiguous fp32 [B, N]; mask: None or contiguous bool
     [B, N]; idx: None or contiguous int32 [B, K], with no bias and no
     mask). Returns (out, row0, colsum, keys) at width K (N without idx):
-    out in ``out_dtype`` (x's by default); the by-products are None
-    without ``with_scores``, the keys without ``want_keys``. qkv makes a
+    out in ``out_dtype`` (x's by default); row0, colsum and the keys are
+    None unless wanted (above 256 tokens colsum costs the kernel a second
+    walk over the keys, row0 none). qkv makes a
     round trip through device memory between steps 1 and 2; the kernel
     tools' ``attn_joint`` keeps it on chip (PERF.md §6, row #12)."""
     from tokenreduction_tpu_torch.ops import _build
@@ -409,11 +408,11 @@ def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     K = N if idx is None else idx.shape[1]
     qkv = ln_qkv_cuda(x, ln_scale, ln_bias, wqkv, bqkv, eps, idx=idx)
     merged = torch.empty(B, K, D, dtype=x.dtype, device=x.device)
-    row0 = colsum = keys = None
-    if with_scores:
-        row0 = torch.empty(B, num_heads, K, dtype=torch.float32,
-                           device=x.device)
-        colsum = torch.empty_like(row0)
+    row0 = torch.empty(B, num_heads, K, dtype=torch.float32,
+                       device=x.device) if want_row0 else None
+    colsum = torch.empty(B, num_heads, K, dtype=torch.float32,
+                         device=x.device) if want_colsum else None
+    keys = None
     _build.short_attention(qkv, merged, num_heads, scale, bias=bias,
                            mask=mask, row0=row0, colsum=colsum)
     if want_keys:
@@ -430,11 +429,14 @@ def attention_half_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                           num_heads: int, scale: float, *, eps: float = 1e-6,
                           bias=None, mask=None, idx=None,
-                          want_keys: bool = False):
+                          want_keys: bool = False, want_row0: bool = True,
+                          want_colsum: bool = True):
     """x [B, N, D] -> (x + proj(attn(LN1 x)), row0 [B, H, N],
     colsum [B, H, N]), plus the head-mean keys [B, N, hd] with
-    ``want_keys``; bias: None or the per-key additive bias [B, N]; mask:
-    None or the validity mask [B, N] (bool or uint8); idx: None or the
+    ``want_keys``; row0 and colsum are None where not wanted (the kernel
+    then does not compute them); bias: None or the per-key additive bias
+    [B, N]; mask: None or the validity mask [B, N] (bool or uint8); idx:
+    None or the
     absolute token ids [B, K] (CLS included) of the rows to keep, which
     makes every output K wide: the block of ``take_tokens(x, idx)``. idx
     with a bias or a mask raises ``ValueError``; an id out of range raises
@@ -449,7 +451,8 @@ def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
             x = take_tokens(x, idx)
         return fused_block_attention_ref(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale,
-            eps=eps, bias=bias, mask=mask, want_keys=want_keys)
+            eps=eps, bias=bias, mask=mask, want_keys=want_keys,
+            want_row0=want_row0, want_colsum=want_colsum)
     check_attention_operands(name, x, num_heads, ln_scale, ln_bias, wqkv,
                              bqkv, wproj, bproj)
     B, N = x.shape[:2]
@@ -462,7 +465,8 @@ def fused_block_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
         _check_width(name, idx.shape[1], x.shape[2] // num_heads)
     out, row0, colsum, keys = attention_half_cuda(
         x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale, eps,
-        with_scores=True, bias=bias, mask=mask, idx=idx, want_keys=want_keys)
+        bias=bias, mask=mask, idx=idx, want_keys=want_keys,
+        want_row0=want_row0, want_colsum=want_colsum)
     fused_block_attention.launches += 1
     return (out, row0, colsum, keys) if want_keys else (out, row0, colsum)
 
@@ -475,8 +479,8 @@ def fused_attention_cuda(name: str, q, k, v, scale: float, bias, mask=None,
     """``short_attention`` over checked-here CUDA q, k, v [B, H, N, hd]:
     (out, row0, colsum, stats), out a [B, H, N, hd] view of merged heads
     [B, N, D], so that merging the heads afterwards copies nothing; stats
-    is None, or with ``want_stats`` (bf16) the row statistics
-    [B, H, N, 2] fp32 that the backward reads."""
+    is None, or with ``want_stats`` (bf16, or fp32 above 256 tokens) the
+    row statistics [B, H, N, 2] fp32 that the backward reads."""
     from tokenreduction_tpu_torch.ops import _build
 
     B, H, N, hd = q.shape

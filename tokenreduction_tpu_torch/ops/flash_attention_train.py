@@ -58,18 +58,21 @@ elementwise softmax (row max, exponentials, sums and by-products) at two
 warpgroups an SM; the backward, one block an SM, runs its loads, its
 products and its elementwise work one after another (PERF.md §6).
 
-Above 256 tokens the bf16 forward and backward are
-``csrc/attention_wide_sm90.cu``'s: the keys (or the queries) stream
-through the block in 64-key tiles, the forward in two passes (the row
-statistics online, then P from the final row max), the backward in two
+Above 256 tokens the forward and backward are the wide kernels': the
+keys (or the queries) stream through the block in 64-key tiles, up to
+``ATTENTION_MAX_N`` tokens. bf16 ``csrc/attention_wide_sm90.cu``: the
+forward walks the keys once (the row statistics online, the output
+rescaled as the row max grows), and again for the normalised
+probabilities where colsum needs them; the backward is two
 launches (dQ and delta a block per query tile, then dK, dV and dbias a
-block per key tile), up to ``ATTENTION_MAX_N`` tokens. There is no fp32
-backward above 256 tokens: the training blocks keep the plain
-composition there.
+block per key tile). fp32 ``csrc/attention_wide_tf32.cu`` forward (which
+writes the row statistics in training) and
+``csrc/attention_wide_tf32_bwd.cu`` backward, the same two launches in
+3xTF32 with delta in full.
 
 On a CPU tensor the core runs ``fused_attention_ref`` forward and
 ``attention_core_train_bwd_ref`` backward; on a CUDA tensor it launches
-the kernels or raises (N above 2048 in bf16 or 256 in fp32).
+the kernels or raises (N above 2048, head dim other than 64).
 """
 
 from __future__ import annotations
@@ -78,8 +81,8 @@ import torch
 
 from tokenreduction_tpu_torch.ops.flash_attention import (
     MASK_VALUE,
+    SHORT_ATTENTION_MAX_N,
     _check_width,
-    backward_max_n,
     bias_operand,
     fused_attention_cuda,
     fused_attention_ref,
@@ -155,14 +158,15 @@ class _AttentionCore(torch.autograd.Function):
         ctx.set_materialize_grads(False)  # an unused output's cotangent is 0
         if q.is_cuda:
             B, _, N, hd = q.shape
-            _check_width("attention_core_train", N, hd,
-                         backward_max_n(q.dtype))
+            _check_width("attention_core_train", N, hd)
             mask = mask_operand("attention_core_train", mask, B, N, q.device)
             *res, stats = fused_attention_cuda(
                 "attention_core_train", q, k, v, scale, bias, mask,
-                want_stats=q.dtype == torch.bfloat16)
+                want_stats=q.dtype == torch.bfloat16
+                or N > SHORT_ATTENTION_MAX_N)
             attention_core_train.launches += 1
-            # the bf16 backward reads the output, row0 and the row statistics
+            # the bf16 backward reads the output, row0 and the row
+            # statistics; the fp32 one above 256 tokens the statistics
             ctx.save_for_backward(q, k, v, bias, mask, res[0], res[1], stats)
         else:
             res = fused_attention_ref(q, k, v, scale, bias=bias, mask=mask)

@@ -49,14 +49,15 @@ tile to its fill and epilogue (csrc/gemm_sm90.cu); the attention
 softmax at two warpgroups an SM, its backward by loads, products and
 elementwise work that run one after another.
 
-Above 256 tokens the bf16 attention is ``csrc/attention_wide_sm90.cu``'s
-(the keys streamed in 64-key tiles, the backward in two launches), up to
-``ATTENTION_MAX_N``; there is no fp32 backward above 256 tokens.
+Above 256 tokens the attention is the wide kernels' (the keys streamed
+in 64-key tiles, the backward in two launches), up to
+``ATTENTION_MAX_N``: bf16 ``csrc/attention_wide_sm90.cu``; fp32
+``csrc/attention_wide_tf32.cu``, whose forward then writes the row
+statistics, and ``csrc/attention_wide_tf32_bwd.cu``.
 
 On a CPU tensor the branch runs ``attend_branch_train_ref`` forward and
 ``attend_branch_train_bwd_ref`` backward; on a CUDA tensor it launches
-the kernels or raises (N above 2048 in bf16 or 256 in fp32, head dim
-other than 64).
+the kernels or raises (N above 2048, head dim other than 64).
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ from __future__ import annotations
 import torch
 
 from tokenreduction_tpu_torch.ops.flash_attention import (
-    backward_max_n,
+    SHORT_ATTENTION_MAX_N,
     check_attention_operands,
     layer_norm_bwd_ref,
     layer_norm_f32,
@@ -171,10 +172,11 @@ def _fwd_cuda(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads, scale, eps,
     _build.gemm(ln, wqkv, bqkv, qkv.view(B * N, 3 * D))
     merged = torch.empty_like(x)
     row0 = torch.empty(B, num_heads, N, dtype=torch.float32, device=x.device)
-    # the row statistics for the backward (the bf16 kernel's)
+    # the row statistics for the backward (the bf16 kernels', and the fp32
+    # ones above 256 tokens)
     stats = torch.empty(B, num_heads, N, 2, dtype=torch.float32,
-                        device=x.device) if x.dtype == torch.bfloat16 \
-        else None
+                        device=x.device) \
+        if x.dtype == torch.bfloat16 or N > SHORT_ATTENTION_MAX_N else None
     _build.short_attention(qkv, merged, num_heads, scale, row0=row0,
                            stats=stats, norm_p=True)
     branch = torch.empty_like(x)
@@ -269,8 +271,7 @@ def attend_branch_train(x, ls, lb, wqkv, bqkv, wproj, bproj, num_heads: int,
     ``backward_launches`` the backwards alone."""
     if x.is_cuda:
         check_attention_operands("attend_branch_train", x, num_heads, ls, lb,
-                                 wqkv, bqkv, wproj, bproj,
-                                 backward_max_n(x.dtype))
+                                 wqkv, bqkv, wproj, bproj)
     return _AttendBranch.apply(x, ls, lb, wqkv, bqkv, wproj, bproj,
                                num_heads, scale, eps)
 

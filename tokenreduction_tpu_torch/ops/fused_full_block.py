@@ -77,7 +77,7 @@ def fused_full_block(x, ls1, lb1, wqkv, bqkv, wproj, bproj, ls2, lb2, w1, b1,
                              wqkv, bqkv, wproj, bproj)
     check_mlp_operands("fused_full_block", x, ls2, lb2, w1, b1, w2, b2)
     y32 = attention_half_cuda(x, ls1, lb1, wqkv, bqkv, wproj, bproj,
-                              num_heads, scale, eps, with_scores=False,
+                              num_heads, scale, eps,
                               out_dtype=torch.float32)[0]
     out = mlp_half_cuda(y32, None, ls2, lb2, w1, b1, w2, b2, eps,
                         out_dtype=x.dtype)

@@ -134,7 +134,8 @@ class ATSBlock(Block):
             if attn.sample_count == 0:
                 x = fused_block_attention(
                     x, *self._attn_params(), self.num_heads, attn.scale,
-                    eps=self.eps, mask=mask)[0]
+                    eps=self.eps, mask=mask, want_row0=False,
+                    want_colsum=False)[0]
             else:
                 ln_w, ln_b, wqkv, bqkv, wproj, bproj = self._attn_params()
                 qkv = ln_qkv(x, ln_w, ln_b, wqkv, bqkv, eps=self.eps)

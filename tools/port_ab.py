@@ -82,6 +82,13 @@ steps 3-6) and the ATS@0.7 fp32 forward (median of 5) at b256.
 and backwards alone (``attention_x10``, ``attention_times``,
 ``rect_times``, ``bwd_times``): the kernels of
 ``csrc/attention_sm90.cu``, in minutes rather than the full run's.
+``--wide`` times, per launch as above, the attention above 256 tokens
+(``wide_times``): every square bf16 forward variant (row0 alone, row0 and
+colsum, with the bias, with a mask, the normalised-P forward with its
+statistics) at B=256 and (H, N) = (6, 577), (6, 257), (6, 290), (6, 1025),
+(12, 577), (12, 1025) beside SDPA; the fp32 backward at B=256, N=577
+(the row0 cotangent) beside SDPA's fp32 backward where the checkout has
+it; and the dense 384-px bf16 b256 forward (median of 5).
 ``--tools`` times, per launch as above, the kernel tools'
 ``tune_kernels.attn_joint`` (with row0 and colsum) and
 ``tune_kernels.mlp_chunked`` beside their routes
@@ -757,6 +764,74 @@ if os.environ.get("PORT_AB_TOOLS"):
     print(json.dumps(times))
     print(json.dumps(dict(attention_registers=attention_registers())))
     raise SystemExit(0)
+WIDE_SHAPES = ((6, 577), (6, 257), (6, 290), (6, 1025), (12, 577),
+               (12, 1025))
+
+def wide_times():
+    # the attention above 256 tokens, per launch, beside SDPA (the output
+    # alone); the fp32 backward where the checkout has one above 256
+    import torch.nn.functional as F
+    from chip_smoke import sdpa_backward
+    from tokenreduction_tpu_torch.ops.flash_attention import packed_heads
+    out = {}
+    for Hh, Nn in WIDE_SHAPES:
+        Dh = 64 * Hh
+        q3 = torch.randn(B, Nn, 3 * Dh, generator=g).to("cuda", bf16)
+        mo = torch.empty(B, Nn, Dh, device="cuda", dtype=bf16)
+        r0 = torch.empty(B, Hh, Nn, device="cuda")
+        cs = torch.empty_like(r0)
+        st = torch.empty(B, Hh, Nn, 2, device="cuda")
+        bias = torch.log(torch.randint(1, 5, (B, Nn), generator=g).float()) \
+            .to("cuda")
+        mask = (torch.rand(B, Nn, generator=g) > 0.2).to("cuda")
+        q, k, v = packed_heads(q3, Hh)
+        tag = f"wide_h{Hh}_n{Nn}"
+
+        def call(**kw):
+            return ten(lambda: _build.short_attention(q3, mo, Hh, SCALE, **kw))
+
+        out.update({
+            f"{tag}_row0_x10": call(row0=r0),
+            f"{tag}_scores_x10": call(row0=r0, colsum=cs),
+            f"{tag}_bias_scores_x10": call(bias=bias, row0=r0, colsum=cs),
+            f"{tag}_mask_scores_x10": call(mask=mask, row0=r0, colsum=cs),
+            f"{tag}_normp_x10": call(row0=r0, stats=st, norm_p=True),
+            f"{tag}_sdpa_x10": ten(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=SCALE))})
+        del q3, mo, q, k, v
+    if hasattr(_build.short_attention_bwd_heads, "wide_tf32_launches"):
+        Hh, Nn = 6, 577
+        Dh = 64 * Hh
+        q3 = torch.randn(B, Nn, 3 * Dh, generator=g).to("cuda")
+        mo = torch.empty(B, Nn, Dh, device="cuda")
+        r0 = torch.empty(B, Hh, Nn, device="cuda")
+        st = torch.empty(B, Hh, Nn, 2, device="cuda")
+        dout = torch.randn(B, Nn, Dh, generator=g).to("cuda")
+        drow0 = torch.randn(B, Hh, Nn, generator=g).to("cuda")
+        dq3 = torch.empty_like(q3)
+        _build.short_attention(q3, mo, Hh, SCALE, row0=r0, stats=st,
+                               norm_p=True)
+        q, k, v = packed_heads(q3, Hh)
+        out.update(
+            wide_bwd_tf32_x10=ten(lambda: _build.short_attention_bwd(
+                q3, mo, dout, drow0, dq3, Hh, SCALE, stats=st, row0=r0)),
+            wide_sdpa_bwd_tf32_x10=ten(sdpa_backward(
+                q, k, v, dout.view(B, Nn, Hh, 64).transpose(1, 2))))
+        del q3, mo, dout, dq3, q, k, v
+    m384, _ = create_model("deit_small_patch16_224_local", device="cuda",
+                           img_size=384,
+                           generator=torch.Generator().manual_seed(1))
+    m384 = m384.to(bf16).eval()
+    x384 = torch.randn(B, 3, 384, 384, generator=g).to("cuda", bf16)
+    out["dense_384_forward"] = cuda_ms(lambda: m384(x384), 5)
+    return out
+
+if os.environ.get("PORT_AB_WIDE"):
+    # --wide: the attention above 256 tokens alone
+    with torch.no_grad():
+        print(json.dumps(wide_times()))
+    print(json.dumps(dict(attention_registers=attention_registers())))
+    raise SystemExit(0)
 if os.environ.get("PORT_AB_ATTENTION"):
     # --attention: the bf16 attention forwards and backwards alone, per
     # launch
@@ -817,6 +892,9 @@ def main():
                       const="attention", dest="part",
                       help="time the bf16 attention forwards and "
                       "backwards alone")
+    part.add_argument("--wide", action="store_const", const="wide",
+                      dest="part", help="time the attention above 256 "
+                      "tokens alone")
     part.add_argument("--tools", action="store_const", const="tools",
                       dest="part", help="time the kernel tools' joint "
                       "attention, chunked MLP and attention prototypes "
